@@ -1,0 +1,434 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines and raising on failure (the script then
+exits non-zero and prints no final line):
+
+1. device   — a CUDA card is required; prints its name and power limit and
+              turns TF32 off so that float32 checks are float32.
+2. build    — compiles the port's CUDA kernels from csrc/ (one nvcc each, in
+              parallel) and prints the build seconds and ptxas's report.
+3. kernels  — every stride-1 bottleneck shape of SlowFast-R50 8x8 serving
+              (the K1 shape table) through the fused kernel against its plain
+              version, in float32 and bfloat16, at 1 clip and at the request
+              batch; at the request batch it also times the kernel, the plain
+              version and the same block unfused through the port's
+              nn.Module (cuDNN), beside the block's bound on an H100.
+4. serving  — SlowFast-R50 8x8 at full width (400 classes, 32 frames,
+              256² test crop, bf16, TPU.FUSED_EVAL) on seeded random weights
+              made in the JAX package's layout and carried across by the
+              port's weight bridge; answers three requests through
+              make_forward, checks 26 kernel launches per request and the
+              scores, and holds them against the module's own forward; then
+              the same at float32 on one clip, at a tight tolerance.
+
+The last two lines are the kernels' JSON record and the device JSON line.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+SEED = 0
+REQUESTS = 3
+CLIPS_PER_REQUEST = 4
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 FMA, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+# float32: the kernel and the plain version differ only in summation order
+# (K up to 3·2048); 1e-4 of the output's scale is ~100x that rounding.
+F32_TOL = 1e-4
+# bfloat16: the kernel rounds a and b to bf16 after their ReLU and c and the
+# projection before the add, as the TPU kernel does; the plain version keeps
+# float32 until the output. One bf16 rounding is 2^-9 = 0.2% relative; 2% of
+# the output's scale allows for the few roundings that reach the output.
+BF16_TOL = 2e-2
+# serving, bf16: the fused engine folds BN into bf16 weights where the module
+# runs conv and BN separately in bf16, so logits differ at bf16 rounding
+# (~1%); class probabilities of the two paths then agree to within 2e-2.
+SERVE_BF16_ATOL = 2e-2
+# serving, float32, one clip: both paths are float32 throughout; folding BN
+# and the kernel's summation order move the probabilities by far less.
+SERVE_F32_ATOL = 1e-4
+
+
+def log(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def cuda_ms(fn, iters=10, reps=5):
+    """Median over ``reps`` of the mean CUDA-event time of ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is False)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("device", f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+        f"torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"count {torch.cuda.device_count()}")
+    return smi
+
+
+def phase_build():
+    from efficient_slowfast_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build()
+    for name, out in reports.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log("build", f"{name}: {line.strip()}")
+    log("build", f"built {sorted(reports) or 'nothing (up to date)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+def serving_cfg(dtype="bfloat16"):
+    """SlowFast-R50 8x8 serving at the 30-view test shape (bench.py:121-149)."""
+    from efficient_slowfast_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_NAME = "SlowFast"
+    cfg.MODEL.ARCH = "slowfast"
+    cfg.RESNET.DEPTH = 50
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[3, 3], [4, 4], [6, 6], [3, 3]]
+    cfg.RESNET.SPATIAL_STRIDES = [[1, 1], [2, 2], [2, 2], [2, 2]]
+    cfg.RESNET.SPATIAL_DILATIONS = [[1, 1]] * 4
+    cfg.NONLOCAL.LOCATION = [[[], []]] * 4
+    cfg.NONLOCAL.GROUP = [[1, 1]] * 4
+    cfg.NONLOCAL.POOL = [[[1, 2, 2], [1, 2, 2]]] * 4
+    cfg.SLOWFAST.ALPHA = 4
+    cfg.SLOWFAST.BETA_INV = 8
+    cfg.SLOWFAST.FUSION_KERNEL_SZ = 7
+    cfg.MODEL.NUM_CLASSES = 400
+    cfg.DATA.NUM_FRAMES = 32
+    cfg.DATA.CROP_SIZE = 224
+    cfg.DATA.TEST_CROP_SIZE = 256
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.TPU.FUSED_EVAL = True
+    return cfg
+
+
+def kernel_rows(cfg, model):
+    """The stride-1 blocks of the serving forward, grouped by shape:
+    [(label, t_len, h, cin, ci, cout, kt, proj, launches per request)]."""
+    from efficient_slowfast_tpu_torch.engine.inference import STAGES
+
+    blocks = []  # (pathway, stage, block index, shape key)
+    strides = [s[0] for s in cfg.RESNET.SPATIAL_STRIDES]
+    t_len = [cfg.DATA.NUM_FRAMES // cfg.SLOWFAST.ALPHA, cfg.DATA.NUM_FRAMES]
+    for pw, name in enumerate(("slow", "fast")):
+        h = cfg.DATA.TEST_CROP_SIZE // 4  # after the stem's two stride-2 ops
+        for si, stage in enumerate(STAGES):
+            h //= strides[si]
+            i = 0
+            while hasattr(getattr(model, stage), f"pathway{pw}_res{i}"):
+                blk = getattr(getattr(model, stage), f"pathway{pw}_res{i}")
+                br = blk.branch2
+                if i > 0 or strides[si] == 1:  # strided block 0s are cuDNN's
+                    blocks.append((name, stage, i, (
+                        t_len[pw], h, br.a.in_channels, br.a.out_channels,
+                        br.c.out_channels, br.a.kernel_size[0],
+                        hasattr(blk, "branch1"))))
+                i += 1
+    rows = []
+    for (name, stage, key), grp in itertools.groupby(
+            blocks, key=lambda b: (b[0], b[1], b[3])):
+        idx = [b[2] for b in grp]
+        span = f"res{idx[0]}" + (f"-{idx[-1]}" if len(idx) > 1 else "")
+        rows.append((f"{name} {stage} {span}",) + key + (len(idx),))
+    return rows
+
+
+def make_block(t_len, h, cin, ci, cout, kt, proj, clips, dtype, gen):
+    """Seeded inputs of one block: x and BN-folded weights (kernel layout)."""
+    dev = "cuda"
+    rn = lambda *s: torch.randn(*s, generator=gen)
+    x = rn(clips * t_len, h, h, cin).to(dev, dtype)
+    w = dict(wa=rn(kt, cin, ci) / (kt * cin) ** 0.5, ba=0.1 * rn(ci),
+             wb=rn(3, 3, ci, ci) / (9 * ci) ** 0.5, bb=0.1 * rn(ci),
+             wc=rn(ci, cout) / ci ** 0.5, bc=0.1 * rn(cout),
+             wp=rn(cin, cout) / cin ** 0.5 if proj else None,
+             bp=0.1 * rn(cout) if proj else None)
+    w = {k: (None if v is None else
+             v.to(dev, dtype if k.startswith("w") else torch.float32))
+         for k, v in w.items()}
+    return x, w
+
+
+def block_cost(n, h, cin, ci, cout, kt, proj, elem):
+    """(FLOPs, bytes) of one block: each input read once, out written once."""
+    px = n * h * h
+    wts = kt * cin * ci + 9 * ci * ci + ci * cout + (cin * cout if proj else 0)
+    flops = 2 * px * wts
+    nbytes = (px * (cin + cout) + wts) * elem + 4 * (2 * ci + cout * (2 if proj else 1))
+    return flops, nbytes
+
+
+def phase_kernels(cfg, model, smi):
+    from efficient_slowfast_tpu_torch.models.resnet import ResBlock
+    from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import (
+        bottleneck_reference, fused_bottleneck)
+
+    gen = torch.Generator().manual_seed(SEED)
+    rows = kernel_rows(cfg, model)
+    per_request = sum(r[8] for r in rows)
+    if per_request != 26:
+        raise AssertionError(f"{per_request} stride-1 blocks, expected 26")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    record = []
+    for label, t_len, h, cin, ci, cout, kt, proj, count in rows:
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            for clips in (1, CLIPS_PER_REQUEST):
+                x, w = make_block(t_len, h, cin, ci, cout, kt, proj, clips,
+                                  dtype, gen)
+                args = (x, t_len, w["wa"], w["ba"], w["wb"], w["bb"], w["wc"],
+                        w["bc"], w["wp"], w["bp"])
+                out = fused_bottleneck(*args)
+                torch.cuda.synchronize()
+                ref = bottleneck_reference(*args)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = max(1.0, ref.float().abs().max().item())
+                finite = bool(torch.isfinite(out).all())
+                log("kernels", f"{label:18s} {str(dtype)[6:]:8s} clips {clips}"
+                    f" max_abs_err {err:.3e} (scale {scale:.3g}, tol "
+                    f"{tol * scale:.3e})")
+                if not finite or err > tol * scale:
+                    raise AssertionError(f"{label} {dtype} clips {clips}: "
+                                         f"err {err} > {tol * scale}")
+                if clips == CLIPS_PER_REQUEST:
+                    worst[dtype] = max(worst[dtype], err)
+        # timing at the request batch, in the serving dtype
+        dtype = torch.bfloat16
+        x, w = make_block(t_len, h, cin, ci, cout, kt, proj, CLIPS_PER_REQUEST,
+                          dtype, gen)
+        args = (x, t_len, w["wa"], w["ba"], w["wb"], w["bb"], w["wc"], w["bc"],
+                w["wp"], w["bp"])
+        k_ms = cuda_ms(lambda: fused_bottleneck(*args))
+        p_ms = cuda_ms(lambda: bottleneck_reference(*args), iters=3, reps=3)
+        blk = ResBlock(cin, cout, kt, 1, dim_inner=ci, dtype=dtype).to(
+            "cuda", memory_format=torch.channels_last_3d).eval()
+        xb = x.view(CLIPS_PER_REQUEST, t_len, h, h, cin).permute(0, 4, 1, 2, 3)
+        with torch.inference_mode():
+            lib_ms = cuda_ms(lambda: blk(xb))
+        flops, nbytes = block_cost(x.shape[0], h, cin, ci, cout, kt, proj, 2)
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        log("kernels", f"{label:18s} bf16 x{count} per request | kernel "
+            f"{k_ms:.4f} ms | plain {p_ms:.4f} ms | cuDNN unfused {lib_ms:.4f}"
+            f" ms | bound {bound:.5f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB) | {smi}")
+        record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
+                           library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                           flops=flops, bytes=nbytes))
+    log("kernels", f"worst max_abs_err at the request batch: f32 "
+        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
+    return record, worst[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+def jax_layout_weights(model, seed):
+    """Seeded weights in the JAX package's variable layout (numpy): MSRA
+    fan-out normal convs, normal(0.01) classifier, BN scale 1 and bias 0,
+    with running statistics jittered as the repo's engine tests do."""
+    from efficient_slowfast_tpu_torch.utils.weights import \
+        state_dict_to_jax_variables
+
+    rs = np.random.RandomState(seed)
+    shapes = state_dict_to_jax_variables(model.state_dict())
+    key = [0]
+
+    def fill(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = fill(v)
+            elif k == "kernel" and v.ndim == 5:  # DHWIO
+                fan_out = int(np.prod(v.shape[:3])) * v.shape[4]
+                out[k] = (rs.randn(*v.shape) * np.sqrt(2.0 / fan_out)).astype(
+                    np.float32)
+            elif k == "kernel":
+                out[k] = (rs.randn(*v.shape) * 0.01).astype(np.float32)
+            elif k == "scale":
+                out[k] = np.ones(v.shape, np.float32)
+            elif k == "bias":
+                out[k] = np.zeros(v.shape, np.float32)
+            elif k == "mean":
+                key[0] += 1
+                out[k] = np.full(v.shape, 0.05 * (key[0] % 7 - 3), np.float32)
+            elif k == "var":
+                key[0] += 1
+                out[k] = np.full(v.shape, 1.0 + 0.1 * (key[0] % 5), np.float32)
+        return out
+
+    return fill(shapes)
+
+
+def serving_model(cfg, seed):
+    from efficient_slowfast_tpu_torch.models import build_model
+    from efficient_slowfast_tpu_torch.utils.weights import \
+        jax_variables_to_state_dict
+
+    model = build_model(cfg, device="cuda")
+    variables = jax_layout_weights(model, seed)
+    model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
+    return model.eval()
+
+
+def clips(cfg, batch, gen, dtype):
+    t, s, a = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE, cfg.SLOWFAST.ALPHA
+    return [torch.randn(batch, t // a, s, s, 3, generator=gen).to("cuda", dtype),
+            torch.randn(batch, t, s, s, 3, generator=gen).to("cuda", dtype)]
+
+
+def check_scores(out, batch, classes, what):
+    if out.shape != (batch, classes):
+        raise AssertionError(f"{what}: shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: non-finite scores")
+    row_err = (out.sum(-1) - 1).abs().max().item()
+    if row_err > 1e-3:
+        raise AssertionError(f"{what}: rows sum to 1 ± {row_err}")
+
+
+def serve(fwd, requests):
+    """Answer each request; (outputs, wall seconds) on the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for req in requests:
+        outs.append(fwd(req))
+        torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def phase_serving(cfg, model, smi):
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
+        fused_bottleneck
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    classes = cfg.MODEL.NUM_CLASSES
+    fused = make_forward(cfg, model)
+    cfg_module = cfg.clone()
+    cfg_module.TPU.FUSED_EVAL = False
+    module = make_forward(cfg_module, model)
+    requests = [clips(cfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
+                for _ in range(REQUESTS)]
+    serve(fused, requests[:1])  # warm-up: cuDNN plans, allocator
+    serve(module, requests[:1])
+
+    fused_bottleneck.launches = 0
+    outs, dt = serve(fused, requests)
+    launches = fused_bottleneck.launches
+    if launches != 26 * REQUESTS:
+        raise AssertionError(f"{launches} kernel launches for {REQUESTS} "
+                             f"requests, expected {26 * REQUESTS}")
+    refs, dt_module = serve(module, requests)
+    err = 0.0
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        check_scores(o, CLIPS_PER_REQUEST, classes, f"fused request {i}")
+        check_scores(r, CLIPS_PER_REQUEST, classes, f"module request {i}")
+        err = max(err, (o - r).abs().max().item())
+    top1 = float(np.mean([(o.argmax(-1) == r.argmax(-1)).float().mean().item()
+                          for o, r in zip(outs, refs)]))
+    pmax = max(o.max().item() for o in outs)
+    n_clips = REQUESTS * CLIPS_PER_REQUEST
+    log("serving", f"bf16: {REQUESTS} requests x {CLIPS_PER_REQUEST} clips, "
+        f"{launches} kernel launches ({launches // REQUESTS} per request)")
+    log("serving", f"bf16: fused vs module max |dp| {err:.3e} (tol "
+        f"{SERVE_BF16_ATOL}), top-1 agreement {top1:.3f}, max p {pmax:.3f}")
+    log("serving", f"bf16: fused engine {n_clips / dt:.2f} clips/s | module "
+        f"forward {n_clips / dt_module:.2f} clips/s | {smi}")
+    if err > SERVE_BF16_ATOL:
+        raise AssertionError(f"bf16 serving: fused vs module {err}")
+    return launches
+
+
+def phase_serving_f32(smi):
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    cfg = serving_cfg("float32")
+    model = serving_model(cfg, SEED)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    req = clips(cfg, 1, gen, torch.float32)
+    cfg_module = cfg.clone()
+    cfg_module.TPU.FUSED_EVAL = False
+    out = make_forward(cfg, model)(req)
+    ref = make_forward(cfg_module, model)(req)
+    torch.cuda.synchronize()
+    check_scores(out, 1, cfg.MODEL.NUM_CLASSES, "fused f32")
+    err = (out - ref).abs().max().item()
+    log("serving", f"f32, 1 clip: fused vs module max |dp| {err:.3e} (tol "
+        f"{SERVE_F32_ATOL}) | {smi}")
+    if err > SERVE_F32_ATOL:
+        raise AssertionError(f"f32 serving: fused vs module {err}")
+
+
+def main():
+    smi = phase_device()
+    phase_build()
+    cfg = serving_cfg()
+    model = serving_model(cfg, SEED)
+    record, err = phase_kernels(cfg, model, smi)
+    launches = phase_serving(cfg, model, smi)
+    del model
+    torch.cuda.empty_cache()
+    phase_serving_f32(smi)
+
+    total = lambda key: sum(r[key] * r["count"] for r in record)
+    ops_share = sum(r["bound_ms"] * r["count"] for r in record
+                    if r["bound_by"] == "operations") / total("bound_ms")
+    kernels = [dict(
+        name="fused_bottleneck", route="cuda",
+        source="efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
+        replaces="efficient_slowfast_tpu/ops/pallas/fused_bottleneck.py:200",
+        launches=launches, max_abs_err=err, ms=total("ms"),
+        plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+        bound_by="operations" if ops_share >= 0.5 else "bytes",
+        library_ms=total("library_ms"))]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

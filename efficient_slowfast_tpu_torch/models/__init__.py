@@ -1,0 +1,2 @@
+from .build import MODEL_REGISTRY, build_model, get_compute_dtype  # noqa: F401
+from . import slowfast  # noqa: F401  (registers SlowFast)

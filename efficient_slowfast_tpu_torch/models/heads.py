@@ -1,0 +1,56 @@
+"""Classification head (reference: slowfast/models/head_helper.py:133-265).
+
+ResNetBasicHead: per-pathway avg-pool → concat channels → dropout → linear;
+in eval mode the activation (softmax/sigmoid, in float32) comes BEFORE the
+mean over (T', H', W') — the order matters for multi-crop test parity
+(:218-221). With a test crop larger than the training crop the head pools
+with the training window at stride 1 and averages the activated scores over
+the positions (fully convolutional testing).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv import Linear
+from ..ops.pool import avg_pool3d
+
+
+class ResNetBasicHead(nn.Module):
+    def __init__(self, dim_in: Sequence[int], num_classes: int,
+                 pool_size: Optional[Sequence[Optional[Sequence[int]]]],
+                 dropout_rate: float = 0.0, act_func: str = "softmax",
+                 fc_init_std: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if act_func not in ("softmax", "sigmoid"):
+            raise NotImplementedError(act_func)
+        self.pool_size = pool_size
+        self.act_func = act_func
+        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0 else None
+        self.projection = Linear(sum(dim_in), num_classes,
+                                 init_std=fc_init_std, dtype=dtype)
+
+    def forward(self, inputs):
+        pools = []
+        for p, x in enumerate(inputs):
+            if self.pool_size is None or self.pool_size[p] is None:
+                x = x.mean(dim=(2, 3, 4), keepdim=True)
+            else:  # summed in float32 (the CPU has no bf16 avg_pool3d)
+                x = avg_pool3d(x.float(), self.pool_size[p],
+                               stride=(1, 1, 1)).to(x.dtype)
+            pools.append(x)
+        x = torch.cat(pools, dim=1).permute(0, 2, 3, 4, 1)  # (B,T',H',W',C)
+        if self.dropout is not None:
+            x = self.dropout(x)
+        x = self.projection(x)
+        if not self.training:
+            x = x.float()
+            x = (F.softmax(x, dim=-1) if self.act_func == "softmax"
+                 else torch.sigmoid(x))
+            x = x.mean(dim=(1, 2, 3))
+        return x.reshape(x.shape[0], -1)

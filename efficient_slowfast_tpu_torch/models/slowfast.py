@@ -1,0 +1,145 @@
+"""SlowFast video model (port of ``models/slowfast.py:1-191``).
+
+Reference: slowfast/models/video_model_builder.py — SlowFast (:153-416),
+_TEMPORAL_KERNEL_BASIS (:20-80), _POOL1 (:82-90), _MODEL_STAGE_DEPTH (:16-17).
+
+The model takes the JAX package's layout: a list of channels-last pathway
+tensors [slow (B, T/α, H, W, C), fast (B, T, H, W, C)]. Inside, each pathway
+is the NCDHW view of that same memory (``channels_last_3d``), so no copy is
+made. It returns logits in train mode and averaged post-activation scores in
+eval mode (see heads.ResNetBasicHead).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops.norm import get_norm
+from ..ops.pool import max_pool3d
+from .build import MODEL_REGISTRY, get_compute_dtype
+from .fuse import FuseFastToSlow
+from .heads import ResNetBasicHead
+from .resnet import ResStage
+from .stems import VideoModelStem
+
+_MODEL_STAGE_DEPTH = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
+                      18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+
+_TEMPORAL_KERNEL_BASIS = {
+    "c2d": [[[1]], [[1]], [[1]], [[1]], [[1]]],
+    "c2d_nopool": [[[1]], [[1]], [[1]], [[1]], [[1]]],
+    "i3d": [[[5]], [[3]], [[3, 1]], [[3, 1]], [[1, 3]]],
+    "i3d_nopool": [[[5]], [[3]], [[3, 1]], [[3, 1]], [[1, 3]]],
+    "slow": [[[1]], [[1]], [[1]], [[3]], [[3]]],
+    "slowfast": [[[1], [5]], [[1], [3]], [[1], [3]], [[3], [3]], [[3], [3]]],
+    "fast": [[[5]], [[3]], [[3]], [[3]], [[3]]],
+}
+
+_POOL1 = {
+    "c2d": [[2, 1, 1]],
+    "c2d_nopool": [[1, 1, 1]],
+    "i3d": [[2, 1, 1]],
+    "i3d_nopool": [[1, 1, 1]],
+    "slow": [[1, 1, 1]],
+    "slowfast": [[1, 1, 1], [1, 1, 1]],
+    "fast": [[1, 1, 1]],
+}
+
+
+def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) → the NCDHW view of the same memory."""
+    return x.permute(0, 4, 1, 2, 3)
+
+
+@MODEL_REGISTRY.register()
+class SlowFast(nn.Module):
+    """Two-pathway SlowFast network (stages s1–s5, fuse after s1–s4)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if cfg.DETECTION.ENABLE:
+            raise NotImplementedError(
+                "detection is not ported to PyTorch yet (ROADMAP: detection)")
+        if cfg.MODEL.SLOW_PATHWAY_HEAD:
+            raise NotImplementedError(
+                "MODEL.SLOW_PATHWAY_HEAD is not ported to PyTorch yet")
+        dtype = get_compute_dtype(cfg)
+        norm = get_norm(cfg)
+        self.pool_size = _POOL1[cfg.MODEL.ARCH]
+        depth = _MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH]
+        w = cfg.RESNET.WIDTH_PER_GROUP
+        num_groups = cfg.RESNET.NUM_GROUPS
+        dim_inner = num_groups * w
+        beta = cfg.SLOWFAST.BETA_INV
+        ratio = cfg.SLOWFAST.FUSION_CONV_CHANNEL_RATIO
+        tk = _TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH]
+
+        self.s1 = VideoModelStem(
+            dim_in=cfg.DATA.INPUT_CHANNEL_NUM,
+            dim_out=[w, w // beta],
+            kernel=[tk[0][0] + [7, 7], tk[0][1] + [7, 7]],
+            stride=[[1, 2, 2]] * 2,
+            padding=[[tk[0][0][0] // 2, 3, 3], [tk[0][1][0] // 2, 3, 3]],
+            norm=norm, dtype=dtype)
+
+        def fuse(fast_dim):
+            return FuseFastToSlow(fast_dim, ratio,
+                                  cfg.SLOWFAST.FUSION_KERNEL_SZ,
+                                  cfg.SLOWFAST.ALPHA, norm=norm, dtype=dtype)
+
+        def stage(idx, slow_in, fast_in, mult):
+            return ResStage(
+                dim_in=[slow_in + fast_in * ratio, fast_in],
+                dim_out=[w * mult, w * mult // beta],
+                dim_inner=[dim_inner * mult // 4,
+                           dim_inner * mult // 4 // beta],
+                temp_kernel_sizes=tk[idx + 1],
+                stride=cfg.RESNET.SPATIAL_STRIDES[idx],
+                num_blocks=[depth[idx]] * 2,
+                num_groups=[num_groups] * 2,
+                num_block_temp_kernel=cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[idx],
+                nonlocal_inds=cfg.NONLOCAL.LOCATION[idx],
+                trans_func_name=cfg.RESNET.TRANS_FUNC,
+                stride_1x1=cfg.RESNET.STRIDE_1X1,
+                dilation=cfg.RESNET.SPATIAL_DILATIONS[idx],
+                zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
+                norm=norm, dtype=dtype)
+
+        self.s1_fuse = fuse(w // beta)
+        self.s2 = stage(0, w, w // beta, 4)
+        self.s2_fuse = fuse(w * 4 // beta)
+        self.s3 = stage(1, w * 4, w * 4 // beta, 8)
+        self.s3_fuse = fuse(w * 8 // beta)
+        self.s4 = stage(2, w * 8, w * 8 // beta, 16)
+        self.s4_fuse = fuse(w * 16 // beta)
+        self.s5 = stage(3, w * 16, w * 16 // beta, 32)
+
+        ps = self.pool_size
+        t, a, s = cfg.DATA.NUM_FRAMES, cfg.SLOWFAST.ALPHA, cfg.DATA.CROP_SIZE
+        self.head = ResNetBasicHead(
+            dim_in=[w * 32, w * 32 // beta],
+            num_classes=cfg.MODEL.NUM_CLASSES,
+            pool_size=None if cfg.MULTIGRID.SHORT_CYCLE else [
+                [t // a // ps[0][0], s // 32 // ps[0][1], s // 32 // ps[0][2]],
+                [t // ps[1][0], s // 32 // ps[1][1], s // 32 // ps[1][2]],
+            ],
+            dropout_rate=cfg.MODEL.DROPOUT_RATE,
+            act_func=cfg.MODEL.HEAD_ACT,
+            fc_init_std=cfg.MODEL.FC_INIT_STD,
+            dtype=dtype)
+
+    def forward(self, x):
+        x = self.s1([to_ncdhw(xi) for xi in x])
+        x = self.s1_fuse(x)
+        x = self.s2(x)
+        x = self.s2_fuse(x)
+        if any(v != 1 for pv in self.pool_size for v in pv):
+            x = [max_pool3d(xi, self.pool_size[p], self.pool_size[p])
+                 for p, xi in enumerate(x)]
+        x = self.s3(x)
+        x = self.s3_fuse(x)
+        x = self.s4(x)
+        x = self.s4_fuse(x)
+        x = self.s5(x)
+        return self.head(x)

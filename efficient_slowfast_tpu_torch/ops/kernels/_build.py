@@ -1,0 +1,89 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each source ``efficient_slowfast_tpu_torch/csrc/<name>.cu`` has a plain C
+interface and becomes ``build/torch_kernels/lib<name>.so`` under the
+repository root, compiled by ``nvcc`` for ``sm_90a`` (Hopper). A library is
+rebuilt when its source is newer; several are compiled in parallel, one
+``nvcc`` per source. Nothing is built at import: the first kernel call (or
+``build()``) does it, and a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Iterable
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+SOURCES = ("fused_bottleneck",)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    so = lib_path(name)
+    src = os.path.join(CSRC, f"{name}.cu")
+    return not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so)
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every stale library among ``names``; returns ptxas reports.
+
+    The compilers run in parallel. Each writes to a temporary file that is
+    renamed into place, so a concurrent reader never sees half a library.
+    """
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}.cu:\n{out}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library ``name``, built if needed and loaded once per process."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(lib_path(name))
+        _loaded[name] = lib
+    return lib

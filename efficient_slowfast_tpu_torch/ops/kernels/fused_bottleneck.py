@@ -1,0 +1,192 @@
+"""Fused eval bottleneck block: BN folding, plain version and CUDA kernel.
+
+Port of ``efficient_slowfast_tpu/ops/pallas/fused_bottleneck.py``. One
+eval-mode ResNet bottleneck block with BN folded into its convs, on a
+channels-last ``x`` of shape (N = B*T, H, W, Cin):
+
+  a   = relu(Tx1x1 conv(x) + ba)        kt in {1, 3}, zero taps at clip edges
+  b   = relu(1x3x3 conv(a, pad 1) + bb)
+  out = relu(b @ wc + bc + residual)    residual = x or x @ wp + bp
+
+``fused_bottleneck`` runs the hand-written kernel ``csrc/fused_bottleneck.cu``
+on a CUDA tensor (one launch per block; a and b never reach device memory)
+and the plain version ``bottleneck_reference`` on a CPU tensor. A CUDA
+tensor never takes the plain version: what the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+# H100 SXM limits used to pick the strip height (NVIDIA data sheet: 132 SMs,
+# 228 KB of shared memory per SM, 227 KB per block)
+_SMS = 132
+_SMEM_PER_SM = 233472
+_SMEM_PER_BLOCK = 232448
+# f32 staging of one K chunk (16) of the largest A tile (512) plus its B
+# tile (8); kStageFloats in the CUDA source
+_STAGE_BYTES = 16 * (512 + 8) * 4
+
+
+def fold_bn(kernel, scale, bias, mean, var, eps=1e-5):
+    """Fold an eval-mode BN affine into the preceding conv.
+
+    kernel: (..., Cin, Cout); BN params are (Cout,). Returns (W', b') with
+    W' = W * g, b' = bias - mean * g, g = scale / sqrt(var + eps).
+    """
+    g = scale * torch.rsqrt(var.float() + eps)
+    return kernel * g, bias - mean * g
+
+
+def bottleneck_reference(x, t_len, wa, ba, wb, bb, wc, bc, wp=None, bp=None):
+    """Plain PyTorch version of the fused block, float32 throughout.
+
+    x: (N, H, W, Cin) with N = B*t_len; wa: (kt, Cin, Ci); wb: (3, 3, Ci, Ci);
+    wc: (Ci, Cout); optional projection wp: (Cin, Cout). Returns x's dtype.
+    """
+    n, h, w, cin = x.shape
+    kt = wa.shape[0]
+    xf = x.float()
+    if kt == 1:
+        a = xf @ wa[0].float()
+    else:
+        xc = xf.reshape(n // t_len, t_len, h, w, cin)
+        xm = F.pad(xc, (0, 0, 0, 0, 0, 0, 1, 1))
+        a = sum(xm[:, dt:dt + t_len] @ wa[dt].float()
+                for dt in range(3)).reshape(n, h, w, -1)
+    a = torch.relu(a + ba)
+    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
+    bacc = sum(ap[:, dy:dy + h, dx:dx + w] @ wb[dy, dx].float()
+               for dy in range(3) for dx in range(3))
+    bv = torch.relu(bacc + bb)
+    cv = bv @ wc.float() + bc
+    res = xf @ wp.float() + bp if wp is not None else xf
+    return torch.relu(cv + res).to(x.dtype)
+
+
+def smem_bytes(elem_bytes: int, w: int, ci: int, rows: int) -> int:
+    """Shared memory of one block (fused_bottleneck_smem_bytes in the .cu)."""
+    return _STAGE_BYTES + (2 * rows + 2) * w * ci * elem_bytes
+
+
+def plan_rows(n, h, w, cin, ci, cout, kt, elem_bytes, has_proj) -> int:
+    """Strip height of one block: the least waves × per-block work.
+
+    A strip of r rows recomputes a on r + 2 rows (its halo), so tall strips
+    waste less; short strips make more blocks for the card's 132 SMs. At
+    most two blocks share an SM (registers), fewer where shared memory says.
+    """
+    best = None
+    for rows in range(1, h + 1):
+        smem = smem_bytes(elem_bytes, w, ci, rows)
+        if smem > _SMEM_PER_BLOCK:
+            break
+        per_sm = min(2, _SMEM_PER_SM // (smem + 1024))
+        blocks = n * -(-h // rows)
+        waves = -(-blocks // (_SMS * per_sm))
+        work = ((rows + 2) * w * kt * cin * ci
+                + rows * w * (9 * ci * ci + ci * cout
+                              + (cin * cout if has_proj else 0)))
+        if best is None or waves * work < best[0]:
+            best = (waves * work, rows)
+    if best is None:
+        raise ValueError(
+            f"fused_bottleneck: a one-row strip of W={w}, Ci={ci} does not "
+            "fit in shared memory")
+    return best[1]
+
+
+def _check(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp, stride, dilation,
+           groups):
+    if stride != 1 or dilation != 1 or groups != 1:
+        raise ValueError("fused_bottleneck takes stride 1, dilation 1 and "
+                         f"groups 1 only (got {stride}, {dilation}, {groups})")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_bottleneck: x is {x.dtype}; "
+                        "float32 or bfloat16 only")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, Cin), got {tuple(x.shape)}")
+    n, h, w, cin = x.shape
+    if wa.dim() != 3 or wa.shape[0] not in (1, 3) or wa.shape[1] != cin:
+        raise ValueError(f"wa must be (1|3, {cin}, Ci), got {tuple(wa.shape)}")
+    ci = wa.shape[2]
+    cout = wc.shape[-1]
+    shapes = [(wb, (3, 3, ci, ci)), (wc, (ci, cout)), (ba, (ci,)),
+              (bb, (ci,)), (bc, (cout,))]
+    if (wp is None) != (bp is None):
+        raise ValueError("wp and bp come together")
+    if wp is not None:
+        shapes += [(wp, (cin, cout)), (bp, (cout,))]
+    elif cin != cout:
+        raise ValueError(f"identity shortcut needs Cin == Cout ({cin}, {cout})")
+    for t, shape in shapes:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+    if t_len <= 0 or n % t_len:
+        raise ValueError(f"N={n} is not a whole number of {t_len}-frame clips")
+
+
+def fused_bottleneck(x, t_len, wa, ba, wb, bb, wc, bc, wp=None, bp=None, *,
+                     stride=1, dilation=1, groups=1):
+    """Fused eval bottleneck. x: (N, H, W, Cin), N = B*t_len; BN folded.
+
+    On a CUDA tensor it launches the kernel, with the strip height that
+    ``plan_rows`` picks; on a CPU tensor it runs ``bottleneck_reference``.
+    Returns (N, H, W, Cout) in x's dtype.
+    """
+    _check(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp, stride, dilation, groups)
+    if x.device.type == "cpu":
+        return bottleneck_reference(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bottleneck: no kernel for {x.device}")
+    n, h, w, cin = x.shape
+    kt, _, ci = wa.shape
+    cout = wc.shape[-1]
+    elem = x.element_size()
+    weights = [wa, wb, wc] + ([wp] if wp is not None else [])
+    biases = [ba, bb, bc] + ([bp] if bp is not None else [])
+    for t in [x] + weights + biases:
+        if t.device != x.device:
+            raise ValueError("fused_bottleneck: all tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("fused_bottleneck: tensors must be contiguous")
+    for t in weights:
+        if t.dtype != x.dtype:
+            raise TypeError("fused_bottleneck: weights must have x's dtype")
+    for t in biases:
+        if t.dtype != torch.float32:
+            raise TypeError("fused_bottleneck: biases must be float32")
+    rows = plan_rows(n, h, w, cin, ci, cout, kt, elem, wp is not None)
+    out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr()) if t is not None else None
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_bottleneck_launch(
+            0 if x.dtype == torch.float32 else 1, ptr(x), ptr(wa), ptr(ba),
+            ptr(wb), ptr(bb), ptr(wc), ptr(bc), ptr(wp), ptr(bp), ptr(out),
+            n, t_len, h, w, cin, ci, cout, kt, rows, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"fused_bottleneck kernel launch failed: CUDA error {err} "
+            f"(x {tuple(x.shape)} {x.dtype}, kt {kt}, rows {rows}, "
+            f"smem {smem_bytes(elem, w, ci, rows)} B)")
+    fused_bottleneck.launches += 1
+    return out
+
+
+fused_bottleneck.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_bottleneck")
+    f = lib.fused_bottleneck_launch
+    f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,39 @@
+"""Pooling of NCDHW tensors (port of ``ops/pool.py:21-47``).
+
+Torch-style symmetric integer padding; max pooling pads with -inf and
+average pooling counts the padding (``count_include_pad=True``), as the
+JAX package does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _triple(v) -> tuple:
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * 3
+
+
+def max_pool3d(x: torch.Tensor, kernel, stride=None,
+               padding=(0, 0, 0)) -> torch.Tensor:
+    k = _triple(kernel)
+    s = _triple(stride) if stride is not None else k
+    return F.max_pool3d(x, k, s, _triple(padding))
+
+
+def avg_pool3d(x: torch.Tensor, kernel, stride=None,
+               padding=(0, 0, 0)) -> torch.Tensor:
+    k = _triple(kernel)
+    s = _triple(stride) if stride is not None else k
+    p = _triple(padding)
+    # a window larger than the padded input is a stale cfg (e.g. the head
+    # pool of another NUM_FRAMES): fail here, not as NaNs downstream
+    for d in range(3):
+        if k[d] > x.shape[2 + d] + 2 * p[d]:
+            raise ValueError(
+                f"avg_pool3d window {k} larger than input "
+                f"{tuple(x.shape[2:])} (padding {p})")
+    return F.avg_pool3d(x, k, s, p, count_include_pad=True)

@@ -1,0 +1,107 @@
+"""Weight bridge between the JAX package's variables and the port's modules.
+
+The JAX package keeps its weights as a ``{"params", "batch_stats"}`` tree
+whose module paths mirror the reference's attribute names, with one wrapper
+segment per layer (``conv`` for Conv3d, ``bn`` for BatchNorm3d, ``fc`` for
+Linear). The port's modules carry the reference's (PySlowFast's) state_dict
+names, so the mapping is (naming as in
+``efficient_slowfast_tpu/utils/torch_ckpt.py:439-459``):
+
+  s1/pathway0_stem/conv/conv/kernel       ↔ s1.pathway0_stem.conv.weight
+  s1/pathway0_stem/bn/bn/{scale,bias}     ↔ s1.pathway0_stem.bn.{weight,bias}
+  batch_stats .../bn/bn/{mean,var}        ↔ ....bn.{running_mean,running_var}
+  s2/pathway0_res0/branch2/a/conv/kernel  ↔ s2.pathway0_res0.branch2.a.weight
+  s1_fuse/bn/bn/scale                     ↔ s1_fuse.bn.weight
+  head/projection/fc/{kernel,bias}        ↔ head.projection.{weight,bias}
+
+Kernels change layout on the way: 5-D DHWIO ↔ OIDHW and 2-D (in, out) ↔
+(out, in). BN's ``num_batches_tracked`` has no JAX counterpart; it is 0
+after conversion.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                  "mean": "running_mean", "var": "running_var"}
+_WRAPPERS = ("conv", "bn", "fc")
+
+
+def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[tuple, Any]:
+    if hasattr(tree, "items"):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (str(k),)))
+        return out
+    return {prefix: tree}
+
+
+def _torch_name(path: Tuple[str, ...]) -> str | None:
+    *mods, leaf = path
+    if leaf not in _LEAF_TO_TORCH:
+        return None
+    # drop the layer's wrapper segment; a stem keeps its own .conv/.bn child
+    # (s1/pathway0_stem/conv/conv → s1.pathway0_stem.conv)
+    if (len(mods) >= 2 and mods[-1] in _WRAPPERS
+            and (mods[-2] in _WRAPPERS or not mods[-2].endswith("_stem"))):
+        mods = mods[:-1]
+    return ".".join(mods) + "." + _LEAF_TO_TORCH[leaf]
+
+
+def _to_torch_layout(leaf: str, v: np.ndarray) -> np.ndarray:
+    if leaf != "kernel":
+        return v
+    if v.ndim == 5:
+        return np.transpose(v, (4, 3, 0, 1, 2))
+    if v.ndim == 2:
+        return np.transpose(v, (1, 0))
+    raise ValueError(f"no torch layout for a {v.ndim}-D kernel")
+
+
+def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) → state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _flatten(variables.get(coll, {})).items():
+            name = _torch_name(path)
+            if name is None:
+                continue
+            v = _to_torch_layout(path[-1], np.array(v, np.float32))
+            sd[name] = torch.from_numpy(np.ascontiguousarray(v))
+            if path[-1] == "mean":
+                prefix = name[:-len("running_mean")]
+                sd[prefix + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def state_dict_to_jax_variables(state_dict) -> Dict[str, dict]:
+    """The inverse: a port state_dict → JAX-layout numpy variables."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        prefix, _, suffix = name.rpartition(".")
+        if suffix == "num_batches_tracked":
+            continue
+        v = t.detach().float().cpu().numpy()
+        coll = "params"
+        if prefix + ".running_mean" in state_dict:  # a BatchNorm3d
+            wrap, leaf = "bn", {"weight": "scale", "bias": "bias",
+                                "running_mean": "mean",
+                                "running_var": "var"}[suffix]
+            if suffix.startswith("running_"):
+                coll = "batch_stats"
+        else:  # a Conv3d (5-D weight) or a Linear (2-D weight)
+            wrap = "conv" if state_dict[prefix + ".weight"].dim() == 5 else "fc"
+            leaf = "kernel" if suffix == "weight" else "bias"
+            if v.ndim == 5:
+                v = np.transpose(v, (2, 3, 4, 1, 0))
+            elif v.ndim == 2:
+                v = np.transpose(v, (1, 0))
+        d = out[coll]
+        for m in prefix.split(".") + [wrap]:
+            d = d.setdefault(m, {})
+        d[leaf] = np.ascontiguousarray(v)
+    return out

@@ -1,0 +1,98 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, and it never falls back to the CPU without being asked."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+from efficient_slowfast_tpu_torch.config import get_cfg
+from efficient_slowfast_tpu_torch.models import build_model
+from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "efficient_slowfast_tpu_torch")
+FORBIDDEN = ("jax", "flax", "optax", "efficient_slowfast_tpu")
+
+_TINY_FORWARD = r"""
+import sys
+for name in ("jax", "flax", "optax", "efficient_slowfast_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import torch
+from efficient_slowfast_tpu_torch.config import get_cfg
+from efficient_slowfast_tpu_torch.models import build_model
+from efficient_slowfast_tpu_torch.engine.state import make_forward
+cfg = get_cfg()
+cfg.RESNET.WIDTH_PER_GROUP = 8
+cfg.RESNET.DEPTH = 18
+cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[2, 2], [2, 2], [2, 2], [2, 2]]
+cfg.RESNET.SPATIAL_STRIDES = [[1, 1], [2, 2], [2, 2], [2, 2]]
+cfg.RESNET.SPATIAL_DILATIONS = [[1, 1]] * 4
+cfg.NONLOCAL.LOCATION = [[[], []]] * 4
+cfg.SLOWFAST.ALPHA = 4
+cfg.DATA.NUM_FRAMES = 4
+cfg.DATA.CROP_SIZE = 32
+cfg.MODEL.NUM_CLASSES = 5
+cfg.TPU.COMPUTE_DTYPE = "float32"
+cfg.TPU.FUSED_EVAL = True
+torch.set_num_threads(1)
+g = torch.Generator().manual_seed(0)
+x = [torch.rand(1, 1, 32, 32, 3, generator=g),
+     torch.rand(1, 4, 32, 32, 3, generator=g)]
+out = make_forward(cfg, build_model(cfg, device="cpu"), device="cpu")(x)
+assert out.shape == (1, 5) and abs(float(out.sum()) - 1.0) < 1e-4, out
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "flax", "optax", "efficient_slowfast_tpu")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _TINY_FORWARD], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+def _python_files():
+    for d, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    files = list(_python_files())
+    assert len(files) > 15
+    bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_no_device_given_and_no_gpu_raises(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_cfg()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_forward(cfg, torch.nn.Identity())
