@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines and raising on failure (the script then
-exits non-zero and prints no final line):
+exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
+5 (3b takes its shapes from the CMDA model that phase 5 serves):
 
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
@@ -15,6 +16,12 @@ exits non-zero and prints no final line):
               batch; at the request batch it also times the kernel, the plain
               version and the same block unfused through the port's
               nn.Module (cuDNN), beside the block's bound on an H100.
+3b. attention — the flash-attention kernel against its plain version at
+              the four CMDA-R50 shapes (one per lateral fusion) and two
+              off-path shapes (ragged keys; pooled non-local keys), in
+              float32 and bfloat16, at 1 clip and at the request batch; at
+              the request batch it also times the kernel, the plain version
+              and scaled_dot_product_attention, beside the shape's bound.
 4. serving  — SlowFast-R50 8x8 at full width (400 classes, 32 frames,
               256² test crop, bf16, TPU.FUSED_EVAL) on seeded random weights
               made in the JAX package's layout and carried across by the
@@ -22,8 +29,17 @@ exits non-zero and prints no final line):
               make_forward, checks 26 kernel launches per request and the
               scores, and holds them against the module's own forward; then
               the same at float32 on one clip, at a tight tolerance.
+5. cmda     — SlowFastDualAttention-R50 8x8 (the CMDA model) at full width,
+              the same way, with the attention's query and key convs
+              scaled on a seeded clip so that its logits are of a trained
+              model's order: three requests through make_forward, 4 attention
+              launches per request and none of the fused bottleneck, held
+              against the same model under TPU.FLASH_ATTENTION False (the
+              plain version on the card); then float32 on one clip.
 
-The last two lines are the kernels' JSON record and the device JSON line.
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after. The last three lines are the kernels' JSON record, the
+card's name and power limit, and the device JSON line.
 """
 
 from __future__ import annotations
@@ -63,10 +79,57 @@ SERVE_BF16_ATOL = 2e-2
 # serving, float32, one clip: both paths are float32 throughout; folding BN
 # and the kernel's summation order move the probabilities by far less.
 SERVE_F32_ATOL = 1e-4
+# attention, float32: the kernel and the plain version differ only in
+# summation order (up to 128-term dot products, 32768-key softmax sums) and
+# exp2 against exp, both within a few f32 ulps; 1e-4 of the output's scale.
+ATTN_F32_TOL = 1e-4
+# attention, bfloat16: both sides upcast the same bf16 inputs to float32 and
+# round the float32 result once, so they differ by at most one bf16 ulp of
+# the output, 2^-7 of its magnitude or less; 1e-2 of the output's scale.
+ATTN_BF16_TOL = 1e-2
+# CMDA serving against its plain-attention path: bf16 attention outputs that
+# differ by one ulp pass through the rest of the network in bf16, as K1's do
+# (SERVE_BF16_ATOL); in float32 only the summation order differs. Both hold
+# once the attention logits are calibrated (ATTN_LOGIT_STD).
+CMDA_BF16_ATOL = 2e-2
+CMDA_F32_ATOL = 1e-4
+# The attention is unscaled (no 1/sqrt(D)). On random weights the standard
+# deviation of its logits reaches the hundreds at s3_fuse and tens of
+# thousands at s4_fuse, where the softmax is an argmax that one rounding
+# upstream flips; a trained model's logits are of order 1-10. The
+# query and key convs are scaled so that each fusion's logits have this
+# standard deviation on a seeded clip.
+ATTN_LOGIT_STD = 3.0
+# H100 SXM exponentials: 16 per clock per SM (the special-function unit's
+# throughput for compute capability 9.0, CUDA C programming guide), 132 SMs
+# at the 1.98 GHz maximum boost clock (NVIDIA data sheet)
+EXP_RATE = 16 * 132 * 1.98e9
+# the two shapes beside the CMDA path: (label, N, M, D, C)
+ATTN_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
+                 ("pooled non-local", 3136, 784, 64, 64)]
 
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def kernel_counters():
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention
+    from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
+        fused_bottleneck
+
+    return {"fused_bottleneck": fused_bottleneck,
+            "flash_attention": flash_attention}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def cuda_ms(fn, iters=10, reps=5):
@@ -266,7 +329,9 @@ def phase_kernels(cfg, model, smi):
 def jax_layout_weights(model, seed):
     """Seeded weights in the JAX package's variable layout (numpy): MSRA
     fan-out normal convs, normal(0.01) classifier, BN scale 1 and bias 0,
-    with running statistics jittered as the repo's engine tests do."""
+    with running statistics jittered as the repo's engine tests do; for
+    CMDA, ECA's Conv1d normal(1/sqrt(fan-in)) and every attention γ 0.5
+    (at its zero init the attention would never reach the output)."""
     from efficient_slowfast_tpu_torch.utils.weights import \
         state_dict_to_jax_variables
 
@@ -283,8 +348,13 @@ def jax_layout_weights(model, seed):
                 fan_out = int(np.prod(v.shape[:3])) * v.shape[4]
                 out[k] = (rs.randn(*v.shape) * np.sqrt(2.0 / fan_out)).astype(
                     np.float32)
+            elif k == "kernel" and v.ndim == 3:  # (k, I, O)
+                out[k] = (rs.randn(*v.shape) / np.sqrt(v.shape[0] * v.shape[1])
+                          ).astype(np.float32)
             elif k == "kernel":
                 out[k] = (rs.randn(*v.shape) * 0.01).astype(np.float32)
+            elif k == "gamma":
+                out[k] = np.full(v.shape, 0.5, np.float32)
             elif k == "scale":
                 out[k] = np.ones(v.shape, np.float32)
             elif k == "bias":
@@ -338,47 +408,74 @@ def serve(fwd, requests):
     return outs, time.perf_counter() - t0
 
 
-def phase_serving(cfg, model, smi):
-    from efficient_slowfast_tpu_torch.engine.state import make_forward
-    from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
-        fused_bottleneck
-
-    gen = torch.Generator().manual_seed(SEED + 1)
-    classes = cfg.MODEL.NUM_CLASSES
-    fused = make_forward(cfg, model)
-    cfg_module = cfg.clone()
-    cfg_module.TPU.FUSED_EVAL = False
-    module = make_forward(cfg_module, model)
+def serve_and_compare(phase, cfg, fwd, ref, names, expect, tol, seed, smi):
+    """Answer REQUESTS requests of bf16 clips through ``fwd`` with every
+    launch count set to 0 just before and read just after, check the counts
+    against ``expect``, and hold the scores against those of ``ref`` (which
+    launches no kernel) on the same requests. ``names`` labels the two
+    paths. Returns the counts of ``fwd``'s run."""
+    gen = torch.Generator().manual_seed(seed)
     requests = [clips(cfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
                 for _ in range(REQUESTS)]
-    serve(fused, requests[:1])  # warm-up: cuDNN plans, allocator
-    serve(module, requests[:1])
+    serve(fwd, requests[:1])  # warm-up: cuDNN plans, allocator
+    serve(ref, requests[:1])
 
-    fused_bottleneck.launches = 0
-    outs, dt = serve(fused, requests)
-    launches = fused_bottleneck.launches
-    if launches != 26 * REQUESTS:
-        raise AssertionError(f"{launches} kernel launches for {REQUESTS} "
-                             f"requests, expected {26 * REQUESTS}")
-    refs, dt_module = serve(module, requests)
+    reset_counts()
+    outs, dt = serve(fwd, requests)
+    counts = read_counts()
+    if counts != expect:
+        raise AssertionError(f"kernel launches {counts} for {REQUESTS} "
+                             f"requests, expected {expect}")
+    reset_counts()
+    refs, dt_ref = serve(ref, requests)
+    if any(read_counts().values()):
+        raise AssertionError(f"the {names[1]} launched {read_counts()}")
     err = 0.0
     for i, (o, r) in enumerate(zip(outs, refs)):
-        check_scores(o, CLIPS_PER_REQUEST, classes, f"fused request {i}")
-        check_scores(r, CLIPS_PER_REQUEST, classes, f"module request {i}")
+        for out, name in ((o, names[0]), (r, names[1])):
+            check_scores(out, CLIPS_PER_REQUEST, cfg.MODEL.NUM_CLASSES,
+                         f"{name} request {i}")
         err = max(err, (o - r).abs().max().item())
     top1 = float(np.mean([(o.argmax(-1) == r.argmax(-1)).float().mean().item()
                           for o, r in zip(outs, refs)]))
     pmax = max(o.max().item() for o in outs)
     n_clips = REQUESTS * CLIPS_PER_REQUEST
-    log("serving", f"bf16: {REQUESTS} requests x {CLIPS_PER_REQUEST} clips, "
-        f"{launches} kernel launches ({launches // REQUESTS} per request)")
-    log("serving", f"bf16: fused vs module max |dp| {err:.3e} (tol "
-        f"{SERVE_BF16_ATOL}), top-1 agreement {top1:.3f}, max p {pmax:.3f}")
-    log("serving", f"bf16: fused engine {n_clips / dt:.2f} clips/s | module "
-        f"forward {n_clips / dt_module:.2f} clips/s | {smi}")
-    if err > SERVE_BF16_ATOL:
-        raise AssertionError(f"bf16 serving: fused vs module {err}")
-    return launches
+    per_request = ", ".join(f"{n} {c // REQUESTS}" for n, c in counts.items())
+    log(phase, f"bf16: {REQUESTS} requests x {CLIPS_PER_REQUEST} clips, "
+        f"kernel launches {counts} (per request: {per_request})")
+    log(phase, f"bf16: {names[0]} vs {names[1]} max |dp| {err:.3e} (tol "
+        f"{tol}), top-1 agreement {top1:.3f}, max p {pmax:.3f}")
+    log(phase, f"bf16: {names[0]} {n_clips / dt:.2f} clips/s | {names[1]} "
+        f"{n_clips / dt_ref:.2f} clips/s | {smi}")
+    if err > tol:
+        raise AssertionError(f"{phase} bf16: {names[0]} vs {names[1]} {err}")
+    return counts
+
+
+def compare_one_clip(phase, cfg, fwd, ref, names, tol, seed, smi):
+    """Hold ``fwd`` against ``ref`` on one seeded float32 clip."""
+    req = clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32)
+    out, expected = fwd(req), ref(req)
+    torch.cuda.synchronize()
+    check_scores(out, 1, cfg.MODEL.NUM_CLASSES, f"{names[0]} f32")
+    err = (out - expected).abs().max().item()
+    log(phase, f"f32, 1 clip: {names[0]} vs {names[1]} max |dp| {err:.3e} "
+        f"(tol {tol}) | {smi}")
+    if err > tol:
+        raise AssertionError(f"{phase} f32: {names[0]} vs {names[1]} {err}")
+
+
+def phase_serving(cfg, model, smi):
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    cfg_module = cfg.clone()
+    cfg_module.TPU.FUSED_EVAL = False
+    counts = serve_and_compare(
+        "serving", cfg, make_forward(cfg, model),
+        make_forward(cfg_module, model), ("fused engine", "module forward"),
+        {"fused_bottleneck": 26 * REQUESTS, "flash_attention": 0},
+        SERVE_BF16_ATOL, SEED + 1, smi)
+    return counts["fused_bottleneck"]
 
 
 def phase_serving_f32(smi):
@@ -386,19 +483,190 @@ def phase_serving_f32(smi):
 
     cfg = serving_cfg("float32")
     model = serving_model(cfg, SEED)
-    gen = torch.Generator().manual_seed(SEED + 2)
-    req = clips(cfg, 1, gen, torch.float32)
     cfg_module = cfg.clone()
     cfg_module.TPU.FUSED_EVAL = False
-    out = make_forward(cfg, model)(req)
-    ref = make_forward(cfg_module, model)(req)
-    torch.cuda.synchronize()
-    check_scores(out, 1, cfg.MODEL.NUM_CLASSES, "fused f32")
-    err = (out - ref).abs().max().item()
-    log("serving", f"f32, 1 clip: fused vs module max |dp| {err:.3e} (tol "
-        f"{SERVE_F32_ATOL}) | {smi}")
-    if err > SERVE_F32_ATOL:
-        raise AssertionError(f"f32 serving: fused vs module {err}")
+    compare_one_clip("serving", cfg, make_forward(cfg, model),
+                     make_forward(cfg_module, model),
+                     ("fused engine", "module forward"), SERVE_F32_ATOL,
+                     SEED + 2, smi)
+
+
+# ---------------------------------------------------------------------------
+def cmda_cfg(dtype="bfloat16", flash=True):
+    """SlowFastDualAttention-R50 8x8 serving at the 30-view test shape, the
+    shapes of configs/Kinetics/SLOWFAST_DUALATTENTION_8x8_R50.yaml (the
+    module forward serves it: the fused engine does not cover CMDA)."""
+    cfg = serving_cfg(dtype)
+    cfg.MODEL.MODEL_NAME = "SlowFastDualAttention"
+    cfg.TPU.FUSED_EVAL = False
+    cfg.TPU.FLASH_ATTENTION = flash
+    return cfg
+
+
+def calibrate_attention(cfg, model, seed):
+    """Scale each fusion's query and key convs (weight and bias, by one
+    factor each) so that its logits have ATTN_LOGIT_STD on a seeded clip,
+    fusion by fusion, as each scale moves the fusions after it."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    fwd = make_forward(cfg, model)
+    req = clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32)
+    stds = []
+    for i in range(1, 5):
+        att = getattr(model, f"s{i}_fuse").attention_spatial_s2f
+        seen = {}
+        hook = att.register_forward_hook(
+            lambda m, inp, out: seen.update(x=inp[0]))
+        fwd(req)
+        hook.remove()
+        with torch.inference_mode():
+            q = att.query_conv(seen["x"]).flatten(2).float()  # (1, D, N)
+            k = att.key_conv(seen["x"]).flatten(2).float()
+            std = torch.einsum("bdn,bdm->bnm", q[:, :, ::64], k).std().item()
+            f = (ATTN_LOGIT_STD / std) ** 0.5
+            for conv in (att.query_conv, att.key_conv):
+                conv.weight.mul_(f)
+                conv.bias.mul_(f)
+        stds.append(std)
+    log("cmda", "attention logit std before calibration, s1-s4_fuse: "
+        + ", ".join(f"{x:.4g}" for x in stds) + f" -> {ATTN_LOGIT_STD}")
+
+
+def attention_rows(cfg, model):
+    """The SpatialAttention of each lateral fusion of one forward:
+    [(label, N, M, D, C, launches per request)]."""
+    t_len = cfg.DATA.NUM_FRAMES // cfg.SLOWFAST.ALPHA
+    h = cfg.DATA.TEST_CROP_SIZE // 4  # after the stem's two stride-2 ops
+    strides = [1] + [s[0] for s in cfg.RESNET.SPATIAL_STRIDES]
+    rows = []
+    for i in range(4):
+        h //= strides[i]
+        att = getattr(model, f"s{i + 1}_fuse").attention_spatial_s2f
+        n = t_len * h * h
+        rows.append((f"s{i + 1}_fuse", n, n, att.query_conv.out_channels,
+                     att.value_conv.out_channels, 1))
+    return rows
+
+
+def attention_cost(b, n, m, d, c):
+    """(FLOPs, bf16 bytes, exponentials) of one call: q, k, v read once and
+    out written once."""
+    return (2 * b * n * m * (d + c), 2 * b * (n * d + m * d + m * c + n * c),
+            b * n * m)
+
+
+def phase_attention(rows, smi):
+    import torch.nn.functional as F
+
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
+        chunked_attention, flash_attention)
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    rn = lambda *shape, dtype: torch.randn(*shape, generator=gen).to(
+        "cuda", dtype)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    record = []
+    for label, n, m, d, c, count in rows + [r + (0,) for r in ATTN_OFF_PATH]:
+        for dtype, tol in ((torch.float32, ATTN_F32_TOL),
+                           (torch.bfloat16, ATTN_BF16_TOL)):
+            for b in (1, CLIPS_PER_REQUEST):
+                q, k, v = (rn(b, n, d, dtype=dtype), rn(b, m, d, dtype=dtype),
+                           rn(b, m, c, dtype=dtype))
+                out = flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                ref = chunked_attention(q, k, v)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = max(1.0, ref.float().abs().max().item())
+                finite = bool(torch.isfinite(out).all())
+                log("attention", f"{label:16s} {str(dtype)[6:]:8s} clips {b} "
+                    f"max_abs_err {err:.3e} (scale {scale:.3g}, tol "
+                    f"{tol * scale:.3e})")
+                if out.dtype != dtype or not finite or err > tol * scale:
+                    raise AssertionError(f"{label} {dtype} clips {b}: "
+                                         f"err {err} > {tol * scale}")
+                if b == CLIPS_PER_REQUEST and count:
+                    worst[dtype] = max(worst[dtype], err)
+        # timing at the request batch, in the serving dtype
+        b, dtype = CLIPS_PER_REQUEST, torch.bfloat16
+        q, k, v = (rn(b, n, d, dtype=dtype), rn(b, m, d, dtype=dtype),
+                   rn(b, m, c, dtype=dtype))
+        big = b * n * m > 2 ** 30  # the 32768-token rows: few repetitions
+        k_ms = cuda_ms(lambda: flash_attention(q, k, v),
+                       iters=2 if big else 10, reps=3 if big else 5)
+        p_ms = cuda_ms(lambda: chunked_attention(q, k, v), iters=1, reps=3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], scale=1.0),
+            iters=2 if big else 10, reps=3 if big else 5)
+        flops, nbytes, exps = attention_cost(b, n, m, d, c)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_exp = exps / EXP_RATE * 1e3
+        bound = max(t_ops, t_bytes, t_exp)
+        by = "bytes" if t_bytes == bound else "operations"
+        log("attention", f"{label:16s} bf16 N {n} M {m} D {d} C {c} x{count}"
+            f" per request | kernel {k_ms:.4f} ms | plain {p_ms:.4f} ms | "
+            f"sdpa {lib_ms:.4f} ms | bound {bound:.5f} ms ({by}; tensor "
+            f"cores {t_ops:.5f} ms for {flops / 1e9:.3f} GFLOP, exp "
+            f"{t_exp:.5f} ms for {exps:.3e}, memory {t_bytes:.5f} ms for "
+            f"{nbytes / 1e6:.3f} MB) | {smi}")
+        record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
+                           library_ms=lib_ms, bound_ms=bound, bound_by=by))
+    log("attention", f"worst max_abs_err at the request batch on the CMDA "
+        f"path: f32 {worst[torch.float32]:.3e}, bf16 "
+        f"{worst[torch.bfloat16]:.3e}")
+    return record, worst[torch.bfloat16]
+
+
+def cmda_model(cfg, state):
+    """The CMDA model of ``cfg`` with the calibrated weights ``state``."""
+    from efficient_slowfast_tpu_torch.models import build_model
+
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def phase_cmda(cfg, model, smi):
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    cfg_plain = cmda_cfg(flash=False)
+    counts = serve_and_compare(
+        "cmda", cfg, make_forward(cfg, model),
+        make_forward(cfg_plain, cmda_model(cfg_plain, model.state_dict())),
+        ("flash kernel", "plain attention"),
+        {"fused_bottleneck": 0, "flash_attention": 4 * REQUESTS},
+        CMDA_BF16_ATOL, SEED + 4, smi)
+    return counts["flash_attention"]
+
+
+def phase_cmda_f32(state, smi):
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    cfg, cfg_plain = cmda_cfg("float32"), cmda_cfg("float32", flash=False)
+    compare_one_clip("cmda", cfg, make_forward(cfg, cmda_model(cfg, state)),
+                     make_forward(cfg_plain, cmda_model(cfg_plain, state)),
+                     ("flash kernel", "plain attention"), CMDA_F32_ATOL,
+                     SEED + 5, smi)
+
+
+def per_request(record, key):
+    return sum(r[key] * r["count"] for r in record)
+
+
+def kernel_entry(name, source, replaces, launches, err, record):
+    """One kernel's JSON entry: per-request sums over its main-path rows."""
+    path = [r for r in record if r["count"]]
+    ops_share = sum(r["bound_ms"] * r["count"] for r in path
+                    if r["bound_by"] == "operations") / per_request(
+                        path, "bound_ms")
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=err, ms=per_request(path, "ms"),
+        plain_ms=per_request(path, "plain_ms"),
+        bound_ms=per_request(path, "bound_ms"),
+        bound_by="operations" if ops_share >= 0.5 else "bytes",
+        library_ms=per_request(path, "library_ms"))
 
 
 def main():
@@ -406,23 +674,34 @@ def main():
     phase_build()
     cfg = serving_cfg()
     model = serving_model(cfg, SEED)
-    record, err = phase_kernels(cfg, model, smi)
-    launches = phase_serving(cfg, model, smi)
+    k1_record, k1_err = phase_kernels(cfg, model, smi)
+    k1_launches = phase_serving(cfg, model, smi)
     del model
     torch.cuda.empty_cache()
     phase_serving_f32(smi)
+    torch.cuda.empty_cache()
 
-    total = lambda key: sum(r[key] * r["count"] for r in record)
-    ops_share = sum(r["bound_ms"] * r["count"] for r in record
-                    if r["bound_by"] == "operations") / total("bound_ms")
-    kernels = [dict(
-        name="fused_bottleneck", route="cuda",
-        source="efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
-        replaces="efficient_slowfast_tpu/ops/pallas/fused_bottleneck.py:200",
-        launches=launches, max_abs_err=err, ms=total("ms"),
-        plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-        bound_by="operations" if ops_share >= 0.5 else "bytes",
-        library_ms=total("library_ms"))]
+    cfg = cmda_cfg()
+    model = serving_model(cfg, SEED)
+    k2_record, k2_err = phase_attention(attention_rows(cfg, model), smi)
+    calibrate_attention(cfg, model, SEED + 6)
+    k2_launches = phase_cmda(cfg, model, smi)
+    state = model.state_dict()
+    del model
+    torch.cuda.empty_cache()
+    phase_cmda_f32(state, smi)
+
+    kernels = [
+        kernel_entry(
+            "fused_bottleneck",
+            "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
+            "efficient_slowfast_tpu/ops/pallas/fused_bottleneck.py:200",
+            k1_launches, k1_err, k1_record),
+        kernel_entry(
+            "flash_attention",
+            "efficient_slowfast_tpu_torch/csrc/flash_attention.cu",
+            "efficient_slowfast_tpu/ops/pallas/flash_attention.py:112",
+            k2_launches, k2_err, k2_record)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

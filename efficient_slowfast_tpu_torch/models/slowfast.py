@@ -52,82 +52,106 @@ def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 4, 1, 2, 3)
 
 
+def check_unported(cfg) -> None:
+    """Refuse the SlowFast-trunk options this package does not implement."""
+    if cfg.DETECTION.ENABLE:
+        raise NotImplementedError(
+            "detection is not ported to PyTorch yet (ROADMAP: detection)")
+    if cfg.MODEL.SLOW_PATHWAY_HEAD:
+        raise NotImplementedError(
+            "MODEL.SLOW_PATHWAY_HEAD is not ported to PyTorch yet")
+
+
+def stem(cfg, tk0, norm, dtype) -> VideoModelStem:
+    """Stage s1: one (kT, 7, 7) stem per pathway; ``tk0`` holds the two
+    temporal kernel sizes."""
+    w, beta = cfg.RESNET.WIDTH_PER_GROUP, cfg.SLOWFAST.BETA_INV
+    return VideoModelStem(
+        dim_in=cfg.DATA.INPUT_CHANNEL_NUM,
+        dim_out=[w, w // beta],
+        kernel=[tk0[0] + [7, 7], tk0[1] + [7, 7]],
+        stride=[[1, 2, 2]] * 2,
+        padding=[[tk0[0][0] // 2, 3, 3], [tk0[1][0] // 2, 3, 3]],
+        norm=norm, dtype=dtype)
+
+
+def res_stage(cfg, idx, dim_in, norm, dtype) -> ResStage:
+    """Stage s{idx + 2} of a two-pathway trunk, taking ``dim_in`` channels
+    per pathway (the lateral fusion before it decides them)."""
+    w = cfg.RESNET.WIDTH_PER_GROUP
+    num_groups = cfg.RESNET.NUM_GROUPS
+    beta = cfg.SLOWFAST.BETA_INV
+    mult = 2 ** idx  # output 4·w·mult, bottleneck w·mult
+    return ResStage(
+        dim_in=dim_in,
+        dim_out=[w * 4 * mult, w * 4 * mult // beta],
+        dim_inner=[num_groups * w * mult, num_groups * w * mult // beta],
+        temp_kernel_sizes=_TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH][idx + 1],
+        stride=cfg.RESNET.SPATIAL_STRIDES[idx],
+        num_blocks=[_MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH][idx]] * 2,
+        num_groups=[num_groups] * 2,
+        num_block_temp_kernel=cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[idx],
+        nonlocal_inds=cfg.NONLOCAL.LOCATION[idx],
+        trans_func_name=cfg.RESNET.TRANS_FUNC,
+        stride_1x1=cfg.RESNET.STRIDE_1X1,
+        dilation=cfg.RESNET.SPATIAL_DILATIONS[idx],
+        zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
+        norm=norm, dtype=dtype)
+
+
+def basic_head(cfg, pool1, dtype) -> ResNetBasicHead:
+    """The head over s5's two pathways; its window is the training crop's
+    (s5 is 1/32 of it) after the ``pool1`` pools."""
+    w, beta = cfg.RESNET.WIDTH_PER_GROUP, cfg.SLOWFAST.BETA_INV
+    t, a, s = cfg.DATA.NUM_FRAMES, cfg.SLOWFAST.ALPHA, cfg.DATA.CROP_SIZE
+    return ResNetBasicHead(
+        dim_in=[w * 32, w * 32 // beta],
+        num_classes=cfg.MODEL.NUM_CLASSES,
+        pool_size=None if cfg.MULTIGRID.SHORT_CYCLE else [
+            [t // a // pool1[0][0], s // 32 // pool1[0][1],
+             s // 32 // pool1[0][2]],
+            [t // pool1[1][0], s // 32 // pool1[1][1], s // 32 // pool1[1][2]],
+        ],
+        dropout_rate=cfg.MODEL.DROPOUT_RATE,
+        act_func=cfg.MODEL.HEAD_ACT,
+        fc_init_std=cfg.MODEL.FC_INIT_STD,
+        dtype=dtype)
+
+
 @MODEL_REGISTRY.register()
 class SlowFast(nn.Module):
     """Two-pathway SlowFast network (stages s1–s5, fuse after s1–s4)."""
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.DETECTION.ENABLE:
-            raise NotImplementedError(
-                "detection is not ported to PyTorch yet (ROADMAP: detection)")
-        if cfg.MODEL.SLOW_PATHWAY_HEAD:
-            raise NotImplementedError(
-                "MODEL.SLOW_PATHWAY_HEAD is not ported to PyTorch yet")
+        check_unported(cfg)
         dtype = get_compute_dtype(cfg)
         norm = get_norm(cfg)
         self.pool_size = _POOL1[cfg.MODEL.ARCH]
-        depth = _MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH]
         w = cfg.RESNET.WIDTH_PER_GROUP
-        num_groups = cfg.RESNET.NUM_GROUPS
-        dim_inner = num_groups * w
         beta = cfg.SLOWFAST.BETA_INV
         ratio = cfg.SLOWFAST.FUSION_CONV_CHANNEL_RATIO
-        tk = _TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH]
-
-        self.s1 = VideoModelStem(
-            dim_in=cfg.DATA.INPUT_CHANNEL_NUM,
-            dim_out=[w, w // beta],
-            kernel=[tk[0][0] + [7, 7], tk[0][1] + [7, 7]],
-            stride=[[1, 2, 2]] * 2,
-            padding=[[tk[0][0][0] // 2, 3, 3], [tk[0][1][0] // 2, 3, 3]],
-            norm=norm, dtype=dtype)
 
         def fuse(fast_dim):
             return FuseFastToSlow(fast_dim, ratio,
                                   cfg.SLOWFAST.FUSION_KERNEL_SZ,
                                   cfg.SLOWFAST.ALPHA, norm=norm, dtype=dtype)
 
-        def stage(idx, slow_in, fast_in, mult):
-            return ResStage(
-                dim_in=[slow_in + fast_in * ratio, fast_in],
-                dim_out=[w * mult, w * mult // beta],
-                dim_inner=[dim_inner * mult // 4,
-                           dim_inner * mult // 4 // beta],
-                temp_kernel_sizes=tk[idx + 1],
-                stride=cfg.RESNET.SPATIAL_STRIDES[idx],
-                num_blocks=[depth[idx]] * 2,
-                num_groups=[num_groups] * 2,
-                num_block_temp_kernel=cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[idx],
-                nonlocal_inds=cfg.NONLOCAL.LOCATION[idx],
-                trans_func_name=cfg.RESNET.TRANS_FUNC,
-                stride_1x1=cfg.RESNET.STRIDE_1X1,
-                dilation=cfg.RESNET.SPATIAL_DILATIONS[idx],
-                zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
-                norm=norm, dtype=dtype)
+        def stage(idx, slow_in, fast_in):
+            return res_stage(cfg, idx, [slow_in + fast_in * ratio, fast_in],
+                             norm, dtype)
 
+        self.s1 = stem(cfg, _TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH][0], norm,
+                       dtype)
         self.s1_fuse = fuse(w // beta)
-        self.s2 = stage(0, w, w // beta, 4)
+        self.s2 = stage(0, w, w // beta)
         self.s2_fuse = fuse(w * 4 // beta)
-        self.s3 = stage(1, w * 4, w * 4 // beta, 8)
+        self.s3 = stage(1, w * 4, w * 4 // beta)
         self.s3_fuse = fuse(w * 8 // beta)
-        self.s4 = stage(2, w * 8, w * 8 // beta, 16)
+        self.s4 = stage(2, w * 8, w * 8 // beta)
         self.s4_fuse = fuse(w * 16 // beta)
-        self.s5 = stage(3, w * 16, w * 16 // beta, 32)
-
-        ps = self.pool_size
-        t, a, s = cfg.DATA.NUM_FRAMES, cfg.SLOWFAST.ALPHA, cfg.DATA.CROP_SIZE
-        self.head = ResNetBasicHead(
-            dim_in=[w * 32, w * 32 // beta],
-            num_classes=cfg.MODEL.NUM_CLASSES,
-            pool_size=None if cfg.MULTIGRID.SHORT_CYCLE else [
-                [t // a // ps[0][0], s // 32 // ps[0][1], s // 32 // ps[0][2]],
-                [t // ps[1][0], s // 32 // ps[1][1], s // 32 // ps[1][2]],
-            ],
-            dropout_rate=cfg.MODEL.DROPOUT_RATE,
-            act_func=cfg.MODEL.HEAD_ACT,
-            fc_init_std=cfg.MODEL.FC_INIT_STD,
-            dtype=dtype)
+        self.s5 = stage(3, w * 16, w * 16 // beta)
+        self.head = basic_head(cfg, self.pool_size, dtype)
 
     def forward(self, x):
         x = self.s1([to_ncdhw(xi) for xi in x])

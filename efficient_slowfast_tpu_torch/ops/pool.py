@@ -1,8 +1,9 @@
-"""Pooling of NCDHW tensors (port of ``ops/pool.py:21-47``).
+"""Pooling of NCDHW tensors (port of ``ops/pool.py:21-67``).
 
 Torch-style symmetric integer padding; max pooling pads with -inf and
 average pooling counts the padding (``count_include_pad=True``), as the
-JAX package does.
+JAX package does. The CMDA fusion's temporal squeeze and expand are here
+too.
 """
 
 from __future__ import annotations
@@ -37,3 +38,20 @@ def avg_pool3d(x: torch.Tensor, kernel, stride=None,
                 f"avg_pool3d window {k} larger than input "
                 f"{tuple(x.shape[2:])} (padding {p})")
     return F.avg_pool3d(x, k, s, p, count_include_pad=True)
+
+
+def temporal_downsample_max(x: torch.Tensor, alpha: int) -> torch.Tensor:
+    """MaxPool3d((alpha, 1, 1)) — CMDA Fast→Slow temporal squeeze
+    (reference: custom_video_model_builder.py:127-135)."""
+    return max_pool3d(x, (alpha, 1, 1), (alpha, 1, 1))
+
+
+def temporal_upsample_nearest(x: torch.Tensor, alpha: int) -> torch.Tensor:
+    """Nearest temporal upsample ×alpha (each frame repeated alpha times) —
+    CMDA Slow→Fast expand (reference: custom_video_model_builder.py:137-146).
+
+    Repeats in the (B, T, H, W, C) view, so a ``channels_last_3d`` input
+    gives a ``channels_last_3d`` output without another copy.
+    """
+    cl = x.permute(0, 2, 3, 4, 1)
+    return cl.repeat_interleave(alpha, dim=1).permute(0, 4, 1, 2, 3)

@@ -14,9 +14,20 @@ names, so the mapping is (naming as in
   s1_fuse/bn/bn/scale                     ↔ s1_fuse.bn.weight
   head/projection/fc/{kernel,bias}        ↔ head.projection.{weight,bias}
 
-Kernels change layout on the way: 5-D DHWIO ↔ OIDHW and 2-D (in, out) ↔
-(out, in). BN's ``num_batches_tracked`` has no JAX counterpart; it is 0
-after conversion.
+CMDA's fusion (``torch_ckpt.py:26-31,52-103``): an ``attention_*`` parent,
+like a stem, keeps its ``conv`` child, and the SpatialAttention's
+projections are renamed:
+
+  s1_fuse/attention_channel_f2s/conv/kernel ↔ s1_fuse.attention_channel_f2s.conv.weight
+  s1_fuse/attention_spatial_s2f/query/conv/{kernel,bias}
+                                   ↔ s1_fuse.attention_spatial_s2f.query_conv.{weight,bias}
+  (key → key_conv, value → value_conv)
+  s1_fuse/attention_spatial_s2f/gamma      ↔ s1_fuse.attention_spatial_s2f.gamma
+  s1_fuse/downsample_c_of_slow/conv/kernel ↔ s1_fuse.downsample_c_of_slow.weight
+
+Kernels change layout on the way: 5-D DHWIO ↔ OIDHW, 3-D (k, in, out) ↔
+(out, in, k) (ECA's Conv1d) and 2-D (in, out) ↔ (out, in). BN's
+``num_batches_tracked`` has no JAX counterpart; it is 0 after conversion.
 """
 
 from __future__ import annotations
@@ -27,8 +38,13 @@ import numpy as np
 import torch
 
 _LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                  "mean": "running_mean", "var": "running_var"}
+                  "mean": "running_mean", "var": "running_var",
+                  "gamma": "gamma"}
 _WRAPPERS = ("conv", "bn", "fc")
+_RENAMES = {"query": "query_conv", "key": "key_conv", "value": "value_conv"}
+_UNRENAMES = {v: k for k, v in _RENAMES.items()}
+# kernel layouts, JAX → torch (the inverse permutation goes back)
+_KERNEL_PERM = {5: (4, 3, 0, 1, 2), 3: (2, 1, 0), 2: (1, 0)}
 
 
 def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[tuple, Any]:
@@ -44,22 +60,26 @@ def _torch_name(path: Tuple[str, ...]) -> str | None:
     *mods, leaf = path
     if leaf not in _LEAF_TO_TORCH:
         return None
-    # drop the layer's wrapper segment; a stem keeps its own .conv/.bn child
-    # (s1/pathway0_stem/conv/conv → s1.pathway0_stem.conv)
+    # drop the layer's wrapper segment; a stem or an attention block keeps
+    # its own .conv/.bn child (s1/pathway0_stem/conv/conv →
+    # s1.pathway0_stem.conv)
     if (len(mods) >= 2 and mods[-1] in _WRAPPERS
-            and (mods[-2] in _WRAPPERS or not mods[-2].endswith("_stem"))):
+            and (mods[-2] in _WRAPPERS or not _keeps_child(mods[-2]))):
         mods = mods[:-1]
-    return ".".join(mods) + "." + _LEAF_TO_TORCH[leaf]
+    return ".".join([_RENAMES.get(m, m) for m in mods]
+                    + [_LEAF_TO_TORCH[leaf]])
+
+
+def _keeps_child(seg: str) -> bool:
+    return seg.endswith("_stem") or seg.startswith("attention_")
 
 
 def _to_torch_layout(leaf: str, v: np.ndarray) -> np.ndarray:
     if leaf != "kernel":
         return v
-    if v.ndim == 5:
-        return np.transpose(v, (4, 3, 0, 1, 2))
-    if v.ndim == 2:
-        return np.transpose(v, (1, 0))
-    raise ValueError(f"no torch layout for a {v.ndim}-D kernel")
+    if v.ndim not in _KERNEL_PERM:
+        raise ValueError(f"no torch layout for a {v.ndim}-D kernel")
+    return np.transpose(v, _KERNEL_PERM[v.ndim])
 
 
 def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
@@ -86,22 +106,25 @@ def state_dict_to_jax_variables(state_dict) -> Dict[str, dict]:
         if suffix == "num_batches_tracked":
             continue
         v = t.detach().float().cpu().numpy()
+        mods = [_UNRENAMES.get(m, m) for m in prefix.split(".")]
         coll = "params"
-        if prefix + ".running_mean" in state_dict:  # a BatchNorm3d
-            wrap, leaf = "bn", {"weight": "scale", "bias": "bias",
-                                "running_mean": "mean",
-                                "running_var": "var"}[suffix]
+        if suffix == "gamma":  # SpatialAttention's γ, a bare parameter
+            wrap, leaf = [], "gamma"
+        elif prefix + ".running_mean" in state_dict:  # a BatchNorm3d
+            wrap, leaf = ["bn"], {"weight": "scale", "bias": "bias",
+                                  "running_mean": "mean",
+                                  "running_var": "var"}[suffix]
             if suffix.startswith("running_"):
                 coll = "batch_stats"
-        else:  # a Conv3d (5-D weight) or a Linear (2-D weight)
-            wrap = "conv" if state_dict[prefix + ".weight"].dim() == 5 else "fc"
+        else:  # a Conv3d (5-D), ECA's Conv1d (3-D) or a Linear (2-D)
+            ndim = state_dict[prefix + ".weight"].dim()
+            # Conv1d is a bare flax nn.Conv: no wrapper segment
+            wrap = {5: ["conv"], 3: [], 2: ["fc"]}[ndim]
             leaf = "kernel" if suffix == "weight" else "bias"
-            if v.ndim == 5:
-                v = np.transpose(v, (2, 3, 4, 1, 0))
-            elif v.ndim == 2:
-                v = np.transpose(v, (1, 0))
+            if suffix == "weight":
+                v = np.transpose(v, np.argsort(_KERNEL_PERM[ndim]))
         d = out[coll]
-        for m in prefix.split(".") + [wrap]:
+        for m in mods + wrap:
             d = d.setdefault(m, {})
         d[leaf] = np.ascontiguousarray(v)
     return out

@@ -1,0 +1,126 @@
+"""The port's flash attention (plain version, wrapper checks) against the JAX
+package's chunked attention, a dense softmax, and the Pallas kernel body
+itself run in interpret mode, f32 on the CPU.
+
+The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it against
+``chunked_attention`` there."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from efficient_slowfast_tpu.ops.pallas import flash_attention as jfa
+from efficient_slowfast_tpu_torch.ops.kernels import flash_attention as tfa
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+CASES = {
+    # (B, N, M, D, C, chunk): tests/test_flash_attention.py:24-37, then a
+    # ragged M != N and a D != C case
+    "n700_chunk256": (2, 700, 700, 8, 16, 256),
+    "n130_chunk64_padded": (2, 130, 130, 8, 16, 64),
+    "ragged_m": (2, 300, 130, 8, 16, 64),
+    "d_ne_c": (1, 200, 333, 4, 24, 128),
+}
+
+
+def _qkv(b, n, m, d, c, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, n, d).astype(np.float32),
+            rs.randn(b, m, d).astype(np.float32),
+            rs.randn(b, m, c).astype(np.float32))
+
+
+def _dense(q, k, v):
+    logits = np.einsum("bnd,bmd->bnm", q.astype(np.float64),
+                       k.astype(np.float64))
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return np.einsum("bnm,bmc->bnc", p / p.sum(-1, keepdims=True), v)
+
+
+def _port(q, k, v, **kw):
+    return tfa.chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 **kw).numpy()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chunked_matches_jax_chunked_and_dense(case):
+    b, n, m, d, c, chunk = CASES[case]
+    q, k, v = _qkv(b, n, m, d, c)
+    ref = np.asarray(jfa.chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), chunk=chunk))
+    out = _port(q, k, v, chunk=chunk)
+    assert out.shape == (b, n, c) and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(out, _dense(q, k, v), **TOL)
+
+
+@pytest.mark.parametrize("b,n,d,c,block_q,block_k", [
+    (1, 512, 8, 8, 256, 256),
+    (2, 512, 4, 12, 128, 256),
+])
+def test_chunked_matches_pallas_kernel_interpret(monkeypatch, b, n, d, c,
+                                                 block_q, block_k):
+    # the Pallas body binds ``pl`` when _flash_forward first runs
+    monkeypatch.setattr(jfa, "pl", pl, raising=False)
+    q, k, v = _qkv(b, n, n, d, c, seed=1)
+    call = pl.pallas_call(
+        functools.partial(jfa._flash_kernel, block_k=block_k),
+        out_shape=jax.ShapeDtypeStruct((b, n, c), jnp.float32),
+        grid=(b, n // block_q),
+        in_specs=[pl.BlockSpec((1, block_q, d), lambda bi, qi: (bi, qi, 0)),
+                  pl.BlockSpec((1, n, d), lambda bi, qi: (bi, 0, 0)),
+                  pl.BlockSpec((1, n, c), lambda bi, qi: (bi, 0, 0))],
+        out_specs=pl.BlockSpec((1, block_q, c), lambda bi, qi: (bi, qi, 0)),
+        interpret=True)
+    ref = np.asarray(call(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    np.testing.assert_allclose(_port(q, k, v), ref, **TOL)
+
+
+def test_bf16_inputs_are_upcast_and_the_output_is_bf16():
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(1, 96, 80, 8, 8))
+    out = tfa.chunked_attention(q, k, v, chunk=32)
+    assert out.dtype == torch.bfloat16
+    ref = tfa.chunked_attention(q.float(), k.float(), v.float(), chunk=32)
+    torch.testing.assert_close(out, ref.bfloat16(), rtol=0, atol=0)
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 130, 70, 8, 16))
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v)
+    torch.testing.assert_close(out, tfa.chunked_attention(q, k, v),
+                               rtol=0, atol=0)
+    assert tfa.flash_attention.launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("bad", ["d_over_128", "c_over_128", "int_dtype",
+                                 "mixed_dtype", "batch_mismatch",
+                                 "keys_mismatch", "d_mismatch", "rank"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    b, n, m, d, c = 2, 16, 24, 8, 8
+    shapes = {"q": (b, n, d), "k": (b, m, d), "v": (b, m, c)}
+    dtypes = dict.fromkeys(shapes, torch.float32)
+    if bad == "d_over_128":
+        shapes.update(q=(b, n, 129), k=(b, m, 129))
+    elif bad == "c_over_128":
+        shapes["v"] = (b, m, 129)
+    elif bad == "int_dtype":
+        dtypes = dict.fromkeys(shapes, torch.int32)
+    elif bad == "mixed_dtype":
+        dtypes["v"] = torch.bfloat16
+    elif bad == "batch_mismatch":
+        shapes["k"] = (b + 1, m, d)
+    elif bad == "keys_mismatch":
+        shapes["v"] = (b, m + 1, c)
+    elif bad == "d_mismatch":
+        shapes["k"] = (b, m, d + 1)
+    elif bad == "rank":
+        shapes["q"] = (b * n, d)
+    args = [torch.zeros(shapes[x], dtype=dtypes[x]) for x in "qkv"]
+    with pytest.raises((ValueError, TypeError)):
+        tfa.flash_attention(*args)

@@ -1,6 +1,8 @@
 """Shared set-up of the PyTorch-port parity tests: one small SlowFast-R50
-config for both packages, seeded inputs, and JAX variables with jittered BN
-statistics (as tests/test_inference_engine.py:68-83 jitters them)."""
+(or CMDA-R50) config for both packages, seeded inputs, and JAX variables
+with jittered BN statistics (as tests/test_inference_engine.py:68-83
+jitters them) and, for CMDA, a non-zero attention γ and seeded attention
+biases, so that the attention reaches the output."""
 
 import functools
 
@@ -18,11 +20,13 @@ from efficient_slowfast_tpu_torch.utils.weights import \
 
 
 def small_cfg(get_cfg=torch_get_cfg, fused=False, depth=50,
-              trans="bottleneck_transform"):
+              trans="bottleneck_transform", model="SlowFast",
+              flash_min_tokens=1024):
     """SlowFast (R50 by default) at width 16, 8 frames, α 4, crop 64, 12
-    classes, f32."""
+    classes, f32; ``model`` "SlowFastDualAttention" gives CMDA, whose
+    s1/s2 fusions attend over 512 tokens and s3/s4 over 128 and 32."""
     cfg = get_cfg()
-    cfg.MODEL.MODEL_NAME = "SlowFast"
+    cfg.MODEL.MODEL_NAME = model
     cfg.MODEL.ARCH = "slowfast"
     cfg.MODEL.NUM_CLASSES = 12
     cfg.RESNET.DEPTH = depth
@@ -43,6 +47,7 @@ def small_cfg(get_cfg=torch_get_cfg, fused=False, depth=50,
     cfg.DATA.TEST_CROP_SIZE = 64
     cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.TPU.FUSED_EVAL = fused
+    cfg.TPU.FLASH_MIN_TOKENS = flash_min_tokens
     return cfg
 
 
@@ -74,6 +79,24 @@ def _numpy_tree(tree):
             for k, v in tree.items()}
 
 
+def attention_params(tree, rs, inside=False):
+    """Params with every SpatialAttention's γ set to 0.5 (it starts at 0,
+    where the attention never reaches the output) and its q/k/v biases
+    drawn from ``rs``."""
+    out = {}
+    for k, v in tree.items():
+        here = inside or k.startswith("attention_spatial")
+        if hasattr(v, "items"):
+            out[k] = attention_params(v, rs, here)
+        elif here and k == "gamma":
+            out[k] = np.full_like(v, 0.5)
+        elif here and k == "bias":
+            out[k] = (0.1 * rs.randn(*v.shape)).astype(v.dtype)
+        else:
+            out[k] = v
+    return out
+
+
 def jax_model_and_variables(inputs, **kw):
     """The JAX model of ``small_cfg`` and its numpy variables (BN jittered)."""
     cfg = small_cfg(jax_get_cfg, **kw)
@@ -81,12 +104,15 @@ def jax_model_and_variables(inputs, **kw):
     rng = jax.random.PRNGKey(0)
     variables = jax.jit(functools.partial(model.init, train=False))(
         {"params": rng, "dropout": rng}, [jnp.asarray(x) for x in inputs])
-    return model, {"params": _numpy_tree(variables["params"]),
+    params = attention_params(_numpy_tree(variables["params"]),
+                              np.random.RandomState(1))
+    return model, {"params": params,
                    "batch_stats": _jitter(variables["batch_stats"], [0])}
 
 
 def port_model(variables, **kw):
-    """The port's SlowFast on the CPU, loaded with the JAX variables."""
+    """The port's model of ``small_cfg(**kw)`` on the CPU, loaded with the
+    JAX variables."""
     cfg = small_cfg(**kw)
     model = torch_build_model(cfg, device="cpu")
     model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
