@@ -9,7 +9,11 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
 2. build    — compiles the port's CUDA kernels from csrc/ (one nvcc each, in
-              parallel) and prints the build seconds and ptxas's report.
+              parallel) and prints the build seconds and ptxas's report per
+              kernel; counts the tensor-core instructions (HMMA, HGMMA) in
+              the flash-attention library's SASS, raising if there are
+              none, and the FP32-pipe instructions per MUFU.EX2 in the main
+              loop of its bf16 kernels.
 3. kernels  — every stride-1 bottleneck shape of SlowFast-R50 8x8 serving
               (the K1 shape table) through the fused kernel against its plain
               version, in float32 and bfloat16, at 1 clip and at the request
@@ -17,11 +21,13 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               version and the same block unfused through the port's
               nn.Module (cuDNN), beside the block's bound on an H100.
 3b. attention — the flash-attention kernel against its plain version at
-              the four CMDA-R50 shapes (one per lateral fusion) and two
-              off-path shapes (ragged keys; pooled non-local keys), in
-              float32 and bfloat16, at 1 clip and at the request batch; at
-              the request batch it also times the kernel, the plain version
-              and scaled_dot_product_attention, beside the shape's bound.
+              the four CMDA-R50 shapes (one per lateral fusion) and five
+              off-path shapes (ragged keys; pooled non-local keys; three on
+              the bf16 kernel's tile edges), in float32 and bfloat16, at 1
+              clip and at the request batch; at the request batch it also
+              times the kernel, the plain version and
+              scaled_dot_product_attention, beside the shape's bound, and
+              prints the kernel's ratio to each.
 4. serving  — SlowFast-R50 8x8 at full width (400 classes, 32 frames,
               256² test crop, bf16, TPU.FUSED_EVAL) on seeded random weights
               made in the JAX package's layout and carried across by the
@@ -47,6 +53,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -83,9 +90,19 @@ SERVE_F32_ATOL = 1e-4
 # summation order (up to 128-term dot products, 32768-key softmax sums) and
 # exp2 against exp, both within a few f32 ulps; 1e-4 of the output's scale.
 ATTN_F32_TOL = 1e-4
-# attention, bfloat16: both sides upcast the same bf16 inputs to float32 and
-# round the float32 result once, so they differ by at most one bf16 ulp of
-# the output, 2^-7 of its magnitude or less; 1e-2 of the output's scale.
+# attention, bfloat16: both sides take float32 logits of the same bf16 q
+# and k (exact products, sums in another order) and run the softmax in
+# float32, but the kernel rounds each probability p_j to bf16 once before
+# its tensor-core product with v, where the plain version keeps float32.
+# The output is sum_j w_j v_j with w_j = p_j / sum_i p_i; the kernel takes
+# the row sum from the unrounded probabilities, so each of its weights is
+# w_j (1 + e_j) with |e_j| <= 2^-9, which moves the output by at most
+# sum_j w_j |e_j| |v_j| <= 2^-9 max|v|. Each side then rounds its output to
+# bf16 (half an ulp, at most 2^-8 of its magnitude), so the two differ by
+# at most 2^-9 max|v| + 2^-7 of the output's scale: within 1e-2 of that
+# scale while max|v| is within 1.1 times it, and in practice far inside,
+# as the e_j have random signs and average out over the keys a row
+# attends to. 1e-2 of the output's scale.
 ATTN_BF16_TOL = 1e-2
 # CMDA serving against its plain-attention path: bf16 attention outputs that
 # differ by one ulp pass through the rest of the network in bf16, as K1's do
@@ -104,9 +121,14 @@ ATTN_LOGIT_STD = 3.0
 # throughput for compute capability 9.0, CUDA C programming guide), 132 SMs
 # at the 1.98 GHz maximum boost clock (NVIDIA data sheet)
 EXP_RATE = 16 * 132 * 1.98e9
-# the two shapes beside the CMDA path: (label, N, M, D, C)
+# the shapes beside the CMDA path: (label, N, M, D, C); the last three sit
+# on the bf16 kernel's tile edges (N not a multiple of its 64- or 128-row
+# blocks, M not of its 64-key tiles, D and C not multiples of 16 or 8)
 ATTN_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
-                 ("pooled non-local", 3136, 784, 64, 64)]
+                 ("pooled non-local", 3136, 784, 64, 64),
+                 ("ragged tiles", 2085, 1057, 32, 32),
+                 ("d 4 c 24", 200, 333, 4, 24),
+                 ("c 100", 1500, 777, 64, 100)]
 
 
 def log(phase, msg):
@@ -172,11 +194,73 @@ def phase_build():
     t0 = time.perf_counter()
     reports = _build.build()
     for name, out in reports.items():
+        func = "?"
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log("build", f"{name}: {line.strip()}")
+            entry = re.search(r"entry function '\w*?\d([a-z_]+kernel)I(\w+?)EE",
+                              line)
+            if entry:  # e.g. flash_attention_tc_kernel<32,32>
+                args = re.findall(r"__nv_bfloat16|^f|(?<=L[ib])\d+",
+                                  entry.group(2))
+                func = entry.group(1) + "<" + ",".join(
+                    {"__nv_bfloat16": "bf16", "f": "float"}.get(a, a)
+                    for a in args) + ">"
+            elif "registers" in line or "spill" in line or "error" in line:
+                log("build", f"{name}: {func}: {line.split(':', 1)[-1].strip()}")
     log("build", f"built {sorted(reports) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    # cuobjdump ships beside nvcc in the CUDA toolkit
+    sass_counts(os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+                _build.lib_path("flash_attention"))
+
+
+SASS_OPS = ("HMMA", "HGMMA", "MUFU.EX2", "FFMA", "FADD", "FMUL", "FMNMX",
+            "F2FP")
+
+
+def sass_counts(tool, lib):
+    """Count K2's tensor-core instructions in its SASS, raising if its bf16
+    kernels have none; and, in the main loop of each D = C instantiation
+    (the loop whose body holds the most MUFU.EX2: 32 logits and 2
+    rescales per tile and warp lane), the FP32-pipe instructions per
+    MUFU.EX2."""
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    total = dict.fromkeys(("HMMA", "HGMMA"), 0)
+    for func in sass.split("Function : ")[1:]:
+        shape = re.search(r"flash_attention_tc_kernelILi(\d+)ELi(\d+)E",
+                          func.split("\n", 1)[0])
+        if not shape:
+            continue
+        # (address, opcode and its first modifier, operands): "HMMA.16816"
+        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+            r"([A-Z0-9_]+(?:\.[A-Z0-9_]+)?)([^;]*);", func)]
+        count = lambda ops: {op: sum(o == op or o.startswith(op + ".")
+                                     for o in ops) for op in SASS_OPS}
+        n = count([o for _, o, _ in ins])
+        total["HMMA"] += n["HMMA"]
+        total["HGMMA"] += n["HGMMA"]
+        dp, cp = int(shape.group(1)), int(shape.group(2))
+        if dp != cp:
+            continue
+        loops = [(int(t.group(1), 16), a) for a, o, rest in ins
+                 if o.split(".")[0] == "BRA"
+                 and (t := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(t.group(1), 16) < a]
+        ex2_in = lambda span: sum(span[0] <= a <= span[1] and o == "MUFU.EX2"
+                                  for a, o, _ in ins)
+        lo, hi = max(loops, key=ex2_in, default=(0, ins[-1][0]))
+        body = count([o for a, o, _ in ins if lo <= a <= hi])
+        fp32 = sum(body[op] for op in ("FFMA", "FADD", "FMUL", "FMNMX",
+                                       "F2FP"))
+        log("build", f"flash_attention bf16 DP {dp} CP {cp} main loop: "
+            + ", ".join(f"{op} {body[op]}" for op in SASS_OPS)
+            + f"; FP32-pipe per MUFU.EX2 {fp32 / max(body['MUFU.EX2'], 1):.2f}")
+    log("build", f"flash_attention bf16 kernels: HMMA {total['HMMA']}, "
+        f"HGMMA {total['HGMMA']} in the SASS")
+    if not total["HMMA"] + total["HGMMA"]:
+        raise AssertionError("K2's bf16 kernels use no tensor-core "
+                             "instruction (no HMMA or HGMMA in the SASS)")
 
 
 # ---------------------------------------------------------------------------
@@ -606,7 +690,8 @@ def phase_attention(rows, smi):
         by = "bytes" if t_bytes == bound else "operations"
         log("attention", f"{label:16s} bf16 N {n} M {m} D {d} C {c} x{count}"
             f" per request | kernel {k_ms:.4f} ms | plain {p_ms:.4f} ms | "
-            f"sdpa {lib_ms:.4f} ms | bound {bound:.5f} ms ({by}; tensor "
+            f"sdpa {lib_ms:.4f} ms | kernel/bound {k_ms / bound:.2f}, "
+            f"kernel/sdpa {k_ms / lib_ms:.2f} | bound {bound:.5f} ms ({by}; tensor "
             f"cores {t_ops:.5f} ms for {flops / 1e9:.3f} GFLOP, exp "
             f"{t_exp:.5f} ms for {exps:.3e}, memory {t_bytes:.5f} ms for "
             f"{nbytes / 1e6:.3f} MB) | {smi}")

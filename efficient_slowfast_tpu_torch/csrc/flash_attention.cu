@@ -7,12 +7,12 @@
 // It computes, for q (B, N, D), k (B, M, D), v (B, M, C) in float32 or
 // bfloat16, with no scale on the logits:
 //   out[b, i] = sum_j softmax_j(q[b, i] . k[b, j]) v[b, j]
-// upcasting every input to f32, with the softmax running online over key
-// tiles (running max, running sum, f32 accumulator), dividing by
-// max(row_sum, 1e-30) and writing v's dtype, as the TPU kernel does. Unlike
-// the TPU kernel it masks a key count that is not a multiple of the tile
-// (keys >= M get logit -inf) and skips query rows >= N, and it takes any M.
-// D and C range over 1..128.
+// with f32 logits, the softmax running online over key tiles (running max,
+// running sum, f32 accumulator), dividing by max(row_sum, 1e-30) and
+// writing v's dtype, as the TPU kernel does. Unlike the TPU kernel it masks
+// a key count that is not a multiple of the tile (keys >= M get logit -inf)
+// and skips query rows >= N, and it takes any M. D and C range over 1..128,
+// B up to 65535.
 //
 // What bounds it on the H100 at the CMDA-R50 serving shapes (bf16, 4 clips
 // of 32 frames at 256^2; N = M = 32768, 32768, 8192, 2048 with
@@ -20,10 +20,52 @@
 // 11000 operations per byte, so it is bound by operations, not bytes:
 // 764.5 GFLOP is 0.77 ms at the bf16 tensor-core peak, and the N*M
 // exponentials (8.9e9) are 2.1 ms at 16 per clock per SM, which is the
-// tighter floor where C = 8. chip_smoke.py computes both per shape.
+// tighter floor where D = C <= 32. chip_smoke.py computes both per shape.
 //
-// Design (a first, simple version; products are scalar f32 FMAs on the CUDA
-// cores, so it runs far above that floor): a block of 256 threads owns 64
+// bfloat16 (serving): both products on the tensor cores, FA2-style
+// (flash_attention_tc_kernel; mma.sync m16n8k16, bf16 in, f32 accumulated,
+// helpers in tensor_core.cuh). A warp owns 16 query rows of one batch
+// entry; a block has 8 warps (128 rows), or 4 where D or C is 128, so that
+// s4_fuse's 8192 rows still give every SM a block. D and C are zero-padded
+// to DP, CP in {16, 32, 64, 128} in shared memory.
+//   - q is copied to shared memory once and each warp keeps its 16 rows as
+//     A fragments in registers (ldmatrix).
+//   - k and v stream in tiles of 64 keys through a ring of three buffers
+//     filled by 16-byte cp.async copies (zero-filled past M and past D or
+//     C), a fixed, unrolled count per thread; one __syncthreads per tile.
+//     Shared rows are padded by 16 bytes, so that the 8 rows of each
+//     ldmatrix phase fall on 8 different bank groups (no conflicts, no
+//     swizzle needed). Rows that are not 16-byte chunks (D or C not a
+//     multiple of 8, or an unaligned pointer) take element-wise loads.
+//   - S = q k^T: k is the B operand in its row-major (M, D) layout
+//     (ldmatrix, no transpose), 16 x 64 logits per warp in f32. A warp
+//     computes the next tile's S beside this tile's softmax: the two are
+//     independent, so the tensor cores work while the exponentials wait.
+//   - Softmax on S's accumulator registers: the four lanes of a quad own a
+//     row; the tile's row max takes two shuffles, the accumulator and the
+//     lane's part of the row sum are rescaled once per tile by
+//     ex2((old max - new max) log2 e), and each probability is one FFMA
+//     (log2 e and the max folded in) and one MUFU.EX2. The row sum adds the
+//     unrounded f32 probabilities; the quad's parts meet once, at the end.
+//     Only the last tile, where M is ragged, masks keys >= M (a separate
+//     instance of the step).
+//   - P is rounded once to bf16 (cvt.rn.bf16x2, two per instruction) and
+//     the S accumulator registers become the A fragments of O += P v
+//     directly, with no trip through shared memory; v is the B operand via
+//     ldmatrix.trans of its row-major (M, C) layout.
+//   FP32-pipe instructions per logit in the loop, by design: FMNMX 1 (max),
+//   FFMA 1, FADD 1 (sum), F2FP 1/2, and the rescale's FMULs, CP/64 per
+//   logit (amortised over the tile's 64 keys): 3.75 at D = C = 8 and 4 at
+//   32, within the 8 that the ex2 rate leaves room for (128 FP32 lanes
+//   against 16 MUFU.EX2 per clock per SM). chip_smoke.py counts them in
+//   the main loop of the SASS.
+// Rounding P to bf16 is what the TPU kernel does not do (it keeps P in f32
+// for P v) and what FA2/FA3, SDPA and the JAX package's own dense path
+// (ops/attention.py:57-58) do; chip_smoke.py's ATTN_BF16_TOL argues the
+// error (at most 2^-9 max|v| before the output's own rounding).
+//
+// float32 (the tolerance checks): a first, simple version with scalar f32
+// FMAs on the CUDA cores (flash_attention_kernel): a block of 256 threads owns 64
 // query rows of one batch entry and keeps its q tile in shared memory. It
 // streams the keys in tiles of 64:
 //   1. S = q k^T for the 64 x 64 tile, each thread a 4 x 4 register tile over
@@ -45,6 +87,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -58,14 +105,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Floats of shared memory: q^T and k^T (d x kLdT each), v (kBK x (cp + kPad)),
 // logits (kBQ x kLdT).
@@ -263,13 +304,312 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b,
   return launch<T, 128>(q, k, v, out, b, n, m, d, c, s);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBK = 64;     // keys of one tile
+constexpr int kTcNT = kTcBK / 8;  // 8-key column tiles of a logit tile
+constexpr int kTcStages = 3;  // k/v tile buffers: two read, one filling
+constexpr int kTcPad = 8;     // bf16 padding of each shared row (16 bytes)
+
+// Shared memory of the bf16 kernel: q (rows x DP), then kTcStages k tiles
+// (kTcBK x DP) and kTcStages v tiles (kTcBK x CP), rows padded by kTcPad.
+__host__ __device__ inline size_t tc_smem_bytes(int rows, int dp, int cp) {
+  return sizeof(bf16) * ((size_t)(rows + kTcStages * kTcBK) * (dp + kTcPad) +
+                         (size_t)kTcStages * kTcBK * (cp + kTcPad));
+}
+
+// Rows r0 .. r0 + kRowsT - 1 of a (count x w) matrix into shared rows of
+// WP + kTcPad elements, zero-padded to WP columns and past count, by the
+// kThreads threads of the block. vec: w is a multiple of 8 and src is
+// 16-byte aligned, so each row goes as WP / 8 16-byte cp.async chunks
+// (zero-filled where they fall outside the matrix), a fixed number per
+// thread; else element by element.
+template <int WP, int kRowsT, int kThreads>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
+                                          int count, int w, bool vec) {
+  constexpr int kLd = WP + kTcPad;
+  const bf16* base = src + (size_t)r0 * w;
+  const int left = count - r0;  // rows of the matrix from r0 on
+  if (vec) {
+    constexpr int kChunks = WP / 8, kTotal = kRowsT * kChunks;
+#pragma unroll
+    for (int u = 0; u < (kTotal + kThreads - 1) / kThreads; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (kTotal % kThreads == 0 || i < kTotal) {
+        const int r = i / kChunks, j = i % kChunks * 8;
+        const bool in = r < left && j < w;
+        tc::cp_async_16(dst + r * kLd + j, in ? base + r * w + j : src,
+                        in ? 16 : 0);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRowsT * WP; i += kThreads) {
+      const int r = i / WP, j = i % WP;
+      dst[r * kLd + j] = r < left && j < w ? base[r * w + j]
+                                           : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// S = q k^T for one tile of keys, 16 rows x 64 keys per warp. kt: the
+// lane's ldmatrix row in the k tile; per 16 keys and 16 of D one ldmatrix
+// gives the B fragments of two 8-key tiles.
+template <int DP>
+__device__ __forceinline__ void tile_logits(float (&s)[kTcNT][4],
+                                            const uint32_t (&qf)[DP / 16][4],
+                                            const bf16* kt) {
+  constexpr int kLdK = DP + kTcPad;
+#pragma unroll
+  for (int nt = 0; nt < kTcNT; ++nt)
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int np = 0; np < kTcNT / 2; ++np)
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc) {
+      uint32_t b[4];
+      tc::ldmatrix_x4(b, kt + 16 * np * kLdK + 16 * kc);
+      tc::mma_bf16_16816(s[2 * np], qf[kc], b[0], b[1]);
+      tc::mma_bf16_16816(s[2 * np + 1], qf[kc], b[2], b[3]);
+    }
+}
+
+// The online softmax of one tile's logits s (rows g and g + 8 of the
+// warp's 16, as h = 0, 1), then O += P v. vt: the lane's ldmatrix row in
+// the v tile.
+template <int CP>
+__device__ __forceinline__ void tile_softmax_pv(float (&s)[kTcNT][4],
+                                                float (&o)[CP / 8][4],
+                                                float (&row_max)[2],
+                                                float (&row_sum)[2],
+                                                const bf16* vt) {
+  constexpr int kLdV = CP + kTcPad;
+  float mx[2] = {row_max[0], row_max[1]};
+#pragma unroll
+  for (int nt = 0; nt < kTcNT; ++nt) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+  }
+  float ml[2];  // the new max in log2 units
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // finite: a tile holds a key < m; the first tile's corr is ex2(-inf)
+    const float corr = tc::ex2((row_max[h] - mx[h]) * kLog2e);
+    row_max[h] = mx[h];
+    ml[h] = mx[h] * kLog2e;
+    row_sum[h] *= corr;
+#pragma unroll
+    for (int j = 0; j < CP / 8; ++j) {
+      o[j][2 * h] *= corr;
+      o[j][2 * h + 1] *= corr;
+    }
+  }
+  uint32_t pf[kTcNT][2];  // P in bf16: rows g, g + 8 of each 8-key tile
+#pragma unroll
+  for (int nt = 0; nt < kTcNT; ++nt) {
+    const float p0 = tc::ex2(fmaf(s[nt][0], kLog2e, -ml[0]));
+    const float p1 = tc::ex2(fmaf(s[nt][1], kLog2e, -ml[0]));
+    const float p2 = tc::ex2(fmaf(s[nt][2], kLog2e, -ml[1]));
+    const float p3 = tc::ex2(fmaf(s[nt][3], kLog2e, -ml[1]));
+    row_sum[0] += p0 + p1;
+    row_sum[1] += p2 + p3;
+    pf[nt][0] = tc::pack_bf16x2(p0, p1);
+    pf[nt][1] = tc::pack_bf16x2(p2, p3);
+  }
+  // two 8-key tiles of P are one 16-key A fragment; per 16 keys and 16 of
+  // C, one ldmatrix.trans gives two B fragments
+#pragma unroll
+  for (int kk = 0; kk < kTcBK / 16; ++kk) {
+    const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
+                           pf[2 * kk + 1][1]};
+#pragma unroll
+    for (int np = 0; np < CP / 16; ++np) {
+      uint32_t b[4];
+      tc::ldmatrix_x4_trans(b, vt + 16 * kk * kLdV + 16 * np);
+      tc::mma_bf16_16816(o[2 * np], a, b[0], b[1]);
+      tc::mma_bf16_16816(o[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Warps of a block (16 query rows each) for D, C padded to DP, CP: 8 (128
+// rows), or 4 where D or C is 128, so that the small s4_fuse grid (B N =
+// 8192 rows) still gives every SM a block.
+__host__ __device__ constexpr int tc_warps(int dp, int cp) {
+  return dp == 128 || cp == 128 ? 4 : 8;
+}
+
+// DP, CP: D and C padded to 16, 32, 64 or 128. Where DP + CP <= 64 two
+// blocks share an SM (at most 128 registers a thread).
+template <int DP, int CP>
+__global__ void
+__launch_bounds__(32 * tc_warps(DP, CP), DP + CP <= 64 ? 2 : 1)
+flash_attention_tc_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ out,
+                          int n, int m, int d, int c, bool qk_vec,
+                          bool v_vec) {
+  constexpr int kThreads = 32 * tc_warps(DP, CP), kRows = kThreads / 2;
+  constexpr int kLdK = DP + kTcPad, kLdV = CP + kTcPad;
+  constexpr int kKTile = kTcBK * kLdK, kVTile = kTcBK * kLdV;
+  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [kRows][kLdK]
+  bf16* ks = qs + kRows * kLdK;               // [kTcStages][kTcBK][kLdK]
+  bf16* vs = ks + kTcStages * kKTile;         // [kTcStages][kTcBK][kLdV]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  // ldmatrix: lane supplies row lr of matrix 2 * l16 + l8
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int k_lane = (lr + 8 * l16) * kLdK + 8 * l8;  // k: keys x D
+  const int v_lane = (lr + 8 * l8) * kLdV + 8 * l16;  // v: keys x C, .trans
+  const int q0 = blockIdx.x * kRows;
+  const size_t bi = blockIdx.y;
+  const bf16* qb = q + bi * n * d;
+  const bf16* kb = k + bi * m * d;
+  const bf16* vb = v + bi * m * c;
+  const int tiles = (m + kTcBK - 1) / kTcBK, full = m / kTcBK;
+  auto load_tile = [&](int it) {  // k and v of tile it, into its buffer
+    const int buf = it % kTcStages;
+    load_rows<DP, kTcBK, kThreads>(ks + buf * kKTile, kb, it * kTcBK, m, d,
+                                   qk_vec);
+    load_rows<CP, kTcBK, kThreads>(vs + buf * kVTile, vb, it * kTcBK, m, c,
+                                   v_vec);
+    tc::cp_async_commit();
+  };
+
+  load_rows<DP, kRows, kThreads>(qs, qb, q0, n, d, qk_vec);
+  load_tile(0);
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  if (tiles > 1) load_tile(1);
+
+  uint32_t qf[DP / 16][4];  // this warp's 16 q rows as A fragments
+#pragma unroll
+  for (int kc = 0; kc < DP / 16; ++kc)
+    tc::ldmatrix_x4(qf[kc], qs + (16 * warp + lr + 8 * l8) * kLdK + 16 * kc +
+                                8 * l16);
+  float o[CP / 8][4];  // O of rows g, g + 8 (fragment layout)
+#pragma unroll
+  for (int j = 0; j < CP / 8; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};  // logits of rows g, g + 8
+  float row_sum[2] = {0.f, 0.f};  // this lane's part of their sums
+
+  // Tile it: its logits s are ready, and the logits of tile it + 1
+  // (s_next) are computed beside its softmax, independent of it, so that
+  // the warp keeps the tensor cores busy while it waits on the
+  // exponentials. ragged: the last tile, M not a multiple of kTcBK (a
+  // separate instance, so that whole tiles carry no masking).
+  auto step = [&](float (&s)[kTcNT][4], float (&s_next)[kTcNT][4], int it,
+                  auto ragged) {
+    if (it + 1 < tiles) {
+      tc::cp_async_wait<0>();  // tile it + 1 has landed
+      // ... for every thread, and all are past tile it - 1, whose buffers
+      // tile it + 2 now fills
+      __syncthreads();
+      if (it + 2 < tiles) load_tile(it + 2);
+    }
+    if constexpr (decltype(ragged)::value) {  // keys >= m get -inf
+      const int k0 = it * kTcBK;
+#pragma unroll
+      for (int nt = 0; nt < kTcNT; ++nt) {
+        const int key = k0 + 8 * nt + 2 * t;
+        if (key >= m) s[nt][0] = s[nt][2] = -INFINITY;
+        if (key + 1 >= m) s[nt][1] = s[nt][3] = -INFINITY;
+      }
+    }
+    // after the last tile this reads a stale buffer, and s_next is unused
+    tile_logits<DP>(s_next, qf, ks + (it + 1) % kTcStages * kKTile + k_lane);
+    tile_softmax_pv<CP>(s, o, row_max, row_sum,
+                        vs + it % kTcStages * kVTile + v_lane);
+  };
+  const std::false_type whole{};
+  const std::true_type ragged{};
+  float sa[kTcNT][4], sb[kTcNT][4];
+  tile_logits<DP>(sa, qf, ks + k_lane);
+  int it = 0;
+  for (; it + 1 < full; it += 2) {  // by two: s and s_next swap roles
+    step(sa, sb, it, whole);
+    step(sb, sa, it + 1, whole);
+  }
+  if (it < full) {  // an odd count of whole tiles
+    step(sa, sb, it++, whole);
+    if (it < tiles) step(sb, sa, it, ragged);
+  } else if (it < tiles) {
+    step(sa, sb, it, ragged);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+    const float denom = fmaxf(row_sum[h], 1e-30f);
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row < n) {
+      bf16* orow = out + (bi * n + row) * c;
+#pragma unroll
+      for (int j = 0; j < CP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col < c) orow[col] = __float2bfloat16_rn(o[j][2 * h] / denom);
+        if (col + 1 < c)
+          orow[col + 1] = __float2bfloat16_rn(o[j][2 * h + 1] / denom);
+      }
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int DP, int CP>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
+              int n, int m, int d, int c, cudaStream_t stream) {
+  auto kernel = flash_attention_tc_kernel<DP, CP>;
+  constexpr int kThreads = 32 * tc_warps(DP, CP), kRows = kThreads / 2;
+  const size_t smem = tc_smem_bytes(kRows, DP, CP);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool qk_vec = d % 8 == 0 && aligned16(q) && aligned16(k);
+  const bool v_vec = c % 8 == 0 && aligned16(v);
+  const dim3 grid((n + kRows - 1) / kRows, b);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, m, d, c,
+      qk_vec, v_vec);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int dispatch_tc_c(const void* q, const void* k, const void* v, void* out,
+                  int b, int n, int m, int d, int c, cudaStream_t s) {
+  if (c <= 16) return launch_tc<DP, 16>(q, k, v, out, b, n, m, d, c, s);
+  if (c <= 32) return launch_tc<DP, 32>(q, k, v, out, b, n, m, d, c, s);
+  if (c <= 64) return launch_tc<DP, 64>(q, k, v, out, b, n, m, d, c, s);
+  return launch_tc<DP, 128>(q, k, v, out, b, n, m, d, c, s);
+}
+
+int dispatch_tc(const void* q, const void* k, const void* v, void* out, int b,
+                int n, int m, int d, int c, cudaStream_t s) {
+  if (d <= 16) return dispatch_tc_c<16>(q, k, v, out, b, n, m, d, c, s);
+  if (d <= 32) return dispatch_tc_c<32>(q, k, v, out, b, n, m, d, c, s);
+  if (d <= 64) return dispatch_tc_c<64>(q, k, v, out, b, n, m, d, c, s);
+  return dispatch_tc_c<128>(q, k, v, out, b, n, m, d, c, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q (b, n, d), k (b, m, d), v (b, m, c)
-// and out (b, n, c) are contiguous. Returns the CUDA error code of the
-// launch.
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
+// q (b, n, d), k (b, m, d), v (b, m, c) and out (b, n, c) are contiguous.
+// Returns the CUDA error code of the launch.
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, int b, int n, int m,
                            int d, int c, void* stream) {
@@ -278,7 +618,7 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, out, b, n, m, d, c, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, out, b, n, m, d, c, s);
+  if (dtype == 1) return dispatch_tc(q, k, v, out, b, n, m, d, c, s);
   return (int)cudaErrorInvalidValue;
 }
 

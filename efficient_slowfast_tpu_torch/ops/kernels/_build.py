@@ -3,14 +3,16 @@
 Each source ``efficient_slowfast_tpu_torch/csrc/<name>.cu`` has a plain C
 interface and becomes ``build/torch_kernels/lib<name>.so`` under the
 repository root, compiled by ``nvcc`` for ``sm_90a`` (Hopper). A library is
-rebuilt when its source is newer; several are compiled in parallel, one
-``nvcc`` per source. Nothing is built at import: the first kernel call (or
+rebuilt when its source, or any header ``csrc/*.cuh`` that sources may
+include, is newer; several are compiled in parallel, one ``nvcc`` per
+source. Nothing is built at import: the first kernel call (or
 ``build()``) does it, and a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -43,8 +45,11 @@ def lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     so = lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so)
+    if not os.path.exists(so):
+        return True
+    inputs = [os.path.join(CSRC, f"{name}.cu")]
+    inputs += glob.glob(os.path.join(CSRC, "*.cuh"))
+    return max(map(os.path.getmtime, inputs)) > os.path.getmtime(so)
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

@@ -8,11 +8,14 @@ is by max(row_sum, 1e-30) and the output has v's dtype.
 
 ``flash_attention`` runs the hand-written kernel ``csrc/flash_attention.cu``
 on CUDA tensors (one launch per call) and the plain version
-``chunked_attention`` on CPU tensors. A CUDA tensor never takes the plain
-version: what the kernel does not take raises. Unlike the Pallas path, the
-kernel masks a key count that its tile does not divide, and it takes any
-key count: the JAX package's ``TPU.FLASH_MAX_KEYS`` is a TPU compiler limit
-and bounds nothing here.
+``chunked_attention`` on CPU tensors. In bfloat16 the kernel computes both
+products on the tensor cores and rounds the probabilities to bfloat16 once
+before the product with v (the row sums stay float32), as the JAX package's
+dense path does; in float32 it stays in float32 throughout. A CUDA tensor
+never takes the plain version: what the kernel does not take raises. Unlike
+the Pallas path, the kernel masks a key count that its tile does not
+divide, and it takes any key count: the JAX package's
+``TPU.FLASH_MAX_KEYS`` is a TPU compiler limit and bounds nothing here.
 
 Forward only, as the port has no train step yet; in the JAX package the
 gradient is the vjp of ``chunked_attention`` (``flash_attention.py:219-222``).

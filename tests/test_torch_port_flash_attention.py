@@ -1,6 +1,8 @@
 """The port's flash attention (plain version, wrapper checks) against the JAX
 package's chunked attention, a dense softmax, and the Pallas kernel body
-itself run in interpret mode, f32 on the CPU.
+itself run in interpret mode, f32 on the CPU; and a model of the CUDA
+kernel's bfloat16 arithmetic against the JAX package's chunked attention,
+which is the argument behind ``chip_smoke.ATTN_BF16_TOL``.
 
 The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it against
 ``chunked_attention`` there."""
@@ -14,6 +16,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from chip_smoke import ATTN_BF16_TOL
 from efficient_slowfast_tpu.ops.pallas import flash_attention as jfa
 from efficient_slowfast_tpu_torch.ops.kernels import flash_attention as tfa
 
@@ -124,3 +127,55 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     args = [torch.zeros(shapes[x], dtype=dtypes[x]) for x in "qkv"]
     with pytest.raises((ValueError, TypeError)):
         tfa.flash_attention(*args)
+
+
+def _kernel_bf16_model(q, k, v, tile=64):
+    """The arithmetic of ``csrc/flash_attention.cu``'s bfloat16 kernel: f32
+    logits of the bf16 q and k, the softmax online over 64-key tiles in
+    f32, each probability rounded once to bf16 before the f32-accumulated
+    product with the bf16 v, the row sum taken from the unrounded
+    probabilities. Returns the f32 output before its rounding to bf16."""
+    b, n, _ = q.shape
+    m, c = v.shape[1], v.shape[2]
+    acc = torch.zeros(b, n, c)
+    row_max = torch.full((b, n), -float("inf"))
+    row_sum = torch.zeros(b, n)
+    for s in range(0, m, tile):
+        logits = q.float() @ k[:, s:s + tile].float().transpose(1, 2)
+        new_max = torch.maximum(row_max, logits.amax(-1))
+        corr = torch.exp(row_max - new_max)
+        p = torch.exp(logits - new_max[..., None])
+        row_sum = row_sum * corr + p.sum(-1)
+        acc = (acc * corr[..., None]
+               + p.bfloat16().float() @ v[:, s:s + tile].float())
+        row_max = new_max
+    return acc / row_sum.clamp(min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("logit_std", [3.0, 11.0])
+@pytest.mark.parametrize("dim", [8, 32, 64, 128])
+def test_bf16_kernel_arithmetic_within_attn_bf16_tol(dim, logit_std):
+    # D = C as at the four CMDA-R50 fusions; N small, M ragged against the
+    # kernel's 64-key tile; q and k scaled so that the logits have the
+    # given standard deviation (3 as chip_smoke calibrates the model, 11 a
+    # peakier softmax)
+    b, n, m = 2, 70, 200
+    q, k, v = _qkv(b, n, m, dim, dim, seed=dim)
+    scale = (logit_std / np.sqrt(dim)) ** 0.5
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q * scale, k * scale, v))
+    model = _kernel_bf16_model(q, k, v)
+    exact = tfa.chunked_attention(q.float(), k.float(), v.float())
+    # the rounding of P alone moves the output by at most 2^-9 max|v| (the
+    # weights are off by at most 2^-9 relative); f32 sums add ~1e-6
+    assert (model - exact).abs().max() <= 2.0 ** -9 * v.float().abs().max() + 1e-5
+    # what chip_smoke holds the kernel to: the bf16 output against the plain
+    # version, the JAX package's and the port's, within ATTN_BF16_TOL of
+    # the output's scale (the argument is beside the constant)
+    out = model.bfloat16().float()
+    jax_ref = np.array(jfa.chunked_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+        chunk=64).astype(jnp.float32))
+    port_ref = tfa.chunked_attention(q, k, v).float()
+    for ref in (torch.from_numpy(jax_ref), port_ref):
+        tol = ATTN_BF16_TOL * max(1.0, ref.abs().max().item())
+        assert (out - ref).abs().max().item() <= tol
