@@ -9,17 +9,22 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
 2. build    — compiles the port's CUDA kernels from csrc/ (one nvcc each, in
-              parallel) and prints the build seconds and ptxas's report per
-              kernel; counts the tensor-core instructions (HMMA, HGMMA) in
-              the flash-attention library's SASS, raising if there are
-              none, and the FP32-pipe instructions per MUFU.EX2 in the main
-              loop of its bf16 kernels.
+              parallel) and prints the build seconds and ptxas's registers
+              and spills per kernel instantiation; counts the tensor-core
+              instructions (HMMA, HGMMA) in the SASS of both libraries'
+              bf16 kernels, raising if either has none, and the FP32-pipe
+              instructions per MUFU.EX2 in the main loop of the
+              flash-attention bf16 kernels.
 3. kernels  — every stride-1 bottleneck shape of SlowFast-R50 8x8 serving
-              (the K1 shape table) through the fused kernel against its plain
-              version, in float32 and bfloat16, at 1 clip and at the request
-              batch; at the request batch it also times the kernel, the plain
+              (the K1 shape table) and four off-path shapes (slow s5 and
+              fast s2 at the 224 crop, a projection with channel counts
+              that are not multiples of 8, a height that the strip does not
+              divide) through the fused kernel against its plain version,
+              in float32 and bfloat16, at 1 clip and at the request batch;
+              at the request batch it also times the kernel, the plain
               version and the same block unfused through the port's
-              nn.Module (cuDNN), beside the block's bound on an H100.
+              nn.Module (cuDNN), beside the block's bound on an H100, and
+              prints the bf16 kernel's split of the work.
 3b. attention — the flash-attention kernel against its plain version at
               the four CMDA-R50 shapes (one per lateral fusion) and five
               off-path shapes (ragged keys; pooled non-local keys; three on
@@ -33,8 +38,10 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               made in the JAX package's layout and carried across by the
               port's weight bridge; answers three requests through
               make_forward, checks 26 kernel launches per request and the
-              scores, and holds them against the module's own forward; then
-              the same at float32 on one clip, at a tight tolerance.
+              scores, and holds them against the module's own forward,
+              printing the fused engine's request time less K1's kernel
+              time (phase 3); then the same at float32 on one clip, at a
+              tight tolerance.
 5. cmda     — SlowFastDualAttention-R50 8x8 (the CMDA model) at full width,
               the same way, with the attention's query and key convs
               scaled on a seeded clip so that its logits are of a trained
@@ -50,6 +57,7 @@ card's name and power limit, and the device JSON line.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import os
@@ -124,6 +132,12 @@ EXP_RATE = 16 * 132 * 1.98e9
 # the shapes beside the CMDA path: (label, N, M, D, C); the last three sit
 # on the bf16 kernel's tile edges (N not a multiple of its 64- or 128-row
 # blocks, M not of its 64-key tiles, D and C not multiples of 16 or 8)
+# K1's shapes beside the SlowFast path, with no launch on it: (label, t_len,
+# h, cin, ci, cout, kt, proj)
+K1_OFF_PATH = [("slow s5 224 crop", 8, 7, 2048, 512, 2048, 3, False),
+               ("fast s2 224 crop", 32, 56, 32, 8, 32, 3, False),
+               ("proj c 40/12/48", 8, 20, 40, 12, 48, 3, True),
+               ("ragged strip h 13", 8, 13, 256, 64, 256, 1, False)]
 ATTN_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
                  ("pooled non-local", 3136, 784, 64, 64),
                  ("ragged tiles", 2085, 1057, 32, 32),
@@ -209,8 +223,9 @@ def phase_build():
     log("build", f"built {sorted(reports) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     # cuobjdump ships beside nvcc in the CUDA toolkit
-    sass_counts(os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
-                _build.lib_path("flash_attention"))
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass_counts(tool, _build.lib_path("flash_attention"))
+    k1_sass_counts(tool, _build.lib_path("fused_bottleneck"))
 
 
 SASS_OPS = ("HMMA", "HGMMA", "MUFU.EX2", "FFMA", "FADD", "FMUL", "FMNMX",
@@ -261,6 +276,32 @@ def sass_counts(tool, lib):
     if not total["HMMA"] + total["HGMMA"]:
         raise AssertionError("K2's bf16 kernels use no tensor-core "
                              "instruction (no HMMA or HGMMA in the SASS)")
+
+
+def k1_sass_counts(tool, lib):
+    """Count the tensor-core instructions of K1's bf16 kernels (one per
+    kt, projection and warp tile), raising if any has none."""
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = 0
+    for func in sass.split("Function : ")[1:]:
+        name = re.search(r"fused_bottleneck_tc_kernelILi(\d)ELb(\d)ELi(\d)E",
+                         func.split("\n", 1)[0])
+        if not name:
+            continue
+        found += 1
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                         func)
+        hmma, hgmma = ops.count("HMMA"), ops.count("HGMMA")
+        log("build", f"fused_bottleneck bf16 kt {name.group(1)} proj "
+            f"{name.group(2)} m16 tiles {name.group(3)}: HMMA {hmma}, HGMMA "
+            f"{hgmma} in the SASS")
+        if not hmma + hgmma:
+            raise AssertionError("K1's bf16 kernel uses no tensor-core "
+                                 "instruction (no HMMA or HGMMA in the SASS)")
+    if found != 8:
+        raise AssertionError(f"{found} K1 bf16 kernels in the SASS, "
+                             "expected 8")
 
 
 # ---------------------------------------------------------------------------
@@ -348,17 +389,28 @@ def block_cost(n, h, cin, ci, cout, kt, proj, elem):
 
 def phase_kernels(cfg, model, smi):
     from efficient_slowfast_tpu_torch.models.resnet import ResBlock
+    from efficient_slowfast_tpu_torch.ops.kernels import _build
     from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import (
-        bottleneck_reference, fused_bottleneck)
+        bottleneck_reference, fused_bottleneck, plan, smem_bytes)
 
     gen = torch.Generator().manual_seed(SEED)
     rows = kernel_rows(cfg, model)
     per_request = sum(r[8] for r in rows)
     if per_request != 26:
         raise AssertionError(f"{per_request} stride-1 blocks, expected 26")
+    lib = _build.load("fused_bottleneck")
+    lib.fused_bottleneck_tc_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_bottleneck_tc_max_clusters.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_size_t]
+    for ci, smem in ((64, 232448), (8, 115712)):  # the plan's two budgets
+        log("kernels", f"K1 bf16 blocks resident at once, Ci {ci}, {smem} B "
+            "a block, by cluster size: " + ", ".join(
+                f"{cl}: {cl * lib.fused_bottleneck_tc_max_clusters(ci, cl, smem)}"
+                for cl in (1, 2, 4, 8)))
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     record = []
-    for label, t_len, h, cin, ci, cout, kt, proj, count in rows:
+    for label, t_len, h, cin, ci, cout, kt, proj, count in rows + [
+            r + (0,) for r in K1_OFF_PATH]:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             for clips in (1, CLIPS_PER_REQUEST):
                 x, w = make_block(t_len, h, cin, ci, cout, kt, proj, clips,
@@ -378,12 +430,25 @@ def phase_kernels(cfg, model, smi):
                 if not finite or err > tol * scale:
                     raise AssertionError(f"{label} {dtype} clips {clips}: "
                                          f"err {err} > {tol * scale}")
-                if clips == CLIPS_PER_REQUEST:
+                if clips == CLIPS_PER_REQUEST and count:
                     worst[dtype] = max(worst[dtype], err)
         # timing at the request batch, in the serving dtype
         dtype = torch.bfloat16
         x, w = make_block(t_len, h, cin, ci, cout, kt, proj, CLIPS_PER_REQUEST,
                           dtype, gen)
+        split = plan(x.shape[0], h, h, cin, ci, cout, kt, 2, proj)
+        smem = lib.fused_bottleneck_tc_smem_bytes(h, h, ci, split.rows,
+                                                  split.ring // 2)
+        if smem != split.smem or smem != smem_bytes(2, h, h, ci, split.rows,
+                                                    split.ring):
+            raise AssertionError(f"{label}: shared memory {split.smem} B in "
+                                 f"the wrapper, {smem} B in the kernel")
+        resident = lib.fused_bottleneck_tc_max_clusters(ci, split.cluster,
+                                                        split.smem)
+        if resident <= 0:
+            raise AssertionError(f"{label}: no cluster of the split fits "
+                                 f"(CUDA error {-resident})")
+        resident *= split.cluster  # blocks
         args = (x, t_len, w["wa"], w["ba"], w["wb"], w["bb"], w["wc"], w["bc"],
                 w["wp"], w["bp"])
         k_ms = cuda_ms(lambda: fused_bottleneck(*args))
@@ -399,8 +464,14 @@ def phase_kernels(cfg, model, smi):
         by = "operations" if t_ops >= t_bytes else "bytes"
         log("kernels", f"{label:18s} bf16 x{count} per request | kernel "
             f"{k_ms:.4f} ms | plain {p_ms:.4f} ms | cuDNN unfused {lib_ms:.4f}"
-            f" ms | bound {bound:.5f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.3f} MB) | {smi}")
+            f" ms | kernel/bound {k_ms / bound:.2f}, kernel/cuDNN "
+            f"{k_ms / lib_ms:.2f} | bound {bound:.5f} ms ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) | split: "
+            f"cluster {split.cluster}, strip rows {split.rows}"
+            f"{'' if h % split.rows == 0 else ' (ragged)'}, CTAs "
+            f"{split.ctas} ({-(-split.ctas // resident)} wave(s) of "
+            f"{resident} resident), output pixels per CTA {split.pixels}, "
+            f"shared memory {split.smem} B (ring {split.ring} B) | {smi}")
         record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
                            library_ms=lib_ms, bound_ms=bound, bound_by=by,
                            flops=flops, bytes=nbytes))
@@ -497,7 +568,8 @@ def serve_and_compare(phase, cfg, fwd, ref, names, expect, tol, seed, smi):
     launch count set to 0 just before and read just after, check the counts
     against ``expect``, and hold the scores against those of ``ref`` (which
     launches no kernel) on the same requests. ``names`` labels the two
-    paths. Returns the counts of ``fwd``'s run."""
+    paths. Returns the counts of ``fwd``'s run and its seconds per
+    request."""
     gen = torch.Generator().manual_seed(seed)
     requests = [clips(cfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
                 for _ in range(REQUESTS)]
@@ -533,7 +605,7 @@ def serve_and_compare(phase, cfg, fwd, ref, names, expect, tol, seed, smi):
         f"{n_clips / dt_ref:.2f} clips/s | {smi}")
     if err > tol:
         raise AssertionError(f"{phase} bf16: {names[0]} vs {names[1]} {err}")
-    return counts
+    return counts, dt / REQUESTS
 
 
 def compare_one_clip(phase, cfg, fwd, ref, names, tol, seed, smi):
@@ -549,16 +621,20 @@ def compare_one_clip(phase, cfg, fwd, ref, names, tol, seed, smi):
         raise AssertionError(f"{phase} f32: {names[0]} vs {names[1]} {err}")
 
 
-def phase_serving(cfg, model, smi):
+def phase_serving(cfg, model, k1_ms, smi):
+    """k1_ms: K1's kernel time per request (phase 3)."""
     from efficient_slowfast_tpu_torch.engine.state import make_forward
 
     cfg_module = cfg.clone()
     cfg_module.TPU.FUSED_EVAL = False
-    counts = serve_and_compare(
+    counts, request_s = serve_and_compare(
         "serving", cfg, make_forward(cfg, model),
         make_forward(cfg_module, model), ("fused engine", "module forward"),
         {"fused_bottleneck": 26 * REQUESTS, "flash_attention": 0},
         SERVE_BF16_ATOL, SEED + 1, smi)
+    log("serving", f"bf16: fused engine {request_s * 1e3:.2f} ms per request,"
+        f" of which K1's 26 launches {k1_ms:.2f} ms (phase 3); the rest "
+        f"{request_s * 1e3 - k1_ms:.2f} ms | {smi}")
     return counts["fused_bottleneck"]
 
 
@@ -716,7 +792,7 @@ def phase_cmda(cfg, model, smi):
     from efficient_slowfast_tpu_torch.engine.state import make_forward
 
     cfg_plain = cmda_cfg(flash=False)
-    counts = serve_and_compare(
+    counts, _ = serve_and_compare(
         "cmda", cfg, make_forward(cfg, model),
         make_forward(cfg_plain, cmda_model(cfg_plain, model.state_dict())),
         ("flash kernel", "plain attention"),
@@ -760,7 +836,8 @@ def main():
     cfg = serving_cfg()
     model = serving_model(cfg, SEED)
     k1_record, k1_err = phase_kernels(cfg, model, smi)
-    k1_launches = phase_serving(cfg, model, smi)
+    k1_launches = phase_serving(cfg, model, per_request(k1_record, "ms"),
+                                smi)
     del model
     torch.cuda.empty_cache()
     phase_serving_f32(smi)
