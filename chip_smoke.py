@@ -4,16 +4,17 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5 (3b takes its shapes from the CMDA model that phase 5 serves):
+5, 3c, 6, 7 (3b takes its shapes from the CMDA model that phase 5 serves,
+3c from the one that phase 7 trains):
 
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
 2. build    — compiles the port's CUDA kernels from csrc/ (one nvcc each, in
               parallel) and prints the build seconds and ptxas's registers
               and spills per kernel instantiation; counts the tensor-core
-              instructions (HMMA, HGMMA) in the SASS of both libraries'
-              bf16 kernels, raising if either has none, and the FP32-pipe
-              instructions per MUFU.EX2 in the main loop of the
+              instructions (HMMA, HGMMA) in the SASS of the three
+              libraries' bf16 kernels, raising if any has none, and the
+              FP32-pipe instructions per MUFU.EX2 in the main loop of the
               flash-attention bf16 kernels.
 3. kernels  — every stride-1 bottleneck shape of SlowFast-R50 8x8 serving
               (the K1 shape table) and four off-path shapes (slow s5 and
@@ -49,6 +50,32 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               launches per request and none of the fused bottleneck, held
               against the same model under TPU.FLASH_ATTENTION False (the
               plain version on the card); then float32 on one clip.
+3c. attention backward — the flash-attention backward kernels against
+              their plain version (attention_backward), and K2's output
+              with its log-sum-exp store on against it off (bit for bit),
+              at the four CMDA-R50 fusion shapes of the 224² training crop
+              and three off-path shapes (ragged keys, ragged tiles, D = C =
+              24), in float32 and bfloat16, at 1 clip and at the training
+              batch, and at the
+              smallest path shape and 1 clip also against autograd through
+              chunked_attention (the JAX package's backward written out); at
+              the training batch it times the kernels, the plain version and
+              the backward of scaled_dot_product_attention, beside the
+              shape's bound.
+6. train    — SlowFast-R50 8x8 at full width trained as
+              configs/Kinetics/SLOWFAST_8x8_R50.yaml trains (224² crop,
+              bf16, 8 clips a card, SGD lr 0.1 with nesterov momentum 0.9,
+              weight decay 1e-4, dropout 0.5, final BNs zero-initialised):
+              2 warm-up and 5 timed steps through create_train_state and
+              make_train_step, no kernel launched, every loss finite, BN
+              running statistics moved; then one timed step (after one
+              warm-up) with TPU.REMAT and TPU.REMAT_STAGES [2].
+7. cmda_train — CMDA-R50 8x8 the same way, attention calibrated as in
+              phase 5: 4 forward and 4 backward calls of the attention
+              kernels a step and no fused bottleneck; then one step on one
+              clip in float32 and one in bfloat16, each held against the
+              same step under TPU.FLASH_ATTENTION False (plain forward,
+              backward by autograd through it, on the card).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The last three lines are the kernels' JSON record, the
@@ -112,6 +139,24 @@ ATTN_F32_TOL = 1e-4
 # as the e_j have random signs and average out over the keys a row
 # attends to. 1e-2 of the output's scale.
 ATTN_BF16_TOL = 1e-2
+# attention backward, float32: the kernels and the plain version compute the
+# same sums in another order (up to 25088-term sums over keys or queries);
+# 1e-4 of each gradient's scale.
+ATTN_BWD_F32_TOL = 1e-4
+# attention backward, bfloat16: both sides take float32 products of the same
+# bf16 q, k, v and dO, the same float32 lse and D = rowsum(dO ∘ O) from the
+# same bf16 O, and round each gradient to bf16 once (half an ulp: at most
+# 2^-8 = 3.9e-3 of its magnitude). The kernel also rounds P and dS to bf16
+# as the A operands of Pᵀ dO, dS k and dSᵀ q: each term of those sums is off
+# by at most 2^-8 relative, and the errors have random signs, so a sum moves
+# by about 2^-8 of its own magnitude, not of the sum of its terms' (the
+# CPU emulator and the model in tests/test_torch_port_attention_backward.py
+# put kernel against plain at 2-7e-3 of the scale). Held against autograd
+# through chunked_attention, D is the unrounded O's: D moves by up to 2^-8
+# Σ_c |dO_c O_c|, which enters dS as P δD; measured, it adds under 1.5e-3
+# of the scale at D = C = 8-128. 2e-2 of each gradient's scale, five bf16
+# roundings of room.
+ATTN_BWD_BF16_TOL = 2e-2
 # CMDA serving against its plain-attention path: bf16 attention outputs that
 # differ by one ulp pass through the rest of the network in bf16, as K1's do
 # (SERVE_BF16_ATOL); in float32 only the summation order differs. Both hold
@@ -138,6 +183,40 @@ K1_OFF_PATH = [("slow s5 224 crop", 8, 7, 2048, 512, 2048, 3, False),
                ("fast s2 224 crop", 32, 56, 32, 8, 32, 3, False),
                ("proj c 40/12/48", 8, 20, 40, 12, 48, 3, True),
                ("ragged strip h 13", 8, 13, 256, 64, 256, 1, False)]
+# the shapes beside the CMDA training path for the attention backward
+ATTN_BWD_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
+                     ("ragged tiles", 2085, 1057, 32, 32),
+                     ("d 24 c 24", 700, 333, 24, 24)]
+# training: clips a card (the reference configs train TRAIN.BATCH_SIZE 64
+# over 8 GPUs), warm-up and timed steps
+TRAIN_CLIPS = 8
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# One CMDA train step on one clip with the attention kernels against the
+# same step with the plain attention (FLASH_ATTENTION False).
+# float32, per parameter tensor: |p_kernel - p_plain| over |p_plain -
+# p_before| in L2, the step's difference over the step itself, where a
+# tensor's step is below 1e-3 of the largest tensor's over that floor (the
+# key conv's bias has a zero gradient in exact arithmetic, as a shift of
+# every key by q·b cancels in the softmax, so its step is weight decay and
+# rounding noise). The paths differ only in the attention's summation
+# order (about 1e-6 relative: ATTN_F32_TOL, ATTN_BWD_F32_TOL), carried
+# through the rest of the backward in float32; 1e-3.
+CMDA_TRAIN_F32_TOL = 1e-3
+# bfloat16: a tensor whose gradient is a sum that mostly cancels (a BN
+# weight's over 25088 positions) takes a bf16 step that is mostly rounding
+# noise, on either path, so tensor by tensor the two paths can differ by
+# the step itself. What the kernels must not do is add error: over all
+# parameters, the bf16 step with the kernels is held no farther from the
+# float32 step (plain attention) than the bf16 step with the plain
+# attention is, in L2, within twice: the kernels' own roundings (P once in
+# the forward, P and dS once in the backward) are of the size of the plain
+# path's (its output's and its gradients'), and two independent errors of
+# one size make √2.
+CMDA_TRAIN_BF16_RATIO = 2.0
+# Running statistics: the step's new batch statistics enter with momentum
+# 0.1; max |difference| within 1e-4 (f32) and 1e-2 (bf16) of max(1,
+# max |statistic|).
+CMDA_STATS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 ATTN_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
                  ("pooled non-local", 3136, 784, 64, 64),
                  ("ragged tiles", 2085, 1057, 32, 32),
@@ -150,13 +229,14 @@ def log(phase, msg):
 
 
 def kernel_counters():
-    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
-        flash_attention
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_backward)
     from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
         fused_bottleneck
 
     return {"fused_bottleneck": fused_bottleneck,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward}
 
 
 def reset_counts():
@@ -226,6 +306,7 @@ def phase_build():
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_counts(tool, _build.lib_path("flash_attention"))
     k1_sass_counts(tool, _build.lib_path("fused_bottleneck"))
+    bwd_sass_counts(tool, _build.lib_path("flash_attention_bwd"))
 
 
 SASS_OPS = ("HMMA", "HGMMA", "MUFU.EX2", "FFMA", "FADD", "FMUL", "FMNMX",
@@ -301,6 +382,34 @@ def k1_sass_counts(tool, lib):
                                  "instruction (no HMMA or HGMMA in the SASS)")
     if found != 8:
         raise AssertionError(f"{found} K1 bf16 kernels in the SASS, "
+                             "expected 8")
+
+
+def bwd_sass_counts(tool, lib):
+    """Count the tensor-core instructions of K2-bwd's bf16 kernels (one per
+    padded width and kind, key rows or query rows), raising if any has
+    none."""
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = 0
+    for func in sass.split("Function : ")[1:]:
+        name = re.search(r"attention_bwd_tc_kernelILi(\d+)ELb(\d)E",
+                         func.split("\n", 1)[0])
+        if not name:
+            continue
+        found += 1
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z0-9_]+(?:\.[A-Z0-9_]+)?)", func)
+        count = lambda op: sum(o == op or o.startswith(op + ".") for o in ops)
+        log("build", f"flash_attention_backward bf16 WP {name.group(1)} "
+            f"{'key' if name.group(2) == '1' else 'query'} rows: HMMA "
+            f"{count('HMMA')}, HGMMA {count('HGMMA')}, MUFU.EX2 "
+            f"{count('MUFU.EX2')} in the SASS")
+        if not count("HMMA") + count("HGMMA"):
+            raise AssertionError("K2-bwd's bf16 kernel uses no tensor-core "
+                                 "instruction (no HMMA or HGMMA in the SASS)")
+    if found != 8:
+        raise AssertionError(f"{found} K2-bwd bf16 kernels in the SASS, "
                              "expected 8")
 
 
@@ -630,7 +739,8 @@ def phase_serving(cfg, model, k1_ms, smi):
     counts, request_s = serve_and_compare(
         "serving", cfg, make_forward(cfg, model),
         make_forward(cfg_module, model), ("fused engine", "module forward"),
-        {"fused_bottleneck": 26 * REQUESTS, "flash_attention": 0},
+        {"fused_bottleneck": 26 * REQUESTS, "flash_attention": 0,
+         "flash_attention_backward": 0},
         SERVE_BF16_ATOL, SEED + 1, smi)
     log("serving", f"bf16: fused engine {request_s * 1e3:.2f} ms per request,"
         f" of which K1's 26 launches {k1_ms:.2f} ms (phase 3); the rest "
@@ -796,7 +906,8 @@ def phase_cmda(cfg, model, smi):
         "cmda", cfg, make_forward(cfg, model),
         make_forward(cfg_plain, cmda_model(cfg_plain, model.state_dict())),
         ("flash kernel", "plain attention"),
-        {"fused_bottleneck": 0, "flash_attention": 4 * REQUESTS},
+        {"fused_bottleneck": 0, "flash_attention": 4 * REQUESTS,
+         "flash_attention_backward": 0},
         CMDA_BF16_ATOL, SEED + 4, smi)
     return counts["flash_attention"]
 
@@ -809,6 +920,305 @@ def phase_cmda_f32(state, smi):
                      make_forward(cfg_plain, cmda_model(cfg_plain, state)),
                      ("flash kernel", "plain attention"), CMDA_F32_ATOL,
                      SEED + 5, smi)
+
+
+def attention_backward_cost(b, n, m, d, c):
+    """(FLOPs, bytes, exponentials) of one backward call: the five products
+    2 N M (3D + 2C) per clip; q, k, v, out and dO read once and dq, dk, dv
+    written once in bf16, lse read once in float32."""
+    return (2 * b * n * m * (3 * d + 2 * c),
+            2 * b * 2 * (n * d + m * d + m * c + n * c) + 4 * b * n,
+            b * n * m)
+
+
+def phase_attention_backward(rows, smi):
+    """K2-bwd against attention_backward at the training shapes ``rows``
+    and off-path shapes; returns (per-shape record, worst bf16 error on the
+    path at the training batch)."""
+    import torch.nn.functional as F
+
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
+        _forward, attention_backward, chunked_attention,
+        flash_attention_backward)
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rn = lambda *shape, dtype: torch.randn(*shape, generator=gen).to(
+        "cuda", dtype)
+    smallest = min(r[1] for r in rows)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    record = []
+    for label, n, m, d, c, count in rows + [r + (0,)
+                                            for r in ATTN_BWD_OFF_PATH]:
+        for dtype, tol in ((torch.float32, ATTN_BWD_F32_TOL),
+                           (torch.bfloat16, ATTN_BWD_BF16_TOL)):
+            for b in (1, TRAIN_CLIPS):
+                q, k, v, dout = (rn(b, n, d, dtype=dtype),
+                                 rn(b, m, d, dtype=dtype),
+                                 rn(b, m, c, dtype=dtype),
+                                 rn(b, n, c, dtype=dtype))
+                out, lse = _forward(q, k, v, with_lse=True)
+                if not torch.equal(out, _forward(q, k, v, False)[0]):
+                    raise AssertionError(f"{label} {dtype} clips {b}: K2's "
+                                         "output moved with its lse store")
+                grads = flash_attention_backward(q, k, v, out, lse, dout)
+                torch.cuda.synchronize()
+                refs = [("plain", attention_backward(q, k, v, out, lse,
+                                                     dout))]
+                if count and b == 1 and n == smallest:
+                    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                    refs.append(("autograd", torch.autograd.grad(
+                        chunked_attention(*leaves), leaves, dout)))
+                torch.cuda.synchronize()
+                for name, ref in refs:
+                    errs = []
+                    for g, r in zip(grads, ref):
+                        err = (g.float() - r.float()).abs().max().item()
+                        scale = max(1.0, r.float().abs().max().item())
+                        if (g.dtype != dtype or not bool(
+                                torch.isfinite(g).all()) or err > tol * scale):
+                            raise AssertionError(
+                                f"{label} {dtype} clips {b} vs {name}: "
+                                f"err {err} > {tol * scale}")
+                        errs.append((err, scale))
+                        if b == TRAIN_CLIPS and count:
+                            worst[dtype] = max(worst[dtype], err)
+                    log("attention_backward",
+                        f"{label:16s} {str(dtype)[6:]:8s} clips {b} vs "
+                        f"{name}: max_abs_err dq/dk/dv " +
+                        " / ".join(f"{e:.3e} (scale {s_:.3g})"
+                                   for e, s_ in errs) + f", tol {tol} of "
+                        "the scale; K2's output bit-identical with its lse "
+                        "store on and off")
+                del q, k, v, dout, out, lse, grads, refs
+        # timing at the training batch, in the training dtype
+        b, dtype = TRAIN_CLIPS, torch.bfloat16
+        q, k, v, dout = (rn(b, n, d, dtype=dtype), rn(b, m, d, dtype=dtype),
+                         rn(b, m, c, dtype=dtype), rn(b, n, c, dtype=dtype))
+        out, lse = _forward(q, k, v, with_lse=True)
+        big = b * n * m > 2 ** 30
+        reps = dict(iters=2 if big else 10, reps=3 if big else 5)
+        k_ms = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse,
+                                                        dout), **reps)
+        p_ms = cuda_ms(lambda: attention_backward(q, k, v, out, lse, dout),
+                       iters=1, reps=3)
+        q4, k4, v4 = (t[:, None].detach().requires_grad_()
+                      for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), dout[:, None], retain_graph=True), **reps)
+        del o4
+        flops, nbytes, exps = attention_backward_cost(b, n, m, d, c)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_exp = exps / EXP_RATE * 1e3
+        bound = max(t_ops, t_bytes, t_exp)
+        by = "bytes" if t_bytes == bound else "operations"
+        log("attention_backward", f"{label:16s} bf16 N {n} M {m} D {d} C {c}"
+            f" x{count} per train step | kernels {k_ms:.4f} ms | plain "
+            f"{p_ms:.4f} ms | sdpa backward {lib_ms:.4f} ms | kernels/bound "
+            f"{k_ms / bound:.2f}, kernels/sdpa {k_ms / lib_ms:.2f} | bound "
+            f"{bound:.5f} ms ({by}; tensor cores {t_ops:.5f} ms for "
+            f"{flops / 1e9:.3f} GFLOP, exp {t_exp:.5f} ms for {exps:.3e}, "
+            f"memory {t_bytes:.5f} ms for {nbytes / 1e6:.3f} MB) | {smi}")
+        record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
+                           library_ms=lib_ms, bound_ms=bound, bound_by=by))
+        del q, k, v, dout, out, lse, q4, k4, v4
+        torch.cuda.empty_cache()
+    log("attention_backward", f"worst max_abs_err at the training batch on "
+        f"the CMDA path: f32 {worst[torch.float32]:.3e}, bf16 "
+        f"{worst[torch.bfloat16]:.3e}")
+    return record, worst[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+def train_cfg(model_name="SlowFast", dtype="bfloat16", flash=True):
+    """SlowFast-R50 8x8 (or CMDA-R50) trained as
+    configs/Kinetics/SLOWFAST_8x8_R50.yaml (and
+    SLOWFAST_DUALATTENTION_8x8_R50.yaml) train it: the 224² crop (the
+    inputs are made at the test crop, set to it), final BNs
+    zero-initialised, SGD lr 0.1 with nesterov momentum 0.9, weight decay
+    1e-4 and none on BN, dropout 0.5."""
+    cfg = serving_cfg(dtype)
+    cfg.MODEL.MODEL_NAME = model_name
+    cfg.DATA.TEST_CROP_SIZE = cfg.DATA.CROP_SIZE
+    cfg.TPU.FUSED_EVAL = False
+    cfg.TPU.FLASH_ATTENTION = flash
+    cfg.RESNET.ZERO_INIT_FINAL_BN = True
+    cfg.MODEL.DROPOUT_RATE = 0.5
+    cfg.SOLVER.BASE_LR = 0.1
+    cfg.SOLVER.MOMENTUM = 0.9
+    cfg.SOLVER.NESTEROV = True
+    cfg.SOLVER.WEIGHT_DECAY = 1e-4
+    cfg.BN.WEIGHT_DECAY = 0.0
+    return cfg
+
+
+def train_model(cfg, seed):
+    """``serving_model``'s seeded weights with each block's final BN
+    zero-initialised, as the model is built for training."""
+    model = serving_model(cfg, seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if getattr(m, "zero_init_gamma", False):
+                m.weight.zero_()
+    return model
+
+
+def train_batches(cfg, count, batch, seed, dtype=torch.bfloat16):
+    gen = torch.Generator().manual_seed(seed)
+    return [(clips(cfg, batch, gen, dtype),
+             torch.randint(0, cfg.MODEL.NUM_CLASSES, (batch,),
+                           generator=gen).cuda()) for _ in range(count)]
+
+
+def train_steps(phase, cfg, model, expect, smi):
+    """TRAIN_WARMUP then TRAIN_STEPS steps of TRAIN_CLIPS bf16 clips through
+    create_train_state and make_train_step, every launch count set to 0
+    just before the timed steps and read just after; checks the counts
+    against ``expect``, the losses and that the running statistics moved.
+    Returns (state, step, counts)."""
+    from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
+                                                           make_train_step)
+
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    batches = train_batches(cfg, TRAIN_WARMUP + TRAIN_STEPS, TRAIN_CLIPS,
+                            SEED + 8)
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    lr = cfg.SOLVER.BASE_LR
+    bn = model.s2.pathway0_res0.branch2.a_bn
+    before = bn.running_mean.clone()
+    for x, y in batches[:TRAIN_WARMUP]:
+        step(state, x, y, lr, drop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    mets = [step(state, x, y, lr, drop) for x, y in batches[TRAIN_WARMUP:]]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack([m["loss"] for m in mets]).tolist()
+    moved = (bn.running_mean - before).abs().max().item()
+    log(phase, f"bf16, {TRAIN_CLIPS} clips a step: {TRAIN_STEPS} steps "
+        f"after {TRAIN_WARMUP} warm-up | losses " +
+        ", ".join(f"{x:.4f}" for x in losses) + f" | top1_err "
+        f"{mets[-1]['top1_err'].item():.1f} | kernel launches {counts} | "
+        f"running mean of s2 res0 a_bn moved {moved:.3e}")
+    log(phase, f"bf16: {TRAIN_CLIPS / dt:.2f} train clips/s, {dt * 1e3:.2f} "
+        f"ms per step, peak memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated) | {smi}")
+    if counts != expect:
+        raise AssertionError(f"{phase}: kernel launches {counts} for "
+                             f"{TRAIN_STEPS} steps, expected {expect}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
+    if not moved > 0:
+        raise AssertionError(f"{phase}: BN running statistics did not move")
+    return state, step, counts
+
+
+def phase_train(smi):
+    """SlowFast-R50 training; then one step with stage remat on s2."""
+    from efficient_slowfast_tpu_torch.models.slowfast import remat_stage
+
+    cfg = train_cfg()
+    model = train_model(cfg, SEED)
+    state, step, _ = train_steps(
+        "train", cfg, model, {"fused_bottleneck": 0, "flash_attention": 0,
+                              "flash_attention_backward": 0}, smi)
+    remat = cfg.clone()
+    remat.TPU.REMAT = True
+    remat.TPU.REMAT_STAGES = [2]
+    for idx, name in enumerate(("s2", "s3", "s4", "s5")):
+        getattr(model, name).remat = remat_stage(remat, idx)
+    (x0, y0), (x, y) = train_batches(cfg, 2, TRAIN_CLIPS, SEED + 10)
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    step(state, x0, y0, cfg.SOLVER.BASE_LR, drop)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = step(state, x, y, cfg.SOLVER.BASE_LR, drop)["loss"].item()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log("train", f"bf16, TPU.REMAT True, TPU.REMAT_STAGES [2]: one step "
+        f"after one warm-up {dt * 1e3:.2f} ms, loss {loss:.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"train with remat: non-finite loss {loss}")
+
+
+def one_step(cfg, state_dict, batch, seed):
+    """The model of ``cfg`` loaded with ``state_dict``, after one train
+    step on ``batch``: {name: tensor} of its parameters and buffers."""
+    from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
+                                                           make_train_step)
+
+    model = cmda_model(cfg, state_dict)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    step(state, *batch, cfg.SOLVER.BASE_LR,
+         torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_cmda_train(cfg, model, smi):
+    """CMDA-R50 training; then one step of one clip in f32 and bf16, each
+    with the attention kernels against the plain attention. Returns the
+    backward's launch count of the timed steps."""
+    cmda = cfg.MODEL.MODEL_NAME
+    state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+    _, _, counts = train_steps(
+        "cmda_train", cfg, model,
+        {"fused_bottleneck": 0, "flash_attention": 4 * TRAIN_STEPS,
+         "flash_attention_backward": 4 * 3 * TRAIN_STEPS}, smi)
+    del model
+    torch.cuda.empty_cache()
+    stats = [k for k in state_dict
+             if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in state_dict if k not in stats
+              and not k.endswith("num_batches_tracked")]
+    dist = lambda a, b: sum((a[k].double() - b[k].double()).norm().item() ** 2
+                            for k in params) ** 0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        batch = train_batches(cfg, 1, 1, SEED + 11, dtype)[0]
+        after = {flash: one_step(train_cfg(cmda, name, flash), state_dict,
+                                 batch, SEED)
+                 for flash in (True, False)}
+        if dtype == torch.float32:
+            ref = after[False]  # the float32 step, plain attention
+        steps = {k: (after[False][k].double() - state_dict[k].double()
+                     ).norm().item() for k in params}
+        floor = 1e-3 * max(steps.values())
+        worst_p, where_p = max(
+            ((after[True][k].double() - after[False][k].double()).norm()
+             .item() / max(steps[k], floor), k) for k in params)
+        worst_s, where_s = max(
+            ((after[True][k] - after[False][k]).abs().max().item() / max(
+                1.0, after[False][k].abs().max().item()), k) for k in stats)
+        step = dist(ref, state_dict)
+        e_kernel, e_plain = dist(after[True], ref), dist(after[False], ref)
+        log("cmda_train", f"{name}, 1 clip, one step: attention kernels vs "
+            f"plain attention: worst |dp| / |step| {worst_p:.3e} ({where_p}),"
+            f" worst running statistic {worst_s:.3e} ({where_s}; tol "
+            f"{CMDA_STATS_TOL[dtype]}); all parameters, distance from the f32 "
+            f"plain step over that step: kernels {e_kernel / step:.3e}, plain "
+            f"{e_plain / step:.3e}, kernels vs plain "
+            f"{dist(after[True], after[False]) / step:.3e} | {smi}")
+        bad = (worst_p > CMDA_TRAIN_F32_TOL if dtype == torch.float32
+               else e_kernel > CMDA_TRAIN_BF16_RATIO * e_plain)
+        if bad or worst_s > CMDA_STATS_TOL[dtype]:
+            raise AssertionError(
+                f"cmda_train {name}: kernels vs plain {worst_p} (f32 tol "
+                f"{CMDA_TRAIN_F32_TOL}); from the f32 step kernels "
+                f"{e_kernel / step}, plain {e_plain / step} (bf16 ratio "
+                f"{CMDA_TRAIN_BF16_RATIO}); statistics {worst_s}")
+        del after
+        torch.cuda.empty_cache()
+    return counts["flash_attention_backward"]
 
 
 def per_request(record, key):
@@ -852,6 +1262,17 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_cmda_f32(state, smi)
+    del state
+    torch.cuda.empty_cache()
+
+    cfg = train_cfg("SlowFastDualAttention")
+    model = train_model(cfg, SEED)
+    bwd_record, bwd_err = phase_attention_backward(
+        attention_rows(cfg, model), smi)
+    phase_train(smi)
+    torch.cuda.empty_cache()
+    calibrate_attention(cfg, model, SEED + 9)
+    bwd_launches = phase_cmda_train(cfg, model, smi)
 
     kernels = [
         kernel_entry(
@@ -863,7 +1284,12 @@ def main():
             "flash_attention",
             "efficient_slowfast_tpu_torch/csrc/flash_attention.cu",
             "efficient_slowfast_tpu/ops/pallas/flash_attention.py:112",
-            k2_launches, k2_err, k2_record)]
+            k2_launches, k2_err, k2_record),
+        kernel_entry(
+            "flash_attention_backward",
+            "efficient_slowfast_tpu_torch/csrc/flash_attention_bwd.cu",
+            "efficient_slowfast_tpu/ops/pallas/flash_attention.py:219",
+            bwd_launches, bwd_err, bwd_record)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@
 // writing v's dtype, as the TPU kernel does. Unlike the TPU kernel it masks
 // a key count that is not a multiple of the tile (keys >= M get logit -inf)
 // and skips query rows >= N, and it takes any M. D and C range over 1..128,
-// B up to 65535.
+// B up to 65535. Given a non-null lse buffer, a launch also writes each
+// row's float32 log-sum-exp, row max + log(row sum), from which the
+// backward (flash_attention_bwd.cu) recomputes the probabilities; the
+// serving path passes null, and the output is the same either way.
 //
 // What bounds it on the H100 at the CMDA-R50 serving shapes (bf16, 4 clips
 // of 32 frames at 256^2; N = M = 32768, 32768, 8192, 2048 with
@@ -102,6 +105,7 @@ constexpr int kPad = 4;   // row padding of the shared tiles, in floats
 constexpr int kLdT = kBQ + kPad;  // leading dim of transposed q/k tiles, logits
 constexpr int kKeysPerThread = kBK / 4;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -118,8 +122,8 @@ __host__ __device__ inline size_t smem_floats(int d, int cp) {
 template <typename T, int CP>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int n,
-                       int m, int d, int c) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int n, int m, int d, int c) {
   constexpr bool kKeySplit = CP <= 32;   // else the 4 threads split C
   constexpr int kAcc = kKeySplit ? CP : CP / 4;
   constexpr int kLdV = CP + kPad;
@@ -256,6 +260,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int row = q0 + sr;
   const float denom = fmaxf(row_sum, 1e-30f);
+  if (lse != nullptr && sp == 0 && row < n)  // row_max is in log2 units
+    lse[bi * n + row] = row_max * kLn2 + logf(row_sum);
   T* orow = out + (bi * n + row) * c;
   if constexpr (kKeySplit) {
 #pragma unroll
@@ -280,8 +286,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int CP>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int n, int m, int d, int c, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int b, int n, int m, int d, int c, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, CP>;
   const size_t smem = smem_floats(d, CP) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -290,18 +296,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((n + kBQ - 1) / kBQ, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n, m, d, c);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, n, m, d, c);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int b,
-             int n, int m, int d, int c, cudaStream_t s) {
-  if (c <= 8) return launch<T, 8>(q, k, v, out, b, n, m, d, c, s);
-  if (c <= 16) return launch<T, 16>(q, k, v, out, b, n, m, d, c, s);
-  if (c <= 32) return launch<T, 32>(q, k, v, out, b, n, m, d, c, s);
-  if (c <= 64) return launch<T, 64>(q, k, v, out, b, n, m, d, c, s);
-  return launch<T, 128>(q, k, v, out, b, n, m, d, c, s);
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int b, int n, int m, int d, int c, cudaStream_t s) {
+  if (c <= 8) return launch<T, 8>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (c <= 16) return launch<T, 16>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (c <= 32) return launch<T, 32>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (c <= 64) return launch<T, 64>(q, k, v, out, lse, b, n, m, d, c, s);
+  return launch<T, 128>(q, k, v, out, lse, b, n, m, d, c, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -312,46 +318,13 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcBK = 64;     // keys of one tile
 constexpr int kTcNT = kTcBK / 8;  // 8-key column tiles of a logit tile
 constexpr int kTcStages = 3;  // k/v tile buffers: two read, one filling
-constexpr int kTcPad = 8;     // bf16 padding of each shared row (16 bytes)
+constexpr int kTcPad = tc::kSmemPad;  // bf16 padding of each shared row
 
 // Shared memory of the bf16 kernel: q (rows x DP), then kTcStages k tiles
 // (kTcBK x DP) and kTcStages v tiles (kTcBK x CP), rows padded by kTcPad.
 __host__ __device__ inline size_t tc_smem_bytes(int rows, int dp, int cp) {
   return sizeof(bf16) * ((size_t)(rows + kTcStages * kTcBK) * (dp + kTcPad) +
                          (size_t)kTcStages * kTcBK * (cp + kTcPad));
-}
-
-// Rows r0 .. r0 + kRowsT - 1 of a (count x w) matrix into shared rows of
-// WP + kTcPad elements, zero-padded to WP columns and past count, by the
-// kThreads threads of the block. vec: w is a multiple of 8 and src is
-// 16-byte aligned, so each row goes as WP / 8 16-byte cp.async chunks
-// (zero-filled where they fall outside the matrix), a fixed number per
-// thread; else element by element.
-template <int WP, int kRowsT, int kThreads>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int count, int w, bool vec) {
-  constexpr int kLd = WP + kTcPad;
-  const bf16* base = src + (size_t)r0 * w;
-  const int left = count - r0;  // rows of the matrix from r0 on
-  if (vec) {
-    constexpr int kChunks = WP / 8, kTotal = kRowsT * kChunks;
-#pragma unroll
-    for (int u = 0; u < (kTotal + kThreads - 1) / kThreads; ++u) {
-      const int i = threadIdx.x + u * kThreads;
-      if (kTotal % kThreads == 0 || i < kTotal) {
-        const int r = i / kChunks, j = i % kChunks * 8;
-        const bool in = r < left && j < w;
-        tc::cp_async_16(dst + r * kLd + j, in ? base + r * w + j : src,
-                        in ? 16 : 0);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRowsT * WP; i += kThreads) {
-      const int r = i / WP, j = i % WP;
-      dst[r * kLd + j] = r < left && j < w ? base[r * w + j]
-                                           : __float2bfloat16_rn(0.f);
-    }
-  }
 }
 
 // S = q k^T for one tile of keys, 16 rows x 64 keys per warp. kt: the
@@ -451,8 +424,8 @@ __launch_bounds__(32 * tc_warps(DP, CP), DP + CP <= 64 ? 2 : 1)
 flash_attention_tc_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ out,
-                          int n, int m, int d, int c, bool qk_vec,
-                          bool v_vec) {
+                          float* __restrict__ lse, int n, int m, int d, int c,
+                          bool qk_vec, bool v_vec) {
   constexpr int kThreads = 32 * tc_warps(DP, CP), kRows = kThreads / 2;
   constexpr int kLdK = DP + kTcPad, kLdV = CP + kTcPad;
   constexpr int kKTile = kTcBK * kLdK, kVTile = kTcBK * kLdV;
@@ -475,14 +448,14 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
   const int tiles = (m + kTcBK - 1) / kTcBK, full = m / kTcBK;
   auto load_tile = [&](int it) {  // k and v of tile it, into its buffer
     const int buf = it % kTcStages;
-    load_rows<DP, kTcBK, kThreads>(ks + buf * kKTile, kb, it * kTcBK, m, d,
-                                   qk_vec);
-    load_rows<CP, kTcBK, kThreads>(vs + buf * kVTile, vb, it * kTcBK, m, c,
-                                   v_vec);
+    tc::load_rows<DP, kTcBK, kThreads>(ks + buf * kKTile, kb, it * kTcBK, m,
+                                       d, qk_vec);
+    tc::load_rows<CP, kTcBK, kThreads>(vs + buf * kVTile, vb, it * kTcBK, m,
+                                       c, v_vec);
     tc::cp_async_commit();
   };
 
-  load_rows<DP, kRows, kThreads>(qs, qb, q0, n, d, qk_vec);
+  tc::load_rows<DP, kRows, kThreads>(qs, qb, q0, n, d, qk_vec);
   load_tile(0);
   tc::cp_async_wait<0>();
   __syncthreads();
@@ -551,6 +524,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
     const float denom = fmaxf(row_sum[h], 1e-30f);
     const int row = q0 + 16 * warp + g + 8 * h;
     if (row < n) {
+      if (lse != nullptr && t == 0)
+        lse[bi * n + row] = row_max[h] + logf(row_sum[h]);
       bf16* orow = out + (bi * n + row) * c;
 #pragma unroll
       for (int j = 0; j < CP / 8; ++j) {
@@ -568,8 +543,9 @@ inline bool aligned16(const void* p) {
 }
 
 template <int DP, int CP>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
-              int n, int m, int d, int c, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int b, int n, int m, int d, int c,
+              cudaStream_t stream) {
   auto kernel = flash_attention_tc_kernel<DP, CP>;
   constexpr int kThreads = 32 * tc_warps(DP, CP), kRows = kThreads / 2;
   const size_t smem = tc_smem_bytes(kRows, DP, CP);
@@ -581,26 +557,34 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((n + kRows - 1) / kRows, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, m, d, c,
-      qk_vec, v_vec);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, n, m, d,
+      c, qk_vec, v_vec);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int dispatch_tc_c(const void* q, const void* k, const void* v, void* out,
-                  int b, int n, int m, int d, int c, cudaStream_t s) {
-  if (c <= 16) return launch_tc<DP, 16>(q, k, v, out, b, n, m, d, c, s);
-  if (c <= 32) return launch_tc<DP, 32>(q, k, v, out, b, n, m, d, c, s);
-  if (c <= 64) return launch_tc<DP, 64>(q, k, v, out, b, n, m, d, c, s);
-  return launch_tc<DP, 128>(q, k, v, out, b, n, m, d, c, s);
+                  float* lse, int b, int n, int m, int d, int c,
+                  cudaStream_t s) {
+  if (c <= 16)
+    return launch_tc<DP, 16>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (c <= 32)
+    return launch_tc<DP, 32>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (c <= 64)
+    return launch_tc<DP, 64>(q, k, v, out, lse, b, n, m, d, c, s);
+  return launch_tc<DP, 128>(q, k, v, out, lse, b, n, m, d, c, s);
 }
 
-int dispatch_tc(const void* q, const void* k, const void* v, void* out, int b,
-                int n, int m, int d, int c, cudaStream_t s) {
-  if (d <= 16) return dispatch_tc_c<16>(q, k, v, out, b, n, m, d, c, s);
-  if (d <= 32) return dispatch_tc_c<32>(q, k, v, out, b, n, m, d, c, s);
-  if (d <= 64) return dispatch_tc_c<64>(q, k, v, out, b, n, m, d, c, s);
-  return dispatch_tc_c<128>(q, k, v, out, b, n, m, d, c, s);
+int dispatch_tc(const void* q, const void* k, const void* v, void* out,
+                float* lse, int b, int n, int m, int d, int c,
+                cudaStream_t s) {
+  if (d <= 16)
+    return dispatch_tc_c<16>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (d <= 32)
+    return dispatch_tc_c<32>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (d <= 64)
+    return dispatch_tc_c<64>(q, k, v, out, lse, b, n, m, d, c, s);
+  return dispatch_tc_c<128>(q, k, v, out, lse, b, n, m, d, c, s);
 }
 
 }  // namespace
@@ -609,16 +593,19 @@ extern "C" {
 
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
 // q (b, n, d), k (b, m, d), v (b, m, c) and out (b, n, c) are contiguous.
-// Returns the CUDA error code of the launch.
+// lse: null, or a float32 (b, n) buffer that receives each row's
+// log-sum-exp of its logits, max + log(sum of exp(logit - max)), for the
+// backward. Returns the CUDA error code of the launch.
 int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* out, int b, int n, int m,
-                           int d, int c, void* stream) {
+                           const void* v, void* out, float* lse, int b, int n,
+                           int m, int d, int c, void* stream) {
   if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 128 ||
       c <= 0 || c > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, out, b, n, m, d, c, s);
-  if (dtype == 1) return dispatch_tc(q, k, v, out, b, n, m, d, c, s);
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (dtype == 1) return dispatch_tc(q, k, v, out, lse, b, n, m, d, c, s);
   return (int)cudaErrorInvalidValue;
 }
 

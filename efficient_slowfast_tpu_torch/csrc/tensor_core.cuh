@@ -1,7 +1,8 @@
 // Warp-level building blocks for bf16 tensor-core kernels on sm_80 and
 // later (Hopper included): ldmatrix, mma.sync m16n8k16 with f32
 // accumulation, cp.async with zero fill, ex2.approx and packed bf16
-// conversion, each a thin wrapper over one PTX instruction.
+// conversion, each a thin wrapper over one PTX instruction; and a
+// block-wide loader of a tile of matrix rows into padded shared memory.
 //
 // Fragment layouts of mma.sync.m16n8k16 with bf16 inputs (PTX ISA, "Matrix
 // Fragments for mma.m16n8k16"), for lane = 4 g + t:
@@ -90,6 +91,44 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// bf16 padding of each shared-memory row of a tile (16 bytes): the 8 rows
+// of an ldmatrix phase then fall on 8 different bank groups.
+constexpr int kSmemPad = 8;
+
+// Rows r0 .. r0 + kRowsT - 1 of a (count x w) bf16 matrix into shared rows
+// of WP + kSmemPad elements, zero-padded to WP columns and past count, by
+// the kThreads threads of the block. vec: w is a multiple of 8 and src is
+// 16-byte aligned, so each row goes as WP / 8 16-byte cp.async chunks
+// (zero-filled where they fall outside the matrix), a fixed number per
+// thread; else element by element.
+template <int WP, int kRowsT, int kThreads>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int count, int w, bool vec) {
+  constexpr int kLd = WP + kSmemPad;
+  const __nv_bfloat16* base = src + (size_t)r0 * w;
+  const int left = count - r0;  // rows of the matrix from r0 on
+  if (vec) {
+    constexpr int kChunks = WP / 8, kTotal = kRowsT * kChunks;
+#pragma unroll
+    for (int u = 0; u < (kTotal + kThreads - 1) / kThreads; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (kTotal % kThreads == 0 || i < kTotal) {
+        const int r = i / kChunks, j = i % kChunks * 8;
+        const bool in = r < left && j < w;
+        cp_async_16(dst + r * kLd + j, in ? base + r * w + j : src,
+                    in ? 16 : 0);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRowsT * WP; i += kThreads) {
+      const int r = i / WP, j = i % WP;
+      dst[r * kLd + j] = r < left && j < w ? base[r * w + j]
+                                           : __float2bfloat16_rn(0.f);
+    }
+  }
 }
 
 }  // namespace tc

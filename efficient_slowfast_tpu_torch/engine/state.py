@@ -1,15 +1,157 @@
-"""Inference forward (port of ``engine/state.py:222-245``, ``make_forward``).
+"""Train state, train and eval steps, inference forward (port of
+``engine/state.py:29-245``).
 
-The train state, train and eval steps come with the train-step slice.
+One train step is forward, loss, backward and the optimizer update, with
+the BN running statistics updated in the forward and the metrics left on
+the device: ``loss``, ``lr``, ``top1_err`` and ``top{k}_err`` are tensors,
+and nothing in a step waits for the card. Parameters and running
+statistics stay float32 while the activations run in ``TPU.COMPUTE_DTYPE``.
+Detection's train step comes with the detection slice.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
 from ..models.build import get_compute_dtype, resolve_device
+from ..models.losses import get_loss_func
+from ..models.optimizer import construct_optimizer, set_lr
+from ..utils import metrics as metrics_lib
+
+
+@dataclass
+class TrainState:
+    """The model (parameters and BN running statistics), its optimizer
+    (moments) and the count of steps taken."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def pathway_inputs(cfg, batch_size, dtype=torch.float32, device=None):
+    """Zero example inputs [slow, fast] (or [frames]), channels-last
+    (B, T, H, W, C), on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.CROP_SIZE
+    c = cfg.DATA.INPUT_CHANNEL_NUM[0]
+    shape = lambda frames: (batch_size, frames, s, s, c)  # noqa: E731
+    if cfg.MODEL.ARCH in cfg.MODEL.MULTI_PATHWAY_ARCH:
+        return [torch.zeros(shape(t // cfg.SLOWFAST.ALPHA), dtype=dtype,
+                            device=dev),
+                torch.zeros(shape(t), dtype=dtype, device=dev)]
+    return [torch.zeros(shape(t), dtype=dtype, device=dev)]
+
+
+def create_train_state(cfg, model: torch.nn.Module, device=None) -> TrainState:
+    """The model on ``device`` (the GPU by default) with a fresh optimizer
+    (``construct_optimizer``: zero moments) at step 0. The model keeps the
+    weights it has, from ``build_model``'s init or a loaded state_dict."""
+    model = model.to(resolve_device(device))
+    return TrainState(model=model, optimizer=construct_optimizer(cfg, model))
+
+
+def _device_inputs(cfg, model, inputs, labels):
+    dev = next(model.parameters()).device
+    dtype = get_compute_dtype(cfg)
+    return ([x.to(dev, dtype, non_blocking=True) for x in inputs],
+            labels.to(dev, non_blocking=True))
+
+
+def make_train_step(cfg, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer) -> Callable:
+    """step(state, inputs, labels, lr, generator) → metrics.
+
+    Sets ``lr`` on every parameter group, runs the train-mode forward (the
+    head's dropout drawing from ``generator``, required where
+    ``MODEL.DROPOUT_RATE`` > 0), the loss, the backward and
+    one update, and advances ``state.step``. With ``TPU.GRAD_ACCUM_STEPS``
+    a > 1 the batch runs as a sequential microbatches, each forward updating
+    the BN running statistics as a real step would, the gradients averaged
+    over them (each microbatch's loss scaled by 1/a), one update; the loss
+    is their mean and the top-k counts their sum.
+    """
+    loss_fn = get_loss_func(cfg.MODEL.LOSS_FUNC)
+    topk = cfg.TRAIN.TOPK
+    accum = max(int(cfg.TPU.GRAD_ACCUM_STEPS), 1)
+    classify = not cfg.DATA.MULTI_LABEL and not cfg.DETECTION.ENABLE
+
+    def step(state: TrainState, inputs, labels, lr, generator=None):
+        assert state.model is model and state.optimizer is optimizer, (
+            "the train state holds another model or optimizer")
+        if cfg.MODEL.DROPOUT_RATE > 0 and generator is None:
+            raise ValueError("MODEL.DROPOUT_RATE > 0: the train step needs "
+                             "a torch.Generator for the dropout masks")
+        inputs, labels = _device_inputs(cfg, model, inputs, labels)
+        b = labels.shape[0]
+        assert b % accum == 0, (
+            f"batch {b} not divisible by TPU.GRAD_ACCUM_STEPS={accum}")
+        m = b // accum
+        set_lr(optimizer, lr)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss_sum, counts = 0.0, [0.0, 0.0]
+        for i in range(accum):
+            part = slice(i * m, (i + 1) * m)
+            preds = model([x[part] for x in inputs], generator=generator)
+            loss = loss_fn(preds, labels[part])
+            (loss / accum if accum > 1 else loss).backward()
+            loss_sum = loss_sum + loss.detach()
+            if classify:
+                k1, kk = metrics_lib.topks_correct(preds.detach(),
+                                                   labels[part], (1, topk))
+                counts = [counts[0] + k1, counts[1] + kk]
+        optimizer.step()
+        state.step += 1
+        dev = labels.device
+        mets = {"loss": loss_sum / accum if accum > 1 else loss_sum,
+                "lr": torch.full((), lr, dtype=torch.float32, device=dev)}
+        if classify:
+            mets["top1_err"] = (1.0 - counts[0] / b) * 100.0
+            mets[f"top{topk}_err"] = (1.0 - counts[1] / b) * 100.0
+        return mets
+
+    return step
+
+
+def make_eval_step(cfg, model: torch.nn.Module) -> Callable:
+    """step(state, inputs, labels, valid=None) → metrics and post-activation
+    preds, under ``inference_mode``.
+
+    ``valid`` is the loader's {1, 0} padding mask: padded samples are left
+    out of the error denominators, and ``num_valid`` is their count (the
+    meter's weight).
+    """
+    topk = cfg.TRAIN.TOPK
+
+    def step(state: TrainState, inputs, labels, valid=None):
+        assert state.model is model, "the train state holds another model"
+        inputs, labels = _device_inputs(cfg, model, inputs, labels)
+        model.eval()
+        with torch.inference_mode():
+            preds = model(inputs)
+            out = {"preds": preds}
+            if not cfg.DATA.MULTI_LABEL and not cfg.DETECTION.ENABLE:
+                c1, ck = metrics_lib.topks_correct_per_sample(
+                    preds, labels, (1, topk))
+                if valid is None:
+                    k1, kk = c1.sum(), ck.sum()
+                    num_valid = torch.full((), float(preds.shape[0]),
+                                           device=preds.device)
+                else:
+                    v = valid.to(preds.device, torch.float32)
+                    k1, kk = (c1 * v).sum(), (ck * v).sum()
+                    num_valid = v.sum()
+                n = torch.clamp(num_valid, min=1.0)
+                out["top1_err"] = (1.0 - k1 / n) * 100.0
+                out[f"top{topk}_err"] = (1.0 - kk / n) * 100.0
+                out["num_valid"] = num_valid
+        return out
+
+    return step
 
 
 def make_forward(cfg, model: torch.nn.Module, device=None) -> Callable:

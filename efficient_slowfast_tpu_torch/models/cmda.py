@@ -6,7 +6,9 @@ SlowFast trunk, with every lateral connection the bidirectional
 FuseFastAndSlow (ECA channel attention Fast→Slow, spatial attention
 Slow→Fast), which also widens each stage's fast-pathway input by the slow
 width over β. Its SpatialAttention runs over all T·H·W slow tokens, which
-is where the flash-attention kernel serves.
+is where the flash-attention kernel serves, forward and backward. Its
+stages take ``TPU.REMAT`` as SlowFast's do (the JAX package's CMDA keeps no
+remat; the recompute changes memory, not values).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ class SlowFastDualAttention(nn.Module):
         self.s5 = stage(3, w * 16)
         self.head = basic_head(cfg, _POOL1, dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = self.s1([to_ncdhw(xi) for xi in x])
         x = self.s1_fuse(x)
         x = self.s2(x)
@@ -73,4 +75,4 @@ class SlowFastDualAttention(nn.Module):
         x = self.s4(x)
         x = self.s4_fuse(x)
         x = self.s5(x)
-        return self.head(x)
+        return self.head(x, generator)

@@ -6,6 +6,13 @@ mean over (T', H', W') — the order matters for multi-crop test parity
 (:218-221). With a test crop larger than the training crop the head pools
 with the training window at stride 1 and averages the activated scores over
 the positions (fully convolutional testing).
+
+Dropout, in train mode only, draws its mask from the ``torch.Generator``
+that the caller passes down (the train step always passes one; a direct
+call of the module without one draws from torch's default generator):
+each element is kept with probability 1-p and scaled by 1/(1-p), as flax's
+``nn.Dropout`` does (its bits differ from flax's, so tests that compare
+with JAX set the rate to 0).
 """
 
 from __future__ import annotations
@@ -31,11 +38,11 @@ class ResNetBasicHead(nn.Module):
             raise NotImplementedError(act_func)
         self.pool_size = pool_size
         self.act_func = act_func
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0 else None
+        self.dropout_rate = dropout_rate
         self.projection = Linear(sum(dim_in), num_classes,
                                  init_std=fc_init_std, dtype=dtype)
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: Optional[torch.Generator] = None):
         pools = []
         for p, x in enumerate(inputs):
             if self.pool_size is None or self.pool_size[p] is None:
@@ -45,8 +52,8 @@ class ResNetBasicHead(nn.Module):
                                stride=(1, 1, 1)).to(x.dtype)
             pools.append(x)
         x = torch.cat(pools, dim=1).permute(0, 2, 3, 4, 1)  # (B,T',H',W',C)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        if self.training and self.dropout_rate > 0:
+            x = dropout(x, self.dropout_rate, generator)
         x = self.projection(x)
         if not self.training:
             x = x.float()
@@ -54,3 +61,12 @@ class ResNetBasicHead(nn.Module):
                  else torch.sigmoid(x))
             x = x.mean(dim=(1, 2, 3))
         return x.reshape(x.shape[0], -1)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (torch's
+    default one where None): x/(1-rate) where a uniform draw is below
+    1-rate, else 0."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+    return torch.where(keep, x / (1 - rate), torch.zeros_like(x))

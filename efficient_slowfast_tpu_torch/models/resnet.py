@@ -3,15 +3,24 @@
 Reference: slowfast/models/resnet_helper.py (BasicTransform :25-107,
 BottleneckTransform :110-240, ResBlock :243-358, ResStage :361-561). Module
 names are the reference's, so its state_dict loads as it is.
+
+A ResStage built with ``remat`` is rematerialised in training, the
+counterpart of the JAX package's ``nn.remat`` stage (``models/slowfast.py::
+_stage_cls``): ``torch.utils.checkpoint`` keeps only its inputs and runs it
+again in the backward. The recompute normalises with the same batch
+statistics but leaves the running ones alone, so that they are updated
+once per step, as flax's remat updates ``batch_stats`` once.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import Conv3d
 from ..ops.norm import BatchNorm3d
@@ -122,8 +131,9 @@ class ResStage(nn.Module):
                  stride_1x1: bool = False, dilation: Sequence[int] = (1, 1),
                  zero_init_final_bn: bool = False,
                  norm: Callable[..., nn.Module] = BatchNorm3d,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if any(len(inds) for inds in nonlocal_inds):
             raise NotImplementedError(
                 "non-local blocks are not ported to PyTorch yet "
@@ -145,9 +155,31 @@ class ResStage(nn.Module):
 
     def forward(self, inputs):
         assert len(inputs) == len(self.num_blocks)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(self._pathways, *inputs, use_reentrant=False,
+                              context_fn=self._remat_contexts)
+        return self._pathways(*inputs)
+
+    def _pathways(self, *inputs):
         outputs = []
         for p, x in enumerate(inputs):
             for i in range(self.num_blocks[p]):
                 x = getattr(self, f"pathway{p}_res{i}")(x)
             outputs.append(x)
         return outputs
+
+    def _remat_contexts(self):
+        """(forward, recompute) contexts of the checkpoint: the recompute
+        leaves the BN running statistics alone."""
+        return contextlib.nullcontext(), self._frozen_stats()
+
+    @contextlib.contextmanager
+    def _frozen_stats(self):
+        bns = [m for m in self.modules() if isinstance(m, BatchNorm3d)]
+        for m in bns:
+            m.update_stats = False
+        try:
+            yield
+        finally:
+            for m in bns:
+                m.update_stats = True

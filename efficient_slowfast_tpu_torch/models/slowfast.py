@@ -7,7 +7,10 @@ The model takes the JAX package's layout: a list of channels-last pathway
 tensors [slow (B, T/α, H, W, C), fast (B, T, H, W, C)]. Inside, each pathway
 is the NCDHW view of that same memory (``channels_last_3d``), so no copy is
 made. It returns logits in train mode and averaged post-activation scores in
-eval mode (see heads.ResNetBasicHead).
+eval mode (see heads.ResNetBasicHead); in train mode the head's dropout
+draws from the ``generator`` passed to ``forward``. ``TPU.REMAT`` and
+``TPU.REMAT_STAGES`` rematerialise the ResStages in training
+(``remat_stage``).
 """
 
 from __future__ import annotations
@@ -75,6 +78,14 @@ def stem(cfg, tk0, norm, dtype) -> VideoModelStem:
         norm=norm, dtype=dtype)
 
 
+def remat_stage(cfg, idx) -> bool:
+    """Whether stage s{idx + 2} is rematerialised in training: with
+    ``TPU.REMAT``, the stages named in ``TPU.REMAT_STAGES``, or every stage
+    where the list is empty (``models/slowfast.py::_stage_cls`` in JAX)."""
+    sel = list(cfg.TPU.REMAT_STAGES)
+    return bool(cfg.TPU.REMAT) and (not sel or idx + 2 in sel)
+
+
 def res_stage(cfg, idx, dim_in, norm, dtype) -> ResStage:
     """Stage s{idx + 2} of a two-pathway trunk, taking ``dim_in`` channels
     per pathway (the lateral fusion before it decides them)."""
@@ -96,7 +107,7 @@ def res_stage(cfg, idx, dim_in, norm, dtype) -> ResStage:
         stride_1x1=cfg.RESNET.STRIDE_1X1,
         dilation=cfg.RESNET.SPATIAL_DILATIONS[idx],
         zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
-        norm=norm, dtype=dtype)
+        norm=norm, dtype=dtype, remat=remat_stage(cfg, idx))
 
 
 def basic_head(cfg, pool1, dtype) -> ResNetBasicHead:
@@ -153,7 +164,7 @@ class SlowFast(nn.Module):
         self.s5 = stage(3, w * 16, w * 16 // beta)
         self.head = basic_head(cfg, self.pool_size, dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = self.s1([to_ncdhw(xi) for xi in x])
         x = self.s1_fuse(x)
         x = self.s2(x)
@@ -166,4 +177,4 @@ class SlowFast(nn.Module):
         x = self.s4(x)
         x = self.s4_fuse(x)
         x = self.s5(x)
-        return self.head(x)
+        return self.head(x, generator)

@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .conv import Conv3d
-from .kernels.flash_attention import chunked_attention, flash_attention
+from .kernels.flash_attention import flash_attention, plain_attention
 
 
 class SpatialAttention(nn.Module):
@@ -26,9 +26,10 @@ class SpatialAttention(nn.Module):
     Tokens are ordered (T, H, W) as in the JAX package's reshape; the logits
     are unscaled and the softmax runs over the keys. Above
     ``flash_min_tokens`` tokens the streaming path runs: ``flash_attention``
-    (the CUDA kernel on a CUDA tensor) when ``use_flash``, else the plain
-    ``chunked_attention``, an explicit opt-out as ``TPU.FLASH_ATTENTION
-    False`` is in JAX. At or below it the dense path runs, as JAX writes it:
+    (the CUDA kernels on a CUDA tensor, forward and backward) when
+    ``use_flash``, else ``plain_attention`` (the plain versions, forward
+    and backward), an explicit opt-out as ``TPU.FLASH_ATTENTION False`` is
+    in JAX. At or below it the dense path runs, as JAX writes it:
     f32 logits and softmax, the probabilities cast to v's dtype before the
     product with v.
 
@@ -62,7 +63,7 @@ class SpatialAttention(nn.Module):
         k = tokens(self.key_conv(x))
         v = tokens(self.value_conv(x))
         if n > self.flash_min_tokens:
-            attend = flash_attention if self.use_flash else chunked_attention
+            attend = flash_attention if self.use_flash else plain_attention
             out = attend(q, k, v)
         else:
             logits = torch.matmul(q.float(), k.float().transpose(1, 2))

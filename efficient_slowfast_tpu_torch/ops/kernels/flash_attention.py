@@ -1,4 +1,4 @@
-"""Flash attention: plain version and CUDA kernel.
+"""Flash attention, forward and backward: plain versions and CUDA kernels.
 
 Port of ``efficient_slowfast_tpu/ops/pallas/flash_attention.py``. For
 q (B, N, D), k (B, M, D) and v (B, M, C) it computes softmax(q kᵀ) v with
@@ -6,19 +6,41 @@ no scale on the logits: the softmax runs online in float32 over key blocks,
 with a running max and sum, so the (N, M) matrix never exists; the division
 is by max(row_sum, 1e-30) and the output has v's dtype.
 
-``flash_attention`` runs the hand-written kernel ``csrc/flash_attention.cu``
-on CUDA tensors (one launch per call) and the plain version
-``chunked_attention`` on CPU tensors. In bfloat16 the kernel computes both
-products on the tensor cores and rounds the probabilities to bfloat16 once
-before the product with v (the row sums stay float32), as the JAX package's
-dense path does; in float32 it stays in float32 throughout. A CUDA tensor
-never takes the plain version: what the kernel does not take raises. Unlike
-the Pallas path, the kernel masks a key count that its tile does not
-divide, and it takes any key count: the JAX package's
-``TPU.FLASH_MAX_KEYS`` is a TPU compiler limit and bounds nothing here.
+``flash_attention`` is differentiable on every device, as the JAX
+package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
 
-Forward only, as the port has no train step yet; in the JAX package the
-gradient is the vjp of ``chunked_attention`` (``flash_attention.py:219-222``).
+- Forward. On CUDA tensors it runs the hand-written kernel
+  ``csrc/flash_attention.cu`` (one launch per call); on CPU tensors the
+  plain version ``chunked_attention``. In bfloat16 the kernel computes both
+  products on the tensor cores and rounds the probabilities to bfloat16
+  once before the product with v (the row sums stay float32), as the JAX
+  package's dense path does; in float32 it stays in float32 throughout.
+  Where a gradient will be asked for, the forward also keeps each row's
+  float32 log-sum-exp of its logits (``chunked_attention_lse`` on the CPU,
+  the kernel's optional output on CUDA), in ``AttentionFunction``; the
+  serving path (no grad, or ``inference_mode``) keeps none and launches
+  the one kernel only.
+- Backward. With D = rowsum(dO∘O) and P = exp(q kᵀ − lse):
+  dV = Pᵀ dO, dS = P∘(dO vᵀ − D), dQ = dS k, dK = dSᵀ q. On CUDA tensors
+  ``flash_attention_backward`` runs ``csrc/flash_attention_bwd.cu`` (three
+  launches per call: D, then dK and dV over key blocks, then dQ over query
+  blocks, without atomics); on CPU tensors ``attention_backward``, the same
+  formulas chunked over the keys, so that its memory is O(N · chunk). The
+  JAX package's backward is the vjp of ``chunked_attention``
+  (``flash_attention.py:219-222``), which keeps all N·M probabilities.
+  Gradients come back in the inputs' dtypes. Both backwards take D from
+  the output the forward returned (bf16 where the inputs are), as FA2 and
+  SDPA do; autograd through ``chunked_attention`` takes it from the
+  unrounded one.
+
+``plain_attention`` is the same Function over the plain versions, on any
+device: the explicit opt-out ``TPU.FLASH_ATTENTION False``.
+
+``flash_attention`` never gives a CUDA tensor a plain version: what a
+kernel does not take raises, and so does a failed build or launch. Unlike the Pallas path, the
+kernels mask a key count that their tiles do not divide, and they take any
+key count: the JAX package's ``TPU.FLASH_MAX_KEYS`` is a TPU compiler limit
+and bounds nothing here.
 """
 
 from __future__ import annotations
@@ -30,17 +52,20 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
-# widest D and C the kernel takes
+# widest D and C the kernels take
 MAX_DIM = 128
+# kernel launches of one flash_attention_backward call on CUDA
+BACKWARD_LAUNCHES_PER_CALL = 3
 
 
-def chunked_attention(q, k, v, chunk: int = 512):
-    """Plain PyTorch version: softmax(q kᵀ) v over key chunks, float32.
+def chunked_attention_lse(q, k, v, chunk: int = 512):
+    """Plain PyTorch version: softmax(q kᵀ) v over key chunks, float32, and
+    each row's log-sum-exp of its logits.
 
-    q: (B, N, D), k: (B, M, D), v: (B, M, C) → (B, N, C) in v's dtype. The
-    last chunk is cut short where M is ragged, which is the JAX version's
-    padding with logits masked to -1e30 (they contribute exp(-1e30 - max),
-    which is 0).
+    q: (B, N, D), k: (B, M, D), v: (B, M, C) → ((B, N, C) in v's dtype,
+    (B, N) float32). The last chunk is cut short where M is ragged, which
+    is the JAX version's padding with logits masked to -1e30 (they
+    contribute exp(-1e30 - max), which is 0).
     """
     b, n, _ = q.shape
     m, c = v.shape[1], v.shape[2]
@@ -60,7 +85,38 @@ def chunked_attention(q, k, v, chunk: int = 512):
         acc = acc * corr[..., None] + torch.bmm(p, vb)
         row_max = new_max
     out = acc / torch.clamp(row_sum, min=1e-30)[..., None]
-    return out.to(v.dtype)
+    return out.to(v.dtype), row_max + torch.log(row_sum)
+
+
+def chunked_attention(q, k, v, chunk: int = 512):
+    """Plain PyTorch version of the forward: ``chunked_attention_lse``'s
+    output alone. Differentiable by autograd, whose backward is the JAX
+    package's (the vjp of its ``chunked_attention``)."""
+    return chunked_attention_lse(q, k, v, chunk)[0]
+
+
+def attention_backward(q, k, v, out, lse, dout, chunk: int = 512):
+    """Plain PyTorch version of the backward: (dq, dk, dv) in the dtypes of
+    q, k and v, from the forward's ``out`` and float32 ``lse`` (B, N) and
+    the output's gradient ``dout`` (B, N, C).
+
+    Float32 throughout, chunked over the keys: each chunk's probabilities
+    P = exp(q kᵀ − lse) are recomputed and dropped, so the memory is
+    O(B · N · chunk) however long M is."""
+    qf, dof = q.float(), dout.float()
+    delta = (dof * out.float()).sum(-1)  # D = rowsum(dO ∘ O), (B, N)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for s in range(0, k.shape[1], chunk):
+        kb = k[:, s:s + chunk].float()
+        vb = v[:, s:s + chunk].float()
+        p = torch.exp(torch.bmm(qf, kb.transpose(1, 2)) - lse[..., None])
+        dvs.append(torch.bmm(p.transpose(1, 2), dof))
+        ds = p * (torch.bmm(dof, vb.transpose(1, 2)) - delta[..., None])
+        dq += torch.bmm(ds, kb)
+        dks.append(torch.bmm(ds.transpose(1, 2), qf))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
 
 
 def _check(q, k, v):
@@ -87,52 +143,165 @@ def _check(q, k, v):
                         "only")
 
 
-def flash_attention(q, k, v):
-    """softmax(q kᵀ) v. q: (B, N, D), k: (B, M, D), v: (B, M, C), D and C
-    at most 128, float32 or bfloat16. Returns (B, N, C) in v's dtype.
-
-    On a CUDA tensor it launches the kernel; on a CPU tensor it runs
-    ``chunked_attention``.
-    """
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return chunked_attention(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
-    for t in (k, v):
-        if t.device != q.device:
-            raise ValueError("flash_attention: q, k and v on one device")
-    for t in (q, k, v):
+def _check_cuda(tensors):
+    """The kernels take contiguous tensors on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("flash_attention: all tensors on one device")
         if not t.is_contiguous():
             raise ValueError("flash_attention: tensors must be contiguous")
+    if tensors[0].shape[0] > 65535:
+        raise ValueError(f"flash_attention: batch {tensors[0].shape[0]} > "
+                         "65535")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _forward(q, k, v, with_lse: bool):
+    """(out, lse or None): the kernel on CUDA, the plain version on CPU."""
+    if q.device.type == "cpu":
+        out, lse = chunked_attention_lse(q, k, v)
+        return out, lse if with_lse else None
+    _check_cuda((q, k, v))
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
-    if b > 65535:
-        raise ValueError(f"flash_attention: batch {b} > 65535")
     out = torch.empty((b, n, c), dtype=v.dtype, device=v.device)
+    lse = (torch.empty((b, n), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _lib()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(q.device):  # the launch goes to the current device
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
-            0 if q.dtype == torch.float32 else 1, ptr(q), ptr(k), ptr(v),
-            ptr(out), b, n, m, d, c, ctypes.c_void_p(stream))
+            0 if q.dtype == torch.float32 else 1, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(out), None if lse is None else _ptr(lse), b, n, m, d, c,
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} (q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
             f"{q.dtype})")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, dout):
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient
+    ``dout``, from its ``out`` and float32 ``lse`` (B, N).
+
+    On CUDA tensors it launches the backward kernels (three launches); on
+    CPU tensors it runs ``attention_backward``."""
+    _check(q, k, v)
+    b, n, _ = q.shape
+    c = v.shape[2]
+    if out.shape != (b, n, c) or dout.shape != (b, n, c) or \
+            lse.shape != (b, n):
+        raise ValueError("flash_attention_backward: out and dout must be "
+                         f"{(b, n, c)} and lse {(b, n)}; got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise TypeError("flash_attention_backward: out and dout in q's "
+                        "dtype, lse float32")
+    if q.device.type == "cpu":
+        return attention_backward(q, k, v, out, lse, dout)
+    _check_cuda((q, k, v, out, lse, dout))
+    m, d = k.shape[1], q.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_backward_launch(
+            0 if q.dtype == torch.float32 else 1, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(out), _ptr(dout), _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv),
+            _ptr(delta), b, n, m, d, c, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention backward kernel launch failed: CUDA error "
+            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, {q.dtype})")
+    flash_attention_backward.launches += BACKWARD_LAUNCHES_PER_CALL
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class AttentionFunction(torch.autograd.Function):
+    """softmax(q kᵀ) v with the log-sum-exp kept for the backward: the
+    kernels' wrappers, or with ``plain`` the plain versions on any device
+    (``chunked_attention_lse``, ``attention_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plain):
+        out, lse = (chunked_attention_lse(q, k, v) if plain
+                    else _forward(q, k, v, with_lse=True))
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        backward = (attention_backward if ctx.plain
+                    else flash_attention_backward)
+        grads = backward(q, k, v, out, lse, dout.contiguous())
+        return (*grads, None)
+
+
+def _records(q, k, v) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+
+
+def flash_attention(q, k, v):
+    """softmax(q kᵀ) v. q: (B, N, D), k: (B, M, D), v: (B, M, C), D and C
+    at most 128, float32 or bfloat16. Returns (B, N, C) in v's dtype.
+
+    On a CUDA tensor it launches the kernel; on a CPU tensor it runs
+    ``chunked_attention``. Where autograd records (grad enabled and an
+    input that requires it) the output's ``grad_fn`` is
+    ``AttentionFunction``'s, whose backward is ``flash_attention_backward``.
+    """
+    _check(q, k, v)
+    if _records(q, k, v):
+        return AttentionFunction.apply(q, k, v, False)
+    return _forward(q, k, v, with_lse=False)[0]
 
 
 flash_attention.launches = 0
 
 
+def plain_attention(q, k, v):
+    """The plain versions, forward and backward, on any device: the
+    explicit opt-out from the kernels (``TPU.FLASH_ATTENTION False``). Its
+    backward is ``attention_backward``, whose memory is O(N · chunk) where
+    autograd through ``chunked_attention`` would keep all N·M
+    probabilities; without autograd it is ``chunked_attention``."""
+    _check(q, k, v)
+    if _records(q, k, v):
+        return AttentionFunction.apply(q, k, v, True)
+    return chunked_attention(q, k, v)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     f = lib.flash_attention_launch
-    f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+    f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    f = lib.flash_attention_backward_launch
+    f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return lib

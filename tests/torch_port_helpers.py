@@ -121,3 +121,150 @@ def port_model(variables, **kw):
 
 def torch_inputs(inputs):
     return [torch.from_numpy(x) for x in inputs]
+
+
+def train_cfg(get_cfg=torch_get_cfg, accum=1, remat=False, remat_stages=(),
+              flash=True, **kw):
+    """``small_cfg`` for training as the reference configs train
+    (``configs/Kinetics/SLOWFAST_8x8_R50.yaml``: each block's final BN
+    zero-initialised, SGD lr 0.1 with nesterov momentum 0.9, weight decay
+    1e-4 and none on BN), with no dropout (the two frameworks draw different
+    bits), ``TPU.GRAD_ACCUM_STEPS`` ``accum``, the remat options and
+    ``TPU.FLASH_ATTENTION`` ``flash``."""
+    cfg = small_cfg(get_cfg, **kw)
+    cfg.RESNET.ZERO_INIT_FINAL_BN = True
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    cfg.SOLVER.OPTIMIZING_METHOD = "sgd"
+    cfg.SOLVER.BASE_LR = 0.1
+    cfg.SOLVER.MOMENTUM = 0.9
+    cfg.SOLVER.NESTEROV = True
+    cfg.SOLVER.DAMPENING = 0.0
+    cfg.SOLVER.WEIGHT_DECAY = 1e-4
+    cfg.BN.WEIGHT_DECAY = 0.0
+    cfg.TPU.GRAD_ACCUM_STEPS = accum
+    cfg.TPU.REMAT = remat
+    cfg.TPU.REMAT_STAGES = list(remat_stages)
+    cfg.TPU.FLASH_ATTENTION = flash
+    return cfg
+
+
+def train_batches(cfg, steps=3, batch=2, seed=10):
+    """``steps`` seeded (inputs, labels) batches of numpy arrays."""
+    out = []
+    for i in range(steps):
+        labels = np.random.RandomState(seed + 100 + i).randint(
+            0, cfg.MODEL.NUM_CLASSES, batch)
+        out.append((inputs_np(cfg, batch, seed + i), labels))
+    return out
+
+
+def jax_train_runs(variables, runs, **kw):
+    """JAX's ``make_train_step`` (built and compiled once) over each run of
+    ``runs``, a list of [(inputs, labels, lr)], every run from
+    ``variables``: per run, (losses, the numpy variables after each step,
+    the last metrics)."""
+    from efficient_slowfast_tpu.engine.state import (TrainState,
+                                                     make_train_step)
+    from efficient_slowfast_tpu.models.optimizer import construct_optimizer
+
+    cfg = train_cfg(jax_get_cfg, **kw)
+    model = jax_build_model(cfg)
+    tx, _ = construct_optimizer(cfg, variables["params"])
+    step = make_train_step(cfg, model, tx)
+    out = []
+    for run in runs:
+        state = TrainState(step=jnp.zeros((), jnp.int32),
+                           params=jax.tree_util.tree_map(jnp.asarray,
+                                                         variables["params"]),
+                           batch_stats=jax.tree_util.tree_map(
+                               jnp.asarray, variables["batch_stats"]),
+                           opt_state=tx.init(variables["params"]))
+        losses, snaps = [], []
+        for inputs, labels, lr in run:
+            state, mets = step(state, [jnp.asarray(x) for x in inputs],
+                               jnp.asarray(labels), lr, jax.random.PRNGKey(0))
+            losses.append(float(mets["loss"]))
+            # copies: the next step donates the state's buffers
+            snaps.append(jax.tree_util.tree_map(
+                lambda a: np.array(a, copy=True),
+                {"params": state.params, "batch_stats": state.batch_stats}))
+        out.append((losses, snaps, {k: float(v) for k, v in mets.items()}))
+    return out
+
+
+def port_train_run(variables, run, generator=None, **kw):
+    """The port's ``make_train_step`` on the CPU over ``run``
+    [(inputs, labels, lr)] from ``variables``: (losses, the variables in
+    JAX's layout after each step, the last metrics, the train state)."""
+    from efficient_slowfast_tpu_torch.engine.state import (
+        create_train_state, make_train_step)
+    from efficient_slowfast_tpu_torch.utils.weights import \
+        state_dict_to_jax_variables
+
+    cfg = train_cfg(**kw)
+    model = torch_build_model(cfg, device="cpu")
+    model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
+    state = create_train_state(cfg, model, device="cpu")
+    step = make_train_step(cfg, state.model, state.optimizer)
+    losses, snaps = [], []
+    for inputs, labels, lr in run:
+        mets = step(state, torch_inputs(inputs), torch.from_numpy(labels), lr,
+                    generator)
+        losses.append(float(mets["loss"]))
+        snaps.append(state_dict_to_jax_variables(
+            {k: v.clone() for k, v in state.model.state_dict().items()}))
+    return losses, snaps, {k: float(v) for k, v in mets.items()}, state
+
+
+def flat_leaves(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def jax_train_variables(inputs, **kw):
+    """Numpy variables of the JAX model of ``train_cfg(**kw)``, BN
+    statistics jittered and attention γ and biases set as in
+    ``jax_model_and_variables``."""
+    model = jax_build_model(train_cfg(jax_get_cfg, **kw))
+    rng = jax.random.PRNGKey(0)
+    variables = jax.jit(functools.partial(model.init, train=False))(
+        {"params": rng, "dropout": rng}, [jnp.asarray(x) for x in inputs])
+    params = attention_params(_numpy_tree(variables["params"]),
+                              np.random.RandomState(1))
+    return {"params": params,
+            "batch_stats": _jitter(variables["batch_stats"], [0])}
+
+
+def calibrate_attention(variables, inputs, std=3.0, **kw):
+    """``variables`` with each CMDA fusion's query and key convs (kernel
+    and bias) scaled, fusion by fusion, so that its attention logits have
+    standard deviation ``std`` on ``inputs`` in a train-mode forward. At
+    init the unscaled logits reach std 40-90 here, a near-argmax softmax
+    whose gradient cancels to rounding noise (chip_smoke.ATTN_LOGIT_STD
+    argues the same for the full-width model)."""
+    cfg = train_cfg(**kw)
+    params = _numpy_tree(variables["params"])
+    for i in range(1, 5):
+        model = torch_build_model(cfg, device="cpu")
+        model.load_state_dict(jax_variables_to_state_dict(
+            {"params": params, "batch_stats": variables["batch_stats"]}))
+        att = getattr(model, f"s{i}_fuse").attention_spatial_s2f
+        seen = {}
+        att.register_forward_hook(lambda m, inp, out: seen.update(x=inp[0]))
+        with torch.no_grad():
+            model.train()(torch_inputs(inputs))
+            q = att.query_conv(seen["x"]).flatten(2)
+            k = att.key_conv(seen["x"]).flatten(2)
+            f = (std / torch.einsum("bdn,bdm->bnm", q, k).std().item()) ** 0.5
+        att_params = params[f"s{i}_fuse"]["attention_spatial_s2f"]
+        for name in ("query", "key"):
+            conv = att_params[name]["conv"]
+            conv["kernel"] = (conv["kernel"] * f).astype(np.float32)
+            conv["bias"] = (conv["bias"] * f).astype(np.float32)
+    return {"params": params, "batch_stats": variables["batch_stats"]}
