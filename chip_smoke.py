@@ -13,9 +13,11 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               parallel) and prints the build seconds and ptxas's registers
               and spills per kernel instantiation; counts the tensor-core
               instructions (HMMA, HGMMA) in the SASS of the three
-              libraries' bf16 kernels, raising if any has none, and the
-              FP32-pipe instructions per MUFU.EX2 in the main loop of the
-              flash-attention bf16 kernels.
+              libraries' bf16 kernels, raising if any has none (K2-bwd's
+              one-pass kernel must have HGMMA, wgmma, in each of its four
+              instantiations, one per padded width), and the FP32-pipe and F2FP instructions per
+              MUFU.EX2 in the main loop of the flash-attention bf16 kernels,
+              forward and backward.
 3. kernels  — every stride-1 bottleneck shape of SlowFast-R50 8x8 serving
               (the K1 shape table) and four off-path shapes (slow s5 and
               fast s2 at the 224 crop, a projection with channel counts
@@ -58,10 +60,15 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               24), in float32 and bfloat16, at 1 clip and at the training
               batch, and at the
               smallest path shape and 1 clip also against autograd through
-              chunked_attention (the JAX package's backward written out); at
-              the training batch it times the kernels, the plain version and
-              the backward of scaled_dot_product_attention, beside the
-              shape's bound.
+              chunked_attention (the JAX package's backward written out); a
+              second call on the same inputs must give bit-identical dK and
+              dV (and dQ in float32; bf16 dQ, summed by atomic adds, within
+              the tolerance); at the training batch it prints the bf16
+              kernel's split (keys a block, queries a tile, ring stages,
+              blocks and blocks an SM, shared memory) and times the
+              kernels, the plain
+              version and the backward of scaled_dot_product_attention,
+              beside the shape's bound and PR 5's two-pass kernel's times.
 6. train    — SlowFast-R50 8x8 at full width trained as
               configs/Kinetics/SLOWFAST_8x8_R50.yaml trains (224² crop,
               bf16, 8 clips a card, SGD lr 0.1 with nesterov momentum 0.9,
@@ -187,6 +194,10 @@ K1_OFF_PATH = [("slow s5 224 crop", 8, 7, 2048, 512, 2048, 3, False),
 ATTN_BWD_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
                      ("ragged tiles", 2085, 1057, 32, 32),
                      ("d 24 c 24", 700, 333, 24, 24)]
+# K2-bwd's two-pass kernel (PR 5) at the training batch, ms a call, in the
+# two smoke runs that PERF.md records (NVIDIA H100 80GB HBM3, 700 W)
+ATTN_BWD_PR5_MS = {"s1_fuse": "6.3493 / 6.4194", "s2_fuse": "8.9250 / 8.8969",
+                   "s3_fuse": "1.0781 / 1.0813", "s4_fuse": "0.2682 / 0.2689"}
 # training: clips a card (the reference configs train TRAIN.BATCH_SIZE 64
 # over 8 GPUs), warm-up and timed steps
 TRAIN_CLIPS = 8
@@ -386,31 +397,53 @@ def k1_sass_counts(tool, lib):
 
 
 def bwd_sass_counts(tool, lib):
-    """Count the tensor-core instructions of K2-bwd's bf16 kernels (one per
-    padded width and kind, key rows or query rows), raising if any has
-    none."""
+    """Count the tensor-core instructions of K2-bwd's bf16 one-pass kernel
+    (one instantiation per padded width, with its consumer warpgroups and
+    blocks an SM), raising if any has no HGMMA (wgmma), and print the
+    FP32-pipe and F2FP
+    instructions per MUFU.EX2 of its main loop (the loop whose body holds
+    the most MUFU.EX2: 32 per tile and thread)."""
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     found = 0
     for func in sass.split("Function : ")[1:]:
-        name = re.search(r"attention_bwd_tc_kernelILi(\d+)ELb(\d)E",
-                         func.split("\n", 1)[0])
+        name = re.search(
+            r"attention_bwd_wgmma_kernelILi(\d+)ELi(\d)ELi(\d)E",
+            func.split("\n", 1)[0])
         if not name:
             continue
         found += 1
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z0-9_]+(?:\.[A-Z0-9_]+)?)", func)
-        count = lambda op: sum(o == op or o.startswith(op + ".") for o in ops)
+        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+            r"([A-Z0-9_]+(?:\.[A-Z0-9_]+)?)([^;]*);", func)]
+        count = lambda ops: {op: sum(o == op or o.startswith(op + ".")
+                                     for o in ops) for op in SASS_OPS}
+        n = count([o for _, o, _ in ins])
+        loops = [(int(t.group(1), 16), a) for a, o, rest in ins
+                 if o.split(".")[0] == "BRA"
+                 and (t := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(t.group(1), 16) < a]
+        ex2_in = lambda span: sum(span[0] <= a <= span[1] and o == "MUFU.EX2"
+                                  for a, o, _ in ins)
+        lo, hi = max(loops, key=ex2_in, default=(0, ins[-1][0]))
+        body = count([o for a, o, _ in ins if lo <= a <= hi])
+        fp32 = sum(body[op] for op in ("FFMA", "FADD", "FMUL", "FMNMX",
+                                       "F2FP"))
+        ex2 = max(body["MUFU.EX2"], 1)
         log("build", f"flash_attention_backward bf16 WP {name.group(1)} "
-            f"{'key' if name.group(2) == '1' else 'query'} rows: HMMA "
-            f"{count('HMMA')}, HGMMA {count('HGMMA')}, MUFU.EX2 "
-            f"{count('MUFU.EX2')} in the SASS")
-        if not count("HMMA") + count("HGMMA"):
-            raise AssertionError("K2-bwd's bf16 kernel uses no tensor-core "
-                                 "instruction (no HMMA or HGMMA in the SASS)")
-    if found != 8:
+            f"consumer warpgroups {name.group(2)}, {name.group(3)} blocks an "
+            f"SM: HMMA {n['HMMA']}, HGMMA "
+            f"{n['HGMMA']}, MUFU.EX2 {n['MUFU.EX2']}, F2FP {n['F2FP']} in "
+            f"the SASS; main loop " + ", ".join(
+                f"{op} {body[op]}" for op in SASS_OPS) +
+            f"; FP32-pipe per MUFU.EX2 {fp32 / ex2:.2f}, F2FP per MUFU.EX2 "
+            f"{body['F2FP'] / ex2:.2f}")
+        if not n["HGMMA"]:
+            raise AssertionError("K2-bwd's bf16 kernel uses no wgmma (no "
+                                 "HGMMA in the SASS)")
+    if found != 4:
         raise AssertionError(f"{found} K2-bwd bf16 kernels in the SASS, "
-                             "expected 8")
+                             "expected 4")
 
 
 # ---------------------------------------------------------------------------
@@ -938,7 +971,7 @@ def phase_attention_backward(rows, smi):
     import torch.nn.functional as F
 
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
-        _forward, attention_backward, chunked_attention,
+        _forward, attention_backward, backward_split, chunked_attention,
         flash_attention_backward)
 
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -961,7 +994,23 @@ def phase_attention_backward(rows, smi):
                     raise AssertionError(f"{label} {dtype} clips {b}: K2's "
                                          "output moved with its lse store")
                 grads = flash_attention_backward(q, k, v, out, lse, dout)
+                again = flash_attention_backward(q, k, v, out, lse, dout)
                 torch.cuda.synchronize()
+                # dK and dV are sums in a fixed order; bf16 dQ is summed
+                # over key blocks by float32 atomic adds in any order
+                exact = [torch.equal(g, a) for g, a in zip(grads, again)]
+                dq_moved = (grads[0].float() - again[0].float()).abs().max(
+                    ).item()
+                if not all(exact[1:]) or (dtype == torch.float32
+                                          and not exact[0]):
+                    raise AssertionError(f"{label} {dtype} clips {b}: two "
+                                         "calls differ (dq/dk/dv "
+                                         f"bit-identical {exact})")
+                dq_scale = max(1.0, grads[0].float().abs().max().item())
+                if dq_moved > tol * dq_scale:
+                    raise AssertionError(f"{label} {dtype} clips {b}: dq "
+                                         f"moved {dq_moved} between calls")
+                del again
                 refs = [("plain", attention_backward(q, k, v, out, lse,
                                                      dout))]
                 if count and b == 1 and n == smallest:
@@ -988,7 +1037,8 @@ def phase_attention_backward(rows, smi):
                         " / ".join(f"{e:.3e} (scale {s_:.3g})"
                                    for e, s_ in errs) + f", tol {tol} of "
                         "the scale; K2's output bit-identical with its lse "
-                        "store on and off")
+                        "store on and off; a second call: dk, dv "
+                        f"bit-identical, dq {'bit-identical' if exact[0] else f'moved {dq_moved:.3e}'}")
                 del q, k, v, dout, out, lse, grads, refs
         # timing at the training batch, in the training dtype
         b, dtype = TRAIN_CLIPS, torch.bfloat16
@@ -1013,13 +1063,21 @@ def phase_attention_backward(rows, smi):
         t_exp = exps / EXP_RATE * 1e3
         bound = max(t_ops, t_bytes, t_exp)
         by = "bytes" if t_bytes == bound else "operations"
+        split = backward_split(b, n, m, d, c)
         log("attention_backward", f"{label:16s} bf16 N {n} M {m} D {d} C {c}"
-            f" x{count} per train step | kernels {k_ms:.4f} ms | plain "
-            f"{p_ms:.4f} ms | sdpa backward {lib_ms:.4f} ms | kernels/bound "
-            f"{k_ms / bound:.2f}, kernels/sdpa {k_ms / lib_ms:.2f} | bound "
+            f" x{count} per train step | kernels {k_ms:.4f} ms (PR 5 "
+            f"two-pass: {ATTN_BWD_PR5_MS.get(label, 'not measured')}) | "
+            f"plain {p_ms:.4f} ms | sdpa backward {lib_ms:.4f} ms | "
+            f"kernels/bound {k_ms / bound:.2f}, kernels/sdpa "
+            f"{k_ms / lib_ms:.2f} | bound "
             f"{bound:.5f} ms ({by}; tensor cores {t_ops:.5f} ms for "
             f"{flops / 1e9:.3f} GFLOP, exp {t_exp:.5f} ms for {exps:.3e}, "
-            f"memory {t_bytes:.5f} ms for {nbytes / 1e6:.3f} MB) | {smi}")
+            f"memory {t_bytes:.5f} ms for {nbytes / 1e6:.3f} MB) | split: "
+            f"Bc {split['keys']} keys, Br {split['queries']} queries, "
+            f"{split['stages']} stages, {split['blocks']} CTAs "
+            f"({split['per_sm']} an SM), {split['smem']} B shared memory, "
+            f"width {split['width']} | "
+            f"{smi}")
         record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
                            library_ms=lib_ms, bound_ms=bound, bound_by=by))
         del q, k, v, dout, out, lse, q4, k4, v4
@@ -1168,12 +1226,16 @@ def phase_cmda_train(cfg, model, smi):
     """CMDA-R50 training; then one step of one clip in f32 and bf16, each
     with the attention kernels against the plain attention. Returns the
     backward's launch count of the timed steps."""
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+
     cmda = cfg.MODEL.MODEL_NAME
     state_dict = {k: v.clone() for k, v in model.state_dict().items()}
     _, _, counts = train_steps(
         "cmda_train", cfg, model,
         {"fused_bottleneck": 0, "flash_attention": 4 * TRAIN_STEPS,
-         "flash_attention_backward": 4 * 3 * TRAIN_STEPS}, smi)
+         "flash_attention_backward":
+             4 * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS}, smi)
     del model
     torch.cuda.empty_cache()
     stats = [k for k in state_dict

@@ -16,57 +16,87 @@
 // the output's gradient dO (B, N, C), with P = exp(q k^T - lse):
 //   Dl = rowsum(dO o out)       dV = P^T dO
 //   dS = P o (dO v^T - Dl)      dQ = dS k        dK = dS^T q
-// Three launches per call, without atomics, so the result is deterministic:
-//   (a) attention_bwd_delta_kernel: Dl, one thread per row, float32.
-//   (b) the key-rows kernel: a block owns 64 keys and loops over every
-//       query tile, holding dK and dV in registers.
-//   (c) the query-rows kernel: a block owns 64 query rows and loops over
-//       every key tile, holding dQ in registers.
-// (b) and (c) are one template. A block's rows (keys in (b), queries in
-// (c)) bring two row operands, A1 (rows x D: k or q) and A2 (rows x C: v or
-// dO); the columns (queries in (b), keys in (c)) stream in tiles of two
-// operands, B1 (cols x D: q or k) and B2 (cols x C: dO or v). Per tile:
-//   X = A1 B1^T, Y = A2 B2^T        (S^T and dP^T in (b), S and dP in (c))
-//   P = exp(X - lse), dS = P o (Y - Dl)   (lse, Dl of the query: the
-//                                          column in (b), the row in (c))
-//   (b): dV += P B2, dK += dS B1;   (c): dQ += dS B1.
-// Columns past the matrix are masked (P = 0); rows past it are computed
-// and not written.
 //
 // What bounds it on the H100 at the CMDA-R50 training shapes (bf16, 8 clips
 // of 32 frames at 224^2; N = M = 25088, 25088, 6272, 1568 with D = C = 8,
 // 32, 64, 128): the five products are 2 N M (3D + 2C) operations per clip
 // on a few tens of MB, so operations, not bytes, bound it: the N*M
 // exponentials at 16 per clock per SM where D = C <= 32 (s1/s2_fuse), the
-// tensor cores above. chip_smoke.py computes the bound per shape. This
-// first version does more than that work: (b) and (c) each recompute X, Y
-// and P, so the products are 2 N M (4D + 3C) and the exponentials 2 N M.
+// tensor cores above (s3/s4_fuse). chip_smoke.py computes the bound per
+// shape.
 //
-// bfloat16: all products on the tensor cores (mma.sync m16n8k16, bf16 in,
-// f32 accumulated; helpers in tensor_core.cuh). A warp owns 16 rows; a
-// block has 4 warps. D and C are zero-padded to one width WP in {16, 32,
-// 64, 128} in shared memory, rows padded by 16 bytes. A1 and A2 are copied
-// to shared memory once; B1 and B2 stream in tiles of 64 columns (32 where
-// WP is 128, for registers) through two buffers filled by 16-byte cp.async
-// copies, one tile ahead, with two barriers per tile. X and Y come from
-// ldmatrix fragments of both operands (A1 and A2 re-read each tile: no
-// registers to hold them at WP 128); P and dS are rounded to bf16 in the
-// accumulator registers, which become the A fragments of P B2 and dS B1
-// directly, B2 and B1 taken by ldmatrix.trans of their row-major layout.
-// The exponentials are MUFU.EX2, P = ex2(X log2 e - lse log2 e), one FFMA
-// each. The row pass (a) reads the bf16 out and dO and sums in float32.
+// bfloat16: three launches, (a) the prologue, (b) one pass, (c) dQ.
+//   (a) attention_bwd_prologue_kernel: per query (lse log2 e, Dl) in
+//       float32, rows padded to the query tile, and the float32 dQ
+//       accumulator zeroed.
+//   (b) attention_bwd_wgmma_kernel: a block owns Bc = 64 NWG keys of one
+//       clip and makes one pass over all its query tiles of 64, so each
+//       exponential and each of the five products is computed once: the
+//       work the bound counts. Warpgroups 0 .. NWG-1 consume, 64 keys
+//       each; warpgroup NWG produces (setmaxnreg moves its registers to
+//       the consumers): one thread loads k and v once and
+//       streams q, dO and the per-query statistics of each tile through a
+//       ring of stages by TMA (an mbarrier "full" and "empty" per stage),
+//       so loads overlap the products. Per tile a consumer computes
+//         S^T = k q^T, dP^T = v dO^T          (wgmma, A and B in shared
+//                                              memory, keys as M)
+//         P^T = ex2(S^T log2 e - lse log2 e), dS^T = P^T o (dP^T - Dl)
+//                                             (registers, one MUFU.EX2 per
+//                                              element)
+//         dV += P^T dO, dK += dS^T q          (wgmma with P^T and dS^T as
+//                                              bf16 A fragments in
+//                                              registers, dO and q read
+//                                              MN-major in place)
+//       and writes dS to shared memory in bf16; after a named barrier
+//       over the consumers, dQ's part dS k (64 queries x WP) is one more
+//       wgmma (its columns split over the warpgroups), staged in shared
+//       memory as float32 and added to the clip's accumulator rows by one
+//       bulk reduce-add (cp.reduce.async.bulk .add.f32). dS goes to shared
+//       memory MN-major (the two queries of a register adjacent), one
+//       4-byte store each.
+//   (c) attention_bwd_dq_kernel: the accumulator to bf16 dQ.
+// dQ is therefore NOT deterministic: the float32 adds of the key blocks'
+// parts arrive in any order, so dQ may differ in its last bits from call to
+// call. dK and dV are sums inside one block, in a fixed order, and are
+// bit-identical across calls. Each block starts its pass at query tile
+// blockIdx.x mod tiles, so that the blocks of a clip do not all add into
+// the same rows at once.
+// What the design does about its bounds: at D = C <= 32 the exponentials
+// bind; the pass computes each once (half of a two-pass design's). Above,
+// the tensor cores bind; wgmma with operands in shared memory is the
+// instruction that reaches their rate. Measured on the H100 (PERF.md, PR
+// 6), neither binds yet: each stage of a tile waits on the one before
+// (wgmma results, the exponentials, the barrier before dQ), so the split
+// (Choice) runs one consumer warpgroup a block and three blocks an SM at
+// D, C <= 32, whose tiles then overlap, two warpgroups (Bc = 128) at 64
+// and one at 128. The dQ reduction's traffic (N D M / Bc floats a clip) costs
+// no measurable time.
+// Operands use wgmma's no-swizzle layout (hopper.cuh), the padded width WP
+// in {16, 32, 64, 128} covers D and C (TMA fills the columns past them,
+// and rows past N or M, with zeros), and keys past M or queries past N get
+// P = 0. TMA needs D and C multiples of 8 and 16-byte aligned bases: the
+// wrapper pads other inputs with zero columns, which is exact.
 //
-// float32 (the tolerance checks): the same template with scalar f32 FMAs
-// on the CUDA cores, 256 threads a block over 64 rows and tiles of 32
-// columns: four threads own a row, each computes X, Y, P and dS for 8 of
-// the tile's columns into shared memory, then accumulates its quarter of
-// the row's output columns over all 32.
+// float32 (the tolerance checks): Dl by (a) below, then two launches of a
+// scalar template with f32 FMAs on the CUDA cores, without atomics: the
+// key-rows kernel (a block owns 64 keys and loops over every query tile,
+// holding dK and dV in registers) and the query-rows kernel (a block owns
+// 64 query rows and loops over every key tile, holding dQ). A block's rows
+// (keys, or queries) bring A1 (rows x D: k or q) and A2 (rows x C: v or
+// dO); the columns stream as B1 (cols x D: q or k) and B2 (cols x C: dO or
+// v): X = A1 B1^T, Y = A2 B2^T, P = exp(X - lse), dS = P o (Y - Dl), then
+// dV += P B2 and dK += dS B1 (key rows) or dQ += dS B1 (query rows). 256
+// threads a block over 64 rows and tiles of 32 columns: four threads own a
+// row, each computes X, Y, P and dS for 8 of the tile's columns into
+// shared memory, then accumulates its quarter of the row's output columns
+// over all 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -75,277 +105,412 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// (a) Dl[r] = sum_j out[r, j] dO[r, j] over the rows of (B N, C).
-template <typename T>
-__global__ void attention_bwd_delta_kernel(const T* __restrict__ out,
-                                           const T* __restrict__ dout,
+// float32 (a): Dl[r] = sum_j out[r, j] dO[r, j] over the rows of (B N, C).
+__global__ void attention_bwd_delta_kernel(const float* __restrict__ out,
+                                           const float* __restrict__ dout,
                                            float* __restrict__ delta,
                                            long long rows, int c) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
-  const T* o = out + r * c;
-  const T* g = dout + r * c;
+  const float* o = out + r * c;
+  const float* g = dout + r * c;
   float s = 0.f;
-  for (int j = 0; j < c; ++j) s = fmaf(to_f(o[j]), to_f(g[j]), s);
+  for (int j = 0; j < c; ++j) s = fmaf(o[j], g[j], s);
   delta[r] = s;
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: the tensor-core kernel.
+// bfloat16: the one-pass wgmma kernel and its two row passes.
 
-constexpr int kWarps = 4;
-constexpr int kTcThreads = 32 * kWarps;
-constexpr int kTcRows = 16 * kWarps;  // rows of a block
-constexpr int kStages = 2;            // column-tile buffers
-constexpr int kPad = tc::kSmemPad;
+constexpr int kBr = 64;              // queries of a tile
+constexpr int kSmemLimit = 232448;   // dynamic shared memory of a block
+constexpr int kSmemSm = 233472;      // of an SM, 1 KB of it reserved a block
 
-// Columns of a tile: 64, or 32 where WP is 128 (X and Y take kCols / 2
-// registers each beside the 8 WP / 32 of the accumulators).
-__host__ __device__ constexpr int tc_cols(int wp) {
-  return wp == 128 ? 32 : 64;
+__host__ __device__ constexpr int padded_width(int w) {
+  return w <= 16 ? 16 : w <= 32 ? 32 : w <= 64 ? 64 : 128;
 }
 
-// Shared memory: A1 and A2 (kTcRows x (WP + kPad) each), kStages tiles of
-// B1 and of B2 (tc_cols x (WP + kPad) each), bf16; then kStages x tc_cols
-// floats each of lse and Dl (read in (b) only).
-__host__ __device__ inline size_t tc_smem_bytes(int wp) {
-  return sizeof(bf16) * (size_t)(wp + kPad) *
-             (2 * kTcRows + 2 * kStages * tc_cols(wp)) +
-         sizeof(float) * 2 * kStages * tc_cols(wp);
-}
+// The split of one block for padded width WP, NWG consumer warpgroups and
+// CTAS blocks resident on an SM (shared memory and registers divided).
+// Shared memory: k and v ([WP / 8][Bc][8] bf16 each), kStages stages of q
+// and dO ([WP / 8][kBr][8] each) and (lse log2 e, Dl) per query (kBr
+// float2), dS ([kBr / 8][Bc][8] bf16: MN-major, query pairs adjacent), the
+// dQ part ([kBr][WP] f32), then the mbarriers.
+template <int WP, int NWG, int CTAS>
+struct Plan {
+  static constexpr int kBc = 64 * NWG;
+  static constexpr int kThreads = 128 * (NWG + 1);
+  static constexpr int kPanels = WP / 8;
+  static constexpr int kTileBytes = kBr * WP * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes + kBr * 8;
+  static constexpr int kKvBytes = kBc * WP * 2;
+  static constexpr int kDsBytes = kBc * kBr * 2;
+  static constexpr int kDqBytes = kBr * WP * 4;
+  static constexpr int kFixedBytes = 2 * kKvBytes + kDsBytes + kDqBytes;
+  static constexpr int kBudget =
+      kSmemSm / CTAS - 1024 < kSmemLimit ? kSmemSm / CTAS - 1024 : kSmemLimit;
+  static constexpr int kFit = (kBudget - kFixedBytes - 256) / kStageBytes;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kSmemBytes =
+      kFixedBytes + kStages * kStageBytes + 8 * (2 * kStages + 1);
+  // dQ's columns split over kDqWgs warpgroups (wgmma's N is at least 8)
+  static constexpr int kDqWgs = NWG < WP / 8 ? NWG : WP / 8;
+  static constexpr int kDqCols = WP / kDqWgs;
+  // registers a thread at launch (what __launch_bounds__ leaves), and a
+  // consumer thread's once the block's producer warpgroup drops to 24:
+  // setmaxnreg.inc takes only registers that its own block gave back, so a
+  // count above this waits forever
+  static constexpr int kEntryRegs = 65536 / (kThreads * CTAS) / 8 * 8;
+  static constexpr int kRegs = (kEntryRegs + (kEntryRegs - 24) / NWG) / 8 * 8;
+  static constexpr int kConsumerRegs = kRegs < 240 ? kRegs : 240;
+  static constexpr bool kRealloc = NWG > 1 || CTAS > 1;
+  static_assert(kStages >= 2, "shared memory holds fewer than two stages");
+};
 
-// x (16 x 8 kNT, fragment layout) = A B^T: A the warp's 16 rows of a
-// row-major (rows x WP) shared tile, B a row-major (8 kNT x WP) shared
-// tile. a, b: the lane's ldmatrix rows in each.
-template <int WP, int kNT>
-__device__ __forceinline__ void products(float (&x)[kNT][4], const bf16* a,
-                                         const bf16* b) {
-  constexpr int kLd = WP + kPad;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-    x[nt][0] = x[nt][1] = x[nt][2] = x[nt][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < WP / 16; ++kc) {
-    uint32_t af[4];
-    tc::ldmatrix_x4(af, a + 16 * kc);
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      uint32_t bf[4];
-      tc::ldmatrix_x4(bf, b + 16 * np * kLd + 16 * kc);
-      tc::mma_bf16_16816(x[2 * np], af, bf[0], bf[1]);
-      tc::mma_bf16_16816(x[2 * np + 1], af, bf[2], bf[3]);
-    }
+// acc (64 x N) += A B, A in registers, B MN-major in shared memory (K rows
+// x N columns in panels `panel` bytes apart), as one wgmma or two of N / 2.
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&acc)[N / 2],
+                                      const uint32_t (&a)[4], const bf16* b,
+                                      uint32_t panel) {
+  if constexpr (N <= 64) {
+    hp::WgmmaRs<N, 1>::run(acc, a, hp::desc(b, 128, panel), 1);
+  } else {
+    mma_rs<64>(*reinterpret_cast<float(*)[32]>(acc), a, b, panel);
+    mma_rs<64>(*reinterpret_cast<float(*)[32]>(acc + 32), a, b + 8 * panel / 2,
+               panel);
   }
 }
 
-// acc (16 x WP) += F B: F (16 x 8 kNT) in the fragment layout of an
-// accumulator, rounded to bf16 A fragments in registers; B a row-major
-// (8 kNT x WP) shared tile read by ldmatrix.trans from the lane's row bt.
-template <int WP, int kNT>
-__device__ __forceinline__ void accumulate(float (&acc)[WP / 8][4],
-                                           const float (&f)[kNT][4],
-                                           const bf16* bt) {
-  constexpr int kLd = WP + kPad;
-#pragma unroll
-  for (int kk = 0; kk < kNT / 2; ++kk) {
-    const uint32_t a[4] = {tc::pack_bf16x2(f[2 * kk][0], f[2 * kk][1]),
-                           tc::pack_bf16x2(f[2 * kk][2], f[2 * kk][3]),
-                           tc::pack_bf16x2(f[2 * kk + 1][0], f[2 * kk + 1][1]),
-                           tc::pack_bf16x2(f[2 * kk + 1][2], f[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < WP / 16; ++np) {
-      uint32_t b[4];
-      tc::ldmatrix_x4_trans(b, bt + 16 * kk * kLd + 16 * np);
-      tc::mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
-      tc::mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
+// acc (64 x N) = A B (+ acc where accumulate), A and B MN-major in shared
+// memory (K rows x M or N columns in panels `panel` bytes apart), N <= 64.
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&acc)[N / 2], const bf16* a,
+                                      const bf16* b, uint32_t panel,
+                                      int accumulate) {
+  hp::Wgmma<N, 1, 1>::run(acc, hp::desc(a, 128, panel),
+                          hp::desc(b, 128, panel), accumulate);
 }
 
-// Rows r (16 x WP accumulator of the warp, rows g and g + 8) into the
-// (rows x w) matrix dst, columns < w.
-template <int WP>
-__device__ __forceinline__ void store_rows(bf16* dst,
-                                           const float (&acc)[WP / 8][4],
-                                           int row0, int rows, int w, int g,
-                                           int t) {
+// (a) Per query row of (B, npad): stats = (lse log2 e, Dl), (0, 0) on the
+// padding rows; and the row's WP accumulator floats set to 0. out and dO
+// are (B, N, C) with C a multiple of 8, 16-byte aligned.
+__global__ void attention_bwd_prologue_kernel(
+    const bf16* __restrict__ out, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float2* __restrict__ stats,
+    float* __restrict__ dq_acc, int b, int n, int npad, int c, int wp) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= (long long)b * npad) return;
+  const int i = (int)(r % npad);
+  float2 st = make_float2(0.f, 0.f);
+  if (i < n) {
+    const long long row = r / npad * n + i;
+    const uint4* o = reinterpret_cast<const uint4*>(out + row * c);
+    const uint4* g = reinterpret_cast<const uint4*>(dout + row * c);
+    float s = 0.f;
+    for (int j = 0; j < c / 8; ++j) {
+      const uint4 ov = o[j], gv = g[j];
+      const bf16* op = reinterpret_cast<const bf16*>(&ov);
+      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        s = fmaf(__bfloat162float(op[e]), __bfloat162float(gp[e]), s);
+    }
+    st = make_float2(lse[row] * kLog2e, s);
+  }
+  stats[r] = st;
+  float4* acc = reinterpret_cast<float4*>(dq_acc + r * wp);
+  for (int j = 0; j < wp / 4; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// (b) The one pass. k_map, v_map, q_map and do_map are panel maps
+// (hopper.cuh) of k, v (boxes of Bc rows) and q, dO (boxes of kBr rows);
+// stats (B, npad) from (a); dq_acc (B, npad, WP) float32, added to; dk
+// (B, M, D) and dv (B, M, C) written.
+template <int WP, int NWG, int CTAS>
+__global__ void __launch_bounds__(Plan<WP, NWG, CTAS>::kThreads, CTAS)
+attention_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float2* __restrict__ stats,
+                           float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int n, int m, int d,
+                           int c) {
+  using P = Plan<WP, NWG, CTAS>;
+  constexpr int kBc = P::kBc;
+  constexpr uint32_t kPanelK = kBc * 16;  // bytes between panels of k, v
+  constexpr uint32_t kPanelQ = kBr * 16;  // of q and dO
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + kBc * WP;
+  unsigned char* stage0 = smem + 2 * P::kKvBytes;
+  bf16* ds_s =
+      reinterpret_cast<bf16*>(stage0 + P::kStages * P::kStageBytes);
+  float* dq_s = reinterpret_cast<float*>(ds_s + kBc * kBr);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dq_s + kBr * WP);
+  uint64_t* empty = full + P::kStages;
+  uint64_t* kv_full = empty + P::kStages;
+  auto q_tile = [&](int s) {
+    return reinterpret_cast<bf16*>(stage0 + s * P::kStageBytes);
+  };
+
+  const int b = blockIdx.y, key0 = blockIdx.x * kBc;
+  const int tiles = (n + kBr - 1) / kBr, npad = tiles * kBr;
+  const int first = blockIdx.x % tiles;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 128 * NWG);
+    }
+    hp::mbar_init(kv_full, 1);
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warpgroup; one thread issues the loads
+    if constexpr (P::kRealloc) hp::reg_dealloc<24>();
+    if (threadIdx.x == 128 * NWG) {
+      hp::mbar_arrive_expect_tx(kv_full, 2 * P::kKvBytes);
+      for (int p = 0; p < P::kPanels; ++p) {
+        hp::tma_load_3d(k_s + p * kBc * 8, &k_map, kv_full, 8 * p, key0, b);
+        hp::tma_load_3d(v_s + p * kBc * 8, &v_map, kv_full, 8 * p, key0, b);
+      }
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % P::kStages, q0 = (first + i) % tiles * kBr;
+        if (i >= P::kStages)  // stage s's last tile released
+          hp::mbar_wait(&empty[s], (i / P::kStages - 1) & 1);
+        bf16* qt = q_tile(s);
+        hp::mbar_arrive_expect_tx(&full[s], P::kStageBytes);
+        for (int p = 0; p < P::kPanels; ++p) {
+          hp::tma_load_3d(qt + p * kBr * 8, &q_map, &full[s], 8 * p, q0, b);
+          hp::tma_load_3d(qt + (P::kPanels + p) * kBr * 8, &do_map, &full[s],
+                          8 * p, q0, b);
+        }
+        hp::bulk_load(qt + 2 * kBr * WP, stats + (size_t)b * npad + q0,
+                      kBr * 8, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: keys key0 + 64 wg ..
+  if constexpr (P::kRealloc) hp::reg_alloc<P::kConsumerRegs>();
+  const int tid = threadIdx.x, warp = tid / 32 % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int krow = 64 * wg + 16 * warp + g;  // rows krow, krow + 8
+  const bool keys_ragged = key0 + 64 * wg + 64 > m;
+  float dv_acc[WP / 2], dk_acc[WP / 2];
+#pragma unroll
+  for (int i = 0; i < WP / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  hp::mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % P::kStages, q0 = (first + i) % tiles * kBr;
+    hp::mbar_wait(&full[s], (i / P::kStages) & 1);
+    const bf16* qt = q_tile(s);
+    const bf16* dot = qt + kBr * WP;
+    const float2* stt = reinterpret_cast<const float2*>(dot + kBr * WP);
+
+    // S^T = k q^T and dP^T = v dO^T (64 keys x kBr queries)
+    float st[kBr / 2], dp[kBr / 2];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WP / 16; ++kk) {
+      const int a = (2 * kk * kBc + 64 * wg) * 8, bq = 2 * kk * kBr * 8;
+      hp::Wgmma<kBr, 0, 0>::run(st, hp::desc(k_s + a, kPanelK, 128),
+                                hp::desc(qt + bq, kPanelQ, 128), kk);
+      hp::Wgmma<kBr, 0, 0>::run(dp, hp::desc(v_s + a, kPanelK, 128),
+                                hp::desc(dot + bq, kPanelQ, 128), kk);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(st);
+    hp::fence_regs(dp);
+
+    // P^T and dS^T in place; keys past M and queries past N get P = 0
+    const bool edge = keys_ragged || q0 + kBr > n;
+#pragma unroll
+    for (int j = 0; j < kBr / 8; ++j) {
+      const float4 sj = *reinterpret_cast<const float4*>(stt + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l2 = e & 1 ? sj.z : sj.x, dl = e & 1 ? sj.w : sj.y;
+        float p = tc::ex2(fmaf(st[4 * j + e], kLog2e, -l2));
+        if (edge && (q0 + 8 * j + 2 * t + (e & 1) >= n ||
+                     key0 + krow + 8 * (e >> 1) >= m))
+          p = 0.f;
+        st[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - dl);
+      }
+    }
+    // bf16 A fragments of k16 step kk (queries 16 kk ..), and dS into
+    // ds_s: element (query, key) at [query / 8][key][query % 8], so that
+    // each register's two queries of one key are one 4-byte store
+    uint32_t pa[kBr / 16][4], da[kBr / 16][4];
+    uint32_t* dss = reinterpret_cast<uint32_t*>(ds_s);
+#pragma unroll
+    for (int kk = 0; kk < kBr / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = tc::pack_bf16x2(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        da[kk][r] = tc::pack_bf16x2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        dss[((2 * kk + (r >> 1)) * kBc + krow + 8 * (r & 1)) * 4 + t] =
+            da[kk][r];
+      }
+
+    // dV += P^T dO, dK += dS^T q
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBr / 16; ++kk) {
+      mma_rs<WP>(dv_acc, pa[kk], dot + 16 * kk * 8, kPanelQ);
+      mma_rs<WP>(dk_acc, da[kk], qt + 16 * kk * 8, kPanelQ);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dv_acc);
+    hp::fence_regs(dk_acc);
+    hp::mbar_arrive(&empty[s]);  // q, dO and the statistics are read
+
+    // every warpgroup's dS^T stored, and the last dQ part read from dq_s
+    hp::fence_proxy_async();
+    if (tid == 0) hp::bulk_wait_read();
+    hp::named_barrier(1, 128 * NWG);
+    if (wg < P::kDqWgs) {  // dQ part = dS k, columns wg * kDqCols .., by 64
+      constexpr int kPart = P::kDqCols < 64 ? P::kDqCols : 64;
+#pragma unroll
+      for (int part = 0; part < P::kDqCols / kPart; ++part) {
+        const int col0 = wg * P::kDqCols + part * kPart;
+        float dq[kPart / 2];
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBc / 16; ++kk)
+          mma_ss<kPart>(dq, ds_s + 16 * kk * 8,
+                        k_s + (col0 / 8 * kBc + 16 * kk) * 8, kPanelK, kk);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(dq);
+#pragma unroll
+        for (int j = 0; j < kPart / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(
+                dq_s + (16 * warp + g + 8 * h) * WP + col0 + 8 * j + 2 * t) =
+                make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+      }
+    }
+    hp::fence_proxy_async();
+    hp::named_barrier(1, 128 * NWG);
+    if (tid == 0) {
+      hp::bulk_reduce_add_f32(dq_acc + ((size_t)b * npad + q0) * WP, dq_s,
+                              P::kDqBytes);
+      hp::bulk_commit();
+    }
+  }
+  if (tid == 0) hp::bulk_wait_read();
+
+  // dK and dV rows of this thread's keys, columns < d (or c)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row >= rows) continue;
-    bf16* o = dst + (size_t)row * w;
+    const int key = key0 + krow + 8 * h;
+    if (key >= m) continue;
+    __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(
+        dk + ((size_t)b * m + key) * d);
+    __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(
+        dv + ((size_t)b * m + key) * c);
 #pragma unroll
     for (int j = 0; j < WP / 8; ++j) {
       const int col = 8 * j + 2 * t;
-      if (col < w) o[col] = __float2bfloat16_rn(acc[j][2 * h]);
-      if (col + 1 < w) o[col + 1] = __float2bfloat16_rn(acc[j][2 * h + 1]);
+      if (col < d)
+        ok[col / 2] = __floats2bfloat162_rn(dk_acc[4 * j + 2 * h],
+                                            dk_acc[4 * j + 2 * h + 1]);
+      if (col < c)
+        ov[col / 2] = __floats2bfloat162_rn(dv_acc[4 * j + 2 * h],
+                                            dv_acc[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// KEY_ROWS: kernel (b), rows are keys (a1 = k, a2 = v, b1 = q, b2 = dO;
-// out_d = dK, out_c = dV); else (c), rows are queries (a1 = q, a2 = dO,
-// b1 = k, b2 = v; out_d = dQ). lse and delta are indexed by the query.
-template <int WP, bool KEY_ROWS>
-__global__ void __launch_bounds__(kTcThreads)
-attention_bwd_tc_kernel(const bf16* __restrict__ a1,
-                        const bf16* __restrict__ a2,
-                        const bf16* __restrict__ b1,
-                        const bf16* __restrict__ b2,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ out_d, bf16* __restrict__ out_c,
-                        int rows, int cols, int d, int c, bool d_vec,
-                        bool c_vec) {
-  constexpr int kCols = tc_cols(WP), kNT = kCols / 8;
-  constexpr int kLd = WP + kPad, kATile = kTcRows * kLd, kBTile = kCols * kLd;
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
-  bf16* a1s = reinterpret_cast<bf16*>(smem4);  // [kTcRows][kLd]
-  bf16* a2s = a1s + kATile;                    // [kTcRows][kLd]
-  bf16* b1s = a2s + kATile;                    // [kStages][kCols][kLd]
-  bf16* b2s = b1s + kStages * kBTile;          // [kStages][kCols][kLd]
-  // [kStages][kCols]: lse in log2 units, and Dl, of the tile's queries
-  float* lse_s = reinterpret_cast<float*>(b2s + kStages * kBTile);
-  float* dl_s = lse_s + kStages * kCols;
+// (c) dq (B, N, D) = the accumulator's rows < N and columns < D in bf16,
+// 8 columns a thread (D a multiple of 8).
+__global__ void attention_bwd_dq_kernel(const float* __restrict__ dq_acc,
+                                        bf16* __restrict__ dq, int b, int n,
+                                        int npad, int d, int wp) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)b * n * (d / 8)) return;
+  const long long row = i / (d / 8);
+  const int col = (int)(i % (d / 8)) * 8;
+  const float4* src = reinterpret_cast<const float4*>(
+      dq_acc + (row / n * npad + row % n) * wp + col);
+  const float4 lo = src[0], hi = src[1];
+  __nv_bfloat162 o[4] = {__floats2bfloat162_rn(lo.x, lo.y),
+                         __floats2bfloat162_rn(lo.z, lo.w),
+                         __floats2bfloat162_rn(hi.x, hi.y),
+                         __floats2bfloat162_rn(hi.z, hi.w)};
+  *reinterpret_cast<uint4*>(dq + row * d + col) =
+      *reinterpret_cast<const uint4*>(o);
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
-  // ldmatrix: lane supplies row lr of matrix 2 * l16 + l8
-  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
-  const int a_lane = (16 * warp + lr + 8 * l8) * kLd + 8 * l16;  // A frags
-  const int b_lane = (lr + 8 * l16) * kLd + 8 * l8;   // B of A B^T
-  const int bt_lane = (lr + 8 * l8) * kLd + 8 * l16;  // B of F B, .trans
-  const int r0 = blockIdx.x * kTcRows;
-  const size_t bi = blockIdx.y;
-  const size_t queries = KEY_ROWS ? cols : rows;
-  a1 += bi * rows * d;
-  a2 += bi * rows * c;
-  b1 += bi * cols * d;
-  b2 += bi * cols * c;
-  lse += bi * queries;
-  delta += bi * queries;
-  out_d += bi * rows * d;
-  if constexpr (KEY_ROWS) out_c += bi * rows * c;
-  const int tiles = (cols + kCols - 1) / kCols;
+// The split of each padded width: consumer warpgroups a block (Bc = 64
+// of them) and blocks resident on an SM. Several blocks of one consumer
+// warpgroup hide the latency of a tile's stages better than two
+// warpgroups that wait for each other at every tile (PERF.md, PR 6).
+template <int WP>
+struct Choice {
+  static constexpr int kGroups = WP == 64 ? 2 : 1;
+  static constexpr int kPerSm = WP <= 32 ? 3 : 1;
+};
 
-  auto load_tile = [&](int it) {  // B1, B2 (and lse, Dl) of tile it
-    const int buf = it % kStages, c0 = it * kCols;
-    tc::load_rows<WP, kCols, kTcThreads>(b1s + buf * kBTile, b1, c0, cols, d,
-                                         d_vec);
-    tc::load_rows<WP, kCols, kTcThreads>(b2s + buf * kBTile, b2, c0, cols, c,
-                                         c_vec);
-    if constexpr (KEY_ROWS) {
-      for (int i = threadIdx.x; i < kCols; i += kTcThreads) {
-        const int col = c0 + i;
-        lse_s[buf * kCols + i] = col < cols ? lse[col] * kLog2e : INFINITY;
-        dl_s[buf * kCols + i] = col < cols ? delta[col] : 0.f;
-      }
-    }
-    tc::cp_async_commit();
-  };
+template <int WP, int NWG, int CTAS>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float2* stats, float* dq_acc,
+                 void* dk, void* dv, int b, int n, int m, int d, int c,
+                 cudaStream_t s) {
+  using P = Plan<WP, NWG, CTAS>;
+  CUtensorMap k_map, v_map, q_map, do_map;
+  if (!hp::make_panel_map(&k_map, k, b, m, d, P::kBc) ||
+      !hp::make_panel_map(&v_map, v, b, m, c, P::kBc) ||
+      !hp::make_panel_map(&q_map, q, b, n, d, kBr) ||
+      !hp::make_panel_map(&do_map, dout, b, n, c, kBr))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = attention_bwd_wgmma_kernel<WP, NWG, CTAS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
+  if (err == cudaSuccess)  // all of the SM's shared memory, for CTAS blocks
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((m + P::kBc - 1) / P::kBc, b);
+  kernel<<<grid, P::kThreads, P::kSmemBytes, s>>>(
+      k_map, v_map, q_map, do_map, stats, dq_acc, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n, m, d, c);
+  return (int)cudaGetLastError();
+}
 
-  tc::load_rows<WP, kTcRows, kTcThreads>(a1s, a1, r0, rows, d, d_vec);
-  tc::load_rows<WP, kTcRows, kTcThreads>(a2s, a2, r0, rows, c, c_vec);
-  load_tile(0);  // one group with A1 and A2
+// The block split of width WP for (b, m): {Bc, kBr, stages, blocks,
+// shared memory bytes, WP, blocks an SM}.
+template <int WP>
+void plan_of(int b, int m, int* split) {
+  using C = Choice<WP>;
+  using P = Plan<WP, C::kGroups, C::kPerSm>;
+  const int v[7] = {P::kBc, kBr, P::kStages, (m + P::kBc - 1) / P::kBc * b,
+                    P::kSmemBytes, WP, C::kPerSm};
+  for (int i = 0; i < 7; ++i) split[i] = v[i];
+}
 
-  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};  // (c): rows g, g + 8
-  if constexpr (!KEY_ROWS) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 16 * warp + g + 8 * h;
-      if (row < rows) {
-        lse_r[h] = lse[row] * kLog2e;
-        dl_r[h] = delta[row];
-      }
-    }
-  }
-  float acc_d[WP / 8][4], acc_c[KEY_ROWS ? WP / 8 : 1][4];
-#pragma unroll
-  for (int j = 0; j < WP / 8; ++j) {
-    acc_d[j][0] = acc_d[j][1] = acc_d[j][2] = acc_d[j][3] = 0.f;
-    if constexpr (KEY_ROWS)
-      acc_c[j][0] = acc_c[j][1] = acc_c[j][2] = acc_c[j][3] = 0.f;
-  }
-
-  for (int it = 0; it < tiles; ++it) {
-    if (it + 1 < tiles) {
-      load_tile(it + 1);  // into the buffer that tile it - 1 left
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();  // tile it (and A1, A2) landed for every thread
-    const int buf = it % kStages, c0 = it * kCols;
-    const bf16* b1t = b1s + buf * kBTile;
-    const bf16* b2t = b2s + buf * kBTile;
-    float x[kNT][4], y[kNT][4];
-    products<WP, kNT>(x, a1s + a_lane, b1t + b_lane);
-    products<WP, kNT>(y, a2s + a_lane, b2t + b_lane);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, j = 8 * nt + 2 * t + (e & 1);
-        const float l2 = KEY_ROWS ? lse_s[buf * kCols + j] : lse_r[h];
-        const float dl = KEY_ROWS ? dl_s[buf * kCols + j] : dl_r[h];
-        const float p =
-            c0 + j < cols ? tc::ex2(fmaf(x[nt][e], kLog2e, -l2)) : 0.f;
-        x[nt][e] = p;
-        y[nt][e] = p * (y[nt][e] - dl);
-      }
-    accumulate<WP, kNT>(acc_d, y, b1t + bt_lane);    // dS B1
-    if constexpr (KEY_ROWS)
-      accumulate<WP, kNT>(acc_c, x, b2t + bt_lane);  // P B2
-    __syncthreads();  // buffer buf is free for tile it + 2
-  }
-
-  store_rows<WP>(out_d, acc_d, r0 + 16 * warp, rows, d, g, t);
-  if constexpr (KEY_ROWS)
-    store_rows<WP>(out_c, acc_c, r0 + 16 * warp, rows, c, g, t);
+template <int WP>
+int launch_width(const void* q, const void* k, const void* v,
+                 const void* dout, const float2* stats, float* dq_acc,
+                 void* dk, void* dv, int b, int n, int m, int d, int c,
+                 cudaStream_t s) {
+  using C = Choice<WP>;
+  return launch_wgmma<WP, C::kGroups, C::kPerSm>(
+      q, k, v, dout, stats, dq_acc, dk, dv, b, n, m, d, c, s);
 }
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-template <int WP, bool KEY_ROWS>
-int launch_tc(const void* a1, const void* a2, const void* b1, const void* b2,
-              const float* lse, const float* delta, void* out_d, void* out_c,
-              int b, int rows, int cols, int d, int c, bool d_vec, bool c_vec,
-              cudaStream_t s) {
-  auto kernel = attention_bwd_tc_kernel<WP, KEY_ROWS>;
-  const size_t smem = tc_smem_bytes(WP);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((rows + kTcRows - 1) / kTcRows, b);
-  kernel<<<grid, kTcThreads, smem, s>>>(
-      static_cast<const bf16*>(a1), static_cast<const bf16*>(a2),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(b2), lse, delta,
-      static_cast<bf16*>(out_d), static_cast<bf16*>(out_c), rows, cols, d, c,
-      d_vec, c_vec);
-  return (int)cudaGetLastError();
-}
-
-template <bool KEY_ROWS>
-int dispatch_tc(const void* a1, const void* a2, const void* b1,
-                const void* b2, const float* lse, const float* delta,
-                void* out_d, void* out_c, int b, int rows, int cols, int d,
-                int c, cudaStream_t s) {
-  const bool d_vec = d % 8 == 0 && aligned16(a1) && aligned16(b1);
-  const bool c_vec = c % 8 == 0 && aligned16(a2) && aligned16(b2);
-  const int w = d > c ? d : c;
-#define ESF_LAUNCH(WP)                                                       \
-  return launch_tc<WP, KEY_ROWS>(a1, a2, b1, b2, lse, delta, out_d, out_c, b, \
-                                 rows, cols, d, c, d_vec, c_vec, s)
-  if (w <= 16) ESF_LAUNCH(16);
-  if (w <= 32) ESF_LAUNCH(32);
-  if (w <= 64) ESF_LAUNCH(64);
-  ESF_LAUNCH(128);
-#undef ESF_LAUNCH
 }
 
 // ---------------------------------------------------------------------------
@@ -512,45 +677,89 @@ int dispatch_f32(const void* a1, const void* a2, const void* b1,
 
 extern "C" {
 
-// dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (tensor-core kernels).
-// q (b, n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c), and dq,
-// dk, dv (the shapes of q, k, v) are contiguous in dtype; lse (b, n) holds
-// the forward's float32 log-sum-exp, and delta is float32 (b, n) scratch.
-// Three launches on the stream: (a), (b), (c). Returns the first CUDA
-// error code, 0 if all three launched.
+// Bytes of the workspace that flash_attention_backward_launch needs:
+// float32, Dl (b, n); bfloat16, the statistics (b, npad) float2 and the dQ
+// accumulator (b, npad, WP) float32, npad = n rounded up to the tile.
+long long flash_attention_backward_workspace(int dtype, int b, int n, int d,
+                                             int c) {
+  if (dtype == 0) return 4LL * b * n;
+  const long long npad = (long long)(n + kBr - 1) / kBr * kBr;
+  return 8LL * b * npad + 4LL * b * npad * padded_width(d > c ? d : c);
+}
+
+// The bf16 one-pass kernel's split for this problem: split[0..6] = {keys a
+// block (Bc), queries a tile, stages, blocks, shared memory bytes, padded
+// width WP, blocks resident on an SM}.
+void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
+  switch (padded_width(d > c ? d : c)) {
+    case 16: plan_of<16>(b, m, split); break;
+    case 32: plan_of<32>(b, m, split); break;
+    case 64: plan_of<64>(b, m, split); break;
+    default: plan_of<128>(b, m, split);
+  }
+}
+
+// dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (the one-pass wgmma
+// kernel). q (b, n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c),
+// and dq, dk, dv (the shapes of q, k, v) are contiguous in dtype; lse (b, n)
+// holds the forward's float32 log-sum-exp; workspace holds
+// flash_attention_backward_workspace bytes. In bfloat16, d and c must be
+// multiples of 8 and q, k, v, out, dout and dq 16-byte aligned. Three
+// launches on the stream. Returns the first CUDA error code, 0 if all
+// three launched.
 int flash_attention_backward_launch(int dtype, const void* q, const void* k,
                                     const void* v, const void* out,
                                     const void* dout, const float* lse,
                                     void* dq, void* dk, void* dv,
-                                    float* delta, int b, int n, int m, int d,
-                                    int c, void* stream) {
+                                    void* workspace, int b, int n, int m,
+                                    int d, int c, void* stream) {
   if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 128 ||
       c <= 0 || c > 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)b * n;
-  const int blocks = (int)((rows + 255) / 256);
-  if (dtype == 0)
-    attention_bwd_delta_kernel<float><<<blocks, 256, 0, s>>>(
+  if (dtype == 0) {
+    float* delta = static_cast<float*>(workspace);
+    const long long rows = (long long)b * n;
+    attention_bwd_delta_kernel<<<(int)((rows + 255) / 256), 256, 0, s>>>(
         static_cast<const float*>(out), static_cast<const float*>(dout),
         delta, rows, c);
-  else
-    attention_bwd_delta_kernel<bf16><<<blocks, 256, 0, s>>>(
-        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta,
-        rows, c);
+    int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    // key rows (dK, dV), then query rows (dQ)
+    err = dispatch_f32<true>(k, v, q, dout, lse, delta, dk, dv, b, m, n, d,
+                             c, s);
+    if (err != 0) return err;
+    return dispatch_f32<false>(q, dout, k, v, lse, delta, dq, nullptr, b, n,
+                               m, d, c, s);
+  }
+  if (d % 8 || c % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(out) || !aligned16(dout) || !aligned16(dq))
+    return (int)cudaErrorInvalidValue;
+  const int wp = padded_width(d > c ? d : c);
+  const int npad = (n + kBr - 1) / kBr * kBr;
+  float2* stats = static_cast<float2*>(workspace);
+  float* dq_acc = reinterpret_cast<float*>(stats + (size_t)b * npad);
+  const long long rows = (long long)b * npad;
+  attention_bwd_prologue_kernel<<<(int)((rows + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
+      stats, dq_acc, b, n, npad, c, wp);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  // (b): rows are keys; (c): rows are queries
-  err = dtype == 0
-            ? dispatch_f32<true>(k, v, q, dout, lse, delta, dk, dv, b, m, n,
-                                 d, c, s)
-            : dispatch_tc<true>(k, v, q, dout, lse, delta, dk, dv, b, m, n,
-                                d, c, s);
+  switch (wp) {
+    case 16: err = launch_width<16>(q, k, v, dout, stats, dq_acc, dk, dv, b,
+                                    n, m, d, c, s); break;
+    case 32: err = launch_width<32>(q, k, v, dout, stats, dq_acc, dk, dv, b,
+                                    n, m, d, c, s); break;
+    case 64: err = launch_width<64>(q, k, v, dout, stats, dq_acc, dk, dv, b,
+                                    n, m, d, c, s); break;
+    default: err = launch_width<128>(q, k, v, dout, stats, dq_acc, dk, dv, b,
+                                     n, m, d, c, s);
+  }
   if (err != 0) return err;
-  return dtype == 0 ? dispatch_f32<false>(q, dout, k, v, lse, delta, dq,
-                                          nullptr, b, n, m, d, c, s)
-                    : dispatch_tc<false>(q, dout, k, v, lse, delta, dq,
-                                         nullptr, b, n, m, d, c, s);
+  const long long chunks = (long long)b * n * (d / 8);
+  attention_bwd_dq_kernel<<<(int)((chunks + 255) / 256), 256, 0, s>>>(
+      dq_acc, static_cast<bf16*>(dq), b, n, npad, d, wp);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -22,11 +22,18 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   the one kernel only.
 - Backward. With D = rowsum(dO∘O) and P = exp(q kᵀ − lse):
   dV = Pᵀ dO, dS = P∘(dO vᵀ − D), dQ = dS k, dK = dSᵀ q. On CUDA tensors
-  ``flash_attention_backward`` runs ``csrc/flash_attention_bwd.cu`` (three
-  launches per call: D, then dK and dV over key blocks, then dQ over query
-  blocks, without atomics); on CPU tensors ``attention_backward``, the same
-  formulas chunked over the keys, so that its memory is O(N · chunk). The
-  JAX package's backward is the vjp of ``chunked_attention``
+  ``flash_attention_backward`` runs ``csrc/flash_attention_bwd.cu``
+  (three launches per call); on CPU tensors ``attention_backward``, the
+  same formulas chunked over the keys, so that its memory is O(N · chunk).
+  In bfloat16 the kernel makes one pass over the queries for each block of
+  keys (``wgmma``, TMA loads by a producer warpgroup) and adds each block's
+  part of dQ into a float32 accumulator, so **dQ is not deterministic**:
+  the adds arrive in any order and dQ may differ in its last bits from
+  call to call, while dK and dV are bit-identical. Inputs whose D or C is
+  not a multiple of 8, or whose data is not 16-byte aligned, go to the
+  kernel as zero-padded copies (``padded_backward``, exact), never to the
+  plain version. In float32 the kernels are deterministic (no atomics).
+  The JAX package's backward is the vjp of ``chunked_attention``
   (``flash_attention.py:219-222``), which keeps all N·M probabilities.
   Gradients come back in the inputs' dtypes. Both backwards take D from
   the output the forward returned (bf16 where the inputs are), as FA2 and
@@ -189,12 +196,66 @@ def _forward(q, k, v, with_lse: bool):
     return out, lse
 
 
+def padded_backward(backward, q, k, v, out, lse, dout):
+    """``backward(q, k, v, out, lse, dout)`` on fresh contiguous copies of
+    q, k, v, out and dout whose D and C are zero-padded to a multiple of 8,
+    with the gradients cut back to D and C.
+
+    Exact: zero columns of q and k leave the logits q kᵀ unchanged, and zero
+    columns of v, out and dout leave D = rowsum(dO∘O) and dO vᵀ unchanged,
+    so every gradient's first D (or C) columns are the unpadded ones."""
+    d, c = q.shape[-1], v.shape[-1]
+
+    def pad(t, width):
+        copy = t.new_zeros(*t.shape[:-1], -(-width // 8) * 8)
+        copy[..., :width] = t
+        return copy
+
+    dq, dk, dv = backward(pad(q, d), pad(k, d), pad(v, c), pad(out, c), lse,
+                          pad(dout, c))
+    return (dq[..., :d].contiguous(), dk[..., :d].contiguous(),
+            dv[..., :c].contiguous())
+
+
+def _tma_ready(tensors) -> bool:
+    """The bf16 kernel's TMA loads take widths that are multiples of 8 and
+    16-byte aligned data."""
+    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def _launch_backward(q, k, v, out, lse, dout):
+    b, n, d = q.shape
+    m, c = v.shape[1], v.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dtype = 0 if q.dtype == torch.float32 else 1
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        workspace = torch.empty(
+            lib.flash_attention_backward_workspace(dtype, b, n, d, c),
+            dtype=torch.uint8, device=q.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_backward_launch(
+            dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout),
+            _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(workspace), b, n,
+            m, d, c, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention backward kernel launch failed: CUDA error "
+            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, {q.dtype})")
+    flash_attention_backward.launches += BACKWARD_LAUNCHES_PER_CALL
+    return dq, dk, dv
+
+
 def flash_attention_backward(q, k, v, out, lse, dout):
     """(dq, dk, dv) of ``flash_attention`` for the output gradient
     ``dout``, from its ``out`` and float32 ``lse`` (B, N).
 
     On CUDA tensors it launches the backward kernels (three launches); on
-    CPU tensors it runs ``attention_backward``."""
+    CPU tensors it runs ``attention_backward``. In bfloat16 on CUDA, dq is
+    summed over key blocks by float32 atomic adds and may differ in its
+    last bits from call to call; dk and dv are deterministic."""
     _check(q, k, v)
     b, n, _ = q.shape
     c = v.shape[2]
@@ -211,23 +272,20 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     if q.device.type == "cpu":
         return attention_backward(q, k, v, out, lse, dout)
     _check_cuda((q, k, v, out, lse, dout))
-    m, d = k.shape[1], q.shape[2]
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_backward_launch(
-            0 if q.dtype == torch.float32 else 1, _ptr(q), _ptr(k), _ptr(v),
-            _ptr(out), _ptr(dout), _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv),
-            _ptr(delta), b, n, m, d, c, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention backward kernel launch failed: CUDA error "
-            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)}, {q.dtype})")
-    flash_attention_backward.launches += BACKWARD_LAUNCHES_PER_CALL
-    return dq, dk, dv
+    if q.dtype == torch.bfloat16 and not _tma_ready((q, k, v, out, dout)):
+        return padded_backward(_launch_backward, q, k, v, out, lse, dout)
+    return _launch_backward(q, k, v, out, lse, dout)
+
+
+def backward_split(b, n, m, d, c) -> dict:
+    """The bf16 backward kernel's split of one call: keys a block, queries a
+    tile, ring stages, blocks, shared memory bytes, the padded width and the
+    blocks resident on an SM."""
+    split = (ctypes.c_int * 7)()
+    _bwd_lib().flash_attention_backward_plan(
+        b, m, -(-d // 8) * 8, -(-c // 8) * 8, split)
+    return dict(zip(("keys", "queries", "stages", "blocks", "smem",
+                     "width", "per_sm"), split))
 
 
 flash_attention_backward.launches = 0
@@ -304,4 +362,10 @@ def _bwd_lib() -> ctypes.CDLL:
     f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     f.restype = ctypes.c_int
+    f = lib.flash_attention_backward_workspace
+    f.argtypes = [ctypes.c_int] * 5
+    f.restype = ctypes.c_longlong
+    f = lib.flash_attention_backward_plan
+    f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    f.restype = None
     return lib

@@ -4,7 +4,9 @@ against ``jax.vjp`` of the JAX package's ``flash_attention``, whose
 custom_vjp runs ``chunked_attention`` and its vjp on the CPU; f32 at 1e-5,
 bf16 inputs within ``chip_smoke.ATTN_BWD_BF16_TOL``. Also a model of the
 CUDA backward kernel's bf16 arithmetic against the plain version, which is
-the argument behind that tolerance, and the wrapper's checks.
+the argument behind that tolerance (with its dQ summed over key blocks in a
+shuffled order, as the kernel's atomic adds arrive), the wrapper's
+zero-padding of widths that TMA cannot take, and the wrapper's checks.
 
 The CUDA kernels run only on the card; ``chip_smoke.py`` holds them
 against the plain versions there."""
@@ -153,11 +155,14 @@ def test_attention_backward_matches_autograd_of_chunked_attention(chunk):
 
 
 def _kernel_bwd_bf16_model(q, k, v, out, lse, dout):
-    """The arithmetic of ``csrc/flash_attention_bwd.cu``'s bf16 kernels:
-    f32 products of the bf16 operands, D from the bf16 out and dout in f32,
-    P = exp(q kᵀ − lse) and dS = P∘(dO vᵀ − D) in f32, each rounded once to
-    bf16 as the A operand of its product (Pᵀ dO, dS k, dSᵀ q), the sums in
-    f32. Returns the f32 gradients before their rounding to bf16."""
+    """The arithmetic of ``csrc/flash_attention_bwd.cu``'s bf16 one-pass
+    kernel: f32 products of the bf16 operands (its wgmma accumulates in
+    f32), D from the bf16 out and dout in f32, P = exp(q kᵀ − lse) and
+    dS = P∘(dO vᵀ − D) in f32, each rounded once to bf16 (P and dS as the
+    register A operands of Pᵀ dO and dSᵀ q, dS also as the shared-memory
+    A operand of dS k), the sums in f32; dQ's sum over key blocks in f32
+    too, in an order that ``_one_pass_dq_model`` varies. Returns the f32
+    gradients before their rounding to bf16."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
     delta = (gf * of).sum(-1)
     p = torch.exp(qf @ kf.transpose(1, 2) - lse[..., None])
@@ -187,6 +192,71 @@ def test_bf16_kernel_arithmetic_within_attn_bwd_bf16_tol(dim, logit_std):
         for ref in (p.float(), a.float()):
             tol = ATTN_BWD_BF16_TOL * max(1.0, ref.abs().max().item())
             assert (got - ref).abs().max().item() <= tol
+
+
+def _one_pass_dq_model(q, k, v, out, lse, dout, block, seed):
+    """dQ as the one-pass kernel forms it: each block of ``block`` keys
+    adds its part dS k (dS rounded to bf16, products and sums in f32) into
+    a float32 accumulator, the blocks in a shuffled order, as its atomic
+    adds arrive; then one rounding to bf16."""
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
+    delta = (gf * of).sum(-1)
+    acc = torch.zeros_like(qf)
+    starts = list(range(0, k.shape[1], block))
+    np.random.RandomState(seed).shuffle(starts)
+    for s in starts:
+        kb, vb = kf[:, s:s + block], vf[:, s:s + block]
+        p = torch.exp(qf @ kb.transpose(1, 2) - lse[..., None])
+        ds = (p * (gf @ vb.transpose(1, 2) - delta[..., None])).bfloat16()
+        acc += ds.float() @ kb
+    return acc.bfloat16()
+
+
+@pytest.mark.parametrize("dim", [8, 32, 64, 128])
+def test_one_pass_dq_accumulation_within_attn_bwd_bf16_tol(dim):
+    # D = C as at the four CMDA-R50 fusions; keys in blocks of 128 (the
+    # kernel's Bc at s1-s3_fuse), N and M ragged against the blocks and the
+    # 64-query tiles. Two block orders agree far inside the tolerance: the
+    # nondeterminism of bf16 dQ is in its last bits.
+    q, k, v, g = _arrays(1, 333, 300, dim, dim, seed=dim)
+    q, k, v, g = (torch.from_numpy(a).bfloat16() for a in (q, k, v, g))
+    out, lse = tfa.chunked_attention_lse(q, k, v)
+    want = tfa.attention_backward(q, k, v, out, lse, g)[0].float()
+    tol = ATTN_BWD_BF16_TOL * max(1.0, want.abs().max().item())
+    orders = [_one_pass_dq_model(q, k, v, out, lse, g, 128, seed)
+              for seed in (0, 1)]
+    for got in orders:
+        assert (got.float() - want).abs().max().item() <= tol
+    assert (orders[0].float() - orders[1].float()).abs().max().item() <= \
+        tol / 10
+
+
+@pytest.mark.parametrize("d,c", [(4, 4), (24, 24), (100, 100), (4, 100)])
+def test_padding_to_a_multiple_of_8_is_exact(d, c):
+    # what the CUDA wrapper does for widths or pointers that TMA cannot
+    # take, run here with the plain version: zero columns change no logit,
+    # no D = rowsum(dO ∘ O) and no dO vᵀ; N and M ragged
+    arrays = _arrays(2, 77, 45, d, c, seed=d + c)
+    q, k, v, g = (torch.from_numpy(a) for a in arrays)
+    out, lse = tfa.chunked_attention_lse(q, k, v)
+    shapes = []
+
+    def backward(*args):
+        shapes.append(tuple(t.shape[-1] for t in args if t.dim() == 3))
+        return tfa.attention_backward(*args)
+
+    got = tfa.padded_backward(backward, q, k, v, out, lse, g)
+    want = tfa.attention_backward(q, k, v, out, lse, g)
+    dp, cp = -(-d // 8) * 8, -(-c // 8) * 8
+    assert shapes == [(dp, dp, cp, cp, cp)]
+    # rtol = atol = 1e-6 of each gradient's scale: the f32 dot products
+    # over D + pad and D columns are blocked differently, so they round
+    # apart by an ulp or two of their largest terms
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a / scale, b / scale, rtol=1e-6,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("bad", ["out_shape", "lse_shape", "dout_dtype",
