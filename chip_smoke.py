@@ -4,8 +4,8 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7 (3b takes its shapes from the CMDA model that phase 5 serves,
-3c from the one that phase 7 trains):
+5, 3c, 6, 7, 8, 9 (3b takes its shapes from the CMDA model that phase 5
+serves, 3c from the one that phase 7 trains):
 
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
@@ -23,7 +23,9 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               fast s2 at the 224 crop, a projection with channel counts
               that are not multiples of 8, a height that the strip does not
               divide) through the fused kernel against its plain version,
-              in float32 and bfloat16, at 1 clip and at the request batch;
+              in float32 and bfloat16, at 1 clip and at the request batch,
+              and the path's shapes in bfloat16 also at the 30-view test
+              batch of phase 8 (64 clips, printing each one's split);
               at the request batch it also times the kernel, the plain
               version and the same block unfused through the port's
               nn.Module (cuDNN), beside the block's bound on an H100, and
@@ -32,7 +34,8 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               the four CMDA-R50 shapes (one per lateral fusion) and five
               off-path shapes (ragged keys; pooled non-local keys; three on
               the bf16 kernel's tile edges), in float32 and bfloat16, at 1
-              clip and at the request batch; at the request batch it also
+              clip and at the request batch, and the path's shapes in
+              bfloat16 also at phase 8's 64-clip batch; at the request batch it also
               times the kernel, the plain version and
               scaled_dot_product_attention, beside the shape's bound, and
               prints the kernel's ratio to each.
@@ -84,8 +87,46 @@ exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
               same step under TPU.FLASH_ATTENTION False (plain forward,
               backward by autograd through it, on the card).
 
+8. thirty_view — the 30-view test of configs/Kinetics/SLOWFAST_8x8_R50.yaml
+              (TPU.FUSED_EVAL, K1) and then of
+              SLOWFAST_DUALATTENTION_8x8_R50.yaml (K2, attention calibrated
+              as in phase 5), bf16, on the synthetic test split (8 videos x
+              10 x 3 views = 240 clips in 4 batches of the yaml's 64, the
+              last 48 real and 16 padded) through the loader (8 threads),
+              the pinned host→GPU copy, the preprocess and the forward
+              (perform_test): one untimed batch, the forward alone on a
+              resident batch, then the timed test. Gates: 26 K1 launches a
+              batch on SlowFast and none on CMDA, 4 K2 launches a batch on
+              CMDA and none on SlowFast; K1 plans no shape (each was
+              planned, and held against the plain version, at 64 clips in
+              phase 3); every clip's probabilities finite and summing to 1
+              within TEST_ROW_TOL; the TestMeter complete; the first
+              batch's pathways on the card within PRE_TOL of the CPU
+              preprocess in float32; per video, the centred log mean
+              probabilities within TEST_LOGIT_TOL of their scale of those
+              of test() from a .pyth of the same weights without the
+              kernels (SlowFast: TPU.FUSED_EVAL False, the module forward;
+              CMDA: TPU.FLASH_ATTENTION False, the plain attention). Prints
+              end-to-end clips/s, the forward alone, each batch's wait on
+              the loader and its copy, preprocess and forward times, and
+              peak memory.
+9. epochs   — CMDA-R50 as phase 7 trains it (8 clips a step, 224² crops
+              from the 320-short-side canvas, jitter [256, 320], bf16,
+              dropout 0.5, attention calibrated): train_epoch over the
+              synthetic train split (64 videos, 8 steps) and eval_epoch over
+              the val split (64 clips, 8 batches) through the loaders, once
+              untimed (epoch 0: the loaders' first buffers and pinned
+              canvases, the eval shapes' cuDNN plans) and once timed (epoch
+              1). Gates: 4 K2 launches a train step and a val batch, 12
+              K2-bwd launches a train step, no K1 (epoch 1); finite losses;
+              BN running statistics moved; each step's lr get_lr_at_epoch's
+              at its fractional epoch; val errors in [0, 100]. Prints train
+              clips/s through the loader beside phase 7's steps alone, val
+              clips/s, both epochs, and peak memory.
+
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after. The last three lines are the kernels' JSON record, the
+and read just after; the kernels' JSON line sums the launches of phases
+4, 5, 7, 8 and 9. The last three lines are the kernels' JSON record, the
 card's name and power limit, and the device JSON line.
 """
 
@@ -110,6 +151,8 @@ sys.path.insert(0, ROOT)
 SEED = 0
 REQUESTS = 3
 CLIPS_PER_REQUEST = 4
+# the 30-view test batch: TEST.BATCH_SIZE of the Kinetics yamls (phase 8)
+TEST_CLIPS = 64
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 FMA, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -228,6 +271,28 @@ CMDA_TRAIN_BF16_RATIO = 2.0
 # 0.1; max |difference| within 1e-4 (f32) and 1e-2 (bf16) of max(1,
 # max |statistic|).
 CMDA_STATS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the 30-view test and the epochs: loader threads (the yamls' NUM_WORKERS)
+LOADER_WORKERS = 8
+# every clip's bf16 probabilities: a softmax in float32 rounded to bf16 per
+# class (2^-9 relative each) sums to 1 within 400 · 2^-9 · max p, and in
+# practice within a few 1e-3 as the roundings have random signs; 1e-2.
+TEST_ROW_TOL = 1e-2
+# the 30-view test with the kernels against the same weights without them
+# (SlowFast: fused engine vs module forward; CMDA: K2 vs plain attention),
+# per video: the log of the mean probability less its mean over the
+# classes (for one clip, the logits less theirs). The two paths differ by
+# bf16 roundings (BN folded into bf16 weights and K1's roundings of a, b, c;
+# K2's one rounding of P), each of order 2^-8 of a layer's activations with
+# random signs, so over the ~50 layers of an R50 of order √50 · 2^-8 ≈ 3% of
+# the logits' spread (phase 4 sees 2.7% of the largest probability on one
+# request). A wrong block or attention moves the logits by their own
+# spread. 0.1 of the largest |centred log mean probability|: three times
+# the rounding estimate, a tenth of a fault.
+TEST_LOGIT_TOL = 0.1
+# the preprocess on the card against the CPU, float32: the same ops in the
+# same order on both (gathers, one lerp per axis, the normalization), so
+# only fused multiply-adds may differ, an ulp of values within ±3; 1e-5.
+PRE_TOL = 1e-5
 ATTN_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
                  ("pooled non-local", 3136, 784, 64, 64),
                  ("ragged tiles", 2085, 1057, 32, 32),
@@ -504,11 +569,15 @@ def kernel_rows(cfg, model):
     return rows
 
 
-def make_block(t_len, h, cin, ci, cout, kt, proj, clips, dtype, gen):
-    """Seeded inputs of one block: x and BN-folded weights (kernel layout)."""
+def make_block(t_len, h, cin, ci, cout, kt, proj, clips, dtype, gen,
+               card_gen=None):
+    """Seeded inputs of one block: x and BN-folded weights (kernel layout).
+    x is drawn on the card from ``card_gen`` where given (the test batch's
+    activations run to gigabytes)."""
     dev = "cuda"
     rn = lambda *s: torch.randn(*s, generator=gen)
-    x = rn(clips * t_len, h, h, cin).to(dev, dtype)
+    x = (rn(clips * t_len, h, h, cin) if card_gen is None else torch.randn(
+        clips * t_len, h, h, cin, generator=card_gen, device=dev)).to(dev, dtype)
     w = dict(wa=rn(kt, cin, ci) / (kt * cin) ** 0.5, ba=0.1 * rn(ci),
              wb=rn(3, 3, ci, ci) / (9 * ci) ** 0.5, bb=0.1 * rn(ci),
              wc=rn(ci, cout) / ci ** 0.5, bc=0.1 * rn(cout),
@@ -551,29 +620,44 @@ def phase_kernels(cfg, model, smi):
                 for cl in (1, 2, 4, 8)))
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     record = []
+    card_gen = torch.Generator(device="cuda").manual_seed(SEED)
     for label, t_len, h, cin, ci, cout, kt, proj, count in rows + [
             r + (0,) for r in K1_OFF_PATH]:
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            for clips in (1, CLIPS_PER_REQUEST):
-                x, w = make_block(t_len, h, cin, ci, cout, kt, proj, clips,
-                                  dtype, gen)
-                args = (x, t_len, w["wa"], w["ba"], w["wb"], w["bb"], w["wc"],
-                        w["bc"], w["wp"], w["bp"])
-                out = fused_bottleneck(*args)
-                torch.cuda.synchronize()
-                ref = bottleneck_reference(*args)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                scale = max(1.0, ref.float().abs().max().item())
-                finite = bool(torch.isfinite(out).all())
-                log("kernels", f"{label:18s} {str(dtype)[6:]:8s} clips {clips}"
-                    f" max_abs_err {err:.3e} (scale {scale:.3g}, tol "
-                    f"{tol * scale:.3e})")
-                if not finite or err > tol * scale:
-                    raise AssertionError(f"{label} {dtype} clips {clips}: "
-                                         f"err {err} > {tol * scale}")
-                if clips == CLIPS_PER_REQUEST and count:
-                    worst[dtype] = max(worst[dtype], err)
+        # the path's shapes also at the 30-view test batch (phase 8), in
+        # its dtype: the plan picks each of those shapes' splits anew
+        cases = [(dtype, tol, clips) for dtype, tol in (
+            (torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
+            for clips in (1, CLIPS_PER_REQUEST)]
+        if count:
+            cases.append((torch.bfloat16, BF16_TOL, TEST_CLIPS))
+        for dtype, tol, clips in cases:
+            x, w = make_block(t_len, h, cin, ci, cout, kt, proj, clips,
+                              dtype, gen, card_gen if clips == TEST_CLIPS
+                              else None)
+            args = (x, t_len, w["wa"], w["ba"], w["wb"], w["bb"], w["wc"],
+                    w["bc"], w["wp"], w["bp"])
+            out = fused_bottleneck(*args)
+            torch.cuda.synchronize()
+            ref = bottleneck_reference(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = max(1.0, ref.float().abs().max().item())
+            finite = bool(torch.isfinite(out).all())
+            log("kernels", f"{label:18s} {str(dtype)[6:]:8s} clips {clips}"
+                f" max_abs_err {err:.3e} (scale {scale:.3g}, tol "
+                f"{tol * scale:.3e})")
+            if not finite or err > tol * scale:
+                raise AssertionError(f"{label} {dtype} clips {clips}: "
+                                     f"err {err} > {tol * scale}")
+            if clips == TEST_CLIPS:
+                sp = plan(x.shape[0], h, h, cin, ci, cout, kt, 2, proj)
+                log("kernels", f"{label:18s} bf16     clips {clips} split: "
+                    f"cluster {sp.cluster}, strip rows {sp.rows}, CTAs "
+                    f"{sp.ctas}, output pixels per CTA {sp.pixels}, shared "
+                    f"memory {sp.smem} B (ring {sp.ring} B)")
+            if clips != 1 and count:
+                worst[dtype] = max(worst[dtype], err)
+            del x, w, args, out, ref
         # timing at the request batch, in the serving dtype
         dtype = torch.bfloat16
         x, w = make_block(t_len, h, cin, ci, cout, kt, proj, CLIPS_PER_REQUEST,
@@ -617,7 +701,7 @@ def phase_kernels(cfg, model, smi):
         record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
                            library_ms=lib_ms, bound_ms=bound, bound_by=by,
                            flops=flops, bytes=nbytes))
-    log("kernels", f"worst max_abs_err at the request batch: f32 "
+    log("kernels", f"worst max_abs_err at the request and test batches: f32 "
         f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
     return record, worst[torch.bfloat16]
 
@@ -865,31 +949,42 @@ def phase_attention(rows, smi):
         chunked_attention, flash_attention)
 
     gen = torch.Generator().manual_seed(SEED + 3)
+    card_gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rn = lambda *shape, dtype: torch.randn(*shape, generator=gen).to(
         "cuda", dtype)
+    rn_card = lambda *shape, dtype: torch.randn(
+        *shape, generator=card_gen, device="cuda").to(dtype)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     record = []
     for label, n, m, d, c, count in rows + [r + (0,) for r in ATTN_OFF_PATH]:
-        for dtype, tol in ((torch.float32, ATTN_F32_TOL),
-                           (torch.bfloat16, ATTN_BF16_TOL)):
-            for b in (1, CLIPS_PER_REQUEST):
-                q, k, v = (rn(b, n, d, dtype=dtype), rn(b, m, d, dtype=dtype),
-                           rn(b, m, c, dtype=dtype))
-                out = flash_attention(q, k, v)
-                torch.cuda.synchronize()
-                ref = chunked_attention(q, k, v)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                scale = max(1.0, ref.float().abs().max().item())
-                finite = bool(torch.isfinite(out).all())
-                log("attention", f"{label:16s} {str(dtype)[6:]:8s} clips {b} "
-                    f"max_abs_err {err:.3e} (scale {scale:.3g}, tol "
-                    f"{tol * scale:.3e})")
-                if out.dtype != dtype or not finite or err > tol * scale:
-                    raise AssertionError(f"{label} {dtype} clips {b}: "
-                                         f"err {err} > {tol * scale}")
-                if b == CLIPS_PER_REQUEST and count:
-                    worst[dtype] = max(worst[dtype], err)
+        # the path's shapes also at the 30-view test batch (phase 8), in
+        # its dtype
+        cases = [(dtype, tol, b) for dtype, tol in (
+            (torch.float32, ATTN_F32_TOL), (torch.bfloat16, ATTN_BF16_TOL))
+            for b in (1, CLIPS_PER_REQUEST)]
+        if count:
+            cases.append((torch.bfloat16, ATTN_BF16_TOL, TEST_CLIPS))
+        for dtype, tol, b in cases:
+            draw = rn_card if b == TEST_CLIPS else rn
+            q, k, v = (draw(b, n, d, dtype=dtype), draw(b, m, d, dtype=dtype),
+                       draw(b, m, c, dtype=dtype))
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = chunked_attention(q, k, v)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = max(1.0, ref.float().abs().max().item())
+            finite = bool(torch.isfinite(out).all())
+            log("attention", f"{label:16s} {str(dtype)[6:]:8s} clips {b} "
+                f"max_abs_err {err:.3e} (scale {scale:.3g}, tol "
+                f"{tol * scale:.3e})")
+            if out.dtype != dtype or not finite or err > tol * scale:
+                raise AssertionError(f"{label} {dtype} clips {b}: "
+                                     f"err {err} > {tol * scale}")
+            if b != 1 and count:
+                worst[dtype] = max(worst[dtype], err)
+            del q, k, v, out, ref
+        torch.cuda.empty_cache()
         # timing at the request batch, in the serving dtype
         b, dtype = CLIPS_PER_REQUEST, torch.bfloat16
         q, k, v = (rn(b, n, d, dtype=dtype), rn(b, m, d, dtype=dtype),
@@ -916,7 +1011,7 @@ def phase_attention(rows, smi):
             f"{nbytes / 1e6:.3f} MB) | {smi}")
         record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
                            library_ms=lib_ms, bound_ms=bound, bound_by=by))
-    log("attention", f"worst max_abs_err at the request batch on the CMDA "
+    log("attention", f"worst max_abs_err at the request and test batches on the CMDA "
         f"path: f32 {worst[torch.float32]:.3e}, bf16 "
         f"{worst[torch.bfloat16]:.3e}")
     return record, worst[torch.bfloat16]
@@ -1174,7 +1269,7 @@ def train_steps(phase, cfg, model, expect, smi):
         raise AssertionError(f"{phase}: non-finite loss {losses}")
     if not moved > 0:
         raise AssertionError(f"{phase}: BN running statistics did not move")
-    return state, step, counts
+    return state, step, counts, TRAIN_CLIPS / dt
 
 
 def phase_train(smi):
@@ -1183,7 +1278,7 @@ def phase_train(smi):
 
     cfg = train_cfg()
     model = train_model(cfg, SEED)
-    state, step, _ = train_steps(
+    state, step, _, _ = train_steps(
         "train", cfg, model, {"fused_bottleneck": 0, "flash_attention": 0,
                               "flash_attention_backward": 0}, smi)
     remat = cfg.clone()
@@ -1225,13 +1320,13 @@ def one_step(cfg, state_dict, batch, seed):
 def phase_cmda_train(cfg, model, smi):
     """CMDA-R50 training; then one step of one clip in f32 and bf16, each
     with the attention kernels against the plain attention. Returns the
-    backward's launch count of the timed steps."""
+    timed steps' launch counts and train clips/s."""
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
         BACKWARD_LAUNCHES_PER_CALL
 
     cmda = cfg.MODEL.MODEL_NAME
     state_dict = {k: v.clone() for k, v in model.state_dict().items()}
-    _, _, counts = train_steps(
+    _, _, counts, clips_per_s = train_steps(
         "cmda_train", cfg, model,
         {"fused_bottleneck": 0, "flash_attention": 4 * TRAIN_STEPS,
          "flash_attention_backward":
@@ -1280,7 +1375,325 @@ def phase_cmda_train(cfg, model, smi):
                 f"{CMDA_TRAIN_BF16_RATIO}); statistics {worst_s}")
         del after
         torch.cuda.empty_cache()
-    return counts["flash_attention_backward"]
+    return counts, clips_per_s
+
+
+# ---------------------------------------------------------------------------
+def yaml_cfg(name, opts):
+    """configs/Kinetics/``name`` through the port's config loader, with the
+    synthetic backend, bf16 and ``opts``."""
+    from efficient_slowfast_tpu_torch.config import load_cfg
+
+    return load_cfg(os.path.join(ROOT, "configs", "Kinetics", name), [
+        "TPU.COMPUTE_DTYPE", "bfloat16", "TEST.DATASET", "synthetic",
+        "TRAIN.DATASET", "synthetic",
+        "DATA_LOADER.NUM_WORKERS", LOADER_WORKERS] + list(opts))
+
+
+def smoke_dir():
+    """A git-ignored directory of the checkout for the smoke's files."""
+    path = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def test_meter(cfg, loader):
+    """The port's TestMeter for ``loader``'s split, holding every clip's
+    probabilities (finite, each row summing to 1 within TEST_ROW_TOL)
+    before it ensembles them."""
+    from efficient_slowfast_tpu_torch.utils.meters import TestMeter
+
+    class Checked(TestMeter):
+        worst_row = 0.0
+        clips = 0
+
+        def update_stats(self, preds, labels, clip_ids):
+            if not np.isfinite(preds).all():
+                raise AssertionError("thirty_view: non-finite scores")
+            err = float(np.abs(preds.sum(1) - 1.0).max())
+            self.worst_row = max(self.worst_row, err)
+            if err > TEST_ROW_TOL:
+                raise AssertionError(f"thirty_view: rows sum to 1 ± {err}")
+            self.clips += len(preds)
+            super().update_stats(preds, labels, clip_ids)
+
+    views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    return Checked(len(loader.dataset) // views, views, cfg.MODEL.NUM_CLASSES,
+                   len(loader), ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
+                   topk=cfg.TRAIN.TOPK)
+
+
+def check_preprocess(cfg, batch):
+    """The first batch's pathways, preprocessed in float32 on the card,
+    against the same preprocess on the CPU (8 clips at a time), returning
+    the largest difference."""
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_test_preprocess
+
+    pre = make_test_preprocess(cfg, torch.float32)
+    keys = ("width", "spatial_idx", "portrait")
+    on_card = pre(batch["frames"], *(batch[k] for k in keys))
+    err = 0.0
+    for i in range(0, batch["frames"].shape[0], 8):
+        part = slice(i, i + 8)
+        on_cpu = pre(batch["frames"][part].cpu(), *(batch[k][part] for k in keys))
+        for a, b in zip(on_card, on_cpu):
+            err = max(err, (a[part].cpu() - b).abs().max().item())
+    return err
+
+
+def phase_thirty_view(name, fused, expect_per_batch, smi):
+    """One model's 30-view test on the synthetic test split, through the
+    loader, the pinned host→GPU copy, the preprocess and the forward.
+    Returns (kernel launches of the timed run, video_preds, cfg, model)."""
+    from efficient_slowfast_tpu_torch.data.loader import (construct_loader,
+                                                          prefetch_to_device)
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_test_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.engine.test import perform_test
+    from efficient_slowfast_tpu_torch.ops.kernels import fused_bottleneck as fb
+    from efficient_slowfast_tpu_torch.utils.meters import StageTimes
+
+    cfg = yaml_cfg(name, ["TPU.FUSED_EVAL", fused])
+    label = cfg.MODEL.MODEL_NAME + (" fused" if fused else "")
+    model = serving_model(cfg, SEED)
+    if cfg.MODEL.MODEL_NAME == "SlowFastDualAttention":
+        calibrate_attention(cfg, model, SEED + 6)
+    loader = construct_loader(cfg, "test")
+    n_clips, batch = len(loader.dataset), loader.batch_size
+    if batch != TEST_CLIPS:
+        raise AssertionError(f"thirty_view: {name} batches {batch} clips, "
+                             f"phases 3 and 3b hold the kernels at {TEST_CLIPS}")
+    real_tail = n_clips - (len(loader) - 1) * batch
+    log("thirty_view", f"{label}: {name}, {n_clips} clips (8 videos x "
+        f"{cfg.TEST.NUM_ENSEMBLE_VIEWS} x {cfg.TEST.NUM_SPATIAL_CROPS} views)"
+        f" in {len(loader)} batches of {batch}, the last {real_tail} real + "
+        f"{batch - real_tail} padded, {cfg.DATA_LOADER.NUM_WORKERS} loader "
+        f"threads, canvas {loader.dataset.frames_shape()} uint8")
+
+    # untimed: one batch (cuDNN plans, the kernels' plans, the pinned ring)
+    plans = fb.plan.cache_info().misses
+    pre = make_test_preprocess(cfg, torch.bfloat16)
+    fwd = make_forward(cfg, model)
+    for first in prefetch_to_device(loader, "cuda"):
+        inputs = pre(first["frames"], first["width"], first["spatial_idx"],
+                     first["portrait"])
+        fwd(inputs)
+        torch.cuda.synchronize()
+        pre_err = check_preprocess(cfg, first)
+        break
+    warm_plans = fb.plan.cache_info().misses - plans
+    # the forward alone on a resident preprocessed batch
+    reps = len(loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fwd(inputs)
+    torch.cuda.synchronize()
+    fwd_alone = reps * batch / (time.perf_counter() - t0)
+    del inputs, first
+
+    times = StageTimes()
+    meter = test_meter(cfg, loader)
+    plans = fb.plan.cache_info().misses
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = perform_test(cfg, model, loader, meter, times=times)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    timed_plans = fb.plan.cache_info().misses - plans
+
+    split = times.summary()
+    log("thirty_view", f"{label}: kernel launches {counts} ({len(loader)} "
+        f"batches) | K1 plans made: {warm_plans} in the untimed batch, "
+        f"{timed_plans} in the timed run (every shape was planned and held "
+        f"at {TEST_CLIPS} clips in phase 3) | {stats} | rows of every clip sum "
+        f"to 1 within {meter.worst_row:.2e} | preprocess on the card vs the "
+        f"CPU, f32, first batch: max |d| {pre_err:.3e} (tol {PRE_TOL})")
+    for i in range(len(split["forward"])):
+        log("thirty_view", f"{label}: batch {i}: waiting on the loader "
+            f"{split['wait'][i]:.2f} ms (host) | copy {split['copy'][i]:.2f}"
+            f" ms | preprocess {split['preprocess'][i]:.2f} ms | forward "
+            f"{split['forward'][i]:.2f} ms (CUDA events)")
+    means = {k: statistics.mean(v) for k, v in split.items()}
+    log("thirty_view", f"{label}: end to end {meter.clips / dt:.2f} clips/s "
+        f"({dt:.3f} s for {meter.clips} clips: loader, copy, preprocess, "
+        f"forward, meter) | forward alone on a resident {batch}-clip batch "
+        f"{fwd_alone:.2f} clips/s | per batch mean: wait {means['wait']:.2f},"
+        f" copy {means['copy']:.2f}, preprocess {means['preprocess']:.2f}, "
+        f"forward {means['forward']:.2f} ms | peak memory "
+        f"{peak / 2 ** 30:.2f} GiB | {smi}")
+
+    expect = {k: v * len(loader) for k, v in expect_per_batch.items()}
+    if counts != expect:
+        raise AssertionError(f"thirty_view {label}: kernel launches {counts}"
+                             f", expected {expect}")
+    if meter.clips != n_clips:
+        raise AssertionError(f"thirty_view {label}: {meter.clips} clips "
+                             f"scored, expected {n_clips}")
+    if warm_plans or timed_plans:
+        raise AssertionError(f"thirty_view {label}: K1 planned {warm_plans} "
+                             f"shapes in the untimed batch and {timed_plans} "
+                             "in the timed run, which phase 3 did not hold "
+                             "against the plain version")
+    if pre_err > PRE_TOL:
+        raise AssertionError(f"thirty_view {label}: preprocess on the card "
+                             f"vs the CPU {pre_err}")
+    return counts, meter.video_preds / meter.num_clips, cfg, model
+
+
+def centred_log(means):
+    """Per-video log mean probabilities less their mean over the classes:
+    for one clip, the logits less theirs."""
+    lp = np.log(np.maximum(means, 1e-30))
+    return lp - lp.mean(1, keepdims=True)
+
+
+def phase_thirty_view_reference(cfg, model, kernel_means, opts, what, smi):
+    """The test again through ``test()`` with ``opts`` (the path without
+    the kernels), its weights from a .pyth of the kernel run's, holding
+    each video's centred log mean probabilities within TEST_LOGIT_TOL of
+    their scale and printing top-1 agreement."""
+    from efficient_slowfast_tpu_torch.engine.test import test
+
+    label = cfg.MODEL.MODEL_NAME
+    path = os.path.join(smoke_dir(), f"{label.lower()}_r50.pyth")
+    torch.save({"model_state": model.state_dict()}, path)
+    ref_cfg = cfg.clone()
+    ref_cfg.merge_from_list(list(opts) + [
+        "TEST.CHECKPOINT_FILE_PATH", path, "OUTPUT_DIR", smoke_dir()])
+    reset_counts()
+    meter = test(ref_cfg)
+    if any(read_counts().values()):
+        raise AssertionError(f"the path without kernels launched "
+                             f"{read_counts()}")
+    ref_means = meter.video_preds / meter.num_clips
+    ref_c, got_c = centred_log(ref_means), centred_log(kernel_means)
+    scale = float(np.abs(ref_c).max())
+    err = float(np.abs(got_c - ref_c).max())
+    top1 = float((ref_means.argmax(1) == kernel_means.argmax(1)).mean())
+    log("thirty_view", f"{label}: {what} vs test() from the .pyth with "
+        f"{' '.join(map(str, opts))}: per-video centred log mean "
+        f"probabilities max |d| {err:.3e} of scale {scale:.3e} (tol "
+        f"{TEST_LOGIT_TOL * scale:.3e}), mean probabilities max |d| "
+        f"{float(np.abs(kernel_means - ref_means).max()):.3e} (max p "
+        f"{float(ref_means.max()):.3e}), top-1 agreement {top1:.3f} | "
+        f"{meter.stats} | {smi}")
+    if not err <= TEST_LOGIT_TOL * scale:
+        raise AssertionError(f"thirty_view {label}: {what} vs reference "
+                             f"{err} > {TEST_LOGIT_TOL} x {scale}")
+
+
+def phase_epochs(step_clips_per_s, smi):
+    """CMDA-R50 as phase 7 trains it: an untimed train and val epoch (the
+    loaders' first buffers and pinned canvases, the eval shapes' cuDNN
+    plans), then a timed train epoch and val epoch through the synthetic
+    loaders. Returns the timed epochs' launch counts."""
+    from efficient_slowfast_tpu_torch.data.loader import construct_loader
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_train_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
+                                                           make_eval_step,
+                                                           make_train_step)
+    from efficient_slowfast_tpu_torch.engine.train import (eval_epoch,
+                                                           train_epoch)
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+    from efficient_slowfast_tpu_torch.utils.lr_policy import get_lr_at_epoch
+    from efficient_slowfast_tpu_torch.utils.meters import TrainMeter, ValMeter
+
+    cfg = yaml_cfg("SLOWFAST_DUALATTENTION_8x8_R50.yaml",
+                   ["TRAIN.BATCH_SIZE", TRAIN_CLIPS])
+    model = train_model(cfg, SEED)
+    calib = cfg.clone()
+    calib.DATA.TEST_CROP_SIZE = cfg.DATA.TRAIN_CROP_SIZE  # as in phase 7
+    calibrate_attention(calib, model, SEED + 9)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    eval_step = make_eval_step(cfg, state.model)
+    lrs, losses = [], []
+
+    def recorded(state, inputs, labels, lr, generator):
+        lrs.append(lr)
+        mets = step(state, inputs, labels, lr, generator)
+        losses.append(mets["loss"])
+        return mets
+
+    pre = make_train_preprocess(cfg, dtype=torch.bfloat16)
+    train_loader = construct_loader(cfg, "train")
+    val_loader = construct_loader(cfg, "val")
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    bn = model.s2.pathway0_res0.branch2.a_bn
+    before = bn.running_mean.clone()
+
+    def epochs(epoch):
+        """(train seconds, val seconds, val meter) of one epoch each."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_loader.set_epoch(epoch)
+        train_epoch(cfg, state, recorded, pre, train_loader,
+                    TrainMeter(len(train_loader), cfg), epoch, generator=drop)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        val = ValMeter(len(val_loader), cfg)
+        eval_epoch(cfg, state, eval_step, pre, val_loader, val, epoch)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1, val
+
+    cold = epochs(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_train, t_val, val = epochs(1)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    moved = (bn.running_mean - before).abs().max().item()
+    steps = len(train_loader)
+    expect_lr = [get_lr_at_epoch(cfg, e + i / steps)
+                 for e in (0, 1) for i in range(steps)]
+    n_train = steps * train_loader.batch_size
+    n_val = len(val_loader.dataset)
+    log("epochs", f"CMDA-R50 train epochs 0 and 1: {steps} steps of "
+        f"{train_loader.batch_size} clips each ({cfg.DATA.TRAIN_CROP_SIZE}² "
+        f"crops from the {cfg.DATA.TRAIN_JITTER_SCALES[1]}-short-side canvas,"
+        f" jitter {list(cfg.DATA.TRAIN_JITTER_SCALES)}) | losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + " | lr "
+        + ", ".join(f"{x:.5f}" for x in lrs) + f" | running mean of s2 res0 "
+        f"a_bn moved {moved:.3e}")
+    log("epochs", f"CMDA-R50 val epoch 1: {len(val_loader)} batches, {n_val} "
+        f"clips | top1_err {val.min_top1_err:.2f} top{cfg.TRAIN.TOPK}_err "
+        f"{val.min_top_k_err:.2f} | kernel launches (epoch 1, train and val) "
+        f"{counts}")
+    log("epochs", f"bf16, epoch 1: train {n_train / t_train:.2f} clips/s "
+        f"through the loader ({t_train:.3f} s; phase 7's steps alone "
+        f"{step_clips_per_s:.2f}) | val {n_val / t_val:.2f} clips/s "
+        f"({t_val:.3f} s) | peak memory {peak / 2 ** 30:.2f} GiB | epoch 0 "
+        f"(the loaders' first epoch): train {n_train / cold[0]:.2f}, val "
+        f"{n_val / cold[1]:.2f} clips/s | {smi}")
+
+    expect = {"fused_bottleneck": 0,
+              "flash_attention": 4 * steps + 4 * len(val_loader),
+              "flash_attention_backward":
+                  4 * BACKWARD_LAUNCHES_PER_CALL * steps}
+    if counts != expect:
+        raise AssertionError(f"epochs: kernel launches {counts}, expected "
+                             f"{expect}")
+    if len(losses) != 2 * steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"epochs: losses {losses}")
+    if not moved > 0:
+        raise AssertionError("epochs: BN running statistics did not move")
+    if lrs != expect_lr:
+        raise AssertionError(f"epochs: lr {lrs}, expected {expect_lr}")
+    for v in (cold[2], val):
+        if not (0 <= v.min_top1_err <= 100 and 0 <= v.min_top_k_err <= 100):
+            raise AssertionError(f"epochs: val errors {v.min_top1_err}, "
+                                 f"{v.min_top_k_err}")
+    return counts
 
 
 def per_request(record, key):
@@ -1334,7 +1747,35 @@ def main():
     phase_train(smi)
     torch.cuda.empty_cache()
     calibrate_attention(cfg, model, SEED + 9)
-    bwd_launches = phase_cmda_train(cfg, model, smi)
+    train_counts, step_clips_per_s = phase_cmda_train(cfg, model, smi)
+    del model
+    torch.cuda.empty_cache()
+
+    none = {"fused_bottleneck": 0, "flash_attention": 0,
+            "flash_attention_backward": 0}
+    sf_counts, sf_means, cfg, model = phase_thirty_view(
+        "SLOWFAST_8x8_R50.yaml", True, {**none, "fused_bottleneck": 26}, smi)
+    phase_thirty_view_reference(cfg, model, sf_means,
+                                ["TPU.FUSED_EVAL", False], "fused engine", smi)
+    del model
+    torch.cuda.empty_cache()
+    cmda_counts, cmda_means, cfg, model = phase_thirty_view(
+        "SLOWFAST_DUALATTENTION_8x8_R50.yaml", False,
+        {**none, "flash_attention": 4}, smi)
+    phase_thirty_view_reference(cfg, model, cmda_means,
+                                ["TPU.FLASH_ATTENTION", False],
+                                "flash attention", smi)
+    del model
+    torch.cuda.empty_cache()
+    epoch_counts = phase_epochs(step_clips_per_s, smi)
+
+    # launches on the main paths: serving (phases 4, 5), CMDA training
+    # (phase 7), the 30-view tests (phase 8) and the epochs (phase 9)
+    k1_launches += sf_counts["fused_bottleneck"]
+    k2_launches += sum(c["flash_attention"]
+                       for c in (train_counts, cmda_counts, epoch_counts))
+    bwd_launches = sum(c["flash_attention_backward"]
+                       for c in (train_counts, epoch_counts))
 
     kernels = [
         kernel_entry(

@@ -1,0 +1,183 @@
+"""Multi-view testing engine (port of ``engine/test.py:58-156``; reference:
+tools/test_net.py:21-189).
+
+Each video appears NUM_ENSEMBLE_VIEWS × NUM_SPATIAL_CROPS times in the test
+set; per-clip post-softmax scores are ensembled per video (sum or max) in
+the TestMeter, then top-1/top-k computed. Per batch: the loader's canvas is
+copied to the card ahead of time (``prefetch_to_device``), the preprocess
+crops, normalizes and packs the pathways there in the compute dtype, the
+forward (``make_forward``: the fused engine with K1 under
+``TPU.FUSED_EVAL``, else the module's own, with K2 in CMDA's fusions)
+scores the clips, and the scores come back to the host one batch behind,
+so the card is never idle waiting for the meter.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import torch
+
+from ..data.loader import construct_loader, prefetch_to_device
+from ..data.preprocess import make_test_preprocess
+from ..models import build_model
+from ..models.build import get_compute_dtype, resolve_device
+from ..utils.logging import get_logger, setup_logging
+from ..utils.meters import TestMeter, span
+from .state import make_forward
+
+logger = get_logger(__name__)
+
+
+def gather_across_hosts(*arrays):
+    """Every process's per-clip eval rows, concatenated: the identity on
+    one process. The multi-process gather (the reference's
+    all_gather_unaligned, distributed.py:155-255) comes with ROADMAP
+    item 7."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "the multi-process test gather comes with ROADMAP item 7")
+    return arrays
+
+
+def _to_host(t: torch.Tensor):
+    """(float32 host copy of ``t``, the event its copy ends at): a CUDA
+    tensor is copied into pinned memory without waiting."""
+    t = t.float()
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def perform_test(cfg, model, loader, meter, device=None, times=None):
+    """Score every clip of ``loader`` with ``model`` on ``device`` (the GPU
+    by default) into ``meter``; returns its final stats. ``times``
+    (``utils.meters.StageTimes``), where given, records each batch's wait
+    on the loader and the spans of its copy, preprocess and forward."""
+    dev = resolve_device(device)
+    preprocess = make_test_preprocess(cfg, get_compute_dtype(cfg))
+    fwd = make_forward(cfg, model, dev)
+
+    def ensemble(preds, done, batch):
+        if done is not None:
+            done.synchronize()
+        preds = preds.numpy()
+        labels = batch["label"].numpy()
+        # spatial_idx never left the host: the clip ids need no read-back
+        clip_ids = (batch["index"].numpy() * meter.num_clips
+                    + batch["temporal_idx"].numpy() * cfg.TEST.NUM_SPATIAL_CROPS
+                    + batch["spatial_idx"].numpy())
+        if "_valid" in batch:
+            # drop loader padding (pad_to_full mask) before ensembling
+            keep = batch["_valid"].numpy() > 0
+            preds, labels, clip_ids = preds[keep], labels[keep], clip_ids[keep]
+        meter.update_stats(*gather_across_hosts(preds, labels, clip_ids))
+
+    meter.iter_tic()
+    pending = None
+    for cur_iter, batch in enumerate(prefetch_to_device(
+            loader, dev, depth=cfg.DATA_LOADER.PREFETCH_DEPTH, times=times)):
+        with span(times, "preprocess", dev):
+            inputs = preprocess(batch["frames"], batch["width"],
+                                batch["spatial_idx"], batch["portrait"])
+        with span(times, "forward", dev):
+            preds = fwd(inputs)
+        del inputs
+        host = _to_host(preds)
+        if pending is not None:
+            ensemble(*pending)
+        pending = host + (batch,)
+        if (cur_iter + 1) % cfg.LOG_PERIOD == 0:
+            meter.log_iter_stats(cur_iter)
+    if pending is not None:
+        ensemble(*pending)
+    meter.iter_toc()
+    return meter.finalize_metrics(ks=(1, cfg.TRAIN.TOPK))
+
+
+def _load_external(model, path, ckpt_type):
+    """A ``.pyth`` in the reference layout (``{"model_state": ...}``, as
+    ``utils/torch_ckpt.py:315-317`` of the JAX package reads it), loaded
+    with ``strict=True``. BN's ``num_batches_tracked`` counters, which
+    eval never reads and the JAX package's exporter leaves out, keep the
+    model's value where the file has none."""
+    if (ckpt_type != "pytorch" or path.endswith((".jaxckpt", ".orbax"))
+            or os.path.isdir(path)):
+        raise NotImplementedError(
+            f"checkpoint type {ckpt_type!r} ({path}) comes with the "
+            "checkpoint port, ROADMAP item 3; pass a pytorch .pyth")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and "model_state" in payload:
+        payload = payload["model_state"]
+    elif isinstance(payload, dict) and "state_dict" in payload:
+        payload = payload["state_dict"]
+    state = {k[len("module."):] if k.startswith("module.") else k:
+             torch.as_tensor(v) for k, v in payload.items()}
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            state.setdefault(k, v)
+    model.load_state_dict(state, strict=True)
+
+
+def load_test_checkpoint(cfg, model):
+    """Test-time weights, in the JAX package's order (its
+    ``utils/checkpoint.py:255-268``): TEST.CHECKPOINT_FILE_PATH, then the
+    run's own checkpoints, then TRAIN.CHECKPOINT_FILE_PATH, else the seeded
+    random init."""
+    if cfg.TEST.CHECKPOINT_FILE_PATH:
+        return _load_external(model, cfg.TEST.CHECKPOINT_FILE_PATH,
+                              cfg.TEST.CHECKPOINT_TYPE)
+    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
+    if os.path.isdir(ckpt_dir) and any(
+            n.startswith("checkpoint_epoch_") for n in os.listdir(ckpt_dir)):
+        raise NotImplementedError(
+            f"{ckpt_dir}: the run's own checkpoints come with the checkpoint "
+            "port, ROADMAP item 3")
+    if cfg.TRAIN.CHECKPOINT_FILE_PATH:
+        return _load_external(model, cfg.TRAIN.CHECKPOINT_FILE_PATH,
+                              cfg.TRAIN.CHECKPOINT_TYPE)
+    logger.info("Testing with random initialization. Only for debugging.")
+
+
+def test(cfg, device=None):
+    """The 30-view test of ``cfg`` on ``device`` (the GPU by default):
+    the model built with weights seeded by RNG_SEED, its test checkpoint
+    loaded, every clip of the test split scored. Returns the finished
+    TestMeter: its ``stats`` and per-video ``video_preds``."""
+    setup_logging(cfg.OUTPUT_DIR)
+    logger.info("Test with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
+    if cfg.DETECTION.ENABLE:
+        raise NotImplementedError("detection's test comes with ROADMAP item 6")
+    if cfg.DATA.MULTI_LABEL:
+        raise NotImplementedError(
+            "the multi-label test (mAP) comes with ROADMAP item 6")
+    if cfg.TPU.INT8_EVAL:
+        raise NotImplementedError("int8 serving comes with ROADMAP item 8")
+    dev = resolve_device(device)
+    torch.manual_seed(cfg.RNG_SEED)
+    model = build_model(cfg, dev)
+    load_test_checkpoint(cfg, model)
+    loader = construct_loader(cfg, "test")
+
+    num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    num_items = len(loader.dataset)
+    assert num_items % num_clips == 0, (
+        f"test set size {num_items} not divisible by {num_clips} views"
+    )
+    meter = TestMeter(
+        num_videos=num_items // num_clips,
+        num_clips=num_clips,
+        num_cls=cfg.MODEL.NUM_CLASSES,
+        overall_iters=len(loader),
+        multi_label=cfg.DATA.MULTI_LABEL,
+        ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
+        topk=cfg.TRAIN.TOPK,
+    )
+    perform_test(cfg, model, loader, meter, dev)
+    return meter

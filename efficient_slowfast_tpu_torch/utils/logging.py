@@ -1,15 +1,17 @@
 """Logging utilities (reference: slowfast/utils/logging.py:18-96).
 
-Master-process-only stdout + file logging. The master is
-``torch.distributed`` rank 0 when a process group is up, else the one
-process there is.
+Master-process-only stdout + file logging and one-line JSON stats. The
+master is ``torch.distributed`` rank 0 when a process group is up, else
+the one process there is.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
+from typing import Any, Mapping
 
 import torch.distributed as dist
 
@@ -52,4 +54,15 @@ def setup_logging(output_dir: str | None = None) -> None:
 
 def get_logger(name: str) -> logging.Logger:
     return logging.getLogger(name)
+
+
+def log_json_stats(stats: Mapping[str, Any]) -> None:
+    """One-line JSON stats record, on the master only (reference:
+    logging.py:84-96)."""
+    if not is_master():
+        return
+    stats = {
+        k: (round(float(v), 5) if isinstance(v, float) else v) for k, v in stats.items()
+    }
+    get_logger(__name__).info("json_stats: %s", json.dumps(stats, sort_keys=True))
 

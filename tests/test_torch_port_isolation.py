@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, and it never falls back to the CPU without being asked."""
+package (its forward and a tiny synthetic 30-view test run in a process
+where importing them raises), and it never falls back to the CPU without
+being asked."""
 
 import ast
 import os
@@ -43,6 +45,24 @@ x = [torch.rand(1, 1, 32, 32, 3, generator=g),
      torch.rand(1, 4, 32, 32, 3, generator=g)]
 out = make_forward(cfg, build_model(cfg, device="cpu"), device="cpu")(x)
 assert out.shape == (1, 5) and abs(float(out.sum()) - 1.0) < 1e-4, out
+# the data pipeline and the engines: a tiny synthetic 30-view test
+import efficient_slowfast_tpu_torch.data.transform
+import efficient_slowfast_tpu_torch.engine.train
+import efficient_slowfast_tpu_torch.utils.lr_policy
+from efficient_slowfast_tpu_torch.data.loader import construct_loader
+from efficient_slowfast_tpu_torch.engine.test import perform_test
+from efficient_slowfast_tpu_torch.utils.meters import TestMeter
+cfg.TEST.DATASET = "synthetic"
+cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS = 1, 3
+cfg.TEST.BATCH_SIZE = 5
+cfg.DATA.TEST_CROP_SIZE = 32
+cfg.DATA_LOADER.NUM_WORKERS = 2
+loader = construct_loader(cfg, "test")
+meter = TestMeter(8, 3, 5, len(loader))
+stats = perform_test(cfg, build_model(cfg, device="cpu"), loader, meter,
+                     device="cpu")
+assert stats["_type"] == "test_final", stats
+assert abs(meter.video_preds.sum() - 24.0) < 1e-3, meter.video_preds
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "flax", "optax", "efficient_slowfast_tpu")
        and sys.modules[m] is not None]
@@ -96,3 +116,18 @@ def test_no_device_given_and_no_gpu_raises(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_forward(cfg, torch.nn.Identity())
+
+
+def test_the_engines_need_a_gpu_unless_asked(monkeypatch, tmp_path):
+    import torch
+
+    from efficient_slowfast_tpu_torch.engine.test import perform_test, test
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_cfg()
+    cfg.TEST.DATASET = "synthetic"
+    cfg.OUTPUT_DIR = str(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        perform_test(cfg, torch.nn.Identity(), [], None)

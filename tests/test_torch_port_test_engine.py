@@ -1,0 +1,150 @@
+"""The port's 30-view test engine against the JAX package's on one
+checkpoint: a ``.pyth`` written from the JAX variables by the JAX package's
+``export_torch_state_dict``, set as TEST.CHECKPOINT_FILE_PATH for both; the
+synthetic test split with a padded tail batch; per-video scores at
+rtol = atol = 1e-4 (tests/test_full_model_parity.py's tolerance) and equal
+top-k, for SlowFast through the fused engine (K1's plain version here) and
+for CMDA-R50 (K2's plain version), f32 on the CPU."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from efficient_slowfast_tpu.config import get_cfg as jax_get_cfg
+from efficient_slowfast_tpu.data.loader import \
+    construct_loader as jax_construct_loader
+from efficient_slowfast_tpu.engine.state import TrainState
+from efficient_slowfast_tpu.models import build_model as jax_build_model
+from efficient_slowfast_tpu.ops.options import configure
+from efficient_slowfast_tpu.parallel.mesh import build_mesh
+from efficient_slowfast_tpu.utils import checkpoint as jax_checkpoint
+from efficient_slowfast_tpu.utils.meters import TestMeter as JaxTestMeter
+from efficient_slowfast_tpu.utils.torch_ckpt import export_torch_state_dict
+from efficient_slowfast_tpu_torch.config import get_cfg
+from efficient_slowfast_tpu_torch.engine.test import perform_test
+from efficient_slowfast_tpu_torch.engine.test import test as run_test
+from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+    flash_attention
+from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
+    fused_bottleneck
+from torch_port_helpers import seeded_variables, small_cfg
+
+jax_test_engine = importlib.import_module("efficient_slowfast_tpu.engine.test")
+
+MODELS = {"slowfast_fused": dict(fused=True),
+          "cmda": dict(model="SlowFastDualAttention", flash_min_tokens=64)}
+VIDEOS, VIEWS, CROPS, BATCH = 8, 2, 3, 10  # 48 clips: 5 batches, 2 padded
+
+
+def engine_cfg(get_cfg, path, out_dir, **kw):
+    """``small_cfg`` at 8 frames and a 32² crop (CMDA's s1/s2 fusions
+    attend over 128 tokens, past FLASH_MIN_TOKENS 64), 2 × 3 views of the
+    synthetic test split's 8 videos in batches of 10, the checkpoint at
+    ``path``, logs under ``out_dir``."""
+    cfg = small_cfg(get_cfg, **kw)
+    cfg.OUTPUT_DIR = str(out_dir)
+    cfg.DATA.CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 32
+    cfg.TEST.DATASET = "synthetic"
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = VIEWS
+    cfg.TEST.NUM_SPATIAL_CROPS = CROPS
+    cfg.TEST.BATCH_SIZE = BATCH
+    cfg.TEST.CHECKPOINT_FILE_PATH = str(path)
+    cfg.TEST.CHECKPOINT_TYPE = "pytorch"
+    cfg.DATA_LOADER.NUM_WORKERS = 2
+    cfg.TPU.DATA_AXIS = 1  # one device, one batch divisor: the port's
+    return cfg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_jax_options():
+    yield
+    configure(jax_get_cfg())  # JAX keeps its kernel options process-wide
+
+
+@pytest.fixture(scope="module", params=sorted(MODELS))
+def runs(request, tmp_path_factory):
+    """(the JAX TestMeter, the port's, the port's kernel launches)."""
+    kw = MODELS[request.param]
+    out = tmp_path_factory.mktemp(request.param)
+    path = out / "model.pyth"
+    cfg = engine_cfg(jax_get_cfg, path, out, **kw)
+    model = jax_build_model(cfg)
+    variables = seeded_variables(engine_cfg(get_cfg, path, out, **kw))
+    sd = export_torch_state_dict(variables["params"], variables["batch_stats"])
+    torch.save({"model_state": {k: torch.from_numpy(np.array(v))
+                                for k, v in sd.items()}}, path)
+    # JAX's test(), without its model init: a state of the right shapes
+    # that the checkpoint then overwrites
+    zeros = jax.tree_util.tree_map(np.zeros_like, variables)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=zeros["params"],
+                       batch_stats=zeros["batch_stats"], opt_state=None)
+    state = jax_checkpoint.load_test_checkpoint(cfg, state)
+    loader = jax_construct_loader(cfg, "test")
+    theirs = JaxTestMeter(VIDEOS, VIEWS * CROPS, cfg.MODEL.NUM_CLASSES,
+                          len(loader))
+    jax_test_engine.perform_test(cfg, state, model, loader, theirs,
+                                 build_mesh(cfg))
+
+    before = (fused_bottleneck.launches, flash_attention.launches)
+    ours = run_test(engine_cfg(get_cfg, path, out, **kw), device="cpu")
+    launched = (fused_bottleneck.launches - before[0],
+                flash_attention.launches - before[1])
+    return theirs, ours, launched
+
+
+def test_thirty_view_scores_match_jax(runs):
+    theirs, ours, launched = runs
+    assert ours.video_preds.shape == theirs.video_preds.shape == (VIDEOS, 12)
+    np.testing.assert_array_equal(ours.clip_count, VIEWS * CROPS)
+    np.testing.assert_array_equal(ours.video_labels, theirs.video_labels)
+    np.testing.assert_allclose(ours.video_preds, theirs.video_preds,
+                               rtol=1e-4, atol=1e-4)
+    # summed softmax rows: VIEWS · CROPS per video, so no second softmax
+    np.testing.assert_allclose(ours.video_preds.sum(1), VIEWS * CROPS,
+                               rtol=1e-5)
+    assert ours.stats == theirs.stats
+    np.testing.assert_array_equal(np.argsort(-ours.video_preds, 1)[:, :5],
+                                  np.argsort(-theirs.video_preds, 1)[:, :5])
+    assert launched == (0, 0)  # the plain versions run on CPU tensors
+
+
+def test_random_init_is_seeded_and_logged(caplog, tmp_path):
+    cfg = engine_cfg(get_cfg, "", tmp_path)
+    cfg.RESNET.DEPTH, cfg.RESNET.TRANS_FUNC = 18, "basic_transform"
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[2, 2]] * 4
+    cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS = 1, 1
+    cfg.TEST.BATCH_SIZE = 8
+    with caplog.at_level("INFO"):
+        a = run_test(cfg, device="cpu").video_preds
+    assert "Testing with random initialization" in caplog.text
+    np.testing.assert_array_equal(run_test(cfg, device="cpu").video_preds, a)
+
+
+@pytest.mark.parametrize("what", ["detection", "int8", "jax", "caffe2",
+                                  "output_dir"])
+def test_what_later_items_bring_raises(what, tmp_path):
+    cfg = engine_cfg(get_cfg, tmp_path / "model.pyth", tmp_path)
+    item = {"detection": "item 6", "int8": "item 8"}.get(what, "item 3")
+    if what == "detection":
+        cfg.DETECTION.ENABLE = True
+    elif what == "int8":
+        cfg.TPU.INT8_EVAL = True
+    elif what == "output_dir":
+        cfg.TEST.CHECKPOINT_FILE_PATH = ""
+        cfg.OUTPUT_DIR = str(tmp_path)
+        (tmp_path / "checkpoints").mkdir()
+        (tmp_path / "checkpoints" / "checkpoint_epoch_00001.jaxckpt").touch()
+    else:
+        cfg.TEST.CHECKPOINT_TYPE = what
+    with pytest.raises(NotImplementedError, match=item):
+        run_test(cfg, device="cpu")
+
+
+def test_no_device_and_no_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        perform_test(get_cfg(), torch.nn.Identity(), [], None)

@@ -97,6 +97,21 @@ def attention_params(tree, rs, inside=False):
     return out
 
 
+def seeded_variables(cfg, seed=0):
+    """JAX-layout numpy variables of ``cfg``'s model from the port's seeded
+    init (no JAX compile), BN statistics jittered and attention γ and
+    biases set as in ``jax_model_and_variables``."""
+    from efficient_slowfast_tpu_torch.utils.weights import \
+        state_dict_to_jax_variables
+
+    torch.manual_seed(seed)
+    variables = state_dict_to_jax_variables(
+        torch_build_model(cfg, device="cpu").state_dict())
+    return {"params": attention_params(variables["params"],
+                                       np.random.RandomState(1)),
+            "batch_stats": _jitter(variables["batch_stats"], [0])}
+
+
 def jax_model_and_variables(inputs, **kw):
     """The JAX model of ``small_cfg`` and its numpy variables (BN jittered)."""
     cfg = small_cfg(jax_get_cfg, **kw)
