@@ -4,8 +4,9 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9 (3b takes its shapes from the CMDA model that phase 5
-serves, 3c from the one that phase 7 trains):
+5, 3c, 6, 7, 8, 9, 10 (3b takes its shapes from the CMDA model that phase 5
+serves and from phase 10's schedule, 3c from the one that phase 7 trains
+and phase 10's schedule):
 
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
@@ -35,8 +36,11 @@ serves, 3c from the one that phase 7 trains):
               off-path shapes (ragged keys; pooled non-local keys; three on
               the bf16 kernel's tile edges), in float32 and bfloat16, at 1
               clip and at the request batch, and the path's shapes in
-              bfloat16 also at phase 8's 64-clip batch; at the request batch it also
-              times the kernel, the plain version and
+              bfloat16 also at phase 8's 64-clip batch; then every
+              attention shape that phase 10 runs (its multigrid frame
+              counts and crops: N from 32 to 25088 tokens), f32 and bf16 at
+              1 and 4 clips and bf16 at its largest phase-10 batch (up to
+              128 clips); at the request batch it also times the kernel, the plain version and
               scaled_dot_product_attention, beside the shape's bound, and
               prints the kernel's ratio to each.
 4. serving  — SlowFast-R50 8x8 at full width (400 classes, 32 frames,
@@ -60,9 +64,9 @@ serves, 3c from the one that phase 7 trains):
               with its log-sum-exp store on against it off (bit for bit),
               at the four CMDA-R50 fusion shapes of the 224² training crop
               and three off-path shapes (ragged keys, ragged tiles, D = C =
-              24), in float32 and bfloat16, at 1 clip and at the training
-              batch, and at the
-              smallest path shape and 1 clip also against autograd through
+              24) and every training shape of phase 10 (bf16 also at its
+              largest phase-10 batch), in float32 and bfloat16, at 1 clip
+              and at the training batch, and at the smallest path shape and 1 clip also against autograd through
               chunked_attention (the JAX package's backward written out); a
               second call on the same inputs must give bit-identical dK and
               dV (and dQ in float32; bf16 dQ, summed by atomic adds, within
@@ -78,14 +82,17 @@ serves, 3c from the one that phase 7 trains):
               weight decay 1e-4, dropout 0.5, final BNs zero-initialised):
               2 warm-up and 5 timed steps through create_train_state and
               make_train_step, no kernel launched, every loss finite, BN
-              running statistics moved; then one timed step (after one
-              warm-up) with TPU.REMAT and TPU.REMAT_STAGES [2].
+              running statistics moved; then 3 more steps traced by
+              utils/profiler.py (the device-busy share and the top five
+              kernels, below); then one timed step (after one warm-up)
+              with TPU.REMAT and TPU.REMAT_STAGES [2].
 7. cmda_train — CMDA-R50 8x8 the same way, attention calibrated as in
               phase 5: 4 forward and 4 backward calls of the attention
               kernels a step and no fused bottleneck; then one step on one
               clip in float32 and one in bfloat16, each held against the
               same step under TPU.FLASH_ATTENTION False (plain forward,
-              backward by autograd through it, on the card).
+              backward by autograd through it, on the card); 3 more steps
+              traced after the timed ones, as in phase 6.
 
 8. thirty_view — the 30-view test of configs/Kinetics/SLOWFAST_8x8_R50.yaml
               (TPU.FUSED_EVAL, K1) and then of
@@ -109,7 +116,7 @@ serves, 3c from the one that phase 7 trains):
               CMDA: TPU.FLASH_ATTENTION False, the plain attention). Prints
               end-to-end clips/s, the forward alone, each batch's wait on
               the loader and its copy, preprocess and forward times, and
-              peak memory.
+              peak memory; then the second batch of a fresh pass traced.
 9. epochs   — CMDA-R50 as phase 7 trains it (8 clips a step, 224² crops
               from the 320-short-side canvas, jitter [256, 320], bf16,
               dropout 0.5, attention calibrated): train_epoch over the
@@ -123,10 +130,36 @@ serves, 3c from the one that phase 7 trains):
               at its fractional epoch; val errors in [0, 100]. Prints train
               clips/s through the loader beside phase 7's steps alone, val
               clips/s, both epochs, and peak memory.
+10. recipe  — the paper's training recipe,
+              configs/Kinetics/SLOWFAST_DUAL_8x8_R50_stepwise_multigrid.yaml
+              (CMDA-R50 at full width and depth, 400 classes, bf16, random
+              weights), through the port's CLI (tools/run_net.py main: train,
+              then the 30-view test), each cut printed (RECIPE_CUTS): 4
+              epochs over 3 long-cycle shapes ([8, 8, 158] with 8-split BN
+              twice, [4, 16, 158] with 4, the final [1, 32, 224] with plain
+              BN), the short cycle, precise BN, a checkpoint and a val epoch
+              each epoch. Gates: each epoch's (B, T, S, BN type, splits) the
+              schedule's and its steps the short cycle's; finite losses;
+              each step's lr the policy's; 4 K2 launches a forward (train,
+              precise BN, val, test, the model-info forward) and 12 K2-bwd a
+              train step; every K2 shape held in 3b/3c at its batch; each
+              checkpoint bit-identical to what was saved and loaded back
+              bit-identically into a model of its BN form; the test's
+              per-video scores equal to test() of the last checkpoint by
+              path; then the CLI again with AUTO_RESUME from the second
+              checkpoint: it starts at the next epoch from that file's state
+              bit for bit, at the policy's lr (run 1's). Prints per epoch
+              train clips/s and peak memory, precise BN's seconds, each
+              checkpoint's seconds and bytes, the test's clips/s.
+
+The profiler (phases 6, 7, 8) prints, per traced window, the device-busy
+share (the union of the CUDA kernels' intervals over the window's wall
+time) and the top five kernels by device time; the trace sits in
+build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8 and 9. The last three lines are the kernels' JSON record, the
+4, 5, 7, 8, 9 and 10. The last three lines are the kernels' JSON record, the
 card's name and power limit, and the device JSON line.
 """
 
@@ -245,6 +278,8 @@ ATTN_BWD_PR5_MS = {"s1_fuse": "6.3493 / 6.4194", "s2_fuse": "8.9250 / 8.8969",
 # over 8 GPUs), warm-up and timed steps
 TRAIN_CLIPS = 8
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# steps traced by torch.profiler after the timed ones (phases 6 and 7)
+PROFILE_STEPS = 3
 # One CMDA train step on one clip with the attention kernels against the
 # same step with the plain attention (FLASH_ATTENTION False).
 # float32, per parameter tensor: |p_kernel - p_plain| over |p_plain -
@@ -919,18 +954,26 @@ def calibrate_attention(cfg, model, seed):
         + ", ".join(f"{x:.4g}" for x in stds) + f" -> {ATTN_LOGIT_STD}")
 
 
-def attention_rows(cfg, model):
-    """The SpatialAttention of each lateral fusion of one forward:
+def attention_rows(cfg, model, frames=None, crop=None):
+    """The SpatialAttention of each lateral fusion of one forward at
+    NUM_FRAMES and TEST_CROP_SIZE (or ``frames`` and ``crop``):
     [(label, N, M, D, C, launches per request)]."""
-    t_len = cfg.DATA.NUM_FRAMES // cfg.SLOWFAST.ALPHA
-    h = cfg.DATA.TEST_CROP_SIZE // 4  # after the stem's two stride-2 ops
+    frames = frames or cfg.DATA.NUM_FRAMES
+    crop = crop or cfg.DATA.TEST_CROP_SIZE
+    t_len = frames // cfg.SLOWFAST.ALPHA
+    # the stem's two stride-2 ops and each stride-2 stage round up (158 → 40)
+    h = -(-crop // 4)
     strides = [1] + [s[0] for s in cfg.RESNET.SPATIAL_STRIDES]
+    tag = "" if (frames, crop) == (cfg.DATA.NUM_FRAMES,
+                                   cfg.DATA.TEST_CROP_SIZE) else \
+        f"T{frames} S{crop} "
     rows = []
     for i in range(4):
-        h //= strides[i]
+        h = -(-h // strides[i])
         att = getattr(model, f"s{i + 1}_fuse").attention_spatial_s2f
         n = t_len * h * h
-        rows.append((f"s{i + 1}_fuse", n, n, att.query_conv.out_channels,
+        rows.append((f"{tag}s{i + 1}_fuse", n, n,
+                     att.query_conv.out_channels,
                      att.value_conv.out_channels, 1))
     return rows
 
@@ -942,7 +985,11 @@ def attention_cost(b, n, m, d, c):
             b * n * m)
 
 
-def phase_attention(rows, smi):
+def phase_attention(rows, smi, recipe_rows=()):
+    """K2 against its plain version at the serving rows, the off-path
+    shapes and ``recipe_rows`` (phase 10's shapes, each with its largest
+    batch); returns (per-shape record, worst bf16 error on the path, the
+    largest bf16 batch held at each (N, M, D, C))."""
     import torch.nn.functional as F
 
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
@@ -955,17 +1002,20 @@ def phase_attention(rows, smi):
     rn_card = lambda *shape, dtype: torch.randn(
         *shape, generator=card_gen, device="cuda").to(dtype)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    record = []
-    for label, n, m, d, c, count in rows + [r + (0,) for r in ATTN_OFF_PATH]:
-        # the path's shapes also at the 30-view test batch (phase 8), in
-        # its dtype
+    worst_recipe = 0.0
+    record, held = [], {}
+    for label, n, m, d, c, count, *big in (
+            rows + [r + (0,) for r in ATTN_OFF_PATH] + list(recipe_rows)):
+        # the path's shapes also at the 30-view test batch (phase 8), and
+        # phase 10's at their largest batch, in bf16
         cases = [(dtype, tol, b) for dtype, tol in (
             (torch.float32, ATTN_F32_TOL), (torch.bfloat16, ATTN_BF16_TOL))
             for b in (1, CLIPS_PER_REQUEST)]
-        if count:
-            cases.append((torch.bfloat16, ATTN_BF16_TOL, TEST_CLIPS))
+        extra = big[0] if big else (TEST_CLIPS if count else None)
+        if extra and extra not in (1, CLIPS_PER_REQUEST):
+            cases.append((torch.bfloat16, ATTN_BF16_TOL, extra))
         for dtype, tol, b in cases:
-            draw = rn_card if b == TEST_CLIPS else rn
+            draw = rn_card if b > CLIPS_PER_REQUEST else rn
             q, k, v = (draw(b, n, d, dtype=dtype), draw(b, m, d, dtype=dtype),
                        draw(b, m, c, dtype=dtype))
             out = flash_attention(q, k, v)
@@ -983,6 +1033,10 @@ def phase_attention(rows, smi):
                                      f"err {err} > {tol * scale}")
             if b != 1 and count:
                 worst[dtype] = max(worst[dtype], err)
+            if big and dtype == torch.bfloat16:
+                worst_recipe = max(worst_recipe, err)
+            if dtype == torch.bfloat16:
+                held[(n, m, d, c)] = max(held.get((n, m, d, c), 0), b)
             del q, k, v, out, ref
         torch.cuda.empty_cache()
         # timing at the request batch, in the serving dtype
@@ -1013,8 +1067,9 @@ def phase_attention(rows, smi):
                            library_ms=lib_ms, bound_ms=bound, bound_by=by))
     log("attention", f"worst max_abs_err at the request and test batches on the CMDA "
         f"path: f32 {worst[torch.float32]:.3e}, bf16 "
-        f"{worst[torch.bfloat16]:.3e}")
-    return record, worst[torch.bfloat16]
+        f"{worst[torch.bfloat16]:.3e}; bf16 at phase 10's {len(recipe_rows)} "
+        f"multigrid shapes: {worst_recipe:.3e}")
+    return record, max(worst[torch.bfloat16], worst_recipe), held
 
 
 def cmda_model(cfg, state):
@@ -1059,10 +1114,12 @@ def attention_backward_cost(b, n, m, d, c):
             b * n * m)
 
 
-def phase_attention_backward(rows, smi):
-    """K2-bwd against attention_backward at the training shapes ``rows``
-    and off-path shapes; returns (per-shape record, worst bf16 error on the
-    path at the training batch)."""
+def phase_attention_backward(rows, smi, recipe_rows=()):
+    """K2-bwd against attention_backward at the training shapes ``rows``,
+    off-path shapes and ``recipe_rows`` (phase 10's training shapes, each
+    with its largest batch, in bf16); returns (per-shape record, worst bf16
+    error on the path at the training batch, the largest bf16 batch held at
+    each (N, M, D, C))."""
     import torch.nn.functional as F
 
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
@@ -1074,12 +1131,16 @@ def phase_attention_backward(rows, smi):
         "cuda", dtype)
     smallest = min(r[1] for r in rows)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    record = []
-    for label, n, m, d, c, count in rows + [r + (0,)
-                                            for r in ATTN_BWD_OFF_PATH]:
+    worst_recipe = 0.0
+    record, held = [], {}
+    for label, n, m, d, c, count, *big in (
+            rows + [r + (0,) for r in ATTN_BWD_OFF_PATH] + list(recipe_rows)):
         for dtype, tol in ((torch.float32, ATTN_BWD_F32_TOL),
                            (torch.bfloat16, ATTN_BWD_BF16_TOL)):
-            for b in (1, TRAIN_CLIPS):
+            batches = [1, TRAIN_CLIPS]
+            if big and dtype == torch.bfloat16 and big[0] not in batches:
+                batches.append(big[0])
+            for b in batches:
                 q, k, v, dout = (rn(b, n, d, dtype=dtype),
                                  rn(b, m, d, dtype=dtype),
                                  rn(b, m, c, dtype=dtype),
@@ -1126,6 +1187,8 @@ def phase_attention_backward(rows, smi):
                         errs.append((err, scale))
                         if b == TRAIN_CLIPS and count:
                             worst[dtype] = max(worst[dtype], err)
+                        if big and dtype == torch.bfloat16:
+                            worst_recipe = max(worst_recipe, err)
                     log("attention_backward",
                         f"{label:16s} {str(dtype)[6:]:8s} clips {b} vs "
                         f"{name}: max_abs_err dq/dk/dv " +
@@ -1134,6 +1197,8 @@ def phase_attention_backward(rows, smi):
                         "the scale; K2's output bit-identical with its lse "
                         "store on and off; a second call: dk, dv "
                         f"bit-identical, dq {'bit-identical' if exact[0] else f'moved {dq_moved:.3e}'}")
+                if dtype == torch.bfloat16:
+                    held[(n, m, d, c)] = max(held.get((n, m, d, c), 0), b)
                 del q, k, v, dout, out, lse, grads, refs
         # timing at the training batch, in the training dtype
         b, dtype = TRAIN_CLIPS, torch.bfloat16
@@ -1179,8 +1244,9 @@ def phase_attention_backward(rows, smi):
         torch.cuda.empty_cache()
     log("attention_backward", f"worst max_abs_err at the training batch on "
         f"the CMDA path: f32 {worst[torch.float32]:.3e}, bf16 "
-        f"{worst[torch.bfloat16]:.3e}")
-    return record, worst[torch.bfloat16]
+        f"{worst[torch.bfloat16]:.3e}; bf16 at phase 10's "
+        f"{len(recipe_rows)} multigrid training shapes: {worst_recipe:.3e}")
+    return record, max(worst[torch.bfloat16], worst_recipe), held
 
 
 # ---------------------------------------------------------------------------
@@ -1269,6 +1335,15 @@ def train_steps(phase, cfg, model, expect, smi):
         raise AssertionError(f"{phase}: non-finite loss {losses}")
     if not moved > 0:
         raise AssertionError(f"{phase}: BN running statistics did not move")
+    share, window_ms, _, _ = trace_window(phase, lambda: [
+        step(state, x, y, lr, drop)
+        for x, y in batches[TRAIN_WARMUP:TRAIN_WARMUP + PROFILE_STEPS]])
+    untraced = PROFILE_STEPS * dt * 1e3
+    log(phase, f"profiled {PROFILE_STEPS} more steps: {window_ms:.2f} ms "
+        f"traced (the tracer's host cost included) against {untraced:.2f} ms"
+        f" for as many timed steps untraced; the kernels' union in the trace "
+        f"{share * window_ms:.2f} ms, {share * window_ms / untraced * 100:.1f}%"
+        f" of the untraced steps' time | {smi}")
     return state, step, counts, TRAIN_CLIPS / dt
 
 
@@ -1544,6 +1619,21 @@ def phase_thirty_view(name, fused, expect_per_batch, smi):
     if pre_err > PRE_TOL:
         raise AssertionError(f"thirty_view {label}: preprocess on the card "
                              f"vs the CPU {pre_err}")
+
+    # one batch traced, the second (its copy made behind the first's
+    # forward, as in the test)
+    batches = prefetch_to_device(loader, "cuda")
+    try:
+        for i in range(2):
+            batch = next(batches)
+            work = lambda b=batch: fwd(pre(  # noqa: E731
+                b["frames"], b["width"], b["spatial_idx"], b["portrait"]))
+            if i == 0:
+                work()
+            else:
+                trace_window(f"thirty_view_{label.replace(' ', '_')}", work)
+    finally:
+        batches.close()
     return counts, meter.video_preds / meter.num_clips, cfg, model
 
 
@@ -1696,6 +1786,622 @@ def phase_epochs(step_clips_per_s, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's multigrid recipe through the CLI
+RECIPE_YAML = os.path.join(ROOT, "configs", "Kinetics",
+                           "SLOWFAST_DUAL_8x8_R50_stepwise_multigrid.yaml")
+# train videos of the recipe's synthetic split: the first long-cycle phase
+# (64 clips a step at 158²) takes 128 + 64 + 64 clips for one short cycle
+RECIPE_TRAIN_CLIPS = 256
+# the cuts, each with why
+RECIPE_CUTS = [
+    (["TRAIN.BATCH_SIZE", TRAIN_CLIPS],
+     "the schedule's default batch B (the yaml's 64 is the reference's over "
+     "8 GPUs): the long-cycle phases run 64, 32 and 8 clips a step, the "
+     "short cycle's batches up to 128"),
+    (["TRAIN.DATASET", "recipe_synthetic", "TEST.DATASET", "synthetic"],
+     f"seeded synthetic clips in place of Kinetics and its decode: "
+     f"{RECIPE_TRAIN_CLIPS} train videos (a full short cycle an epoch at "
+     "B 64), 64 val clips, the 240-clip 30-view test split"),
+    (["SOLVER.STEPS", "[0, 2]", "SOLVER.MAX_EPOCH", 3],
+     "the schedule compressed from [0, 80, 100, 120, 140] / 150 to 4 epochs "
+     "over 3 long-cycle shapes: [8, 8, 158] (sub-BN, 8 splits) twice, "
+     "[4, 16, 158] (sub-BN, 4) and the final [1, 32, 224] (plain BN)"),
+    (["BN.NUM_BATCHES_PRECISE", 2], "precise BN over 2 batches (yaml: 200)"),
+    (["TENSORBOARD.ENABLE", False],
+     "no TensorBoard (it comes with ROADMAP item 8)"),
+    (["TPU.FLASH_MIN_TOKENS", 0],
+     "every fusion through K2 and K2-bwd (the default 1024 sends fusions "
+     "of at most 1024 tokens, 11 of the 24 shapes here, to the dense path)"),
+    (["DATA_LOADER.NUM_WORKERS", LOADER_WORKERS, "LOG_PERIOD", 1000],
+     "the yaml's 8 loader threads; iteration logs every 1000 steps"),
+]
+
+
+def recipe_argv(out_dir, *extra):
+    opts = [str(o) for cut, _ in RECIPE_CUTS for o in cut]
+    return ["--cfg", RECIPE_YAML] + opts + ["OUTPUT_DIR", out_dir] + [
+        str(o) for o in extra]
+
+
+def recipe_cfg():
+    """The recipe's config through the CLI's loader."""
+    from efficient_slowfast_tpu_torch.config.parser import (load_config,
+                                                            parse_args)
+
+    return load_config(parse_args(recipe_argv(os.path.join(
+        smoke_dir(), "recipe"))))
+
+
+def register_recipe_dataset():
+    """``TRAIN.DATASET recipe_synthetic``: the synthetic dataset with
+    RECIPE_TRAIN_CLIPS train videos."""
+    from efficient_slowfast_tpu_torch.data.build import DATASET_REGISTRY
+    from efficient_slowfast_tpu_torch.data.datasets import Synthetic
+
+    if "Recipe_synthetic" in DATASET_REGISTRY:
+        return
+
+    class RecipeSynthetic(Synthetic):
+        def _construct_loader(self):
+            super()._construct_loader()
+            if self.mode == "train":
+                n = RECIPE_TRAIN_CLIPS
+                self._path_to_videos = [f"synthetic://{i}" for i in range(n)]
+                self._labels = [i % self.cfg.MODEL.NUM_CLASSES
+                                for i in range(n)]
+                self._spatial_temporal_idx = [0] * n
+
+    DATASET_REGISTRY.register(RecipeSynthetic, name="Recipe_synthetic")
+
+
+def recipe_epochs():
+    """Per epoch of the recipe's schedule: (B, T, S, BN type, splits, the
+    short cycle's crops, its batches)."""
+    from efficient_slowfast_tpu_torch.ops.norm import effective_num_splits
+    from efficient_slowfast_tpu_torch.utils.multigrid import (
+        MultigridSchedule, short_cycle_batch_sizes, short_cycle_shapes)
+
+    cfg = recipe_cfg()
+    mg = MultigridSchedule()
+    cfg = mg.init_multigrid(cfg)
+    out = []
+    for e in range(cfg.SOLVER.MAX_EPOCH):
+        cfg, _ = mg.update_long_cycle(cfg, e)
+        sub = cfg.BN.NORM_TYPE == "sub_batchnorm"
+        out.append((cfg.TRAIN.BATCH_SIZE, cfg.DATA.NUM_FRAMES,
+                    cfg.DATA.TRAIN_CROP_SIZE, cfg.BN.NORM_TYPE,
+                    effective_num_splits(cfg) if sub else 1,
+                    tuple(short_cycle_shapes(cfg)),
+                    tuple(short_cycle_batch_sizes(cfg))))
+    return cfg, mg.schedule, out
+
+
+def recipe_attention_rows(model):
+    """Phase 10's attention shapes, each with its largest batch: (forward
+    rows, training rows), from the schedule: the short cycle's steps, the
+    precise-BN and val batches at the long cycle's crop, the model-info
+    forward (1 clip at DATA.CROP_SIZE) and the 30-view test."""
+    cfg, _, epochs = recipe_epochs()
+    fwd, bwd = {}, {}
+    for b, t, s, _, _, crops, sizes in epochs:
+        for crop, size in zip(crops, sizes):
+            for shapes in (fwd, bwd):
+                shapes[(t, crop)] = max(shapes.get((t, crop), 0), size)
+        fwd[(t, s)] = max(fwd.get((t, s), 0), max(sizes[:2]), b)
+    fwd[(epochs[0][1], cfg.DATA.CROP_SIZE)] = max(
+        fwd.get((epochs[0][1], cfg.DATA.CROP_SIZE), 0), 1)
+    fwd[(cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE)] = cfg.TEST.BATCH_SIZE
+
+    def rows(shapes):
+        best = {}
+        for (t, crop), batch in sorted(shapes.items()):
+            for label, n, m, d, c, _ in attention_rows(cfg, model, t, crop):
+                key = (n, m, d, c)
+                if batch > best.get(key, (None, 0))[1]:
+                    best[key] = (label, batch)
+        return [(label, n, m, d, c, 0, batch)
+                for (n, m, d, c), (label, batch) in best.items()]
+
+    return rows(fwd), rows(bwd)
+
+
+class Observed:
+    """Replaces ``module.name`` with ``wrap(original)`` while the block
+    runs: the smoke's view into the CLI's run."""
+
+    def __init__(self, *patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in self.patches]
+        for (mod, name, wrap), (_, _, orig) in zip(self.patches, self.saved):
+            setattr(mod, name, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def host_tree(obj):
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: host_tree(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [host_tree(v) for v in obj]
+    return obj
+
+
+def plain_view(sd):
+    """A state dict with each split BN shown by its aggregated statistics
+    (``bn.*``, the split step count) under the plain names, copied as they
+    are: the form a checkpoint holds, with no arithmetic."""
+    out = {}
+    for k, v in sd.items():
+        head, _, stat = k.rpartition(".")
+        owner, _, inner = head.rpartition(".")
+        if f"{owner}.split_bn.{stat}" in sd and inner in ("bn", "split_bn"):
+            if inner == "bn":
+                out[f"{owner}.{stat}"] = sd[
+                    f"{owner}.split_bn.{stat}" if stat == "num_batches_tracked"
+                    else k]
+            continue
+        out[k] = v
+    return out
+
+
+def tree_mismatch(a, b, where=""):
+    """The first path where ``a`` and ``b`` differ (tensors bit for bit,
+    dtype included), or None."""
+    if torch.is_tensor(b):
+        ok = (torch.is_tensor(a) and a.dtype == b.dtype
+              and a.shape == b.shape and torch.equal(a, b))
+        return None if ok else where or "/"
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            return where or "/"
+        for k in b:
+            bad = tree_mismatch(a[k], b[k], f"{where}/{k}")
+            if bad:
+                return bad
+        return None
+    if isinstance(b, list):
+        if not isinstance(a, list) or len(a) != len(b):
+            return where or "/"
+        for i, (x, y) in enumerate(zip(a, b)):
+            bad = tree_mismatch(x, y, f"{where}/{i}")
+            if bad:
+                return bad
+        return None
+    return None if a == b else where or "/"
+
+
+class RecipeRun:
+    """What one CLI run did, seen through its engine's functions: each
+    epoch's shape, BN and steps (lr, loss, clips, phase), its time and peak
+    memory; the val and precise-BN batches; each checkpoint's payload as
+    saved and its seconds and bytes; K2's call shapes; the test's seconds.
+    ``snapshot`` keeps the state the first epoch starts from."""
+
+    def __init__(self):
+        self.epochs, self.val_batches, self.precise = [], 0, []
+        self.saves, self.k2_shapes, self.test_s = [], set(), None
+        self.start = None
+
+    def train_epoch(self, orig):
+        def run(cfg, state, step, pre, loader, meter, epoch, **kw):
+            bn = state.model.s1.pathway0_stem.bn
+            rec = dict(epoch=epoch, b=cfg.TRAIN.BATCH_SIZE,
+                       t=cfg.DATA.NUM_FRAMES, s=cfg.DATA.TRAIN_CROP_SIZE,
+                       bn=cfg.BN.NORM_TYPE, splits=getattr(bn, "num_splits", 1),
+                       module=type(bn).__name__, iters=len(loader), steps=[],
+                       lr_expect=[])
+            if self.start is None:
+                self.start = dict(epoch=epoch, model=host_tree(
+                    plain_view(state.model.state_dict())),
+                    optimizer=host_tree(state.optimizer.state_dict()))
+
+            def recorded(state, inputs, labels, lr, generator):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mets = step(state, inputs, labels, lr, generator)
+                torch.cuda.synchronize()
+                rec["steps"].append((lr, mets["loss"], labels.shape[0],
+                                     inputs[0].shape[2],
+                                     time.perf_counter() - t0))
+                return mets
+
+            from efficient_slowfast_tpu_torch.utils.lr_policy import \
+                get_lr_at_epoch
+
+            rec["lr_expect"] = [get_lr_at_epoch(cfg, epoch + i / len(loader))
+                                for i in range(len(loader))]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = orig(cfg, state, recorded, pre, loader, meter, epoch, **kw)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            rec["losses"] = [float(x[1]) for x in rec["steps"]]
+            self.epochs.append(rec)
+            return out
+
+        return run
+
+    def eval_epoch(self, orig):
+        def run(cfg, state, step, pre, loader, meter, epoch, **kw):
+            self.val_batches += len(loader)
+            return orig(cfg, state, step, pre, loader, meter, epoch, **kw)
+
+        return run
+
+    def precise_bn(self, orig):
+        def run(cfg, state, loader, pre, num_batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(cfg, state, loader, pre, num_batches)
+            torch.cuda.synchronize()
+            self.precise.append((num_batches, time.perf_counter() - t0))
+            return out
+
+        return run
+
+    def save(self, orig):
+        from efficient_slowfast_tpu_torch.utils.checkpoint import \
+            checkpoint_payload
+
+        def run(path_to_job, state, epoch, cfg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = orig(path_to_job, state, epoch, cfg)
+            dt = time.perf_counter() - t0
+            self.saves.append(dict(path=path, epoch=epoch, seconds=dt,
+                                   bytes=os.path.getsize(path),
+                                   payload=checkpoint_payload(state, epoch,
+                                                              cfg)))
+            return path
+
+        return run
+
+    def attention(self, orig):
+        def run(q, k, v):
+            self.k2_shapes.add((q.shape[1], k.shape[1], q.shape[2], v.shape[2],
+                                q.shape[0], torch.is_grad_enabled()
+                                and q.requires_grad))
+            return orig(q, k, v)
+
+        return run
+
+    def test(self, orig):
+        def run(cfg, device=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(cfg, device=device)
+            torch.cuda.synchronize()
+            self.test_s = time.perf_counter() - t0
+            return out
+
+        return run
+
+    def patches(self):
+        from efficient_slowfast_tpu_torch.engine import train
+        from efficient_slowfast_tpu_torch.ops import attention
+        from efficient_slowfast_tpu_torch.tools import run_net
+        from efficient_slowfast_tpu_torch.utils import checkpoint
+
+        return Observed(
+            (train, "train_epoch", self.train_epoch),
+            (train, "eval_epoch", self.eval_epoch),
+            (train, "calculate_and_update_precise_bn", self.precise_bn),
+            (checkpoint, "save_checkpoint", self.save),
+            (attention, "flash_attention", self.attention),
+            (run_net, "test", self.test))
+
+
+def recipe_main(rec, argv):
+    from efficient_slowfast_tpu_torch.tools.run_net import main
+
+    with rec.patches():
+        return main(argv)
+
+
+def phase_recipe(held_fwd, held_bwd, smi):
+    """The paper's training recipe through the port's CLI, then an
+    auto-resumed second run; returns the first run's kernel launches."""
+    import shutil
+
+    from efficient_slowfast_tpu_torch.engine.test import test
+    from efficient_slowfast_tpu_torch.models import build_model
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+    from efficient_slowfast_tpu_torch.utils import checkpoint
+
+    out_dir = os.path.join(smoke_dir(), "recipe")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    register_recipe_dataset()
+    log("recipe", f"{os.path.relpath(RECIPE_YAML, ROOT)} (CMDA-R50, full "
+        "width and depth, 400 classes, bf16, random weights from RNG_SEED) "
+        "through python -m efficient_slowfast_tpu_torch.tools.run_net, "
+        "train then the 30-view test; cuts:")
+    for cut, why in RECIPE_CUTS:
+        log("recipe", f"cut: {' '.join(map(str, cut))}: {why}")
+    final_cfg, schedule, expect = recipe_epochs()
+    log("recipe", f"schedule (step index, [B factor, T, S], end epoch): "
+        f"{schedule}; solver STEPS {list(final_cfg.SOLVER.STEPS)} LRS "
+        f"{[round(x, 6) for x in final_cfg.SOLVER.LRS]} MAX_EPOCH "
+        f"{final_cfg.SOLVER.MAX_EPOCH}")
+
+    # run 1: train from the seeded init, then test
+    run1 = RecipeRun()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = recipe_main(run1, recipe_argv(out_dir))
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = sum(len(e["steps"]) for e in run1.epochs)
+    precise = sum(n for n, _ in run1.precise)
+    meter = out["test"]
+    n_test = int(meter.clip_count.sum())
+    test_batches = -(-n_test // final_cfg.TEST.BATCH_SIZE)
+    forwards = steps + precise + run1.val_batches + test_batches + 1
+    bad = []
+    for e, want in zip(run1.epochs, expect):
+        b, t, s, bn, k, crops, sizes = want
+        got = (e["b"], e["t"], e["s"], e["bn"], e["splits"])
+        clips = sum(x[2] for x in e["steps"])
+        log("recipe", f"epoch {e['epoch']}: (B, T, S, BN, splits) {got} "
+            f"(schedule: {(b, t, s, bn, k)}), {e['module']}; short cycle "
+            f"crops {list(crops)} batches {list(sizes)}; {len(e['steps'])} "
+            f"steps, clips {[x[2] for x in e['steps']]} at crops "
+            f"{[x[3] for x in e['steps']]}; losses "
+            + ", ".join(f"{x:.4f}" for x in e["losses"]) + "; lr "
+            + ", ".join(f"{x[0]:.6f}" for x in e["steps"]))
+        step_s = [x[4] for x in e["steps"]]
+        log("recipe", f"epoch {e['epoch']} [{b // TRAIN_CLIPS}, {t}, {s}]: "
+            f"train {clips / e['seconds']:.2f} clips/s through the loader "
+            f"({clips} clips, {e['seconds']:.3f} s) | the steps alone "
+            f"{sum(step_s):.3f} s (ms each, synchronised: "
+            + ", ".join(f"{x * 1e3:.1f}" for x in step_s) + f"), the rest "
+            f"(loader, preprocess) {e['seconds'] - sum(step_s):.3f} s | peak "
+            f"memory {e['peak'] / 2 ** 30:.2f} GiB | {smi}")
+        cycle = [(sizes[i % 3], crops[i % 3]) for i in range(len(e["steps"]))]
+        if got != (b, t, s, bn, k):
+            bad.append(f"epoch {e['epoch']} trained {got}, schedule "
+                       f"{(b, t, s, bn, k)}")
+        if [(x[2], x[3]) for x in e["steps"]] != cycle or len(cycle) < 3:
+            bad.append(f"epoch {e['epoch']}: steps "
+                       f"{[(x[2], x[3]) for x in e['steps']]}, short cycle "
+                       f"{cycle}")
+        if not all(np.isfinite(e["losses"])):
+            bad.append(f"epoch {e['epoch']}: losses {e['losses']}")
+        if [x[0] for x in e["steps"]] != e["lr_expect"][:len(e["steps"])]:
+            bad.append(f"epoch {e['epoch']}: lr {[x[0] for x in e['steps']]}"
+                       f", policy {e['lr_expect']}")
+    if len(run1.epochs) != len(expect):
+        bad.append(f"{len(run1.epochs)} epochs, schedule {len(expect)}")
+    for n, s_ in run1.precise:
+        log("recipe", f"precise BN: {n} batches in {s_:.3f} s")
+    expect_counts = {"fused_bottleneck": 0,
+                     "flash_attention": 4 * forwards,
+                     "flash_attention_backward":
+                         4 * BACKWARD_LAUNCHES_PER_CALL * steps}
+    log("recipe", f"kernel launches {counts}; forwards: {steps} train steps "
+        f"+ {precise} precise-BN + {run1.val_batches} val + {test_batches} "
+        f"test batches + 1 model-info forward; expected {expect_counts}")
+    if counts != expect_counts:
+        bad.append(f"kernel launches {counts}, expected {expect_counts}")
+    unheld = [sh for sh in run1.k2_shapes
+              if held_fwd.get(sh[:4], 0) < sh[4]
+              or (sh[5] and held_bwd.get(sh[:4], 0) < sh[4])]
+    log("recipe", f"K2 shapes (N, M, D, C, clips, with backward): "
+        f"{len(run1.k2_shapes)}, each held against the plain version in "
+        f"phases 3b/3c at its batch or larger: {not unheld}")
+    if unheld:
+        bad.append(f"K2 shapes not held in 3b/3c: {sorted(unheld)}")
+
+    # checkpoints: each file as saved, and back into a model of its form
+    for sv in run1.saves:
+        t0 = time.perf_counter()
+        payload = torch.load(sv["path"], map_location="cpu",
+                             weights_only=True)
+        load_s = time.perf_counter() - t0
+        where = tree_mismatch(payload, sv["payload"])
+        log("recipe", f"checkpoint {os.path.basename(sv['path'])} (epoch "
+            f"{sv['epoch']}): saved in {sv['seconds']:.3f} s, "
+            f"{sv['bytes'] / 1e6:.2f} MB; torch.load {load_s:.3f} s; "
+            f"bit-identical to what was saved: {where is None}")
+        if where:
+            bad.append(f"{sv['path']} differs from what was saved at {where}")
+    for sv, e in ((run1.saves[0], expect[0]), (run1.saves[-1], expect[-1])):
+        cfg = recipe_cfg()
+        cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS = e[3], e[4]
+        cfg.DATA.NUM_FRAMES = e[1]
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.load_checkpoint(sv["path"], model)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        back = host_tree(plain_view(model.state_dict()))
+        where = tree_mismatch(back, sv["payload"]["model_state"])
+        log("recipe", f"{os.path.basename(sv['path'])} into a {e[3]} model "
+            f"({e[4]} splits): load_checkpoint {load_s:.3f} s, its state "
+            f"bit-identical to the file's: {where is None}")
+        if where:
+            bad.append(f"{sv['path']} loads back different at {where}")
+        del model
+
+    # the test read the last checkpoint: test() given it by path agrees
+    last = run1.saves[-1]["path"]
+    if checkpoint.get_last_checkpoint(out_dir) != last:
+        bad.append(f"last checkpoint {checkpoint.get_last_checkpoint(out_dir)}"
+                   f", saved {last}")
+    ref_cfg = recipe_cfg()
+    ref_cfg.merge_from_list(["TEST.CHECKPOINT_FILE_PATH", last,
+                             "TRAIN.ENABLE", False])
+    ref = test(ref_cfg)
+    diff = float(np.abs(ref.video_preds - meter.video_preds).max())
+    log("recipe", f"30-view test: {n_test} clips in {run1.test_s:.3f} s, "
+        f"{n_test / run1.test_s:.2f} clips/s end to end (the model's build "
+        f"and the checkpoint's load included) | {meter.stats} | per-video "
+        f"scores against test() given {os.path.basename(last)} by path: max "
+        f"|d| {diff:.3e} | whole run {run_s:.1f} s | {smi}")
+    if diff != 0.0:
+        bad.append(f"the test's scores differ from test() of {last}: {diff}")
+
+    # run 2: the CLI again with AUTO_RESUME after the last two checkpoints
+    for sv in run1.saves[2:]:
+        os.remove(sv["path"])
+    resume_from = run1.saves[1]
+    run2 = RecipeRun()
+    recipe_main(run2, recipe_argv(out_dir, "TEST.ENABLE", False))
+    first = run2.epochs[0] if run2.epochs else {}
+    same = [(tree_mismatch(run2.start[k], resume_from["payload"][s]))
+            for k, s in (("model", "model_state"),
+                         ("optimizer", "optimizer_state"))]
+    lrs1 = [x[0] for e in run1.epochs if e["epoch"] >= 2 for x in e["steps"]]
+    lrs2 = [x[0] for e in run2.epochs for x in e["steps"]]
+    log("recipe", f"resume: AUTO_RESUME from "
+        f"{os.path.basename(resume_from['path'])} (epoch "
+        f"{resume_from['epoch']}): first epoch {first.get('epoch')} "
+        f"({first.get('b')}, {first.get('t')}, {first.get('s')}, "
+        f"{first.get('bn')}, {first.get('splits')}); model (plain form) and "
+        f"optimizer state at its start bit-identical to the file's: "
+        f"{same == [None, None]}; its {len(lrs2)} steps' lr the policy's and "
+        f"run 1's: {lrs2 == lrs1}")
+    if first.get("epoch") != resume_from["epoch"] + 1 or same != [None, None]:
+        bad.append(f"resume: first epoch {first.get('epoch')}, state "
+                   f"mismatch at {same}")
+    for e in run2.epochs:
+        if [x[0] for x in e["steps"]] != e["lr_expect"][:len(e["steps"])]:
+            bad.append(f"resume epoch {e['epoch']}: lr off the policy")
+    if lrs2 != lrs1:
+        bad.append(f"resume: lr {lrs2}, run 1's {lrs1}")
+    if bad:
+        raise AssertionError("recipe: " + "; ".join(bad))
+    return counts
+
+
+def recipe_split_bn_cost(smi):
+    """One train step of the recipe's model at its first long-cycle shape
+    (64 clips, 8 frames, 158²) with that phase's 8-split BN and with plain
+    BN: each untraced (3 steps after 2 warm-up) and traced."""
+    from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
+                                                           make_train_step)
+    from efficient_slowfast_tpu_torch.models import build_model
+
+    ms = {}
+    for norm, splits in (("sub_batchnorm", 8), ("batchnorm", 1)):
+        cfg = recipe_cfg()
+        cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE = 8, 158
+        cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS = norm, splits
+        torch.manual_seed(SEED)
+        state = create_train_state(cfg, build_model(cfg))
+        step = make_train_step(cfg, state.model, state.optimizer)
+        gen = torch.Generator().manual_seed(SEED + 12)
+        x = clips(cfg, 64, gen, torch.bfloat16)
+        y = torch.randint(0, cfg.MODEL.NUM_CLASSES, (64,), generator=gen).cuda()
+        drop = torch.Generator(device="cuda").manual_seed(SEED)
+        for _ in range(2):
+            step(state, x, y, 0.01, drop)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, x, y, 0.01, drop)
+        torch.cuda.synchronize()
+        ms[norm] = (time.perf_counter() - t0) / 3 * 1e3
+        share, window, _, _ = trace_window(
+            f"recipe_step_{norm}", lambda: step(state, x, y, 0.01, drop))
+        log("recipe", f"one step at [8, 8, 158] (64 clips, 158², 8 frames), "
+            f"{norm} ({splits} splits): {ms[norm]:.1f} ms untraced; traced "
+            f"{window:.1f} ms, its kernels' union {share * window:.1f} ms | "
+            f"{smi}")
+        del state, step, x
+        torch.cuda.empty_cache()
+    log("recipe", f"the 8-split BN adds {ms['sub_batchnorm'] - ms['batchnorm']:.1f}"
+        f" ms to a [8, 8, 158] step ({ms['sub_batchnorm'] / ms['batchnorm']:.2f}x"
+        f" plain BN's) | {smi}")
+
+
+# ---------------------------------------------------------------------------
+# the profiler: the device's busy share of a window
+def trace_window(name, fn):
+    """``fn()`` under utils/profiler.py's trace, in a span that ends after
+    a synchronize; returns (device-busy share of the span: the union of
+    the CUDA kernels' intervals over its wall time, the span in ms, the
+    top five kernels by device time [(name, ms, calls)], kernels)."""
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    log_dir = os.path.join(smoke_dir(), f"profile_{name}")
+    torch.cuda.synchronize()
+    with profiler.trace(log_dir):
+        with profiler.annotate("smoke_window"):
+            fn()
+            torch.cuda.synchronize()
+    with open(os.path.join(log_dir, profiler.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("name") == "smoke_window"
+            and e.get("cat") == "user_annotation"]
+    if len(span) != 1:
+        raise AssertionError(f"profile {name}: {len(span)} window spans")
+    w0 = span[0]["ts"]
+    w1 = w0 + span[0]["dur"]
+    kernels = [(max(e["ts"], w0), min(e["ts"] + e["dur"], w1), e)
+               for e in events if e.get("cat") == "kernel"]
+    kernels = [k for k in kernels if k[1] > k[0]]
+    if not kernels:
+        raise AssertionError(f"profile {name}: the trace holds no CUDA kernel")
+    busy, end = 0.0, w0
+    for a, b, _ in sorted(kernels, key=lambda k: k[0]):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for a, b, e in kernels:
+        total, calls = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (total + (b - a), calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    share = busy / (w1 - w0)
+    first = {}  # each top kernel's first launch: the aten op and its inputs
+    for _, _, e in sorted(kernels, key=lambda k: k[0]):
+        if e["name"] in dict(top) and e["name"] not in first:
+            first[e["name"]] = launching_op(events, e)
+    log("profile", f"{name}: device busy {share * 100:.1f}% of the "
+        f"{(w1 - w0) / 1e3:.2f} ms window (union of {len(kernels)} CUDA "
+        f"kernel intervals; torch.profiler, CUPTI tracing on) | trace "
+        f"{os.path.relpath(log_dir, ROOT)}/{profiler.TRACE_FILE}")
+    for kname, (total, calls) in top:
+        log("profile", f"{name}: top kernel {total / 1e3:.3f} ms "
+            f"({total / (w1 - w0) * 100:.1f}% of the window, {calls} calls)"
+            f": {kname[:140]} | first launched by {first[kname]}")
+    return share, (w1 - w0) / 1e3, top, len(kernels)
+
+
+def launching_op(events, kernel):
+    """The innermost host op around the runtime call that launched
+    ``kernel`` (matched by correlation id), with its input shapes and
+    dtypes as the trace records them."""
+    corr = kernel.get("args", {}).get("correlation")
+    launch = next((e for e in events if e.get("cat") == "cuda_runtime"
+                   and e.get("args", {}).get("correlation") == corr), None)
+    if launch is None:
+        return "no launch found"
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e.get("tid") == launch.get("tid")
+           and e["ts"] <= launch["ts"] <= e["ts"] + e["dur"]]
+    if not ops:
+        return "no host op"
+    op = min(ops, key=lambda e: e["dur"])
+    args = op.get("args", {})
+    return (f"{op['name']} {args.get('Input Dims')} "
+            f"{args.get('Input type')}")
+
+
 def per_request(record, key):
     return sum(r[key] * r["count"] for r in record)
 
@@ -1730,7 +2436,9 @@ def main():
 
     cfg = cmda_cfg()
     model = serving_model(cfg, SEED)
-    k2_record, k2_err = phase_attention(attention_rows(cfg, model), smi)
+    recipe_fwd, recipe_bwd = recipe_attention_rows(model)
+    k2_record, k2_err, held_fwd = phase_attention(
+        attention_rows(cfg, model), smi, recipe_fwd)
     calibrate_attention(cfg, model, SEED + 6)
     k2_launches = phase_cmda(cfg, model, smi)
     state = model.state_dict()
@@ -1742,8 +2450,8 @@ def main():
 
     cfg = train_cfg("SlowFastDualAttention")
     model = train_model(cfg, SEED)
-    bwd_record, bwd_err = phase_attention_backward(
-        attention_rows(cfg, model), smi)
+    bwd_record, bwd_err, held_bwd = phase_attention_backward(
+        attention_rows(cfg, model), smi, recipe_bwd)
     phase_train(smi)
     torch.cuda.empty_cache()
     calibrate_attention(cfg, model, SEED + 9)
@@ -1768,14 +2476,20 @@ def main():
     del model
     torch.cuda.empty_cache()
     epoch_counts = phase_epochs(step_clips_per_s, smi)
+    torch.cuda.empty_cache()
+    recipe_counts = phase_recipe(held_fwd, held_bwd, smi)
+    torch.cuda.empty_cache()
+    recipe_split_bn_cost(smi)
 
     # launches on the main paths: serving (phases 4, 5), CMDA training
-    # (phase 7), the 30-view tests (phase 8) and the epochs (phase 9)
+    # (phase 7), the 30-view tests (phase 8), the epochs (phase 9) and the
+    # recipe (phase 10)
     k1_launches += sf_counts["fused_bottleneck"]
     k2_launches += sum(c["flash_attention"]
-                       for c in (train_counts, cmda_counts, epoch_counts))
+                       for c in (train_counts, cmda_counts, epoch_counts,
+                                 recipe_counts))
     bwd_launches = sum(c["flash_attention_backward"]
-                       for c in (train_counts, epoch_counts))
+                       for c in (train_counts, epoch_counts, recipe_counts))
 
     kernels = [
         kernel_entry(

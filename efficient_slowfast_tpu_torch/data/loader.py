@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.meters import span
+from ..utils.multigrid import short_cycle_batch_sizes
 from .build import build_dataset
 from .datasets import ClipDataset
 
@@ -81,11 +82,8 @@ def construct_loader(cfg, split: str):
     divided by the world size (a train batch must divide; an eval share
     rounds up, its padding masked by ``_valid``)."""
     assert split in ("train", "val", "test")
-    if split == "train" and cfg.MULTIGRID.SHORT_CYCLE:
-        raise NotImplementedError(
-            "MULTIGRID.SHORT_CYCLE (the short-cycle batch schedule and its "
-            "preprocess) comes with the train loop, ROADMAP item 3")
     _, world = process_rank_and_count()
+    schedule = None
     if split == "train":
         dataset_name = cfg.TRAIN.DATASET
         batch_size = cfg.TRAIN.BATCH_SIZE
@@ -94,6 +92,9 @@ def construct_loader(cfg, split: str):
             raise ValueError(
                 f"TRAIN.BATCH_SIZE ({batch_size}) must be divisible by the "
                 f"world size ({world})")
+        if cfg.MULTIGRID.SHORT_CYCLE:
+            # the short cycle's batch sizes, step by step
+            schedule = [b // world for b in short_cycle_batch_sizes(cfg)]
     elif split == "val":
         dataset_name = cfg.TRAIN.DATASET
         batch_size = cfg.TRAIN.BATCH_SIZE
@@ -110,6 +111,7 @@ def construct_loader(cfg, split: str):
         num_workers=cfg.DATA_LOADER.NUM_WORKERS,
         prefetch=cfg.DATA_LOADER.PREFETCH_DEPTH,
         seed=cfg.RNG_SEED,
+        batch_size_schedule=schedule,
         pad_to_full=pad_to_full,
     )
 
@@ -136,6 +138,11 @@ class ClipLoader:
         self.pad_to_full = pad_to_full
         self._epoch = 0
         self.pinned_ring: Optional[PinnedRing] = None  # prefetch_to_device's
+
+    @property
+    def max_batch_size(self) -> int:
+        """The largest batch the loader yields."""
+        return max(self.batch_size_schedule or [self.batch_size])
 
     def set_epoch(self, epoch: int):
         """reference: loader.shuffle_dataset → sampler.set_epoch; the
@@ -193,8 +200,7 @@ class ClipLoader:
         the dataset does not override ``__getitem__``, which the
         preallocated path would bypass."""
         if (isinstance(self.dataset, ClipDataset)
-                and type(self.dataset).__getitem__ is ClipDataset.__getitem__
-                and not self.batch_size_schedule):
+                and type(self.dataset).__getitem__ is ClipDataset.__getitem__):
             return self.dataset.getitem_into
         return None
 
@@ -326,13 +332,16 @@ class PinnedRing:
     A slot is handed out (``acquire``) only when it is free and the copy
     that last read it (its event) has completed; the copying side gives
     it back with that copy's event (``release``). The buffers live as long
-    as the ring, so the page-locking is paid once, not once a batch.
+    as the ring, so the page-locking is paid once, not once a batch. Each
+    slot holds ``shape``, the loader's largest batch; a smaller batch (a
+    short cycle's) takes its leading rows.
     """
 
     def __init__(self, shape, slots: int):
         self.shape = tuple(shape)
         self._host = [torch.empty(self.shape, dtype=torch.uint8,
                                   pin_memory=True) for _ in range(slots)]
+        self._rows = [0] * slots
         self._events = [None] * slots
         self._busy = [False] * slots
         self._cond = threading.Condition()
@@ -344,9 +353,11 @@ class PinnedRing:
             self._cond.notify_all()
 
     def acquire(self, shape, stop: threading.Event):
-        """(numpy view of a free slot, its index), or None once ``stop``
-        is set."""
-        assert tuple(shape) == self.shape, (shape, self.shape)
+        """(numpy view of the first ``shape[0]`` rows of a free slot, its
+        index), or None once ``stop`` is set."""
+        shape = tuple(shape)
+        assert shape[1:] == self.shape[1:] and shape[0] <= self.shape[0], (
+            shape, self.shape)
         with self._cond:
             while True:
                 if stop.is_set():
@@ -359,10 +370,12 @@ class PinnedRing:
                 self._cond.wait(timeout=0.05)
         if self._events[i] is not None:
             self._events[i].synchronize()
-        return self._host[i].numpy(), i
+        self._rows[i] = shape[0]
+        return self._host[i][:shape[0]].numpy(), i
 
     def tensor(self, slot: int) -> torch.Tensor:
-        return self._host[slot]
+        """The rows of ``slot`` that its last ``acquire`` handed out."""
+        return self._host[slot][:self._rows[slot]]
 
     def release(self, slot: int, event):
         with self._cond:
@@ -386,8 +399,9 @@ def prefetch_to_device(loader: ClipLoader, device, depth: int = 2,
     slot for each batch the loader may hold plus two), and copies it with
     ``non_blocking`` on a side stream; up to ``depth`` batches wait copied
     ahead of the consumer, whose stream waits on each copy's event. The
-    ring needs the dataset's fill path and one batch shape, as every loader
-    of ``construct_loader`` has; another loader raises. On the CPU the
+    ring needs the dataset's fill path and full batches (a short cycle's
+    sizes at most its slots'), as every loader of ``construct_loader`` has;
+    another loader raises. On the CPU the
     arrays are wrapped without a copy. ``times``
     (``utils.meters.StageTimes``), where given, gets the seconds the
     consumer waits for each batch and each copy's span.
@@ -407,14 +421,14 @@ def prefetch_to_device(loader: ClipLoader, device, depth: int = 2,
         finally:
             batches.close()
 
-    # one canvas shape for every batch (eval pads its tail, train drops it)
-    # and the dataset's fill path: what the pinned ring needs, and what
-    # every loader of construct_loader has
+    # full batches (eval pads its tail, train drops it) and the dataset's
+    # fill path: what the pinned ring needs, and what every loader of
+    # construct_loader has
     if loader._fill() is None or not (loader.pad_to_full or loader.drop_last):
         raise ValueError("prefetch_to_device on CUDA needs a loader with the "
-                         "preallocated fill path and one batch shape "
+                         "preallocated fill path and full batches "
                          "(pad_to_full or drop_last)")
-    shape = (loader.batch_size,) + loader.dataset.frames_shape()
+    shape = (loader.max_batch_size,) + loader.dataset.frames_shape()
     if loader.pinned_ring is None or loader.pinned_ring.shape != shape:
         loader.pinned_ring = PinnedRing(shape, loader.prefetch + 2)
     ring = loader.pinned_ring

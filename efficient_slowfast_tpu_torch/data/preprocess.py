@@ -34,16 +34,17 @@ def _normalize_(x: torch.Tensor, mean, std, from_uint8: bool) -> torch.Tensor:
     return x.sub_(T._on(mean, x.device)).div_(T._on(std, x.device))
 
 
-def make_train_preprocess(cfg, dtype=torch.float32):
+def make_train_preprocess(cfg, dtype=torch.float32, crop_size=None):
     """pre(generator, frames, widths, portrait=None, crop_u=None) →
-    pathways in ``dtype``, channels-last and contiguous.
+    pathways in ``dtype``, channels-last and contiguous, cropped to
+    ``crop_size`` (a short cycle's; ``DATA.TRAIN_CROP_SIZE`` by default).
 
     The draws (scale, position, flip, colour factors) come from
     ``generator``, on the device it lives on; one generator a step.
     """
     mean, std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
     min_s, max_s = cfg.DATA.TRAIN_JITTER_SCALES
-    crop = cfg.DATA.TRAIN_CROP_SIZE
+    crop = int(crop_size) if crop_size else cfg.DATA.TRAIN_CROP_SIZE
     flip = cfg.DATA.RANDOM_FLIP
     inv = cfg.DATA.INV_UNIFORM_SAMPLE
     # Jester-style clip-level color jitter: [lo, hi] enhancement-factor range

@@ -14,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..models.build import get_compute_dtype, resolve_device
@@ -30,6 +31,21 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+
+def step_generator(seed: int, counter: int, device,
+                   stream: int = 0) -> torch.Generator:
+    """A generator on ``device`` for one step's preprocess draws, seeded by
+    (seed, counter) as the JAX package folds the step's counter into its
+    key (``jax.random.fold_in``); ``stream`` > 0 gives another sequence of
+    the same counter (the dropout's is 1)."""
+    entropy = [seed, counter] + ([stream] if stream else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def _model_device(state) -> torch.device:
+    return next(state.model.parameters()).device
 
 
 def pathway_inputs(cfg, batch_size, dtype=torch.float32, device=None):

@@ -15,7 +15,6 @@ so the card is never idle waiting for the meter.
 from __future__ import annotations
 
 import json
-import os
 
 import torch
 
@@ -23,6 +22,7 @@ from ..data.loader import construct_loader, prefetch_to_device
 from ..data.preprocess import make_test_preprocess
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
+from ..utils.checkpoint import load_test_checkpoint
 from ..utils.logging import get_logger, setup_logging
 from ..utils.meters import TestMeter, span
 from .state import make_forward
@@ -99,50 +99,6 @@ def perform_test(cfg, model, loader, meter, device=None, times=None):
         ensemble(*pending)
     meter.iter_toc()
     return meter.finalize_metrics(ks=(1, cfg.TRAIN.TOPK))
-
-
-def _load_external(model, path, ckpt_type):
-    """A ``.pyth`` in the reference layout (``{"model_state": ...}``, as
-    ``utils/torch_ckpt.py:315-317`` of the JAX package reads it), loaded
-    with ``strict=True``. BN's ``num_batches_tracked`` counters, which
-    eval never reads and the JAX package's exporter leaves out, keep the
-    model's value where the file has none."""
-    if (ckpt_type != "pytorch" or path.endswith((".jaxckpt", ".orbax"))
-            or os.path.isdir(path)):
-        raise NotImplementedError(
-            f"checkpoint type {ckpt_type!r} ({path}) comes with the "
-            "checkpoint port, ROADMAP item 3; pass a pytorch .pyth")
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(payload, dict) and "model_state" in payload:
-        payload = payload["model_state"]
-    elif isinstance(payload, dict) and "state_dict" in payload:
-        payload = payload["state_dict"]
-    state = {k[len("module."):] if k.startswith("module.") else k:
-             torch.as_tensor(v) for k, v in payload.items()}
-    for k, v in model.state_dict().items():
-        if k.endswith("num_batches_tracked"):
-            state.setdefault(k, v)
-    model.load_state_dict(state, strict=True)
-
-
-def load_test_checkpoint(cfg, model):
-    """Test-time weights, in the JAX package's order (its
-    ``utils/checkpoint.py:255-268``): TEST.CHECKPOINT_FILE_PATH, then the
-    run's own checkpoints, then TRAIN.CHECKPOINT_FILE_PATH, else the seeded
-    random init."""
-    if cfg.TEST.CHECKPOINT_FILE_PATH:
-        return _load_external(model, cfg.TEST.CHECKPOINT_FILE_PATH,
-                              cfg.TEST.CHECKPOINT_TYPE)
-    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
-    if os.path.isdir(ckpt_dir) and any(
-            n.startswith("checkpoint_epoch_") for n in os.listdir(ckpt_dir)):
-        raise NotImplementedError(
-            f"{ckpt_dir}: the run's own checkpoints come with the checkpoint "
-            "port, ROADMAP item 3")
-    if cfg.TRAIN.CHECKPOINT_FILE_PATH:
-        return _load_external(model, cfg.TRAIN.CHECKPOINT_FILE_PATH,
-                              cfg.TRAIN.CHECKPOINT_TYPE)
-    logger.info("Testing with random initialization. Only for debugging.")
 
 
 def test(cfg, device=None):

@@ -1,58 +1,59 @@
-"""Train and val epochs (port of ``engine/train.py:60-173, 382-395``;
-reference: tools/train_net.py).
+"""Training engine (port of ``engine/train.py``; reference:
+tools/train_net.py).
 
-An epoch's step is the train state's own (``engine/state.py``): the
-preprocess runs on the card from the copied canvas, and the step's metrics
-stay on the card until the host reads them, ``TPU.METRICS_PERIOD`` steps
-at a time (the reference reads every step, train_net.py:133-138). The rest
-of ``train()`` — the epoch loop, checkpoints, multigrid, precise BN — comes
-with ROADMAP item 3.
+``train(cfg)`` runs the epochs: the multigrid schedule (long-cycle phases,
+each with its loaders, steps and meters, the model rebuilt where the BN
+type changes; short-cycle crops and batches step by step), precise BN, the
+checkpoint and eval cadence, and auto-resume. An epoch's step is the train
+state's own (``engine/state.py``): the preprocess runs on the card from the
+copied canvas, and the step's metrics stay on the card until the host
+reads them, ``TPU.METRICS_PERIOD`` steps at a time (the reference reads
+every step, train_net.py:133-138). Every draw is seeded by RNG_SEED and
+the step or epoch it belongs to, so a resumed run repeats the one it
+resumes.
 """
 
 from __future__ import annotations
 
-import math
+import json
+import random
 
 import numpy as np
 import torch
 
-from ..data.loader import prefetch_to_device
+from ..data.loader import (construct_loader, prefetch_to_device,
+                           shuffle_dataset)
+from ..data.preprocess import make_train_preprocess
+from ..models import build_model
+from ..models.build import get_compute_dtype, resolve_device
+from ..ops.norm import (aggregate_sub_bn_stats, convert_bn_stats,
+                        effective_num_splits)
+from ..utils import checkpoint as cu
 from ..utils import lr_policy
-from ..utils.logging import get_logger
+from ..utils.logging import get_logger, setup_logging
+from ..utils.meters import TrainMeter, ValMeter
+from ..utils.misc import check_nan_losses, log_model_info
+from ..utils.multigrid import MultigridSchedule, short_cycle_shapes
+from .precise_bn import calculate_and_update_precise_bn
+from .state import (_model_device, create_train_state, make_eval_step,
+                    make_train_step, pathway_inputs, step_generator)
 from .test import gather_across_hosts
 
 logger = get_logger(__name__)
-
-
-def check_nan_losses(loss: float):
-    """reference: utils/misc.py:26-33."""
-    if math.isnan(loss):
-        raise RuntimeError("ERROR: Got NaN losses")
-
-
-def step_generator(seed: int, counter: int, device) -> torch.Generator:
-    """A generator on ``device`` for one step's preprocess draws, seeded by
-    (seed, counter) as the JAX package folds the step's counter into its
-    key (``jax.random.fold_in``)."""
-    state = np.random.SeedSequence([seed, counter]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
-
-
-def _model_device(state) -> torch.device:
-    return next(state.model.parameters()).device
-
 
 def train_epoch(cfg, state, train_step, preprocess, loader, meter, cur_epoch,
                 generator=None, writer=None):
     """One epoch of ``train_step`` (``make_train_step``) over ``loader`` on
     the train state's device; ``preprocess`` is ``make_train_preprocess``'s,
     its draws from ``step_generator(RNG_SEED, epoch·iters + iter)``;
-    ``generator`` feeds the head's dropout. Returns the state, updated in
-    place."""
-    if cfg.MULTIGRID.SHORT_CYCLE:
-        raise NotImplementedError(
-            "MULTIGRID.SHORT_CYCLE comes with the train loop, ROADMAP item 3")
+    ``generator`` feeds the head's dropout. Under ``MULTIGRID.SHORT_CYCLE``
+    each batch is cropped to its phase's size (``_phase``, from the loader's
+    schedule) instead. Returns the state, updated in place."""
     dev = _model_device(state)
+    short_cycle = None
+    if cfg.MULTIGRID.SHORT_CYCLE:
+        short_cycle = [make_train_preprocess(cfg, get_compute_dtype(cfg), s)
+                       for s in short_cycle_shapes(cfg)]
     data_size = len(loader)
     meter.iter_tic()
     pending = []  # (iter, batch size, metrics on the card)
@@ -61,8 +62,14 @@ def train_epoch(cfg, state, train_step, preprocess, loader, meter, cur_epoch,
         lr = lr_policy.get_lr_at_epoch(cfg, cur_epoch + float(cur_iter) / data_size)
         gen = step_generator(cfg.RNG_SEED, cur_epoch * data_size + cur_iter,
                              dev)
-        inputs = preprocess(gen, batch["frames"], batch["width"],
-                            batch.get("portrait"), batch.get("crop_u"))
+        pre = preprocess
+        if short_cycle is not None:
+            if "_phase" not in batch:
+                raise ValueError("MULTIGRID.SHORT_CYCLE: the loader's batches "
+                                 "carry no short-cycle phase (_phase)")
+            pre = short_cycle[int(batch["_phase"])]
+        inputs = pre(gen, batch["frames"], batch["width"],
+                     batch.get("portrait"), batch.get("crop_u"))
         labels = batch["label"]
         mets = train_step(state, inputs, labels, lr, generator)
         pending.append((cur_iter, labels.shape[0], mets))
@@ -135,6 +142,117 @@ def eval_epoch(cfg, state, eval_step, preprocess, loader, meter, cur_epoch,
         if writer is not None:
             writer.plot_eval(preds, labels, global_step=cur_epoch)
     return top1
+
+
+def _bn_signature(cfg):
+    """(norm type, splits or sync devices) that decides whether the model
+    must be rebuilt at a multigrid phase boundary (JAX: engine/train.py
+    :42-57, where a sync group spanning the mesh counts as plain BN; the
+    port's sync-BN is not built, ``get_norm`` raises)."""
+    norm = cfg.BN.NORM_TYPE
+    if norm == "sub_batchnorm":
+        return (norm, cfg.BN.NUM_SPLITS)
+    if norm == "sync_batchnorm":
+        return (norm, cfg.BN.NUM_SYNC_DEVICES)
+    return ("batchnorm", 0)
+
+
+def _rebuild(cfg, state, old_bn: str, new_bn: str, device):
+    """A train state of the model built for ``cfg``'s BN type, holding
+    ``state``'s parameters and optimizer state and its BN statistics
+    converted to the new form (``convert_bn_stats``)."""
+    logger.info("multigrid BN rebuild: %s -> %s", old_bn, new_bn)
+    stats = convert_bn_stats(state.model.state_dict(), old_bn, new_bn,
+                             effective_num_splits(cfg))
+    model = build_model(cfg, device)
+    model.load_state_dict(stats, strict=True)
+    new = create_train_state(cfg, model, device)
+    cu.load_optimizer_state(new.optimizer, state.optimizer.state_dict())
+    new.step = state.step
+    return new
+
+
+def _phase_parts(cfg, state):
+    """The loaders, steps, preprocess and meters of the current shape."""
+    train_loader = construct_loader(cfg, "train")
+    val_loader = construct_loader(cfg, "val")
+    return dict(
+        train_loader=train_loader, val_loader=val_loader,
+        precise_loader=(construct_loader(cfg, "train")
+                        if cfg.BN.USE_PRECISE_STATS else None),
+        train_step=make_train_step(cfg, state.model, state.optimizer),
+        eval_step=make_eval_step(cfg, state.model),
+        preprocess=make_train_preprocess(cfg, get_compute_dtype(cfg)),
+        train_meter=TrainMeter(len(train_loader), cfg),
+        val_meter=ValMeter(len(val_loader), cfg))
+
+
+def _train_detection(cfg):
+    raise NotImplementedError("detection's training comes with ROADMAP item 6")
+
+
+def train(cfg, device=None):
+    """Train ``cfg``'s model on ``device`` (the GPU by default) from its
+    last checkpoint (``TRAIN.AUTO_RESUME``), ``TRAIN.CHECKPOINT_FILE_PATH``
+    or the seeded init, to ``SOLVER.MAX_EPOCH``; ``cfg`` takes the
+    multigrid schedule's solver and shapes, as in the reference. Returns
+    the final train state."""
+    setup_logging(cfg.OUTPUT_DIR)
+    logger.info("Train with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
+    if cfg.DETECTION.ENABLE:
+        return _train_detection(cfg)
+    if cfg.TENSORBOARD.ENABLE:
+        raise NotImplementedError("TensorBoard comes with ROADMAP item 8")
+    dev = resolve_device(device)
+    np.random.seed(cfg.RNG_SEED)
+    random.seed(cfg.RNG_SEED)
+    torch.manual_seed(cfg.RNG_SEED)
+
+    multigrid = None
+    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+        multigrid = MultigridSchedule()
+        cfg = multigrid.init_multigrid(cfg)
+        if cfg.MULTIGRID.LONG_CYCLE:
+            cfg, _ = multigrid.update_long_cycle(cfg, cur_epoch=0)
+    schedule = multigrid.schedule if multigrid else None
+
+    state = create_train_state(cfg, build_model(cfg, dev), dev)
+    state, start_epoch = cu.load_train_checkpoint(cfg, state)
+    if cfg.LOG_MODEL_INFO:
+        log_model_info(state.model, cfg, pathway_inputs(
+            cfg, 1, get_compute_dtype(cfg), dev))
+    cur_bn = _bn_signature(cfg)
+    phase = _phase_parts(cfg, state)
+
+    logger.info("Start epoch: %d", start_epoch + 1)
+    for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        if multigrid is not None and cfg.MULTIGRID.LONG_CYCLE:
+            cfg, changed = multigrid.update_long_cycle(cfg, cur_epoch)
+            if changed:
+                new_bn = _bn_signature(cfg)
+                if new_bn != cur_bn:
+                    state = _rebuild(cfg, state, cur_bn[0], new_bn[0], dev)
+                    cur_bn = new_bn
+                phase = _phase_parts(cfg, state)
+
+        shuffle_dataset(phase["train_loader"], cur_epoch)
+        train_epoch(cfg, state, phase["train_step"], phase["preprocess"],
+                    phase["train_loader"], phase["train_meter"], cur_epoch,
+                    generator=step_generator(cfg.RNG_SEED, cur_epoch, dev,
+                                             stream=1))
+        if phase["precise_loader"] is not None:
+            calculate_and_update_precise_bn(
+                cfg, state, phase["precise_loader"], phase["preprocess"],
+                min(cfg.BN.NUM_BATCHES_PRECISE, len(phase["precise_loader"])))
+        if cfg.BN.NORM_TYPE == "sub_batchnorm":
+            aggregate_sub_bn_stats(state.model)
+
+        if cu.is_checkpoint_epoch(cfg, cur_epoch, schedule):
+            cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
+        if _is_eval_epoch(cfg, cur_epoch, schedule):
+            eval_epoch(cfg, state, phase["eval_step"], phase["preprocess"],
+                       phase["val_loader"], phase["val_meter"], cur_epoch)
+    return state
 
 
 def _is_eval_epoch(cfg, cur_epoch, multigrid_schedule=None) -> bool:

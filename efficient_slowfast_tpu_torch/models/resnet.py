@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import Conv3d
-from ..ops.norm import BatchNorm3d
+from ..ops.norm import BatchNorm3d, SubBatchNorm3d
 
 
 class BasicTransform(nn.Module):
@@ -175,7 +175,8 @@ class ResStage(nn.Module):
 
     @contextlib.contextmanager
     def _frozen_stats(self):
-        bns = [m for m in self.modules() if isinstance(m, BatchNorm3d)]
+        bns = [m for m in self.modules()
+               if isinstance(m, (BatchNorm3d, SubBatchNorm3d))]
         for m in bns:
             m.update_stats = False
         try:

@@ -25,6 +25,12 @@ projections are renamed:
   s1_fuse/attention_spatial_s2f/gamma      ↔ s1_fuse.attention_spatial_s2f.gamma
   s1_fuse/downsample_c_of_slow/conv/kernel ↔ s1_fuse.downsample_c_of_slow.weight
 
+A split BN (``SubBatchNorm3d``) keeps JAX's four statistics under the
+reference's names, and its splits as one vector (split-major):
+
+  .../a_bn/bn/{mean,var}                  ↔ ....a_bn.bn.{running_mean,running_var}
+  .../a_bn/bn/{split_mean,split_var} (k, C) ↔ ....a_bn.split_bn.{running_mean,running_var} (k·C)
+
 Kernels change layout on the way: 5-D DHWIO ↔ OIDHW, 3-D (k, in, out) ↔
 (out, in, k) (ECA's Conv1d) and 2-D (in, out) ↔ (out, in). BN's
 ``num_batches_tracked`` has no JAX counterpart; it is 0 after conversion.
@@ -82,17 +88,31 @@ def _to_torch_layout(leaf: str, v: np.ndarray) -> np.ndarray:
     return np.transpose(v, _KERNEL_PERM[v.ndim])
 
 
+_SPLIT_LEAVES = {"mean": "bn.running_mean", "var": "bn.running_var",
+                 "split_mean": "split_bn.running_mean",
+                 "split_var": "split_bn.running_var"}
+
+
 def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) → state_dict."""
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
-        for path, v in _flatten(variables.get(coll, {})).items():
-            name = _torch_name(path)
-            if name is None:
-                continue
-            v = _to_torch_layout(path[-1], np.array(v, np.float32))
+        flat = _flatten(variables.get(coll, {}))
+        split = {path[:-1] for path in flat if path[-1] == "split_mean"}
+        for path, v in flat.items():
+            v = np.array(v, np.float32)
+            if path[:-1] in split:  # a split BN's statistics
+                prefix = _torch_name(path[:-1] + ("mean",))[:-len(
+                    "running_mean")]
+                name = prefix + _SPLIT_LEAVES[path[-1]]
+                v = v.reshape(-1)
+            else:
+                name = _torch_name(path)
+                if name is None:
+                    continue
+                v = _to_torch_layout(path[-1], v)
             sd[name] = torch.from_numpy(np.ascontiguousarray(v))
-            if path[-1] == "mean":
+            if name.endswith("running_mean"):
                 prefix = name[:-len("running_mean")]
                 sd[prefix + "num_batches_tracked"] = torch.tensor(0)
     return sd
@@ -101,14 +121,30 @@ def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
 def state_dict_to_jax_variables(state_dict) -> Dict[str, dict]:
     """The inverse: a port state_dict → JAX-layout numpy variables."""
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    tail = ".split_bn.running_mean"
+    split = {k[:-len(tail)] for k in state_dict if k.endswith(tail)}
     for name, t in state_dict.items():
         prefix, _, suffix = name.rpartition(".")
         if suffix == "num_batches_tracked":
             continue
         v = t.detach().float().cpu().numpy()
+        owner, _, inner = prefix.rpartition(".")
+        if owner in split and inner in ("bn", "split_bn"):
+            # a split BN's statistics: (k·C) splits back to (k, C)
+            prefix = owner
+            leaf = {"running_mean": "mean", "running_var": "var"}[suffix]
+            if inner == "split_bn":
+                leaf = "split_" + leaf
+                v = v.reshape(-1, state_dict[owner + ".weight"].numel())
         mods = [_UNRENAMES.get(m, m) for m in prefix.split(".")]
         coll = "params"
-        if suffix == "gamma":  # SpatialAttention's γ, a bare parameter
+        if prefix in split:  # a split BN: its parameters or statistics
+            wrap = ["bn"]
+            if suffix in ("weight", "bias"):
+                leaf = {"weight": "scale", "bias": "bias"}[suffix]
+            else:
+                coll = "batch_stats"
+        elif suffix == "gamma":  # SpatialAttention's γ, a bare parameter
             wrap, leaf = [], "gamma"
         elif prefix + ".running_mean" in state_dict:  # a BatchNorm3d
             wrap, leaf = ["bn"], {"weight": "scale", "bias": "bias",

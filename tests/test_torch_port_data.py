@@ -451,10 +451,15 @@ def test_short_cycle_schedule_and_refusal():
     assert [len(b["label"]) for b in got] == [4, 2, 1] * 9  # 64 = 9·7 + 1
     assert [int(b["_phase"]) for b in got[:4]] == [0, 1, 2, 0]
     assert len(ld) == len(got)
+    # the train loader of a short cycle takes the multigrid schedule: B
+    # times the reference's integer factors of the crop ratios
     cfg = data_cfg(get_cfg)
     cfg.MULTIGRID.SHORT_CYCLE = True
-    with pytest.raises(NotImplementedError, match="item 3"):
-        loader.construct_loader(cfg, "train")
+    cfg.MULTIGRID.DEFAULT_S = cfg.DATA.TRAIN_CROP_SIZE = 32
+    cfg.TRAIN.BATCH_SIZE = 2
+    ld = loader.construct_loader(cfg, "train")
+    assert ld.batch_size_schedule == [8, 4, 2] and ld.max_batch_size == 8
+    assert loader.construct_loader(cfg, "val").batch_size_schedule is None
 
 
 def test_decoding_a_file_names_its_roadmap_item():
@@ -506,14 +511,13 @@ def test_prefetch_on_the_cpu_wraps_the_batches():
             np.testing.assert_array_equal(a[k].numpy(), b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("kwargs", [{}, {"drop_last": True,
-                                         "batch_size_schedule": [4, 2]}])
+@pytest.mark.parametrize("kwargs", [{}, {"batch_size_schedule": [4, 2]}])
 def test_prefetch_to_the_card_refuses_a_loader_without_the_ring(kwargs):
-    """A ragged tail or a dataset without the fill path has no pinned ring
+    """A ragged tail (of fixed or short-cycle batches) has no pinned ring
     to copy from: the card's prefetch raises before it touches the card."""
     ds = datasets.Synthetic(data_cfg(get_cfg), "val")
     ld = loader.ClipLoader(ds, 5, num_workers=1, **kwargs)
-    with pytest.raises(ValueError, match="one batch shape"):
+    with pytest.raises(ValueError, match="full batches"):
         next(loader.prefetch_to_device(ld, "cuda"))
 
 

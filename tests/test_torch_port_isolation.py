@@ -16,11 +16,11 @@ from efficient_slowfast_tpu_torch.engine.state import make_forward
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "efficient_slowfast_tpu_torch")
-FORBIDDEN = ("jax", "flax", "optax", "efficient_slowfast_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
 
 _TINY_FORWARD = r"""
 import sys
-for name in ("jax", "flax", "optax", "efficient_slowfast_tpu"):
+for name in ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import torch
 from efficient_slowfast_tpu_torch.config import get_cfg
@@ -48,7 +48,10 @@ assert out.shape == (1, 5) and abs(float(out.sum()) - 1.0) < 1e-4, out
 # the data pipeline and the engines: a tiny synthetic 30-view test
 import efficient_slowfast_tpu_torch.data.transform
 import efficient_slowfast_tpu_torch.engine.train
+import efficient_slowfast_tpu_torch.tools.run_net
+import efficient_slowfast_tpu_torch.utils.checkpoint
 import efficient_slowfast_tpu_torch.utils.lr_policy
+import efficient_slowfast_tpu_torch.utils.profiler
 from efficient_slowfast_tpu_torch.data.loader import construct_loader
 from efficient_slowfast_tpu_torch.engine.test import perform_test
 from efficient_slowfast_tpu_torch.utils.meters import TestMeter
@@ -64,7 +67,7 @@ stats = perform_test(cfg, build_model(cfg, device="cpu"), loader, meter,
 assert stats["_type"] == "test_final", stats
 assert abs(meter.video_preds.sum() - 24.0) < 1e-3, meter.video_preds
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "flax", "optax", "efficient_slowfast_tpu")
+       ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad
 print("OK")
@@ -131,3 +134,13 @@ def test_the_engines_need_a_gpu_unless_asked(monkeypatch, tmp_path):
         test(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         perform_test(cfg, torch.nn.Identity(), [], None)
+
+    from efficient_slowfast_tpu_torch.engine.train import train
+    from efficient_slowfast_tpu_torch.tools.run_net import main
+
+    cfg.TRAIN.DATASET = "synthetic"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic",
+              "OUTPUT_DIR", str(tmp_path)])

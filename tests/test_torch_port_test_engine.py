@@ -128,16 +128,21 @@ def test_random_init_is_seeded_and_logged(caplog, tmp_path):
                                   "output_dir"])
 def test_what_later_items_bring_raises(what, tmp_path):
     cfg = engine_cfg(get_cfg, tmp_path / "model.pyth", tmp_path)
-    item = {"detection": "item 6", "int8": "item 8"}.get(what, "item 3")
+    item = {"detection": "item 6", "int8": "item 8",
+            "caffe2": "item 4"}.get(what, "item 7")
     if what == "detection":
         cfg.DETECTION.ENABLE = True
     elif what == "int8":
         cfg.TPU.INT8_EVAL = True
-    elif what == "output_dir":
+    elif what == "output_dir":  # a JAX run's orbax checkpoint directory
         cfg.TEST.CHECKPOINT_FILE_PATH = ""
         cfg.OUTPUT_DIR = str(tmp_path)
-        (tmp_path / "checkpoints").mkdir()
-        (tmp_path / "checkpoints" / "checkpoint_epoch_00001.jaxckpt").touch()
+        (tmp_path / "checkpoints" / "checkpoint_epoch_00001.orbax").mkdir(
+            parents=True)
+    elif what == "jax":  # the JAX package's orbax directory, by path
+        cfg.TEST.CHECKPOINT_FILE_PATH = str(tmp_path / "ckpt.orbax")
+        (tmp_path / "ckpt.orbax").mkdir()
+        cfg.TEST.CHECKPOINT_TYPE = what
     else:
         cfg.TEST.CHECKPOINT_TYPE = what
     with pytest.raises(NotImplementedError, match=item):

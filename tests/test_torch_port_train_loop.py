@@ -179,10 +179,23 @@ def test_eval_epoch_matches_jax_over_a_padded_tail(epochs):
 def test_nan_loss_and_short_cycle_raise():
     with pytest.raises(RuntimeError, match="NaN"):
         train.check_nan_losses(float("nan"))
+    # a short-cycle epoch over batches that carry no phase has no crop to
+    # take: the loader was not construct_loader's
     cfg = loop_cfg(get_cfg)
     cfg.MULTIGRID.SHORT_CYCLE = True
-    with pytest.raises(NotImplementedError, match="item 3"):
-        train.train_epoch(cfg, None, None, None, [], None, 0)
+    model = torch.nn.Linear(1, 1)
+    state = create_train_state(cfg, model, device="cpu")
+    ld = loader_without_phase(cfg)
+    with pytest.raises(ValueError, match="_phase"):
+        train.train_epoch(cfg, state, None, lambda *a: None, ld,
+                          meters.TrainMeter(len(ld), cfg), 0)
+
+
+def loader_without_phase(cfg):
+    plain = cfg.clone()
+    plain.MULTIGRID.SHORT_CYCLE = False
+    ld, _ = loaders(plain, construct_loader)
+    return ld
 
 
 def test_step_generators_are_seeded_by_seed_and_counter():
