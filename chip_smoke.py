@@ -4,9 +4,10 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10 (3b takes its shapes from the CMDA model that phase 5
-serves and from phase 10's schedule, 3c from the one that phase 7 trains
-and phase 10's schedule):
+5, 3c, 6, 7, 8, 9, 10, 11 (3b takes its shapes from the CMDA model that
+phase 5 serves and from phase 10's schedule, 3c from the one that phase 7
+trains and phase 10's schedule; phase 11 runs 3b and 3c again at
+I3D-NLN's shapes before its own lines):
 
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
@@ -16,7 +17,9 @@ and phase 10's schedule):
               instructions (HMMA, HGMMA) in the SASS of the three
               libraries' bf16 kernels, raising if any has none (K2-bwd's
               one-pass kernel must have HGMMA, wgmma, in each of its four
-              instantiations, one per padded width), and the FP32-pipe and F2FP instructions per
+              instantiations, one per padded width; the wide kernels of
+              D or C above 128 HMMA, 3 forward and 4 backward), and the
+              FP32-pipe and F2FP instructions per
               MUFU.EX2 in the main loop of the flash-attention bf16 kernels,
               forward and backward.
 3. kernels  — every stride-1 bottleneck shape of SlowFast-R50 8x8 serving
@@ -151,16 +154,49 @@ and phase 10's schedule):
               bit for bit, at the policy's lr (run 1's). Prints per epoch
               train clips/s and peak memory, precise BN's seconds, each
               checkpoint's seconds and bytes, the test's clips/s.
+11. nonlocal — configs/Kinetics/I3D_NLN_8x8_R50.yaml (single-pathway I3D
+              R50 at full width and depth, 400 classes, bf16, softmax
+              non-local blocks after blocks 1, 3 of s3 and 1, 3, 5 of s4,
+              seeded weights with every non-local final BN γ 1 and θ, φ
+              scaled so that the scaled logits have ATTN_LOGIT_STD, as
+              phase 5 calibrates). First 3b and 3c at its shapes: K2 at
+              s3's D = C = 256 (N 3136, M 784 at 224², 8 clips; N 4096,
+              M 1024 at 256², 64 clips), s4's 512 (N 784 and 1024, dense
+              on the path below TPU.FLASH_MIN_TOKENS) and two ragged wide
+              shapes, f32 and bf16 at 1 clip and the path's batch, timed
+              there beside the bound, the plain version and SDPA (with the
+              backend it picked); K2-bwd at the same shapes at 1 and 8
+              clips, against autograd at the smallest, dK and dV (and dQ)
+              bit-identical on a second call, each shape's split printed.
+              Then: three 4-clip requests at the 30-view shape (8 frames,
+              256²) through make_forward, 2 K2 launches a request and no
+              K1, held against TPU.FLASH_ATTENTION False (bf16, then f32
+              on one clip); the 30-view test (phase 8's gates, 2 K2 a
+              batch, against test() without the kernels); training as the
+              yaml trains (224², 8 clips, SGD 0.1 nesterov, wd 1e-4,
+              dropout 0.5; 2 warm-up and 5 timed steps, 2 K2 and 6 K2-bwd
+              launches a step, finite losses, BN statistics moved, 3
+              steps traced; the non-local γ at the yaml's zero init), and
+              one-clip f32 and bf16 steps with γ 1 against the same steps
+              under TPU.FLASH_ATTENTION False: the losses, and every
+              attention call of the kernel step against the plain
+              versions on its inputs (NLN_LOSS_TOL argues why not the
+              whole step, as phase 7 holds); and three requests of
+              SLOWFAST_NLN_8x8_R50.yaml (dot_product, two pathways, 32
+              frames, 256²; TPU.FUSED_EVAL True, which the fused engine
+              refuses): no K1, no K2, finite rows summing to 1.
 
-The profiler (phases 6, 7, 8) prints, per traced window, the device-busy
+The profiler (phases 6, 7, 8, 11) prints, per traced window, the device-busy
 share (the union of the CUDA kernels' intervals over the window's wall
 time) and the top five kernels by device time; the trace sits in
 build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9 and 10. The last three lines are the kernels' JSON record, the
-card's name and power limit, and the device JSON line.
+4, 5, 7, 8, 9, 10 and 11 (its times and bounds are per request of the
+SlowFast and CMDA serving paths, as before; its errors the worst on any
+path). The last three lines are the kernels' JSON record, the card's name
+and power limit, and the device JSON line.
 """
 
 from __future__ import annotations
@@ -253,6 +289,14 @@ CMDA_F32_ATOL = 1e-4
 # query and key convs are scaled so that each fusion's logits have this
 # standard deviation on a seeded clip.
 ATTN_LOGIT_STD = 3.0
+# I3D-NLN-R50's classifier on the same seeded weights: in eval mode the BN
+# running statistics do not renormalise the residual sums, so its logits
+# grow to a softmax that is one-hot in every clip (max p 1.000 in every
+# request), where the probabilities, and the 30-view test's centred log
+# probabilities (then set by the 1e-30 floor), no longer see a change of
+# the non-local blocks. The projection is scaled so that the logits have
+# this standard deviation on a seeded clip, as the attention logits are.
+HEAD_LOGIT_STD = 3.0
 # H100 SXM exponentials: 16 per clock per SM (the special-function unit's
 # throughput for compute capability 9.0, CUDA C programming guide), 132 SMs
 # at the 1.98 GHz maximum boost clock (NVIDIA data sheet)
@@ -401,11 +445,11 @@ def phase_build():
     for name, out in reports.items():
         func = "?"
         for line in out.splitlines():
-            entry = re.search(r"entry function '\w*?\d([a-z_]+kernel)I(\w+?)EE",
-                              line)
+            entry = re.search(
+                r"entry function '\w*?\d([a-z_]+kernel)(?:I(\w+?)EE|E)", line)
             if entry:  # e.g. flash_attention_tc_kernel<32,32>
                 args = re.findall(r"__nv_bfloat16|^f|(?<=L[ib])\d+",
-                                  entry.group(2))
+                                  entry.group(2) or "")
                 func = entry.group(1) + "<" + ",".join(
                     {"__nv_bfloat16": "bf16", "f": "float"}.get(a, a)
                     for a in args) + ">"
@@ -418,6 +462,35 @@ def phase_build():
     sass_counts(tool, _build.lib_path("flash_attention"))
     k1_sass_counts(tool, _build.lib_path("fused_bottleneck"))
     bwd_sass_counts(tool, _build.lib_path("flash_attention_bwd"))
+    wide_sass_counts(tool, _build.lib_path("flash_attention"),
+                     r"flash_attention_tc_wide_kernelILi(\d+)E", 3)
+    wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
+                     r"attention_bwd_rows_kernelILi(\d+)ELb(\d)E", 4)
+
+
+def wide_sass_counts(tool, lib, pattern, expected):
+    """Count the tensor-core instructions (mma.sync: HMMA) of the wide bf16
+    kernels (D or C above 128) whose mangled names match ``pattern``,
+    raising if any has none or if there are not ``expected`` of them."""
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = 0
+    for func in sass.split("Function : ")[1:]:
+        name = re.search(pattern, func.split("\n", 1)[0])
+        if not name:
+            continue
+        found += 1
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                         func)
+        log("build", f"{os.path.basename(lib)} wide bf16 "
+            f"{'/'.join(name.groups())}: HMMA {ops.count('HMMA')}, MUFU "
+            f"{ops.count('MUFU')} in the SASS")
+        if not ops.count("HMMA"):
+            raise AssertionError(f"{lib}: a wide bf16 kernel uses no "
+                                 "tensor-core instruction")
+    if found != expected:
+        raise AssertionError(f"{found} wide bf16 kernels in {lib}, expected "
+                             f"{expected}")
 
 
 SASS_OPS = ("HMMA", "HGMMA", "MUFU.EX2", "FFMA", "FADD", "FMUL", "FMNMX",
@@ -798,9 +871,14 @@ def serving_model(cfg, seed):
 
 
 def clips(cfg, batch, gen, dtype):
+    """Seeded clips at NUM_FRAMES and TEST_CROP_SIZE: [slow, fast], or one
+    pathway for the single-pathway ResNets."""
     t, s, a = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE, cfg.SLOWFAST.ALPHA
+    fast = torch.randn(batch, t, s, s, 3, generator=gen).to("cuda", dtype)
+    if cfg.MODEL.MODEL_NAME == "ResNet":
+        return [fast]
     return [torch.randn(batch, t // a, s, s, 3, generator=gen).to("cuda", dtype),
-            torch.randn(batch, t, s, s, 3, generator=gen).to("cuda", dtype)]
+            fast]
 
 
 def check_scores(out, batch, classes, what):
@@ -978,6 +1056,16 @@ def attention_rows(cfg, model, frames=None, crop=None):
     return rows
 
 
+def sdpa_backend(q, k, v):
+    """The backend that scaled_dot_product_attention picks for these
+    (B, 1, N, D) inputs at scale 1 (PyTorch's own dispatch: its flash
+    backend stops at D = 256)."""
+    from torch.nn.attention import SDPBackend
+
+    choice = torch._fused_sdp_choice(q, k, v, None, 0.0, False, scale=1.0)
+    return SDPBackend(choice).name.lower()
+
+
 def attention_cost(b, n, m, d, c):
     """(FLOPs, bf16 bytes, exponentials) of one call: q, k, v read once and
     out written once."""
@@ -985,11 +1073,15 @@ def attention_cost(b, n, m, d, c):
             b * n * m)
 
 
-def phase_attention(rows, smi, recipe_rows=()):
-    """K2 against its plain version at the serving rows, the off-path
+def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
+                    path_batch=None):
+    """K2 against its plain version at the serving rows, the ``off_path``
     shapes and ``recipe_rows`` (phase 10's shapes, each with its largest
     batch); returns (per-shape record, worst bf16 error on the path, the
-    largest bf16 batch held at each (N, M, D, C))."""
+    largest bf16 batch held at each (N, M, D, C)). With ``path_batch``
+    (phase 11's rows, each carrying its path's batch as its last entry,
+    the off-path shapes taking ``path_batch``) it holds float32 and bf16 at
+    1 clip and at that batch and times there."""
     import torch.nn.functional as F
 
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
@@ -1004,15 +1096,18 @@ def phase_attention(rows, smi, recipe_rows=()):
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_recipe = 0.0
     record, held = [], {}
+    extra_rows = [r + (0,) + ((path_batch,) if path_batch else ())
+                  for r in off_path]
     for label, n, m, d, c, count, *big in (
-            rows + [r + (0,) for r in ATTN_OFF_PATH] + list(recipe_rows)):
+            rows + extra_rows + list(recipe_rows)):
+        time_b = big[0] if path_batch else CLIPS_PER_REQUEST
         # the path's shapes also at the 30-view test batch (phase 8), and
         # phase 10's at their largest batch, in bf16
         cases = [(dtype, tol, b) for dtype, tol in (
             (torch.float32, ATTN_F32_TOL), (torch.bfloat16, ATTN_BF16_TOL))
-            for b in (1, CLIPS_PER_REQUEST)]
+            for b in (1, time_b)]
         extra = big[0] if big else (TEST_CLIPS if count else None)
-        if extra and extra not in (1, CLIPS_PER_REQUEST):
+        if extra and extra not in (1, time_b):
             cases.append((torch.bfloat16, ATTN_BF16_TOL, extra))
         for dtype, tol, b in cases:
             draw = rn_card if b > CLIPS_PER_REQUEST else rn
@@ -1039,14 +1134,16 @@ def phase_attention(rows, smi, recipe_rows=()):
                 held[(n, m, d, c)] = max(held.get((n, m, d, c), 0), b)
             del q, k, v, out, ref
         torch.cuda.empty_cache()
-        # timing at the request batch, in the serving dtype
-        b, dtype = CLIPS_PER_REQUEST, torch.bfloat16
-        q, k, v = (rn(b, n, d, dtype=dtype), rn(b, m, d, dtype=dtype),
-                   rn(b, m, c, dtype=dtype))
+        # timing at the request batch (phase 11: the path's), in bf16
+        b, dtype = time_b, torch.bfloat16
+        draw = rn_card if b > CLIPS_PER_REQUEST else rn
+        q, k, v = (draw(b, n, d, dtype=dtype), draw(b, m, d, dtype=dtype),
+                   draw(b, m, c, dtype=dtype))
         big = b * n * m > 2 ** 30  # the 32768-token rows: few repetitions
         k_ms = cuda_ms(lambda: flash_attention(q, k, v),
                        iters=2 if big else 10, reps=3 if big else 5)
         p_ms = cuda_ms(lambda: chunked_attention(q, k, v), iters=1, reps=3)
+        backend = sdpa_backend(q[:, None], k[:, None], v[:, None])
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], v[:, None], scale=1.0),
             iters=2 if big else 10, reps=3 if big else 5)
@@ -1057,23 +1154,26 @@ def phase_attention(rows, smi, recipe_rows=()):
         bound = max(t_ops, t_bytes, t_exp)
         by = "bytes" if t_bytes == bound else "operations"
         log("attention", f"{label:16s} bf16 N {n} M {m} D {d} C {c} x{count}"
-            f" per request | kernel {k_ms:.4f} ms | plain {p_ms:.4f} ms | "
-            f"sdpa {lib_ms:.4f} ms | kernel/bound {k_ms / bound:.2f}, "
+            f" per request, {b} clips | kernel {k_ms:.4f} ms | plain "
+            f"{p_ms:.4f} ms | sdpa ({backend}) {lib_ms:.4f} ms | "
+            f"kernel/bound {k_ms / bound:.2f}, "
             f"kernel/sdpa {k_ms / lib_ms:.2f} | bound {bound:.5f} ms ({by}; tensor "
             f"cores {t_ops:.5f} ms for {flops / 1e9:.3f} GFLOP, exp "
             f"{t_exp:.5f} ms for {exps:.3e}, memory {t_bytes:.5f} ms for "
             f"{nbytes / 1e6:.3f} MB) | {smi}")
         record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
                            library_ms=lib_ms, bound_ms=bound, bound_by=by))
-    log("attention", f"worst max_abs_err at the request and test batches on the CMDA "
-        f"path: f32 {worst[torch.float32]:.3e}, bf16 "
+        del q, k, v
+        torch.cuda.empty_cache()
+    log("attention", f"worst max_abs_err at the path's batches: "
+        f"f32 {worst[torch.float32]:.3e}, bf16 "
         f"{worst[torch.bfloat16]:.3e}; bf16 at phase 10's {len(recipe_rows)} "
         f"multigrid shapes: {worst_recipe:.3e}")
     return record, max(worst[torch.bfloat16], worst_recipe), held
 
 
-def cmda_model(cfg, state):
-    """The CMDA model of ``cfg`` with the calibrated weights ``state``."""
+def model_with(cfg, state):
+    """The model of ``cfg`` in eval mode with the weights ``state``."""
     from efficient_slowfast_tpu_torch.models import build_model
 
     model = build_model(cfg, device="cuda")
@@ -1087,7 +1187,7 @@ def phase_cmda(cfg, model, smi):
     cfg_plain = cmda_cfg(flash=False)
     counts, _ = serve_and_compare(
         "cmda", cfg, make_forward(cfg, model),
-        make_forward(cfg_plain, cmda_model(cfg_plain, model.state_dict())),
+        make_forward(cfg_plain, model_with(cfg_plain, model.state_dict())),
         ("flash kernel", "plain attention"),
         {"fused_bottleneck": 0, "flash_attention": 4 * REQUESTS,
          "flash_attention_backward": 0},
@@ -1099,8 +1199,8 @@ def phase_cmda_f32(state, smi):
     from efficient_slowfast_tpu_torch.engine.state import make_forward
 
     cfg, cfg_plain = cmda_cfg("float32"), cmda_cfg("float32", flash=False)
-    compare_one_clip("cmda", cfg, make_forward(cfg, cmda_model(cfg, state)),
-                     make_forward(cfg_plain, cmda_model(cfg_plain, state)),
+    compare_one_clip("cmda", cfg, make_forward(cfg, model_with(cfg, state)),
+                     make_forward(cfg_plain, model_with(cfg_plain, state)),
                      ("flash kernel", "plain attention"), CMDA_F32_ATOL,
                      SEED + 5, smi)
 
@@ -1114,7 +1214,8 @@ def attention_backward_cost(b, n, m, d, c):
             b * n * m)
 
 
-def phase_attention_backward(rows, smi, recipe_rows=()):
+def phase_attention_backward(rows, smi, recipe_rows=(),
+                             off_path=ATTN_BWD_OFF_PATH):
     """K2-bwd against attention_backward at the training shapes ``rows``,
     off-path shapes and ``recipe_rows`` (phase 10's training shapes, each
     with its largest batch, in bf16); returns (per-shape record, worst bf16
@@ -1134,7 +1235,7 @@ def phase_attention_backward(rows, smi, recipe_rows=()):
     worst_recipe = 0.0
     record, held = [], {}
     for label, n, m, d, c, count, *big in (
-            rows + [r + (0,) for r in ATTN_BWD_OFF_PATH] + list(recipe_rows)):
+            rows + [r + (0,) for r in off_path] + list(recipe_rows)):
         for dtype, tol in ((torch.float32, ATTN_BWD_F32_TOL),
                            (torch.bfloat16, ATTN_BWD_BF16_TOL)):
             batches = [1, TRAIN_CLIPS]
@@ -1169,7 +1270,7 @@ def phase_attention_backward(rows, smi, recipe_rows=()):
                 del again
                 refs = [("plain", attention_backward(q, k, v, out, lse,
                                                      dout))]
-                if count and b == 1 and n == smallest:
+                if not big and b == 1 and n == smallest:
                     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
                     refs.append(("autograd", torch.autograd.grad(
                         chunked_attention(*leaves), leaves, dout)))
@@ -1213,6 +1314,7 @@ def phase_attention_backward(rows, smi, recipe_rows=()):
                        iters=1, reps=3)
         q4, k4, v4 = (t[:, None].detach().requires_grad_()
                       for t in (q, k, v))
+        backend = sdpa_backend(q4, k4, v4)
         o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), dout[:, None], retain_graph=True), **reps)
@@ -1227,7 +1329,8 @@ def phase_attention_backward(rows, smi, recipe_rows=()):
         log("attention_backward", f"{label:16s} bf16 N {n} M {m} D {d} C {c}"
             f" x{count} per train step | kernels {k_ms:.4f} ms (PR 5 "
             f"two-pass: {ATTN_BWD_PR5_MS.get(label, 'not measured')}) | "
-            f"plain {p_ms:.4f} ms | sdpa backward {lib_ms:.4f} ms | "
+            f"plain {p_ms:.4f} ms | sdpa ({backend}) backward {lib_ms:.4f} "
+            "ms | "
             f"kernels/bound {k_ms / bound:.2f}, kernels/sdpa "
             f"{k_ms / lib_ms:.2f} | bound "
             f"{bound:.5f} ms ({by}; tensor cores {t_ops:.5f} ms for "
@@ -1236,14 +1339,14 @@ def phase_attention_backward(rows, smi, recipe_rows=()):
             f"Bc {split['keys']} keys, Br {split['queries']} queries, "
             f"{split['stages']} stages, {split['blocks']} CTAs "
             f"({split['per_sm']} an SM), {split['smem']} B shared memory, "
-            f"width {split['width']} | "
+            f"width {split['width']}, {split['slices']} column slices | "
             f"{smi}")
         record.append(dict(label=label, count=count, ms=k_ms, plain_ms=p_ms,
                            library_ms=lib_ms, bound_ms=bound, bound_by=by))
         del q, k, v, dout, out, lse, q4, k4, v4
         torch.cuda.empty_cache()
     log("attention_backward", f"worst max_abs_err at the training batch on "
-        f"the CMDA path: f32 {worst[torch.float32]:.3e}, bf16 "
+        f"the path: f32 {worst[torch.float32]:.3e}, bf16 "
         f"{worst[torch.bfloat16]:.3e}; bf16 at phase 10's "
         f"{len(recipe_rows)} multigrid training shapes: {worst_recipe:.3e}")
     return record, max(worst[torch.bfloat16], worst_recipe), held
@@ -1377,19 +1480,72 @@ def phase_train(smi):
         raise AssertionError(f"train with remat: non-finite loss {loss}")
 
 
-def one_step(cfg, state_dict, batch, seed):
+def one_step(cfg, state_dict, batch, seed, with_loss=False):
     """The model of ``cfg`` loaded with ``state_dict``, after one train
-    step on ``batch``: {name: tensor} of its parameters and buffers."""
+    step on ``batch``: {name: tensor} of its parameters and buffers (and
+    with ``with_loss`` the step's loss)."""
     from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
                                                            make_train_step)
 
-    model = cmda_model(cfg, state_dict)
+    model = model_with(cfg, state_dict)
     state = create_train_state(cfg, model)
     step = make_train_step(cfg, state.model, state.optimizer)
-    step(state, *batch, cfg.SOLVER.BASE_LR,
-         torch.Generator(device="cuda").manual_seed(seed))
+    mets = step(state, *batch, cfg.SOLVER.BASE_LR,
+                torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return (after, mets["loss"].item()) if with_loss else after
+
+
+def hold_one_clip_steps(phase, cfg_of, state_dict, smi):
+    """One train step of one clip from ``state_dict`` in float32 and in
+    bfloat16 (``cfg_of(dtype name, flash)``), each with the attention
+    kernels against the same step with the plain attention
+    (TPU.FLASH_ATTENTION False), held to CMDA_TRAIN_F32_TOL,
+    CMDA_TRAIN_BF16_RATIO and CMDA_STATS_TOL: the two paths differ only in
+    the attention, whatever model carries it."""
+    stats = [k for k in state_dict
+             if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in state_dict if k not in stats
+              and not k.endswith("num_batches_tracked")]
+    dist = lambda a, b: sum((a[k].double() - b[k].double()).norm().item() ** 2
+                            for k in params) ** 0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        batch = train_batches(cfg_of(name, True), 1, 1, SEED + 11, dtype)[0]
+        after = {flash: one_step(cfg_of(name, flash), state_dict, batch,
+                                 SEED)
+                 for flash in (True, False)}
+        if dtype == torch.float32:
+            ref = after[False]  # the float32 step, plain attention
+        steps = {k: (after[False][k].double() - state_dict[k].double()
+                     ).norm().item() for k in params}
+        floor = 1e-3 * max(steps.values())
+        worst_p, where_p = max(
+            ((after[True][k].double() - after[False][k].double()).norm()
+             .item() / max(steps[k], floor), k) for k in params)
+        worst_s, where_s = max(
+            ((after[True][k] - after[False][k]).abs().max().item() / max(
+                1.0, after[False][k].abs().max().item()), k) for k in stats)
+        step = dist(ref, state_dict)
+        e_kernel, e_plain = dist(after[True], ref), dist(after[False], ref)
+        log(phase, f"{name}, 1 clip, one step: attention kernels vs "
+            f"plain attention: worst |dp| / |step| {worst_p:.3e} ({where_p}),"
+            f" worst running statistic {worst_s:.3e} ({where_s}; tol "
+            f"{CMDA_STATS_TOL[dtype]}); all parameters, distance from the f32 "
+            f"plain step over that step: kernels {e_kernel / step:.3e}, plain "
+            f"{e_plain / step:.3e}, kernels vs plain "
+            f"{dist(after[True], after[False]) / step:.3e} | {smi}")
+        bad = (worst_p > CMDA_TRAIN_F32_TOL if dtype == torch.float32
+               else e_kernel > CMDA_TRAIN_BF16_RATIO * e_plain)
+        if bad or worst_s > CMDA_STATS_TOL[dtype]:
+            raise AssertionError(
+                f"{phase} {name}: kernels vs plain {worst_p} (f32 tol "
+                f"{CMDA_TRAIN_F32_TOL}); from the f32 step kernels "
+                f"{e_kernel / step}, plain {e_plain / step} (bf16 ratio "
+                f"{CMDA_TRAIN_BF16_RATIO}); statistics {worst_s}")
+        del after
+        torch.cuda.empty_cache()
 
 
 def phase_cmda_train(cfg, model, smi):
@@ -1408,48 +1564,9 @@ def phase_cmda_train(cfg, model, smi):
              4 * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS}, smi)
     del model
     torch.cuda.empty_cache()
-    stats = [k for k in state_dict
-             if k.endswith(("running_mean", "running_var"))]
-    params = [k for k in state_dict if k not in stats
-              and not k.endswith("num_batches_tracked")]
-    dist = lambda a, b: sum((a[k].double() - b[k].double()).norm().item() ** 2
-                            for k in params) ** 0.5
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
-        batch = train_batches(cfg, 1, 1, SEED + 11, dtype)[0]
-        after = {flash: one_step(train_cfg(cmda, name, flash), state_dict,
-                                 batch, SEED)
-                 for flash in (True, False)}
-        if dtype == torch.float32:
-            ref = after[False]  # the float32 step, plain attention
-        steps = {k: (after[False][k].double() - state_dict[k].double()
-                     ).norm().item() for k in params}
-        floor = 1e-3 * max(steps.values())
-        worst_p, where_p = max(
-            ((after[True][k].double() - after[False][k].double()).norm()
-             .item() / max(steps[k], floor), k) for k in params)
-        worst_s, where_s = max(
-            ((after[True][k] - after[False][k]).abs().max().item() / max(
-                1.0, after[False][k].abs().max().item()), k) for k in stats)
-        step = dist(ref, state_dict)
-        e_kernel, e_plain = dist(after[True], ref), dist(after[False], ref)
-        log("cmda_train", f"{name}, 1 clip, one step: attention kernels vs "
-            f"plain attention: worst |dp| / |step| {worst_p:.3e} ({where_p}),"
-            f" worst running statistic {worst_s:.3e} ({where_s}; tol "
-            f"{CMDA_STATS_TOL[dtype]}); all parameters, distance from the f32 "
-            f"plain step over that step: kernels {e_kernel / step:.3e}, plain "
-            f"{e_plain / step:.3e}, kernels vs plain "
-            f"{dist(after[True], after[False]) / step:.3e} | {smi}")
-        bad = (worst_p > CMDA_TRAIN_F32_TOL if dtype == torch.float32
-               else e_kernel > CMDA_TRAIN_BF16_RATIO * e_plain)
-        if bad or worst_s > CMDA_STATS_TOL[dtype]:
-            raise AssertionError(
-                f"cmda_train {name}: kernels vs plain {worst_p} (f32 tol "
-                f"{CMDA_TRAIN_F32_TOL}); from the f32 step kernels "
-                f"{e_kernel / step}, plain {e_plain / step} (bf16 ratio "
-                f"{CMDA_TRAIN_BF16_RATIO}); statistics {worst_s}")
-        del after
-        torch.cuda.empty_cache()
+    hold_one_clip_steps("cmda_train",
+                        lambda name, flash: train_cfg(cmda, name, flash),
+                        state_dict, smi)
     return counts, clips_per_s
 
 
@@ -1535,6 +1652,9 @@ def phase_thirty_view(name, fused, expect_per_batch, smi):
     model = serving_model(cfg, SEED)
     if cfg.MODEL.MODEL_NAME == "SlowFastDualAttention":
         calibrate_attention(cfg, model, SEED + 6)
+    if nonlocal_blocks(model):  # γ 1 from serving_model's BN scales
+        calibrate_nonlocal(cfg, model, SEED + 6)
+        calibrate_head(cfg, model, SEED + 6)
     loader = construct_loader(cfg, "test")
     n_clips, batch = len(loader.dataset), loader.batch_size
     if batch != TEST_CLIPS:
@@ -2329,6 +2449,360 @@ def recipe_split_bn_cost(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the non-local networks
+NLN_YAML = "I3D_NLN_8x8_R50.yaml"
+SLOWFAST_NLN_YAML = "SLOWFAST_NLN_8x8_R50.yaml"
+# K2 shapes beside the I3D-NLN path, held at its training batch: widths
+# that are not multiples of 16 and D != C, above 128 (the wide kernels),
+# N and M ragged against their row blocks and key tiles
+NLN_OFF_PATH = [("ragged 200", 1000, 250, 200, 200),
+                ("ragged 384/320", 777, 190, 384, 320)]
+
+
+def nonlocal_cfg(dtype="bfloat16", flash=True, train=False):
+    """configs/Kinetics/I3D_NLN_8x8_R50.yaml at full width and depth (400
+    classes, 8 frames, softmax non-local blocks after blocks 1, 3 of s3
+    and 1, 3, 5 of s4) through the port's config loader: served and tested
+    at its 256² test crop; with ``train``, its 224² crop (the inputs made
+    at it) and its solver (SGD lr 0.1, nesterov momentum 0.9, weight decay
+    1e-4 and none on BN, dropout 0.5)."""
+    cfg = yaml_cfg(NLN_YAML, ["TPU.COMPUTE_DTYPE", dtype,
+                              "TPU.FLASH_ATTENTION", flash])
+    if train:
+        cfg.DATA.TEST_CROP_SIZE = cfg.DATA.CROP_SIZE
+    return cfg
+
+
+def nonlocal_blocks(model):
+    from efficient_slowfast_tpu_torch.models.nonlocal_block import Nonlocal
+
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, Nonlocal)]
+
+
+def nonlocal_rows(cfg, model, crop, batch):
+    """The non-local blocks of one forward at NUM_FRAMES and ``crop``,
+    grouped by stage: [(label, N, M, D, C, K2 launches a forward, batch)];
+    the blocks at or below TPU.FLASH_MIN_TOKENS queries take the dense
+    branch and launch nothing (s4's at the default 1024)."""
+    from efficient_slowfast_tpu_torch.models.slowfast import _POOL1
+
+    t = cfg.DATA.NUM_FRAMES // _POOL1[cfg.MODEL.ARCH][0][0]
+    h = -(-crop // 4)  # the stem's two stride-2 ops
+    rows = []
+    for i, stage in enumerate(("s2", "s3", "s4", "s5")):
+        h = -(-h // cfg.RESNET.SPATIAL_STRIDES[i][0])
+        blocks = [m for n, m in nonlocal_blocks(model)
+                  if n.startswith(stage + ".")]
+        if not blocks:
+            continue
+        pool = blocks[0].pool_size or [1, 1, 1]
+        n, d = t * h * h, blocks[0].dim_inner
+        m = (t // pool[0]) * (h // pool[1]) * (h // pool[2])
+        flash = n > cfg.TPU.FLASH_MIN_TOKENS
+        rows.append((f"nln {stage} {crop}", n, m, d, d,
+                     len(blocks) if flash else 0, batch))
+    return rows
+
+
+def calibrate_nonlocal(cfg, model, seed):
+    """Scale each non-local block's θ and φ convs (weight and bias, by one
+    factor each) so that its scaled logits θφᵀ/√D have ATTN_LOGIT_STD on a
+    seeded clip, block by block in the forward's order: phase 5's rule
+    (calibrate_attention) for the non-local blocks, whose logits on random
+    weights are not of a trained model's order either (std 3-1.5e4 in
+    I3D-NLN's blocks, up to 1e16 in SlowFast-NLN's dot_product blocks,
+    which take the same scale)."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.ops.pool import max_pool3d
+
+    fwd = make_forward(cfg, model)
+    req = clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32)
+    stds = []
+    for _, blk in nonlocal_blocks(model):
+        seen = {}
+        hook = blk.register_forward_hook(
+            lambda m, inp, out: seen.update(x=inp[0]))
+        fwd(req)
+        hook.remove()
+        with torch.inference_mode():
+            x = seen["x"]
+            # float64: uncalibrated dot-product logits overflow float32
+            q = blk.conv_theta(x).flatten(2).double()  # (1, D, N)
+            if blk.pool_size is not None:
+                x = max_pool3d(x, blk.pool_size, blk.pool_size)
+            k = blk.conv_phi(x).flatten(2).double()
+            std = (torch.einsum("bdn,bdm->bnm", q[:, :, ::16], k)
+                   * blk.dim_inner ** -0.5).std().item()
+            f = (ATTN_LOGIT_STD / std) ** 0.5
+            for conv in (blk.conv_theta, blk.conv_phi):
+                conv.weight.mul_(f)
+                conv.bias.mul_(f)
+        stds.append(std)
+    log("nonlocal", "scaled logit std before calibration, "
+        + ", ".join(f"{n} {x:.4g}" for (n, _), x in
+                    zip(nonlocal_blocks(model), stds))
+        + f" -> {ATTN_LOGIT_STD}")
+
+
+def calibrate_head(cfg, model, seed):
+    """Scale the classifier (weight and bias) so that its logits have
+    HEAD_LOGIT_STD on a seeded clip (eval mode)."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    seen = {}
+    proj = model.head.projection
+    hook = proj.register_forward_hook(lambda m, inp, out: seen.update(y=out))
+    make_forward(cfg, model)(
+        clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32))
+    hook.remove()
+    std = seen["y"].float().std().item()
+    with torch.no_grad():
+        proj.weight.mul_(HEAD_LOGIT_STD / std)
+        proj.bias.mul_(HEAD_LOGIT_STD / std)
+    log("nonlocal", f"classifier logit std before calibration {std:.4g} -> "
+        f"{HEAD_LOGIT_STD}")
+
+
+# One I3D-NLN train step on one clip with every non-local γ 1 (phase 11) is
+# chaotic on random weights: a relative 1e-6 perturbation of the plain
+# path's attention output moves its whole step by 30-220% (float32, on
+# an H100 over 1 and 8 clips; the phase prints it again), so no two
+# float32 runs of it agree and phase 7's whole-step gate cannot hold for
+# any implementation. Phase 11 holds what is well conditioned: the step's
+# loss with the kernels against the plain step's (float32 1e-4, bf16 2e-2
+# of it, the serving tolerances), and every attention call of the kernel
+# step, forward output and gradients, against the plain versions on that
+# call's own inputs (ATTN_*_TOL, ATTN_BWD_*_TOL); the whole steps'
+# distances are printed beside the perturbation's.
+NLN_LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def hold_one_clip_attention(phase, cfg_of, state_dict, expect_calls, smi):
+    """One train step of one clip from ``state_dict`` in float32 and in
+    bfloat16 with the kernels and with the plain attention (``cfg_of(dtype
+    name, flash)``): the losses within NLN_LOSS_TOL, and each of the
+    ``expect_calls`` kernel calls of the kernel step within the attention
+    tolerances of the plain versions on its own inputs."""
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    for dtype, f_tol, b_tol in (
+            (torch.float32, ATTN_F32_TOL, ATTN_BWD_F32_TOL),
+            (torch.bfloat16, ATTN_BF16_TOL, ATTN_BWD_BF16_TOL)):
+        name = str(dtype)[6:]
+        batch = train_batches(cfg_of(name, True), 1, 1, SEED + 11, dtype)[0]
+        calls, kernel_bwd = [], fa.flash_attention_backward
+
+        def recorded(q, k, v, out, lse, dout):
+            grads = kernel_bwd(q, k, v, out, lse, dout)
+            calls.append((q, k, v, out, lse, dout, grads))
+            return grads
+
+        recorded.launches = 0  # the wrapper counts on the module's name
+        fa.flash_attention_backward = recorded
+        try:
+            kernel, loss_k = one_step(cfg_of(name, True), state_dict, batch,
+                                      SEED, with_loss=True)
+        finally:
+            fa.flash_attention_backward = kernel_bwd
+        plain, loss_p = one_step(cfg_of(name, False), state_dict, batch,
+                                 SEED, with_loss=True)
+        worst_f = worst_b = 0.0
+        for q, k, v, out, lse, dout, grads in calls:
+            ref = fa.chunked_attention(q, k, v)
+            worst_f = max(worst_f, (out.float() - ref.float()).abs().max()
+                          .item() / max(1.0, ref.float().abs().max().item()))
+            for g, r in zip(grads, fa.attention_backward(q, k, v, out, lse,
+                                                         dout)):
+                worst_b = max(worst_b, (g.float() - r.float()).abs().max()
+                              .item() / max(1.0, r.float().abs().max().item()))
+        count = len(calls)
+        del calls
+        # the plain step again, its attention output perturbed by 1e-6
+        chunked = fa.chunked_attention_lse
+        fa.chunked_attention_lse = lambda *a: (
+            lambda o, l: (o * (1 + 1e-6 * torch.randn_like(o)), l))(
+                *chunked(*a))
+        try:
+            perturbed = one_step(cfg_of(name, False), state_dict, batch, SEED)
+        finally:
+            fa.chunked_attention_lse = chunked
+        params = [k for k in state_dict
+                  if not k.endswith(("running_mean", "running_var",
+                                     "num_batches_tracked"))]
+        dist = lambda a, b: sum((a[k].double() - b[k].double()).norm()
+                                .item() ** 2 for k in params) ** 0.5
+        step = dist(plain, state_dict)
+        loss_err = abs(loss_k - loss_p) / max(1.0, abs(loss_p))
+        log(phase, f"{name}, 1 clip, one step: loss kernels {loss_k:.6f} vs "
+            f"plain {loss_p:.6f} (rel {loss_err:.3e}, tol "
+            f"{NLN_LOSS_TOL[dtype]}); the kernel step's {count} attention "
+            f"calls against the plain versions "
+            f"on their inputs: forward {worst_f:.3e} (tol {f_tol}), "
+            f"backward {worst_b:.3e} (tol {b_tol}) of the scale; whole "
+            f"steps, distance over the plain step: kernels vs plain "
+            f"{dist(kernel, plain) / step:.3e}, plain vs plain with its "
+            f"attention output perturbed by 1e-6 "
+            f"{dist(perturbed, plain) / step:.3e} | {smi}")
+        if (loss_err > NLN_LOSS_TOL[dtype] or worst_f > f_tol
+                or worst_b > b_tol or count != expect_calls):
+            raise AssertionError(
+                f"{phase} {name}: loss {loss_err}, attention forward "
+                f"{worst_f}, backward {worst_b}, {count} calls (expected "
+                f"{expect_calls})")
+        del kernel, plain, perturbed
+        torch.cuda.empty_cache()
+
+
+def phase_nonlocal_kernels(smi):
+    """3b and 3c at I3D-NLN's shapes: K2 at the 224² training shapes (8
+    clips) and the 256² test shapes (64 clips), K2-bwd at the training
+    batch, with the ragged wide shapes beside them. Returns (worst bf16
+    error forward, backward, the largest bf16 batch held forward)."""
+    from efficient_slowfast_tpu_torch.models import build_model
+
+    cfg = nonlocal_cfg()
+    model = build_model(cfg, device="cuda")
+    train = nonlocal_rows(cfg, model, cfg.DATA.CROP_SIZE, TRAIN_CLIPS)
+    test = nonlocal_rows(cfg, model, cfg.DATA.TEST_CROP_SIZE, TEST_CLIPS)
+    del model
+    _, fwd_err, held = phase_attention(train + test, smi,
+                                       off_path=NLN_OFF_PATH,
+                                       path_batch=TRAIN_CLIPS)
+    _, bwd_err, _ = phase_attention_backward(
+        [r[:6] for r in train + test], smi, off_path=NLN_OFF_PATH)
+    return fwd_err, bwd_err, held
+
+
+def phase_nonlocal(smi):
+    """Phase 11: I3D-NLN-R50 served, tested (30 views) and trained on the
+    card through the port's entry points, K2 in the forward and K2-bwd in
+    the backward at D = C = 256; SlowFast-NLN (dot_product) served beside
+    it. Returns the launch counts of its main-path runs, summed."""
+    from efficient_slowfast_tpu_torch.engine.inference import supports
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+
+    none = {"fused_bottleneck": 0, "flash_attention": 0,
+            "flash_attention_backward": 0}
+    totals = dict(none)
+
+    def add(counts):
+        for key, value in counts.items():
+            totals[key] += value
+
+    # serving: three 4-clip requests at the 30-view shape, against the
+    # same model under TPU.FLASH_ATTENTION False; then f32 on one clip
+    cfg = nonlocal_cfg()
+    model = serving_model(cfg, SEED + 20)
+    calibrate_nonlocal(cfg, model, SEED + 21)
+    calibrate_head(cfg, model, SEED + 21)
+    rows = nonlocal_rows(cfg, model, cfg.DATA.TEST_CROP_SIZE,
+                         CLIPS_PER_REQUEST)
+    per_request = sum(r[5] for r in rows)
+    log("nonlocal", f"{NLN_YAML}: non-local blocks {len(nonlocal_blocks(model))}"
+        f", final BN γ 1 (the seeded weights' BN scale); K2 launches a "
+        f"forward {per_request} at " + ", ".join(
+            f"{r[0]} N {r[1]} M {r[2]} D {r[3]} x{r[5]}" for r in rows))
+    cfg_plain = nonlocal_cfg(flash=False)
+    counts, request_s = serve_and_compare(
+        "nonlocal", cfg, make_forward(cfg, model),
+        make_forward(cfg_plain, model_with(cfg_plain, model.state_dict())),
+        ("flash kernel", "plain attention"),
+        {**none, "flash_attention": per_request * REQUESTS},
+        CMDA_BF16_ATOL, SEED + 22, smi)
+    add(counts)
+    log("nonlocal", f"bf16 serving: {request_s * 1e3:.2f} ms a "
+        f"{CLIPS_PER_REQUEST}-clip request, "
+        f"{CLIPS_PER_REQUEST / request_s:.2f} clips/s | {smi}")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    cfg32, cfg32_plain = nonlocal_cfg("float32"), nonlocal_cfg("float32",
+                                                               flash=False)
+    compare_one_clip("nonlocal", cfg32,
+                     make_forward(cfg32, model_with(cfg32, state)),
+                     make_forward(cfg32_plain, model_with(cfg32_plain, state)),
+                     ("flash kernel", "plain attention"), CMDA_F32_ATOL,
+                     SEED + 23, smi)
+    del state
+    torch.cuda.empty_cache()
+
+    # the 30-view test, against test() without the kernels
+    counts, means, cfg, model = phase_thirty_view(
+        NLN_YAML, False, {**none, "flash_attention": per_request}, smi)
+    add(counts)
+    phase_thirty_view_reference(cfg, model, means,
+                                ["TPU.FLASH_ATTENTION", False],
+                                "flash attention", smi)
+    del model
+    torch.cuda.empty_cache()
+
+    # training as the yaml trains (each non-local γ at its zero init: K2
+    # and K2-bwd run, and the gradients reach γ alone), then one clip's
+    # step in f32 and bf16 from the same weights with γ 1 against the
+    # plain attention. With γ 1 the steps at lr 0.1 diverge: on an H100
+    # every timed loss was NaN after the two warm-up steps.
+    cfg = nonlocal_cfg(train=True)
+    model = train_model(cfg, SEED + 24)
+    calibrate_nonlocal(cfg, model, SEED + 25)
+    rows = nonlocal_rows(cfg, model, cfg.DATA.CROP_SIZE, TRAIN_CLIPS)
+    per_step = sum(r[5] for r in rows)
+    # γ 1 in the one-clip steps' weights: at its zero init a block adds
+    # exactly nothing, and any affinity would pass a comparison
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    for name, _ in nonlocal_blocks(model):
+        state[name + ".bn.weight"].fill_(1.0)
+    _, _, counts, _ = train_steps(
+        "nonlocal", cfg, model,
+        {**none, "flash_attention": per_step * TRAIN_STEPS,
+         "flash_attention_backward":
+             per_step * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS}, smi)
+    add(counts)
+    del model
+    torch.cuda.empty_cache()
+    hold_one_clip_attention(
+        "nonlocal", lambda name, flash: nonlocal_cfg(name, flash, True),
+        state, per_step, smi)
+    del state
+    torch.cuda.empty_cache()
+
+    # SlowFast-NLN: two pathways, dot_product blocks (no K2), which the
+    # fused engine refuses as JAX's supports() does (no K1)
+    cfg = yaml_cfg(SLOWFAST_NLN_YAML, ["TPU.FUSED_EVAL", True])
+    if supports(cfg):
+        raise AssertionError("the fused engine takes SlowFast-NLN")
+    model = serving_model(cfg, SEED + 26)
+    # θ(φᵀg)/M grows as the cube of its input on random weights (non-
+    # finite scores in bf16 uncalibrated): the same calibration of θ and φ
+    calibrate_nonlocal(cfg, model, SEED + 27)
+    fwd = make_forward(cfg, model)
+    requests = [clips(cfg, CLIPS_PER_REQUEST,
+                      torch.Generator().manual_seed(SEED + 28 + i),
+                      torch.bfloat16) for i in range(REQUESTS)]
+    serve(fwd, requests[:1])
+    reset_counts()
+    outs, dt = serve(fwd, requests)
+    counts = read_counts()
+    for i, out in enumerate(outs):
+        check_scores(out, CLIPS_PER_REQUEST, cfg.MODEL.NUM_CLASSES,
+                     f"SlowFast-NLN request {i}")
+    log("nonlocal", f"{SLOWFAST_NLN_YAML} (dot_product, {cfg.DATA.NUM_FRAMES}"
+        f" frames, {cfg.DATA.TEST_CROP_SIZE}², TPU.FUSED_EVAL True, refused"
+        f"): {REQUESTS} requests x {CLIPS_PER_REQUEST} clips, kernel "
+        f"launches {counts}, rows sum to 1 | "
+        f"{REQUESTS * CLIPS_PER_REQUEST / dt:.2f} clips/s, "
+        f"{dt / REQUESTS * 1e3:.2f} ms a request | {smi}")
+    if counts != none:
+        raise AssertionError(f"SlowFast-NLN launched {counts}")
+    del model, outs
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # the profiler: the device's busy share of a window
 def trace_window(name, fn):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
@@ -2480,16 +2954,23 @@ def main():
     recipe_counts = phase_recipe(held_fwd, held_bwd, smi)
     torch.cuda.empty_cache()
     recipe_split_bn_cost(smi)
+    nln_fwd_err, nln_bwd_err, _ = phase_nonlocal_kernels(smi)
+    torch.cuda.empty_cache()
+    nln_counts = phase_nonlocal(smi)
+    torch.cuda.empty_cache()
 
     # launches on the main paths: serving (phases 4, 5), CMDA training
-    # (phase 7), the 30-view tests (phase 8), the epochs (phase 9) and the
-    # recipe (phase 10)
-    k1_launches += sf_counts["fused_bottleneck"]
+    # (phase 7), the 30-view tests (phase 8), the epochs (phase 9), the
+    # recipe (phase 10) and the non-local networks (phase 11)
+    k1_launches += sf_counts["fused_bottleneck"] + nln_counts[
+        "fused_bottleneck"]
     k2_launches += sum(c["flash_attention"]
                        for c in (train_counts, cmda_counts, epoch_counts,
-                                 recipe_counts))
+                                 recipe_counts, nln_counts))
     bwd_launches = sum(c["flash_attention_backward"]
-                       for c in (train_counts, epoch_counts, recipe_counts))
+                       for c in (train_counts, epoch_counts, recipe_counts,
+                                 nln_counts))
+    k2_err, bwd_err = max(k2_err, nln_fwd_err), max(bwd_err, nln_bwd_err)
 
     kernels = [
         kernel_entry(

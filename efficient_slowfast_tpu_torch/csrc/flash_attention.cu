@@ -11,8 +11,8 @@
 // running sum, f32 accumulator), dividing by max(row_sum, 1e-30) and
 // writing v's dtype, as the TPU kernel does. Unlike the TPU kernel it masks
 // a key count that is not a multiple of the tile (keys >= M get logit -inf)
-// and skips query rows >= N, and it takes any M. D and C range over 1..128,
-// B up to 65535. Given a non-null lse buffer, a launch also writes each
+// and skips query rows >= N, and it takes any M. D and C range over 1..512
+// (above 128 the wide kernels at the end of this file), B up to 65535. Given a non-null lse buffer, a launch also writes each
 // row's float32 log-sum-exp, row max + log(row sum), from which the
 // backward (flash_attention_bwd.cu) recomputes the probabilities; the
 // serving path passes null, and the output is the same either way.
@@ -352,16 +352,18 @@ __device__ __forceinline__ void tile_logits(float (&s)[kTcNT][4],
 // The online softmax of one tile's logits s (rows g and g + 8 of the
 // warp's 16, as h = 0, 1), then O += P v. vt: the lane's ldmatrix row in
 // the v tile.
-template <int CP>
-__device__ __forceinline__ void tile_softmax_pv(float (&s)[kTcNT][4],
+// BK: keys of the tile (kTcBK, or the wide kernel's kWideBK).
+template <int CP, int BK = kTcBK>
+__device__ __forceinline__ void tile_softmax_pv(float (&s)[BK / 8][4],
                                                 float (&o)[CP / 8][4],
                                                 float (&row_max)[2],
                                                 float (&row_sum)[2],
                                                 const bf16* vt) {
+  constexpr int kNT = BK / 8;
   constexpr int kLdV = CP + kTcPad;
   float mx[2] = {row_max[0], row_max[1]};
 #pragma unroll
-  for (int nt = 0; nt < kTcNT; ++nt) {
+  for (int nt = 0; nt < kNT; ++nt) {
     mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
   }
@@ -381,9 +383,9 @@ __device__ __forceinline__ void tile_softmax_pv(float (&s)[kTcNT][4],
       o[j][2 * h + 1] *= corr;
     }
   }
-  uint32_t pf[kTcNT][2];  // P in bf16: rows g, g + 8 of each 8-key tile
+  uint32_t pf[kNT][2];  // P in bf16: rows g, g + 8 of each 8-key tile
 #pragma unroll
-  for (int nt = 0; nt < kTcNT; ++nt) {
+  for (int nt = 0; nt < kNT; ++nt) {
     const float p0 = tc::ex2(fmaf(s[nt][0], kLog2e, -ml[0]));
     const float p1 = tc::ex2(fmaf(s[nt][1], kLog2e, -ml[0]));
     const float p2 = tc::ex2(fmaf(s[nt][2], kLog2e, -ml[1]));
@@ -396,7 +398,7 @@ __device__ __forceinline__ void tile_softmax_pv(float (&s)[kTcNT][4],
   // two 8-key tiles of P are one 16-key A fragment; per 16 keys and 16 of
   // C, one ldmatrix.trans gives two B fragments
 #pragma unroll
-  for (int kk = 0; kk < kTcBK / 16; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
     const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
                            pf[2 * kk + 1][1]};
 #pragma unroll
@@ -587,11 +589,371 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* out,
   return dispatch_tc_c<128>(q, k, v, out, lse, b, n, m, d, c, s);
 }
 
+// ---------------------------------------------------------------------------
+// D or C above 128, up to 512: the wide kernels (non-local blocks: D = C =
+// 256 in s3, 512 in s4). A grid dimension runs over 128-column slices of C:
+// the blocks of slice z compute out[:, 128 z .. 128 z + 127] and each
+// recomputes the logits over the whole of D, and their exponentials, so a
+// call does ceil(C / 128) times the q k^T work of one pass (2x at C = 256,
+// 4x at 512) and the bound counts it once. Still one launch per call. The
+// slices' row maxima and sums are the same arithmetic in the same order,
+// so they normalise alike; slice 0 writes the log-sum-exp.
+
+constexpr int kWideCols = 128;  // columns of C a block owns
+
+// float32 (the tolerance checks): 256 threads, 64 query rows, four threads
+// a row, tiles of 32 keys. A thread reads its q row from global memory
+// (through L1) and computes the logits of 8 of the tile's keys over D
+// against k rows in shared memory (d + 1 floats a row: the four threads'
+// keys fall in four banks), then the online softmax of the narrow kernel
+// and its share of the 128 columns of P v.
+constexpr int kWideF32BK = 32;
+constexpr int kWideF32LdV = kWideCols + 4;
+
+__host__ __device__ inline size_t wide_f32_smem_floats(int d) {
+  return (size_t)kWideF32BK * (d + 1) + (size_t)kWideF32BK * kWideF32LdV +
+         (size_t)kBQ * (kWideF32BK + 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_attention_wide_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ out, float* __restrict__ lse,
+                            int n, int m, int d, int c) {
+  constexpr int kBK = kWideF32BK, kKeys = kBK / 4;
+  constexpr int kLdP = kBK + 1;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [kBK][d + 1]
+  float* vs = ks + kBK * (d + 1);               // [kBK][kWideF32LdV]
+  float* ps = vs + kBK * kWideF32LdV;           // [kBQ][kLdP]
+  const int tid = threadIdx.x, sr = tid >> 2, sp = tid & 3;
+  const int row = blockIdx.x * kBQ + sr;
+  const size_t bi = blockIdx.y;
+  const int col0 = blockIdx.z * kWideCols;
+  const float* qr = q + (bi * n + (row < n ? row : n - 1)) * d;
+  const float* kb = k + bi * m * d;
+  const float* vb = v + bi * m * c + col0;
+  float* prow = ps + sr * kLdP;
+  float row_max = -INFINITY, row_sum = 0.f;  // log2 units
+  float acc[kWideCols / 4];
+#pragma unroll
+  for (int j = 0; j < kWideCols / 4; ++j) acc[j] = 0.f;
+
+  for (int k0 = 0; k0 < m; k0 += kBK) {
+    __syncthreads();  // the last tile's k, v and P are no longer read
+    for (int i = tid; i < kBK * d; i += kThreads) {
+      const int r = i / d, j = i - r * d;
+      ks[r * (d + 1) + j] = k0 + r < m ? kb[(size_t)(k0 + r) * d + j] : 0.f;
+    }
+    for (int i = tid; i < kBK * kWideCols; i += kThreads) {
+      const int r = i / kWideCols, j = i % kWideCols;
+      vs[r * kWideF32LdV + j] = k0 + r < m && col0 + j < c
+                                    ? vb[(size_t)(k0 + r) * c + j]
+                                    : 0.f;
+    }
+    __syncthreads();
+
+    // logits of row sr at keys sp + 4 t, in log2 units
+    float p[kKeys];
+#pragma unroll
+    for (int t = 0; t < kKeys; ++t) p[t] = 0.f;
+    for (int e = 0; e < d; ++e) {
+      const float qe = qr[e];
+#pragma unroll
+      for (int t = 0; t < kKeys; ++t)
+        p[t] = fmaf(qe, ks[(sp + 4 * t) * (d + 1) + e], p[t]);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kKeys; ++t) {
+      p[t] = k0 + sp + 4 * t < m ? p[t] * kLog2e : -INFINITY;
+      mx = fmaxf(mx, p[t]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float new_max = fmaxf(row_max, mx);  // finite: a tile has a key < m
+    const float corr = exp2f(row_max - new_max);
+    float sum = 0.f;
+#pragma unroll
+    for (int t = 0; t < kKeys; ++t) {
+      p[t] = exp2f(p[t] - new_max);
+      sum += p[t];
+      prow[sp + 4 * t] = p[t];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    row_sum = row_sum * corr + sum;
+    row_max = new_max;
+#pragma unroll
+    for (int j = 0; j < kWideCols / 4; ++j) acc[j] *= corr;
+    __syncwarp();  // the four threads of row sr share a warp
+    // acc += P v over the slice: columns sp * 4 + 16 u + e of this thread
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float pk = prow[kk];
+      const float* vr = vs + kk * kWideF32LdV + sp * 4;
+#pragma unroll
+      for (int u = 0; u < kWideCols / 16; ++u) {
+        const float4 w = *reinterpret_cast<const float4*>(vr + 16 * u);
+        acc[4 * u] = fmaf(pk, w.x, acc[4 * u]);
+        acc[4 * u + 1] = fmaf(pk, w.y, acc[4 * u + 1]);
+        acc[4 * u + 2] = fmaf(pk, w.z, acc[4 * u + 2]);
+        acc[4 * u + 3] = fmaf(pk, w.w, acc[4 * u + 3]);
+      }
+    }
+  }
+
+  if (row >= n) return;
+  const float denom = fmaxf(row_sum, 1e-30f);
+  if (lse != nullptr && blockIdx.z == 0 && sp == 0)  // log2 units
+    lse[bi * n + row] = row_max * kLn2 + logf(row_sum);
+  float* orow = out + (bi * n + row) * c + col0;
+#pragma unroll
+  for (int u = 0; u < kWideCols / 16; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = sp * 4 + 16 * u + e;
+      if (col0 + j < c) orow[j] = acc[4 * u + e] / denom;
+    }
+}
+
+int launch_wide_f32(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int b, int n, int m, int d, int c,
+                    cudaStream_t stream) {
+  const size_t smem = wide_f32_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kBQ - 1) / kBQ, b, (c + kWideCols - 1) / kWideCols);
+  flash_attention_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, n, m, d,
+      c);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16: the narrow tensor-core kernel with two changes that its
+// registers and shared memory force. q stays in shared memory and each
+// warp reads its A fragments by ldmatrix at every tile (held in registers
+// they would be DP / 4 a thread: 64 at D = 256, 128 at 512, beside the
+// 16 x 128 float32 accumulator of the slice, 64). Tiles are 32 keys (a
+// ring of three 64-key k tiles is 192 KB at D = 512 before q). 4 warps,
+// 64 query rows a block; DP is D padded to 128, 256 or 512.
+constexpr int kWideBK = 32;
+constexpr int kWideRows = 64;
+constexpr int kWideThreads = 2 * kWideRows;
+
+// q (kWideRows x DP), kTcStages k tiles (kWideBK x DP) and kTcStages v
+// slices (kWideBK x kWideCols), rows padded by kTcPad.
+__host__ __device__ inline size_t wide_tc_smem_bytes(int dp) {
+  return sizeof(bf16) *
+         ((size_t)(kWideRows + kTcStages * kWideBK) * (dp + kTcPad) +
+          (size_t)kTcStages * kWideBK * (kWideCols + kTcPad));
+}
+
+// Rows r0 .. r0 + kRowsT - 1 and columns col0 .. col0 + kWideCols - 1 of a
+// (count x c) bf16 matrix into shared rows of kWideCols + kTcPad, zero past
+// c and past count. vec: c is a multiple of 8 and src 16-byte aligned (16-
+// byte cp.async chunks, as tc::load_rows); else element by element.
+template <int kRowsT>
+__device__ __forceinline__ void load_slice(bf16* dst, const bf16* src,
+                                           int r0, int count, int c,
+                                           int col0, bool vec) {
+  constexpr int kLd = kWideCols + kTcPad;
+  const bf16* base = src + (size_t)r0 * c + col0;
+  const int left = count - r0, w = c - col0;
+  if (vec) {
+    constexpr int kChunks = kWideCols / 8, kTotal = kRowsT * kChunks;
+    static_assert(kTotal % kWideThreads == 0, "whole chunks a thread");
+#pragma unroll
+    for (int u = 0; u < kTotal / kWideThreads; ++u) {
+      const int i = threadIdx.x + u * kWideThreads;
+      const int r = i / kChunks, j = i % kChunks * 8;
+      const bool in = r < left && j < w;
+      tc::cp_async_16(dst + r * kLd + j, in ? base + (size_t)r * c + j : src,
+                      in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRowsT * kWideCols; i += kWideThreads) {
+      const int r = i / kWideCols, j = i % kWideCols;
+      dst[r * kLd + j] = r < left && j < w ? base[(size_t)r * c + j]
+                                           : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// S = q k^T for one tile of kWideBK keys, 16 rows per warp, with q's A
+// fragments read from shared memory (qw: the lane's ldmatrix row of q).
+template <int DP>
+__device__ __forceinline__ void wide_tile_logits(float (&s)[kWideBK / 8][4],
+                                                 const bf16* qw,
+                                                 const bf16* kt) {
+  constexpr int kLdK = DP + kTcPad;
+#pragma unroll
+  for (int nt = 0; nt < kWideBK / 8; ++nt)
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll 8
+  for (int kc = 0; kc < DP / 16; ++kc) {
+    uint32_t a[4];
+    tc::ldmatrix_x4(a, qw + 16 * kc);
+#pragma unroll
+    for (int np = 0; np < kWideBK / 16; ++np) {
+      uint32_t b[4];
+      tc::ldmatrix_x4(b, kt + 16 * np * kLdK + 16 * kc);
+      tc::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
+      tc::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWideThreads)
+flash_attention_tc_wide_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               bf16* __restrict__ out,
+                               float* __restrict__ lse, int n, int m, int d,
+                               int c, bool qk_vec, bool v_vec) {
+  constexpr int kLdK = DP + kTcPad, kLdV = kWideCols + kTcPad;
+  constexpr int kKTile = kWideBK * kLdK, kVTile = kWideBK * kLdV;
+  constexpr int kNT = kWideBK / 8;
+  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [kWideRows][kLdK]
+  bf16* ks = qs + kWideRows * kLdK;           // [kTcStages][kWideBK][kLdK]
+  bf16* vs = ks + kTcStages * kKTile;         // [kTcStages][kWideBK][kLdV]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int k_lane = (lr + 8 * l16) * kLdK + 8 * l8;  // k: keys x D
+  const int v_lane = (lr + 8 * l8) * kLdV + 8 * l16;  // v: keys x C, .trans
+  const bf16* qw = qs + (16 * warp + lr + 8 * l8) * kLdK + 8 * l16;
+  const int q0 = blockIdx.x * kWideRows, col0 = blockIdx.z * kWideCols;
+  const size_t bi = blockIdx.y;
+  const bf16* qb = q + bi * n * d;
+  const bf16* kb = k + bi * m * d;
+  const bf16* vb = v + bi * m * c;
+  const int tiles = (m + kWideBK - 1) / kWideBK, full = m / kWideBK;
+  auto load_tile = [&](int it) {  // k and v's slice of tile it
+    const int buf = it % kTcStages;
+    tc::load_rows<DP, kWideBK, kWideThreads>(ks + buf * kKTile, kb,
+                                             it * kWideBK, m, d, qk_vec);
+    load_slice<kWideBK>(vs + buf * kVTile, vb, it * kWideBK, m, c, col0,
+                        v_vec);
+    tc::cp_async_commit();
+  };
+
+  tc::load_rows<DP, kWideRows, kWideThreads>(qs, qb, q0, n, d, qk_vec);
+  load_tile(0);
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  if (tiles > 1) load_tile(1);
+
+  float o[kWideCols / 8][4];
+#pragma unroll
+  for (int j = 0; j < kWideCols / 8; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+
+  // as the narrow kernel's step: tile it's softmax and P v beside tile
+  // it + 1's logits, the three-buffer ring refilled two tiles ahead
+  auto step = [&](float (&s)[kNT][4], float (&s_next)[kNT][4], int it,
+                  auto ragged) {
+    if (it + 1 < tiles) {
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      if (it + 2 < tiles) load_tile(it + 2);
+    }
+    if constexpr (decltype(ragged)::value) {
+      const int k0 = it * kWideBK;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int key = k0 + 8 * nt + 2 * t;
+        if (key >= m) s[nt][0] = s[nt][2] = -INFINITY;
+        if (key + 1 >= m) s[nt][1] = s[nt][3] = -INFINITY;
+      }
+    }
+    wide_tile_logits<DP>(s_next, qw,
+                         ks + (it + 1) % kTcStages * kKTile + k_lane);
+    tile_softmax_pv<kWideCols, kWideBK>(
+        s, o, row_max, row_sum, vs + it % kTcStages * kVTile + v_lane);
+  };
+  const std::false_type whole{};
+  const std::true_type ragged{};
+  float sa[kNT][4], sb[kNT][4];
+  wide_tile_logits<DP>(sa, qw, ks + k_lane);
+  int it = 0;
+  for (; it + 1 < full; it += 2) {
+    step(sa, sb, it, whole);
+    step(sb, sa, it + 1, whole);
+  }
+  if (it < full) {
+    step(sa, sb, it++, whole);
+    if (it < tiles) step(sb, sa, it, ragged);
+  } else if (it < tiles) {
+    step(sa, sb, it, ragged);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+    const float denom = fmaxf(row_sum[h], 1e-30f);
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row < n) {
+      if (lse != nullptr && blockIdx.z == 0 && t == 0)
+        lse[bi * n + row] = row_max[h] + logf(row_sum[h]);
+      bf16* orow = out + (bi * n + row) * c + col0;
+#pragma unroll
+      for (int j = 0; j < kWideCols / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col0 + col < c)
+          orow[col] = __float2bfloat16_rn(o[j][2 * h] / denom);
+        if (col0 + col + 1 < c)
+          orow[col + 1] = __float2bfloat16_rn(o[j][2 * h + 1] / denom);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_tc_wide(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int b, int n, int m, int d, int c,
+                   cudaStream_t stream) {
+  auto kernel = flash_attention_tc_wide_kernel<DP>;
+  const size_t smem = wide_tc_smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool qk_vec = d % 8 == 0 && aligned16(q) && aligned16(k);
+  const bool v_vec = c % 8 == 0 && aligned16(v);
+  const dim3 grid((n + kWideRows - 1) / kWideRows, b,
+                  (c + kWideCols - 1) / kWideCols);
+  kernel<<<grid, kWideThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, n, m, d,
+      c, qk_vec, v_vec);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_tc_wide(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int b, int n, int m, int d, int c,
+                     cudaStream_t s) {
+  if (d <= 128)
+    return launch_tc_wide<128>(q, k, v, out, lse, b, n, m, d, c, s);
+  if (d <= 256)
+    return launch_tc_wide<256>(q, k, v, out, lse, b, n, m, d, c, s);
+  return launch_tc_wide<512>(q, k, v, out, lse, b, n, m, d, c, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel);
+// D or C above 128 (at most 512) take the wide kernels.
 // q (b, n, d), k (b, m, d), v (b, m, c) and out (b, n, c) are contiguous.
 // lse: null, or a float32 (b, n) buffer that receives each row's
 // log-sum-exp of its logits, max + log(sum of exp(logit - max)), for the
@@ -599,10 +961,16 @@ extern "C" {
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, float* lse, int b, int n,
                            int m, int d, int c, void* stream) {
-  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 128 ||
-      c <= 0 || c > 128)
+  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 512 ||
+      c <= 0 || c > 512)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 128 || c > 128) {
+    if (dtype == 0) return launch_wide_f32(q, k, v, out, lse, b, n, m, d, c, s);
+    if (dtype == 1)
+      return dispatch_tc_wide(q, k, v, out, lse, b, n, m, d, c, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, lse, b, n, m, d, c, s);
   if (dtype == 1) return dispatch_tc(q, k, v, out, lse, b, n, m, d, c, s);

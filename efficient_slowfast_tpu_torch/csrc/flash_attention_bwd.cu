@@ -673,6 +673,415 @@ int dispatch_f32(const void* a1, const void* a2, const void* b1,
 #undef ESF_LAUNCH
 }
 
+// ---------------------------------------------------------------------------
+// D or C above 128, up to 512 (non-local blocks: 256 in s3, 512 in s4):
+// the wide kernels. The one-pass kernel keeps dK and dV (Bc x WP float32
+// each) in a consumer warpgroup's registers, 256 a thread at WP = 256, and
+// k, v, q and dO (64 rows each) would not fit shared memory at 512. So the
+// wide path splits the work as the float32 path does, into a key-rows
+// launch (dK, dV) and a query-rows launch (dQ), each block owning 64 rows
+// and one 128-column slice of the outputs (a grid dimension over
+// ceil(max(D, C) / 128) slices) and recomputing the logits and dP over
+// the whole of D and C for its slice: S and dP are computed once per
+// slice in each launch, so at D = C = W (S = W / 128 slices) a call does
+// (8 S + 6) N M W operations where the bound counts the five products
+// once, 10 N M W: 2.2x at W = 256, 3.8x at 512. No atomics: dQ, dK and dV
+// are all deterministic here.
+// Three launches per call, as the narrow widths: the statistics, key rows,
+// query rows.
+
+constexpr int kWideCols = 128;  // output columns a block owns
+
+// bf16 (a): stats[r] = (lse log2 e, Dl) for each query row of (B N).
+__global__ void attention_bwd_stats_kernel(const bf16* __restrict__ out,
+                                           const bf16* __restrict__ dout,
+                                           const float* __restrict__ lse,
+                                           float2* __restrict__ stats,
+                                           long long rows, int c) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const bf16* o = out + r * c;
+  const bf16* g = dout + r * c;
+  float s = 0.f;
+  for (int j = 0; j < c; ++j)
+    s = fmaf(__bfloat162float(o[j]), __bfloat162float(g[j]), s);
+  stats[r] = make_float2(lse[r] * kLog2e, s);
+}
+
+// bf16 (b), (c): the rows kernel on the tensor cores (mma.sync m16n8k16,
+// the forward's fragment plumbing), 4 warps of 16 rows. KEY_ROWS: the rows
+// are keys, a1 = k and a2 = v stay in shared memory, and the columns
+// streamed past them in tiles of kBN are queries, b1 = q and b2 = dO, with
+// their statistics; out_d = dK and out_c = dV. Else the rows are queries
+// (a1 = q, a2 = dO, their statistics in registers), the columns keys (b1 =
+// k, b2 = v) and out_d = dQ. Per tile a warp computes X = a1 b1^T and
+// Y = a2 b2^T (16 x kBN, over all of D and C), P = ex2(X log2 e - lse
+// log2 e) and dS = P (Y - Dl), rounds both to bf16 A fragments in
+// registers, and adds dS b1[:, slice] (and P b2[:, slice]) into its 16 x
+// 128 float32 accumulators (64 registers each). A two-stage cp.async ring
+// of b1 and b2 tiles; rows padded by 16 bytes (ldmatrix without bank
+// conflicts). kBN is 32 at WP = 256 and 16 at 512, where a1 and a2 (64 x
+// 512 each) take 130 KB.
+constexpr int kRowsR = 64;
+constexpr int kRowsThreads = 128;
+constexpr int kRowsStages = 2;
+constexpr int kRowsPad = tc::kSmemPad;
+
+__host__ __device__ constexpr int rows_tile(int wp) { return wp <= 256 ? 32 : 16; }
+
+// Shared memory: a1, a2 ([kRowsR][WP + pad] each), kRowsStages stages of
+// b1, b2 ([kBN][WP + pad] each), then kRowsStages x kBN float2 statistics.
+__host__ __device__ inline int rows_smem_bytes(int wp) {
+  const int bn = rows_tile(wp), ld = wp + kRowsPad;
+  return 2 * (2 * kRowsR * ld + kRowsStages * 2 * bn * ld) +
+         8 * kRowsStages * bn;
+}
+
+template <int WP, bool KEY_ROWS>
+__global__ void __launch_bounds__(kRowsThreads)
+attention_bwd_rows_kernel(const bf16* __restrict__ a1,
+                          const bf16* __restrict__ a2,
+                          const bf16* __restrict__ b1,
+                          const bf16* __restrict__ b2,
+                          const float2* __restrict__ stats,
+                          bf16* __restrict__ out_d, bf16* __restrict__ out_c,
+                          int rows, int cols, int d, int c) {
+  constexpr int kBN = rows_tile(WP), kNT = kBN / 8;
+  constexpr int kLd = WP + kRowsPad, kBTile = kBN * kLd;
+  constexpr int kOut = KEY_ROWS ? kWideCols / 8 : 1;
+  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
+  bf16* a1s = reinterpret_cast<bf16*>(smem4);  // [kRowsR][kLd]
+  bf16* a2s = a1s + kRowsR * kLd;              // [kRowsR][kLd]
+  bf16* bs = a2s + kRowsR * kLd;               // [stages][b1, b2][kBN][kLd]
+  float2* st_s = reinterpret_cast<float2*>(bs + kRowsStages * 2 * kBTile);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int a_lane = (16 * warp + lr + 8 * l8) * kLd + 8 * l16;  // A
+  const int b_lane = (lr + 8 * l16) * kLd + 8 * l8;   // B of X = a b^T
+  const int bt_lane = (lr + 8 * l8) * kLd + 8 * l16;  // B of P b, .trans
+  const int r0 = blockIdx.x * kRowsR, col0 = blockIdx.z * kWideCols;
+  const size_t bi = blockIdx.y;
+  const size_t queries = KEY_ROWS ? cols : rows;
+  a1 += bi * rows * d;
+  a2 += bi * rows * c;
+  b1 += bi * cols * d;
+  b2 += bi * cols * c;
+  stats += bi * queries;
+  const int tiles = (cols + kBN - 1) / kBN;
+  const int kd = (d + 15) / 16, kc_end = (c + 15) / 16;  // k16 steps
+
+  auto load_tile = [&](int it) {  // b1, b2 (and statistics) of tile it
+    const int buf = it % kRowsStages;
+    bf16* bt = bs + buf * 2 * kBTile;
+    tc::load_rows<WP, kBN, kRowsThreads>(bt, b1, it * kBN, cols, d, true);
+    tc::load_rows<WP, kBN, kRowsThreads>(bt + kBTile, b2, it * kBN, cols, c,
+                                         true);
+    if (KEY_ROWS && threadIdx.x < kBN) {
+      const int j = it * kBN + threadIdx.x;
+      st_s[buf * kBN + threadIdx.x] =
+          j < cols ? stats[j] : make_float2(0.f, 0.f);
+    }
+    tc::cp_async_commit();
+  };
+  tc::load_rows<WP, kRowsR, kRowsThreads>(a1s, a1, r0, rows, d, true);
+  tc::load_rows<WP, kRowsR, kRowsThreads>(a2s, a2, r0, rows, c, true);
+  load_tile(0);  // one group with a1 and a2
+
+  float2 st_r[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+  if (!KEY_ROWS) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 16 * warp + g + 8 * h;
+      if (row < rows) st_r[h] = stats[row];
+    }
+  }
+  float acc_d[kWideCols / 8][4], acc_c[kOut][4];
+#pragma unroll
+  for (int j = 0; j < kWideCols / 8; ++j)
+    acc_d[j][0] = acc_d[j][1] = acc_d[j][2] = acc_d[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kOut; ++j)
+    acc_c[j][0] = acc_c[j][1] = acc_c[j][2] = acc_c[j][3] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      load_tile(it + 1);
+      tc::cp_async_wait<1>();  // tile it (and a1, a2) landed
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = it % kRowsStages;
+    const bf16* b1t = bs + buf * 2 * kBTile;
+    const bf16* b2t = b1t + kBTile;
+    const float2* stt = st_s + buf * kBN;
+
+    float x[kNT][4], y[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[nt][e] = y[nt][e] = 0.f;
+#pragma unroll 4
+    for (int kc = 0; kc < kd; ++kc) {
+      uint32_t a[4];
+      tc::ldmatrix_x4(a, a1s + a_lane + 16 * kc);
+#pragma unroll
+      for (int np = 0; np < kBN / 16; ++np) {
+        uint32_t bb[4];
+        tc::ldmatrix_x4(bb, b1t + b_lane + 16 * np * kLd + 16 * kc);
+        tc::mma_bf16_16816(x[2 * np], a, bb[0], bb[1]);
+        tc::mma_bf16_16816(x[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+#pragma unroll 4
+    for (int kc = 0; kc < kc_end; ++kc) {
+      uint32_t a[4];
+      tc::ldmatrix_x4(a, a2s + a_lane + 16 * kc);
+#pragma unroll
+      for (int np = 0; np < kBN / 16; ++np) {
+        uint32_t bb[4];
+        tc::ldmatrix_x4(bb, b2t + b_lane + 16 * np * kLd + 16 * kc);
+        tc::mma_bf16_16816(y[2 * np], a, bb[0], bb[1]);
+        tc::mma_bf16_16816(y[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+
+    // P and dS in place (rows g, g + 8; columns 8 nt + 2 t, + 1); columns
+    // past the end get P = 0
+    const int c0 = it * kBN;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * nt + 2 * t + (e & 1);
+        const float2 st = KEY_ROWS ? stt[col] : st_r[e >> 1];
+        float p = tc::ex2(fmaf(x[nt][e], kLog2e, -st.x));
+        if (c0 + col >= cols) p = 0.f;
+        x[nt][e] = p;
+        y[nt][e] = p * (y[nt][e] - st.y);
+      }
+    // out_d += dS b1[:, slice] (and out_c += P b2[:, slice]): two 8-column
+    // tiles of P or dS are one k16 A fragment
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint32_t da[4] = {tc::pack_bf16x2(y[2 * kk][0], y[2 * kk][1]),
+                              tc::pack_bf16x2(y[2 * kk][2], y[2 * kk][3]),
+                              tc::pack_bf16x2(y[2 * kk + 1][0], y[2 * kk + 1][1]),
+                              tc::pack_bf16x2(y[2 * kk + 1][2], y[2 * kk + 1][3])};
+      const uint32_t pa[4] = {tc::pack_bf16x2(x[2 * kk][0], x[2 * kk][1]),
+                              tc::pack_bf16x2(x[2 * kk][2], x[2 * kk][3]),
+                              tc::pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                              tc::pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < kWideCols / 16; ++np) {
+        uint32_t bb[4];
+        tc::ldmatrix_x4_trans(bb, b1t + bt_lane + 16 * kk * kLd + col0 +
+                                      16 * np);
+        tc::mma_bf16_16816(acc_d[2 * np], da, bb[0], bb[1]);
+        tc::mma_bf16_16816(acc_d[2 * np + 1], da, bb[2], bb[3]);
+        if constexpr (KEY_ROWS) {
+          tc::ldmatrix_x4_trans(bb, b2t + bt_lane + 16 * kk * kLd + col0 +
+                                        16 * np);
+          tc::mma_bf16_16816(acc_c[2 * np], pa, bb[0], bb[1]);
+          tc::mma_bf16_16816(acc_c[2 * np + 1], pa, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage buf is read: tile it + 2 goes into it
+  }
+
+  // rows g, g + 8 of the warp; columns col0 + 8 j + 2 t, + 1 (d and c are
+  // multiples of 8, so a pair is whole)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * warp + g + 8 * h;
+    if (row >= rows) continue;
+    __nv_bfloat162* od = reinterpret_cast<__nv_bfloat162*>(
+        out_d + ((size_t)bi * rows + row) * d);
+    __nv_bfloat162* oc = reinterpret_cast<__nv_bfloat162*>(
+        (KEY_ROWS ? out_c : out_d) + ((size_t)bi * rows + row) * c);
+#pragma unroll
+    for (int j = 0; j < kWideCols / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      if (col < d)
+        od[col / 2] = __floats2bfloat162_rn(acc_d[j][2 * h],
+                                            acc_d[j][2 * h + 1]);
+      if constexpr (KEY_ROWS)
+        if (col < c)
+          oc[col / 2] = __floats2bfloat162_rn(acc_c[j][2 * h],
+                                              acc_c[j][2 * h + 1]);
+    }
+  }
+}
+
+inline int wide_slices(int d, int c) {
+  return ((d > c ? d : c) + kWideCols - 1) / kWideCols;
+}
+
+template <int WP, bool KEY_ROWS>
+int launch_rows(const void* a1, const void* a2, const void* b1,
+                const void* b2, const float2* stats, void* out_d, void* out_c,
+                int b, int rows, int cols, int d, int c, cudaStream_t s) {
+  auto kernel = attention_bwd_rows_kernel<WP, KEY_ROWS>;
+  const int smem = rows_smem_bytes(WP);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((rows + kRowsR - 1) / kRowsR, b, wide_slices(d, c));
+  kernel<<<grid, kRowsThreads, smem, s>>>(
+      static_cast<const bf16*>(a1), static_cast<const bf16*>(a2),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(b2), stats,
+      static_cast<bf16*>(out_d), static_cast<bf16*>(out_c), rows, cols, d,
+      c);
+  return (int)cudaGetLastError();
+}
+
+template <int WP>
+int launch_wide_bf16(const void* q, const void* k, const void* v,
+                     const void* dout, const float2* stats, void* dq,
+                     void* dk, void* dv, int b, int n, int m, int d, int c,
+                     cudaStream_t s) {
+  const int err = launch_rows<WP, true>(k, v, q, dout, stats, dk, dv, b, m,
+                                        n, d, c, s);
+  if (err != 0) return err;
+  return launch_rows<WP, false>(q, dout, k, v, stats, dq, nullptr, b, n, m,
+                                d, c, s);
+}
+
+// float32 (b), (c): the scalar kernel's rows and tiles of 32 columns with
+// an output slice of 128 columns per block (32 accumulators a thread for
+// each output), the b1 and b2 tiles in shared memory at the sliced width
+// wp (a multiple of 128, zero past D and C; rows of wp + 1 floats), and a
+// thread's own row of a1 and a2 read from global memory (through L1).
+__host__ __device__ inline size_t f32_wide_smem_floats(int wp) {
+  return (size_t)2 * kF32Cols * (wp + 1) + (size_t)2 * kF32Rows * kF32LdP +
+         2 * kF32Cols;
+}
+
+template <bool KEY_ROWS>
+__global__ void __launch_bounds__(kF32Threads)
+attention_bwd_scalar_wide_kernel(const float* __restrict__ a1,
+                                 const float* __restrict__ a2,
+                                 const float* __restrict__ b1,
+                                 const float* __restrict__ b2,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 float* __restrict__ out_d,
+                                 float* __restrict__ out_c, int rows,
+                                 int cols, int d, int c, int wp) {
+  constexpr int kU = kF32Cols / 4, kV = kWideCols / 4;
+  const int ld = wp + 1;
+  extern __shared__ float4 smem4[];
+  float* b1s = reinterpret_cast<float*>(smem4);  // [kF32Cols][ld]
+  float* b2s = b1s + kF32Cols * ld;              // [kF32Cols][ld]
+  float* ps = b2s + kF32Cols * ld;               // [kF32Rows][kF32LdP]
+  float* dss = ps + kF32Rows * kF32LdP;          // [kF32Rows][kF32LdP]
+  float* lse_s = dss + kF32Rows * kF32LdP;       // [kF32Cols], log2 units
+  float* dl_s = lse_s + kF32Cols;                // [kF32Cols]
+
+  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+  const int row = blockIdx.x * kF32Rows + r, col0 = blockIdx.z * kWideCols;
+  const size_t bi = blockIdx.y;
+  const size_t queries = KEY_ROWS ? cols : rows;
+  const bool live = row < rows;
+  const float* a1r = a1 + (bi * rows + (live ? row : 0)) * d;
+  const float* a2r = a2 + (bi * rows + (live ? row : 0)) * c;
+  b1 += bi * cols * d;
+  b2 += bi * cols * c;
+  lse += bi * queries;
+  delta += bi * queries;
+  const float lse_r = !KEY_ROWS && live ? lse[row] * kLog2e : 0.f;
+  const float dl_r = !KEY_ROWS && live ? delta[row] : 0.f;
+  float acc_d[kV], acc_c[KEY_ROWS ? kV : 1];
+#pragma unroll
+  for (int v = 0; v < kV; ++v) {
+    acc_d[v] = 0.f;
+    if constexpr (KEY_ROWS) acc_c[v] = 0.f;
+  }
+
+  for (int c0 = 0; c0 < cols; c0 += kF32Cols) {
+    __syncthreads();  // the last tile is no longer read
+    load_f32(b1s, b1, c0, kF32Cols, cols, d, wp, ld);
+    load_f32(b2s, b2, c0, kF32Cols, cols, c, wp, ld);
+    if (KEY_ROWS && tid < kF32Cols) {
+      lse_s[tid] = c0 + tid < cols ? lse[c0 + tid] * kLog2e : INFINITY;
+      dl_s[tid] = c0 + tid < cols ? delta[c0 + tid] : 0.f;
+    }
+    __syncthreads();
+    // X and Y of row r at columns part + 4 u, over all of D and C
+    float x[kU], y[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) x[u] = y[u] = 0.f;
+    if (live) {
+      for (int e = 0; e < d; ++e) {
+        const float av = a1r[e];
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          x[u] = fmaf(av, b1s[(part + 4 * u) * ld + e], x[u]);
+      }
+      for (int e = 0; e < c; ++e) {
+        const float av = a2r[e];
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          y[u] = fmaf(av, b2s[(part + 4 * u) * ld + e], y[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int j = part + 4 * u;
+      const float l2 = KEY_ROWS ? lse_s[j] : lse_r;
+      const float dl = KEY_ROWS ? dl_s[j] : dl_r;
+      const float p = c0 + j < cols ? exp2f(fmaf(x[u], kLog2e, -l2)) : 0.f;
+      ps[r * kF32LdP + j] = p;
+      dss[r * kF32LdP + j] = p * (y[u] - dl);
+    }
+    __syncwarp();  // the four threads of row r share a warp
+    for (int j = 0; j < kF32Cols; ++j) {
+      const float ds = dss[r * kF32LdP + j];
+      const float* b1r = b1s + j * ld + col0 + part;
+#pragma unroll
+      for (int v = 0; v < kV; ++v) acc_d[v] = fmaf(ds, b1r[4 * v], acc_d[v]);
+      if constexpr (KEY_ROWS) {
+        const float p = ps[r * kF32LdP + j];
+        const float* b2r = b2s + j * ld + col0 + part;
+#pragma unroll
+        for (int v = 0; v < kV; ++v) acc_c[v] = fmaf(p, b2r[4 * v], acc_c[v]);
+      }
+    }
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int v = 0; v < kV; ++v) {
+    const int e = col0 + part + 4 * v;
+    if (e < d) out_d[(bi * rows + row) * d + e] = acc_d[v];
+    if constexpr (KEY_ROWS)
+      if (e < c) out_c[(bi * rows + row) * c + e] = acc_c[v];
+  }
+}
+
+template <bool KEY_ROWS>
+int launch_f32_wide(const void* a1, const void* a2, const void* b1,
+                    const void* b2, const float* lse, const float* delta,
+                    void* out_d, void* out_c, int b, int rows, int cols,
+                    int d, int c, cudaStream_t s) {
+  auto kernel = attention_bwd_scalar_wide_kernel<KEY_ROWS>;
+  const int slices = wide_slices(d, c), wp = slices * kWideCols;
+  const size_t smem = f32_wide_smem_floats(wp) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((rows + kF32Rows - 1) / kF32Rows, b, slices);
+  kernel<<<grid, kF32Threads, smem, s>>>(
+      static_cast<const float*>(a1), static_cast<const float*>(a2),
+      static_cast<const float*>(b1), static_cast<const float*>(b2), lse,
+      delta, static_cast<float*>(out_d), static_cast<float*>(out_c), rows,
+      cols, d, c, wp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -683,14 +1092,28 @@ extern "C" {
 long long flash_attention_backward_workspace(int dtype, int b, int n, int d,
                                              int c) {
   if (dtype == 0) return 4LL * b * n;
+  if (d > 128 || c > 128) return 8LL * b * n;  // the wide path's statistics
   const long long npad = (long long)(n + kBr - 1) / kBr * kBr;
   return 8LL * b * npad + 4LL * b * npad * padded_width(d > c ? d : c);
 }
 
-// The bf16 one-pass kernel's split for this problem: split[0..6] = {keys a
-// block (Bc), queries a tile, stages, blocks, shared memory bytes, padded
-// width WP, blocks resident on an SM}.
+// The bf16 kernels' split for this problem: split[0..7] = {keys a block
+// (Bc), queries a tile, stages, blocks, shared memory bytes, padded width
+// WP, blocks resident on an SM, output column slices}. Above 128 (the wide
+// path) it is the key-rows launch's: 64 keys a block, kBN queries a tile,
+// and a block per 128-column slice; the query-rows launch has the same
+// tile, shared memory and slices with the roles swapped.
 void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
+  split[7] = 1;
+  if (d > 128 || c > 128) {
+    const int wp = (d > c ? d : c) <= 256 ? 256 : 512;
+    const int slices = wide_slices(d, c), smem = rows_smem_bytes(wp);
+    const int v[8] = {kRowsR, rows_tile(wp), kRowsStages,
+                      (m + kRowsR - 1) / kRowsR * b * slices, smem, wp,
+                      kSmemSm / (smem + 1024), slices};
+    for (int i = 0; i < 8; ++i) split[i] = v[i];
+    return;
+  }
   switch (padded_width(d > c ? d : c)) {
     case 16: plan_of<16>(b, m, split); break;
     case 32: plan_of<32>(b, m, split); break;
@@ -700,7 +1123,7 @@ void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
 }
 
 // dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (the one-pass wgmma
-// kernel). q (b, n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c),
+// kernel; D or C above 128, at most 512, the wide kernels). q (b, n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c),
 // and dq, dk, dv (the shapes of q, k, v) are contiguous in dtype; lse (b, n)
 // holds the forward's float32 log-sum-exp; workspace holds
 // flash_attention_backward_workspace bytes. In bfloat16, d and c must be
@@ -713,10 +1136,11 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
                                     void* dq, void* dk, void* dv,
                                     void* workspace, int b, int n, int m,
                                     int d, int c, void* stream) {
-  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 128 ||
-      c <= 0 || c > 128 || (dtype != 0 && dtype != 1))
+  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 512 ||
+      c <= 0 || c > 512 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = d > 128 || c > 128;
   if (dtype == 0) {
     float* delta = static_cast<float*>(workspace);
     const long long rows = (long long)b * n;
@@ -725,6 +1149,13 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
         delta, rows, c);
     int err = (int)cudaGetLastError();
     if (err != 0) return err;
+    if (wide) {
+      err = launch_f32_wide<true>(k, v, q, dout, lse, delta, dk, dv, b, m,
+                                  n, d, c, s);
+      if (err != 0) return err;
+      return launch_f32_wide<false>(q, dout, k, v, lse, delta, dq, nullptr,
+                                    b, n, m, d, c, s);
+    }
     // key rows (dK, dV), then query rows (dQ)
     err = dispatch_f32<true>(k, v, q, dout, lse, delta, dk, dv, b, m, n, d,
                              c, s);
@@ -735,6 +1166,20 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
   if (d % 8 || c % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
       !aligned16(out) || !aligned16(dout) || !aligned16(dq))
     return (int)cudaErrorInvalidValue;
+  if (wide) {
+    float2* stats = static_cast<float2*>(workspace);
+    const long long rows = (long long)b * n;
+    attention_bwd_stats_kernel<<<(int)((rows + 255) / 256), 256, 0, s>>>(
+        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
+        stats, rows, c);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    if ((d > c ? d : c) <= 256)
+      return launch_wide_bf16<256>(q, k, v, dout, stats, dq, dk, dv, b, n,
+                                   m, d, c, s);
+    return launch_wide_bf16<512>(q, k, v, dout, stats, dq, dk, dv, b, n, m,
+                                 d, c, s);
+  }
   const int wp = padded_width(d > c ? d : c);
   const int npad = (n + kBr - 1) / kBr * kBr;
   float2* stats = static_cast<float2*>(workspace);

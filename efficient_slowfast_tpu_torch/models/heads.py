@@ -1,4 +1,4 @@
-"""Classification head (reference: slowfast/models/head_helper.py:133-265).
+"""Classification heads (reference: slowfast/models/head_helper.py:133-418).
 
 ResNetBasicHead: per-pathway avg-pool → concat channels → dropout → linear;
 in eval mode the activation (softmax/sigmoid, in float32) comes BEFORE the
@@ -61,6 +61,22 @@ class ResNetBasicHead(nn.Module):
                  else torch.sigmoid(x))
             x = x.mean(dim=(1, 2, 3))
         return x.reshape(x.shape[0], -1)
+
+
+class ResNetBasicHeadSlowPath(ResNetBasicHead):
+    """The same head over the slow pathway alone, while the trunk still
+    computes both (``MODEL.SLOW_PATHWAY_HEAD``; reference:
+    head_helper.py:269-418): ``dim_in`` and ``pool_size`` are those of all
+    pathways, of which it keeps the first."""
+
+    def __init__(self, dim_in: Sequence[int], num_classes: int,
+                 pool_size: Optional[Sequence[Optional[Sequence[int]]]],
+                 **kw):
+        super().__init__(dim_in[:1], num_classes,
+                         None if pool_size is None else pool_size[:1], **kw)
+
+    def forward(self, inputs, generator: Optional[torch.Generator] = None):
+        return super().forward(inputs[:1], generator)
 
 
 def dropout(x: torch.Tensor, rate: float,

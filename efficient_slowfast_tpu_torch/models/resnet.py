@@ -1,8 +1,10 @@
-"""3-D ResNet stages for SlowFast trunks (port of ``models/resnet.py:23-210``).
+"""3-D ResNet stages (port of ``models/resnet.py:23-210``).
 
 Reference: slowfast/models/resnet_helper.py (BasicTransform :25-107,
 BottleneckTransform :110-240, ResBlock :243-358, ResStage :361-561). Module
-names are the reference's, so its state_dict loads as it is.
+names are the reference's, so its state_dict loads as it is. A stage puts a
+non-local block (``pathway{p}_nonlocal{i}``, ``models/nonlocal_block.py``)
+after block i of pathway p for each i of ``nonlocal_inds[p]``.
 
 A ResStage built with ``remat`` is rematerialised in training, the
 counterpart of the JAX package's ``nn.remat`` stage (``models/slowfast.py::
@@ -24,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import Conv3d
 from ..ops.norm import BatchNorm3d, SubBatchNorm3d
+from .nonlocal_block import Nonlocal
 
 
 class BasicTransform(nn.Module):
@@ -117,7 +120,10 @@ class ResStage(nn.Module):
 
     Per-block temporal kernel schedule: the first ``num_block_temp_kernel``
     blocks cycle through the pathway's temporal kernels, the rest use 1
-    (reference: resnet_helper.py:443-447).
+    (reference: resnet_helper.py:443-447). A non-local block of pathway p
+    has ``dim_out[p] // 2`` inner channels; with ``nonlocal_group[p]`` g > 1
+    it attends within each of g groups of consecutive frames, folded into
+    the batch (reference :541-558).
     """
 
     def __init__(self, dim_in: Sequence[int], dim_out: Sequence[int],
@@ -127,18 +133,20 @@ class ResStage(nn.Module):
                  num_groups: Sequence[int],
                  num_block_temp_kernel: Sequence[int],
                  nonlocal_inds: Sequence[Sequence[int]],
+                 nonlocal_group: Sequence[int],
+                 nonlocal_pool: Sequence[Sequence[int]],
+                 instantiation: str = "dot_product",
                  trans_func_name: str = "bottleneck_transform",
                  stride_1x1: bool = False, dilation: Sequence[int] = (1, 1),
                  zero_init_final_bn: bool = False,
                  norm: Callable[..., nn.Module] = BatchNorm3d,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 use_flash: bool = True, flash_min_tokens: int = 1024):
         super().__init__()
         self.remat = remat
-        if any(len(inds) for inds in nonlocal_inds):
-            raise NotImplementedError(
-                "non-local blocks are not ported to PyTorch yet "
-                "(ROADMAP: CMDA/non-local with K2)")
         self.num_blocks = list(num_blocks)
+        self.nonlocal_inds = [list(inds) for inds in nonlocal_inds]
+        self.nonlocal_group = list(nonlocal_group)
         for p in range(len(num_blocks)):
             tks = ((list(temp_kernel_sizes[p]) * num_blocks[p])
                    [:num_block_temp_kernel[p]]
@@ -152,6 +160,11 @@ class ResStage(nn.Module):
                     stride_1x1=stride_1x1, dilation=dilation[p],
                     zero_init_final_bn=zero_init_final_bn, norm=norm,
                     dtype=dtype))
+                if i in self.nonlocal_inds[p]:
+                    self.add_module(f"pathway{p}_nonlocal{i}", Nonlocal(
+                        dim_out[p], dim_out[p] // 2, nonlocal_pool[p],
+                        instantiation, norm=norm, use_flash=use_flash,
+                        flash_min_tokens=flash_min_tokens, dtype=dtype))
 
     def forward(self, inputs):
         assert len(inputs) == len(self.num_blocks)
@@ -165,8 +178,24 @@ class ResStage(nn.Module):
         for p, x in enumerate(inputs):
             for i in range(self.num_blocks[p]):
                 x = getattr(self, f"pathway{p}_res{i}")(x)
+                if i in self.nonlocal_inds[p]:
+                    x = self._nonlocal(p, i, x)
             outputs.append(x)
         return outputs
+
+    def _nonlocal(self, p, i, x):
+        nln = getattr(self, f"pathway{p}_nonlocal{i}")
+        g = self.nonlocal_group[p]
+        if g == 1:
+            return nln(x)
+        # g groups of T/g consecutive frames, as the JAX package's reshape
+        # of its (B, T, H, W, C) tensor: in the channels-last view, so that
+        # batch entry b g + j holds frames j T/g .. (j + 1) T/g - 1 of b
+        b, c, t, h, w = x.shape
+        y = x.permute(0, 2, 3, 4, 1).reshape(b * g, t // g, h, w, c)
+        y = nln(y.permute(0, 4, 1, 2, 3))
+        return y.permute(0, 2, 3, 4, 1).reshape(b, t, h, w, c).permute(
+            0, 4, 1, 2, 3)
 
     def _remat_contexts(self):
         """(forward, recompute) contexts of the checkpoint: the recompute

@@ -1,10 +1,13 @@
-"""SlowFast video model (port of ``models/slowfast.py:1-191``).
+"""SlowFast and single-pathway ResNet video models (port of
+``models/slowfast.py``).
 
 Reference: slowfast/models/video_model_builder.py — SlowFast (:153-416),
-_TEMPORAL_KERNEL_BASIS (:20-80), _POOL1 (:82-90), _MODEL_STAGE_DEPTH (:16-17).
+ResNet (:419-611), _TEMPORAL_KERNEL_BASIS (:20-80), _POOL1 (:82-90),
+_MODEL_STAGE_DEPTH (:16-17).
 
-The model takes the JAX package's layout: a list of channels-last pathway
-tensors [slow (B, T/α, H, W, C), fast (B, T, H, W, C)]. Inside, each pathway
+The models take the JAX package's layout: a list of channels-last pathway
+tensors [slow (B, T/α, H, W, C), fast (B, T, H, W, C)], or one tensor
+[(B, T, H, W, C)] for the single-pathway archs. Inside, each pathway
 is the NCDHW view of that same memory (``channels_last_3d``), so no copy is
 made. It returns logits in train mode and averaged post-activation scores in
 eval mode (see heads.ResNetBasicHead); in train mode the head's dropout
@@ -22,7 +25,7 @@ from ..ops.norm import get_norm
 from ..ops.pool import max_pool3d
 from .build import MODEL_REGISTRY, get_compute_dtype
 from .fuse import FuseFastToSlow
-from .heads import ResNetBasicHead
+from .heads import ResNetBasicHead, ResNetBasicHeadSlowPath
 from .resnet import ResStage
 from .stems import VideoModelStem
 
@@ -56,13 +59,10 @@ def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
 
 
 def check_unported(cfg) -> None:
-    """Refuse the SlowFast-trunk options this package does not implement."""
+    """Refuse the trunk options this package does not implement."""
     if cfg.DETECTION.ENABLE:
         raise NotImplementedError(
             "detection is not ported to PyTorch yet (ROADMAP: detection)")
-    if cfg.MODEL.SLOW_PATHWAY_HEAD:
-        raise NotImplementedError(
-            "MODEL.SLOW_PATHWAY_HEAD is not ported to PyTorch yet")
 
 
 def stem(cfg, tk0, norm, dtype) -> VideoModelStem:
@@ -87,42 +87,54 @@ def remat_stage(cfg, idx) -> bool:
 
 
 def res_stage(cfg, idx, dim_in, norm, dtype) -> ResStage:
-    """Stage s{idx + 2} of a two-pathway trunk, taking ``dim_in`` channels
-    per pathway (the lateral fusion before it decides them)."""
+    """Stage s{idx + 2} taking ``dim_in`` channels per pathway (the lateral
+    fusion before it decides them): two pathways, the fast one 1/β as wide,
+    or one where ``dim_in`` has one entry."""
     w = cfg.RESNET.WIDTH_PER_GROUP
     num_groups = cfg.RESNET.NUM_GROUPS
+    paths = len(dim_in)
     beta = cfg.SLOWFAST.BETA_INV
     mult = 2 ** idx  # output 4·w·mult, bottleneck w·mult
     return ResStage(
         dim_in=dim_in,
-        dim_out=[w * 4 * mult, w * 4 * mult // beta],
-        dim_inner=[num_groups * w * mult, num_groups * w * mult // beta],
+        dim_out=[w * 4 * mult, w * 4 * mult // beta][:paths],
+        dim_inner=[num_groups * w * mult,
+                   num_groups * w * mult // beta][:paths],
         temp_kernel_sizes=_TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH][idx + 1],
         stride=cfg.RESNET.SPATIAL_STRIDES[idx],
-        num_blocks=[_MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH][idx]] * 2,
-        num_groups=[num_groups] * 2,
+        num_blocks=[_MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH][idx]] * paths,
+        num_groups=[num_groups] * paths,
         num_block_temp_kernel=cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[idx],
         nonlocal_inds=cfg.NONLOCAL.LOCATION[idx],
+        nonlocal_group=cfg.NONLOCAL.GROUP[idx],
+        nonlocal_pool=cfg.NONLOCAL.POOL[idx],
+        instantiation=cfg.NONLOCAL.INSTANTIATION,
         trans_func_name=cfg.RESNET.TRANS_FUNC,
         stride_1x1=cfg.RESNET.STRIDE_1X1,
         dilation=cfg.RESNET.SPATIAL_DILATIONS[idx],
         zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
-        norm=norm, dtype=dtype, remat=remat_stage(cfg, idx))
+        norm=norm, dtype=dtype, remat=remat_stage(cfg, idx),
+        use_flash=cfg.TPU.FLASH_ATTENTION,
+        flash_min_tokens=cfg.TPU.FLASH_MIN_TOKENS)
 
 
 def basic_head(cfg, pool1, dtype) -> ResNetBasicHead:
-    """The head over s5's two pathways; its window is the training crop's
-    (s5 is 1/32 of it) after the ``pool1`` pools."""
+    """The head over s5's pathways (two, or one where ``pool1`` has one
+    entry); its window is the training crop's (s5 is 1/32 of it) after the
+    ``pool1`` pools. ``MODEL.SLOW_PATHWAY_HEAD`` classifies from the slow
+    pathway alone (``basic_head_cls`` in JAX)."""
     w, beta = cfg.RESNET.WIDTH_PER_GROUP, cfg.SLOWFAST.BETA_INV
     t, a, s = cfg.DATA.NUM_FRAMES, cfg.SLOWFAST.ALPHA, cfg.DATA.CROP_SIZE
-    return ResNetBasicHead(
-        dim_in=[w * 32, w * 32 // beta],
+    dims, frames = ([w * 32], [t]) if len(pool1) == 1 else (
+        [w * 32, w * 32 // beta], [t // a, t])
+    cls = (ResNetBasicHeadSlowPath if cfg.MODEL.SLOW_PATHWAY_HEAD
+           else ResNetBasicHead)
+    return cls(
+        dim_in=dims,
         num_classes=cfg.MODEL.NUM_CLASSES,
         pool_size=None if cfg.MULTIGRID.SHORT_CYCLE else [
-            [t // a // pool1[0][0], s // 32 // pool1[0][1],
-             s // 32 // pool1[0][2]],
-            [t // pool1[1][0], s // 32 // pool1[1][1], s // 32 // pool1[1][2]],
-        ],
+            [f // p[0], s // 32 // p[1], s // 32 // p[2]]
+            for f, p in zip(frames, pool1)],
         dropout_rate=cfg.MODEL.DROPOUT_RATE,
         act_func=cfg.MODEL.HEAD_ACT,
         fc_init_std=cfg.MODEL.FC_INIT_STD,
@@ -176,5 +188,40 @@ class SlowFast(nn.Module):
         x = self.s3_fuse(x)
         x = self.s4(x)
         x = self.s4_fuse(x)
+        x = self.s5(x)
+        return self.head(x, generator)
+
+
+@MODEL_REGISTRY.register()
+class ResNet(nn.Module):
+    """Single-pathway C2D / I3D / Slow / Fast ResNet (``MODEL.ARCH``), with
+    ``_POOL1``'s temporal pool between s2 and s3 and the non-local blocks
+    of ``NONLOCAL.LOCATION``."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        check_unported(cfg)
+        dtype = get_compute_dtype(cfg)
+        norm = get_norm(cfg)
+        self.pool_size = _POOL1[cfg.MODEL.ARCH]
+        w = cfg.RESNET.WIDTH_PER_GROUP
+        tk0 = _TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH][0][0]
+        self.s1 = VideoModelStem(
+            dim_in=cfg.DATA.INPUT_CHANNEL_NUM[:1], dim_out=[w],
+            kernel=[tk0 + [7, 7]], stride=[[1, 2, 2]],
+            padding=[[tk0[0] // 2, 3, 3]], norm=norm, dtype=dtype)
+        self.s2 = res_stage(cfg, 0, [w], norm, dtype)
+        self.s3 = res_stage(cfg, 1, [w * 4], norm, dtype)
+        self.s4 = res_stage(cfg, 2, [w * 8], norm, dtype)
+        self.s5 = res_stage(cfg, 3, [w * 16], norm, dtype)
+        self.head = basic_head(cfg, self.pool_size, dtype)
+
+    def forward(self, x, generator=None):
+        x = self.s1([to_ncdhw(xi) for xi in x])
+        x = self.s2(x)
+        if any(v != 1 for v in self.pool_size[0]):
+            x = [max_pool3d(x[0], self.pool_size[0], self.pool_size[0])]
+        x = self.s3(x)
+        x = self.s4(x)
         x = self.s5(x)
         return self.head(x, generator)

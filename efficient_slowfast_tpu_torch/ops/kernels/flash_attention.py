@@ -25,11 +25,12 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   ``flash_attention_backward`` runs ``csrc/flash_attention_bwd.cu``
   (three launches per call); on CPU tensors ``attention_backward``, the
   same formulas chunked over the keys, so that its memory is O(N · chunk).
-  In bfloat16 the kernel makes one pass over the queries for each block of
-  keys (``wgmma``, TMA loads by a producer warpgroup) and adds each block's
-  part of dQ into a float32 accumulator, so **dQ is not deterministic**:
-  the adds arrive in any order and dQ may differ in its last bits from
-  call to call, while dK and dV are bit-identical. Inputs whose D or C is
+  In bfloat16 with D, C ≤ 128 the kernel makes one pass over the queries
+  for each block of keys (``wgmma``, TMA loads by a producer warpgroup) and
+  adds each block's part of dQ into a float32 accumulator, so **dQ is not
+  deterministic** there: the adds arrive in any order and dQ may differ in
+  its last bits from call to call, while dK and dV are bit-identical.
+  Inputs whose D or C is
   not a multiple of 8, or whose data is not 16-byte aligned, go to the
   kernel as zero-padded copies (``padded_backward``, exact), never to the
   plain version. In float32 the kernels are deterministic (no atomics).
@@ -39,6 +40,14 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   the output the forward returned (bf16 where the inputs are), as FA2 and
   SDPA do; autograd through ``chunked_attention`` takes it from the
   unrounded one.
+- Wide widths. D or C above 128 (non-local blocks: 256 in s3, 512 in s4)
+  run the wide kernels of the same two sources: each block owns a
+  128-column slice of the output and recomputes the logits over all of D,
+  so the forward does ceil(C / 128) times the q kᵀ work in its one launch;
+  the backward's three launches are the statistics, a key-rows kernel (dK,
+  dV) and a query-rows kernel (dQ), with no atomics (all three gradients
+  deterministic). Above 512 the wrappers raise, where the Pallas kernel
+  takes any width.
 
 ``plain_attention`` is the same Function over the plain versions, on any
 device: the explicit opt-out ``TPU.FLASH_ATTENTION False``.
@@ -59,8 +68,8 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
-# widest D and C the kernels take
-MAX_DIM = 128
+# widest D and C the kernels take (above 128 the wide kernels run)
+MAX_DIM = 512
 # kernel launches of one flash_attention_backward call on CUDA
 BACKWARD_LAUNCHES_PER_CALL = 3
 
@@ -253,9 +262,10 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     ``dout``, from its ``out`` and float32 ``lse`` (B, N).
 
     On CUDA tensors it launches the backward kernels (three launches); on
-    CPU tensors it runs ``attention_backward``. In bfloat16 on CUDA, dq is
-    summed over key blocks by float32 atomic adds and may differ in its
-    last bits from call to call; dk and dv are deterministic."""
+    CPU tensors it runs ``attention_backward``. In bfloat16 on CUDA with
+    D, C ≤ 128, dq is summed over key blocks by float32 atomic adds and may
+    differ in its last bits from call to call; dk and dv are
+    deterministic (and above 128 all three)."""
     _check(q, k, v)
     b, n, _ = q.shape
     c = v.shape[2]
@@ -279,13 +289,15 @@ def flash_attention_backward(q, k, v, out, lse, dout):
 
 def backward_split(b, n, m, d, c) -> dict:
     """The bf16 backward kernel's split of one call: keys a block, queries a
-    tile, ring stages, blocks, shared memory bytes, the padded width and the
-    blocks resident on an SM."""
-    split = (ctypes.c_int * 7)()
+    tile, ring stages, blocks, shared memory bytes, the padded width, the
+    blocks resident on an SM and the output column slices (above 128, the
+    wide path's key-rows launch: a block per 64 keys and 128-column
+    slice)."""
+    split = (ctypes.c_int * 8)()
     _bwd_lib().flash_attention_backward_plan(
         b, m, -(-d // 8) * 8, -(-c // 8) * 8, split)
     return dict(zip(("keys", "queries", "stages", "blocks", "smem",
-                     "width", "per_sm"), split))
+                     "width", "per_sm", "slices"), split))
 
 
 flash_attention_backward.launches = 0
@@ -319,7 +331,7 @@ def _records(q, k, v) -> bool:
 
 def flash_attention(q, k, v):
     """softmax(q kᵀ) v. q: (B, N, D), k: (B, M, D), v: (B, M, C), D and C
-    at most 128, float32 or bfloat16. Returns (B, N, C) in v's dtype.
+    at most 512, float32 or bfloat16. Returns (B, N, C) in v's dtype.
 
     On a CUDA tensor it launches the kernel; on a CPU tensor it runs
     ``chunked_attention``. Where autograd records (grad enabled and an

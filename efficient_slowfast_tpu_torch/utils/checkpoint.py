@@ -12,19 +12,26 @@ optimizer's moments keep the dtype they were stored in
 (``TPU.OPTIMIZER_STATE_DTYPE``).
 
 External weights (``TRAIN/TEST.CHECKPOINT_FILE_PATH``): a ``.pyth`` of the
-reference layout, or the JAX package's msgpack ``.jaxckpt``, read without
-flax (``utils/flax_msgpack.py``) and mapped by ``utils/weights.py``. Caffe2
-pickles and 2-D→3-D inflation come with the single-pathway ResNets
-(ROADMAP item 4), the JAX package's orbax directories with the
-distribution slice (item 7).
+reference layout, loaded strict; the JAX package's msgpack ``.jaxckpt``,
+read without flax (``utils/flax_msgpack.py``) and mapped by
+``utils/weights.py``; and, by the JAX package's ``_load_external`` rules
+(``utils/torch_ckpt.py::load_torch_checkpoint``), a Caffe2 model-zoo
+pickle (``CHECKPOINT_TYPE caffe2``, its blob names translated by
+``c2_name_to_torch``) or a ``.pyth`` under ``TRAIN.CHECKPOINT_INFLATE``
+(2-D ImageNet weights inflated to 3-D): every tensor of the model whose
+name the file holds in a shape that fits is loaded, the others keep the
+model's values. The JAX package's orbax directories come with the
+distribution slice (ROADMAP item 7).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import re
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import yaml
 
@@ -186,12 +193,9 @@ def load_train_checkpoint(cfg, state) -> Tuple[object, int]:
         epoch = load_checkpoint(path, state.model, state.optimizer)
         return state, epoch + 1
     if cfg.TRAIN.CHECKPOINT_FILE_PATH:
-        if cfg.TRAIN.CHECKPOINT_INFLATE:
-            raise NotImplementedError(
-                "TRAIN.CHECKPOINT_INFLATE (2-D weights inflated to 3-D) comes "
-                "with the single-pathway ResNets, ROADMAP item 4")
         _load_external(state.model, cfg.TRAIN.CHECKPOINT_FILE_PATH,
-                       cfg.TRAIN.CHECKPOINT_TYPE)
+                       cfg.TRAIN.CHECKPOINT_TYPE,
+                       inflate=cfg.TRAIN.CHECKPOINT_INFLATE)
     return state, 0
 
 
@@ -224,14 +228,14 @@ def _jax_state_dict(payload) -> dict:
          "batch_stats": payload.get("batch_stats", {})})
 
 
-def _load_external(model: torch.nn.Module, path: str, ckpt_type: str) -> None:
+def _load_external(model: torch.nn.Module, path: str, ckpt_type: str,
+                   inflate: bool = False) -> None:
     """Weights from another run into ``model``: a ``.pyth`` (``model_state``
     or ``state_dict``, as the reference and the JAX package read it) or,
-    as type ``jax`` or by its suffix, a ``.jaxckpt``."""
-    if ckpt_type == "caffe2":
-        raise NotImplementedError(
-            f"{path}: Caffe2 checkpoints come with the single-pathway "
-            "ResNets, ROADMAP item 4")
+    as type ``jax`` or by its suffix, a ``.jaxckpt``; as type ``caffe2`` a
+    Caffe2 pickle, and with ``inflate`` a ``.pyth`` whose 2-D weights are
+    inflated, both loaded where names and shapes fit
+    (``load_matching``)."""
     if path.endswith(".orbax") or os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: orbax checkpoint directories come with ROADMAP item 7")
@@ -239,9 +243,96 @@ def _load_external(model: torch.nn.Module, path: str, ckpt_type: str) -> None:
         _load_model(model, _jax_state_dict(load_jax_checkpoint(path)))
         logger.info("Loaded the JAX checkpoint %s", path)
         return
+    if ckpt_type == "caffe2":
+        load_matching(model, load_caffe2_state_dict(path), path)
+        return
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(payload, dict) and "model_state" in payload:
         payload = payload["model_state"]
     elif isinstance(payload, dict) and "state_dict" in payload:
         payload = payload["state_dict"]
+    if inflate:
+        load_matching(model, payload, path, inflate=True)
+        return
     _load_model(model, payload)
+
+
+def load_matching(model: torch.nn.Module, state, path: str = "",
+                  inflate: bool = False) -> None:
+    """Every tensor of ``model``'s state_dict that ``state`` (torch names,
+    a ``module.`` prefix dropped) holds in the same shape, and with
+    ``inflate`` every 5-D conv weight that it holds 2-D (O, I, kH, kW),
+    repeated over the model's kT and divided by kT (reference:
+    checkpoint.py:139-175); the rest keep their values. The JAX package's
+    ``load_torch_checkpoint`` rules."""
+    state = {re.sub(r"^module\.", "", k): v for k, v in state.items()}
+    target = {k: v for k, v in model.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    new = {}
+    for name, ours in target.items():
+        if name not in state:
+            continue
+        theirs = state[name]
+        if torch.is_tensor(theirs):
+            theirs = theirs.detach().cpu()
+        w = np.asarray(theirs, dtype=np.float32)
+        if inflate and w.ndim == 4 and ours.dim() == 5:
+            kt = ours.shape[2]
+            w = np.repeat(w[:, :, None], kt, axis=2) / float(kt)
+        if tuple(w.shape) != tuple(ours.shape):
+            logger.warning("shape mismatch for %s: ours %s theirs %s", name,
+                           tuple(ours.shape), w.shape)
+            continue
+        new[name] = torch.from_numpy(np.ascontiguousarray(w))
+    model.load_state_dict(new, strict=False)
+    logger.info("%s: loaded %d/%d tensors", path, len(new), len(target))
+
+
+def c2_name_to_torch(name: str) -> str:
+    """A Caffe2 model-zoo blob name → the reference's torch name (the
+    regex rules of the reference's utils/c2_model_loading.py:9-112, as the
+    JAX package's ``torch_ckpt.py::c2_name_to_torch`` has them); other
+    names are returned as they are."""
+    bn = {"s": "weight", "b": "bias", "rm": "running_mean",
+          "riv": "running_var"}
+    rules = [
+        (r"^conv1_w$", lambda m: "s1.pathway0_stem.conv.weight"),
+        (r"^res_conv1_bn_(s|b|rm|riv)$",
+         lambda m: f"s1.pathway0_stem.bn.{bn[m.group(1)]}"),
+        (r"^nonlocal_conv([0-9]+)_([0-9]+)_(theta|phi|g|out)_(w|b)$",
+         lambda m: f"s{int(m.group(1))}.pathway0_nonlocal{int(m.group(2))}"
+                   f".conv_{m.group(3)}."
+                   f"{'weight' if m.group(4) == 'w' else 'bias'}"),
+        (r"^nonlocal_conv([0-9]+)_([0-9]+)_bn_(s|b|rm|riv)$",
+         lambda m: f"s{int(m.group(1))}.pathway0_nonlocal{int(m.group(2))}"
+                   f".bn.{bn[m.group(3)]}"),
+        (r"^res([0-9]+)_([0-9]+)_branch([0-9])([a-c])_w$",
+         lambda m: f"s{int(m.group(1))}.pathway0_res{int(m.group(2))}"
+                   f".branch{m.group(3)}.{m.group(4)}.weight"),
+        (r"^res([0-9]+)_([0-9]+)_branch([0-9])([a-c])_bn_(s|b|rm|riv)$",
+         lambda m: f"s{int(m.group(1))}.pathway0_res{int(m.group(2))}"
+                   f".branch{m.group(3)}.{m.group(4)}_bn.{bn[m.group(5)]}"),
+        (r"^res([0-9]+)_([0-9]+)_branch1_w$",
+         lambda m: f"s{int(m.group(1))}.pathway0_res{int(m.group(2))}"
+                   ".branch1.weight"),
+        (r"^res([0-9]+)_([0-9]+)_branch1_bn_(s|b|rm|riv)$",
+         lambda m: f"s{int(m.group(1))}.pathway0_res{int(m.group(2))}"
+                   f".branch1_bn.{bn[m.group(3)]}"),
+        (r"^pred_w$", lambda m: "head.projection.weight"),
+        (r"^pred_b$", lambda m: "head.projection.bias"),
+    ]
+    for pattern, rename in rules:
+        m = re.match(pattern, name)
+        if m:
+            return rename(m)
+    return name
+
+
+def load_caffe2_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A Caffe2 pickle's blobs (``{"blobs": {...}}`` or the blobs alone)
+    under their torch names, momentum blobs and ``__``-names dropped."""
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    blobs = data.get("blobs", data)
+    return {c2_name_to_torch(k): np.asarray(v) for k, v in blobs.items()
+            if "momentum" not in k and not k.startswith("__")}

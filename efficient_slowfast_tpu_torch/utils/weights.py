@@ -25,6 +25,13 @@ projections are renamed:
   s1_fuse/attention_spatial_s2f/gamma      ↔ s1_fuse.attention_spatial_s2f.gamma
   s1_fuse/downsample_c_of_slow/conv/kernel ↔ s1_fuse.downsample_c_of_slow.weight
 
+A non-local block's projections are renamed as the reference names them
+(``torch_ckpt.py:13-24,66-67``):
+
+  s3/pathway0_nonlocal1/theta/conv/{kernel,bias} ↔ s3.pathway0_nonlocal1.conv_theta.{weight,bias}
+  (phi → conv_phi, g → conv_g, out → conv_out)
+  s3/pathway0_nonlocal1/bn/bn/scale       ↔ s3.pathway0_nonlocal1.bn.weight
+
 A split BN (``SubBatchNorm3d``) keeps JAX's four statistics under the
 reference's names, and its splits as one vector (split-major):
 
@@ -47,7 +54,9 @@ _LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
                   "mean": "running_mean", "var": "running_var",
                   "gamma": "gamma"}
 _WRAPPERS = ("conv", "bn", "fc")
-_RENAMES = {"query": "query_conv", "key": "key_conv", "value": "value_conv"}
+_RENAMES = {"query": "query_conv", "key": "key_conv", "value": "value_conv",
+            "theta": "conv_theta", "phi": "conv_phi", "g": "conv_g",
+            "out": "conv_out"}
 _UNRENAMES = {v: k for k, v in _RENAMES.items()}
 # kernel layouts, JAX → torch (the inverse permutation goes back)
 _KERNEL_PERM = {5: (4, 3, 0, 1, 2), 3: (2, 1, 0), 2: (1, 0)}

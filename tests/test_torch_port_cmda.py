@@ -1,5 +1,5 @@
 """The port's CMDA modules (SpatialAttention, ECA, FuseFastAndSlow and the
-whole SlowFastDualAttention) against the JAX modules on the same weights,
+whole SlowFastDualAttention, also with its slow-pathway head) against the JAX modules on the same weights,
 carried across by jax_variables_to_state_dict, and inputs: f32 on the CPU,
 rtol 1e-4 and atol 1e-5, with a non-zero attention γ and jittered BN
 statistics, on both sides of TPU.FLASH_MIN_TOKENS."""
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from efficient_slowfast_tpu.config import get_cfg as jax_get_cfg
+from efficient_slowfast_tpu.models import build_model as jax_build_model
 from efficient_slowfast_tpu.models.fuse import \
     FuseFastAndSlow as JaxFuseFastAndSlow
 from efficient_slowfast_tpu.ops import attention as jattn
@@ -28,7 +29,8 @@ from efficient_slowfast_tpu_torch.utils.weights import \
     jax_variables_to_state_dict
 from torch_port_helpers import (_jitter, _numpy_tree, attention_params,
                                 inputs_np, jax_model_and_variables,
-                                port_model, small_cfg, torch_inputs)
+                                port_model, seeded_variables, small_cfg,
+                                torch_inputs)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 CMDA = "SlowFastDualAttention"
@@ -166,12 +168,31 @@ def test_make_forward_serves_the_cmda_module(cmda_setup):
     assert fused_bottleneck.launches == flash_attention.launches == 0
 
 
-@pytest.mark.parametrize("key", ["DETECTION.ENABLE", "MODEL.SLOW_PATHWAY_HEAD"])
+@pytest.mark.parametrize("key", ["DETECTION.ENABLE"])
 def test_cmda_refuses_what_is_not_ported(key):
     cfg = small_cfg(model=CMDA)
     cfg.merge_from_list([key, "True"])
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
+
+
+def test_cmda_slow_pathway_head_matches_jax():
+    """MODEL.SLOW_PATHWAY_HEAD: CMDA classifies from the slow pathway alone
+    (``efficient_slowfast_tpu/models/cmda.py:110``), as JAX does."""
+    cfg, jcfg = small_cfg(model=CMDA), small_cfg(jax_get_cfg, model=CMDA)
+    cfg.MODEL.SLOW_PATHWAY_HEAD = jcfg.MODEL.SLOW_PATHWAY_HEAD = True
+    variables = seeded_variables(cfg)
+    inputs = inputs_np(cfg)
+    jmodel = jax_build_model(jcfg)
+    ref = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        variables, [jnp.asarray(x) for x in inputs]))
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
+    assert model.head.projection.in_features == 16 * 32  # slow only
+    with torch.no_grad():
+        out = model.eval()(torch_inputs(inputs)).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(out.sum(-1), 1.0, atol=1e-4)
 
 
 def test_cmda_stage_widths_at_r50():

@@ -28,6 +28,9 @@ CASES = {
     "n130_chunk64_padded": (2, 130, 130, 8, 16, 64),
     "ragged_m": (2, 300, 130, 8, 16, 64),
     "d_ne_c": (1, 200, 333, 4, 24, 128),
+    # the non-local blocks' widths: s3's 256, s4's 512
+    "d_c_256": (2, 200, 90, 256, 256, 64),
+    "d_c_512": (1, 130, 70, 512, 512, 64),
 }
 
 
@@ -58,8 +61,11 @@ def test_chunked_matches_jax_chunked_and_dense(case):
                                            jnp.asarray(v), chunk=chunk))
     out = _port(q, k, v, chunk=chunk)
     assert out.shape == (b, n, c) and out.dtype == np.float32
-    np.testing.assert_allclose(out, ref, **TOL)
-    np.testing.assert_allclose(out, _dense(q, k, v), **TOL)
+    # the wide cases at the tests' default 1e-4: f32 sums of 256-512 terms
+    # into logits of std 16-23 (randn q and k)
+    tol = TOL if d <= 128 else dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out, ref, **tol)
+    np.testing.assert_allclose(out, _dense(q, k, v), **tol)
 
 
 @pytest.mark.parametrize("b,n,d,c,block_q,block_k", [
@@ -101,17 +107,17 @@ def test_wrapper_on_cpu_is_the_plain_version():
     assert tfa.flash_attention.launches == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("bad", ["d_over_128", "c_over_128", "int_dtype",
+@pytest.mark.parametrize("bad", ["d_over_512", "c_over_512", "int_dtype",
                                  "mixed_dtype", "batch_mismatch",
                                  "keys_mismatch", "d_mismatch", "rank"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     b, n, m, d, c = 2, 16, 24, 8, 8
     shapes = {"q": (b, n, d), "k": (b, m, d), "v": (b, m, c)}
     dtypes = dict.fromkeys(shapes, torch.float32)
-    if bad == "d_over_128":
-        shapes.update(q=(b, n, 129), k=(b, m, 129))
-    elif bad == "c_over_128":
-        shapes["v"] = (b, m, 129)
+    if bad == "d_over_512":
+        shapes.update(q=(b, n, 513), k=(b, m, 513))
+    elif bad == "c_over_512":
+        shapes["v"] = (b, m, 513)
     elif bad == "int_dtype":
         dtypes = dict.fromkeys(shapes, torch.int32)
     elif bad == "mixed_dtype":
@@ -130,11 +136,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 def _kernel_bf16_model(q, k, v, tile=64):
-    """The arithmetic of ``csrc/flash_attention.cu``'s bfloat16 kernel: f32
-    logits of the bf16 q and k, the softmax online over 64-key tiles in
-    f32, each probability rounded once to bf16 before the f32-accumulated
-    product with the bf16 v, the row sum taken from the unrounded
-    probabilities. Returns the f32 output before its rounding to bf16."""
+    """The arithmetic of ``csrc/flash_attention.cu``'s bfloat16 kernels: f32
+    logits of the bf16 q and k, the softmax online over key tiles (64, or
+    32 in the wide kernel, whose 128-column slices repeat the same
+    softmax) in f32, each probability rounded once to bf16 before the
+    f32-accumulated product with the bf16 v, the row sum taken from the
+    unrounded probabilities. Returns the f32 output before its rounding to
+    bf16."""
     b, n, _ = q.shape
     m, c = v.shape[1], v.shape[2]
     acc = torch.zeros(b, n, c)
@@ -153,17 +161,17 @@ def _kernel_bf16_model(q, k, v, tile=64):
 
 
 @pytest.mark.parametrize("logit_std", [3.0, 11.0])
-@pytest.mark.parametrize("dim", [8, 32, 64, 128])
+@pytest.mark.parametrize("dim", [8, 32, 64, 128, 256, 512])
 def test_bf16_kernel_arithmetic_within_attn_bf16_tol(dim, logit_std):
-    # D = C as at the four CMDA-R50 fusions; N small, M ragged against the
-    # kernel's 64-key tile; q and k scaled so that the logits have the
-    # given standard deviation (3 as chip_smoke calibrates the model, 11 a
-    # peakier softmax)
+    # D = C as at the four CMDA-R50 fusions and the non-local blocks; N
+    # small, M ragged against the kernel's key tile; q and k scaled so that
+    # the logits have the given standard deviation (3 as chip_smoke
+    # calibrates the model, 11 a peakier softmax)
     b, n, m = 2, 70, 200
     q, k, v = _qkv(b, n, m, dim, dim, seed=dim)
     scale = (logit_std / np.sqrt(dim)) ** 0.5
     q, k, v = (torch.from_numpy(a).bfloat16() for a in (q * scale, k * scale, v))
-    model = _kernel_bf16_model(q, k, v)
+    model = _kernel_bf16_model(q, k, v, tile=64 if dim <= 128 else 32)
     exact = tfa.chunked_attention(q.float(), k.float(), v.float())
     # the rounding of P alone moves the output by at most 2^-9 max|v| (the
     # weights are off by at most 2^-9 relative); f32 sums add ~1e-6

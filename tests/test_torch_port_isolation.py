@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package (its forward and a tiny synthetic 30-view test run in a process
-where importing them raises), and it never falls back to the CPU without
+package (its SlowFast forward, a tiny synthetic 30-view test, an I3D with
+non-local blocks and the library attention blocks run in a process where
+importing them raises), and it never falls back to the CPU without
 being asked."""
 
 import ast
@@ -66,6 +67,36 @@ stats = perform_test(cfg, build_model(cfg, device="cpu"), loader, meter,
                      device="cpu")
 assert stats["_type"] == "test_final", stats
 assert abs(meter.video_preds.sum() - 24.0) < 1e-3, meter.video_preds
+# the single-pathway ResNet with non-local blocks (softmax through
+# flash_attention's plain version, dot_product), and the library blocks
+from efficient_slowfast_tpu_torch.ops.attention import (
+    ChannelAttention, ContextBlock3D, NonLocalBlock, StripeNonLocalBlock)
+from efficient_slowfast_tpu_torch.utils.checkpoint import (
+    load_caffe2_state_dict, load_matching)
+for inst in ("softmax", "dot_product"):
+    rcfg = get_cfg()
+    rcfg.MODEL.MODEL_NAME, rcfg.MODEL.ARCH = "ResNet", "i3d"
+    rcfg.MODEL.NUM_CLASSES = 5
+    rcfg.RESNET.WIDTH_PER_GROUP, rcfg.RESNET.DEPTH = 8, 18
+    rcfg.RESNET.TRANS_FUNC = "basic_transform"
+    rcfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[2]] * 4
+    rcfg.RESNET.SPATIAL_STRIDES = [[1], [2], [2], [2]]
+    rcfg.RESNET.SPATIAL_DILATIONS = [[1]] * 4
+    rcfg.NONLOCAL.LOCATION = [[[]], [[1]], [[1]], [[]]]
+    rcfg.NONLOCAL.GROUP = [[1]] * 4
+    rcfg.NONLOCAL.POOL = [[[1, 2, 2]]] * 4
+    rcfg.NONLOCAL.INSTANTIATION = inst
+    rcfg.DATA.INPUT_CHANNEL_NUM = [3]
+    rcfg.DATA.NUM_FRAMES, rcfg.DATA.CROP_SIZE = 4, 32
+    rcfg.TPU.COMPUTE_DTYPE = "float32"
+    rcfg.TPU.FLASH_MIN_TOKENS = 8
+    out = make_forward(rcfg, build_model(rcfg, device="cpu"), device="cpu")(
+        [torch.rand(1, 4, 32, 32, 3, generator=g)])
+    assert out.shape == (1, 5) and abs(float(out.sum()) - 1.0) < 1e-4, out
+y = torch.rand(1, 8, 2, 4, 4)
+for block in (ChannelAttention(8), NonLocalBlock(8), StripeNonLocalBlock(8, 2),
+              ContextBlock3D(8)):
+    assert block.eval()(y).shape == y.shape
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
        and sys.modules[m] is not None]

@@ -27,6 +27,7 @@ from efficient_slowfast_tpu.utils.torch_ckpt import export_torch_state_dict
 from efficient_slowfast_tpu_torch.config import get_cfg
 from efficient_slowfast_tpu_torch.engine.test import perform_test
 from efficient_slowfast_tpu_torch.engine.test import test as run_test
+from efficient_slowfast_tpu_torch.models import build_model
 from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
     flash_attention
 from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
@@ -124,12 +125,11 @@ def test_random_init_is_seeded_and_logged(caplog, tmp_path):
     np.testing.assert_array_equal(run_test(cfg, device="cpu").video_preds, a)
 
 
-@pytest.mark.parametrize("what", ["detection", "int8", "jax", "caffe2",
+@pytest.mark.parametrize("what", ["detection", "int8", "jax",
                                   "output_dir"])
 def test_what_later_items_bring_raises(what, tmp_path):
     cfg = engine_cfg(get_cfg, tmp_path / "model.pyth", tmp_path)
-    item = {"detection": "item 6", "int8": "item 8",
-            "caffe2": "item 4"}.get(what, "item 7")
+    item = {"detection": "item 6", "int8": "item 8"}.get(what, "item 7")
     if what == "detection":
         cfg.DETECTION.ENABLE = True
     elif what == "int8":
@@ -147,6 +147,40 @@ def test_what_later_items_bring_raises(what, tmp_path):
         cfg.TEST.CHECKPOINT_TYPE = what
     with pytest.raises(NotImplementedError, match=item):
         run_test(cfg, device="cpu")
+
+
+def test_caffe2_checkpoint_loads(tmp_path):
+    """TEST.CHECKPOINT_TYPE caffe2: the blobs of a Caffe2 pickle that name
+    tensors of the model (the stem and the head here) replace the seeded
+    init, as a ``.pyth`` of the same weights does."""
+    import pickle
+
+    cfg = engine_cfg(get_cfg, tmp_path / "c2_model.pkl", tmp_path)
+    cfg.RESNET.DEPTH, cfg.RESNET.TRANS_FUNC = 18, "basic_transform"
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[2, 2]] * 4
+    cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS = 1, 1
+    cfg.TEST.BATCH_SIZE = 8
+    torch.manual_seed(cfg.RNG_SEED)  # test()'s init
+    state = build_model(cfg, device="cpu").state_dict()
+    rs = np.random.RandomState(3)
+    blobs = {}
+    for blob, name in (("conv1_w", "s1.pathway0_stem.conv.weight"),
+                       ("pred_w", "head.projection.weight"),
+                       ("pred_b", "head.projection.bias")):
+        blobs[blob] = rs.randn(*state[name].shape).astype(np.float32)
+        state[name] = torch.from_numpy(blobs[blob])
+    with open(tmp_path / "c2_model.pkl", "wb") as f:
+        pickle.dump({"blobs": blobs}, f)
+    cfg.TEST.CHECKPOINT_TYPE = "caffe2"
+    loaded = run_test(cfg, device="cpu").video_preds
+    torch.save({"model_state": state}, tmp_path / "same.pyth")
+    cfg.TEST.CHECKPOINT_FILE_PATH = str(tmp_path / "same.pyth")
+    cfg.TEST.CHECKPOINT_TYPE = "pytorch"
+    np.testing.assert_array_equal(loaded,
+                                  run_test(cfg, device="cpu").video_preds)
+    cfg.TEST.CHECKPOINT_FILE_PATH = ""
+    assert np.abs(run_test(cfg, device="cpu").video_preds - loaded).max() \
+        > 1e-3  # the seeded init alone gives other scores
 
 
 def test_no_device_and_no_gpu_raises(monkeypatch):

@@ -19,26 +19,43 @@ from efficient_slowfast_tpu_torch.utils.weights import \
     jax_variables_to_state_dict
 
 
+# the stage depths of RESNET.DEPTH, as NUM_BLOCK_TEMP_KERNEL lists them
+_DEPTHS = {18: [2, 2, 2, 2], 50: [3, 4, 6, 3], 101: [3, 4, 23, 3]}
+# I3D-NLN-R50's non-local blocks (configs/Kinetics/I3D_NLN_8x8_R50.yaml):
+# after blocks 1, 3 of s3 and 1, 3, 5 of s4
+NLN_R50 = [[], [1, 3], [1, 3, 5], []]
+
+
 def small_cfg(get_cfg=torch_get_cfg, fused=False, depth=50,
               trans="bottleneck_transform", model="SlowFast",
-              flash_min_tokens=1024):
+              flash_min_tokens=1024, arch=None, nonlocal_loc=None,
+              instantiation="softmax", width=16):
     """SlowFast (R50 by default) at width 16, 8 frames, α 4, crop 64, 12
     classes, f32; ``model`` "SlowFastDualAttention" gives CMDA, whose
-    s1/s2 fusions attend over 512 tokens and s3/s4 over 128 and 32."""
+    s1/s2 fusions attend over 512 tokens and s3/s4 over 128 and 32.
+    ``model`` "ResNet" gives the single-pathway ``arch`` (i3d by default;
+    its s3 attends over 256 tokens, s4 over 64). ``nonlocal_loc`` puts
+    non-local blocks after the listed blocks of each stage (in every
+    pathway), with ``instantiation``."""
     cfg = get_cfg()
+    single = model == "ResNet"
+    paths = 1 if single else 2
     cfg.MODEL.MODEL_NAME = model
-    cfg.MODEL.ARCH = "slowfast"
+    cfg.MODEL.ARCH = arch or ("i3d" if single else "slowfast")
     cfg.MODEL.NUM_CLASSES = 12
     cfg.RESNET.DEPTH = depth
     cfg.RESNET.TRANS_FUNC = trans
-    cfg.RESNET.WIDTH_PER_GROUP = 16
-    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = (
-        [[3, 3], [4, 4], [6, 6], [3, 3]] if depth == 50 else [[2, 2]] * 4)
-    cfg.RESNET.SPATIAL_STRIDES = [[1, 1], [2, 2], [2, 2], [2, 2]]
-    cfg.RESNET.SPATIAL_DILATIONS = [[1, 1]] * 4
-    cfg.NONLOCAL.LOCATION = [[[], []]] * 4
-    cfg.NONLOCAL.GROUP = [[1, 1]] * 4
-    cfg.NONLOCAL.POOL = [[[1, 2, 2], [1, 2, 2]]] * 4
+    cfg.RESNET.WIDTH_PER_GROUP = width
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[n] * paths for n in _DEPTHS[depth]]
+    cfg.RESNET.SPATIAL_STRIDES = [[1] * paths] + [[2] * paths] * 3
+    cfg.RESNET.SPATIAL_DILATIONS = [[1] * paths] * 4
+    cfg.NONLOCAL.LOCATION = [[list(loc)] * paths for loc in
+                             (nonlocal_loc or [[]] * 4)]
+    cfg.NONLOCAL.GROUP = [[1] * paths] * 4
+    cfg.NONLOCAL.POOL = [[[1, 2, 2]] * paths] * 4
+    cfg.NONLOCAL.INSTANTIATION = instantiation
+    if single:
+        cfg.DATA.INPUT_CHANNEL_NUM = [3]
     cfg.SLOWFAST.ALPHA = 4
     cfg.SLOWFAST.BETA_INV = 8
     cfg.SLOWFAST.FUSION_KERNEL_SZ = 7
@@ -54,6 +71,8 @@ def small_cfg(get_cfg=torch_get_cfg, fused=False, depth=50,
 def inputs_np(cfg, batch=2, seed=0):
     rs = np.random.RandomState(seed)
     t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.CROP_SIZE
+    if cfg.MODEL.MODEL_NAME == "ResNet":
+        return [rs.rand(batch, t, s, s, 3).astype(np.float32)]
     return [rs.rand(batch, t // cfg.SLOWFAST.ALPHA, s, s, 3).astype(np.float32),
             rs.rand(batch, t, s, s, 3).astype(np.float32)]
 
@@ -97,18 +116,38 @@ def attention_params(tree, rs, inside=False):
     return out
 
 
-def seeded_variables(cfg, seed=0):
+def nonlocal_params(tree, rs, inside=False, gamma=1.0):
+    """Params with every non-local block's final BN γ drawn around
+    ``gamma`` from ``rs``: it starts at 0, where the block adds exactly
+    nothing and a wrong affinity would pass any comparison of the
+    output."""
+    out = {}
+    for k, v in tree.items():
+        here = inside or "_nonlocal" in k
+        if hasattr(v, "items"):
+            out[k] = nonlocal_params(v, rs, here, gamma)
+        elif here and k == "scale":
+            out[k] = (gamma * (1.0 + 0.1 * rs.randn(*v.shape))).astype(
+                v.dtype)
+        else:
+            out[k] = v
+    return out
+
+
+def seeded_variables(cfg, seed=0, nonlocal_gamma=1.0):
     """JAX-layout numpy variables of ``cfg``'s model from the port's seeded
-    init (no JAX compile), BN statistics jittered and attention γ and
-    biases set as in ``jax_model_and_variables``."""
+    init (no JAX compile), BN statistics jittered, attention γ and biases
+    set as in ``jax_model_and_variables`` and non-local γ drawn around
+    ``nonlocal_gamma``."""
     from efficient_slowfast_tpu_torch.utils.weights import \
         state_dict_to_jax_variables
 
     torch.manual_seed(seed)
     variables = state_dict_to_jax_variables(
         torch_build_model(cfg, device="cpu").state_dict())
-    return {"params": attention_params(variables["params"],
-                                       np.random.RandomState(1)),
+    params = attention_params(variables["params"], np.random.RandomState(1))
+    return {"params": nonlocal_params(params, np.random.RandomState(2),
+                                      gamma=nonlocal_gamma),
             "batch_stats": _jitter(variables["batch_stats"], [0])}
 
 
@@ -283,3 +322,4 @@ def calibrate_attention(variables, inputs, std=3.0, **kw):
             conv["kernel"] = (conv["kernel"] * f).astype(np.float32)
             conv["bias"] = (conv["bias"] * f).astype(np.float32)
     return {"params": params, "batch_stats": variables["batch_stats"]}
+
