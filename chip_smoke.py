@@ -4,10 +4,10 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10, 11 (3b takes its shapes from the CMDA model that
+5, 3c, 6, 7, 8, 9, 10, 11, 12 (3b takes its shapes from the CMDA model that
 phase 5 serves and from phase 10's schedule, 3c from the one that phase 7
-trains and phase 10's schedule; phase 11 runs 3b and 3c again at
-I3D-NLN's shapes before its own lines):
+trains and phase 10's schedule; phases 11 and 12 run 3b and 3c again at
+their models' shapes before their own lines):
 
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
@@ -185,15 +185,40 @@ I3D-NLN's shapes before its own lines):
               SLOWFAST_NLN_8x8_R50.yaml (dot_product, two pathways, 32
               frames, 256²; TPU.FUSED_EVAL True, which the fused engine
               refuses): no K1, no K2, finite rows summing to 1.
+12. efficient — the four efficient CMDA families of the zoo,
+              configs/Kinetics/SLOWFAST_{SHUFFLENETV2,SHUFFLENET,
+              MOBILENETV2,GHOSTNET}_16x2_112.yaml (ShuffleNetV2 w2.0,
+              ShuffleNet w2.0 g3, MobileNetV2 w1.0, GhostNet w1.0; full width
+              and depth, 400 classes, 16 frames, 112², bf16, seeded weights,
+              attention and classifier calibrated as phase 11 does). First
+              3b and 3c at their fusion shapes, q and k scaled to logits of
+              std ATTN_LOGIT_STD: K2 at every fusion above
+              TPU.FLASH_MIN_TOKENS (N = M = 3136 at D = C = 3 and 6, 12544
+              at 2), f32 and bf16 at 1 and 64 clips, timed at 64; K2-bwd at
+              the trained families' (ShuffleNetV2, GhostNet), 1 and 64 clips.
+              Then each family: three 4-clip requests through make_forward
+              (1, 1, 1, 2 K2 launches a request, gated) against
+              TPU.FLASH_ATTENTION False (bf16 at 2e-2 of the scores' scale,
+              f32 on one clip at 1e-4), one request traced (device time by
+              launching op: depthwise convolutions, other convolutions, BN,
+              the attention kernels, copies; the host's copy ops against the
+              model's blocks); the 30-view test as phase 8 runs it (GhostNet's
+              scores are the mean of ReLU(logits): finite and non-negative,
+              held against test() without the kernels on the mean scores);
+              and ShuffleNetV2 and GhostNet trained as the yamls train (64
+              clips a step, the yamls' 512 over 8 cards; SGD from lr 0.01,
+              nesterov, wd 1e-4, dropout 0.5): 2 warm-up and 5 timed steps,
+              3 traced, K2 and K2-bwd launches a step gated, then one-clip
+              f32 and bf16 steps held as phase 11 holds them.
 
-The profiler (phases 6, 7, 8, 11) prints, per traced window, the device-busy
+The profiler (phases 6, 7, 8, 11, 12) prints, per traced window, the device-busy
 share (the union of the CUDA kernels' intervals over the window's wall
 time) and the top five kernels by device time; the trace sits in
 build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10 and 11 (its times and bounds are per request of the
+4, 5, 7, 8, 9, 10, 11 and 12 (its times and bounds are per request of the
 SlowFast and CMDA serving paths, as before; its errors the worst on any
 path). The last three lines are the kernels' JSON record, the card's name
 and power limit, and the device JSON line.
@@ -815,7 +840,7 @@ def phase_kernels(cfg, model, smi):
 
 
 # ---------------------------------------------------------------------------
-def jax_layout_weights(model, seed):
+def jax_layout_weights(cfg, model, seed):
     """Seeded weights in the JAX package's variable layout (numpy): MSRA
     fan-out normal convs, normal(0.01) classifier, BN scale 1 and bias 0,
     with running statistics jittered as the repo's engine tests do; for
@@ -825,7 +850,7 @@ def jax_layout_weights(model, seed):
         state_dict_to_jax_variables
 
     rs = np.random.RandomState(seed)
-    shapes = state_dict_to_jax_variables(model.state_dict())
+    shapes = state_dict_to_jax_variables(model.state_dict(), cfg)
     key = [0]
 
     def fill(tree):
@@ -865,8 +890,9 @@ def serving_model(cfg, seed):
         jax_variables_to_state_dict
 
     model = build_model(cfg, device="cuda")
-    variables = jax_layout_weights(model, seed)
-    model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
+    variables = jax_layout_weights(cfg, model, seed)
+    model.load_state_dict(jax_variables_to_state_dict(variables, cfg),
+                          strict=True)
     return model.eval()
 
 
@@ -881,11 +907,24 @@ def clips(cfg, batch, gen, dtype):
             fast]
 
 
-def check_scores(out, batch, classes, what):
+def probabilities(cfg):
+    """Whether the model's eval scores are probabilities: GhostNet's head
+    takes the mean of ReLU(logits) (the reference's act reassigned,
+    head_helper.py:665)."""
+    return cfg.MODEL.MODEL_NAME != "SlowFastGhostNet"
+
+
+def check_scores(out, batch, classes, what, probs=True):
+    """Finite scores of shape (batch, classes); rows summing to 1 where they
+    are probabilities, else non-negative (GhostNet)."""
     if out.shape != (batch, classes):
         raise AssertionError(f"{what}: shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{what}: non-finite scores")
+    if not probs:
+        if out.min().item() < 0:
+            raise AssertionError(f"{what}: negative scores")
+        return
     row_err = (out.sum(-1) - 1).abs().max().item()
     if row_err > 1e-3:
         raise AssertionError(f"{what}: rows sum to 1 ± {row_err}")
@@ -906,8 +945,9 @@ def serve_and_compare(phase, cfg, fwd, ref, names, expect, tol, seed, smi):
     """Answer REQUESTS requests of bf16 clips through ``fwd`` with every
     launch count set to 0 just before and read just after, check the counts
     against ``expect``, and hold the scores against those of ``ref`` (which
-    launches no kernel) on the same requests. ``names`` labels the two
-    paths. Returns the counts of ``fwd``'s run and its seconds per
+    launches no kernel) on the same requests, within ``tol`` of the scores'
+    scale (max(1, max |score|): 1 for probabilities). ``names`` labels the
+    two paths. Returns the counts of ``fwd``'s run and its seconds per
     request."""
     gen = torch.Generator().manual_seed(seed)
     requests = [clips(cfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
@@ -925,12 +965,13 @@ def serve_and_compare(phase, cfg, fwd, ref, names, expect, tol, seed, smi):
     refs, dt_ref = serve(ref, requests)
     if any(read_counts().values()):
         raise AssertionError(f"the {names[1]} launched {read_counts()}")
-    err = 0.0
+    err, scale = 0.0, 1.0
     for i, (o, r) in enumerate(zip(outs, refs)):
         for out, name in ((o, names[0]), (r, names[1])):
             check_scores(out, CLIPS_PER_REQUEST, cfg.MODEL.NUM_CLASSES,
-                         f"{name} request {i}")
+                         f"{name} request {i}", probabilities(cfg))
         err = max(err, (o - r).abs().max().item())
+        scale = max(scale, r.abs().max().item())
     top1 = float(np.mean([(o.argmax(-1) == r.argmax(-1)).float().mean().item()
                           for o, r in zip(outs, refs)]))
     pmax = max(o.max().item() for o in outs)
@@ -939,24 +980,28 @@ def serve_and_compare(phase, cfg, fwd, ref, names, expect, tol, seed, smi):
     log(phase, f"bf16: {REQUESTS} requests x {CLIPS_PER_REQUEST} clips, "
         f"kernel launches {counts} (per request: {per_request})")
     log(phase, f"bf16: {names[0]} vs {names[1]} max |dp| {err:.3e} (tol "
-        f"{tol}), top-1 agreement {top1:.3f}, max p {pmax:.3f}")
+        f"{tol * scale:.3e}: {tol} of the scale {scale:.4g}), top-1 "
+        f"agreement {top1:.3f}, max p {pmax:.3f}")
     log(phase, f"bf16: {names[0]} {n_clips / dt:.2f} clips/s | {names[1]} "
         f"{n_clips / dt_ref:.2f} clips/s | {smi}")
-    if err > tol:
+    if err > tol * scale:
         raise AssertionError(f"{phase} bf16: {names[0]} vs {names[1]} {err}")
     return counts, dt / REQUESTS
 
 
 def compare_one_clip(phase, cfg, fwd, ref, names, tol, seed, smi):
-    """Hold ``fwd`` against ``ref`` on one seeded float32 clip."""
+    """Hold ``fwd`` against ``ref`` on one seeded float32 clip, within
+    ``tol`` of the scores' scale."""
     req = clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32)
     out, expected = fwd(req), ref(req)
     torch.cuda.synchronize()
-    check_scores(out, 1, cfg.MODEL.NUM_CLASSES, f"{names[0]} f32")
+    check_scores(out, 1, cfg.MODEL.NUM_CLASSES, f"{names[0]} f32",
+                 probabilities(cfg))
     err = (out - expected).abs().max().item()
+    scale = max(1.0, expected.abs().max().item())
     log(phase, f"f32, 1 clip: {names[0]} vs {names[1]} max |dp| {err:.3e} "
-        f"(tol {tol}) | {smi}")
-    if err > tol:
+        f"(tol {tol * scale:.3e}: {tol} of the scale {scale:.4g}) | {smi}")
+    if err > tol * scale:
         raise AssertionError(f"{phase} f32: {names[0]} vs {names[1]} {err}")
 
 
@@ -1003,7 +1048,15 @@ def cmda_cfg(dtype="bfloat16", flash=True):
     return cfg
 
 
-def calibrate_attention(cfg, model, seed):
+def fusions(model):
+    """The CMDA fusions' SpatialAttention modules in the forward's order:
+    [(fusion name, module)]."""
+    return [(n[:-len(".attention_spatial_s2f")], m)
+            for n, m in model.named_modules()
+            if n.endswith(".attention_spatial_s2f")]
+
+
+def calibrate_attention(cfg, model, seed, phase="cmda"):
     """Scale each fusion's query and key convs (weight and bias, by one
     factor each) so that its logits have ATTN_LOGIT_STD on a seeded clip,
     fusion by fusion, as each scale moves the fusions after it."""
@@ -1012,8 +1065,7 @@ def calibrate_attention(cfg, model, seed):
     fwd = make_forward(cfg, model)
     req = clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32)
     stds = []
-    for i in range(1, 5):
-        att = getattr(model, f"s{i}_fuse").attention_spatial_s2f
+    for _, att in fusions(model):
         seen = {}
         hook = att.register_forward_hook(
             lambda m, inp, out: seen.update(x=inp[0]))
@@ -1028,8 +1080,9 @@ def calibrate_attention(cfg, model, seed):
                 conv.weight.mul_(f)
                 conv.bias.mul_(f)
         stds.append(std)
-    log("cmda", "attention logit std before calibration, s1-s4_fuse: "
-        + ", ".join(f"{x:.4g}" for x in stds) + f" -> {ATTN_LOGIT_STD}")
+    log(phase, "attention logit std before calibration, " + ", ".join(
+        f"{n} {x:.4g}" for (n, _), x in zip(fusions(model), stds))
+        + f" -> {ATTN_LOGIT_STD}")
 
 
 def attention_rows(cfg, model, frames=None, crop=None):
@@ -1073,15 +1126,24 @@ def attention_cost(b, n, m, d, c):
             b * n * m)
 
 
+def logit_scale(d, logit_std):
+    """The factor for q and k (each) that gives unit-normal q and k of
+    width ``d`` logits of std ``logit_std`` (1 where None)."""
+    return (logit_std / d ** 0.5) ** 0.5 if logit_std else 1.0
+
+
 def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
-                    path_batch=None):
+                    path_batch=None, logit_std=None):
     """K2 against its plain version at the serving rows, the ``off_path``
     shapes and ``recipe_rows`` (phase 10's shapes, each with its largest
     batch); returns (per-shape record, worst bf16 error on the path, the
     largest bf16 batch held at each (N, M, D, C)). With ``path_batch``
     (phase 11's rows, each carrying its path's batch as its last entry,
     the off-path shapes taking ``path_batch``) it holds float32 and bf16 at
-    1 clip and at that batch and times there."""
+    1 clip and at that batch and times there. With ``logit_std`` q and k
+    are scaled so that the logits have that std (at D = 2 unit normals give
+    std 1.4, a softmax so flat that a wrong key weight would hardly move
+    the output)."""
     import torch.nn.functional as F
 
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
@@ -1111,7 +1173,9 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
             cases.append((torch.bfloat16, ATTN_BF16_TOL, extra))
         for dtype, tol, b in cases:
             draw = rn_card if b > CLIPS_PER_REQUEST else rn
-            q, k, v = (draw(b, n, d, dtype=dtype), draw(b, m, d, dtype=dtype),
+            f = logit_scale(d, logit_std)
+            q, k, v = (draw(b, n, d, dtype=dtype) * f,
+                       draw(b, m, d, dtype=dtype) * f,
                        draw(b, m, c, dtype=dtype))
             out = flash_attention(q, k, v)
             torch.cuda.synchronize()
@@ -1137,7 +1201,9 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
         # timing at the request batch (phase 11: the path's), in bf16
         b, dtype = time_b, torch.bfloat16
         draw = rn_card if b > CLIPS_PER_REQUEST else rn
-        q, k, v = (draw(b, n, d, dtype=dtype), draw(b, m, d, dtype=dtype),
+        f = logit_scale(d, logit_std)
+        q, k, v = (draw(b, n, d, dtype=dtype) * f,
+                   draw(b, m, d, dtype=dtype) * f,
                    draw(b, m, c, dtype=dtype))
         big = b * n * m > 2 ** 30  # the 32768-token rows: few repetitions
         k_ms = cuda_ms(lambda: flash_attention(q, k, v),
@@ -1215,12 +1281,14 @@ def attention_backward_cost(b, n, m, d, c):
 
 
 def phase_attention_backward(rows, smi, recipe_rows=(),
-                             off_path=ATTN_BWD_OFF_PATH):
+                             off_path=ATTN_BWD_OFF_PATH, batch=TRAIN_CLIPS,
+                             logit_std=None):
     """K2-bwd against attention_backward at the training shapes ``rows``,
     off-path shapes and ``recipe_rows`` (phase 10's training shapes, each
     with its largest batch, in bf16); returns (per-shape record, worst bf16
     error on the path at the training batch, the largest bf16 batch held at
-    each (N, M, D, C))."""
+    each (N, M, D, C)). ``batch`` is the training batch it holds and
+    times at; ``logit_std`` scales q and k as phase_attention does."""
     import torch.nn.functional as F
 
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
@@ -1238,12 +1306,13 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
             rows + [r + (0,) for r in off_path] + list(recipe_rows)):
         for dtype, tol in ((torch.float32, ATTN_BWD_F32_TOL),
                            (torch.bfloat16, ATTN_BWD_BF16_TOL)):
-            batches = [1, TRAIN_CLIPS]
+            batches = [1, batch]
             if big and dtype == torch.bfloat16 and big[0] not in batches:
                 batches.append(big[0])
             for b in batches:
-                q, k, v, dout = (rn(b, n, d, dtype=dtype),
-                                 rn(b, m, d, dtype=dtype),
+                f = logit_scale(d, logit_std)
+                q, k, v, dout = (rn(b, n, d, dtype=dtype) * f,
+                                 rn(b, m, d, dtype=dtype) * f,
                                  rn(b, m, c, dtype=dtype),
                                  rn(b, n, c, dtype=dtype))
                 out, lse = _forward(q, k, v, with_lse=True)
@@ -1286,7 +1355,7 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
                                 f"{label} {dtype} clips {b} vs {name}: "
                                 f"err {err} > {tol * scale}")
                         errs.append((err, scale))
-                        if b == TRAIN_CLIPS and count:
+                        if b == batch and count:
                             worst[dtype] = max(worst[dtype], err)
                         if big and dtype == torch.bfloat16:
                             worst_recipe = max(worst_recipe, err)
@@ -1302,8 +1371,10 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
                     held[(n, m, d, c)] = max(held.get((n, m, d, c), 0), b)
                 del q, k, v, dout, out, lse, grads, refs
         # timing at the training batch, in the training dtype
-        b, dtype = TRAIN_CLIPS, torch.bfloat16
-        q, k, v, dout = (rn(b, n, d, dtype=dtype), rn(b, m, d, dtype=dtype),
+        b, dtype = batch, torch.bfloat16
+        f = logit_scale(d, logit_std)
+        q, k, v, dout = (rn(b, n, d, dtype=dtype) * f,
+                         rn(b, m, d, dtype=dtype) * f,
                          rn(b, m, c, dtype=dtype), rn(b, n, c, dtype=dtype))
         out, lse = _forward(q, k, v, with_lse=True)
         big = b * n * m > 2 ** 30
@@ -1393,8 +1464,21 @@ def train_batches(cfg, count, batch, seed, dtype=torch.bfloat16):
                            generator=gen).cuda()) for _ in range(count)]
 
 
-def train_steps(phase, cfg, model, expect, smi):
-    """TRAIN_WARMUP then TRAIN_STEPS steps of TRAIN_CLIPS bf16 clips through
+def watched_bn(model):
+    """(name, module) of the BN whose running mean the train phases watch:
+    the ResNets' s2 res0 a_bn, else the first BN of s2 (the efficient
+    families)."""
+    from efficient_slowfast_tpu_torch.ops.norm import BatchNorm3d
+
+    for name, m in model.named_modules():
+        if name == "s2.pathway0_res0.branch2.a_bn":
+            return name, m
+    return next((n, m) for n, m in model.named_modules()
+                if n.startswith("s2.") and isinstance(m, BatchNorm3d))
+
+
+def train_steps(phase, cfg, model, expect, smi, batch=TRAIN_CLIPS):
+    """TRAIN_WARMUP then TRAIN_STEPS steps of ``batch`` bf16 clips through
     create_train_state and make_train_step, every launch count set to 0
     just before the timed steps and read just after; checks the counts
     against ``expect``, the losses and that the running statistics moved.
@@ -1404,11 +1488,11 @@ def train_steps(phase, cfg, model, expect, smi):
 
     state = create_train_state(cfg, model)
     step = make_train_step(cfg, state.model, state.optimizer)
-    batches = train_batches(cfg, TRAIN_WARMUP + TRAIN_STEPS, TRAIN_CLIPS,
+    batches = train_batches(cfg, TRAIN_WARMUP + TRAIN_STEPS, batch,
                             SEED + 8)
     drop = torch.Generator(device="cuda").manual_seed(SEED)
     lr = cfg.SOLVER.BASE_LR
-    bn = model.s2.pathway0_res0.branch2.a_bn
+    bn_name, bn = watched_bn(model)
     before = bn.running_mean.clone()
     for x, y in batches[:TRAIN_WARMUP]:
         step(state, x, y, lr, drop)
@@ -1423,12 +1507,12 @@ def train_steps(phase, cfg, model, expect, smi):
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack([m["loss"] for m in mets]).tolist()
     moved = (bn.running_mean - before).abs().max().item()
-    log(phase, f"bf16, {TRAIN_CLIPS} clips a step: {TRAIN_STEPS} steps "
+    log(phase, f"bf16, {batch} clips a step: {TRAIN_STEPS} steps "
         f"after {TRAIN_WARMUP} warm-up | losses " +
         ", ".join(f"{x:.4f}" for x in losses) + f" | top1_err "
         f"{mets[-1]['top1_err'].item():.1f} | kernel launches {counts} | "
-        f"running mean of s2 res0 a_bn moved {moved:.3e}")
-    log(phase, f"bf16: {TRAIN_CLIPS / dt:.2f} train clips/s, {dt * 1e3:.2f} "
+        f"running mean of {bn_name} moved {moved:.3e}")
+    log(phase, f"bf16: {batch / dt:.2f} train clips/s, {dt * 1e3:.2f} "
         f"ms per step, peak memory {peak / 2 ** 30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated) | {smi}")
     if counts != expect:
@@ -1447,7 +1531,7 @@ def train_steps(phase, cfg, model, expect, smi):
         f" for as many timed steps untraced; the kernels' union in the trace "
         f"{share * window_ms:.2f} ms, {share * window_ms / untraced * 100:.1f}%"
         f" of the untraced steps' time | {smi}")
-    return state, step, counts, TRAIN_CLIPS / dt
+    return state, step, counts, batch / dt
 
 
 def phase_train(smi):
@@ -1591,9 +1675,11 @@ def smoke_dir():
 
 def test_meter(cfg, loader):
     """The port's TestMeter for ``loader``'s split, holding every clip's
-    probabilities (finite, each row summing to 1 within TEST_ROW_TOL)
-    before it ensembles them."""
+    probabilities (finite, each row summing to 1 within TEST_ROW_TOL; for
+    GhostNet's scores finite and non-negative) before it ensembles them."""
     from efficient_slowfast_tpu_torch.utils.meters import TestMeter
+
+    probs = probabilities(cfg)
 
     class Checked(TestMeter):
         worst_row = 0.0
@@ -1602,6 +1688,11 @@ def test_meter(cfg, loader):
         def update_stats(self, preds, labels, clip_ids):
             if not np.isfinite(preds).all():
                 raise AssertionError("thirty_view: non-finite scores")
+            if not probs:
+                if preds.min() < 0:
+                    raise AssertionError("thirty_view: negative scores")
+                self.clips += len(preds)
+                return super().update_stats(preds, labels, clip_ids)
             err = float(np.abs(preds.sum(1) - 1.0).max())
             self.worst_row = max(self.worst_row, err)
             if err > TEST_ROW_TOL:
@@ -1650,11 +1741,12 @@ def phase_thirty_view(name, fused, expect_per_batch, smi):
     cfg = yaml_cfg(name, ["TPU.FUSED_EVAL", fused])
     label = cfg.MODEL.MODEL_NAME + (" fused" if fused else "")
     model = serving_model(cfg, SEED)
-    if cfg.MODEL.MODEL_NAME == "SlowFastDualAttention":
-        calibrate_attention(cfg, model, SEED + 6)
+    if fusions(model):
+        calibrate_attention(cfg, model, SEED + 6, "thirty_view")
     if nonlocal_blocks(model):  # γ 1 from serving_model's BN scales
         calibrate_nonlocal(cfg, model, SEED + 6)
-        calibrate_head(cfg, model, SEED + 6)
+    if nonlocal_blocks(model) or cfg.MODEL.MODEL_NAME in EFFICIENT_YAMLS:
+        calibrate_head(cfg, model, SEED + 6, "thirty_view")
     loader = construct_loader(cfg, "test")
     n_clips, batch = len(loader.dataset), loader.batch_size
     if batch != TEST_CLIPS:
@@ -1704,11 +1796,14 @@ def phase_thirty_view(name, fused, expect_per_batch, smi):
     timed_plans = fb.plan.cache_info().misses - plans
 
     split = times.summary()
+    rows = (f"rows of every clip sum to 1 within {meter.worst_row:.2e}"
+            if probabilities(cfg) else "every clip's scores finite and "
+            "non-negative (the mean of ReLU(logits))")
     log("thirty_view", f"{label}: kernel launches {counts} ({len(loader)} "
         f"batches) | K1 plans made: {warm_plans} in the untimed batch, "
         f"{timed_plans} in the timed run (every shape was planned and held "
-        f"at {TEST_CLIPS} clips in phase 3) | {stats} | rows of every clip sum "
-        f"to 1 within {meter.worst_row:.2e} | preprocess on the card vs the "
+        f"at {TEST_CLIPS} clips in phase 3) | {stats} | {rows} | "
+        f"preprocess on the card vs the "
         f"CPU, f32, first batch: max |d| {pre_err:.3e} (tol {PRE_TOL})")
     for i in range(len(split["forward"])):
         log("thirty_view", f"{label}: batch {i}: waiting on the loader "
@@ -1772,7 +1867,7 @@ def phase_thirty_view_reference(cfg, model, kernel_means, opts, what, smi):
     from efficient_slowfast_tpu_torch.engine.test import test
 
     label = cfg.MODEL.MODEL_NAME
-    path = os.path.join(smoke_dir(), f"{label.lower()}_r50.pyth")
+    path = os.path.join(smoke_dir(), f"{label.lower()}.pyth")
     torch.save({"model_state": model.state_dict()}, path)
     ref_cfg = cfg.clone()
     ref_cfg.merge_from_list(list(opts) + [
@@ -1783,13 +1878,18 @@ def phase_thirty_view_reference(cfg, model, kernel_means, opts, what, smi):
         raise AssertionError(f"the path without kernels launched "
                              f"{read_counts()}")
     ref_means = meter.video_preds / meter.num_clips
-    ref_c, got_c = centred_log(ref_means), centred_log(kernel_means)
+    if probabilities(cfg):
+        ref_c, got_c = centred_log(ref_means), centred_log(kernel_means)
+    else:  # GhostNet: mean ReLU(logits), compared as they are
+        ref_c, got_c = ref_means, kernel_means
     scale = float(np.abs(ref_c).max())
     err = float(np.abs(got_c - ref_c).max())
     top1 = float((ref_means.argmax(1) == kernel_means.argmax(1)).mean())
+    kind = ("centred log mean probabilities" if probabilities(cfg)
+            else "mean scores")
     log("thirty_view", f"{label}: {what} vs test() from the .pyth with "
-        f"{' '.join(map(str, opts))}: per-video centred log mean "
-        f"probabilities max |d| {err:.3e} of scale {scale:.3e} (tol "
+        f"{' '.join(map(str, opts))}: per-video {kind} "
+        f"max |d| {err:.3e} of scale {scale:.3e} (tol "
         f"{TEST_LOGIT_TOL * scale:.3e}), mean probabilities max |d| "
         f"{float(np.abs(kernel_means - ref_means).max()):.3e} (max p "
         f"{float(ref_means.max()):.3e}), top-1 agreement {top1:.3f} | "
@@ -2545,13 +2645,15 @@ def calibrate_nonlocal(cfg, model, seed):
         + f" -> {ATTN_LOGIT_STD}")
 
 
-def calibrate_head(cfg, model, seed):
+def calibrate_head(cfg, model, seed, phase="nonlocal"):
     """Scale the classifier (weight and bias) so that its logits have
     HEAD_LOGIT_STD on a seeded clip (eval mode)."""
     from efficient_slowfast_tpu_torch.engine.state import make_forward
 
     seen = {}
-    proj = model.head.projection
+    proj = getattr(model.head, "projection", None)
+    if proj is None:  # the efficient heads' classifier (Dropout, Linear)
+        proj = model.head.classifier[1]
     hook = proj.register_forward_hook(lambda m, inp, out: seen.update(y=out))
     make_forward(cfg, model)(
         clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32))
@@ -2560,7 +2662,7 @@ def calibrate_head(cfg, model, seed):
     with torch.no_grad():
         proj.weight.mul_(HEAD_LOGIT_STD / std)
         proj.bias.mul_(HEAD_LOGIT_STD / std)
-    log("nonlocal", f"classifier logit std before calibration {std:.4g} -> "
+    log(phase, f"classifier logit std before calibration {std:.4g} -> "
         f"{HEAD_LOGIT_STD}")
 
 
@@ -2803,12 +2905,312 @@ def phase_nonlocal(smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the efficient families (configs/Kinetics/*_16x2_112.yaml)
+EFFICIENT_YAMLS = {
+    "SlowFastShuffleNetV2": "SLOWFAST_SHUFFLENETV2_16x2_112.yaml",
+    "SlowFastShuffleNet": "SLOWFAST_SHUFFLENET_16x2_112.yaml",
+    "SlowFastMoibleNetV2": "SLOWFAST_MOBILENETV2_16x2_112.yaml",
+    "SlowFastGhostNet": "SLOWFAST_GHOSTNET_16x2_112.yaml",
+}
+# K2 launches a forward at the yamls' 16x2 112² shape: the fusions above
+# TPU.FLASH_MIN_TOKENS (1024) slow tokens, D = C = 3, 6, 3 and (2, 3)
+EFFICIENT_K2 = {"SlowFastShuffleNetV2": 1, "SlowFastShuffleNet": 1,
+                "SlowFastMoibleNetV2": 1, "SlowFastGhostNet": 2}
+# trained in phase 12, at 64 clips a step (the yamls' TRAIN.BATCH_SIZE 512
+# over 8 cards)
+EFFICIENT_TRAINED = ("SlowFastShuffleNetV2", "SlowFastGhostNet")
+EFFICIENT_TRAIN_CLIPS = 64
+
+
+def efficient_cfg(name, dtype="bfloat16", flash=True):
+    """The zoo yaml of ``name`` at full width and depth (400 classes, 16
+    frames, α 4, β 8, 112² for training and test) through the port's config
+    loader, with its solver (SGD from lr 0.01, nesterov momentum 0.9,
+    weight decay 1e-4 and none on BN, dropout 0.5)."""
+    return yaml_cfg(EFFICIENT_YAMLS[name], ["TPU.COMPUTE_DTYPE", dtype,
+                                            "TPU.FLASH_ATTENTION", flash])
+
+
+def efficient_rows(cfg, model, batch):
+    """Each fusion's attention in one forward: [(label, N, M, D, C, K2
+    launches a forward, batch)], a launch where the slow tokens exceed
+    TPU.FLASH_MIN_TOKENS."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    seen = []
+    hooks = [att.register_forward_hook(
+        lambda m, inp, out, name=name: seen.append((name, inp[0].shape)))
+        for name, att in fusions(model)]
+    make_forward(cfg, model)(clips(cfg, 1, torch.Generator().manual_seed(
+        SEED), torch.bfloat16))
+    for hook in hooks:
+        hook.remove()
+    short = cfg.MODEL.MODEL_NAME[len("SlowFast"):].lower()
+    rows = []
+    for name, shape in seen:
+        c, n = shape[1], int(np.prod(shape[2:]))
+        rows.append((f"{short} {name}", n, n, c, c,
+                     int(n > cfg.TPU.FLASH_MIN_TOKENS), batch))
+    return rows
+
+
+def kernel_ops(events):
+    """Each CUDA kernel of a trace with the innermost host op around the
+    runtime call that launched it: [(kernel event, op event or None)]."""
+    import bisect
+
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    ops = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ops.setdefault(e.get("tid"), []).append(e)
+    starts = {}
+    for tid, lst in ops.items():
+        lst.sort(key=lambda e: e["ts"])
+        starts[tid] = [e["ts"] for e in lst]
+    out = []
+    for k in (e for e in events if e.get("cat") == "kernel"):
+        launch = launches.get(k.get("args", {}).get("correlation"))
+        op = None
+        if launch is not None and launch.get("tid") in ops:
+            lst, t = ops[launch["tid"]], launch["ts"]
+            i = bisect.bisect_right(starts[launch["tid"]], t) - 1
+            while i >= 0:  # the latest-starting op that still holds t
+                if lst[i]["ts"] + lst[i]["dur"] >= t:
+                    op = lst[i]
+                    break
+                i -= 1
+        out.append((k, op))
+    return out
+
+
+def _depthwise(op):
+    """Whether ``op`` is a convolution (or its backward) with a depthwise
+    weight: a 5-D input of shape (O, 1, kT, kH, kW)."""
+    if op is None or "conv" not in op["name"]:
+        return False
+    dims = op.get("args", {}).get("Input Dims") or []
+    return any(isinstance(d, list) and len(d) == 5 and d[1] == 1
+               and d[0] > 1 for d in dims)
+
+
+def op_breakdown(name, blocks):
+    """Device time of the traced window ``name`` by the op that launched
+    each kernel (depthwise convolutions, the other convolutions, batch
+    norm, the attention kernels, copies, the rest) and the host's copy ops
+    (aten::copy_, aten::contiguous, aten::clone) against the model's
+    ``blocks``."""
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    log_dir = os.path.join(smoke_dir(), f"profile_{name}")
+    with open(os.path.join(log_dir, profiler.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    groups, total = {}, 0.0
+    dw_kernels = {}
+    for k, op in kernel_ops(events):
+        kname, dur = k["name"], k["dur"]
+        opname = op["name"] if op else ""
+        if "flash_attention" in kname or "attention_bwd" in kname:
+            group = "attention kernels (K2, K2-bwd)"
+        elif _depthwise(op):
+            group = "depthwise convolutions"
+            total_k, calls = dw_kernels.get(kname, (0.0, 0))
+            dw_kernels[kname] = (total_k + dur, calls + 1)
+        elif "conv" in opname:
+            group = "other convolutions"
+        elif "batch_norm" in opname:
+            group = "batch norm"
+        elif "copy" in opname or "contiguous" in opname or "cat" in opname \
+                or "stack" in opname or "clone" in opname:
+            group = "copies, cat, stack"
+        else:
+            group = "other"
+        groups[group] = groups.get(group, 0.0) + dur
+        total += dur
+    log("profile", f"{name}: device time by launching op, of {total / 1e3:.3f}"
+        " ms of kernels: " + ", ".join(
+            f"{g} {t / 1e3:.3f} ms ({t / total * 100:.1f}%)"
+            for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for kname, (t, calls) in sorted(dw_kernels.items(),
+                                    key=lambda kv: -kv[1][0])[:3]:
+        log("profile", f"{name}: depthwise conv kernel {t / 1e3:.3f} ms "
+            f"({t / total * 100:.1f}%, {calls} calls): {kname[:140]}")
+    counts = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e["name"] in (
+                "aten::copy_", "aten::contiguous", "aten::clone"):
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    log("profile", f"{name}: host copy ops {counts or 'none'} for {blocks} "
+        "blocks")
+
+
+def efficient_blocks(model):
+    from efficient_slowfast_tpu_torch.models import (ghostnet, mobilenetv2,
+                                                     shufflenet, shufflenetv2)
+
+    kinds = (shufflenetv2.InvertedResidual, shufflenet.Bottleneck,
+             mobilenetv2.InvertedResidual, ghostnet.GhostBottleneck)
+    return sum(isinstance(m, kinds) for m in model.modules())
+
+
+def phase_efficient_kernels(smi):
+    """3b and 3c at the families' fusion shapes: K2 at every fusion above
+    TPU.FLASH_MIN_TOKENS at the 30-view batch (64 clips), K2-bwd at the
+    trained families' at their training batch (64 clips), q and k scaled to
+    logits of std ATTN_LOGIT_STD. Returns (rows per family, worst bf16
+    error forward, backward)."""
+    from efficient_slowfast_tpu_torch.models import build_model
+
+    rows = {}
+    for name in EFFICIENT_YAMLS:
+        cfg = efficient_cfg(name)
+        model = build_model(cfg, device="cuda")
+        rows[name] = efficient_rows(cfg, model, TEST_CLIPS)
+        launches = sum(r[5] for r in rows[name])
+        log("efficient", f"{name} ({EFFICIENT_YAMLS[name]}): "
+            f"{efficient_blocks(model)} blocks, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+            f"parameters; fusions " + ", ".join(
+                f"{r[0]} N {r[1]} D {r[3]}{' (K2)' if r[5] else ''}"
+                for r in rows[name]) + f"; K2 launches a forward {launches}")
+        if launches != EFFICIENT_K2[name]:
+            raise AssertionError(f"{name}: {launches} K2 launches a forward,"
+                                 f" expected {EFFICIENT_K2[name]}")
+        del model
+    unique = {}
+    for name in EFFICIENT_YAMLS:
+        for r in rows[name]:
+            if r[5]:
+                unique.setdefault(r[1:5], r)
+    _, fwd_err, _ = phase_attention(list(unique.values()), smi, off_path=(),
+                                    path_batch=TEST_CLIPS,
+                                    logit_std=ATTN_LOGIT_STD)
+    trained = {}
+    for name in EFFICIENT_TRAINED:
+        for r in rows[name]:
+            if r[5]:
+                trained.setdefault(r[1:5], r[:6])
+    _, bwd_err, _ = phase_attention_backward(
+        list(trained.values()), smi, off_path=(),
+        batch=EFFICIENT_TRAIN_CLIPS, logit_std=ATTN_LOGIT_STD)
+    torch.cuda.empty_cache()
+    return rows, fwd_err, bwd_err
+
+
+def phase_efficient(smi):
+    """Phase 12: the four efficient families served (three 4-clip requests
+    against TPU.FLASH_ATTENTION False, then f32 on one clip), 30-view
+    tested, and ShuffleNetV2 and GhostNet trained (64 clips a step), K2 in
+    every forward and K2-bwd in every backward. Returns the launch counts
+    of its main-path runs, summed."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+
+    none = {"fused_bottleneck": 0, "flash_attention": 0,
+            "flash_attention_backward": 0}
+    totals = dict(none)
+
+    def add(counts):
+        for key, value in counts.items():
+            totals[key] += value
+
+    for name in EFFICIENT_YAMLS:
+        short = name[len("SlowFast"):].lower()
+        per_request = EFFICIENT_K2[name]
+        cfg = efficient_cfg(name)
+        model = serving_model(cfg, SEED + 30)
+        calibrate_attention(cfg, model, SEED + 31, "efficient")
+        calibrate_head(cfg, model, SEED + 31, "efficient")
+        cfg_plain = efficient_cfg(name, flash=False)
+        log("efficient", f"{name}: serving {REQUESTS} requests of "
+            f"{CLIPS_PER_REQUEST} clips ({cfg.DATA.NUM_FRAMES} frames, "
+            f"{cfg.DATA.TEST_CROP_SIZE}², bf16), scores "
+            + ("probabilities" if probabilities(cfg)
+               else "mean ReLU(logits)"))
+        fwd = make_forward(cfg, model)
+        counts, request_s = serve_and_compare(
+            "efficient", cfg, fwd,
+            make_forward(cfg_plain, model_with(cfg_plain,
+                                               model.state_dict())),
+            ("flash kernel", "plain attention"),
+            {**none, "flash_attention": per_request * REQUESTS},
+            CMDA_BF16_ATOL, SEED + 32, smi)
+        add(counts)
+        log("efficient", f"{name} bf16 serving: {request_s * 1e3:.2f} ms a "
+            f"{CLIPS_PER_REQUEST}-clip request, "
+            f"{CLIPS_PER_REQUEST / request_s:.2f} clips/s, K2 launches a "
+            f"request {counts['flash_attention'] // REQUESTS} | {smi}")
+        req = clips(cfg, CLIPS_PER_REQUEST,
+                    torch.Generator().manual_seed(SEED + 36), torch.bfloat16)
+        trace_window(f"efficient_serve_{short}", lambda: fwd(req), top_n=8)
+        op_breakdown(f"efficient_serve_{short}", efficient_blocks(model))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        del model, fwd
+        torch.cuda.empty_cache()
+        cfg32, cfg32_plain = (efficient_cfg(name, "float32"),
+                              efficient_cfg(name, "float32", flash=False))
+        compare_one_clip("efficient", cfg32,
+                         make_forward(cfg32, model_with(cfg32, state)),
+                         make_forward(cfg32_plain,
+                                      model_with(cfg32_plain, state)),
+                         ("flash kernel", "plain attention"), CMDA_F32_ATOL,
+                         SEED + 33, smi)
+        del state
+        torch.cuda.empty_cache()
+
+        # the 30-view test, against test() without the kernels
+        counts, means, cfg, model = phase_thirty_view(
+            EFFICIENT_YAMLS[name], False,
+            {**none, "flash_attention": per_request}, smi)
+        add(counts)
+        op_breakdown(f"thirty_view_{name}", efficient_blocks(model))
+        phase_thirty_view_reference(cfg, model, means,
+                                    ["TPU.FLASH_ATTENTION", False],
+                                    "flash attention", smi)
+        del model
+        torch.cuda.empty_cache()
+
+        if name not in EFFICIENT_TRAINED:
+            continue
+        # training as the yaml trains, 64 clips a step; then one clip's
+        # step in f32 and bf16 with every attention call held against the
+        # plain versions on its inputs (phase 11's rule)
+        phase = f"efficient_{short}"
+        cfg = efficient_cfg(name)
+        model = serving_model(cfg, SEED + 34)
+        calibrate_attention(cfg, model, SEED + 35, phase)
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        _, _, counts, _ = train_steps(
+            phase, cfg, model,
+            {**none, "flash_attention": per_request * TRAIN_STEPS,
+             "flash_attention_backward":
+                 per_request * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS},
+            smi, batch=EFFICIENT_TRAIN_CLIPS)
+        add(counts)
+        log(phase, f"K2-bwd launches a train step "
+            f"{counts['flash_attention_backward'] // TRAIN_STEPS} "
+            f"({per_request} calls of {BACKWARD_LAUNCHES_PER_CALL} launches)")
+        op_breakdown(phase, efficient_blocks(model))
+        del model
+        torch.cuda.empty_cache()
+        hold_one_clip_attention(
+            phase, lambda dtype, flash, name=name: efficient_cfg(
+                name, dtype, flash), state, per_request, smi)
+        del state
+        torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # the profiler: the device's busy share of a window
-def trace_window(name, fn):
+def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
     a synchronize; returns (device-busy share of the span: the union of
     the CUDA kernels' intervals over its wall time, the span in ms, the
-    top five kernels by device time [(name, ms, calls)], kernels)."""
+    top ``top_n`` kernels by device time [(name, ms, calls)], kernels)."""
     from efficient_slowfast_tpu_torch.utils import profiler
 
     log_dir = os.path.join(smoke_dir(), f"profile_{name}")
@@ -2839,7 +3241,7 @@ def trace_window(name, fn):
     for a, b, e in kernels:
         total, calls = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (total + (b - a), calls + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     share = busy / (w1 - w0)
     first = {}  # each top kernel's first launch: the aten op and its inputs
     for _, _, e in sorted(kernels, key=lambda k: k[0]):
@@ -2958,19 +3360,24 @@ def main():
     torch.cuda.empty_cache()
     nln_counts = phase_nonlocal(smi)
     torch.cuda.empty_cache()
+    _, eff_fwd_err, eff_bwd_err = phase_efficient_kernels(smi)
+    eff_counts = phase_efficient(smi)
+    torch.cuda.empty_cache()
 
     # launches on the main paths: serving (phases 4, 5), CMDA training
     # (phase 7), the 30-view tests (phase 8), the epochs (phase 9), the
-    # recipe (phase 10) and the non-local networks (phase 11)
-    k1_launches += sf_counts["fused_bottleneck"] + nln_counts[
-        "fused_bottleneck"]
+    # recipe (phase 10), the non-local networks (phase 11) and the
+    # efficient families (phase 12)
+    k1_launches += sum(c["fused_bottleneck"]
+                       for c in (sf_counts, nln_counts, eff_counts))
     k2_launches += sum(c["flash_attention"]
                        for c in (train_counts, cmda_counts, epoch_counts,
-                                 recipe_counts, nln_counts))
+                                 recipe_counts, nln_counts, eff_counts))
     bwd_launches = sum(c["flash_attention_backward"]
                        for c in (train_counts, epoch_counts, recipe_counts,
-                                 nln_counts))
-    k2_err, bwd_err = max(k2_err, nln_fwd_err), max(bwd_err, nln_bwd_err)
+                                 nln_counts, eff_counts))
+    k2_err = max(k2_err, nln_fwd_err, eff_fwd_err)
+    bwd_err = max(bwd_err, nln_bwd_err, eff_bwd_err)
 
     kernels = [
         kernel_entry(

@@ -3,10 +3,15 @@ reference: slowfast/models/optimizer.py:11-91).
 
 SGD (momentum, nesterov) or Adam (eps 1e-8) with the reference's split
 weight decay, coupled as in torch (added to the gradient before the
-momentum or Adam statistics): parameters whose name contains "bn" take
-``BN.WEIGHT_DECAY``, all others ``SOLVER.WEIGHT_DECAY``. The port's names
-(``s2.pathway0_res0.branch2.a_bn.weight``) select the same parameters as
-the JAX package's paths (``s2/pathway0_res0/branch2/a_bn/bn/scale``), and
+momentum or Adam statistics): the parameters of a BatchNorm module
+(``nn.BatchNorm*``, the port's ``BatchNorm3d`` and ``SubBatchNorm3d``) take
+``BN.WEIGHT_DECAY``, all others ``SOLVER.WEIGHT_DECAY``. That is the set
+the JAX package's ``bn_mask`` selects by a "bn" in the parameter's path
+(``s2/pathway0_res0/branch2/a_bn/bn/scale``, ``.../banch2_pw/bn/bn/scale``).
+The port's names cannot stand in for those paths: the efficient families
+carry the reference's ``nn.Sequential`` indices
+(``s2.pathway0_channel_224.features.0.banch2.1.weight`` is a BN weight),
+so the groups go by the module that owns the parameter.
 ``torch.optim.SGD``/``Adam`` compute optax's chain step for step
 (``add_decayed_weights`` → ``trace``/``scale_by_adam`` → ``scale(-lr)``).
 The learning rate is set on every group before each step (``set_lr``), as
@@ -16,11 +21,20 @@ the JAX package injects it.
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
+
+from ..ops.norm import SubBatchNorm3d
+
+_BN_MODULES = (nn.modules.batchnorm._BatchNorm, SubBatchNorm3d)
 
 
-def is_bn_param(name: str) -> bool:
-    """A parameter of a BatchNorm (the JAX package's ``bn_mask``)."""
-    return "bn" in name
+def bn_param_names(model: nn.Module) -> set:
+    """The names of the parameters that a BatchNorm module of ``model``
+    owns (the JAX package's ``bn_mask``)."""
+    return {f"{mod}.{name}" if mod else name
+            for mod, m in model.named_modules()
+            if isinstance(m, _BN_MODULES)
+            for name, _ in m.named_parameters(recurse=False)}
 
 
 def cast_moment_state(optimizer: torch.optim.Optimizer,
@@ -50,8 +64,9 @@ def construct_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Optimizer:
     ``BN.WEIGHT_DECAY``; lr ``SOLVER.BASE_LR`` until ``set_lr``."""
     groups = [{"params": [], "weight_decay": cfg.SOLVER.WEIGHT_DECAY},
               {"params": [], "weight_decay": cfg.BN.WEIGHT_DECAY}]
+    bn = bn_param_names(model)
     for name, p in model.named_parameters():
-        groups[is_bn_param(name)]["params"].append(p)
+        groups[name in bn]["params"].append(p)
     groups = [g for g in groups if g["params"]]
     method, lr = cfg.SOLVER.OPTIMIZING_METHOD, cfg.SOLVER.BASE_LR
     if method == "sgd":

@@ -2,8 +2,8 @@
 
 Torch-style symmetric integer padding; max pooling pads with -inf and
 average pooling counts the padding (``count_include_pad=True``), as the
-JAX package does. The CMDA fusion's temporal squeeze and expand are here
-too.
+JAX package does. The global means of the efficient heads and the CMDA
+fusion's temporal squeeze and expand are here too.
 """
 
 from __future__ import annotations
@@ -38,6 +38,17 @@ def avg_pool3d(x: torch.Tensor, kernel, stride=None,
                 f"avg_pool3d window {k} larger than input "
                 f"{tuple(x.shape[2:])} (padding {p})")
     return F.avg_pool3d(x, k, s, p, count_include_pad=True)
+
+
+def adaptive_avg_pool3d_1(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool3d((1, 1, 1)): the mean over (T, H, W), kept as
+    (B, C, 1, 1, 1)."""
+    return x.mean(dim=(2, 3, 4), keepdim=True)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """The mean over (T, H, W) → (B, C)."""
+    return x.mean(dim=(2, 3, 4))
 
 
 def temporal_downsample_max(x: torch.Tensor, alpha: int) -> torch.Tensor:

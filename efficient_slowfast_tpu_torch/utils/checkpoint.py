@@ -156,15 +156,17 @@ def _load_model(model: torch.nn.Module, state) -> None:
 
 
 def load_checkpoint(path: str, model: torch.nn.Module,
-                    optimizer: Optional[torch.optim.Optimizer] = None) -> int:
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    cfg=None) -> int:
     """Restore ``model`` (and ``optimizer`` where given) from the run's
     checkpoint ``path``; returns the epoch it was taken after (0-based; -1
     where the file has none). A JAX package's ``.jaxckpt`` gives the model
-    its weights, not the optimizer its state (optax's layout is not
+    its weights (mapped with ``cfg``'s name table where it is an efficient
+    family), not the optimizer its state (optax's layout is not
     torch's)."""
     if path.endswith(".jaxckpt"):
         payload = load_jax_checkpoint(path)
-        _load_model(model, _jax_state_dict(payload))
+        _load_model(model, _jax_state_dict(payload, cfg))
         if optimizer is not None:
             logger.warning("%s: the optimizer state of a JAX checkpoint is "
                            "not restored", path)
@@ -190,12 +192,12 @@ def load_train_checkpoint(cfg, state) -> Tuple[object, int]:
     start epoch)."""
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
         path = get_last_checkpoint(cfg.OUTPUT_DIR)
-        epoch = load_checkpoint(path, state.model, state.optimizer)
+        epoch = load_checkpoint(path, state.model, state.optimizer, cfg)
         return state, epoch + 1
     if cfg.TRAIN.CHECKPOINT_FILE_PATH:
         _load_external(state.model, cfg.TRAIN.CHECKPOINT_FILE_PATH,
                        cfg.TRAIN.CHECKPOINT_TYPE,
-                       inflate=cfg.TRAIN.CHECKPOINT_INFLATE)
+                       inflate=cfg.TRAIN.CHECKPOINT_INFLATE, cfg=cfg)
     return state, 0
 
 
@@ -205,12 +207,12 @@ def load_test_checkpoint(cfg, model: torch.nn.Module) -> None:
     TRAIN.CHECKPOINT_FILE_PATH, else the seeded random init."""
     if cfg.TEST.CHECKPOINT_FILE_PATH:
         _load_external(model, cfg.TEST.CHECKPOINT_FILE_PATH,
-                       cfg.TEST.CHECKPOINT_TYPE)
+                       cfg.TEST.CHECKPOINT_TYPE, cfg=cfg)
     elif has_checkpoint(cfg.OUTPUT_DIR):
-        load_checkpoint(get_last_checkpoint(cfg.OUTPUT_DIR), model)
+        load_checkpoint(get_last_checkpoint(cfg.OUTPUT_DIR), model, cfg=cfg)
     elif cfg.TRAIN.CHECKPOINT_FILE_PATH:
         _load_external(model, cfg.TRAIN.CHECKPOINT_FILE_PATH,
-                       cfg.TRAIN.CHECKPOINT_TYPE)
+                       cfg.TRAIN.CHECKPOINT_TYPE, cfg=cfg)
     else:
         logger.info("Testing with random initialization. Only for debugging.")
 
@@ -222,25 +224,26 @@ def load_jax_checkpoint(path: str):
         return msgpack_restore(f.read())
 
 
-def _jax_state_dict(payload) -> dict:
+def _jax_state_dict(payload, cfg=None) -> dict:
     return jax_variables_to_state_dict(
         {"params": payload["params"],
-         "batch_stats": payload.get("batch_stats", {})})
+         "batch_stats": payload.get("batch_stats", {})}, cfg)
 
 
 def _load_external(model: torch.nn.Module, path: str, ckpt_type: str,
-                   inflate: bool = False) -> None:
+                   inflate: bool = False, cfg=None) -> None:
     """Weights from another run into ``model``: a ``.pyth`` (``model_state``
     or ``state_dict``, as the reference and the JAX package read it) or,
     as type ``jax`` or by its suffix, a ``.jaxckpt``; as type ``caffe2`` a
     Caffe2 pickle, and with ``inflate`` a ``.pyth`` whose 2-D weights are
     inflated, both loaded where names and shapes fit
-    (``load_matching``)."""
+    (``load_matching``). ``cfg`` maps an efficient family's ``.jaxckpt``
+    (``utils/weights.py::efficient_prefix_table``)."""
     if path.endswith(".orbax") or os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: orbax checkpoint directories come with ROADMAP item 7")
     if ckpt_type == "jax" or path.endswith(".jaxckpt"):
-        _load_model(model, _jax_state_dict(load_jax_checkpoint(path)))
+        _load_model(model, _jax_state_dict(load_jax_checkpoint(path), cfg))
         logger.info("Loaded the JAX checkpoint %s", path)
         return
     if ckpt_type == "caffe2":

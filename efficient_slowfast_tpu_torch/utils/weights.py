@@ -38,6 +38,20 @@ reference's names, and its splits as one vector (split-major):
   .../a_bn/bn/{mean,var}                  ↔ ....a_bn.bn.{running_mean,running_var}
   .../a_bn/bn/{split_mean,split_var} (k, C) ↔ ....a_bn.split_bn.{running_mean,running_var} (k·C)
 
+The efficient families (``cfg`` given): the reference builds them from
+``nn.Sequential`` chains, so their names carry indices and channel counts.
+``efficient_prefix_table(cfg)`` (the port's copy of
+``utils/torch_ckpt.py::efficient_prefix_table``, ``:115-250``) maps a JAX
+layer (its path with the wrapper segment dropped) to the reference's layer,
+and both directions consult it before the rules above:
+
+  s2/pathway0_block0/banch2_pw/conv/conv/kernel ↔ s2.pathway0_channel_224.features.0.banch2.0.weight
+  s2/pathway0_block0/banch2_pw/bn/bn/scale      ↔ s2.pathway0_channel_224.features.0.banch2.1.weight
+  s1/pathway0_stem/conv/conv/kernel             ↔ s1.pathway0_stem.0.weight
+  head/projection/fc/kernel                     ↔ head.classifier.1.weight
+
+Their fusions follow the rules above (``s1_fuse.bn_f2s.weight``).
+
 Kernels change layout on the way: 5-D DHWIO ↔ OIDHW, 3-D (k, in, out) ↔
 (out, in, k) (ECA's Conv1d) and 2-D (in, out) ↔ (out, in). BN's
 ``num_batches_tracked`` has no JAX counterpart; it is 0 after conversion.
@@ -71,10 +85,119 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[tuple, Any]:
     return {prefix: tree}
 
 
-def _torch_name(path: Tuple[str, ...]) -> str | None:
+def efficient_prefix_table(cfg) -> Dict[str, str]:
+    """JAX layer path (wrapper segment dropped) → the reference's layer
+    name, for the efficient families; empty for the others."""
+    from ..models import ghostnet, mobilenetv2, shufflenet, shufflenetv2
+
+    name = cfg.MODEL.MODEL_NAME
+    beta = cfg.SLOWFAST.BETA_INV
+    wm = float(cfg.SLOWFAST.WIDTH_MULTI)
+    t: Dict[str, str] = {}
+
+    def layer(ours, theirs):  # a ConvBNAct: its conv and its BN
+        t[f"{ours}/conv"], t[f"{ours}/bn"] = f"{theirs}.0", f"{theirs}.1"
+
+    def renamed(ours, conv, bn):  # a conv and BN of their own names
+        t[f"{ours}/conv"], t[f"{ours}/bn"] = conv, bn
+
+    if name == "SlowFastShuffleNetV2":
+        slow = shufflenetv2._STAGE_OUT_CHANNELS[wm]
+        fast = [c // beta if c > 0 else c for c in slow]
+        for p in (0, 1):
+            layer(f"s1/pathway{p}_stem", f"s1.pathway{p}_stem")
+            ch = slow if p == 0 else fast
+            for si, sname in enumerate(("s2", "s3", "s4")):
+                base = f"{sname}.pathway{p}_channel_{ch[si + 2]}.features"
+                for i in range(shufflenetv2._STAGE_REPEATS[si]):
+                    ours, tm = f"{sname}/pathway{p}_block{i}", f"{base}.{i}"
+                    if i == 0:
+                        layer(f"{ours}/banch1_dw", f"{tm}.banch1")
+                        renamed(f"{ours}/banch1_pwl", f"{tm}.banch1.2",
+                                f"{tm}.banch1.3")
+                    layer(f"{ours}/banch2_pw", f"{tm}.banch2")
+                    renamed(f"{ours}/banch2_dw", f"{tm}.banch2.3",
+                            f"{tm}.banch2.4")
+                    renamed(f"{ours}/banch2_pwl", f"{tm}.banch2.5",
+                            f"{tm}.banch2.6")
+            layer(f"head/pathway{p}_conv1x1x1", f"head.pathway{p}_conv1x1x1.0")
+        t["head/projection"] = "head.classifier.1"
+
+    elif name == "SlowFastShuffleNet":
+        slow = [int(c * wm) for c in shufflenet._OUT_PLANES[
+            cfg.SLOWFAST.GROUPS]]
+        fast = [c // beta for c in slow]
+        for p in (0, 1):
+            layer(f"s1/pathway{p}_stem", f"s1.pathway{p}_stem")
+            ch = slow if p == 0 else fast
+            for si, sname in enumerate(("s2", "s3", "s4")):
+                base = f"{sname}.pathway{p}_channel_{ch[si + 1]}.features"
+                for i in range(shufflenet._NUM_BLOCKS[si]):
+                    ours, tm = f"{sname}/pathway{p}_block{i}", f"{base}.{i}"
+                    for j in (1, 2, 3):
+                        renamed(f"{ours}/conv{j}", f"{tm}.conv{j}",
+                                f"{tm}.bn{j}")
+                    t[f"{ours}/shortcut_conv"] = f"{tm}.shortcut.0"
+        t["head/projection"] = "head.classifier.1"
+
+    elif name == "SlowFastMoibleNetV2":
+        for p in (0, 1):
+            layer(f"s1/pathway{p}_stem", f"s1.pathway{p}_stem.features")
+            for sname, rows in mobilenetv2._LAYOUT.items():
+                base = f"{sname}.pathway{p}_channel_{rows[0][1]}.features"
+                j = 0
+                for texp, _, n, _ in rows:
+                    for _ in range(n):
+                        ours, tm = f"{sname}/pathway{p}_block{j}", \
+                            f"{base}.{j}.conv"
+                        parts = ["dw", "pwl"] if texp == 1 else [
+                            "pw", "dw", "pwl"]
+                        for k, part in enumerate(parts):
+                            renamed(f"{ours}/{part}", f"{tm}.{3 * k}",
+                                    f"{tm}.{3 * k + 1}")
+                        j += 1
+            layer(f"head/pathway{p}_conv1x1x1", f"head.pathway{p}_conv1x1x1")
+        t["head/projection"] = "head.classifier.1"
+
+    elif name == "SlowFastGhostNet":
+        for p in (0, 1):
+            layer(f"s0/pathway{p}_stem", f"s0.pathway{p}_stem")
+            for si, rows in enumerate(ghostnet._GHOST_STAGE_CFGS):
+                c = rows[-1][2] * wm
+                last_c = ghostnet.make_divisible(
+                    c // beta if p == 1 else c, 4)
+                base = f"s{si + 1}.pathway{p}_channel_{last_c}.features"
+                for j in range(len(rows)):
+                    ours, tm = f"s{si + 1}/pathway{p}_block{j}", f"{base}.{j}"
+                    for g in ("ghost1", "ghost2"):
+                        layer(f"{ours}/{g}/primary", f"{tm}.{g}.primary_conv")
+                        layer(f"{ours}/{g}/cheap",
+                              f"{tm}.{g}.cheap_operation")
+                    renamed(f"{ours}/conv_dw", f"{tm}.conv_dw", f"{tm}.bn_dw")
+                    t[f"{ours}/se/reduce"] = f"{tm}.se.conv_reduce"
+                    t[f"{ours}/se/expand"] = f"{tm}.se.conv_expand"
+                    layer(f"{ours}/shortcut_dw", f"{tm}.shortcut")
+                    renamed(f"{ours}/shortcut_pw", f"{tm}.shortcut.2",
+                            f"{tm}.shortcut.3")
+            side = "slow" if p == 0 else "fast"
+            renamed(f"head/stage5_conv_{p}", f"head.stage5_conv_{side}.conv",
+                    f"head.stage5_conv_{side}.bn1")
+            t[f"head/conv_head_{p}"] = f"head.conv_head_{side}"
+        t["head/projection"] = "head.classifier.1"
+
+    return t
+
+
+def _torch_name(path: Tuple[str, ...],
+                table: Dict[str, str] | None = None) -> str | None:
     *mods, leaf = path
     if leaf not in _LEAF_TO_TORCH:
         return None
+    if table:
+        key = mods[:-1] if len(mods) >= 2 and mods[-1] in _WRAPPERS else mods
+        hit = table.get("/".join(key))
+        if hit is not None:
+            return f"{hit}.{_LEAF_TO_TORCH[leaf]}"
     # drop the layer's wrapper segment; a stem or an attention block keeps
     # its own .conv/.bn child (s1/pathway0_stem/conv/conv →
     # s1.pathway0_stem.conv)
@@ -102,8 +225,11 @@ _SPLIT_LEAVES = {"mean": "bn.running_mean", "var": "bn.running_var",
                  "split_var": "split_bn.running_var"}
 
 
-def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) → state_dict."""
+def jax_variables_to_state_dict(variables,
+                                cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) → state_dict;
+    ``cfg`` names an efficient family's tree (``efficient_prefix_table``)."""
+    table = efficient_prefix_table(cfg) if cfg is not None else {}
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         flat = _flatten(variables.get(coll, {}))
@@ -111,12 +237,12 @@ def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
         for path, v in flat.items():
             v = np.array(v, np.float32)
             if path[:-1] in split:  # a split BN's statistics
-                prefix = _torch_name(path[:-1] + ("mean",))[:-len(
+                prefix = _torch_name(path[:-1] + ("mean",), table)[:-len(
                     "running_mean")]
                 name = prefix + _SPLIT_LEAVES[path[-1]]
                 v = v.reshape(-1)
             else:
-                name = _torch_name(path)
+                name = _torch_name(path, table)
                 if name is None:
                     continue
                 v = _to_torch_layout(path[-1], v)
@@ -127,8 +253,11 @@ def jax_variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def state_dict_to_jax_variables(state_dict) -> Dict[str, dict]:
-    """The inverse: a port state_dict → JAX-layout numpy variables."""
+def state_dict_to_jax_variables(state_dict, cfg=None) -> Dict[str, dict]:
+    """The inverse: a port state_dict → JAX-layout numpy variables (an
+    efficient family's where ``cfg`` names one)."""
+    layers = {v: k for k, v in (efficient_prefix_table(cfg).items()
+                                if cfg is not None else ())}
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     tail = ".split_bn.running_mean"
     split = {k[:-len(tail)] for k in state_dict if k.endswith(tail)}
@@ -145,7 +274,8 @@ def state_dict_to_jax_variables(state_dict) -> Dict[str, dict]:
             if inner == "split_bn":
                 leaf = "split_" + leaf
                 v = v.reshape(-1, state_dict[owner + ".weight"].numel())
-        mods = [_UNRENAMES.get(m, m) for m in prefix.split(".")]
+        mods = (layers[prefix].split("/") if prefix in layers
+                else [_UNRENAMES.get(m, m) for m in prefix.split(".")])
         coll = "params"
         if prefix in split:  # a split BN: its parameters or statistics
             wrap = ["bn"]

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
 package (its SlowFast forward, a tiny synthetic 30-view test, an I3D with
-non-local blocks and the library attention blocks run in a process where
-importing them raises), and it never falls back to the CPU without
+non-local blocks, the library attention blocks and a narrow ShuffleNetV2
+and GhostNet run in a process where importing them raises), and it never falls back to the CPU without
 being asked."""
 
 import ast
@@ -109,6 +109,52 @@ def test_port_imports_and_runs_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", _TINY_FORWARD], cwd=ROOT, capture_output=True,
         text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+_EFFICIENT = r"""
+import sys
+for name in ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import torch
+from efficient_slowfast_tpu_torch.config import load_cfg
+from efficient_slowfast_tpu_torch.engine.state import (
+    create_train_state, make_forward, make_train_step)
+from efficient_slowfast_tpu_torch.models import build_model
+torch.set_num_threads(1)
+cfg = load_cfg(sys.argv[1], ["MODEL.NUM_CLASSES", 5, "DATA.NUM_FRAMES", 8,
+                             "DATA.CROP_SIZE", 32, "TPU.COMPUTE_DTYPE",
+                             "float32", "TPU.FLASH_MIN_TOKENS", 16,
+                             "SLOWFAST.WIDTH_MULTI", sys.argv[2]])
+g = torch.Generator().manual_seed(0)
+x = [torch.rand(2, 2, 32, 32, 3, generator=g),
+     torch.rand(2, 8, 32, 32, 3, generator=g)]
+out = make_forward(cfg, build_model(cfg, device="cpu"), device="cpu")(x)
+assert out.shape == (2, 5) and bool(torch.isfinite(out).all()), out
+state = create_train_state(cfg, build_model(cfg, device="cpu"), device="cpu")
+step = make_train_step(cfg, state.model, state.optimizer)
+loss = step(state, x, torch.tensor([1, 3]), 0.01, g)["loss"]
+assert bool(torch.isfinite(loss)), loss
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("OK")
+"""
+
+
+@pytest.mark.parametrize("yaml, width", [
+    ("configs/Kinetics/SLOWFAST_SHUFFLENETV2_16x2_112.yaml", 0.25),
+    ("configs/Kinetics/SLOWFAST_GHOSTNET_16x2_112.yaml", 0.5)])
+def test_efficient_family_runs_without_jax(yaml, width):
+    """A narrow ShuffleNetV2 and GhostNet from the zoo yamls serve and take
+    a train step, their attention on the streaming path, with JAX
+    blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _EFFICIENT, os.path.join(ROOT, yaml),
+         str(width)], cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")

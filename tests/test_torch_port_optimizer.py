@@ -1,7 +1,8 @@
 """The port's optimizer, losses and metrics against the JAX package's:
 ``construct_optimizer`` against optax over three steps on one parameter
 tree (SGD, nesterov, Adam, the BN weight-decay split, bf16 moments), the BN
-name set against JAX's ``bn_mask`` through the weight bridge, the losses on
+parameter set (by owning module) against JAX's ``bn_mask`` through the
+weight bridge for every registered family, the losses on
 the same logits and labels, and top-k with ties, f32 on the CPU."""
 
 import jax
@@ -20,15 +21,17 @@ from efficient_slowfast_tpu.utils import metrics as jmetrics
 from efficient_slowfast_tpu_torch.config import get_cfg
 from efficient_slowfast_tpu_torch.models import build_model
 from efficient_slowfast_tpu_torch.models import losses
-from efficient_slowfast_tpu_torch.models.optimizer import (construct_optimizer,
-                                                           is_bn_param,
+from efficient_slowfast_tpu_torch.models.optimizer import (bn_param_names,
+                                                           construct_optimizer,
                                                            set_lr)
 from efficient_slowfast_tpu_torch.ops.conv import Conv3d, Linear
 from efficient_slowfast_tpu_torch.ops.norm import BatchNorm3d
 from efficient_slowfast_tpu_torch.utils import metrics
 from efficient_slowfast_tpu_torch.utils.weights import (
-    _torch_name, jax_variables_to_state_dict, state_dict_to_jax_variables)
-from torch_port_helpers import flat_leaves, small_cfg
+    _torch_name, efficient_prefix_table, jax_variables_to_state_dict,
+    state_dict_to_jax_variables)
+from torch_port_helpers import (EFFICIENT, NLN_R50, efficient_cfg,
+                                flat_leaves, small_cfg)
 
 OPTIMIZERS = {
     # (method, momentum, nesterov, weight decay, BN weight decay, moments)
@@ -117,17 +120,49 @@ def test_parameter_groups_carry_the_two_decays():
     assert sum(len(g["params"]) for g in opt.param_groups) == 5
 
 
-@pytest.mark.parametrize("model", ["SlowFast", "SlowFastDualAttention"])
+def _family_cfg(model):
+    if model in EFFICIENT:
+        return efficient_cfg(model)
+    if model == "ResNet":
+        return small_cfg(model="ResNet", nonlocal_loc=NLN_R50)
+    return small_cfg(model=model)
+
+
+@pytest.mark.parametrize("model", ["SlowFast", "SlowFastDualAttention",
+                                   "ResNet"] + sorted(EFFICIENT))
 def test_bn_names_are_jax_bn_mask_through_the_bridge(model):
-    torch_model = build_model(small_cfg(model=model), device="cpu")
-    params = state_dict_to_jax_variables(torch_model.state_dict())["params"]
+    """The parameters that the port's optimizer gives BN.WEIGHT_DECAY (those
+    of its BatchNorm modules) are the ones JAX's ``bn_mask`` selects, for
+    every registered family (the efficient ones by name table)."""
+    cfg = _family_cfg(model)
+    torch_model = build_model(cfg, device="cpu")
+    params = state_dict_to_jax_variables(torch_model.state_dict(),
+                                         cfg)["params"]
+    table = efficient_prefix_table(cfg)
     mask = jax.tree_util.tree_leaves_with_path(bn_mask(params, True))
-    jax_bn = {_torch_name(tuple(str(k.key) for k in path))
+    jax_bn = {_torch_name(tuple(str(k.key) for k in path), table)
               for path, is_bn in mask if is_bn}
-    port_bn = {n for n, _ in torch_model.named_parameters() if is_bn_param(n)}
+    port_bn = bn_param_names(torch_model)
     assert port_bn == jax_bn
-    assert len(port_bn) > 100 and any(n.endswith("a_bn.weight")
-                                      for n in port_bn)
+    assert len(port_bn) > 50
+    opt = construct_optimizer(cfg, torch_model)
+    names = {id(p): n for n, p in torch_model.named_parameters()}
+    decay = {names[id(p)]: g["weight_decay"] for g in opt.param_groups
+             for p in g["params"]}
+    assert {n for n, wd in decay.items() if wd == cfg.BN.WEIGHT_DECAY} == \
+        port_bn and len(decay) == len(names)
+
+
+def test_name_rule_misses_the_efficient_bns():
+    """The rule the port had (a "bn" in the torch name) misses the
+    efficient families' BNs, which the reference names by Sequential
+    index: it would decay them with SOLVER.WEIGHT_DECAY where JAX uses
+    BN.WEIGHT_DECAY."""
+    model = build_model(efficient_cfg("shufflenetv2"), device="cpu")
+    name = "s2.pathway0_channel_224.features.0.banch2.1.weight"
+    by_name = {n for n, _ in model.named_parameters() if "bn" in n}
+    assert name in bn_param_names(model) and name not in by_name
+    assert len(bn_param_names(model) - by_name) > 200
 
 
 def test_refusals_as_in_jax():

@@ -302,13 +302,83 @@ def calibrate_attention(variables, inputs, std=3.0, **kw):
     init the unscaled logits reach std 40-90 here, a near-argmax softmax
     whose gradient cancels to rounding noise (chip_smoke.ATTN_LOGIT_STD
     argues the same for the full-width model)."""
-    cfg = train_cfg(**kw)
+    return calibrate_fusions(train_cfg(**kw), variables, inputs, std)
+
+
+# The efficient families at the zoo's widths
+# (configs/Kinetics/*_16x2_112.yaml): (MODEL_NAME, SLOWFAST.WIDTH_MULTI, SLOWFAST.GROUPS, crop). ShuffleNet's
+# crop is 64, as tests/test_full_model_parity.py runs it: its s4 shortcut's
+# average-pool window then stays inside the feature map.
+EFFICIENT = {
+    "shufflenetv2": ("SlowFastShuffleNetV2", 2.0, 1, 32),
+    "shufflenet": ("SlowFastShuffleNet", 2.0, 3, 64),
+    "mobilenetv2": ("SlowFastMoibleNetV2", 1.0, 1, 32),
+    "ghostnet": ("SlowFastGhostNet", 1.0, 1, 32),
+}
+
+
+def efficient_cfg(family, get_cfg=torch_get_cfg, flash_min_tokens=16,
+                  train=False):
+    """``EFFICIENT[family]`` at 8 frames (α 4, β 8), 12 classes, f32, no
+    dropout, with ``TPU.FLASH_MIN_TOKENS`` lowered so that the fusions of
+    more than 16 slow tokens take the streaming path (flash_attention in
+    the port, chunked_attention in JAX); ``train`` adds the zoo yamls'
+    solver (SGD lr 0.01 with nesterov momentum 0.9, weight decay 1e-4 and
+    none on BN)."""
+    name, wm, groups, crop = EFFICIENT[family]
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_NAME = name
+    cfg.MODEL.NUM_CLASSES = 12
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    cfg.SLOWFAST.WIDTH_MULTI = wm
+    cfg.SLOWFAST.GROUPS = groups
+    cfg.SLOWFAST.ALPHA = 4
+    cfg.SLOWFAST.BETA_INV = 8
+    cfg.DATA.NUM_FRAMES = 8
+    cfg.DATA.CROP_SIZE = crop
+    cfg.DATA.TEST_CROP_SIZE = crop
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.FLASH_MIN_TOKENS = flash_min_tokens
+    if train:
+        cfg.SOLVER.OPTIMIZING_METHOD = "sgd"
+        cfg.SOLVER.BASE_LR = 0.01
+        cfg.SOLVER.MOMENTUM = 0.9
+        cfg.SOLVER.NESTEROV = True
+        cfg.SOLVER.DAMPENING = 0.0
+        cfg.SOLVER.WEIGHT_DECAY = 1e-4
+        cfg.BN.WEIGHT_DECAY = 0.0
+    return cfg
+
+
+def efficient_variables(cfg, seed=0):
+    """JAX-layout numpy variables of an efficient family from the port's
+    seeded init through the weight bridge (no JAX compile), BN statistics
+    jittered and every attention γ 0.5 with seeded q/k/v biases."""
+    from efficient_slowfast_tpu_torch.utils.weights import \
+        state_dict_to_jax_variables
+
+    torch.manual_seed(seed)
+    variables = state_dict_to_jax_variables(
+        torch_build_model(cfg, device="cpu").state_dict(), cfg)
+    return {"params": attention_params(variables["params"],
+                                       np.random.RandomState(1)),
+            "batch_stats": _jitter(variables["batch_stats"], [0])}
+
+
+def calibrate_fusions(cfg, variables, inputs, std=3.0):
+    """``variables`` of ``cfg``'s model with each CMDA fusion's query and
+    key convs scaled, fusion by fusion in the forward's order, so that its
+    logits have standard deviation ``std`` on ``inputs`` in a train-mode
+    forward."""
     params = _numpy_tree(variables["params"])
-    for i in range(1, 5):
+    names = [n for n, _ in torch_build_model(cfg, device="cpu")
+             .named_modules() if n.endswith("attention_spatial_s2f")]
+    for name in names:
         model = torch_build_model(cfg, device="cpu")
         model.load_state_dict(jax_variables_to_state_dict(
-            {"params": params, "batch_stats": variables["batch_stats"]}))
-        att = getattr(model, f"s{i}_fuse").attention_spatial_s2f
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            cfg))
+        att = model.get_submodule(name)
         seen = {}
         att.register_forward_hook(lambda m, inp, out: seen.update(x=inp[0]))
         with torch.no_grad():
@@ -316,10 +386,9 @@ def calibrate_attention(variables, inputs, std=3.0, **kw):
             q = att.query_conv(seen["x"]).flatten(2)
             k = att.key_conv(seen["x"]).flatten(2)
             f = (std / torch.einsum("bdn,bdm->bnm", q, k).std().item()) ** 0.5
-        att_params = params[f"s{i}_fuse"]["attention_spatial_s2f"]
-        for name in ("query", "key"):
-            conv = att_params[name]["conv"]
+        att_params = params[name.split(".")[0]]["attention_spatial_s2f"]
+        for proj in ("query", "key"):
+            conv = att_params[proj]["conv"]
             conv["kernel"] = (conv["kernel"] * f).astype(np.float32)
             conv["bias"] = (conv["bias"] * f).astype(np.float32)
     return {"params": params, "batch_stats": variables["batch_stats"]}
-
