@@ -1,13 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases 1,2,13  # chosen phases (1, 2 always)
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10, 11, 12 (3b takes its shapes from the CMDA model that
-phase 5 serves and from phase 10's schedule, 3c from the one that phase 7
-trains and phase 10's schedule; phases 11 and 12 run 3b and 3c again at
-their models' shapes before their own lines):
+5, 3c, 6, 7, 8, 9, 10, 11, 12, 13 (3b takes its shapes from the CMDA model
+that phase 5 serves and from phase 10's schedule, 3c from the one that
+phase 7 trains and phase 10's schedule; phases 11, 12 and 13 run 3b and 3c
+again at their models' shapes before their own lines). ``--phases`` runs a
+chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
+3c, 6 and 7), and 10 with 3b and 3c, which hold its shapes:
 
 1. device   — a CUDA card is required; prints its name and power limit and
               turns TF32 off so that float32 checks are float32.
@@ -210,16 +213,43 @@ their models' shapes before their own lines):
               nesterov, wd 1e-4, dropout 0.5): 2 warm-up and 5 timed steps,
               3 traced, K2 and K2-bwd launches a step gated, then one-clip
               f32 and bf16 steps held as phase 11 holds them.
+13. detection — AVA on a seeded split that the phase writes in the shape of
+              tests/test_ava.py's fixture (JPEG frames at 320x568 read with
+              PIL, frame lists, 2-6 person boxes a keyframe with 1-3 of the
+              80 action ids, scored val person boxes, val ground truth, a
+              label map, one exclusion; 64 train and 32 val keyframes).
+              configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml (SlowFast-R50, s5 at
+              stride 1 and dilation 2, 80 classes, bf16, seeded weights)
+              served through perform_detection_test (8 clips and 256 box
+              slots a batch on the 256x512 canvas, the pinned ring; no
+              kernel launch; ms a batch, clips/s and boxes/s end to end and
+              for the forward alone, peak memory, the frame mAP in [0, 1]),
+              one batch traced (device-busy share, the RoI head's and
+              ROIAlign's share of the device time), one clip's bf16 logits
+              against float32 (TEST_LOGIT_TOL), test() from a .pyth, and
+              SLOW_8x8_R50_SHORT.yaml served. Then the same yaml with
+              MODEL_NAME SlowFastDualAttention: 3b at its four serving
+              shapes (N = 65536, 65536, 16384, 4096 at 8 clips) against the
+              chunked plain version, 3c at its training shapes (224², 16
+              clips); served with 4 K2 launches a forward at those shapes,
+              each call held on its inputs, the logits held against the
+              plain attention in bf16 and float32 (below); trained at the
+              yaml's 16 clips (4 K2 and 12 K2-bwd launches a step, losses,
+              BN, 3 steps traced) with one-clip steps held as phase 7's.
+              Last, SlowFast through tools/run_net.py (SOLVER.MAX_EPOCH 1):
+              4 steps of 16 clips, one traced, a val mAP, a checkpoint and
+              test() from it.
 
-The profiler (phases 6, 7, 8, 11, 12) prints, per traced window, the device-busy
-share (the union of the CUDA kernels' intervals over the window's wall
-time) and the top five kernels by device time; the trace sits in
-build/smoke/profile_*/trace.json.
+The profiler (phases 6, 7, 8, 11, 12, 13) prints, per traced window, the
+device-busy share (the union of the CUDA kernels' intervals over the
+window's wall time) and the top five kernels by device time; the trace
+sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11 and 12 (its times and bounds are per request of the
-SlowFast and CMDA serving paths, as before; its errors the worst on any
+4, 5, 7, 8, 9, 10, 11, 12 and 13 (its times and bounds are per request of
+the SlowFast and CMDA serving paths and per CMDA train step, phase 13's
+rows standing in where 3b or 3c did not run; its errors the worst on any
 path). The last three lines are the kernels' JSON record, the card's name
 and power limit, and the device JSON line.
 """
@@ -1056,20 +1086,24 @@ def fusions(model):
             if n.endswith(".attention_spatial_s2f")]
 
 
-def calibrate_attention(cfg, model, seed, phase="cmda"):
+def calibrate_attention(cfg, model, seed, phase="cmda", run=None):
     """Scale each fusion's query and key convs (weight and bias, by one
-    factor each) so that its logits have ATTN_LOGIT_STD on a seeded clip,
-    fusion by fusion, as each scale moves the fusions after it."""
+    factor each) so that its logits have ATTN_LOGIT_STD on a seeded clip
+    (or in the forward that ``run()`` makes), fusion by fusion, as each
+    scale moves the fusions after it."""
     from efficient_slowfast_tpu_torch.engine.state import make_forward
 
-    fwd = make_forward(cfg, model)
-    req = clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32)
+    if run is None:
+        fwd = make_forward(cfg, model)
+        req = clips(cfg, 1, torch.Generator().manual_seed(seed),
+                    torch.float32)
+        run = lambda: fwd(req)  # noqa: E731
     stds = []
     for _, att in fusions(model):
         seen = {}
         hook = att.register_forward_hook(
             lambda m, inp, out: seen.update(x=inp[0]))
-        fwd(req)
+        run()
         hook.remove()
         with torch.inference_mode():
             q = att.query_conv(seen["x"]).flatten(2).float()  # (1, D, N)
@@ -1210,9 +1244,13 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
                        iters=2 if big else 10, reps=3 if big else 5)
         p_ms = cuda_ms(lambda: chunked_attention(q, k, v), iters=1, reps=3)
         backend = sdpa_backend(q[:, None], k[:, None], v[:, None])
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[:, None], k[:, None], v[:, None], scale=1.0),
-            iters=2 if big else 10, reps=3 if big else 5)
+        lib_ms = None  # SDPA's math backend would hold the whole b·n·m
+        if backend != "math" or b * n * m * 4 < 2 ** 34:
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None], scale=1.0),
+                iters=2 if big else 10, reps=3 if big else 5)
+        lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        ratio = "n/a" if lib_ms is None else f"{k_ms / lib_ms:.2f}"
         flops, nbytes, exps = attention_cost(b, n, m, d, c)
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1221,9 +1259,9 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
         by = "bytes" if t_bytes == bound else "operations"
         log("attention", f"{label:16s} bf16 N {n} M {m} D {d} C {c} x{count}"
             f" per request, {b} clips | kernel {k_ms:.4f} ms | plain "
-            f"{p_ms:.4f} ms | sdpa ({backend}) {lib_ms:.4f} ms | "
+            f"{p_ms:.4f} ms | sdpa ({backend}) {lib_txt} | "
             f"kernel/bound {k_ms / bound:.2f}, "
-            f"kernel/sdpa {k_ms / lib_ms:.2f} | bound {bound:.5f} ms ({by}; tensor "
+            f"kernel/sdpa {ratio} | bound {bound:.5f} ms ({by}; tensor "
             f"cores {t_ops:.5f} ms for {flops / 1e9:.3f} GFLOP, exp "
             f"{t_exp:.5f} ms for {exps:.3e}, memory {t_bytes:.5f} ms for "
             f"{nbytes / 1e6:.3f} MB) | {smi}")
@@ -1581,13 +1619,17 @@ def one_step(cfg, state_dict, batch, seed, with_loss=False):
     return (after, mets["loss"].item()) if with_loss else after
 
 
-def hold_one_clip_steps(phase, cfg_of, state_dict, smi):
+def hold_one_clip_steps(phase, cfg_of, state_dict, smi, batch_of=None,
+                        one=None):
     """One train step of one clip from ``state_dict`` in float32 and in
     bfloat16 (``cfg_of(dtype name, flash)``), each with the attention
     kernels against the same step with the plain attention
     (TPU.FLASH_ATTENTION False), held to CMDA_TRAIN_F32_TOL,
     CMDA_TRAIN_BF16_RATIO and CMDA_STATS_TOL: the two paths differ only in
-    the attention, whatever model carries it."""
+    the attention, whatever model carries it. ``batch_of(cfg, dtype)``
+    and ``one`` (``one_step``'s arguments) give another step's batch and
+    step (detection's)."""
+    one = one or one_step
     stats = [k for k in state_dict
              if k.endswith(("running_mean", "running_var"))]
     params = [k for k in state_dict if k not in stats
@@ -1596,9 +1638,9 @@ def hold_one_clip_steps(phase, cfg_of, state_dict, smi):
                             for k in params) ** 0.5
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        batch = train_batches(cfg_of(name, True), 1, 1, SEED + 11, dtype)[0]
-        after = {flash: one_step(cfg_of(name, flash), state_dict, batch,
-                                 SEED)
+        batch = (train_batches(cfg_of(name, True), 1, 1, SEED + 11, dtype)[0]
+                 if batch_of is None else batch_of(cfg_of(name, True), dtype))
+        after = {flash: one(cfg_of(name, flash), state_dict, batch, SEED)
                  for flash in (True, False)}
         if dtype == torch.float32:
             ref = after[False]  # the float32 step, plain attention
@@ -3205,6 +3247,764 @@ def phase_efficient(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: AVA detection
+AVA_YAML = os.path.join(ROOT, "configs", "AVA", "SLOWFAST_32x2_R50_SHORT.yaml")
+AVA_SLOW_YAML = os.path.join(ROOT, "configs", "AVA", "SLOW_8x8_R50_SHORT.yaml")
+# the split the smoke writes: videos a split, 8 labelled keyframes each (64
+# train, 32 val), at seconds that are multiples of 4, so that the val
+# epoch's every-fourth-second rule keeps them all
+AVA_VIDEOS = {"train": 8, "val": 4}
+AVA_SECONDS = [904 + 4 * i for i in range(8)]
+AVA_FRAME_HW = (320, 568)  # 16:9, as AVA's movies
+AVA_JPEGS = 64  # distinct JPEGs a video: frame i shows JPEG i % 64
+# one excluded val keyframe (the evaluator drops it from GT and detections)
+AVA_EXCLUDED = ("val00", AVA_SECONDS[-1])
+
+
+def write_ava_split(root):
+    """AVA's files for a seeded split under ``root``, in the shape of
+    tests/test_ava.py::make_ava_fixture: JPEG frames at AVA_FRAME_HW,
+    frame lists, train boxes with 1-3 of the 80 action labels each (2-6
+    people a keyframe), val person boxes as a detector gives them (scored,
+    some below AVA.DETECTION_SCORE_THRESH, one false positive a keyframe),
+    val ground truth, a label map of the 80 ids and one exclusion."""
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED + 13)
+    dirs = {k: os.path.join(root, k) for k in ("frames", "lists", "ann")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    h, w = AVA_FRAME_HW
+    n_frames = (AVA_SECONDS[-1] - 900) * 30 + 64  # past the last window
+    csv = {"train_gt": [], "val_gt": [], "val_pred": []}
+    for split, count in AVA_VIDEOS.items():
+        lines = ["original_vido_id video_id frame_id path labels"]
+        for v in range(count):
+            name = f"{split}{v:02d}"
+            os.makedirs(os.path.join(dirs["frames"], name), exist_ok=True)
+            # smooth seeded content (16-pixel cells), moving a cell a frame
+            cells = rs.randint(0, 256, (h // 16 + 5, w // 16 + 5, 3), np.uint8)
+            big = np.repeat(np.repeat(cells, 16, 0), 16, 1)
+            for j in range(AVA_JPEGS):
+                y, x = 16 * (j % 4), 16 * (j // 16)
+                Image.fromarray(big[y:y + h, x:x + w]).save(
+                    os.path.join(dirs["frames"], name, f"{j:03d}.jpg"),
+                    quality=90)
+            lines += [f"{name} {v} {i} {name}/{i % AVA_JPEGS:03d}.jpg \"\""
+                      for i in range(n_frames)]
+            for sec in AVA_SECONDS:
+                for person in range(rs.randint(2, 7)):
+                    x1, y1 = rs.uniform(0.0, 0.6, 2)
+                    x2 = min(1.0, x1 + rs.uniform(0.1, 0.4))
+                    y2 = min(1.0, y1 + rs.uniform(0.25, 0.6))
+                    box = f"{x1:.3f},{y1:.3f},{x2:.3f},{y2:.3f}"
+                    for act in rs.choice(np.arange(1, 81), rs.randint(1, 4),
+                                         replace=False):
+                        csv[f"{split}_gt"].append(
+                            f"{name},{sec},{box},{act},{person}")
+                    if split == "val":
+                        j = np.clip(np.array([x1, y1, x2, y2])
+                                    + rs.uniform(-0.02, 0.02, 4), 0, 1)
+                        csv["val_pred"].append(
+                            f"{name},{sec}," + ",".join(f"{c:.3f}" for c in j)
+                            + f",,{rs.uniform(0.85, 1.0):.3f}")
+                if split == "val":
+                    csv["val_pred"] += [
+                        f"{name},{sec},0.700,0.100,0.950,0.600,,0.900",
+                        f"{name},{sec},0.050,0.050,0.300,0.400,,0.300"]
+        with open(os.path.join(dirs["lists"], f"{split}.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    for key, rows in csv.items():
+        with open(os.path.join(dirs["ann"], f"{key}.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(os.path.join(dirs["ann"], "labels.pbtxt"), "w") as f:
+        f.write("".join(f'item {{\n  name: "action{i}"\n  id: {i}\n}}\n'
+                        for i in range(1, 81)))
+    with open(os.path.join(dirs["ann"], "excl.csv"), "w") as f:
+        f.write(f"{AVA_EXCLUDED[0]},{AVA_EXCLUDED[1]}\n")
+    return dirs
+
+
+def ava_opts(dirs):
+    """The split's locations (the yamls name AVA's own files)."""
+    return ["AVA.FRAME_DIR", dirs["frames"],
+            "AVA.FRAME_LIST_DIR", dirs["lists"],
+            "AVA.ANNOTATION_DIR", dirs["ann"],
+            "AVA.TRAIN_LISTS", "['train.csv']", "AVA.TEST_LISTS", "['val.csv']",
+            "AVA.TRAIN_GT_BOX_LISTS", "['train_gt.csv']",
+            "AVA.TRAIN_PREDICT_BOX_LISTS", "[]",
+            "AVA.TEST_PREDICT_BOX_LISTS", "['val_pred.csv']",
+            "AVA.GROUNDTRUTH_FILE", "val_gt.csv",
+            "AVA.LABEL_MAP_FILE", "labels.pbtxt",
+            "AVA.EXCLUSION_FILE", "excl.csv",
+            "DATA_LOADER.NUM_WORKERS", LOADER_WORKERS]
+
+
+def ava_cfg(yaml, dirs, dtype="bfloat16", *opts):
+    from efficient_slowfast_tpu_torch.config import load_cfg
+
+    return load_cfg(yaml, ava_opts(dirs) + ["TPU.COMPUTE_DTYPE", dtype]
+                    + list(opts))
+
+
+def detection_rows(cfg, model, hw, batch):
+    """The CMDA fusions' attention over the slow frames at input size
+    ``hw`` (the stem's two stride-2 ops and s3's and s4's): [(label, N, M,
+    D, C, K2 launches a forward, batch)]; a fusion of at most
+    TPU.FLASH_MIN_TOKENS tokens takes the dense branch (none at the yaml's
+    sizes: N >= 1568)."""
+    t = cfg.DATA.NUM_FRAMES // cfg.SLOWFAST.ALPHA
+    h, w = -(-hw[0] // 4), -(-hw[1] // 4)
+    rows = []
+    for i, (name, att) in enumerate(fusions(model)):
+        if i:
+            s = cfg.RESNET.SPATIAL_STRIDES[i - 1][0]
+            h, w = -(-h // s), -(-w // s)
+        n = t * h * w
+        rows.append((f"det {name} {hw[0]}x{hw[1]}", n, n,
+                     att.query_conv.out_channels, att.value_conv.out_channels,
+                     int(n > cfg.TPU.FLASH_MIN_TOKENS), batch))
+    return rows
+
+
+class Spans:
+    """Device time of the kernels launched inside named spans of a traced
+    window: ``wrap(name, fn)`` gives ``fn`` under ``profiler.annotate``."""
+
+    @staticmethod
+    def wrap(name, fn):
+        from efficient_slowfast_tpu_torch.utils import profiler
+
+        def run(*a, **k):
+            with profiler.annotate(name):
+                return fn(*a, **k)
+        return run
+
+    @staticmethod
+    def shares(trace_name, names):
+        """{name: (kernel ms inside its spans, share of all kernel time)}."""
+        from efficient_slowfast_tpu_torch.utils import profiler
+
+        with open(os.path.join(smoke_dir(), f"profile_{trace_name}",
+                               profiler.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        spans = {n: [(e["ts"], e["ts"] + e["dur"], e.get("tid"))
+                     for e in events if e.get("name") == n
+                     and e.get("cat") == "user_annotation"] for n in names}
+        launches = {e["args"]["correlation"]: e for e in events
+                    if e.get("cat") == "cuda_runtime"
+                    and "correlation" in e.get("args", {})}
+        inside = dict.fromkeys(names, 0.0)
+        total = 0.0
+        for k in (e for e in events if e.get("cat") == "kernel"):
+            total += k["dur"]
+            launch = launches.get(k.get("args", {}).get("correlation"))
+            if launch is None:
+                continue
+            for n in names:
+                if any(a <= launch["ts"] <= b and tid == launch.get("tid")
+                       for a, b, tid in spans[n]):
+                    inside[n] += k["dur"]
+        return {n: (t / 1e3, t / max(total, 1e-9)) for n, t in inside.items()}
+
+
+def first_batches(loader, count):
+    """The first ``count`` batches of ``loader`` on the card (pinned ring,
+    side-stream copy)."""
+    from efficient_slowfast_tpu_torch.data.loader import prefetch_to_device
+
+    out = []
+    batches = prefetch_to_device(loader, "cuda")
+    try:
+        for batch in batches:
+            out.append(batch)
+            if len(out) == count:
+                break
+    finally:
+        batches.close()
+    torch.cuda.synchronize()
+    return out
+
+
+def detection_scores_check(scores, rows, what):
+    if scores.shape != (rows, 80) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"{what}: scores {tuple(scores.shape)} not "
+                             f"finite or not ({rows}, 80)")
+    if scores.min().item() < 0 or scores.max().item() > 1:
+        raise AssertionError(f"{what}: sigmoid scores outside [0, 1]")
+
+
+def head_logits(fwd, model, inputs, boxes):
+    """(``fwd``'s scores, the RoI head's logits: its projection's output
+    in float32)."""
+    seen = {}
+    hook = model.head.projection.register_forward_hook(
+        lambda m, i, o: seen.update(x=o.float()))
+    try:
+        scores = fwd(inputs, boxes)
+    finally:
+        hook.remove()
+    return scores, seen["x"]
+
+
+def phase_detection_serving(dirs, smi):
+    """SlowFast-R50 32x2 AVA served through perform_detection_test and
+    test(); SLOW 8x8 served beside it. Returns the launch counts."""
+    from efficient_slowfast_tpu_torch.data.ava_dataset import MAX_BOXES
+    from efficient_slowfast_tpu_torch.data.loader import construct_loader
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_detection_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import \
+        make_detection_forward
+    from efficient_slowfast_tpu_torch.engine.test import (
+        perform_detection_test, test)
+    from efficient_slowfast_tpu_torch.models import detection
+    from efficient_slowfast_tpu_torch.utils.meters import AVAMeter, StageTimes
+
+    cfg = ava_cfg(AVA_YAML, dirs)
+    model = serving_model(cfg, SEED)
+    loader = construct_loader(cfg, "test")
+    n_clips = len(loader.dataset)
+    log("detection", f"SlowFast-R50 32x2 AVA ({os.path.relpath(AVA_YAML, ROOT)}"
+        f", 80 classes, bf16, seeded weights): {n_clips} val keyframes in "
+        f"{len(loader)} batches of {loader.batch_size}, {MAX_BOXES} box slots "
+        f"a clip, "
+        f"canvas {loader.dataset.frames_shape()} uint8, "
+        f"{cfg.DATA_LOADER.NUM_WORKERS} loader threads")
+    pre = make_detection_preprocess(cfg, torch.bfloat16)
+    fwd = make_detection_forward(cfg, model)
+    (first,) = first_batches(loader, 1)
+    inputs = pre(first["frames"])
+    rows = first["boxes"].shape[0] * first["boxes"].shape[1]
+    reset_counts()
+    out = fwd(inputs, first["boxes"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    detection_scores_check(out, rows, "detection serving")
+    if any(counts.values()):
+        raise AssertionError(f"detection serving launched {counts}")
+    # the forward alone on the resident batch
+    fwd_ms = cuda_ms(lambda: fwd(inputs, first["boxes"]), iters=3, reps=3)
+
+    times = StageTimes()
+    meter = AVAMeter(len(loader), cfg, mode="test")
+    meter.video_idx_to_name = loader.dataset._video_idx_to_name
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    perform_detection_test(cfg, model, loader, meter, times=times)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    run_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    boxes = sum(len(p) for p in meter.all_preds)
+    mAP = meter.finalize_metrics()
+    split = {k: statistics.mean(v) for k, v in times.summary().items()}
+    b = loader.batch_size
+    log("detection", f"serving, {len(loader)} batches of {b} clips, "
+        f"{rows} box slots a batch, {boxes} real boxes: end to end "
+        f"{dt / len(loader) * 1e3:.2f} ms a batch, {n_clips / dt:.2f} clips/s"
+        f", {boxes / dt:.2f} boxes/s | forward alone on a resident batch "
+        f"{fwd_ms:.2f} ms, {b / fwd_ms * 1e3:.2f} clips/s, "
+        f"{boxes / len(loader) / fwd_ms * 1e3:.2f} boxes/s | per batch "
+        f"mean: wait {split['wait']:.2f}, copy {split['copy']:.2f}, "
+        f"preprocess {split['preprocess']:.2f}, forward "
+        f"{split['forward']:.2f} ms | kernel launches {run_counts} | peak "
+        f"memory {peak / 2 ** 30:.2f} GiB | mAP {mAP:.4f} | {smi}")
+    if any(run_counts.values()):
+        raise AssertionError(f"detection serving launched {run_counts}")
+    if not 0.0 <= mAP <= 1.0:
+        raise AssertionError(f"detection serving mAP {mAP}")
+
+    # one batch traced, the RoI head and its ROIAlign calls in spans
+    orig_head, orig_roi = model.head.forward, detection.roi_align
+    model.head.forward = Spans.wrap("smoke_roi_head", orig_head)
+    detection.roi_align = Spans.wrap("smoke_roi_align", orig_roi)
+    try:
+        share, window_ms, _, _ = trace_window(
+            "detection_serving", lambda: fwd(pre(first["frames"]),
+                                             first["boxes"]))
+    finally:
+        model.head.forward, detection.roi_align = orig_head, orig_roi
+    parts = Spans.shares("detection_serving",
+                         ["smoke_roi_head", "smoke_roi_align"])
+    log("detection", f"serving, one traced batch: device busy "
+        f"{share * 100:.1f}% of {window_ms:.2f} ms | the RoI head "
+        f"{parts['smoke_roi_head'][0]:.3f} ms "
+        f"({parts['smoke_roi_head'][1] * 100:.2f}% of the device time), of "
+        f"which ROIAlign {parts['smoke_roi_align'][0]:.3f} ms "
+        f"({parts['smoke_roi_align'][1] * 100:.2f}%) | {smi}")
+
+    # one clip in bf16 against float32, the same weights and boxes; held
+    # on the real boxes' logits, not their scores: the RoI head's sigmoid
+    # scores sit near 0.5, where bf16 roundings through the ~50 layers
+    # (TEST_LOGIT_TOL's estimate: a few % of the logits' spread) move a
+    # score by a quarter of its logit's change, far more than they move a
+    # softmax probability over 400 classes (CMDA_BF16_ATOL's unit)
+    cfg32 = ava_cfg(AVA_YAML, dirs, "float32")
+    m32 = model_with(cfg32, model.state_dict())
+    x32 = make_detection_preprocess(cfg32)(first["frames"][:1])
+    p32, l32 = head_logits(make_detection_forward(cfg32, m32), m32, x32,
+                           first["boxes"][:1])
+    p16, l16 = head_logits(fwd, model, [x[:1] for x in inputs],
+                           first["boxes"][:1])
+    real = first["box_mask"][0].cuda() > 0
+    p32, p16, l32, l16 = p32[real], p16[real], l32[real], l16[real]
+    err = (l16 - l32).abs().max().item()
+    scale = l32.abs().max().item()
+    log("detection", f"one clip, bf16 vs float32 on the same weights and "
+        f"{int(real.sum())} boxes: logits max |d| {err:.3e} (tol "
+        f"{TEST_LOGIT_TOL * scale:.3e}: {TEST_LOGIT_TOL} of their scale "
+        f"{scale:.3f}), scores max |d| "
+        f"{(p16 - p32).abs().max().item():.3e} | {smi}")
+    if not err <= TEST_LOGIT_TOL * scale:
+        raise AssertionError(f"detection bf16 vs f32 {err}")
+    del m32, x32
+
+    # test(), the entry point, from a .pyth of the same weights
+    path = os.path.join(smoke_dir(), "ava_slowfast.pyth")
+    torch.save({"model_state": model.state_dict()}, path)
+    tcfg = cfg.clone()
+    tcfg.merge_from_list(["TEST.CHECKPOINT_FILE_PATH", path,
+                          "OUTPUT_DIR", smoke_dir()])
+    reset_counts()
+    t0 = time.perf_counter()
+    tmeter = test(tcfg)
+    dt_test = time.perf_counter() - t0
+    test_counts = read_counts()
+    log("detection", f"test() from the .pyth: mAP {tmeter.full_map:.4f} "
+        f"(perform_detection_test's {mAP:.4f}) in {dt_test:.2f} s with the "
+        f"model's build and load, kernel launches {test_counts} | {smi}")
+    if not 0.0 <= tmeter.full_map <= 1.0 or any(test_counts.values()):
+        raise AssertionError(f"test(): mAP {tmeter.full_map}, launches "
+                             f"{test_counts}")
+    del model, inputs, first
+    torch.cuda.empty_cache()
+
+    # SLOW 8x8: the single-pathway branch, a forward and its time
+    scfg = ava_cfg(AVA_SLOW_YAML, dirs)
+    smodel = serving_model(scfg, SEED)
+    (sb,) = first_batches(construct_loader(scfg, "test"), 1)
+    sx = make_detection_preprocess(scfg, torch.bfloat16)(sb["frames"])
+    sfwd = make_detection_forward(scfg, smodel)
+    reset_counts()
+    sout = sfwd(sx, sb["boxes"])
+    torch.cuda.synchronize()
+    slow_counts = read_counts()
+    detection_scores_check(sout, rows, "SLOW 8x8 detection")
+    s_ms = cuda_ms(lambda: sfwd(sx, sb["boxes"]), iters=3, reps=3)
+    log("detection", f"SLOW-R50 8x8 AVA ({os.path.relpath(AVA_SLOW_YAML, ROOT)}"
+        f", one pathway of {scfg.DATA.NUM_FRAMES} frames): forward of "
+        f"{sb['frames'].shape[0]} clips {s_ms:.2f} ms on a resident batch, "
+        f"kernel launches {slow_counts} | {smi}")
+    if any(slow_counts.values()):
+        raise AssertionError(f"SLOW detection launched {slow_counts}")
+    del smodel, sx, sb
+    torch.cuda.empty_cache()
+    return run_counts
+
+
+def calibrate_detection_attention(cfg, model, inputs, boxes, phase):
+    """calibrate_attention for a detection model: its logits measured on
+    one clip of ``inputs`` with its ``boxes``."""
+    from efficient_slowfast_tpu_torch.engine.state import \
+        make_detection_forward
+
+    fwd = make_detection_forward(cfg, model)
+    calibrate_attention(cfg, model, None, phase,
+                        run=lambda: fwd([x[:1] for x in inputs], boxes[:1]))
+
+
+def k2_shapes_of(run, calls=None):
+    """(result of ``run()``, the (B, N, M, D, C) of each K2 call in it);
+    ``calls``, where given, gets each call's (q, k, v, output)."""
+    from efficient_slowfast_tpu_torch.ops import attention
+
+    orig, seen = attention.flash_attention, []
+
+    def recorded(q, k, v):
+        seen.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                     v.shape[2]))
+        out = orig(q, k, v)
+        if calls is not None:
+            calls.append((q, k, v, out))
+        return out
+
+    attention.flash_attention = recorded
+    try:
+        return run(), seen
+    finally:
+        attention.flash_attention = orig
+
+
+def detection_train_batches(cfg, loader, count, dtype):
+    """``count`` train batches of ``loader`` through the detection train
+    preprocess on the card: [(inputs, boxes, labels, mask)]."""
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_detection_train_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import step_generator
+
+    pre = make_detection_train_preprocess(cfg, dtype)
+    out = []
+    for i, b in enumerate(first_batches(loader, count)):
+        x, boxes = pre(step_generator(cfg.RNG_SEED, i, "cuda"), b["frames"],
+                       b["width"], b["boxes"])
+        out.append((x, boxes, b["box_labels"].cuda(), b["box_mask"].cuda()))
+    return out
+
+
+def one_detection_step(cfg, state_dict, batch, seed):
+    """``one_step`` for the detection train step."""
+    from efficient_slowfast_tpu_torch.engine.state import (
+        create_train_state, make_detection_train_step)
+
+    model = model_with(cfg, state_dict)
+    state = create_train_state(cfg, model)
+    step = make_detection_train_step(cfg, state.model, state.optimizer)
+    step(state, *batch, cfg.SOLVER.BASE_LR,
+         torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_detection_cmda(dirs, smi):
+    """CMDA detection: 3b at its serving shapes and 3c at its training
+    shapes, then served (8 clips, K2 4 a forward) against the plain
+    attention and trained (16 clips, 224²: K2 4 and K2-bwd 12 a step).
+    Returns (K2 record, K2 error, K2-bwd record, K2-bwd error, counts)."""
+    from efficient_slowfast_tpu_torch.data.loader import construct_loader
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_detection_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import (
+        create_train_state, make_detection_forward, make_detection_train_step)
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    cmda = ["MODEL.MODEL_NAME", "SlowFastDualAttention"]
+    cfg = ava_cfg(AVA_YAML, dirs, "bfloat16", *cmda)
+    model = serving_model(cfg, SEED)
+    canvas = construct_loader(cfg, "test").dataset.frames_shape()[1:3]
+    train_hw = (cfg.DATA.TRAIN_CROP_SIZE,) * 2
+    # the yaml's batches: TEST.BATCH_SIZE 8, TRAIN.BATCH_SIZE 16 on its
+    # NUM_GPUS 1
+    test_b, train_b = cfg.TEST.BATCH_SIZE, cfg.TRAIN.BATCH_SIZE
+    serve_rows = detection_rows(cfg, model, canvas, test_b)
+    train_rows = detection_rows(cfg, model, train_hw, train_b)
+    k2_record, k2_err, _ = phase_attention(serve_rows, smi, off_path=(),
+                                           path_batch=test_b)
+    bwd_record, bwd_err, _ = phase_attention_backward(
+        [r[:6] for r in train_rows], smi, off_path=(), batch=train_b)
+    torch.cuda.empty_cache()
+    totals = {"fused_bottleneck": 0, "flash_attention": 0,
+              "flash_attention_backward": 0}
+
+    # serving: one val batch, against TPU.FLASH_ATTENTION False
+    loader = construct_loader(cfg, "test")
+    (batch,) = first_batches(loader, 1)
+    inputs = make_detection_preprocess(cfg, torch.bfloat16)(batch["frames"])
+    boxes = batch["boxes"]
+    calibrate_detection_attention(cfg, model, inputs, boxes, "detection")
+    fwd = make_detection_forward(cfg, model)
+    fwd(inputs, boxes)  # warm-up
+    reset_counts()
+    out, shapes = k2_shapes_of(lambda: fwd(inputs, boxes))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = [(test_b,) + r[1:5] for r in serve_rows if r[5]]
+    if counts["flash_attention"] != len(want) or shapes != want:
+        raise AssertionError(f"CMDA detection forward: K2 {counts}, shapes "
+                             f"{shapes}, expected {len(want)} at {want}")
+    for k, v in counts.items():
+        totals[k] += v
+    detection_scores_check(out, boxes.numel() // 4, "CMDA detection")
+    k_ms = cuda_ms(lambda: fwd(inputs, boxes), iters=2, reps=3)
+    # each K2 call of the forward against the plain version on its inputs
+    calls = []
+    _, shapes = k2_shapes_of(lambda: fwd(inputs, boxes), calls)
+    worst = max((o.float() - fa.chunked_attention(q, k, v).float()).abs()
+                .max().item() / max(1.0, o.float().abs().max().item())
+                for q, k, v, o in calls)
+    del calls
+    # the whole forward: with calibrated attention over 65536 keys this
+    # random-weight network carries one bf16 rounding of an attention
+    # output to the head's logits at their own scale (on an H100 the plain
+    # path's logits moved by 11.7 of 27.6 when one bf16 rounding was added
+    # to its attention outputs, as far as the kernel's differ), so no
+    # bf16 path matches another element for element. As phase 7 holds a
+    # bf16 step: the kernel's bf16 logits no farther from the float32 plain
+    # path's than the bf16 plain path's are, in L2 over the real boxes,
+    # within CMDA_TRAIN_BF16_RATIO
+    state = model.state_dict()
+    paths = {}
+    for name, dtype, flash in (("plain bf16", "bfloat16", False),
+                               ("plain f32", "float32", False)):
+        pcfg = ava_cfg(AVA_YAML, dirs, dtype, *cmda, "TPU.FLASH_ATTENTION",
+                       flash)
+        pmodel = model_with(pcfg, state)
+        pfwd = make_detection_forward(pcfg, pmodel)
+        x = inputs if dtype == "bfloat16" else make_detection_preprocess(
+            pcfg)(batch["frames"])
+        reset_counts()
+        paths[name] = head_logits(pfwd, pmodel, x, boxes)
+        torch.cuda.synchronize()
+        if any(read_counts().values()):
+            raise AssertionError(f"the plain attention launched "
+                                 f"{read_counts()}")
+        if name == "plain bf16":
+            p_ms = cuda_ms(lambda: pfwd(inputs, boxes), iters=1, reps=2)
+        del pmodel, pfwd, x
+    _, lk = head_logits(fwd, model, inputs, boxes)
+    real = (batch["box_mask"].reshape(-1) > 0).cuda()
+    l32 = paths["plain f32"][1][real]
+    d_k = (lk[real] - l32).norm().item()
+    d_p = (paths["plain bf16"][1][real] - l32).norm().item()
+    score_err = (out - paths["plain bf16"][0]).abs().max().item()
+    log("detection", f"CMDA detection serving, {test_b} clips, "
+        f"bf16: K2 launches {counts['flash_attention']} at (B, N, M, D, C) "
+        f"{shapes} | each K2 call vs the plain version on its inputs "
+        f"{worst:.3e} of the scale (tol {ATTN_BF16_TOL}) | the real boxes' "
+        f"logits from the f32 plain path's, L2: with K2 {d_k:.4e}, plain "
+        f"bf16 {d_p:.4e} (ratio {d_k / max(d_p, 1e-30):.3f}, tol "
+        f"{CMDA_TRAIN_BF16_RATIO}; f32 plain logits' norm {l32.norm():.4e})"
+        f" | scores vs the bf16 plain path max |d| {score_err:.3e} | "
+        f"forward {k_ms:.2f} ms with K2, {p_ms:.2f} ms with the plain "
+        f"(chunked) attention | {smi}")
+    if worst > ATTN_BF16_TOL or d_k > CMDA_TRAIN_BF16_RATIO * d_p:
+        raise AssertionError(f"CMDA detection bf16: K2 calls {worst}, "
+                             f"logits {d_k} vs plain bf16's {d_p}")
+    del paths
+    cfg32 = ava_cfg(AVA_YAML, dirs, "float32", *cmda)
+    pcfg32 = ava_cfg(AVA_YAML, dirs, "float32", *cmda,
+                     "TPU.FLASH_ATTENTION", False)
+    x32 = make_detection_preprocess(cfg32)(batch["frames"][:1])
+    o32 = make_detection_forward(cfg32, model_with(cfg32, state))(
+        x32, boxes[:1])
+    r32 = make_detection_forward(pcfg32, model_with(pcfg32, state))(
+        x32, boxes[:1])
+    err32 = (o32 - r32).abs().max().item()
+    log("detection", f"CMDA detection serving, f32, 1 clip: K2 vs plain "
+        f"attention max |d| {err32:.3e} (tol {CMDA_F32_ATOL}) | {smi}")
+    if err32 > CMDA_F32_ATOL:
+        raise AssertionError(f"CMDA detection f32 vs plain {err32}")
+    del model, x32, o32, r32, inputs, batch
+    torch.cuda.empty_cache()
+
+    # training: the yaml's 16 clips, 224², from the train split
+    tcfg = ava_cfg(AVA_YAML, dirs, "bfloat16", *cmda)
+    model = train_model(tcfg, SEED)
+    tloader = construct_loader(tcfg, "train")
+    batches = detection_train_batches(tcfg, tloader, len(tloader),
+                                      torch.bfloat16)
+    x0, b0 = batches[0][:2]
+    calibrate_detection_attention(tcfg, model, x0, b0, "detection")
+    state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+    state = create_train_state(tcfg, model)
+    step = make_detection_train_step(tcfg, state.model, state.optimizer)
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    lr = tcfg.SOLVER.BASE_LR
+    pick = lambda i: batches[i % len(batches)]  # noqa: E731
+    bn_name, bn = watched_bn(model)
+    before = bn.running_mean.clone()
+    for i in range(TRAIN_WARMUP):
+        step(state, *pick(i), lr, drop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    mets = [step(state, *pick(i), lr, drop) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack([m["loss"] for m in mets]).tolist()
+    moved = (bn.running_mean - before).abs().max().item()
+    log("detection", f"CMDA detection training, bf16, {train_b} "
+        f"clips a step at {train_hw[0]}², {TRAIN_STEPS} steps after "
+        f"{TRAIN_WARMUP} warm-up | losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" | kernel launches "
+        f"{counts} | running mean of {bn_name} moved {moved:.3e}")
+    log("detection", f"CMDA detection training: {dt * 1e3:.2f} ms a step, "
+        f"{train_b / dt:.2f} train clips/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB | {smi}")
+    calls = sum(r[5] for r in train_rows)  # 4 at 224²
+    expect = {"fused_bottleneck": 0, "flash_attention": calls * TRAIN_STEPS,
+              "flash_attention_backward":
+                  calls * fa.BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS}
+    if counts != expect:
+        raise AssertionError(f"CMDA detection training: launches {counts}, "
+                             f"expected {expect}")
+    if not all(np.isfinite(losses)) or not moved > 0:
+        raise AssertionError(f"CMDA detection training: losses {losses}, "
+                             f"BN moved {moved}")
+    for k, v in counts.items():
+        totals[k] += v
+    share, window_ms, _, _ = trace_window("detection_cmda_train", lambda: [
+        step(state, *pick(i), lr, drop) for i in range(PROFILE_STEPS)])
+    log("detection", f"CMDA detection training, {PROFILE_STEPS} steps "
+        f"traced: the kernels' union {share * window_ms:.2f} ms, "
+        f"{share * window_ms / (PROFILE_STEPS * dt * 1e3) * 100:.1f}% of as "
+        f"many untimed steps | {smi}")
+    op_breakdown("detection_cmda_train", "all")
+    del state, step, model
+    torch.cuda.empty_cache()
+
+    def batch_of(cfg_, dtype):
+        x, bx, lab, mask = batches[0]
+        return ([v[:1].to(dtype) for v in x], bx[:1], lab[:1], mask[:1])
+
+    hold_one_clip_steps(
+        "detection", lambda name, flash: ava_cfg(
+            AVA_YAML, dirs, name, *cmda, "TPU.FLASH_ATTENTION", flash),
+        state_dict, smi, batch_of=batch_of, one=one_detection_step)
+    del batches, state_dict
+    torch.cuda.empty_cache()
+    return k2_record, k2_err, bwd_record, bwd_err, totals
+
+
+class DetectionRun:
+    """What the CLI's AVA run did, seen through its engine's functions:
+    each step's seconds and loss, the val and test meters, the
+    checkpoints saved and loaded."""
+
+    def __init__(self):
+        self.steps, self.val, self.saved, self.loaded = [], [], [], []
+        self.trace = None
+
+    def make_step(self, orig):
+        def build(cfg, model, optimizer):
+            step = orig(cfg, model, optimizer)
+
+            def timed(state, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(self.steps) == 2:  # the third step traced
+                    out = {}
+                    self.trace = trace_window(
+                        "detection_cli_step",
+                        lambda: out.update(step(state, *args)))
+                    mets = out
+                else:
+                    mets = step(state, *args)
+                torch.cuda.synchronize()
+                self.steps.append((time.perf_counter() - t0,
+                                   mets["loss"].item(),
+                                   args[0][0].shape[0]))
+                return mets
+            return timed
+        return build
+
+    def perform(self, orig):
+        def run(cfg, model, loader, meter, *a, **k):
+            self.val.append(meter)
+            return orig(cfg, model, loader, meter, *a, **k)
+        return run
+
+    def save(self, orig):
+        def run(path, state, epoch, cfg):
+            out = orig(path, state, epoch, cfg)
+            self.saved.append(out)
+            return out
+        return run
+
+    def load(self, orig):
+        def run(path, *a, **k):
+            self.loaded.append(path)
+            return orig(path, *a, **k)
+        return run
+
+
+def phase_detection_cli(dirs, smi):
+    """SlowFast-R50 32x2 AVA through tools/run_net.py: one epoch over the
+    64 train keyframes at the yaml's batch, a val mAP and a checkpoint,
+    then test() from that checkpoint."""
+    import shutil
+
+    from efficient_slowfast_tpu_torch.engine import train as train_engine
+    from efficient_slowfast_tpu_torch.tools import run_net
+    from efficient_slowfast_tpu_torch.utils import checkpoint as cu
+
+    out_dir = os.path.join(smoke_dir(), "ava_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    batch = ava_cfg(AVA_YAML, dirs).TRAIN.BATCH_SIZE
+    argv = ["--cfg", AVA_YAML] + [str(o) for o in ava_opts(dirs)] + [
+        "SOLVER.MAX_EPOCH", "1", "OUTPUT_DIR", out_dir]
+    rec = DetectionRun()
+    patches = [(train_engine, "make_detection_train_step"),
+               (train_engine, "perform_detection_test"),
+               (cu, "save_checkpoint"), (cu, "load_checkpoint")]
+    wraps = [rec.make_step, rec.perform, rec.save, rec.load]
+    saved = [getattr(mod, name) for mod, name in patches]
+    for (mod, name), wrap, orig in zip(patches, wraps, saved):
+        setattr(mod, name, wrap(orig))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        result = run_net.main(argv)
+    finally:
+        for (mod, name), orig in zip(patches, saved):
+            setattr(mod, name, orig)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [s[1] for s in rec.steps]
+    clips = [s[2] for s in rec.steps]
+    untraced = [s for i, s in enumerate(rec.steps) if i not in (0, 2)]
+    clips_per_s = (sum(s[2] for s in untraced)
+                   / max(sum(s[0] for s in untraced), 1e-9))
+    val_map = rec.val[0].full_map if rec.val else float("nan")
+    test_map = result["test"].full_map
+    share, window_ms = rec.trace[0], rec.trace[1]
+    log("detection", f"CLI ({os.path.relpath(AVA_YAML, ROOT)}, "
+        f"SOLVER.MAX_EPOCH 1): {len(rec.steps)} steps of {clips} clips, "
+        f"losses " + ", ".join(f"{x:.4f}" for x in losses) + f" | ms a step "
+        + ", ".join(f"{s[0] * 1e3:.1f}" for s in rec.steps)
+        + f" (the first with cuDNN's plans, the third traced) | "
+        f"{clips_per_s:.2f} train clips/s over the untraced steps after the "
+        f"first | traced "
+        f"step: device busy {share * 100:.1f}% of {window_ms:.2f} ms | peak "
+        f"memory {peak / 2 ** 30:.2f} GiB | val mAP {val_map:.4f}, test mAP "
+        f"{test_map:.4f} | checkpoints saved {rec.saved}, loaded "
+        f"{rec.loaded} | kernel launches {counts} | {dt:.1f} s | {smi}")
+    ckpt = rec.saved[-1] if rec.saved else None
+    steps = len(AVA_SECONDS) * AVA_VIDEOS["train"] // batch
+    if len(rec.steps) != steps or set(clips) != {batch} or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"detection CLI: steps {rec.steps}, expected "
+                             f"{steps} of {batch} clips")
+    if not (0.0 <= val_map <= 1.0 and 0.0 <= test_map <= 1.0):
+        raise AssertionError(f"detection CLI: val mAP {val_map}, test mAP "
+                             f"{test_map}")
+    if ckpt is None or rec.loaded[-1:] != [ckpt] or any(counts.values()):
+        raise AssertionError(f"detection CLI: saved {rec.saved}, test "
+                             f"loaded {rec.loaded}, launches {counts}")
+
+
+def phase_detection(smi):
+    """Phase 13: AVA detection on the card. Returns (K2 record, K2 error,
+    K2-bwd record, K2-bwd error, the main paths' launch counts)."""
+    t0 = time.perf_counter()
+    dirs = write_ava_split(os.path.join(smoke_dir(), "ava"))
+    log("detection", f"AVA split written in {time.perf_counter() - t0:.1f} s:"
+        f" {AVA_VIDEOS['train']} train and {AVA_VIDEOS['val']} val videos, "
+        f"{len(AVA_SECONDS)} keyframes each, JPEG frames {AVA_FRAME_HW} read "
+        f"with PIL, 80 action ids, exclusion {AVA_EXCLUDED}")
+    counts = phase_detection_serving(dirs, smi)
+    torch.cuda.empty_cache()
+    k2_record, k2_err, bwd_record, bwd_err, cmda_counts = \
+        phase_detection_cmda(dirs, smi)
+    for k, v in cmda_counts.items():
+        counts[k] += v
+    torch.cuda.empty_cache()
+    phase_detection_cli(dirs, smi)
+    torch.cuda.empty_cache()
+    log("detection", f"phase 13 in {time.perf_counter() - t0:.1f} s")
+    return k2_record, k2_err, bwd_record, bwd_err, counts
+
+
+# ---------------------------------------------------------------------------
 # the profiler: the device's busy share of a window
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
@@ -3283,118 +4083,187 @@ def per_request(record, key):
 
 
 def kernel_entry(name, source, replaces, launches, err, record):
-    """One kernel's JSON entry: per-request sums over its main-path rows."""
+    """One kernel's JSON entry: per-request sums over its main-path rows
+    (``library_ms`` null where a row has no library time)."""
     path = [r for r in record if r["count"]]
     ops_share = sum(r["bound_ms"] * r["count"] for r in path
                     if r["bound_by"] == "operations") / per_request(
                         path, "bound_ms")
+    library = (None if any(r["library_ms"] is None for r in path)
+               else per_request(path, "library_ms"))
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=per_request(path, "ms"),
         plain_ms=per_request(path, "plain_ms"),
         bound_ms=per_request(path, "bound_ms"),
         bound_by="operations" if ops_share >= 0.5 else "bytes",
-        library_ms=per_request(path, "library_ms"))
+        library_ms=library)
 
 
-def main():
+# the phases that run together: a block runs whole when any of its phases
+# is chosen (each takes what the one before it made); 1 and 2 always run
+PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
+                ("10",), ("11",), ("12",), ("13",)]
+KERNELS = {
+    "fused_bottleneck": (
+        "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
+        "efficient_slowfast_tpu/ops/pallas/fused_bottleneck.py:200"),
+    "flash_attention": (
+        "efficient_slowfast_tpu_torch/csrc/flash_attention.cu",
+        "efficient_slowfast_tpu/ops/pallas/flash_attention.py:112"),
+    "flash_attention_backward": (
+        "efficient_slowfast_tpu_torch/csrc/flash_attention_bwd.cu",
+        "efficient_slowfast_tpu/ops/pallas/flash_attention.py:219")}
+
+
+def chosen_phases(argv):
+    """The phases of ``--phases`` (a comma-separated list, e.g. 1,2,13),
+    each with the rest of its block (PHASE_BLOCKS), and 3b and 3c with
+    10, whose shapes they hold; None (every phase) without it."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    parser.add_argument("--phases", help="comma-separated phases to run "
+                        "(1 and 2 always run), e.g. 1,2,13")
+    phases = parser.parse_args(argv).phases
+    if phases is None:
+        return None
+    want = {p.strip() for p in phases.split(",") if p.strip()}
+    known = {"1", "2"}.union(*PHASE_BLOCKS)
+    if want - known:
+        parser.error(f"unknown phases {sorted(want - known)}; known: "
+                     f"{sorted(known)}")
+    if "10" in want:
+        want |= {"3b", "3c"}
+    for block in PHASE_BLOCKS:
+        if want & set(block):
+            want |= set(block)
+    return want
+
+
+def main(argv=None):
+    want = chosen_phases(argv)
+    run = lambda *block: want is None or bool(want & set(block))  # noqa: E731
     smi = phase_device()
     phase_build()
-    cfg = serving_cfg()
-    model = serving_model(cfg, SEED)
-    k1_record, k1_err = phase_kernels(cfg, model, smi)
-    k1_launches = phase_serving(cfg, model, per_request(k1_record, "ms"),
-                                smi)
-    del model
-    torch.cuda.empty_cache()
-    phase_serving_f32(smi)
-    torch.cuda.empty_cache()
+    launches = dict.fromkeys(KERNELS, 0)  # on the main paths
+    records, errs = {}, {k: [] for k in KERNELS}
 
-    cfg = cmda_cfg()
-    model = serving_model(cfg, SEED)
-    recipe_fwd, recipe_bwd = recipe_attention_rows(model)
-    k2_record, k2_err, held_fwd = phase_attention(
-        attention_rows(cfg, model), smi, recipe_fwd)
-    calibrate_attention(cfg, model, SEED + 6)
-    k2_launches = phase_cmda(cfg, model, smi)
-    state = model.state_dict()
-    del model
-    torch.cuda.empty_cache()
-    phase_cmda_f32(state, smi)
-    del state
-    torch.cuda.empty_cache()
+    def add(counts):
+        for key, value in counts.items():
+            launches[key] += value
 
-    cfg = train_cfg("SlowFastDualAttention")
-    model = train_model(cfg, SEED)
-    bwd_record, bwd_err, held_bwd = phase_attention_backward(
-        attention_rows(cfg, model), smi, recipe_bwd)
-    phase_train(smi)
-    torch.cuda.empty_cache()
-    calibrate_attention(cfg, model, SEED + 9)
-    train_counts, step_clips_per_s = phase_cmda_train(cfg, model, smi)
-    del model
-    torch.cuda.empty_cache()
+    if run("3", "4"):
+        cfg = serving_cfg()
+        model = serving_model(cfg, SEED)
+        k1_record, k1_err = phase_kernels(cfg, model, smi)
+        records["fused_bottleneck"] = k1_record
+        errs["fused_bottleneck"].append(k1_err)
+        launches["fused_bottleneck"] += phase_serving(
+            cfg, model, per_request(k1_record, "ms"), smi)
+        del model
+        torch.cuda.empty_cache()
+        phase_serving_f32(smi)
+        torch.cuda.empty_cache()
 
-    none = {"fused_bottleneck": 0, "flash_attention": 0,
-            "flash_attention_backward": 0}
-    sf_counts, sf_means, cfg, model = phase_thirty_view(
-        "SLOWFAST_8x8_R50.yaml", True, {**none, "fused_bottleneck": 26}, smi)
-    phase_thirty_view_reference(cfg, model, sf_means,
-                                ["TPU.FUSED_EVAL", False], "fused engine", smi)
-    del model
-    torch.cuda.empty_cache()
-    cmda_counts, cmda_means, cfg, model = phase_thirty_view(
-        "SLOWFAST_DUALATTENTION_8x8_R50.yaml", False,
-        {**none, "flash_attention": 4}, smi)
-    phase_thirty_view_reference(cfg, model, cmda_means,
-                                ["TPU.FLASH_ATTENTION", False],
-                                "flash attention", smi)
-    del model
-    torch.cuda.empty_cache()
-    epoch_counts = phase_epochs(step_clips_per_s, smi)
-    torch.cuda.empty_cache()
-    recipe_counts = phase_recipe(held_fwd, held_bwd, smi)
-    torch.cuda.empty_cache()
-    recipe_split_bn_cost(smi)
-    nln_fwd_err, nln_bwd_err, _ = phase_nonlocal_kernels(smi)
-    torch.cuda.empty_cache()
-    nln_counts = phase_nonlocal(smi)
-    torch.cuda.empty_cache()
-    _, eff_fwd_err, eff_bwd_err = phase_efficient_kernels(smi)
-    eff_counts = phase_efficient(smi)
-    torch.cuda.empty_cache()
+    recipe_fwd = recipe_bwd = None
+    held_fwd = held_bwd = None
+    if run("3b", "5"):
+        cfg = cmda_cfg()
+        model = serving_model(cfg, SEED)
+        recipe_fwd, recipe_bwd = recipe_attention_rows(model)
+        k2_record, k2_err, held_fwd = phase_attention(
+            attention_rows(cfg, model), smi, recipe_fwd)
+        records["flash_attention"] = k2_record
+        errs["flash_attention"].append(k2_err)
+        calibrate_attention(cfg, model, SEED + 6)
+        launches["flash_attention"] += phase_cmda(cfg, model, smi)
+        state = model.state_dict()
+        del model
+        torch.cuda.empty_cache()
+        phase_cmda_f32(state, smi)
+        del state
+        torch.cuda.empty_cache()
 
-    # launches on the main paths: serving (phases 4, 5), CMDA training
-    # (phase 7), the 30-view tests (phase 8), the epochs (phase 9), the
-    # recipe (phase 10), the non-local networks (phase 11) and the
-    # efficient families (phase 12)
-    k1_launches += sum(c["fused_bottleneck"]
-                       for c in (sf_counts, nln_counts, eff_counts))
-    k2_launches += sum(c["flash_attention"]
-                       for c in (train_counts, cmda_counts, epoch_counts,
-                                 recipe_counts, nln_counts, eff_counts))
-    bwd_launches = sum(c["flash_attention_backward"]
-                       for c in (train_counts, epoch_counts, recipe_counts,
-                                 nln_counts, eff_counts))
-    k2_err = max(k2_err, nln_fwd_err, eff_fwd_err)
-    bwd_err = max(bwd_err, nln_bwd_err, eff_bwd_err)
+    step_clips_per_s = float("nan")
+    if run("3c", "6", "7"):
+        cfg = train_cfg("SlowFastDualAttention")
+        model = train_model(cfg, SEED)
+        if recipe_bwd is None:
+            recipe_bwd = recipe_attention_rows(model)[1]
+        bwd_record, bwd_err, held_bwd = phase_attention_backward(
+            attention_rows(cfg, model), smi, recipe_bwd)
+        records["flash_attention_backward"] = bwd_record
+        errs["flash_attention_backward"].append(bwd_err)
+        phase_train(smi)
+        torch.cuda.empty_cache()
+        calibrate_attention(cfg, model, SEED + 9)
+        train_counts, step_clips_per_s = phase_cmda_train(cfg, model, smi)
+        add(train_counts)
+        del model
+        torch.cuda.empty_cache()
 
-    kernels = [
-        kernel_entry(
-            "fused_bottleneck",
-            "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
-            "efficient_slowfast_tpu/ops/pallas/fused_bottleneck.py:200",
-            k1_launches, k1_err, k1_record),
-        kernel_entry(
-            "flash_attention",
-            "efficient_slowfast_tpu_torch/csrc/flash_attention.cu",
-            "efficient_slowfast_tpu/ops/pallas/flash_attention.py:112",
-            k2_launches, k2_err, k2_record),
-        kernel_entry(
-            "flash_attention_backward",
-            "efficient_slowfast_tpu_torch/csrc/flash_attention_bwd.cu",
-            "efficient_slowfast_tpu/ops/pallas/flash_attention.py:219",
-            bwd_launches, bwd_err, bwd_record)]
+    if run("8"):
+        none = dict.fromkeys(KERNELS, 0)
+        sf_counts, sf_means, cfg, model = phase_thirty_view(
+            "SLOWFAST_8x8_R50.yaml", True, {**none, "fused_bottleneck": 26},
+            smi)
+        phase_thirty_view_reference(cfg, model, sf_means,
+                                    ["TPU.FUSED_EVAL", False], "fused engine",
+                                    smi)
+        del model
+        torch.cuda.empty_cache()
+        cmda_counts, cmda_means, cfg, model = phase_thirty_view(
+            "SLOWFAST_DUALATTENTION_8x8_R50.yaml", False,
+            {**none, "flash_attention": 4}, smi)
+        phase_thirty_view_reference(cfg, model, cmda_means,
+                                    ["TPU.FLASH_ATTENTION", False],
+                                    "flash attention", smi)
+        add(sf_counts)
+        add(cmda_counts)
+        del model
+        torch.cuda.empty_cache()
+    if run("9"):
+        add(phase_epochs(step_clips_per_s, smi))
+        torch.cuda.empty_cache()
+    if run("10"):
+        add(phase_recipe(held_fwd, held_bwd, smi))
+        torch.cuda.empty_cache()
+        recipe_split_bn_cost(smi)
+    if run("11"):
+        nln_fwd_err, nln_bwd_err, _ = phase_nonlocal_kernels(smi)
+        errs["flash_attention"].append(nln_fwd_err)
+        errs["flash_attention_backward"].append(nln_bwd_err)
+        torch.cuda.empty_cache()
+        add(phase_nonlocal(smi))
+        torch.cuda.empty_cache()
+    if run("12"):
+        _, eff_fwd_err, eff_bwd_err = phase_efficient_kernels(smi)
+        errs["flash_attention"].append(eff_fwd_err)
+        errs["flash_attention_backward"].append(eff_bwd_err)
+        add(phase_efficient(smi))
+        torch.cuda.empty_cache()
+    if run("13"):
+        det_k2, det_k2_err, det_bwd, det_bwd_err, det_counts = \
+            phase_detection(smi)
+        # the times stay the serving and training paths' of 3b and 3c;
+        # phase 13's own rows stand in where those did not run
+        records.setdefault("flash_attention", det_k2)
+        records.setdefault("flash_attention_backward", det_bwd)
+        errs["flash_attention"].append(det_k2_err)
+        errs["flash_attention_backward"].append(det_bwd_err)
+        add(det_counts)
+        torch.cuda.empty_cache()
+
+    # launches on the main paths of the phases run: serving (4, 5), CMDA
+    # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
+    # the non-local networks (11), the efficient families (12) and AVA
+    # detection (13); times per request of the serving paths (3, 3b) and
+    # per CMDA train step (3c)
+    kernels = [kernel_entry(name, *KERNELS[name], launches[name],
+                            max(errs[name]), records[name])
+               for name in KERNELS if name in records]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -196,13 +196,15 @@ class ClipLoader:
         return shard_indices(idx, world, rank)
 
     def _fill(self):
-        """The dataset's ``getitem_into`` where it may be used: only when
-        the dataset does not override ``__getitem__``, which the
-        preallocated path would bypass."""
-        if (isinstance(self.dataset, ClipDataset)
-                and type(self.dataset).__getitem__ is ClipDataset.__getitem__):
-            return self.dataset.getitem_into
-        return None
+        """The dataset's ``getitem_into`` where it may be used: where it
+        has one (a clip dataset, AVA), and a clip dataset only when it does
+        not override ``__getitem__``, which the preallocated path would
+        bypass."""
+        own = type(self.dataset).__getitem__
+        if isinstance(self.dataset, ClipDataset) and (
+                own is not ClipDataset.__getitem__):
+            return None
+        return getattr(self.dataset, "getitem_into", None)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self.batches()

@@ -1,5 +1,5 @@
 """Preprocessing on the card: the stage between the loader and the model
-(port of ``data/preprocess.py:27-67, 127-145``).
+(port of ``data/preprocess.py:27-145``).
 
 Replaces the reference's per-worker CPU chain (reference:
 slowfast/datasets/kinetics.py:122-255 __getitem__ → tensor_normalize →
@@ -77,6 +77,60 @@ def make_train_preprocess(cfg, dtype=torch.float32, crop_size=None):
         if flip:
             x = T.horizontal_flip(generator, x)
         return pack_pathway_output(cfg, x.to(dtype).contiguous())
+
+    return pre
+
+
+def make_detection_preprocess(cfg, dtype=torch.float32):
+    """pre(frames) → pathways in ``dtype``: AVA serving normalizes and
+    packs the whole canvas, with no crop, as its boxes are in canvas
+    pixels."""
+    mean, std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+
+    def pre(frames):
+        x = _normalize_(frames.to(torch.float32, copy=True), mean, std,
+                        frames.dtype == torch.uint8)
+        return pack_pathway_output(cfg, x.to(dtype).contiguous())
+
+    return pre
+
+
+def make_detection_train_preprocess(cfg, dtype=torch.float32):
+    """pre(generator, frames, widths, boxes) → (pathways in ``dtype``,
+    boxes in crop pixels): AVA's train augmentation with the boxes carried
+    along (reference: ava_dataset._images_and_boxes_preprocessing_cv2,
+    train branch): scale jitter and a random crop, the flip, colour jitter
+    in a random order (``AVA.TRAIN_USE_COLOR_AUGMENTATION`` without
+    ``AVA.TRAIN_PCA_JITTER_ONLY``), PCA lighting noise (with colour
+    augmentation), then the normalization. The draws come from
+    ``generator``."""
+    mean, std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+    min_s, max_s = cfg.DATA.TRAIN_JITTER_SCALES
+    crop = cfg.DATA.TRAIN_CROP_SIZE
+    flip = cfg.DATA.RANDOM_FLIP
+    use_color = cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION
+    pca_only = cfg.AVA.TRAIN_PCA_JITTER_ONLY
+    eigval = tuple(cfg.AVA.TRAIN_PCA_EIGVAL)
+    eigvec = tuple(tuple(r) for r in cfg.AVA.TRAIN_PCA_EIGVEC)
+
+    def pre(generator, frames, widths, boxes):
+        b, _, h = frames.shape[:3]
+        crop_boxes = T.random_scale_crop_boxes(generator, b, h, widths,
+                                               min_s, max_s, crop)
+        x = T.crop_and_resize(frames, crop_boxes, crop)
+        if frames.dtype == torch.uint8:
+            x = x.div_(255.0)
+        boxes = T.transform_boxes_to_crop(
+            boxes.to(x.device, torch.float32, non_blocking=True),
+            crop_boxes, crop)
+        if flip:
+            x, boxes = T.horizontal_flip_with_boxes(generator, x, boxes)
+        if use_color:
+            if not pca_only:
+                x = T.color_jitter(generator, x, 0.4, 0.4, 0.4)
+            x = T.lighting_jitter(generator, x, 0.1, eigval, eigvec)
+        x = _normalize_(x, mean, std, False)
+        return pack_pathway_output(cfg, x.to(dtype).contiguous()), boxes
 
     return pre
 

@@ -260,3 +260,104 @@ def pil_color_jitter(generator, frames, lo=0.4, hi=1.4, widths=None,
         mean_l = mean_luma * fb
     x = fc * x + (1.0 - fc) * mean_l  # contrast
     return fs * x + (1.0 - fs) * luma(x)  # color/saturation
+
+
+def transform_boxes_to_crop(boxes, crop_boxes, out_size: int) -> torch.Tensor:
+    """(B, N, 4) [x1, y1, x2, y2] canvas-pixel boxes through each clip's
+    crop window (B, 4) [y0, x0, y1, x1] into ``out_size`` crop pixels,
+    clipped to the crop (reference: cv2_transform's scale and crop box
+    co-transforms)."""
+    boxes = torch.as_tensor(boxes)
+    crop_boxes = _on(crop_boxes, boxes.device)
+    y0, x0, y1, x1 = (crop_boxes[:, i] for i in range(4))
+    sx = out_size / torch.clamp(x1 - x0, min=1e-6)
+    sy = out_size / torch.clamp(y1 - y0, min=1e-6)
+    out = torch.stack([
+        (boxes[..., 0] - x0[:, None]) * sx[:, None],
+        (boxes[..., 1] - y0[:, None]) * sy[:, None],
+        (boxes[..., 2] - x0[:, None]) * sx[:, None],
+        (boxes[..., 3] - y0[:, None]) * sy[:, None],
+    ], dim=-1)
+    return torch.clamp(out, 0.0, out_size - 1.0)
+
+
+def horizontal_flip_with_boxes(generator, frames: torch.Tensor, boxes,
+                               prob: float = 0.5, do=None):
+    """Per-clip flip of the clip and its (B, N, 4) [x1, y1, x2, y2] pixel
+    boxes (reference: cv2_transform.horizontal_flip_list); ``do`` (B,)
+    bools, where given, are the decisions instead of draws."""
+    b, _, _, w, _ = frames.shape
+    if do is None:
+        do = torch.rand(b, generator=generator,
+                        device=generator.device) < prob
+    do = torch.as_tensor(do).to(frames.device, non_blocking=True)
+    frames = torch.where(do[:, None, None, None, None], frames.flip(3),
+                         frames)
+    fboxes = torch.stack([(w - 1.0) - boxes[..., 2], boxes[..., 1],
+                          (w - 1.0) - boxes[..., 0], boxes[..., 3]], dim=-1)
+    return frames, torch.where(do[:, None, None], fboxes, boxes)
+
+
+def _blend(a, b, alpha):
+    return alpha * a + (1.0 - alpha) * b
+
+
+def brightness_jitter(alpha, frames):
+    """Blend with black by per-clip factors ``alpha`` (B,)."""
+    return _blend(frames, torch.zeros_like(frames),
+                  alpha[:, None, None, None, None])
+
+
+def contrast_jitter(alpha, frames):
+    """Blend with each frame's mean over pixels and channels."""
+    gray = frames.mean(dim=(2, 3, 4), keepdim=True)
+    return _blend(frames, gray, alpha[:, None, None, None, None])
+
+
+def saturation_jitter(alpha, frames):
+    """Blend with each pixel's mean over channels."""
+    gray = frames.mean(dim=-1, keepdim=True)
+    return _blend(frames, gray, alpha[:, None, None, None, None])
+
+
+def color_jitter(generator, frames, brightness=0.0, contrast=0.0,
+                 saturation=0.0, order=None, alphas=None):
+    """Brightness, contrast and saturation jitter in a random order, one
+    order a batch (reference transform.py:542-580, cv2_transform
+    color_jitter_list). Each factor is 1 + U(−var, var) per clip.
+    ``order`` (a permutation of 0, 1, 2) and ``alphas`` (3, B), where
+    given, are the draws instead."""
+    b = frames.shape[0]
+    if order is None:
+        order = torch.randperm(3, generator=generator,
+                               device=generator.device)
+    if alphas is None:
+        var = torch.tensor([brightness, contrast, saturation],
+                           device=generator.device)[:, None]
+        alphas = 1.0 + _uniform(generator, (3, b), -1.0, 1.0) * var
+    alphas = _on(alphas, frames.device)
+    fns = [(brightness, brightness_jitter), (contrast, contrast_jitter),
+           (saturation, saturation_jitter)]
+    for i in torch.as_tensor(order).tolist():
+        var, fn = fns[i]
+        if var:
+            frames = fn(alphas[i], frames)
+    return frames
+
+
+def lighting_jitter(generator, frames, alphastd, eigval, eigvec, alpha=None):
+    """PCA lighting noise (reference: transform.py:636-664): per clip, the
+    RGB offset Σ_j α_j λ_j v_j with α ~ N(0, alphastd²) (B, 3); ``alpha``,
+    where given, is the draw instead."""
+    if alphastd == 0.0:
+        return frames
+    b = frames.shape[0]
+    if alpha is None:
+        alpha = torch.randn(b, 3, generator=generator,
+                            device=generator.device) * alphastd
+    alpha = _on(alpha, frames.device)
+    eigval = _on(eigval, frames.device)
+    eigvec = _on(eigvec, frames.device)
+    rgb = (alpha[:, None, :] * eigval[None, None, :]
+           * eigvec[None, :, :]).sum(-1)
+    return frames + rgb[:, None, None, None, :]

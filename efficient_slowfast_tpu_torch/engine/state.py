@@ -1,12 +1,12 @@
 """Train state, train and eval steps, inference forward (port of
-``engine/state.py:29-245``).
+``engine/state.py:29-245, 318-437``).
 
 One train step is forward, loss, backward and the optimizer update, with
 the BN running statistics updated in the forward and the metrics left on
 the device: ``loss``, ``lr``, ``top1_err`` and ``top{k}_err`` are tensors,
 and nothing in a step waits for the card. Parameters and running
 statistics stay float32 while the activations run in ``TPU.COMPUTE_DTYPE``.
-Detection's train step comes with the detection slice.
+Detection (AVA) has its own train step and forward, over padded boxes.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models.build import get_compute_dtype, resolve_device
-from ..models.losses import get_loss_func
+from ..models.losses import get_elementwise_loss_func, get_loss_func
 from ..models.optimizer import construct_optimizer, set_lr
 from ..utils import metrics as metrics_lib
 
@@ -197,5 +197,91 @@ def make_forward(cfg, model: torch.nn.Module, device=None) -> Callable:
     def forward(inputs):
         with torch.inference_mode():
             return fwd([x.to(dev, dtype, non_blocking=True) for x in inputs])
+
+    return forward
+
+
+def flatten_rois(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, MAX_BOXES, 4) boxes → (B·MAX_BOXES, 5) [batch index, x1, y1,
+    x2, y2], the RoI head's layout."""
+    b, m, _ = boxes.shape
+    idx = torch.arange(b, dtype=boxes.dtype, device=boxes.device)
+    return torch.cat([idx.repeat_interleave(m)[:, None],
+                      boxes.reshape(b * m, 4)], dim=1)
+
+
+def make_detection_train_step(cfg, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer) -> Callable:
+    """step(state, inputs, boxes, labels, mask, lr, generator) → metrics,
+    the AVA train step.
+
+    ``boxes`` (B, MAX, 4) in crop pixels, ``labels`` (B, MAX, classes)
+    multi-hot, ``mask`` (B, MAX) {1, 0} for real and padded box slots. The
+    RoI head's scores are post-activation in train mode too, so the loss
+    is ``MODEL.LOSS_FUNC``'s elementwise form (``bce``; any other raises
+    here), averaged over the classes and then over the real boxes. With
+    ``TPU.GRAD_ACCUM_STEPS`` a > 1 the batch runs as a sequential
+    microbatches, each adding the gradient of its unnormalised masked sum
+    over the count of real boxes in the whole batch, so the update is the
+    full batch's whatever the boxes' spread over the microbatches. The
+    metrics are ``loss`` and ``lr``, on the card.
+    """
+    elem_loss_fn = get_elementwise_loss_func(cfg.MODEL.LOSS_FUNC)
+    accum = max(int(cfg.TPU.GRAD_ACCUM_STEPS), 1)
+
+    def step(state: TrainState, inputs, boxes, labels, mask, lr,
+             generator=None):
+        assert state.model is model and state.optimizer is optimizer, (
+            "the train state holds another model or optimizer")
+        if cfg.MODEL.DROPOUT_RATE > 0 and generator is None:
+            raise ValueError("MODEL.DROPOUT_RATE > 0: the train step needs "
+                             "a torch.Generator for the dropout masks")
+        dev = next(model.parameters()).device
+        dtype = get_compute_dtype(cfg)
+        inputs = [x.to(dev, dtype, non_blocking=True) for x in inputs]
+        boxes, labels, mask = (
+            t.to(dev, torch.float32, non_blocking=True)
+            for t in (boxes, labels, mask))
+        b = mask.shape[0]
+        assert b % accum == 0, (
+            f"batch {b} not divisible by TPU.GRAD_ACCUM_STEPS={accum}")
+        m = b // accum
+        denom = torch.clamp(mask.sum(), min=1.0)
+        set_lr(optimizer, lr)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = 0.0
+        for i in range(accum):
+            part = slice(i * m, (i + 1) * m)
+            preds = model([x[part] for x in inputs],
+                          flatten_rois(boxes[part]), generator=generator)
+            per_box = elem_loss_fn(
+                preds, labels[part].reshape(-1, labels.shape[-1])).mean(-1)
+            part_loss = (per_box * mask[part].reshape(-1)).sum() / denom
+            part_loss.backward()
+            loss = loss + part_loss.detach()
+        optimizer.step()
+        state.step += 1
+        return {"loss": loss,
+                "lr": torch.full((), lr, dtype=torch.float32, device=dev)}
+
+    return step
+
+
+def make_detection_forward(cfg, model: torch.nn.Module,
+                           device=None) -> Callable:
+    """Eval forward: fn(inputs, boxes (B, MAX, 4)) → (B·MAX, classes)
+    float32 scores, under ``inference_mode``, on ``device`` (the GPU by
+    default, as ``make_forward``)."""
+    dev = resolve_device(device)
+    dtype = get_compute_dtype(cfg)
+    model = model.to(dev).eval()
+
+    def forward(inputs, boxes):
+        with torch.inference_mode():
+            rois = flatten_rois(boxes.to(dev, torch.float32,
+                                         non_blocking=True))
+            return model([x.to(dev, dtype, non_blocking=True)
+                          for x in inputs], rois)
 
     return forward

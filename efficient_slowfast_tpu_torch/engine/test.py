@@ -9,23 +9,27 @@ crops, normalizes and packs the pathways there in the compute dtype, the
 forward (``make_forward``: the fused engine with K1 under
 ``TPU.FUSED_EVAL``, else the module's own, with K2 in CMDA's fusions)
 scores the clips, and the scores come back to the host one batch behind,
-so the card is never idle waiting for the meter.
+so the card is never idle waiting for the meter. With ``DETECTION.ENABLE``
+the test is AVA's (``perform_detection_test``): every real box of the
+split scored, then the frame mAP; ``DATA.MULTI_LABEL`` gives the
+multi-label mAP of the ensembled scores.
 """
 
 from __future__ import annotations
 
 import json
 
+import numpy as np
 import torch
 
 from ..data.loader import construct_loader, prefetch_to_device
-from ..data.preprocess import make_test_preprocess
+from ..data.preprocess import make_detection_preprocess, make_test_preprocess
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
 from ..utils.checkpoint import load_test_checkpoint
 from ..utils.logging import get_logger, setup_logging
-from ..utils.meters import TestMeter, span
-from .state import make_forward
+from ..utils.meters import AVAMeter, TestMeter, span
+from .state import make_detection_forward, make_forward
 
 logger = get_logger(__name__)
 
@@ -105,14 +109,10 @@ def test(cfg, device=None):
     """The 30-view test of ``cfg`` on ``device`` (the GPU by default):
     the model built with weights seeded by RNG_SEED, its test checkpoint
     loaded, every clip of the test split scored. Returns the finished
-    TestMeter: its ``stats`` and per-video ``video_preds``."""
+    TestMeter: its ``stats`` and per-video ``video_preds``; for detection
+    the finished AVAMeter (its mAP in ``full_map``)."""
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Test with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError("detection's test comes with ROADMAP item 6")
-    if cfg.DATA.MULTI_LABEL:
-        raise NotImplementedError(
-            "the multi-label test (mAP) comes with ROADMAP item 6")
     if cfg.TPU.INT8_EVAL:
         raise NotImplementedError("int8 serving comes with ROADMAP item 8")
     dev = resolve_device(device)
@@ -120,6 +120,12 @@ def test(cfg, device=None):
     model = build_model(cfg, dev)
     load_test_checkpoint(cfg, model)
     loader = construct_loader(cfg, "test")
+    if cfg.DETECTION.ENABLE:
+        meter = AVAMeter(len(loader), cfg, mode="test")
+        meter.video_idx_to_name = loader.dataset._video_idx_to_name
+        perform_detection_test(cfg, model, loader, meter, dev)
+        meter.finalize_metrics()
+        return meter
 
     num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
     num_items = len(loader.dataset)
@@ -136,4 +142,55 @@ def test(cfg, device=None):
         topk=cfg.TRAIN.TOPK,
     )
     perform_test(cfg, model, loader, meter, dev)
+    return meter
+
+
+def detection_box_mask(batch) -> np.ndarray:
+    """Flat (B·MAX,) bool mask of the real boxes of a detection eval batch:
+    ``box_mask`` and the loader's per-clip ``_valid``, which drops the
+    clips that pad the tail batch (their boxes would count twice)."""
+    m = np.asarray(batch["box_mask"]) > 0  # (B, MAX)
+    if "_valid" in batch:
+        m = m & (np.asarray(batch["_valid"]).reshape(-1, 1) > 0)
+    return m.reshape(-1)
+
+
+def perform_detection_test(cfg, model, loader, meter, device=None,
+                           times=None, cur_epoch=None):
+    """Score every real box of ``loader`` (AVA) with ``model`` on
+    ``device`` (the GPU by default) into ``meter`` (an ``AVAMeter``), as
+    ``perform_test`` does a clip's: the canvas copied ahead, normalized and
+    packed on the card with no crop (the boxes are in canvas pixels), the
+    scores read back one batch behind. ``times`` as ``perform_test``'s."""
+    dev = resolve_device(device)
+    preprocess = make_detection_preprocess(cfg, get_compute_dtype(cfg))
+    fwd = make_detection_forward(cfg, model, dev)
+
+    def collect(preds, done, batch):
+        if done is not None:
+            done.synchronize()
+        m = detection_box_mask(batch)
+        ori = batch["ori_boxes"].numpy().reshape(-1, 4)[m]
+        meta = np.repeat(batch["metadata"].numpy(), batch["boxes"].shape[1],
+                         axis=0)[m]
+        ori5 = np.concatenate([np.zeros((len(ori), 1)), ori], axis=1)
+        meter.update_stats(*gather_across_hosts(preds.numpy()[m], ori5, meta))
+
+    meter.iter_tic()
+    pending = None
+    for cur_iter, batch in enumerate(prefetch_to_device(
+            loader, dev, depth=cfg.DATA_LOADER.PREFETCH_DEPTH, times=times)):
+        with span(times, "preprocess", dev):
+            inputs = preprocess(batch["frames"])
+        with span(times, "forward", dev):
+            preds = fwd(inputs, batch["boxes"])
+        del inputs
+        host = _to_host(preds)
+        if pending is not None:
+            collect(*pending)
+        pending = host + (batch,)
+        meter.log_iter_stats(cur_epoch, cur_iter)
+    if pending is not None:
+        collect(*pending)
+    meter.iter_toc()
     return meter

@@ -10,7 +10,9 @@ copied canvas, and the step's metrics stay on the card until the host
 reads them, ``TPU.METRICS_PERIOD`` steps at a time (the reference reads
 every step, train_net.py:133-138). Every draw is seeded by RNG_SEED and
 the step or epoch it belongs to, so a resumed run repeats the one it
-resumes.
+resumes. With ``DETECTION.ENABLE`` the epochs are AVA's
+(``_train_detection``): the detection step over padded boxes and a val
+frame mAP.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 from ..data.loader import (construct_loader, prefetch_to_device,
                            shuffle_dataset)
-from ..data.preprocess import make_train_preprocess
+from ..data.preprocess import (make_detection_train_preprocess,
+                               make_train_preprocess)
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
 from ..ops.norm import (aggregate_sub_bn_stats, convert_bn_stats,
@@ -31,13 +34,14 @@ from ..ops.norm import (aggregate_sub_bn_stats, convert_bn_stats,
 from ..utils import checkpoint as cu
 from ..utils import lr_policy
 from ..utils.logging import get_logger, setup_logging
-from ..utils.meters import TrainMeter, ValMeter
+from ..utils.meters import AVAMeter, TrainMeter, ValMeter
 from ..utils.misc import check_nan_losses, log_model_info
 from ..utils.multigrid import MultigridSchedule, short_cycle_shapes
 from .precise_bn import calculate_and_update_precise_bn
-from .state import (_model_device, create_train_state, make_eval_step,
+from .state import (_model_device, create_train_state,
+                    make_detection_train_step, make_eval_step,
                     make_train_step, pathway_inputs, step_generator)
-from .test import gather_across_hosts
+from .test import gather_across_hosts, perform_detection_test
 
 logger = get_logger(__name__)
 
@@ -187,8 +191,66 @@ def _phase_parts(cfg, state):
         val_meter=ValMeter(len(val_loader), cfg))
 
 
-def _train_detection(cfg):
-    raise NotImplementedError("detection's training comes with ROADMAP item 6")
+def detection_train_epoch(cfg, state, train_step, preprocess, loader, meter,
+                          cur_epoch, generator=None):
+    """One AVA epoch of ``train_step`` (``make_detection_train_step``) over
+    ``loader``: the canvas copied ahead, the train preprocess
+    (``make_detection_train_preprocess``) drawing from
+    ``step_generator(RNG_SEED, epoch·iters + iter)``, the boxes carried
+    through its crop and flip; the losses read back
+    ``TPU.METRICS_PERIOD`` steps at a time. Returns the state."""
+    dev = _model_device(state)
+    data_size = len(loader)
+    meter.iter_tic()
+    pending = []  # (iter, metrics on the card)
+    for cur_iter, batch in enumerate(prefetch_to_device(
+            loader, dev, depth=cfg.DATA_LOADER.PREFETCH_DEPTH)):
+        lr = lr_policy.get_lr_at_epoch(cfg, cur_epoch + float(cur_iter) / data_size)
+        gen = step_generator(cfg.RNG_SEED, cur_epoch * data_size + cur_iter,
+                             dev)
+        inputs, boxes = preprocess(gen, batch["frames"], batch["width"],
+                                   batch["boxes"])
+        pending.append((cur_iter, train_step(
+            state, inputs, boxes, batch["box_labels"], batch["box_mask"], lr,
+            generator)))
+        if len(pending) >= cfg.TPU.METRICS_PERIOD or cur_iter == data_size - 1:
+            for it, m in pending:
+                loss = float(m["loss"])
+                check_nan_losses(loss)
+                meter.update_stats(None, None, None, loss=loss,
+                                   lr=float(m["lr"]))
+                meter.log_iter_stats(cur_epoch, it)
+            pending = []
+    meter.iter_toc()
+    meter.reset()
+    return state
+
+
+def _train_detection(cfg, state, start_epoch, device):
+    """AVA's epochs from ``start_epoch`` (reference train_net.py, the
+    detection branch): a checkpoint each ``is_checkpoint_epoch``, the val
+    split's frame mAP each ``_is_eval_epoch``. Returns the state."""
+    train_loader = construct_loader(cfg, "train")
+    val_loader = construct_loader(cfg, "val")
+    step = make_detection_train_step(cfg, state.model, state.optimizer)
+    preprocess = make_detection_train_preprocess(cfg, get_compute_dtype(cfg))
+    train_meter = AVAMeter(len(train_loader), cfg, mode="train")
+    val_meter = AVAMeter(len(val_loader), cfg, mode="val")
+    val_meter.video_idx_to_name = val_loader.dataset._video_idx_to_name
+    for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        shuffle_dataset(train_loader, cur_epoch)
+        detection_train_epoch(
+            cfg, state, step, preprocess, train_loader, train_meter,
+            cur_epoch, generator=step_generator(cfg.RNG_SEED, cur_epoch,
+                                                device, stream=1))
+        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+            cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
+        if _is_eval_epoch(cfg, cur_epoch):
+            perform_detection_test(cfg, state.model, val_loader, val_meter,
+                                   device, cur_epoch=cur_epoch)
+            val_meter.log_epoch_stats(cur_epoch)
+            val_meter.reset()
+    return state
 
 
 def train(cfg, device=None):
@@ -199,8 +261,6 @@ def train(cfg, device=None):
     the final train state."""
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Train with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
-    if cfg.DETECTION.ENABLE:
-        return _train_detection(cfg)
     if cfg.TENSORBOARD.ENABLE:
         raise NotImplementedError("TensorBoard comes with ROADMAP item 8")
     dev = resolve_device(device)
@@ -221,6 +281,8 @@ def train(cfg, device=None):
     if cfg.LOG_MODEL_INFO:
         log_model_info(state.model, cfg, pathway_inputs(
             cfg, 1, get_compute_dtype(cfg), dev))
+    if cfg.DETECTION.ENABLE:
+        return _train_detection(cfg, state, start_epoch, dev)
     cur_bn = _bn_signature(cfg)
     phase = _phase_parts(cfg, state)
 

@@ -18,7 +18,7 @@ import torch.nn as nn
 from ..ops.norm import get_norm
 from .build import MODEL_REGISTRY, get_compute_dtype
 from .fuse import FuseFastAndSlow
-from .slowfast import (basic_head, check_unported, res_stage, stem,
+from .slowfast import (basic_head, head_forward, res_stage, stem,
                        to_ncdhw)
 
 # CMDA's fixed stem kernels and pool table (reference:
@@ -34,7 +34,6 @@ _POOL1 = [[1, 1, 1], [1, 1, 1]]
 class SlowFastDualAttention(nn.Module):
     def __init__(self, cfg):
         super().__init__()
-        check_unported(cfg)
         dtype = get_compute_dtype(cfg)
         norm = get_norm(cfg)
         w = cfg.RESNET.WIDTH_PER_GROUP
@@ -65,7 +64,7 @@ class SlowFastDualAttention(nn.Module):
         self.s5 = stage(3, w * 16)
         self.head = basic_head(cfg, _POOL1, dtype)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, bboxes=None, generator=None):
         x = self.s1([to_ncdhw(xi) for xi in x])
         x = self.s1_fuse(x)
         x = self.s2(x)
@@ -75,4 +74,4 @@ class SlowFastDualAttention(nn.Module):
         x = self.s4(x)
         x = self.s4_fuse(x)
         x = self.s5(x)
-        return self.head(x, generator)
+        return head_forward(self.head, x, bboxes, generator)

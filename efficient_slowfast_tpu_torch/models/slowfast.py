@@ -11,9 +11,11 @@ tensors [slow (B, T/α, H, W, C), fast (B, T, H, W, C)], or one tensor
 is the NCDHW view of that same memory (``channels_last_3d``), so no copy is
 made. It returns logits in train mode and averaged post-activation scores in
 eval mode (see heads.ResNetBasicHead); in train mode the head's dropout
-draws from the ``generator`` passed to ``forward``. ``TPU.REMAT`` and
-``TPU.REMAT_STAGES`` rematerialise the ResStages in training
-(``remat_stage``).
+draws from the ``generator`` passed to ``forward``. With
+``DETECTION.ENABLE`` the head is the RoI head (models/detection.py):
+``forward(x, bboxes)`` scores each box of ``bboxes`` (R, 5).
+``TPU.REMAT`` and ``TPU.REMAT_STAGES`` rematerialise the ResStages in
+training (``remat_stage``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn as nn
 from ..ops.norm import get_norm
 from ..ops.pool import max_pool3d
 from .build import MODEL_REGISTRY, get_compute_dtype
+from .detection import ResNetRoIHead, roi_head
 from .fuse import FuseFastToSlow
 from .heads import ResNetBasicHead, ResNetBasicHeadSlowPath
 from .resnet import ResStage
@@ -56,13 +59,6 @@ _POOL1 = {
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, C) → the NCDHW view of the same memory."""
     return x.permute(0, 4, 1, 2, 3)
-
-
-def check_unported(cfg) -> None:
-    """Refuse the trunk options this package does not implement."""
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError(
-            "detection is not ported to PyTorch yet (ROADMAP: detection)")
 
 
 def stem(cfg, tk0, norm, dtype) -> VideoModelStem:
@@ -118,15 +114,20 @@ def res_stage(cfg, idx, dim_in, norm, dtype) -> ResStage:
         flash_min_tokens=cfg.TPU.FLASH_MIN_TOKENS)
 
 
-def basic_head(cfg, pool1, dtype) -> ResNetBasicHead:
+def basic_head(cfg, pool1, dtype):
     """The head over s5's pathways (two, or one where ``pool1`` has one
     entry); its window is the training crop's (s5 is 1/32 of it) after the
     ``pool1`` pools. ``MODEL.SLOW_PATHWAY_HEAD`` classifies from the slow
-    pathway alone (``basic_head_cls`` in JAX)."""
+    pathway alone (``basic_head_cls`` in JAX). With ``DETECTION.ENABLE``
+    it is the RoI head, averaging each pathway's frames after the
+    ``pool1`` pools."""
     w, beta = cfg.RESNET.WIDTH_PER_GROUP, cfg.SLOWFAST.BETA_INV
     t, a, s = cfg.DATA.NUM_FRAMES, cfg.SLOWFAST.ALPHA, cfg.DATA.CROP_SIZE
     dims, frames = ([w * 32], [t]) if len(pool1) == 1 else (
         [w * 32, w * 32 // beta], [t // a, t])
+    if cfg.DETECTION.ENABLE:
+        return roi_head(cfg, dims, [f // p[0] for f, p in zip(frames, pool1)],
+                        dtype)
     cls = (ResNetBasicHeadSlowPath if cfg.MODEL.SLOW_PATHWAY_HEAD
            else ResNetBasicHead)
     return cls(
@@ -141,13 +142,24 @@ def basic_head(cfg, pool1, dtype) -> ResNetBasicHead:
         dtype=dtype)
 
 
+def head_forward(head, x, bboxes, generator):
+    """The head over the trunk's pathways ``x``: the RoI head takes the
+    boxes, which it needs; a classification head takes none."""
+    if isinstance(head, ResNetRoIHead):
+        if bboxes is None:
+            raise ValueError("DETECTION.ENABLE: the forward needs the boxes "
+                             "(R, 5) [batch index, x1, y1, x2, y2]")
+        return head(x, bboxes, generator)
+    assert bboxes is None, "boxes given to a model without DETECTION.ENABLE"
+    return head(x, generator)
+
+
 @MODEL_REGISTRY.register()
 class SlowFast(nn.Module):
     """Two-pathway SlowFast network (stages s1–s5, fuse after s1–s4)."""
 
     def __init__(self, cfg):
         super().__init__()
-        check_unported(cfg)
         dtype = get_compute_dtype(cfg)
         norm = get_norm(cfg)
         self.pool_size = _POOL1[cfg.MODEL.ARCH]
@@ -176,7 +188,7 @@ class SlowFast(nn.Module):
         self.s5 = stage(3, w * 16, w * 16 // beta)
         self.head = basic_head(cfg, self.pool_size, dtype)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, bboxes=None, generator=None):
         x = self.s1([to_ncdhw(xi) for xi in x])
         x = self.s1_fuse(x)
         x = self.s2(x)
@@ -189,7 +201,7 @@ class SlowFast(nn.Module):
         x = self.s4(x)
         x = self.s4_fuse(x)
         x = self.s5(x)
-        return self.head(x, generator)
+        return head_forward(self.head, x, bboxes, generator)
 
 
 @MODEL_REGISTRY.register()
@@ -200,7 +212,6 @@ class ResNet(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        check_unported(cfg)
         dtype = get_compute_dtype(cfg)
         norm = get_norm(cfg)
         self.pool_size = _POOL1[cfg.MODEL.ARCH]
@@ -216,7 +227,7 @@ class ResNet(nn.Module):
         self.s5 = res_stage(cfg, 3, [w * 16], norm, dtype)
         self.head = basic_head(cfg, self.pool_size, dtype)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, bboxes=None, generator=None):
         x = self.s1([to_ncdhw(xi) for xi in x])
         x = self.s2(x)
         if any(v != 1 for v in self.pool_size[0]):
@@ -224,4 +235,4 @@ class ResNet(nn.Module):
         x = self.s3(x)
         x = self.s4(x)
         x = self.s5(x)
-        return self.head(x, generator)
+        return head_forward(self.head, x, bboxes, generator)

@@ -5,14 +5,16 @@ ScalarMeter (:375-423), TrainMeter (:426-554), ValMeter (:557-687) and
 TestMeter (:216-372, per-video clip-score ensembling). Values arrive as
 numpy arrays and Python floats: the engines read the device back once per
 ``TPU.METRICS_PERIOD`` steps, never inside a meter. ``StageTimes`` adds
-per-batch stage times for measurement. The AVA meter and ``get_map`` come
-with detection.
+per-batch stage times for measurement. ``AVAMeter`` (:316-412) runs AVA's
+frame mAP; ``get_map`` (:302-313) is the multi-label test's mean average
+precision, in numpy.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import os
 import time
 from collections import deque
 from typing import Dict, Optional
@@ -291,18 +293,148 @@ class TestMeter:
                     ),
                 )
             )
-        if self.multi_label:
-            raise NotImplementedError(
-                "multi-label mAP (get_map) comes with detection, ROADMAP "
-                "item 6")
         stats = {"_type": "test_final"}
-        order = np.argsort(-self.video_preds, axis=1)
-        for k in ks:
-            correct = (order[:, :k] == self.video_labels[:, None]).any(1)
-            stats[f"top{k}_acc"] = f"{100.0 * correct.mean():.2f}"
+        if self.multi_label:
+            stats["map"] = get_map(self.video_preds, self.video_labels)
+        else:
+            order = np.argsort(-self.video_preds, axis=1)
+            for k in ks:
+                correct = (order[:, :k] == self.video_labels[:, None]).any(1)
+                stats[f"top{k}_acc"] = f"{100.0 * correct.mean():.2f}"
         log_json_stats(stats)
         self.stats = stats
         return stats
+
+
+def _average_precision(labels: np.ndarray, scores: np.ndarray) -> float:
+    """One class's average precision without interpolation: Σ_k (R_k −
+    R_{k−1}) P_k over the distinct score thresholds, high to low (tied
+    scores are one threshold); sklearn's ``average_precision_score``
+    computed its way."""
+    order = np.argsort(scores, kind="mergesort")[::-1]
+    scores, labels = scores[order], labels[order]
+    idx = np.r_[np.nonzero(np.diff(scores))[0], labels.size - 1]
+    tps = np.cumsum(labels == 1, dtype=np.float64)[idx]
+    fps = 1 + idx - tps
+    ps = tps + fps
+    precision = np.zeros_like(tps)
+    np.divide(tps, ps, out=precision, where=ps != 0)
+    recall = np.ones_like(tps) if tps[-1] == 0 else tps / tps[-1]
+    precision = np.r_[precision[::-1], 1.0]
+    recall = np.r_[recall[::-1], 0.0]
+    return float(max(0.0, -np.sum(np.diff(recall) * precision[:-1])))
+
+
+def get_map(preds: np.ndarray, labels: np.ndarray) -> float:
+    """Mean average precision over classes (reference: meters.py:690-714),
+    the classes with no positive label left out. Where sklearn's
+    ``average_precision_score`` refuses its input (no sample or class
+    left, a non-finite score or label, a label other than 0 and 1), the
+    mean is 0.0, as the JAX package returns then."""
+    preds, labels = np.asarray(preds), np.asarray(labels)
+    keep = ~np.all(labels == 0, axis=0)
+    preds, labels = preds[:, keep], labels[:, keep]
+    if (preds.size == 0 or not np.all(np.isfinite(preds))
+            or not np.all(np.isin(labels, (0, 1)))):
+        return 0.0
+    return float(np.mean([_average_precision(labels[:, j], preds[:, j])
+                          for j in range(labels.shape[1])]))
+
+
+class AVAMeter:
+    """Detection meter running the full AVA mAP evaluation (reference:
+    meters.py:46-213): it gathers post-sigmoid box scores, the original
+    normalized boxes and (video index, second) metadata, and runs the
+    numpy evaluator at ``finalize_metrics``."""
+
+    def __init__(self, overall_iters, cfg, mode: str):
+        from .ava_eval_helper import read_csv, read_exclusions, read_labelmap
+
+        self.cfg = cfg
+        self.mode = mode
+        self.overall_iters = overall_iters
+        self.iter_timer = Timer()
+        self.loss = ScalarMeter(cfg.LOG_PERIOD)
+        self.lr = None
+        self.all_preds = []
+        self.all_ori_boxes = []
+        self.all_metadata = []
+        self.full_map = float("nan")
+        self.stats = {}
+        ann = cfg.AVA.ANNOTATION_DIR
+        self.excluded_keys = read_exclusions(
+            os.path.join(ann, cfg.AVA.EXCLUSION_FILE)
+            if cfg.AVA.EXCLUSION_FILE else None)
+        self.categories, self.class_whitelist = read_labelmap(
+            os.path.join(ann, cfg.AVA.LABEL_MAP_FILE))
+        self.full_groundtruth = read_csv(
+            os.path.join(ann, cfg.AVA.GROUNDTRUTH_FILE), self.class_whitelist)
+        self.video_idx_to_name = None  # set by the engine
+
+    def reset(self):
+        self.all_preds = []
+        self.all_ori_boxes = []
+        self.all_metadata = []
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+
+    def update_stats(self, preds, ori_boxes, metadata, loss=None, lr=None):
+        if self.mode in ("val", "test"):
+            self.all_preds.append(np.asarray(preds))
+            self.all_ori_boxes.append(np.asarray(ori_boxes))
+            self.all_metadata.append(np.asarray(metadata))
+        if loss is not None:
+            self.loss.add_value(float(loss))
+        if lr is not None:
+            self.lr = lr
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
+            return
+        stats = {
+            "_type": f"{self.mode}_iter",
+            "cur_epoch": str(cur_epoch + 1) if cur_epoch is not None else "",
+            "cur_iter": f"{cur_iter + 1}",
+            "time_diff": self.iter_timer.seconds(),
+            "mode": self.mode,
+        }
+        if self.mode == "train":
+            stats["loss"] = self.loss.get_win_median()
+            stats["lr"] = self.lr
+        log_json_stats(stats)
+
+    def finalize_metrics(self, log: bool = True) -> float:
+        from .ava_eval_helper import evaluate_ava
+
+        if not self.all_preds:
+            return float("nan")
+        self.full_map = evaluate_ava(
+            np.concatenate(self.all_preds, axis=0),
+            np.concatenate(self.all_ori_boxes, axis=0),
+            np.concatenate(self.all_metadata, axis=0),
+            self.excluded_keys, self.class_whitelist, self.categories,
+            groundtruth=self.full_groundtruth,
+            video_idx_to_name=self.video_idx_to_name)
+        self.stats = {"_type": f"{self.mode}_final", "mode": self.mode,
+                      "map": self.full_map}
+        if log:
+            log_json_stats(self.stats)
+        return self.full_map
+
+    def log_epoch_stats(self, cur_epoch):
+        if self.mode in ("val", "test"):
+            self.finalize_metrics(log=False)
+            log_json_stats({
+                "_type": f"{self.mode}_epoch",
+                "cur_epoch": str(cur_epoch + 1),
+                "mode": self.mode,
+                "map": self.full_map,
+            })
+            return self.full_map
 
 
 def span(times: Optional["StageTimes"], name, device, stream=None):

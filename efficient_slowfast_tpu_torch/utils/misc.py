@@ -57,20 +57,25 @@ def cpu_mem_usage():
     return (vram.total - vram.available) / 1024 ** 3, vram.total / 1024 ** 3
 
 
-def get_flop_stats(model: torch.nn.Module, example_inputs) -> float:
+def get_flop_stats(model: torch.nn.Module, example_inputs,
+                   bboxes=None) -> float:
     """FLOPs of one eval forward on ``example_inputs``, counted by
     ``torch.utils.flop_counter`` (reference: fvcore's flop_count,
     misc.py:109-150). The JAX package reads XLA's cost analysis of the
     compiled program instead; the counter here counts the aten matmuls and
     convolutions as torch dispatches them, so work done inside the port's
-    own CUDA kernels (the attention's) is not counted."""
+    own CUDA kernels (the attention's) is not counted. A detection model
+    takes ``bboxes``, its RoIs."""
     from torch.utils.flop_counter import FlopCounterMode
 
     was_training = model.training
     model.eval()
     counter = FlopCounterMode(display=False)
     with torch.no_grad(), counter:
-        model(example_inputs)
+        if bboxes is None:
+            model(example_inputs)
+        else:
+            model(example_inputs, bboxes)
     model.train(was_training)
     return float(counter.get_total_flops())
 
@@ -80,6 +85,12 @@ def log_model_info(model: torch.nn.Module, cfg, example_inputs):
     logger.info("Model:\n%s", type(model).__name__)
     logger.info("Params: %s", f"{params_count(model):,}")
     logger.info("Mem: %.2f GB", gpu_mem_usage())
-    logger.info("Flops: %.2f G", get_flop_stats(model, example_inputs) / 1e9)
+    bboxes = None
+    if cfg.DETECTION.ENABLE:  # one RoI over the first clip's whole crop
+        s = float(example_inputs[0].shape[2])
+        bboxes = torch.tensor([[0.0, 0.0, 0.0, s, s]],
+                              device=example_inputs[0].device)
+    logger.info("Flops: %.2f G",
+                get_flop_stats(model, example_inputs, bboxes) / 1e9)
     used, total = cpu_mem_usage()
     logger.info("CPU mem: %.2f / %.2f GB", used, total)

@@ -170,10 +170,15 @@ def test_make_forward_serves_the_cmda_module(cmda_setup):
 
 @pytest.mark.parametrize("key", ["DETECTION.ENABLE"])
 def test_cmda_refuses_what_is_not_ported(key):
+    """Detection is ported: under DETECTION.ENABLE CMDA builds the RoI
+    head (tests/test_torch_port_detection.py holds it against JAX) and
+    refuses only a forward without the boxes that head needs."""
     cfg = small_cfg(model=CMDA)
     cfg.merge_from_list([key, "True"])
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert type(model.head).__name__ == "ResNetRoIHead"
+    with pytest.raises(ValueError, match="boxes"):
+        model.eval()(torch_inputs(inputs_np(cfg)))
 
 
 def test_cmda_slow_pathway_head_matches_jax():

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
 package (its SlowFast forward, a tiny synthetic 30-view test, an I3D with
-non-local blocks, the library attention blocks and a narrow ShuffleNetV2
-and GhostNet run in a process where importing them raises), and it never falls back to the CPU without
-being asked."""
+non-local blocks, the library attention blocks, a narrow ShuffleNetV2
+and GhostNet, and a detection forward with the AVA evaluator run in a
+process where importing them raises), and it never falls back to the CPU
+without being asked."""
 
 import ast
 import os
@@ -155,6 +156,63 @@ def test_efficient_family_runs_without_jax(yaml, width):
     proc = subprocess.run(
         [sys.executable, "-c", _EFFICIENT, os.path.join(ROOT, yaml),
          str(width)], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+_DETECTION = r"""
+import sys
+for name in ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu",
+             "sklearn", "PIL"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+import torch
+from efficient_slowfast_tpu_torch.config import load_cfg
+from efficient_slowfast_tpu_torch.data import ava_dataset, ava_helper
+from efficient_slowfast_tpu_torch.engine.state import make_detection_forward
+from efficient_slowfast_tpu_torch.models import build_model
+from efficient_slowfast_tpu_torch.utils.ava_eval_helper import evaluate_ava
+from efficient_slowfast_tpu_torch.utils.meters import get_map
+torch.set_num_threads(1)
+cfg = load_cfg(sys.argv[1], ["RESNET.WIDTH_PER_GROUP", 8, "DATA.NUM_FRAMES",
+                             8, "TPU.COMPUTE_DTYPE", "float32"])
+g = torch.Generator().manual_seed(0)
+x = [torch.rand(2, 2, 32, 64, 3, generator=g),
+     torch.rand(2, 8, 32, 64, 3, generator=g)]
+boxes = torch.tensor([[[2.0, 3.0, 30.0, 28.0], [0.0, 0.0, 0.0, 0.0]],
+                      [[10.0, 4.0, 50.0, 31.0], [40.0, 8.0, 58.0, 30.0]]])
+fwd = make_detection_forward(cfg, build_model(cfg, device="cpu"), "cpu")
+scores = fwd(x, boxes).numpy()
+assert scores.shape == (4, 80) and ((scores > 0) & (scores < 1)).all()
+keep = [0, 2, 3]
+gt = ({"v0,0902": [[0.1, 0.0, 0.9, 0.5]], "v1,0902": [[0.1, 0.2, 1.0, 0.8],
+       [0.25, 0.6, 0.95, 0.9]]},
+      {"v0,0902": [5], "v1,0902": [5, 12]}, {})
+ori = np.array([[0, 0.0, 0.1, 0.5, 0.9], [0, 0.2, 0.1, 0.8, 1.0],
+                [0, 0.6, 0.25, 0.9, 0.95]])
+m = evaluate_ava(scores[keep], ori, np.array([[0, 902], [1, 902], [1, 902]]),
+                 set(), {5, 12}, [{"id": 5, "name": "a"},
+                                  {"id": 12, "name": "b"}],
+                 groundtruth=gt, video_idx_to_name=["v0", "v1"])
+assert 0.0 <= m <= 1.0, m
+assert 0.0 <= get_map(scores, (scores > 0.5).astype(int)) <= 1.0
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu",
+        "sklearn", "PIL") and sys.modules[m] is not None]
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_detection_runs_without_jax_sklearn_or_pil():
+    """A narrow SlowFast of the AVA yaml scores boxes through
+    make_detection_forward, and the AVA evaluator and get_map run, with
+    JAX, sklearn and PIL blocked (PIL is needed only to read JPEGs)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DETECTION,
+         os.path.join(ROOT, "configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")

@@ -129,9 +129,10 @@ def test_random_init_is_seeded_and_logged(caplog, tmp_path):
                                   "output_dir"])
 def test_what_later_items_bring_raises(what, tmp_path):
     cfg = engine_cfg(get_cfg, tmp_path / "model.pyth", tmp_path)
-    item = {"detection": "item 6", "int8": "item 8"}.get(what, "item 7")
-    if what == "detection":
+    item = {"detection": "item 8", "int8": "item 8"}.get(what, "item 7")
+    if what == "detection":  # ported; its int8 serving is item 8's
         cfg.DETECTION.ENABLE = True
+        cfg.TPU.INT8_EVAL = True
     elif what == "int8":
         cfg.TPU.INT8_EVAL = True
     elif what == "output_dir":  # a JAX run's orbax checkpoint directory

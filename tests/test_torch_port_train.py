@@ -309,11 +309,12 @@ def test_dropout_in_train_mode_only_and_the_step_needs_a_generator():
         a = model.eval()(x)
         torch.testing.assert_close(model(x), a, rtol=0, atol=0)
         model.train()
-        b = model(x, torch.Generator().manual_seed(0))
+        b = model(x, generator=torch.Generator().manual_seed(0))
         torch.testing.assert_close(
-            model(x, torch.Generator().manual_seed(0)), b, rtol=0, atol=0)
+            model(x, generator=torch.Generator().manual_seed(0)), b, rtol=0,
+            atol=0)
         assert not torch.equal(
-            b, model(x, torch.Generator().manual_seed(1)))
+            b, model(x, generator=torch.Generator().manual_seed(1)))
     state = create_train_state(cfg, model, device="cpu")
     (x, y), = train_batches(cfg, steps=1)
     with pytest.raises(ValueError, match="Generator"):
