@@ -761,7 +761,7 @@ def block_cost(n, h, cin, ci, cout, kt, proj, elem):
     return flops, nbytes
 
 
-def phase_kernels(cfg, model, smi):
+def phase_kernels(cfg, model, smi, off_path=K1_OFF_PATH):
     from efficient_slowfast_tpu_torch.models.resnet import ResBlock
     from efficient_slowfast_tpu_torch.ops.kernels import _build
     from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import (
@@ -785,7 +785,7 @@ def phase_kernels(cfg, model, smi):
     record = []
     card_gen = torch.Generator(device="cuda").manual_seed(SEED)
     for label, t_len, h, cin, ci, cout, kt, proj, count in rows + [
-            r + (0,) for r in K1_OFF_PATH]:
+            r + (0,) for r in off_path]:
         # the path's shapes also at the 30-view test batch (phase 8), in
         # its dtype: the plan picks each of those shapes' splits anew
         cases = [(dtype, tol, clips) for dtype, tol in (
@@ -1174,7 +1174,8 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
     largest bf16 batch held at each (N, M, D, C)). With ``path_batch``
     (phase 11's rows, each carrying its path's batch as its last entry,
     the off-path shapes taking ``path_batch``) it holds float32 and bf16 at
-    1 clip and at that batch and times there. With ``logit_std`` q and k
+    1 clip and at that batch and times there; a row's second batch (phase
+    14's training batch) is held in bf16 too. With ``logit_std`` q and k
     are scaled so that the logits have that std (at D = 2 unit normals give
     std 1.4, a softmax so flat that a wrong key weight would hardly move
     the output)."""
@@ -1202,7 +1203,7 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
         cases = [(dtype, tol, b) for dtype, tol in (
             (torch.float32, ATTN_F32_TOL), (torch.bfloat16, ATTN_BF16_TOL))
             for b in (1, time_b)]
-        extra = big[0] if big else (TEST_CLIPS if count else None)
+        extra = big[-1] if big else (TEST_CLIPS if count else None)
         if extra and extra not in (1, time_b):
             cases.append((torch.bfloat16, ATTN_BF16_TOL, extra))
         for dtype, tol, b in cases:
@@ -4005,6 +4006,656 @@ def phase_detection(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the frame datasets
+FATIGUE_CMDA_YAML = os.path.join(
+    ROOT, "configs", "TIRED", "DUAL_TIRED_SLOWFAST_8x8_R50_112_GRAY.yaml")
+FATIGUE_SF_YAML = os.path.join(ROOT, "configs", "TIRED",
+                               "TIRED_SLOWFAST_8x8_R50.yaml")
+CHARADES_YAML = os.path.join(ROOT, "configs", "Charades",
+                             "SLOWFAST_16x8_R50.yaml")
+SSV2_YAML = os.path.join(ROOT, "configs", "SSv2", "SLOWFAST_16x8_R50.yaml")
+# the frames the phase writes (the datasets' own are not in the repo):
+# JPEGs of 320 x 240, FRAME_JPEGS distinct ones in each of FRAME_FOLDERS
+FRAME_HW = (240, 320)
+FRAME_FOLDERS, FRAME_JPEGS = 32, 40
+# the fatigue split: FATIGUE_STEPS train steps of the yaml's 128 clips, its
+# val (and test) list FATIGUE_VIDEOS folders; precise BN cut from the yaml's
+# 170 batches to PRECISE_BATCHES
+FATIGUE_STEPS, FATIGUE_BATCH, FATIGUE_VIDEOS = 4, 128, 4
+PRECISE_BATCHES = 2
+# Charades and SSv2: (train videos, val and test videos, frames a video);
+# train steps at the yamls' 16 clips
+FRAME_LISTS = {"charades": (64, 4, 140), "ssv2": (64, 8, 48)}
+FRAME_LIST_STEPS = 4
+# the fatigue CMDA's fusions at 112², 16 frames (slow T 2): (N, D = C)
+FATIGUE_K2 = [(1568, 8), (1568, 32), (1568, 64)]
+
+
+def write_frame_split(root):
+    """The phase's seeded split under ``root``: FRAME_FOLDERS folders of
+    FRAME_JPEGS JPEGs (smooth seeded content, a 16-pixel cell moving a
+    frame); the fatigue lists (``folder label`` lines: FATIGUE_STEPS x 128
+    train, FATIGUE_VIDEOS val), and the Charades and SSv2 frame lists over
+    the same JPEGs (Charades: 1-3 of its 157 labels a video, on every
+    frame; SSv2: label jsons of its 174 templates)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED + 14)
+    h, w = FRAME_HW
+    folders = [os.path.join(root, "folders", f"f{k:02d}")
+               for k in range(FRAME_FOLDERS)]
+    for d in folders:
+        os.makedirs(d, exist_ok=True)
+        cells = rs.randint(0, 256, (h // 16 + 4, w // 16 + 4, 3), np.uint8)
+        big = np.repeat(np.repeat(cells, 16, 0), 16, 1)
+        for j in range(FRAME_JPEGS):
+            y, x = 16 * (j % 4), 16 * (j // 10)
+            Image.fromarray(big[y:y + h, x:x + w]).save(
+                os.path.join(d, f"{j:03d}.jpg"), quality=90)
+    split = {"root": root}
+    fatigue = os.path.join(root, "fatigue")
+    os.makedirs(fatigue, exist_ok=True)
+    for name, lines in (
+            ("train", [(folders[i % FRAME_FOLDERS], i % 3)
+                       for i in range(FATIGUE_STEPS * FATIGUE_BATCH)]),
+            ("val", [(folders[(16 + v) % FRAME_FOLDERS], v % 3)
+                     for v in range(FATIGUE_VIDEOS)])):
+        split[f"fatigue_{name}"] = os.path.join(fatigue, f"{name}.txt")
+        with open(split[f"fatigue_{name}"], "w") as f:
+            f.write("".join(f"{d} {y}\n" for d, y in lines))
+    templates = [f"doing thing {k}" for k in range(174)]
+    for name, (n_train, n_val, length) in FRAME_LISTS.items():
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        meta = {}
+        for part, count in (("train", n_train), ("val", n_val)):
+            rows = ["original_vido_id video_id frame_id path labels"]
+            meta[part] = []
+            for v in range(count):
+                vid = f"{name}_{part}{v:02d}"
+                k = (v + (0 if part == "train" else n_train)) % FRAME_FOLDERS
+                labels = ",".join(str(c) for c in sorted(rs.choice(
+                    157, rs.randint(1, 4), replace=False)))
+                rows += [f"{vid} {v} {i} folders/f{k:02d}/"
+                         f"{i % FRAME_JPEGS:03d}.jpg \"{labels}\""
+                         for i in range(length)]
+                meta[part].append({"id": vid, "template":
+                                   templates[rs.randint(174)].replace(
+                                       "thing", "[thing]")})
+            with open(os.path.join(d, f"{part}.csv"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+        if name == "ssv2":
+            for part, key in (("train", "train"), ("val", "validation")):
+                with open(os.path.join(
+                        d, f"something-something-v2-{key}.json"), "w") as f:
+                    json.dump(meta[part], f)
+            with open(os.path.join(d, "something-something-v2-labels.json"),
+                      "w") as f:
+                json.dump({t: str(k) for k, t in enumerate(templates)}, f)
+    return split
+
+
+def frame_opts(split, yaml):
+    """The split's locations for ``yaml`` (the TIRED yamls name absolute
+    lists on their authors' machine)."""
+    if os.sep + "TIRED" + os.sep in yaml:
+        return ["DATA.PATH_TO_TRAIN_DATA_TXT", split["fatigue_train"],
+                "DATA.PATH_TO_VAL_DATA_TXT", split["fatigue_val"]]
+    name = "charades" if "Charades" in yaml else "ssv2"
+    return ["DATA.PATH_TO_DATA_DIR", os.path.join(split["root"], name),
+            "DATA.PATH_PREFIX", split["root"]]
+
+
+def frame_cfg(yaml, split, dtype="bfloat16", *opts):
+    from efficient_slowfast_tpu_torch.config import load_cfg
+
+    return load_cfg(yaml, frame_opts(split, yaml) + [
+        "TPU.COMPUTE_DTYPE", dtype, "DATA_LOADER.NUM_WORKERS", LOADER_WORKERS,
+        "OUTPUT_DIR", smoke_dir()] + list(opts))
+
+
+def count_diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+class FrameRun:
+    """What a phase-14 run did, seen through its engine's functions: each
+    train step's seconds, loss, clips and kernel launches (the third
+    traced); each loop's waits on the loader; the seconds and launches of
+    precise BN, the val epoch and the test (its per-batch stage times)."""
+
+    def __init__(self, trace_name):
+        self.trace_name = trace_name
+        self.steps, self.loops, self.stages = [], [], {}
+        self.trace = self.test_times = self.test_meter = None
+
+    def make_step(self, orig):
+        def build(cfg, model, optimizer):
+            step = orig(cfg, model, optimizer)
+
+            def timed(state, inputs, labels, lr, generator=None):
+                torch.cuda.synchronize()
+                before = read_counts()
+                t0 = time.perf_counter()
+                if len(self.steps) == 2:  # the third step traced
+                    out = {}
+                    self.trace = trace_window(self.trace_name, lambda: out.update(
+                        step(state, inputs, labels, lr, generator)))
+                    mets = out
+                else:
+                    mets = step(state, inputs, labels, lr, generator)
+                torch.cuda.synchronize()
+                self.steps.append(dict(
+                    s=time.perf_counter() - t0, loss=mets["loss"].item(),
+                    clips=labels.shape[0],
+                    counts=count_diff(read_counts(), before)))
+                return mets
+            return timed
+        return build
+
+    def prefetch(self, orig):
+        def run(loader, device, depth=2, times=None):
+            from efficient_slowfast_tpu_torch.utils.meters import StageTimes
+
+            self.loops.append(StageTimes())
+            return orig(loader, device, depth=depth, times=self.loops[-1])
+        return run
+
+    def stage(self, name):
+        def wrap(orig):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                before = read_counts()
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                torch.cuda.synchronize()
+                self.stages[name] = dict(s=time.perf_counter() - t0,
+                                         counts=count_diff(read_counts(),
+                                                           before))
+                return out
+            return run
+        return wrap
+
+    def perform(self, orig):
+        from efficient_slowfast_tpu_torch.utils.meters import StageTimes
+
+        def run(cfg, model, loader, meter, device=None, times=None):
+            self.test_times, self.test_meter = StageTimes(), meter
+            self.stages["test_batches"] = len(loader)
+            return orig(cfg, model, loader, meter, device,
+                        times=self.test_times)
+        return self.stage("test")(run)
+
+    def patches(self, train=True):
+        from efficient_slowfast_tpu_torch.engine import test as test_engine
+        from efficient_slowfast_tpu_torch.engine import train as train_engine
+
+        out = [(test_engine, "perform_test", self.perform)]
+        if train:
+            out += [(train_engine, "make_train_step", self.make_step),
+                    (train_engine, "prefetch_to_device", self.prefetch),
+                    (train_engine, "calculate_and_update_precise_bn",
+                     self.stage("precise_bn")),
+                    (train_engine, "eval_epoch", self.stage("val"))]
+        return Observed(*out)
+
+
+def test_line(what, rec, clips, dt, fwd_ms, batch, share, peak, smi):
+    """One line of a test run: clips/s end to end and of the forward on a
+    resident batch, the per-batch stage means, the traced batch's device
+    busy share and peak memory."""
+    split = {k: statistics.mean(v) for k, v in rec.test_times.summary().items()}
+    log("frames", f"{what} test(): {clips} clips in "
+        f"{rec.stages['test_batches']} batches of {batch}, end to end "
+        f"{clips / dt:.2f} clips/s ({dt:.2f} s with the model's build and "
+        f"load) | forward alone on a resident batch {fwd_ms:.2f} ms, "
+        f"{batch / fwd_ms * 1e3:.2f} clips/s | per batch mean: wait on the "
+        f"loader {split['wait']:.2f}, copy {split['copy']:.2f}, preprocess "
+        f"{split['preprocess']:.2f}, forward {split['forward']:.2f} ms | one "
+        f"traced batch: device busy {share * 100:.1f}% | peak memory "
+        f"{peak / 2 ** 30:.2f} GiB | {smi}")
+
+
+def resident_forward(cfg, model, name):
+    """(ms of the forward on a resident test batch of ``cfg``'s loader,
+    the device-busy share of one traced preprocess + forward)."""
+    from efficient_slowfast_tpu_torch.data.loader import construct_loader
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_test_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    (b,) = first_batches(construct_loader(cfg, "test"), 1)
+    pre = make_test_preprocess(cfg, torch.bfloat16)
+    fwd = make_forward(cfg, model)
+    inputs = pre(b["frames"], b["width"], b["spatial_idx"], b["portrait"])
+    ms = cuda_ms(lambda: fwd(inputs), iters=2, reps=3)
+    share, _, _, _ = trace_window(name, lambda: fwd(pre(
+        b["frames"], b["width"], b["spatial_idx"], b["portrait"])))
+    return ms, share
+
+
+def resident_step(what, cfg, model, smi, inputs=None, labels=None):
+    """The train step of ``model`` (a copy, with a fresh optimizer) alone
+    on a resident batch of TRAIN.BATCH_SIZE clips (``inputs`` and
+    ``labels``, else seeded ones at the train crop): its ms, clips/s,
+    the device-busy share of one traced step and the launches a step."""
+    import copy
+
+    from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
+                                                           make_train_step)
+
+    b = cfg.TRAIN.BATCH_SIZE
+    model = copy.deepcopy(model)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    if inputs is None:
+        crop = cfg.clone()
+        crop.DATA.TEST_CROP_SIZE = cfg.DATA.TRAIN_CROP_SIZE
+        inputs, labels = train_batches(crop, 1, b, SEED + 15)[0]
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    run = lambda: step(state, inputs, labels, cfg.SOLVER.BASE_LR, drop)  # noqa: E731
+    reset_counts()
+    run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ms = cuda_ms(run, iters=2, reps=3)
+    share, window_ms, _, _ = trace_window(
+        f"frames_{what.split()[0].lower()}_resident_step", run)
+    log("frames", f"{what} train step alone on a resident batch of {b} "
+        f"clips at {inputs[-1].shape[2]}²: {ms:.2f} ms, {b / ms * 1e3:.2f} "
+        f"clips/s | one traced step: device busy {share * 100:.1f}% of "
+        f"{window_ms:.2f} ms | launches a step {counts} | {smi}")
+    del state, step, model
+    torch.cuda.empty_cache()
+    return ms
+
+
+def run_test(cfg, rec=None):
+    """test(cfg) (observed by ``rec`` where given): (meter, seconds,
+    launches, peak memory)."""
+    from efficient_slowfast_tpu_torch.engine.test import test
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    if rec is None:
+        meter = test(cfg)
+    else:
+        with rec.patches(train=False):
+            meter = test(cfg)
+    torch.cuda.synchronize()
+    return (meter, time.perf_counter() - t0, read_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def host_breakdown(cfg, clips=8, top=8):
+    """Where one loader thread's time goes: ``clips`` train items of
+    ``cfg``'s dataset filled on this thread under cProfile, the functions
+    with the most time of their own."""
+    import cProfile
+    import pstats
+
+    from efficient_slowfast_tpu_torch.data.build import build_dataset
+
+    ds = build_dataset(cfg.TRAIN.DATASET, cfg, "train")
+    out = np.empty(ds.frames_shape(), np.uint8)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(lambda: [ds.getitem_into(i, out) for i in range(clips)])
+    dt = time.perf_counter() - t0
+    own = sorted(((v[2], f"{os.path.basename(k[0])}:{k[1]}({k[2]})")
+                  for k, v in pstats.Stats(prof).stats.items()),
+                 reverse=True)[:top]
+    log("frames", f"one loader thread, {clips} {cfg.TRAIN.DATASET} train "
+        f"items: {dt / clips * 1e3:.1f} ms a clip under cProfile; own time "
+        f"a clip by function: " + "; ".join(
+            f"{name} {t / clips * 1e3:.1f} ms" for t, name in own))
+
+
+def phase_frame_benchmark(split, smi):
+    """benchmark_data_loading over the fatigue train split: the loader's
+    clips/s alone, no device work. Returns the epoch's clips/s."""
+    from efficient_slowfast_tpu_torch.utils import benchmark
+
+    cfg = frame_cfg(FATIGUE_CMDA_YAML, split, "bfloat16",
+                    "BENCHMARK.NUM_EPOCHS", 1, "BENCHMARK.LOG_PERIOD", 1)
+    records, orig = [], benchmark.log_json_stats
+    benchmark.log_json_stats = lambda s: (records.append(dict(s)), orig(s))
+    try:
+        (seconds,) = benchmark.benchmark_data_loading(cfg)
+    finally:
+        benchmark.log_json_stats = orig
+    windows = [r["clips_per_s"] for r in records
+               if r["_type"] == "benchmark_iter"]
+    clips = FATIGUE_STEPS * FATIGUE_BATCH
+    log("frames", f"benchmark_data_loading, fatigue train split "
+        f"({cfg.TRAIN.DATASET}, {clips} clips of {cfg.DATA.NUM_FRAMES} JPEGs "
+        f"in batches of {cfg.TRAIN.BATCH_SIZE}, {LOADER_WORKERS} threads on "
+        f"{os.cpu_count()} host cores, gray style: read, grey, crop, resize "
+        f"to {cfg.DATA.TRAIN_JITTER_SCALES[1]}², rotate, salt): "
+        f"{clips / seconds:.2f} clips/s over the epoch ({seconds:.2f} s), by "
+        f"batch " + ", ".join(f"{x:.1f}" for x in windows) + " clips/s | "
+        f"records {[r['_type'] for r in records]}")
+    host_breakdown(cfg)
+    types = [r["_type"] for r in records]
+    if types != ["benchmark_iter"] * FATIGUE_STEPS + [
+            "benchmark_epoch", "benchmark_final"] or not all(
+                x > 0 for x in windows):
+        raise AssertionError(f"benchmark_data_loading records {records}")
+    return clips / seconds
+
+
+def phase_fatigue_cmda(split, loader_clips_per_s, smi):
+    """The fatigue CMDA-R50: 3b and 3c at its fusions (N = M = 1568 at
+    64 and 128 clips), then train() and test() through tools/run_net.py,
+    and the test's scores against the plain attention. Returns (K2
+    record, K2 error, K2-bwd record, K2-bwd error, launch counts)."""
+    import shutil
+
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+    from efficient_slowfast_tpu_torch.tools import run_net
+    from efficient_slowfast_tpu_torch.utils.checkpoint import \
+        get_last_checkpoint
+
+    cfg = frame_cfg(FATIGUE_CMDA_YAML, split)
+    test_b, train_b = cfg.TEST.BATCH_SIZE, cfg.TRAIN.BATCH_SIZE
+    if train_b != FATIGUE_BATCH:
+        raise AssertionError(f"fatigue CMDA: TRAIN.BATCH_SIZE {train_b}")
+    model = train_model(cfg, SEED)
+    rows = efficient_rows(cfg, model, test_b)
+    k2 = [(f"fatigue {r[0].split()[-1]}",) + r[1:] + (train_b,)
+          for r in rows if r[5]]
+    log("frames", f"fatigue CMDA-R50 ({os.path.relpath(FATIGUE_CMDA_YAML, ROOT)}"
+        f", {cfg.TRAIN.DATASET}, {cfg.MODEL.NUM_CLASSES} classes, "
+        f"{cfg.DATA.NUM_FRAMES} frames, {cfg.DATA.TEST_CROP_SIZE}², bf16, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"parameters): fusions " + ", ".join(
+            f"{r[0].split()[-1]} N {r[1]} D {r[3]}{' (K2)' if r[5] else ''}"
+            for r in rows))
+    if [(r[1], r[3]) for r in k2] != FATIGUE_K2:
+        raise AssertionError(f"fatigue CMDA K2 shapes {k2}")
+    k2_record, k2_err, _ = phase_attention(k2, smi, off_path=(),
+                                           path_batch=test_b,
+                                           logit_std=ATTN_LOGIT_STD)
+    bwd_record, bwd_err, _ = phase_attention_backward(
+        [r[:6] for r in k2], smi, off_path=(), batch=train_b,
+        logit_std=ATTN_LOGIT_STD)
+    torch.cuda.empty_cache()
+
+    # train() and test() through the CLI from seeded, calibrated weights
+    calibrate_attention(cfg, model, SEED + 14, "frames")
+    init = os.path.join(smoke_dir(), "fatigue_cmda_init.pyth")
+    torch.save({"model_state": model.state_dict()}, init)
+    del model
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(smoke_dir(), "fatigue_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--cfg", FATIGUE_CMDA_YAML] + [str(o) for o in frame_opts(
+        split, FATIGUE_CMDA_YAML)] + [
+        "TPU.COMPUTE_DTYPE", "bfloat16", "DATA_LOADER.NUM_WORKERS",
+        str(LOADER_WORKERS), "SOLVER.MAX_EPOCH", "1",
+        "BN.NUM_BATCHES_PRECISE", str(PRECISE_BATCHES),
+        "TRAIN.CHECKPOINT_FILE_PATH", init, "TRAIN.CHECKPOINT_TYPE",
+        "pytorch", "OUTPUT_DIR", out_dir]
+    rec = FrameRun("frames_fatigue_cmda_step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec.patches():
+        result = run_net.main(argv)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = rec.steps
+    losses = [s["loss"] for s in steps]
+    untraced = [i for i in range(len(steps)) if i not in (0, 2)]
+    step_s = sum(steps[i]["s"] for i in untraced) / len(untraced)
+    waits = rec.loops[0].summary()["wait"]  # ms, before each step
+    e2e = sum(s["clips"] for s in steps) / (
+        sum(s["s"] for s in steps) + sum(waits) / 1e3)
+    share, window_ms = rec.trace[0], rec.trace[1]
+    log("frames", f"fatigue CMDA CLI (train then test, SOLVER.MAX_EPOCH 1, "
+        f"precise BN {PRECISE_BATCHES} batches): {len(steps)} steps of "
+        f"{[s['clips'] for s in steps]} clips, losses " + ", ".join(
+            f"{x:.4f}" for x in losses) + " | ms a step " + ", ".join(
+            f"{s['s'] * 1e3:.1f}" for s in steps) + " (the first with cuDNN's"
+        f" plans, the third traced) | the step alone {train_b / step_s:.2f} "
+        f"clips/s in the pipeline over the untraced steps after the first; "
+        f"end to end {e2e:.2f} clips/s over the epoch's steps and waits | "
+        f"wait on the loader a step " + ", ".join(
+            f"{w:.1f}" for w in waits) + f" ms (the loader alone "
+        f"{loader_clips_per_s:.2f} clips/s: {train_b / loader_clips_per_s * 1e3:.0f}"
+        f" ms a batch) | traced step: device busy {share * 100:.1f}% of "
+        f"{window_ms:.2f} ms | precise BN {rec.stages['precise_bn']['s']:.2f}"
+        f" s, val {rec.stages['val']['s']:.2f} s | peak memory "
+        f"{peak / 2 ** 30:.2f} GiB | kernel launches {counts} | {dt:.1f} s | "
+        f"{smi}")
+    bwd = 3 * BACKWARD_LAUNCHES_PER_CALL
+    bad = [s["counts"] for s in steps if s["counts"] != {
+        "fused_bottleneck": 0, "flash_attention": 3,
+        "flash_attention_backward": bwd}]
+    per_forward = {"precise_bn": PRECISE_BATCHES, "val": 1,
+                   "test": rec.stages["test_batches"]}
+    for name, n in per_forward.items():
+        if rec.stages[name]["counts"] != {"fused_bottleneck": 0,
+                                          "flash_attention": 3 * n,
+                                          "flash_attention_backward": 0}:
+            bad.append((name, rec.stages[name]["counts"]))
+    staged = len(steps) * 3 + 3 * sum(per_forward.values())
+    # the one forward left is log_model_info's (a 1-clip FLOP count)
+    if (bad or len(steps) != FATIGUE_STEPS or counts != {
+            "fused_bottleneck": 0, "flash_attention": staged + 3,
+            "flash_attention_backward": bwd * len(steps)}
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"fatigue CMDA CLI: steps {steps}, stages "
+                             f"{rec.stages}, launches {counts}")
+
+    resident_step("fatigue CMDA", frame_cfg(FATIGUE_CMDA_YAML, split),
+                  result["train"].model, smi)
+
+    # the test: its line, then its scores against the plain attention
+    meter = result["test"]
+    clips = len(meter.clip_count) * meter.num_clips
+    tcfg = frame_cfg(FATIGUE_CMDA_YAML, split)
+    fwd_ms, fwd_share = resident_forward(tcfg, result["train"].model,
+                                         "frames_fatigue_cmda_test")
+    test_line("fatigue CMDA", rec, clips, rec.stages["test"]["s"], fwd_ms,
+              test_b, fwd_share, peak, smi)
+    if len(meter.clip_count) != FATIGUE_VIDEOS:
+        raise AssertionError(f"fatigue CMDA test: {len(meter.clip_count)} "
+                             f"videos, expected {FATIGUE_VIDEOS}")
+    ckpt = get_last_checkpoint(out_dir)
+    means = {"K2 bf16": meter.video_preds / meter.num_clips}
+    for name, dtype in (("plain bf16", "bfloat16"), ("plain f32", "float32")):
+        pcfg = frame_cfg(FATIGUE_CMDA_YAML, split, dtype,
+                         "TPU.FLASH_ATTENTION", False,
+                         "TEST.CHECKPOINT_FILE_PATH", ckpt)
+        pmeter, _, pcounts, _ = run_test(pcfg)
+        if any(pcounts.values()):
+            raise AssertionError(f"the plain attention launched {pcounts}")
+        means[name] = pmeter.video_preds / pmeter.num_clips
+    ref = means["plain f32"]
+    d_k = float(np.linalg.norm(means["K2 bf16"] - ref))
+    d_p = float(np.linalg.norm(means["plain bf16"] - ref))
+    log("frames", f"fatigue CMDA test scores ({len(ref)} videos x "
+        f"{meter.num_clips} views, from {os.path.relpath(ckpt, ROOT)}), "
+        f"from the f32 plain path's, L2: with K2 {d_k:.4e}, plain bf16 "
+        f"{d_p:.4e} (ratio {d_k / max(d_p, 1e-30):.3f}, tol "
+        f"{CMDA_TRAIN_BF16_RATIO}); max |d| K2 vs plain bf16 "
+        f"{float(np.abs(means['K2 bf16'] - means['plain bf16']).max()):.3e};"
+        f" stats {meter.stats} | {smi}")
+    if not d_k <= CMDA_TRAIN_BF16_RATIO * d_p:
+        raise AssertionError(f"fatigue CMDA test scores: K2 {d_k} vs plain "
+                             f"bf16 {d_p}")
+    del result
+    torch.cuda.empty_cache()
+    return k2_record, k2_err, bwd_record, bwd_err, counts
+
+
+def phase_fatigue_slowfast(split, smi):
+    """The fatigue SlowFast-R50 (TPU.FUSED_EVAL): K1 held at each block
+    shape of the yaml, then its 30-view test through the fused engine,
+    held against the module forward. Returns (K1 record, K1 error, the
+    test's launch counts)."""
+    cfg = frame_cfg(FATIGUE_SF_YAML, split, "bfloat16", "TPU.FUSED_EVAL", True)
+    model = serving_model(cfg, SEED)
+    log("frames", f"fatigue SlowFast-R50 ({os.path.relpath(FATIGUE_SF_YAML, ROOT)}"
+        f", {cfg.TEST.DATASET}, {cfg.MODEL.NUM_CLASSES} classes, "
+        f"{cfg.DATA.NUM_FRAMES} frames, α {cfg.SLOWFAST.ALPHA}, "
+        f"{cfg.DATA.TEST_CROP_SIZE}², TPU.FUSED_EVAL): K1 at its block shapes")
+    k1_record, k1_err = phase_kernels(cfg, model, smi, off_path=())
+    path = os.path.join(smoke_dir(), "fatigue_slowfast.pyth")
+    torch.save({"model_state": model.state_dict()}, path)
+    tcfg = frame_cfg(FATIGUE_SF_YAML, split, "bfloat16", "TPU.FUSED_EVAL",
+                     True, "TEST.CHECKPOINT_FILE_PATH", path)
+    rec = FrameRun(None)
+    meter, dt, counts, peak = run_test(tcfg, rec)
+    batches = rec.stages["test_batches"]
+    clips = len(meter.clip_count) * meter.num_clips
+    fwd_ms, share = resident_forward(tcfg, model, "frames_fatigue_slowfast")
+    test_line("fatigue SlowFast (fused, K1)", rec, clips, dt, fwd_ms,
+              tcfg.TEST.BATCH_SIZE, share, peak, smi)
+    expect = {"fused_bottleneck": 26 * batches, "flash_attention": 0,
+              "flash_attention_backward": 0}
+    if counts != expect or len(meter.clip_count) < 4:
+        raise AssertionError(f"fatigue SlowFast test: launches {counts}, "
+                             f"expected {expect}")
+    ref_cfg = frame_cfg(FATIGUE_SF_YAML, split, "bfloat16",
+                        "TEST.CHECKPOINT_FILE_PATH", path)
+    ref, _, ref_counts, _ = run_test(ref_cfg)
+    a = meter.video_preds / meter.num_clips
+    b = ref.video_preds / ref.num_clips
+    err = float(np.abs(a - b).max())
+    rows = float(np.abs(a.sum(1) - 1).max())
+    log("frames", f"fatigue SlowFast test: fused engine (K1) vs the module "
+        f"forward, per-video mean probabilities max |d| {err:.3e} (tol "
+        f"{SERVE_BF16_ATOL}), rows sum to 1 within {rows:.1e}, top-1 "
+        f"agreement {float((a.argmax(1) == b.argmax(1)).mean()):.3f} | "
+        f"module path launches {ref_counts} | stats {meter.stats} | {smi}")
+    if err > SERVE_BF16_ATOL or any(ref_counts.values()) or rows > 1e-2:
+        raise AssertionError(f"fatigue SlowFast test vs module {err}")
+    del model
+    torch.cuda.empty_cache()
+    return k1_record, k1_err, counts
+
+
+def phase_frame_list(name, yaml, split, smi):
+    """Charades or SSv2 (SlowFast-R50 16x8, sync-BN as plain BN): test()
+    at the yaml's views, then FRAME_LIST_STEPS train steps of its 16 clips
+    through the train loader."""
+    from efficient_slowfast_tpu_torch.data.loader import (construct_loader,
+                                                          prefetch_to_device)
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_train_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import (
+        create_train_state, make_train_step, step_generator)
+    from efficient_slowfast_tpu_torch.utils.meters import StageTimes
+
+    cfg = frame_cfg(yaml, split)
+    model = serving_model(cfg, SEED)
+    log("frames", f"{name} SlowFast-R50 ({os.path.relpath(yaml, ROOT)}, "
+        f"{cfg.MODEL.NUM_CLASSES} classes, {cfg.MODEL.LOSS_FUNC}, "
+        f"{cfg.MODEL.HEAD_ACT}, BN {cfg.BN.NORM_TYPE} "
+        f"(NUM_SYNC_DEVICES {cfg.BN.NUM_SYNC_DEVICES}: one process, plain "
+        f"BN), ensemble {cfg.DATA.ENSEMBLE_METHOD})")
+    path = os.path.join(smoke_dir(), f"{name}.pyth")
+    torch.save({"model_state": model.state_dict()}, path)
+    tcfg = frame_cfg(yaml, split, "bfloat16", "TEST.CHECKPOINT_FILE_PATH",
+                     path)
+    rec = FrameRun(None)
+    meter, dt, counts, peak = run_test(tcfg, rec)
+    clips = len(meter.clip_count) * meter.num_clips
+    fwd_ms, share = resident_forward(tcfg, model, f"frames_{name}_test")
+    test_line(name, rec, clips, dt, fwd_ms, tcfg.TEST.BATCH_SIZE, share, peak,
+              smi)
+    stats = meter.stats
+    if name == "charades":
+        ok = np.isfinite(stats["map"]) and 0.0 <= stats["map"] <= 1.0
+    else:
+        ok = "top1_acc" in stats
+    if not ok or any(counts.values()) or len(meter.clip_count) < 4:
+        raise AssertionError(f"{name} test: stats {stats}, launches {counts}")
+
+    # train steps through the train loader, on the model as tested
+    loader = construct_loader(cfg, "train")
+    pre = make_train_preprocess(cfg, torch.bfloat16)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    times, steps, losses = StageTimes(), [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    batches = prefetch_to_device(loader, "cuda", times=times)
+    t_loop = time.perf_counter()
+    try:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            inputs = pre(step_generator(cfg.RNG_SEED, i, "cuda"),
+                         batch["frames"], batch["width"],
+                         batch.get("portrait"), batch.get("crop_u"))
+            mets = step(state, inputs, batch["label"], cfg.SOLVER.BASE_LR,
+                        drop)
+            losses.append(mets["loss"].item())
+            steps.append(time.perf_counter() - t0)
+            if len(steps) == FRAME_LIST_STEPS:
+                break
+    finally:
+        batches.close()
+    loop_s = time.perf_counter() - t_loop
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    b = cfg.TRAIN.BATCH_SIZE
+    label = batch["label"]
+    log("frames", f"{name} training: {len(steps)} steps of {b} clips "
+        f"(labels {tuple(label.shape)} {str(label.dtype)[6:]}), losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + " | ms a step "
+        + ", ".join(f"{s * 1e3:.1f}" for s in steps) + " (the first with "
+        f"cuDNN's plans) | end to end {len(steps) * b / loop_s:.2f} clips/s |"
+        f" wait on the loader a step " + ", ".join(
+            f"{w * 1e3:.1f}" for w in times.waits) + f" ms | peak memory "
+        f"{peak / 2 ** 30:.2f} GiB | launches {counts} | {smi}")
+    if (len(steps) != FRAME_LIST_STEPS or not all(np.isfinite(losses))
+            or any(counts.values())):
+        raise AssertionError(f"{name} training: losses {losses}, launches "
+                             f"{counts}")
+    del state, step
+    resident_step(name, cfg, model, smi, inputs, label)
+    del model, batch, inputs
+    torch.cuda.empty_cache()
+
+
+def phase_frames(smi):
+    """Phase 14: the frame datasets on the card. Returns (records, errors,
+    launch counts) of the kernels of its main paths."""
+    t0 = time.perf_counter()
+    split = write_frame_split(os.path.join(smoke_dir(), "frames"))
+    log("frames", f"frame split written in {time.perf_counter() - t0:.1f} s:"
+        f" {FRAME_FOLDERS} folders of {FRAME_JPEGS} JPEGs at "
+        f"{FRAME_HW[1]}x{FRAME_HW[0]}; fatigue {FATIGUE_STEPS * FATIGUE_BATCH}"
+        f" train and {FATIGUE_VIDEOS} val lines; Charades and SSv2 "
+        f"(train, val, frames a video) {FRAME_LISTS}")
+    loader_cps = phase_frame_benchmark(split, smi)
+    k2_record, k2_err, bwd_record, bwd_err, counts = phase_fatigue_cmda(
+        split, loader_cps, smi)
+    torch.cuda.empty_cache()
+    k1_record, k1_err, sf_counts = phase_fatigue_slowfast(split, smi)
+    for k, v in sf_counts.items():
+        counts[k] += v
+    phase_frame_list("charades", CHARADES_YAML, split, smi)
+    phase_frame_list("ssv2", SSV2_YAML, split, smi)
+    log("frames", f"phase 14 in {time.perf_counter() - t0:.1f} s")
+    records = {"fused_bottleneck": k1_record, "flash_attention": k2_record,
+               "flash_attention_backward": bwd_record}
+    errs = {"fused_bottleneck": k1_err, "flash_attention": k2_err,
+            "flash_attention_backward": bwd_err}
+    return records, errs, counts
+
+
+# ---------------------------------------------------------------------------
 # the profiler: the device's busy share of a window
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
@@ -4103,7 +4754,7 @@ def kernel_entry(name, source, replaces, launches, err, record):
 # the phases that run together: a block runs whole when any of its phases
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
-                ("10",), ("11",), ("12",), ("13",)]
+                ("10",), ("11",), ("12",), ("13",), ("14",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -4255,12 +4906,20 @@ def main(argv=None):
         errs["flash_attention_backward"].append(det_bwd_err)
         add(det_counts)
         torch.cuda.empty_cache()
+    if run("14"):
+        frame_records, frame_errs, frame_counts = phase_frames(smi)
+        # phase 14's rows stand in where 3, 3b or 3c did not run
+        for name, record in frame_records.items():
+            records.setdefault(name, record)
+            errs[name].append(frame_errs[name])
+        add(frame_counts)
+        torch.cuda.empty_cache()
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA
     # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
-    # the non-local networks (11), the efficient families (12) and AVA
-    # detection (13); times per request of the serving paths (3, 3b) and
-    # per CMDA train step (3c)
+    # the non-local networks (11), the efficient families (12), AVA
+    # detection (13) and the frame datasets (14); times per request of the
+    # serving paths (3, 3b) and per CMDA train step (3c)
     kernels = [kernel_entry(name, *KERNELS[name], launches[name],
                             max(errs[name]), records[name])
                for name in KERNELS if name in records]

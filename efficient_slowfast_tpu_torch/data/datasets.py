@@ -1,25 +1,36 @@
 """Clip datasets on the host (port of ``data/datasets.py``; reference:
-slowfast/datasets/kinetics.py:20-262).
+slowfast/datasets/kinetics.py:20-262, jester.py, and the fork's frame-folder
+wheel/tired loaders, decoder.py:476-1041).
 
 Host contract (see data/preprocess.py): every sample is a dict
   frames  uint8 (T, S, Wc, 3) — short side S, true width `width`, right-padded
   width   int32
   portrait int32 (1: a tall clip stored transposed)
-  label   int64
+  label   int64 (multi-hot float32 for a multi-label dataset)
   index   int64 video index
   spatial_idx / temporal_idx  int32 (test mode; -1 in train/val)
   crop_u  float32 (train/val: the random crop's long-axis position)
 
 Temporal sampling happens at decode time; spatial work happens on the
-card. This slice has the synthetic backend (deterministic frames, no
-files, byte-identical to the JAX package's for the same RNG_SEED, video
-and view); decoding video files comes with ROADMAP item 2b.
+card. A split is a list file of ``path label`` lines (``LIST_FILES`` under
+DATA.PATH_TO_DATA_DIR, the fork's names as a fallback), read for every
+backend; the synthetic backend replaces it with seeded frames (no files,
+byte-identical to the JAX package's for the same RNG_SEED, video and
+view). ``Framefolder`` (``Wheel``, ``Tired``, ``Wheel_gray``) reads a
+folder of JPEG/PNG frames per line; decoding a video file (``Kinetics``,
+``Jester``) comes with ROADMAP item 2b part B.
+
+Every random draw of an item comes from ``np.random.default_rng([RNG_SEED,
+epoch, index])``, so the loader's threads give the same run in any order;
+the JAX package draws the same quantities from the global ``random``.
 """
 
 from __future__ import annotations
 
 import collections
+import glob
 import math
+import os
 import threading
 from typing import List, Optional, Tuple
 
@@ -30,8 +41,9 @@ from .build import DATASET_REGISTRY
 
 logger = get_logger(__name__)
 
-_DECODE_LATER = ("decoding video files (DATA.DECODING_BACKEND {!r}) comes "
-                 "with ROADMAP item 2b; use the synthetic backend")
+_DECODE_LATER = ("decoding the video file {!r} comes with ROADMAP item 2b "
+                 "part B; use the synthetic backend or a frame-folder "
+                 "dataset")
 
 
 def canvas_width(short_side: int) -> int:
@@ -227,167 +239,32 @@ class _DecodeMemo:
         return value
 
 
-class ClipDataset:
-    """Shared logic for list-file clip datasets (Kinetics pattern)."""
-
-    def __init__(self, cfg, mode: str, num_retries: int = 10):
-        assert mode in ("train", "val", "test"), f"Split '{mode}' not supported"
-        self.cfg = cfg
-        self.mode = mode
-        self._num_retries = num_retries
-        self.epoch = 0
-        if mode in ("train", "val"):
-            self._num_clips = 1
-        else:
-            self._num_clips = (
-                cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
-            )
-        self._construct_loader()
-        # multi-view test: one decode serves all NUM_SPATIAL_CROPS crops
-        self._test_decode_memo = _DecodeMemo() if mode == "test" else None
-        self._synth_lock = threading.Lock()
-        self._synth_buf = None
-        self._synth_blended = {}
+class CanvasDataset:
+    """What every clip and frame-list dataset shares: the split's items as
+    ``_fetch(index)`` → (frames, scalars), each pasted into the (T, S,
+    canvas_width(S), 3) canvas by ``__getitem__`` or, on the loader's
+    preallocated path, straight into its batch slot by ``getitem_into``.
+    Subclasses set ``cfg``, ``mode``, ``epoch`` and ``_path_to_videos``."""
 
     def set_epoch(self, epoch: int):
-        """The epoch whose draws (crop_u) ``_fetch`` makes."""
+        """The epoch whose draws ``_fetch`` makes."""
         self.epoch = epoch
 
-    def _construct_loader(self):
-        if self.cfg.DATA.DECODING_BACKEND != "synthetic":
-            raise NotImplementedError(
-                _DECODE_LATER.format(self.cfg.DATA.DECODING_BACKEND))
-        self._path_to_videos: List[str] = []
-        self._labels: List[int] = []
-        self._spatial_temporal_idx: List[int] = []
-        num = 64 if self.mode != "test" else 8
-        for i in range(num):
-            for clip in range(self._num_clips):
-                self._path_to_videos.append(f"synthetic://{i}")
-                self._labels.append(i % self.cfg.MODEL.NUM_CLASSES)
-                self._spatial_temporal_idx.append(clip)
-        self._set_sample_weights()
+    def _rng(self, index: int) -> np.random.Generator:
+        """This item's draws: seeded by (RNG_SEED, epoch, index), so a run
+        is the same whatever order the loader's threads fetch in."""
+        return np.random.default_rng([self.cfg.RNG_SEED, self.epoch, index])
 
-    def _set_sample_weights(self):
-        """Inverse-class-frequency weights for the loader's weighted sampler
-        (reference: MODEL.WEIGHTED_RANDOM_SAMPLER, custom_config.py:7-35)."""
-        if not (self.cfg.MODEL.WEIGHTED_RANDOM_SAMPLER
-                and self.mode == "train"):
-            return
-        labels = np.asarray(self._labels, np.int64)
-        counts = np.bincount(labels, minlength=int(labels.max()) + 1)
-        self.sample_weights = 1.0 / np.maximum(counts[labels], 1)
-
-    # -- decode ----------------------------------------------------------
     def _short_side(self) -> int:
         if self.mode in ("train", "val"):
             return int(self.cfg.DATA.TRAIN_JITTER_SCALES[1])
         return int(self.cfg.DATA.TEST_CROP_SIZE)
 
-    def _synthetic_source(self, label: int):
-        """(noise buffer, its blend with ``label``'s colour or None). The
-        buffer is drawn once, under a lock (each loader thread would
-        otherwise draw it anew); blends are made outside it, in parallel,
-        and the first one made for a label is kept."""
-        s = self._short_side()
-        num_frames = self.cfg.DATA.NUM_FRAMES
-        with self._synth_lock:
-            buf = self._synth_buf
-            if buf is None:
-                rs = np.random.RandomState(self.cfg.RNG_SEED)
-                buf = rs.randint(0, 255, (num_frames + 64, s, int(s * 4 / 3), 3),
-                                 np.uint8)
-                self._synth_buf = buf
-            blended = self._synth_blended.get(label)
-            full = len(self._synth_blended) >= 32  # bound host RAM
-        if blended is None and not full:
-            color = np.random.RandomState(label + 1).randint(
-                0, 256, 3).astype(np.uint8)
-            blended = (buf >> 1) + (color >> 1)
-            blended.setflags(write=False)  # consumers copy, never edit
-            with self._synth_lock:
-                blended = self._synth_blended.setdefault(label, blended)
-        return buf, blended
-
-    def _decode_clip(self, index: int, temporal_idx: int) -> Optional[np.ndarray]:
-        """NUM_FRAMES frames of clip ``temporal_idx`` (RGB uint8 THWC).
-
-        Synthetic frames are shifted views of one seeded noise buffer with
-        a label-keyed constant colour blended in 50/50 (a colour survives
-        any crop, flip and normalization, so the task is learnable), the
-        JAX package's bytes exactly (datasets.py:396-435).
-        """
-        path = self._path_to_videos[index]
-        if not path.startswith("synthetic://"):
-            raise NotImplementedError(_DECODE_LATER.format(path))
-        num_frames = self.cfg.DATA.NUM_FRAMES
-        # video id from the path, not hash(path): PYTHONHASHSEED would give
-        # each process different content for the same id
-        vid = int(path[len("synthetic://"):])
-        off = (vid * 7 + max(temporal_idx, 0)) % 64
-        label = vid % self.cfg.MODEL.NUM_CLASSES
-        buf, blended = self._synthetic_source(label)
-        if blended is None:  # past 32 cached colours: blend this clip only
-            color = np.random.RandomState(label + 1).randint(
-                0, 256, 3).astype(np.uint8)
-            return (buf[off:off + num_frames] >> 1) + (color >> 1)
-        return blended[off:off + num_frames]
-
-    # -- dataset protocol ------------------------------------------------
     def __len__(self):
         return len(self._path_to_videos)
 
     def _fetch(self, index: int):
-        """Decode + scalar fields; the canvas paste is done by the caller."""
-        cfg = self.cfg
-        if self.mode in ("train", "val"):
-            temporal_idx, spatial_idx = -1, -1
-        else:
-            temporal_idx = (
-                self._spatial_temporal_idx[index] // cfg.TEST.NUM_SPATIAL_CROPS
-            )
-            spatial_idx = (
-                self._spatial_temporal_idx[index] % cfg.TEST.NUM_SPATIAL_CROPS
-            )
-        # this item's draws: seeded by (RNG_SEED, epoch, index), so a run is
-        # the same whatever order the loader's threads fetch in
-        rng = np.random.default_rng([cfg.RNG_SEED, self.epoch, index])
-        # decode with retry + random replacement (reference kinetics.py:192-255)
-        # — replacement only outside test mode: the multi-view TestMeter
-        # requires every video's full clip set
-        for retry in range(self._num_retries):
-            if self._test_decode_memo is not None:
-                # one decode per (path, view), shared by the spatial crops
-                frames = self._test_decode_memo.get_or_compute(
-                    (self._path_to_videos[index], temporal_idx),
-                    lambda: self._decode_clip(index, temporal_idx))
-            else:
-                frames = self._decode_clip(index, temporal_idx)
-            if frames is not None:
-                break
-            logger.warning("Failed to decode %s; retry %d",
-                           self._path_to_videos[index], retry)
-            if retry >= 2 and self.mode != "test":
-                index = int(rng.integers(0, len(self)))
-        else:
-            raise RuntimeError(
-                f"Failed to fetch video after {self._num_retries} retries."
-            )
-
-        if cfg.DATA.REVERSE_INPUT_CHANNEL:
-            frames = frames[..., ::-1]
-        scalars = {
-            "label": np.int64(self._labels[index]),
-            "index": np.int64(index // self._num_clips if self.mode == "test"
-                              else index),
-            "spatial_idx": np.int32(spatial_idx),
-            "temporal_idx": np.int32(temporal_idx),
-        }
-        if self.mode in ("train", "val"):
-            # the long-axis position of the random crop, shared between the
-            # host canvas window and the preprocess crop box
-            scalars["crop_u"] = np.float32(rng.random())
-        return frames, scalars
+        raise NotImplementedError
 
     def __getitem__(self, index: int):
         frames, scalars = self._fetch(index)
@@ -417,10 +294,319 @@ class ClipDataset:
                 **scalars}
 
 
+class ClipDataset(CanvasDataset):
+    """Shared logic for list-file clip datasets (Kinetics pattern)."""
+
+    #: the list file of each split under DATA.PATH_TO_DATA_DIR
+    LIST_FILES = {"train": "train.csv", "val": "val.csv", "test": "test.csv"}
+    #: the fork's list names, read where LIST_FILES' is missing
+    #: (reference: kinetics.py:80-87 hardcodes these)
+    FORK_LIST_FILES: dict = {}
+
+    def __init__(self, cfg, mode: str, num_retries: int = 10):
+        assert mode in ("train", "val", "test"), f"Split '{mode}' not supported"
+        self.cfg = cfg
+        self.mode = mode
+        self._num_retries = num_retries
+        self.epoch = 0
+        if mode in ("train", "val"):
+            self._num_clips = 1
+        else:
+            self._num_clips = (
+                cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+            )
+        self._construct_loader()
+        # multi-view test: one decode serves all NUM_SPATIAL_CROPS crops
+        self._test_decode_memo = _DecodeMemo() if mode == "test" else None
+        self._synth_lock = threading.Lock()
+        self._synth_buf = None
+        self._synth_blended = {}
+
+    # -- path list -------------------------------------------------------
+    def _list_file(self) -> str:
+        primary = os.path.join(
+            self.cfg.DATA.PATH_TO_DATA_DIR, self.LIST_FILES[self.mode])
+        if not os.path.exists(primary) and self.FORK_LIST_FILES:
+            alt = os.path.join(self.cfg.DATA.PATH_TO_DATA_DIR,
+                               self.FORK_LIST_FILES[self.mode])
+            if os.path.exists(alt):
+                return alt
+        return primary
+
+    def _construct_loader(self):
+        self._path_to_videos: List[str] = []
+        self._labels: List[int] = []
+        self._spatial_temporal_idx: List[int] = []
+        if self.cfg.DATA.DECODING_BACKEND == "synthetic":
+            num = 64 if self.mode != "test" else 8
+            for i in range(num):
+                for clip in range(self._num_clips):
+                    self._path_to_videos.append(f"synthetic://{i}")
+                    self._labels.append(i % self.cfg.MODEL.NUM_CLASSES)
+                    self._spatial_temporal_idx.append(clip)
+            self._set_sample_weights()
+            return
+        path_file = self._list_file()
+        assert os.path.exists(path_file), f"{path_file} not found"
+        with open(path_file, "r") as f:
+            for line in f.read().splitlines():
+                parts = line.split(self.cfg.DATA.PATH_LABEL_SEPARATOR)
+                assert len(parts) == 2, f"bad list line: {line!r}"
+                path, label = parts
+                for idx in range(self._num_clips):
+                    self._path_to_videos.append(
+                        os.path.join(self.cfg.DATA.PATH_PREFIX, path))
+                    self._labels.append(int(label))
+                    self._spatial_temporal_idx.append(idx)
+        assert self._path_to_videos, f"Failed to load split {self.mode}"
+        self._set_sample_weights()
+        logger.info("Constructed dataset (size: %d) from %s",
+                    len(self._path_to_videos), path_file)
+
+    def _set_sample_weights(self):
+        """Inverse-class-frequency weights for the loader's weighted sampler
+        (reference: MODEL.WEIGHTED_RANDOM_SAMPLER, custom_config.py:7-35)."""
+        if not (self.cfg.MODEL.WEIGHTED_RANDOM_SAMPLER
+                and self.mode == "train"):
+            return
+        labels = np.asarray(self._labels, np.int64)
+        counts = np.bincount(labels, minlength=int(labels.max()) + 1)
+        self.sample_weights = 1.0 / np.maximum(counts[labels], 1)
+
+    # -- decode ----------------------------------------------------------
+    def _synthetic_source(self, label: int):
+        """(noise buffer, its blend with ``label``'s colour or None). The
+        buffer is drawn once, under a lock (each loader thread would
+        otherwise draw it anew); blends are made outside it, in parallel,
+        and the first one made for a label is kept."""
+        s = self._short_side()
+        num_frames = self.cfg.DATA.NUM_FRAMES
+        with self._synth_lock:
+            buf = self._synth_buf
+            if buf is None:
+                rs = np.random.RandomState(self.cfg.RNG_SEED)
+                buf = rs.randint(0, 255, (num_frames + 64, s, int(s * 4 / 3), 3),
+                                 np.uint8)
+                self._synth_buf = buf
+            blended = self._synth_blended.get(label)
+            full = len(self._synth_blended) >= 32  # bound host RAM
+        if blended is None and not full:
+            color = np.random.RandomState(label + 1).randint(
+                0, 256, 3).astype(np.uint8)
+            blended = (buf >> 1) + (color >> 1)
+            blended.setflags(write=False)  # consumers copy, never edit
+            with self._synth_lock:
+                blended = self._synth_blended.setdefault(label, blended)
+        return buf, blended
+
+    def _decode_clip(self, index: int, temporal_idx: int,
+                     rng: np.random.Generator) -> Optional[np.ndarray]:
+        """NUM_FRAMES frames of clip ``temporal_idx`` (RGB uint8 THWC), or
+        None where the read failed; a random window draws from ``rng``.
+
+        Synthetic frames are shifted views of one seeded noise buffer with
+        a label-keyed constant colour blended in 50/50 (a colour survives
+        any crop, flip and normalization, so the task is learnable), the
+        JAX package's bytes exactly (datasets.py:396-435).
+        """
+        path = self._path_to_videos[index]
+        if not path.startswith("synthetic://"):
+            raise NotImplementedError(_DECODE_LATER.format(path))
+        num_frames = self.cfg.DATA.NUM_FRAMES
+        # video id from the path, not hash(path): PYTHONHASHSEED would give
+        # each process different content for the same id
+        vid = int(path[len("synthetic://"):])
+        off = (vid * 7 + max(temporal_idx, 0)) % 64
+        label = vid % self.cfg.MODEL.NUM_CLASSES
+        buf, blended = self._synthetic_source(label)
+        if blended is None:  # past 32 cached colours: blend this clip only
+            color = np.random.RandomState(label + 1).randint(
+                0, 256, 3).astype(np.uint8)
+            return (buf[off:off + num_frames] >> 1) + (color >> 1)
+        return blended[off:off + num_frames]
+
+    # -- dataset protocol ------------------------------------------------
+    def _fetch(self, index: int):
+        """Decode + scalar fields; the canvas paste is done by the caller."""
+        cfg = self.cfg
+        if self.mode in ("train", "val"):
+            temporal_idx, spatial_idx = -1, -1
+        else:
+            temporal_idx = (
+                self._spatial_temporal_idx[index] // cfg.TEST.NUM_SPATIAL_CROPS
+            )
+            spatial_idx = (
+                self._spatial_temporal_idx[index] % cfg.TEST.NUM_SPATIAL_CROPS
+            )
+        rng = self._rng(index)
+        # decode with retry + random replacement (reference kinetics.py:192-255)
+        # — replacement only outside test mode: the multi-view TestMeter
+        # requires every video's full clip set
+        for retry in range(self._num_retries):
+            if self._test_decode_memo is not None:
+                # one decode per (path, view), shared by the spatial crops
+                # (test-mode decodes draw nothing)
+                frames = self._test_decode_memo.get_or_compute(
+                    (self._path_to_videos[index], temporal_idx),
+                    lambda: self._decode_clip(index, temporal_idx, rng))
+            else:
+                frames = self._decode_clip(index, temporal_idx, rng)
+            if frames is not None:
+                break
+            logger.warning("Failed to decode %s; retry %d",
+                           self._path_to_videos[index], retry)
+            if retry >= 2 and self.mode != "test":
+                index = int(rng.integers(0, len(self)))
+        else:
+            raise RuntimeError(
+                f"Failed to fetch video after {self._num_retries} retries."
+            )
+
+        if cfg.DATA.REVERSE_INPUT_CHANNEL:
+            frames = frames[..., ::-1]
+        scalars = {
+            "label": np.int64(self._labels[index]),
+            "index": np.int64(index // self._num_clips if self.mode == "test"
+                              else index),
+            "spatial_idx": np.int32(spatial_idx),
+            "temporal_idx": np.int32(temporal_idx),
+        }
+        if self.mode in ("train", "val"):
+            # the long-axis position of the random crop, shared between the
+            # host canvas window and the preprocess crop box
+            scalars["crop_u"] = np.float32(rng.random())
+        return frames, scalars
+
+
 @DATASET_REGISTRY.register()
 class Kinetics(ClipDataset):
-    """Kinetics (reference: kinetics.py); its list files come with the
-    file decoders (ROADMAP item 2b)."""
+    """Kinetics (reference: kinetics.py); its videos decode with ROADMAP
+    item 2b part B."""
+
+    # the wdf fork hardcodes these names with test->val aliasing
+    FORK_LIST_FILES = {
+        "train": "kinetics_p3d_train_byvideo_128.lst",
+        "val": "kinetics_p3d_val_byvideo_128.lst",
+        "test": "kinetics_p3d_val_byvideo_128.lst",
+    }
+
+
+@DATASET_REGISTRY.register()
+class Jester(ClipDataset):
+    """Jester lists are trainlist/vallist; test aliases to val
+    (reference: jester.py:80-87); its videos decode with ROADMAP item 2b
+    part B."""
+
+    LIST_FILES = {
+        "train": "trainlist.txt", "val": "vallist.txt", "test": "vallist.txt",
+    }
+
+
+@DATASET_REGISTRY.register()
+class Framefolder(ClipDataset):
+    """Frame-folder clips: each list line is ``dir_of_frames label``; the
+    frames are the sorted JPEGs and PNGs inside. The fork's private
+    wheel/tired/smoke datasets' layout (reference: decoder.py
+    wheel_decoder* :476-1041), with DATA.HALF_FACE's top half and
+    DATA.GRAY_STYLE's pipeline (``_gray_style``)."""
+
+    LIST_FILES = {"train": "train.txt", "val": "val.txt", "test": "val.txt"}
+
+    def _list_file(self) -> str:
+        """The fork's explicit list files where set
+        (DATA.PATH_TO_TRAIN_DATA_TXT / PATH_TO_VAL_DATA_TXT; test reads the
+        val list, as the reference's loaders do)."""
+        explicit = (self.cfg.DATA.PATH_TO_TRAIN_DATA_TXT
+                    if self.mode == "train"
+                    else self.cfg.DATA.PATH_TO_VAL_DATA_TXT)
+        return explicit or super()._list_file()
+
+    def _decode_clip(self, index, temporal_idx, rng):
+        path = self._path_to_videos[index]
+        if path.startswith("synthetic://"):
+            return super()._decode_clip(index, temporal_idx, rng)
+        from .frame_datasets import retry_load_images
+
+        files = sorted(glob.glob(os.path.join(path, "*.jpg"))
+                       + glob.glob(os.path.join(path, "*.png")))
+        if not files:
+            return None
+        cfg = self.cfg
+        num_frames = cfg.DATA.NUM_FRAMES
+        start, end = get_start_end_idx(
+            len(files), cfg.DATA.SAMPLING_RATE * num_frames,
+            -1 if self.mode in ("train", "val") else temporal_idx,
+            cfg.TEST.NUM_ENSEMBLE_VIEWS, rng)
+        idx = np.clip(np.round(np.linspace(start, end, num_frames)), 0,
+                      len(files) - 1).astype(np.int64)
+        frames = retry_load_images([files[i] for i in idx], self._num_retries)
+        if cfg.DATA.GRAY_STYLE:
+            return self._gray_style(frames, rng)
+        if cfg.DATA.HALF_FACE:
+            # top-half crop (reference: tired dataset half-face option)
+            frames = frames[:, : frames.shape[1] // 2]
+        return frames
+
+    def _gray_style(self, frames: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+        """Gray-style pipeline (reference: decoder.py
+        wheel/smoke_decoder_gray_style :607-1041): grayscale, a random
+        top-left corner crop of at most 10% (train/val), the half-face crop
+        (a ratio in [0.5, 0.6], 0.55 in test), a square resize to the
+        canvas short side, train-only rotate + salt noise. Brightness
+        jitter and flip ride the train preprocess on the card."""
+        from PIL import Image
+
+        from . import host_transforms as HT
+
+        t, h, w, _ = frames.shape
+        # grayscale, replicated to 3 channels (reference convert("L"))
+        luma = (frames.astype(np.float32)
+                @ np.asarray([0.299, 0.587, 0.114], np.float32))
+        gray = np.repeat(np.clip(luma, 0, 255).astype(np.uint8)[..., None],
+                         3, axis=-1)
+        train_or_val = self.mode in ("train", "val")
+        y0 = x0 = 0
+        if train_or_val:
+            x0 = int(rng.integers(0, max(int(0.1 * w) - 1, 0), endpoint=True))
+            y0 = int(rng.integers(0, max(int(0.1 * h) - 1, 0), endpoint=True))
+        y1 = h
+        if self.cfg.DATA.HALF_FACE:
+            # eval preprocessing stays deterministic run to run
+            r = 0.5 + 0.1 * rng.random() if train_or_val else 0.55
+            y1 = int(r * h)
+        gray = gray[:, y0:y1, x0:]
+        s = self._short_side()
+        out = np.empty((t, s, s, 3), np.uint8)
+        for i in range(t):
+            out[i] = np.asarray(
+                Image.fromarray(gray[i]).resize((s, s), Image.BILINEAR))
+        if self.mode == "train":
+            out = HT.Compose([HT.RandomRotate(), HT.SaltImage()])(out, rng)
+        return out
+
+
+@DATASET_REGISTRY.register()
+class Wheel(Framefolder):
+    """Steering-wheel dataset alias (reference: datasets/wheel*)."""
+
+
+@DATASET_REGISTRY.register()
+class Tired(Framefolder):
+    """Fatigue/eye-state dataset alias (reference: datasets/tired*)."""
+
+
+@DATASET_REGISTRY.register()
+class Wheel_gray(Framefolder):
+    """Gray-style wheel dataset — ``DATASET: wheel_gray`` in the fork's
+    TIRED configs (the registry's capitalize() → "Wheel_gray"): the
+    gray-style decode whatever DATA.GRAY_STYLE says (reference: decoder.py
+    wheel_decoder_gray_style)."""
+
+    def __init__(self, cfg, mode, num_retries=10):
+        cfg = cfg.clone()
+        cfg.DATA.GRAY_STYLE = True
+        super().__init__(cfg, mode, num_retries)
 
 
 @DATASET_REGISTRY.register()

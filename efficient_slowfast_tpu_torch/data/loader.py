@@ -32,7 +32,7 @@ import torch.distributed as dist
 from ..utils.meters import span
 from ..utils.multigrid import short_cycle_batch_sizes
 from .build import build_dataset
-from .datasets import ClipDataset
+from .datasets import CanvasDataset
 
 
 def process_rank_and_count() -> tuple:
@@ -197,12 +197,12 @@ class ClipLoader:
 
     def _fill(self):
         """The dataset's ``getitem_into`` where it may be used: where it
-        has one (a clip dataset, AVA), and a clip dataset only when it does
-        not override ``__getitem__``, which the preallocated path would
-        bypass."""
+        has one (a clip or frame-list dataset, AVA), and a clip or
+        frame-list dataset only when it does not override ``__getitem__``,
+        which the preallocated path would bypass."""
         own = type(self.dataset).__getitem__
-        if isinstance(self.dataset, ClipDataset) and (
-                own is not ClipDataset.__getitem__):
+        if isinstance(self.dataset, CanvasDataset) and (
+                own is not CanvasDataset.__getitem__):
             return None
         return getattr(self.dataset, "getitem_into", None)
 

@@ -30,7 +30,7 @@ from ..data.preprocess import (make_detection_train_preprocess,
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
 from ..ops.norm import (aggregate_sub_bn_stats, convert_bn_stats,
-                        effective_num_splits)
+                        effective_num_splits, effective_sync_groups)
 from ..utils import checkpoint as cu
 from ..utils import lr_policy
 from ..utils.logging import get_logger, setup_logging
@@ -82,9 +82,9 @@ def train_epoch(cfg, state, train_step, preprocess, loader, meter, cur_epoch,
                 m = {k: float(v) for k, v in m.items()}
                 loss = m["loss"]
                 check_nan_losses(loss)
+                # a multi-label step has no top-k errors: None
                 meter.update_stats(
-                    m.get("top1_err", 0.0),
-                    m.get(f"top{cfg.TRAIN.TOPK}_err", 0.0),
+                    m.get("top1_err"), m.get(f"top{cfg.TRAIN.TOPK}_err"),
                     loss, m["lr"], bs,
                 )
                 meter.log_iter_stats(cur_epoch, it)
@@ -110,7 +110,8 @@ def eval_epoch(cfg, state, eval_step, preprocess, loader, meter, cur_epoch,
                writer=None):
     """One val epoch of ``eval_step`` (``make_eval_step``) over ``loader``;
     the loader's padding (``_valid``) is left out of the errors. Returns
-    the epoch's top-1 error."""
+    the epoch's top-1 error; with ``DATA.MULTI_LABEL``, the mAP of its
+    clips' scores."""
     dev = _model_device(state)
     # per-clip rows are kept when plotting is configured (the writer plots
     # the whole val set)
@@ -127,15 +128,21 @@ def eval_epoch(cfg, state, eval_step, preprocess, loader, meter, cur_epoch,
                             batch["frames"], batch["width"],
                             batch.get("portrait"), batch.get("crop_u"))
         out = eval_step(state, inputs, labels, valid)
+        keep = slice(None) if valid is None else valid.numpy() > 0
+        if plot or cfg.DATA.MULTI_LABEL:
+            preds = out["preds"].float().cpu().numpy()[keep]
+            rows = labels.numpy()[keep]
         if plot:
-            keep = slice(None) if valid is None else valid.numpy() > 0
-            all_preds.append(out["preds"].float().cpu().numpy()[keep])
-            all_labels.append(labels.numpy()[keep])
-        meter.update_stats(
-            float(out["top1_err"]),
-            float(out[f"top{cfg.TRAIN.TOPK}_err"]),
-            float(out["num_valid"]),
-        )
+            all_preds.append(preds)
+            all_labels.append(rows)
+        if cfg.DATA.MULTI_LABEL:
+            meter.update_predictions(preds, rows)
+        else:
+            meter.update_stats(
+                float(out["top1_err"]),
+                float(out[f"top{cfg.TRAIN.TOPK}_err"]),
+                float(out["num_valid"]),
+            )
         meter.log_iter_stats(cur_epoch, cur_iter)
     meter.iter_toc()
     top1 = meter.log_epoch_stats(cur_epoch)
@@ -149,15 +156,17 @@ def eval_epoch(cfg, state, eval_step, preprocess, loader, meter, cur_epoch,
 
 
 def _bn_signature(cfg):
-    """(norm type, splits or sync devices) that decides whether the model
-    must be rebuilt at a multigrid phase boundary (JAX: engine/train.py
-    :42-57, where a sync group spanning the mesh counts as plain BN; the
-    port's sync-BN is not built, ``get_norm`` raises)."""
+    """(norm type, groups) that decides whether the model must be rebuilt
+    at a multigrid phase boundary (JAX: engine/train.py:42-57): sync-BN of
+    one group is plain BN (``get_norm``), so it takes plain BN's
+    signature."""
     norm = cfg.BN.NORM_TYPE
     if norm == "sub_batchnorm":
         return (norm, cfg.BN.NUM_SPLITS)
     if norm == "sync_batchnorm":
-        return (norm, cfg.BN.NUM_SYNC_DEVICES)
+        groups = effective_sync_groups(cfg)
+        if groups > 1:
+            return (norm, groups)
     return ("batchnorm", 0)
 
 

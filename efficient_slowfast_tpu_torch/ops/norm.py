@@ -28,8 +28,9 @@ aggregated statistics in ``bn`` and the per-split ones in ``split_bn``
 (``num_splits`` x C, split-major). The groups are the JAX package's:
 contiguous runs of B / num_splits clips (the reference interleaves them).
 The conversions between the two forms work on state dicts, as the
-reference's checkpoint helpers do; ``sync_batchnorm`` comes with the
-distribution slice (ROADMAP item 7).
+reference's checkpoint helpers do. ``sync_batchnorm`` in one process is
+plain BN (one statistics group, the batch the module sees); across
+processes it comes with the distribution slice (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import functools
 from collections import OrderedDict
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -306,6 +308,31 @@ def effective_num_splits(cfg) -> int:
     return max(1, int(cfg.BN.NUM_SPLITS))
 
 
+def process_count() -> int:
+    """The processes of the run: torch.distributed's world size, 1 when no
+    process group is up."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def effective_sync_groups(cfg) -> int:
+    """Statistics groups of sync-BN (reference: batchnorm_helper.py
+    :174-192): ``BN.NUM_SYNC_DEVICES``-sized groups of the run's devices,
+    one per process here; 0, or a group spanning every process, is one
+    global group."""
+    n = process_count()
+    sync = int(cfg.BN.NUM_SYNC_DEVICES)
+    if sync <= 0 or sync >= n:
+        return 1
+    if n % sync != 0:
+        raise ValueError(
+            f"BN.NUM_SYNC_DEVICES={sync} does not divide the process "
+            f"count {n} (reference asserts local_size % num_sync == 0, "
+            f"batchnorm_helper.py:184-188)")
+    return n // sync
+
+
 def get_norm(cfg):
     """Norm-module factory from config (reference: batchnorm_helper.py:15-34)."""
     kwargs = dict(eps=cfg.BN.EPSILON, momentum=cfg.BN.MOMENTUM)
@@ -315,7 +342,12 @@ def get_norm(cfg):
         return functools.partial(SubBatchNorm3d,
                                  num_splits=effective_num_splits(cfg), **kwargs)
     if cfg.BN.NORM_TYPE == "sync_batchnorm":
-        raise NotImplementedError(
-            "BN.NORM_TYPE sync_batchnorm comes with the distribution slice, "
-            "ROADMAP item 7")
+        if process_count() > 1:
+            raise NotImplementedError(
+                "BN.NORM_TYPE sync_batchnorm across processes comes with "
+                "the distribution slice, ROADMAP item 7")
+        # one process: one group, the batch this module sees, which plain
+        # BN computes (the JAX package's one-group case, get_norm:471-476)
+        assert effective_sync_groups(cfg) == 1
+        return functools.partial(BatchNorm3d, **kwargs)
     raise NotImplementedError(f"Norm type {cfg.BN.NORM_TYPE} is not supported")

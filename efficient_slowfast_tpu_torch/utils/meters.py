@@ -152,13 +152,16 @@ class TrainMeter:
             "lr": self.lr,
             "loss": self.loss_total / max(self.num_samples, 1),
         }
-        if self.num_samples:
+        if self.num_samples and self.mb_top1_err.count:
             stats["top1_err"] = self.num_top1_mis / self.num_samples
             stats["top_k_err"] = self.num_top_k_mis / self.num_samples
         log_json_stats(stats)
 
 
 class ValMeter:
+    """Val errors per epoch; with ``DATA.MULTI_LABEL`` the epoch's mAP of
+    the clips' scores instead (no top-k; reference: meters.py:557-687)."""
+
     def __init__(self, max_iter: int, cfg):
         self._cfg = cfg
         self.max_iter = max_iter
@@ -170,6 +173,9 @@ class ValMeter:
         self.num_top1_mis = 0
         self.num_top_k_mis = 0
         self.num_samples = 0
+        self.multi_label = bool(cfg.DATA.MULTI_LABEL)
+        self.max_map = 0.0
+        self.all_preds, self.all_labels = [], []
 
     def reset(self):
         self.iter_timer.reset()
@@ -178,6 +184,7 @@ class ValMeter:
         self.num_top1_mis = 0
         self.num_top_k_mis = 0
         self.num_samples = 0
+        self.all_preds, self.all_labels = [], []
 
     def iter_tic(self):
         self.iter_timer.reset()
@@ -192,8 +199,14 @@ class ValMeter:
         self.num_top_k_mis += top_k_err * mb_size
         self.num_samples += mb_size
 
+    def update_predictions(self, preds, labels):
+        """A multi-label batch's (clips, classes) scores and multi-hot
+        labels, its padding dropped."""
+        self.all_preds.append(np.asarray(preds, np.float32))
+        self.all_labels.append(np.asarray(labels))
+
     def log_iter_stats(self, cur_epoch, cur_iter):
-        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0:
+        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0 or self.multi_label:
             return
         log_json_stats({
             "_type": "val_iter",
@@ -204,6 +217,17 @@ class ValMeter:
         })
 
     def log_epoch_stats(self, cur_epoch):
+        """Logs the epoch's stats; returns its top-1 error, or its mAP for
+        a multi-label dataset."""
+        if self.multi_label:
+            val_map = get_map(np.concatenate(self.all_preds),
+                              np.concatenate(self.all_labels))
+            self.max_map = max(self.max_map, val_map)
+            log_json_stats({
+                "_type": "val_epoch",
+                "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+                "map": val_map, "max_map": self.max_map})
+            return val_map
         top1 = self.num_top1_mis / max(self.num_samples, 1)
         topk = self.num_top_k_mis / max(self.num_samples, 1)
         self.min_top1_err = min(self.min_top1_err, top1)

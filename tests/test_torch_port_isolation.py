@@ -218,6 +218,50 @@ def test_detection_runs_without_jax_sklearn_or_pil():
     assert proc.stdout.strip().endswith("OK")
 
 
+_FRAME_DATA = r"""
+import os, sys
+for name in ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np
+from PIL import Image
+from efficient_slowfast_tpu_torch.config import get_cfg
+from efficient_slowfast_tpu_torch.data.build import build_dataset
+from efficient_slowfast_tpu_torch.utils.benchmark import benchmark_data_loading
+root = sys.argv[1]
+for v in range(2):
+    os.makedirs(os.path.join(root, f"v{v}"))
+    for i in range(6):
+        Image.fromarray(np.full((30, 40, 3), 20 * i + v, np.uint8)).save(
+            os.path.join(root, f"v{v}", f"{i}.jpg"))
+with open(os.path.join(root, "train.txt"), "w") as f:
+    f.write("v0 0\nv1 1\n")
+cfg = get_cfg()
+cfg.DATA.PATH_TO_DATA_DIR = cfg.DATA.PATH_PREFIX = root
+cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_JITTER_SCALES = 4, [16, 20]
+cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE = "wheel_gray", 2
+cfg.BENCHMARK.NUM_EPOCHS, cfg.DATA_LOADER.NUM_WORKERS = 1, 2
+item = build_dataset("wheel_gray", cfg, "train")[1]
+assert item["frames"].shape == (4, 20, 40, 3) and int(item["width"]) == 20
+assert len(benchmark_data_loading(cfg)) == 1
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_frame_datasets_run_without_jax(tmp_path):
+    """A gray-style frame-folder item and the data-loading benchmark, with
+    JAX blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _FRAME_DATA, str(tmp_path)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
 def _python_files():
     for d, _, files in os.walk(PORT):
         for f in files:
