@@ -239,6 +239,36 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               Last, SlowFast through tools/run_net.py (SOLVER.MAX_EPOCH 1):
               4 steps of 16 clips, one traced, a val mAP, a checkpoint and
               test() from it.
+14. frames  — the frame datasets on a split the phase writes
+              (phase_frames): the fatigue CMDA-R50 and SlowFast-R50,
+              Charades and SSv2.
+15. int8    — int8 serving and the serving export. SlowFast-R50 8x8
+              (serving_cfg, module forward) with TPU.INT8_EVAL and
+              +TPU.INT8_SPATIAL on the same seeded weights as a bf16
+              module forward: calibrated on one request (each int8 conv's
+              input shape recorded), three requests through make_forward
+              (K3 launches a request gated: one per int8 conv), held
+              against the same network with K3's plain version on the card
+              (bit for bit) and against the bf16 forward (centred log
+              probabilities, INT8_LOGIT_TOL; top-1 agreement printed), and
+              the same ratio read under three planted faults
+              (INT8_FAULTS; the gate must see the last); the request and a
+              resident 64-clip forward timed beside bf16.
+              K3 against its plain version at every int8 conv shape of
+              the request and three off-path shapes (int32 accumulators and
+              bf16 output bit for bit), timed beside its
+              bound, the plain version, cuDNN's bf16 conv and
+              torch._int_mm (pointwise shapes where its rules hold).
+              test() of SLOWFAST_8x8_R50.yaml with TPU.INT8_EVAL on the
+              synthetic split twice: the first calibrates and persists, the
+              second loads the file (K3 launches a batch gated). Export
+              round trips (engine/export.py): fused SlowFast (26 K1
+              nodes), CMDA-R50 (4 K2) and SlowFast-R50 32x2 AVA detection
+              exported on the card, the int8 SlowFast (110 K3) on the CPU
+              and moved to the card at load; each served on the card at
+              batches 4 and 1 against the live forward, the launches
+              inside the artifact gated, its MB and export and load
+              seconds printed.
 
 The profiler (phases 6, 7, 8, 11, 12, 13) prints, per traced window, the
 device-busy share (the union of the CUDA kernels' intervals over the
@@ -247,9 +277,10 @@ sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11, 12 and 13 (its times and bounds are per request of
-the SlowFast and CMDA serving paths and per CMDA train step, phase 13's
-rows standing in where 3b or 3c did not run; its errors the worst on any
+4, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15 (its times and bounds are per
+request of the SlowFast and CMDA serving paths and per CMDA train step,
+phase 13's rows standing in where 3b or 3c did not run, and K3's per
+request of the +INT8_SPATIAL SlowFast-R50; its errors the worst on any
 path). The last three lines are the kernels' JSON record, the card's name
 and power limit, and the device JSON line.
 """
@@ -261,6 +292,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -443,10 +475,12 @@ def kernel_counters():
         flash_attention, flash_attention_backward)
     from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
         fused_bottleneck
+    from efficient_slowfast_tpu_torch.ops.kernels.int8_conv import int8_conv
 
     return {"fused_bottleneck": fused_bottleneck,
             "flash_attention": flash_attention,
-            "flash_attention_backward": flash_attention_backward}
+            "flash_attention_backward": flash_attention_backward,
+            "int8_conv": int8_conv}
 
 
 def reset_counts():
@@ -521,6 +555,7 @@ def phase_build():
                      r"flash_attention_tc_wide_kernelILi(\d+)E", 3)
     wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
                      r"attention_bwd_rows_kernelILi(\d+)ELb(\d)E", 4)
+    k3_sass_counts(tool, _build.lib_path("int8_conv"))
 
 
 def wide_sass_counts(tool, lib, pattern, expected):
@@ -546,6 +581,27 @@ def wide_sass_counts(tool, lib, pattern, expected):
     if found != expected:
         raise AssertionError(f"{found} wide bf16 kernels in {lib}, expected "
                              f"{expected}")
+
+
+def k3_sass_counts(tool, lib):
+    """Count the int8 tensor-core instructions (mma.sync s8: IMMA) of K3's
+    18 instantiations (input bf16 or f32, output f32, bf16 or int32, tile
+    width 16, 32 or 64), raising if any has none."""
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found, imma = 0, []
+    for func in sass.split("Function : ")[1:]:
+        if "int8_conv_kernel" not in func.split("\n", 1)[0]:
+            continue
+        found += 1
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                         func)
+        imma.append(ops.count("IMMA"))
+    log("build", f"int8_conv: {found} kernels, IMMA per kernel in the SASS "
+        f"{sorted(imma)}")
+    if found != 18 or not all(imma):
+        raise AssertionError(f"{found} K3 kernels, IMMA counts {imma}: "
+                             "expected 18, each with IMMA")
 
 
 SASS_OPS = ("HMMA", "HGMMA", "MUFU.EX2", "FFMA", "FADD", "FMUL", "FMNMX",
@@ -1045,7 +1101,7 @@ def phase_serving(cfg, model, k1_ms, smi):
         "serving", cfg, make_forward(cfg, model),
         make_forward(cfg_module, model), ("fused engine", "module forward"),
         {"fused_bottleneck": 26 * REQUESTS, "flash_attention": 0,
-         "flash_attention_backward": 0},
+         "flash_attention_backward": 0, "int8_conv": 0},
         SERVE_BF16_ATOL, SEED + 1, smi)
     log("serving", f"bf16: fused engine {request_s * 1e3:.2f} ms per request,"
         f" of which K1's 26 launches {k1_ms:.2f} ms (phase 3); the rest "
@@ -1295,7 +1351,7 @@ def phase_cmda(cfg, model, smi):
         make_forward(cfg_plain, model_with(cfg_plain, model.state_dict())),
         ("flash kernel", "plain attention"),
         {"fused_bottleneck": 0, "flash_attention": 4 * REQUESTS,
-         "flash_attention_backward": 0},
+         "flash_attention_backward": 0, "int8_conv": 0},
         CMDA_BF16_ATOL, SEED + 4, smi)
     return counts["flash_attention"]
 
@@ -1581,7 +1637,7 @@ def phase_train(smi):
     model = train_model(cfg, SEED)
     state, step, _, _ = train_steps(
         "train", cfg, model, {"fused_bottleneck": 0, "flash_attention": 0,
-                              "flash_attention_backward": 0}, smi)
+                              "flash_attention_backward": 0, "int8_conv": 0}, smi)
     remat = cfg.clone()
     remat.TPU.REMAT = True
     remat.TPU.REMAT_STAGES = [2]
@@ -1688,7 +1744,7 @@ def phase_cmda_train(cfg, model, smi):
         "cmda_train", cfg, model,
         {"fused_bottleneck": 0, "flash_attention": 4 * TRAIN_STEPS,
          "flash_attention_backward":
-             4 * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS}, smi)
+             4 * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS, "int8_conv": 0}, smi)
     del model
     torch.cuda.empty_cache()
     hold_one_clip_steps("cmda_train",
@@ -2032,7 +2088,7 @@ def phase_epochs(step_clips_per_s, smi):
     expect = {"fused_bottleneck": 0,
               "flash_attention": 4 * steps + 4 * len(val_loader),
               "flash_attention_backward":
-                  4 * BACKWARD_LAUNCHES_PER_CALL * steps}
+                  4 * BACKWARD_LAUNCHES_PER_CALL * steps, "int8_conv": 0}
     if counts != expect:
         raise AssertionError(f"epochs: kernel launches {counts}, expected "
                              f"{expect}")
@@ -2452,7 +2508,7 @@ def phase_recipe(held_fwd, held_bwd, smi):
     expect_counts = {"fused_bottleneck": 0,
                      "flash_attention": 4 * forwards,
                      "flash_attention_backward":
-                         4 * BACKWARD_LAUNCHES_PER_CALL * steps}
+                         4 * BACKWARD_LAUNCHES_PER_CALL * steps, "int8_conv": 0}
     log("recipe", f"kernel launches {counts}; forwards: {steps} train steps "
         f"+ {precise} precise-BN + {run1.val_batches} val + {test_batches} "
         f"test batches + 1 model-info forward; expected {expect_counts}")
@@ -2831,7 +2887,7 @@ def phase_nonlocal(smi):
         BACKWARD_LAUNCHES_PER_CALL
 
     none = {"fused_bottleneck": 0, "flash_attention": 0,
-            "flash_attention_backward": 0}
+            "flash_attention_backward": 0, "int8_conv": 0}
     totals = dict(none)
 
     def add(counts):
@@ -2904,7 +2960,7 @@ def phase_nonlocal(smi):
         "nonlocal", cfg, model,
         {**none, "flash_attention": per_step * TRAIN_STEPS,
          "flash_attention_backward":
-             per_step * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS}, smi)
+             per_step * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS, "int8_conv": 0}, smi)
     add(counts)
     del model
     torch.cuda.empty_cache()
@@ -3153,7 +3209,7 @@ def phase_efficient(smi):
         BACKWARD_LAUNCHES_PER_CALL
 
     none = {"fused_bottleneck": 0, "flash_attention": 0,
-            "flash_attention_backward": 0}
+            "flash_attention_backward": 0, "int8_conv": 0}
     totals = dict(none)
 
     def add(counts):
@@ -3230,7 +3286,7 @@ def phase_efficient(smi):
             phase, cfg, model,
             {**none, "flash_attention": per_request * TRAIN_STEPS,
              "flash_attention_backward":
-                 per_request * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS},
+                 per_request * BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS, "int8_conv": 0},
             smi, batch=EFFICIENT_TRAIN_CLIPS)
         add(counts)
         log(phase, f"K2-bwd launches a train step "
@@ -3698,7 +3754,7 @@ def phase_detection_cmda(dirs, smi):
         [r[:6] for r in train_rows], smi, off_path=(), batch=train_b)
     torch.cuda.empty_cache()
     totals = {"fused_bottleneck": 0, "flash_attention": 0,
-              "flash_attention_backward": 0}
+              "flash_attention_backward": 0, "int8_conv": 0}
 
     # serving: one val batch, against TPU.FLASH_ATTENTION False
     loader = construct_loader(cfg, "test")
@@ -3831,7 +3887,7 @@ def phase_detection_cmda(dirs, smi):
     calls = sum(r[5] for r in train_rows)  # 4 at 224²
     expect = {"fused_bottleneck": 0, "flash_attention": calls * TRAIN_STEPS,
               "flash_attention_backward":
-                  calls * fa.BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS}
+                  calls * fa.BACKWARD_LAUNCHES_PER_CALL * TRAIN_STEPS, "int8_conv": 0}
     if counts != expect:
         raise AssertionError(f"CMDA detection training: launches {counts}, "
                              f"expected {expect}")
@@ -4436,19 +4492,19 @@ def phase_fatigue_cmda(split, loader_clips_per_s, smi):
     bwd = 3 * BACKWARD_LAUNCHES_PER_CALL
     bad = [s["counts"] for s in steps if s["counts"] != {
         "fused_bottleneck": 0, "flash_attention": 3,
-        "flash_attention_backward": bwd}]
+        "flash_attention_backward": bwd, "int8_conv": 0}]
     per_forward = {"precise_bn": PRECISE_BATCHES, "val": 1,
                    "test": rec.stages["test_batches"]}
     for name, n in per_forward.items():
         if rec.stages[name]["counts"] != {"fused_bottleneck": 0,
                                           "flash_attention": 3 * n,
-                                          "flash_attention_backward": 0}:
+                                          "flash_attention_backward": 0, "int8_conv": 0}:
             bad.append((name, rec.stages[name]["counts"]))
     staged = len(steps) * 3 + 3 * sum(per_forward.values())
     # the one forward left is log_model_info's (a 1-clip FLOP count)
     if (bad or len(steps) != FATIGUE_STEPS or counts != {
             "fused_bottleneck": 0, "flash_attention": staged + 3,
-            "flash_attention_backward": bwd * len(steps)}
+            "flash_attention_backward": bwd * len(steps), "int8_conv": 0}
             or not all(np.isfinite(losses))):
         raise AssertionError(f"fatigue CMDA CLI: steps {steps}, stages "
                              f"{rec.stages}, launches {counts}")
@@ -4519,7 +4575,7 @@ def phase_fatigue_slowfast(split, smi):
     test_line("fatigue SlowFast (fused, K1)", rec, clips, dt, fwd_ms,
               tcfg.TEST.BATCH_SIZE, share, peak, smi)
     expect = {"fused_bottleneck": 26 * batches, "flash_attention": 0,
-              "flash_attention_backward": 0}
+              "flash_attention_backward": 0, "int8_conv": 0}
     if counts != expect or len(meter.clip_count) < 4:
         raise AssertionError(f"fatigue SlowFast test: launches {counts}, "
                              f"expected {expect}")
@@ -4656,6 +4712,520 @@ def phase_frames(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: int8 serving (K3) and the serving export
+# K3 against its plain version: the int32 accumulators and the bf16 output
+# bit for bit (torch.equal). Both sum the same integer products exactly,
+# then dequantize the same accumulator with the same float32 product,
+# round once to bf16 and add the bias in bf16.
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12
+# K3's shapes beside the SlowFast path, each with a bias: (label, x (B,
+# Cin, T, H, W), Co, kernel, stride, padding): a strided projection with
+# Co not a multiple of 8, K not a multiple of 32 (3·3·12 = 108, 3·1·1·20 =
+# 60) and a temporal kernel with stride
+K3_OFF_PATH = [
+    ("proj 40->100 s2", (4, 40, 8, 28, 28), 100, (1, 1, 1), (1, 2, 2),
+     (0, 0, 0)),
+    ("3x3x3 12->20 K108", (4, 12, 8, 20, 20), 20, (3, 3, 3), (1, 1, 1),
+     (1, 1, 1)),
+    ("3x1x1 20->36 K60 s2", (4, 20, 16, 14, 14), 36, (3, 1, 1), (2, 1, 1),
+     (1, 0, 0))]
+# int8 against bf16 serving, per clip on the centred log probabilities (the
+# logits less their mean, phase 8's measure), over the scale of the bf16
+# ones. Sound int8 read 0.010 (INT8_EVAL) and 0.016 (+INT8_SPATIAL) on the
+# H100; INT8_FAULTS plants faults and reads the same ratio for each.
+INT8_LOGIT_TOL = 0.05
+# planted faults, each served once in place of the sound int8 model and
+# its ratio printed: a per-tensor weight scale in place of the per-channel
+# one; the pointwise ranges of the unstrided input; calibration on clips
+# at half the serving amplitude (every range about halved, so the top of
+# each range clips). The last must exceed INT8_LOGIT_TOL: the gate's power.
+INT8_FAULTS = ("per-tensor weight scale", "unstrided calibration",
+               "half-amplitude calibration")
+# the int8 forward with K3 against the same forward with K3's plain version
+# on the card: the same codes, accumulators and dequantize, the float
+# layers the same ops on the same inputs; bit for bit (torch.equal).
+# export round trips: the artifact runs the same ops as the live forward,
+# at the same batch and the same inputs; SERVE_BF16_ATOL of the scale.
+EXPORT_BATCHES = (4, 1)
+
+
+def int8_cfg(spatial, dtype="bfloat16"):
+    """SlowFast-R50 8x8 (serving_cfg) served by the module forward with
+    TPU.INT8_EVAL, and TPU.INT8_SPATIAL where ``spatial``."""
+    cfg = serving_cfg(dtype)
+    cfg.TPU.FUSED_EVAL = False
+    cfg.TPU.INT8_EVAL = True
+    cfg.TPU.INT8_SPATIAL = spatial
+    cfg.TRAIN.ENABLE = False
+    return cfg
+
+
+def calibrate_with_shapes(cfg, model, seed):
+    """Calibrate ``model`` on one seeded request; returns (quant state,
+    {shape key: [conv names]}) with each int8 conv's input shape, Co,
+    kernel, stride and padding as the calibrating forward saw them."""
+    from efficient_slowfast_tpu_torch.engine.quantize import calibrate_int8
+    from efficient_slowfast_tpu_torch.ops.conv import int8_convs
+
+    shapes, hooks = {}, []
+    for name, conv in int8_convs(model).items():
+        def seen(m, args, name=name):
+            key = (tuple(args[0].shape), m.out_channels, m.kernel_size,
+                   m.stride, m.padding, m.int8)
+            shapes.setdefault(key, []).append(name)
+        hooks.append(conv.register_forward_pre_hook(seen))
+    req = clips(cfg, CLIPS_PER_REQUEST, torch.Generator().manual_seed(seed),
+                torch.bfloat16)
+    quant = calibrate_int8(model, [req])
+    for h in hooks:
+        h.remove()
+    return quant, shapes
+
+
+def k3_cost(x_shape, co, k, s, p):
+    """(int8 operations, bytes, output positions): the input positions the
+    conv reads (a strided 1x1x1 conv reads every s-th) once in bf16, the
+    Co x K weight codes and Co scales, the bf16 output written once."""
+    b, ci = x_shape[0], x_shape[1]
+    out = [(x_shape[2 + i] + 2 * p[i] - k[i]) // s[i] + 1 for i in range(3)]
+    read = [len({o * s[i] - p[i] + j for o in range(out[i])
+                 for j in range(k[i])} & set(range(x_shape[2 + i])))
+            for i in range(3)]
+    m = b * out[0] * out[1] * out[2]
+    kk = ci * k[0] * k[1] * k[2]
+    ops = 2 * m * co * kk
+    nbytes = 2 * b * ci * int(np.prod(read)) + co * kk + 4 * co + 2 * m * co
+    return ops, nbytes, m
+
+
+def phase_int8_kernels(shapes, smi):
+    """K3 against its plain version at every int8 conv shape of the int8
+    SlowFast-R50 request and the off-path shapes: int32 accumulators and
+    the bf16 outputs bit for bit; timed beside its bound, the
+    plain version, cuDNN's bf16 conv and torch._int_mm (pointwise shapes
+    where its rules hold: M > 16, K and N multiples of 8)."""
+    from efficient_slowfast_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_accumulator, int8_conv_reference, weight_codes)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    rows = [(names[0] if len(names) == 1 else
+             f"{names[0]} (+{len(names) - 1})", x, co, k, s, p, kind,
+             len(names)) for (x, co, k, s, p, kind), names in shapes.items()]
+    rows += [(label, x, co, k, s, p, "off path", 0)
+             for label, x, co, k, s, p in K3_OFF_PATH]
+    record, worst = [], 0.0
+    for label, x_shape, co, k, s, p, kind, count in rows:
+        x = torch.randn(x_shape, device="cuda", generator=gen).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        w = torch.randn(co, x_shape[1], *k, device="cuda", generator=gen)
+        # the path's convs have no bias (BN follows); the off-path shapes
+        # take one, so the epilogue's bias add is held too
+        bias = None if count else torch.randn(
+            co, device="cuda", generator=gen).to(torch.bfloat16)
+        codes, scale = weight_codes(w)
+        am = x.float().abs().amax()
+        acc = int8_conv_accumulator(x, codes, am, k, s, p)
+        ref_acc = int8_conv_reference(x, codes, scale, am, None, k, s, p,
+                                      torch.bfloat16, True)
+        y = int8_conv(x, codes, scale, am, bias, k, s, p, torch.bfloat16)
+        ref = int8_conv_reference(x, codes, scale, am, bias, k, s, p,
+                                  torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, ref_acc):
+            raise AssertionError(
+                f"int8 {label}: accumulators differ at "
+                f"{int((acc != ref_acc).sum())} of {acc.numel()} "
+                f"(max |d| {(acc - ref_acc).abs().max().item()})")
+        err = (y.float() - ref.float()).abs().max().item()
+        if not bool(torch.isfinite(y).all()) or not torch.equal(y, ref):
+            raise AssertionError(f"int8 {label}: bf16 output differs from "
+                                 f"the plain version's, max |d| {err}")
+        if count:
+            worst = max(worst, err)
+        k_ms = cuda_ms(lambda: int8_conv(x, codes, scale, am, bias, k, s, p,
+                                         torch.bfloat16))
+        p_ms = cuda_ms(lambda: int8_conv_reference(
+            x, codes, scale, am, bias, k, s, p, torch.bfloat16), iters=1,
+            reps=2)
+        wb = w.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x, wb, None, s,
+                                                            p))
+        ops, nbytes, m = k3_cost(x_shape, co, k, s, p)
+        t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        ci = x_shape[1]
+        int_mm = None
+        if k == (1, 1, 1) and m > 16 and ci % 8 == 0 and co % 8 == 0:
+            xs = x[:, :, ::s[0], ::s[1], ::s[2]]
+            a = torch.clamp(torch.round(xs.float() / (am * 0.007874015718698502)),
+                            -127, 127).to(torch.int8).permute(
+                0, 2, 3, 4, 1).reshape(m, ci).contiguous()
+            bmat = codes[:, :ci].contiguous().t()
+            int_mm = cuda_ms(lambda: torch._int_mm(a, bmat))
+        log("int8", f"{label:34s} {kind:9s} x{count} x {tuple(x_shape)} Co "
+            f"{co} k {k} s {s} p {p} | acc and bf16 out bit-equal | K3 "
+            f"{k_ms:.4f} ms | plain "
+            f"{p_ms:.4f} ms | cuDNN bf16 {lib_ms:.4f} ms | _int_mm "
+            + (f"{int_mm:.4f} ms" if int_mm is not None else "n/a")
+            + f" | bound {bound:.5f} ms ({by}; {ops / 1e9:.3f} GOP, "
+            f"{nbytes / 1e6:.3f} MB) | K3/bound {k_ms / bound:.2f}, "
+            f"K3/cuDNN {k_ms / lib_ms:.2f} | {smi}")
+        record.append(dict(label=label, kind=kind, count=count, ms=k_ms,
+                           plain_ms=p_ms, library_ms=lib_ms, int_mm_ms=int_mm,
+                           bound_ms=bound, bound_by=by))
+        del x, w, acc, ref_acc, y, ref
+    path = [r for r in record if r["count"]]
+    for what, keep in (("INT8_EVAL", lambda r: r["kind"] == "pointwise"),
+                       ("+INT8_SPATIAL", lambda r: True)):
+        sel = [r for r in path if keep(r)]
+        log("int8", f"K3 per 4-clip request under {what}: "
+            f"{sum(r['count'] for r in sel)} launches, kernel "
+            f"{per_request(sel, 'ms'):.3f} ms, bound "
+            f"{per_request(sel, 'bound_ms'):.3f} ms, plain "
+            f"{per_request(sel, 'plain_ms'):.3f} ms, cuDNN bf16 "
+            f"{per_request(sel, 'library_ms'):.3f} ms | {smi}")
+    torch.cuda.empty_cache()
+    return record, worst
+
+
+def centred_logs(p):
+    logp = torch.log(torch.clamp(p.float(), min=1e-30))
+    return logp - logp.mean(-1, keepdim=True)
+
+
+def serve_int8(spatial, float_model, smi):
+    """The int8 SlowFast-R50 (``spatial``: +INT8_SPATIAL): calibrated on
+    one request, three requests served through make_forward with K3 (its
+    launches gated), held against the same model with K3's plain version
+    and against the bf16 module forward; the request and the forward on a
+    resident 64-clip batch timed beside bf16. Returns (model, cfg, shapes,
+    K3 launches)."""
+    import efficient_slowfast_tpu_torch.ops.conv as conv_mod
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.models import build_model
+    from efficient_slowfast_tpu_torch.ops.kernels.int8_conv import \
+        int8_conv_reference
+
+    what = "+INT8_SPATIAL" if spatial else "INT8_EVAL"
+    cfg = int8_cfg(spatial)
+    model = build_model(cfg, device="cuda")  # the bf16 model's weights
+    model.load_state_dict(float_model.state_dict(), strict=True)
+    model.eval()
+    t0 = time.perf_counter()
+    quant, shapes = calibrate_with_shapes(cfg, model, SEED + 41)
+    torch.cuda.synchronize()
+    convs = len(quant)
+    log("int8", f"{what}: {convs} int8 convs ({len(shapes)} shapes), "
+        f"calibrated on one {CLIPS_PER_REQUEST}-clip request in "
+        f"{time.perf_counter() - t0:.2f} s; act_max "
+        f"{min(float(v) for v in quant.values()):.4g}-"
+        f"{max(float(v) for v in quant.values()):.4g}")
+    fwd = make_forward(cfg, model)
+    ref = make_forward(serving_cfg_module(), float_model)
+    gen = torch.Generator().manual_seed(SEED + 42)
+    requests = [clips(cfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
+                for _ in range(REQUESTS)]
+    serve(fwd, requests[:1])
+    serve(ref, requests[:1])
+    reset_counts()
+    outs, dt = serve(fwd, requests)
+    counts = read_counts()
+    expect = {**dict.fromkeys(counts, 0), "int8_conv": convs * REQUESTS}
+    if counts != expect:
+        raise AssertionError(f"int8 {what}: launches {counts}, expected "
+                             f"{expect}")
+    refs, dt_ref = serve(ref, requests)
+    real = conv_mod.int8_conv
+    conv_mod.int8_conv = int8_conv_reference
+    try:
+        plain, _ = serve(fwd, requests[:1])
+    finally:
+        conv_mod.int8_conv = real
+    kp = (outs[0] - plain[0]).abs().max().item()
+    if not torch.equal(outs[0], plain[0]):
+        raise AssertionError(f"int8 {what}: K3 vs plain version in the "
+                             f"network, max |dp| {kp}")
+    dist, scale, top1 = 0.0, 0.0, []
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        check_scores(o, CLIPS_PER_REQUEST, cfg.MODEL.NUM_CLASSES,
+                     f"int8 {what} request {i}")
+        co, cr = centred_logs(o), centred_logs(r)
+        dist = max(dist, (co - cr).abs().max().item())
+        scale = max(scale, cr.abs().max().item())
+        top1.append((o.argmax(-1) == r.argmax(-1)).float().mean().item())
+    n = REQUESTS * CLIPS_PER_REQUEST
+    log("int8", f"{what}: {REQUESTS} requests x {CLIPS_PER_REQUEST} clips, "
+        f"launches {counts} ({convs} a request) | K3 vs its plain version "
+        f"on the card bit-equal | vs the "
+        f"bf16 module forward: centred log probabilities max |d| "
+        f"{dist:.4f} of scale {scale:.4f} (ratio {dist / scale:.3f}, tol "
+        f"{INT8_LOGIT_TOL}), top-1 agreement {np.mean(top1):.3f} | request "
+        f"{dt / REQUESTS * 1e3:.2f} ms int8, {dt_ref / REQUESTS * 1e3:.2f} ms"
+        f" bf16; {n / dt:.2f} / {n / dt_ref:.2f} clips/s | {smi}")
+    if dist > INT8_LOGIT_TOL * scale:
+        raise AssertionError(f"int8 {what}: {dist} > {INT8_LOGIT_TOL} x "
+                             f"{scale}")
+    planted_faults(cfg, model, fwd, requests[0], refs[0], quant, what, smi)
+    big = clips(cfg, TEST_CLIPS, torch.Generator().manual_seed(SEED + 43),
+                torch.bfloat16)
+    int8_ms = cuda_ms(lambda: fwd(big), iters=2, reps=3)
+    bf16_ms = cuda_ms(lambda: ref(big), iters=2, reps=3)
+    log("int8", f"{what}: forward on a resident {TEST_CLIPS}-clip batch "
+        f"{int8_ms:.2f} ms ({TEST_CLIPS / int8_ms * 1e3:.1f} clips/s) | bf16 "
+        f"module forward {bf16_ms:.2f} ms ({TEST_CLIPS / bf16_ms * 1e3:.1f} "
+        f"clips/s) | int8/bf16 {int8_ms / bf16_ms:.2f} | {smi}")
+    del big
+    torch.cuda.empty_cache()
+    return model, cfg, shapes, counts["int8_conv"]
+
+
+def planted_faults(cfg, model, fwd, request, ref, quant, what, smi):
+    """Serve ``request`` once under each of INT8_FAULTS and print its ratio
+    of centred log probabilities to the bf16 ones (``ref``); the last must
+    exceed INT8_LOGIT_TOL. ``model`` is left as it was calibrated."""
+    from efficient_slowfast_tpu_torch.engine.quantize import (
+        calibrate_int8, load_quant_state)
+    from efficient_slowfast_tpu_torch.ops.conv import int8_convs
+
+    convs = int8_convs(model).values()
+    cr = centred_logs(ref)
+    ratios = {}
+    for fault in INT8_FAULTS:
+        if fault == "per-tensor weight scale":
+            for m in convs:
+                codes, scale = m.weight_codes()
+                top = scale.max()
+                wf = m.weight.detach().float().permute(
+                    0, 2, 3, 4, 1).reshape(m.out_channels, -1)
+                m.w_codes = torch.zeros_like(codes)
+                m.w_codes[:, :wf.shape[1]] = torch.clamp(
+                    torch.round(wf / top), -127, 127).to(torch.int8)
+                m.w_scale = torch.full_like(scale, float(top))
+        elif fault == "unstrided calibration":
+            for m in convs:
+                if m.int8 == "pointwise":
+                    m.int8 = "unstrided"  # calibrates on the whole input
+            calibrate_int8(model, [request])
+            for m in convs:
+                if m.int8 == "unstrided":
+                    m.int8 = "pointwise"
+        else:
+            calibrate_int8(model, [[x * 0.5 for x in request]])
+        out, _ = serve(fwd, [request])
+        co = centred_logs(out[0])
+        ratios[fault] = ((co - cr).abs().max() / cr.abs().max()).item()
+        for m in convs:
+            m._codes_of = None  # requantize the weights per channel
+        load_quant_state(model, quant)
+    log("int8", f"{what}: planted faults, ratio of centred log "
+        f"probabilities (tol {INT8_LOGIT_TOL}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in ratios.items()) + f" | {smi}")
+    if ratios[INT8_FAULTS[-1]] <= INT8_LOGIT_TOL:
+        raise AssertionError(f"int8 {what}: the gate cannot see a "
+                             f"{INT8_FAULTS[-1]} ({ratios})")
+
+
+def serving_cfg_module():
+    cfg = serving_cfg()
+    cfg.TPU.FUSED_EVAL = False
+    return cfg
+
+
+def phase_int8_test(convs, smi):
+    """engine/test.py::test with TPU.INT8_EVAL on the synthetic split
+    (SLOWFAST_8x8_R50.yaml): the first run calibrates on
+    TPU.INT8_CALIB_BATCHES test batches and persists, the second loads the
+    file; K3's launches a batch gated. Returns the launches."""
+    import efficient_slowfast_tpu_torch.engine.quantize as quantize
+
+    out = os.path.join(smoke_dir(), "int8_test")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = yaml_cfg("SLOWFAST_8x8_R50.yaml", [
+        "TPU.FUSED_EVAL", False, "TPU.INT8_EVAL", True, "TRAIN.ENABLE", False,
+        "OUTPUT_DIR", out])
+    calls = []
+    real = quantize.calibrate_for_test
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    quantize.calibrate_for_test = counted
+    total = 0
+    try:
+        metas = []
+        for run in (1, 2):
+            meter, dt, counts, peak = run_test(cfg)
+            batches = -(-len(meter.video_preds) * meter.num_clips //
+                        cfg.TEST.BATCH_SIZE)
+            expect = {**dict.fromkeys(counts, 0),
+                      "int8_conv": convs * batches}
+            if counts != expect or calls != [1]:
+                raise AssertionError(f"int8 test run {run}: launches {counts}"
+                                     f" (expected {expect}), calibrations "
+                                     f"{len(calls)}")
+            if not np.isfinite(meter.video_preds).all():
+                raise AssertionError("int8 test: non-finite scores")
+            clips_n = len(meter.video_preds) * meter.num_clips
+            log("int8", f"test() run {run} ({'calibrated and persisted' if run == 1 else 'loaded the calibration'}): "
+                f"{clips_n} clips in {batches} batches, {clips_n / dt:.2f} "
+                f"clips/s end to end ({dt:.2f} s with the build), launches "
+                f"{counts}, peak {peak / 2 ** 30:.2f} GiB | {smi}")
+            metas.append(meter.video_preds)
+            total += counts["int8_conv"]
+        log("int8", f"test() runs agree: max |d| of the video scores "
+            f"{np.abs(metas[0] - metas[1]).max():.3e}; calibration file "
+            f"{os.path.relpath(quantize.calibration_path(cfg), ROOT)}")
+    finally:
+        quantize.calibrate_for_test = real
+    return total
+
+
+def export_round_trip(name, cfg, model, smi, boxes=False, on="cuda"):
+    """Export ``model``'s serving forward on device ``on``, load it onto the
+    card, serve it at EXPORT_BATCHES against the live forward; returns the
+    launches inside the artifact and its graph's kernel nodes."""
+    from efficient_slowfast_tpu_torch.data.ava_dataset import MAX_BOXES
+    from efficient_slowfast_tpu_torch.engine.export import (export_serving,
+                                                            load_serving)
+    from efficient_slowfast_tpu_torch.engine.state import (
+        make_detection_forward, make_forward)
+
+    path = os.path.join(smoke_dir(), f"export_{name}")
+    t0 = time.perf_counter()
+    path = export_serving(cfg, model, path, max_boxes=MAX_BOXES, device=on)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving = load_serving(path, device="cuda")
+    if serving.device.type != "cuda":
+        raise AssertionError(f"export {name}: loaded on {serving.device}")
+    t_load = time.perf_counter() - t0
+    graph = str(serving.program.graph)
+    nodes = {op: graph.count(f"esf_torch.{op}.default") for op in (
+        "fused_bottleneck", "flash_attention", "int8_conv")}
+    live = (make_detection_forward if boxes else make_forward)(cfg, model)
+    gen = torch.Generator().manual_seed(SEED + 44)
+    total = dict.fromkeys(read_counts(), 0)
+    lines = []
+    for b in EXPORT_BATCHES:
+        x = clips(cfg, b, gen, torch.bfloat16)
+        args = [x]
+        if boxes:
+            s = cfg.DATA.TEST_CROP_SIZE
+            x1y1 = torch.rand(b, MAX_BOXES, 2, generator=gen) * s / 2
+            wh = 2 + torch.rand(b, MAX_BOXES, 2, generator=gen) * s / 2
+            args.append(torch.cat([x1y1, x1y1 + wh], -1).to("cuda"))
+        want = live(*args).float().cpu().numpy()
+        serving(*args)  # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = serving(*args)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            total[k] += v
+        rows = b * MAX_BOXES if boxes else b
+        if got.shape != (rows, cfg.MODEL.NUM_CLASSES) or \
+                not np.isfinite(got).all():
+            raise AssertionError(f"export {name}: batch {b} gave "
+                                 f"{got.shape}")
+        err = float(np.abs(got - want).max())
+        scale = max(1.0, float(np.abs(want).max()))
+        if err > SERVE_BF16_ATOL * scale:
+            raise AssertionError(f"export {name} batch {b}: {err}")
+        lines.append(f"batch {b}: max |d| vs live {err:.3e}, launches "
+                     f"{ {k: v for k, v in counts.items() if v} }, "
+                     f"{dt * 1e3:.2f} ms")
+    log("export", f"{name}: exported on {on}, {os.path.getsize(path) / 1e6:.1f}"
+        f" MB, export {t_export:.1f} s, load onto the card {t_load:.1f} s, "
+        f"graph kernel nodes {nodes} "
+        f"| " + " | ".join(lines) + f" | {smi}")
+    os.remove(path)
+    return total, nodes
+
+
+def phase_export(int8_model, int8_cfg_, smi):
+    """Export round trips of fused SlowFast-R50 (K1), CMDA-R50 (K2), int8
+    SlowFast-R50 (K3) and SlowFast-R50 32x2 AVA detection. Returns the
+    launches inside the artifacts."""
+    from efficient_slowfast_tpu_torch.config import load_cfg
+    from efficient_slowfast_tpu_torch.ops.conv import int8_convs
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    cfg = serving_cfg()
+    model = serving_model(cfg, SEED)
+    counts, nodes = export_round_trip("fused_slowfast", cfg, model, smi)
+    per = len(EXPORT_BATCHES)
+    if nodes["fused_bottleneck"] != 26 or counts["fused_bottleneck"] != 26 * per:
+        raise AssertionError(f"fused export: nodes {nodes}, launches {counts}")
+    add(counts)
+    del model
+    cfg = cmda_cfg()
+    model = serving_model(cfg, SEED)
+    calibrate_attention(cfg, model, SEED + 6, phase="export")
+    counts, nodes = export_round_trip("cmda", cfg, model, smi)
+    if nodes["flash_attention"] != 4 or counts["flash_attention"] != 4 * per:
+        raise AssertionError(f"CMDA export: nodes {nodes}, launches {counts}")
+    add(counts)
+    del model
+    # exported on the CPU (the weight codes quantized there) and moved to
+    # the card at load: the ops dispatch on the tensors' device
+    counts, nodes = export_round_trip("int8_slowfast", int8_cfg_, int8_model,
+                                      smi, on="cpu")
+    convs = len(int8_convs(int8_model))
+    if nodes["int8_conv"] != convs or counts["int8_conv"] != convs * per:
+        raise AssertionError(f"int8 export: nodes {nodes}, launches {counts}")
+    add(counts)
+    cfg = load_cfg(AVA_YAML, ["TPU.COMPUTE_DTYPE", "bfloat16"])
+    model = serving_model(cfg, SEED)
+    counts, nodes = export_round_trip("ava_detection", cfg, model, smi,
+                                      boxes=True)
+    if any(counts.values()) or any(nodes.values()):
+        raise AssertionError(f"AVA export: nodes {nodes}, launches {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_int8(smi):
+    """Phase 15: K3 against its plain version, the int8 SlowFast-R50 served
+    under INT8_EVAL and +INT8_SPATIAL, test() int8, and the export round
+    trips. Returns (K3's record, its worst error, the launches on the main
+    paths)."""
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    float_model = serving_model(serving_cfg_module(), SEED)
+    model, cfg, shapes, n = serve_int8(True, float_model, smi)
+    add({"int8_conv": n})
+    record, worst = phase_int8_kernels(shapes, smi)
+    eval_model, _, eval_shapes, n = serve_int8(False, float_model, smi)
+    add({"int8_conv": n})
+    del eval_model, float_model
+    torch.cuda.empty_cache()
+    convs = sum(len(v) for v in eval_shapes.values())
+    add({"int8_conv": phase_int8_test(convs, smi)})
+    add(phase_export(model, cfg, smi))
+    del model
+    torch.cuda.empty_cache()
+    log("int8", f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return record, worst, launches
+
+
+# ---------------------------------------------------------------------------
 # the profiler: the device's busy share of a window
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
@@ -4754,7 +5324,7 @@ def kernel_entry(name, source, replaces, launches, err, record):
 # the phases that run together: a block runs whole when any of its phases
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
-                ("10",), ("11",), ("12",), ("13",), ("14",)]
+                ("10",), ("11",), ("12",), ("13",), ("14",), ("15",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -4764,7 +5334,10 @@ KERNELS = {
         "efficient_slowfast_tpu/ops/pallas/flash_attention.py:112"),
     "flash_attention_backward": (
         "efficient_slowfast_tpu_torch/csrc/flash_attention_bwd.cu",
-        "efficient_slowfast_tpu/ops/pallas/flash_attention.py:219")}
+        "efficient_slowfast_tpu/ops/pallas/flash_attention.py:219"),
+    "int8_conv": (
+        "efficient_slowfast_tpu_torch/csrc/int8_conv.cu",
+        "efficient_slowfast_tpu/ops/conv.py:243")}
 
 
 def chosen_phases(argv):
@@ -4913,6 +5486,12 @@ def main(argv=None):
             records.setdefault(name, record)
             errs[name].append(frame_errs[name])
         add(frame_counts)
+        torch.cuda.empty_cache()
+    if run("15"):
+        k3_record, k3_err, int8_counts = phase_int8(smi)
+        records["int8_conv"] = k3_record
+        errs["int8_conv"].append(k3_err)
+        add(int8_counts)
         torch.cuda.empty_cache()
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA

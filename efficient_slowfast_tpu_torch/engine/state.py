@@ -170,6 +170,19 @@ def make_eval_step(cfg, model: torch.nn.Module) -> Callable:
     return step
 
 
+def check_int8_calibrated(model: torch.nn.Module) -> None:
+    """Refuse to serve a model whose int8 convs (``TPU.INT8_EVAL``) have no
+    calibrated range: their zero scale would zero the network
+    (``ops/conv.py:201-203`` there). ``engine/quantize.py`` calibrates."""
+    from ..ops.conv import int8_convs, quant_is_calibrated
+
+    if int8_convs(model) and not quant_is_calibrated(model):
+        raise ValueError(
+            "TPU.INT8_EVAL model is not calibrated: run "
+            "engine.quantize.calibrate_int8 (or load a calibration) before "
+            "serving it")
+
+
 def make_forward(cfg, model: torch.nn.Module, device=None) -> Callable:
     """Eval forward: fn([slow, fast]) → scores, under ``inference_mode``.
 
@@ -178,7 +191,8 @@ def make_forward(cfg, model: torch.nn.Module, device=None) -> Callable:
     and cast to the compute dtype. ``cfg.TPU.FUSED_EVAL`` selects the fused
     serving engine (folded BN + the fused bottleneck kernel,
     engine/inference.py) when the config is inside its envelope; otherwise
-    the module's own forward runs.
+    the module's own forward runs, its int8 convs (``TPU.INT8_EVAL``) on
+    the int8 kernel, which needs a calibrated model.
     """
     dev = resolve_device(device)
     dtype = get_compute_dtype(cfg)
@@ -193,6 +207,7 @@ def make_forward(cfg, model: torch.nn.Module, device=None) -> Callable:
 
         if supports(cfg):
             fwd = make_fused_eval_forward(cfg, model)
+    check_int8_calibrated(model)
 
     def forward(inputs):
         with torch.inference_mode():
@@ -272,10 +287,11 @@ def make_detection_forward(cfg, model: torch.nn.Module,
                            device=None) -> Callable:
     """Eval forward: fn(inputs, boxes (B, MAX, 4)) → (B·MAX, classes)
     float32 scores, under ``inference_mode``, on ``device`` (the GPU by
-    default, as ``make_forward``)."""
+    default, as ``make_forward``; an int8 model must be calibrated)."""
     dev = resolve_device(device)
     dtype = get_compute_dtype(cfg)
     model = model.to(dev).eval()
+    check_int8_calibrated(model)
 
     def forward(inputs, boxes):
         with torch.inference_mode():

@@ -113,12 +113,12 @@ def test(cfg, device=None):
     the finished AVAMeter (its mAP in ``full_map``)."""
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Test with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
-    if cfg.TPU.INT8_EVAL:
-        raise NotImplementedError("int8 serving comes with ROADMAP item 8")
     dev = resolve_device(device)
     torch.manual_seed(cfg.RNG_SEED)
     model = build_model(cfg, dev)
     load_test_checkpoint(cfg, model)
+    if cfg.TPU.INT8_EVAL:
+        int8_calibration(cfg, model, dev)
     loader = construct_loader(cfg, "test")
     if cfg.DETECTION.ENABLE:
         meter = AVAMeter(len(loader), cfg, mode="test")
@@ -143,6 +143,26 @@ def test(cfg, device=None):
     )
     perform_test(cfg, model, loader, meter, dev)
     return meter
+
+
+def int8_calibration(cfg, model, device) -> None:
+    """Give ``model``'s int8 convs their ranges: the persisted calibration
+    where one matches this model and config, else a calibration on the
+    first ``TPU.INT8_CALIB_BATCHES`` test batches, persisted for the next
+    run (``engine/test.py:118-135`` there: calibrate once, serve many)."""
+    from .quantize import (calibrate_for_test, load_calibration,
+                           load_quant_state, save_calibration)
+
+    quant = load_calibration(cfg, model)
+    if quant is not None:
+        load_quant_state(model, quant)
+        logger.info("TPU.INT8_EVAL: loaded persisted calibration")
+        return
+    logger.info("TPU.INT8_EVAL: calibrating activation ranges on %d test "
+                "batch(es)", max(1, cfg.TPU.INT8_CALIB_BATCHES))
+    quant = calibrate_for_test(cfg, model, device)
+    path = save_calibration(cfg, model, quant)
+    logger.info("TPU.INT8_EVAL: persisted calibration to %s", path)
 
 
 def detection_box_mask(batch) -> np.ndarray:

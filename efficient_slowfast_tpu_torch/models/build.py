@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.conv import check_options
+from ..ops.conv import enable_int8
 from ..utils.registry import Registry
 
 MODEL_REGISTRY = Registry("MODEL")
@@ -32,7 +32,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_model(cfg, device=None) -> torch.nn.Module:
-    check_options(cfg)
     dev = resolve_device(device)
-    model = MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(cfg.static())
+    model = enable_int8(MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(
+        cfg.static()), cfg)
     return model.to(dev, memory_format=torch.channels_last_3d)

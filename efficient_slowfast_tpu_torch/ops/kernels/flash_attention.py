@@ -52,6 +52,12 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
 ``plain_attention`` is the same Function over the plain versions, on any
 device: the explicit opt-out ``TPU.FLASH_ATTENTION False``.
 
+The forward is the ``torch.library`` op ``esf_torch::flash_attention``
+(q, k, v, with_lse) -> (out, lse), the kernel on CUDA and the plain
+version on CPU, so a ``torch.export`` graph of the serving forward holds
+it; without ``with_lse`` its lse is empty and the kernel writes none.
+``AttentionFunction`` wraps it with the lse, which keeps the gradient.
+
 ``flash_attention`` never gives a CUDA tensor a plain version: what a
 kernel does not take raises, and so does a failed build or launch. Unlike the Pallas path, the
 kernels mask a key count that their tiles do not divide, and they take any
@@ -62,6 +68,7 @@ and bounds nothing here.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -146,7 +153,7 @@ def _check(q, k, v):
         raise ValueError("flash_attention: mismatched shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if min(b, n, m, d, c) == 0:
+    if any(size == 0 for size in (b, n, m, d, c)):
         raise ValueError("flash_attention: empty input")
     if d > MAX_DIM or c > MAX_DIM:
         raise ValueError(f"flash_attention: D = {d} and C = {c} must be at "
@@ -180,9 +187,39 @@ def _ptr(t):
 
 def _forward(q, k, v, with_lse: bool):
     """(out, lse or None): the kernel on CUDA, the plain version on CPU."""
-    if q.device.type == "cpu":
-        out, lse = chunked_attention_lse(q, k, v)
-        return out, lse if with_lse else None
+    out, lse = _op(q, k, v, with_lse)
+    return out, (lse if with_lse else None)
+
+
+@torch.library.custom_op("esf_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, lse = chunked_attention_lse(q, k, v)
+    return out, (lse if with_lse else lse.new_empty(0))
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(q, k, v, with_lse):
+    out, lse = _launch_forward(q, k, v, with_lse)
+    return out, (lse if with_lse else q.new_empty(0, dtype=torch.float32))
+
+
+@_op.register_fake
+def _op_fake(q, k, v, with_lse):
+    return (v.new_empty((q.shape[0], q.shape[1], v.shape[2])),
+            q.new_empty((q.shape[0], q.shape[1]) if with_lse else (0,),
+                        dtype=torch.float32))
+
+
+def flops(b, n, m, d, c) -> int:
+    """2 · B · N · M · (D + C): the two products, as the plain version's
+    count them."""
+    return 2 * b * n * m * (d + c)
+
+
+def _launch_forward(q, k, v, with_lse: bool):
+    _check(q, k, v)
     _check_cuda((q, k, v))
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]

@@ -12,13 +12,16 @@ channels-last ``x`` of shape (N = B*T, H, W, Cin):
 on a CUDA tensor (one launch per block; a and b never reach device memory)
 and the plain version ``bottleneck_reference`` on a CPU tensor. A CUDA
 tensor never takes the plain version: what the kernel does not take raises.
+Both are the ``torch.library`` op ``esf_torch::fused_bottleneck``, so a
+``torch.export`` graph holds the block as one node; the split (``plan``)
+is picked inside the op, from the concrete shape of each call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -238,11 +241,33 @@ def fused_bottleneck(x, t_len, wa, ba, wb, bb, wc, bc, wp=None, bp=None, *,
     picks; on a CPU tensor it runs ``bottleneck_reference``.
     Returns (N, H, W, Cout) in x's dtype.
     """
-    _check(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp, stride, dilation, groups)
-    if x.device.type == "cpu":
-        return bottleneck_reference(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bottleneck: no kernel for {x.device}")
+    if stride != 1 or dilation != 1 or groups != 1:
+        raise ValueError("fused_bottleneck takes stride 1, dilation 1 and "
+                         f"groups 1 only (got {stride}, {dilation}, {groups})")
+    return _op(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp)
+
+
+fused_bottleneck.launches = 0
+
+
+@torch.library.custom_op("esf_torch::fused_bottleneck", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, t_len: int, wa: torch.Tensor, ba: torch.Tensor,
+        wb: torch.Tensor, bb: torch.Tensor, wc: torch.Tensor,
+        bc: torch.Tensor, wp: Optional[torch.Tensor],
+        bp: Optional[torch.Tensor]) -> torch.Tensor:
+    _check(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp, 1, 1, 1)
+    return bottleneck_reference(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp)
+
+
+@_op.register_fake
+def _fake(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp):
+    return x.new_empty((*x.shape[:3], wc.shape[-1]))
+
+
+@_op.register_kernel("cuda")
+def _launch(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp):
+    _check(x, t_len, wa, ba, wb, bb, wc, bc, wp, bp, 1, 1, 1)
     n, h, w, cin = x.shape
     kt, _, ci = wa.shape
     cout = wc.shape[-1]
@@ -279,7 +304,11 @@ def fused_bottleneck(x, t_len, wa, ba, wb, bb, wc, bc, wp=None, bp=None, *,
     return out
 
 
-fused_bottleneck.launches = 0
+def flops(n, h, w, cin, ci, cout, kt, has_proj) -> int:
+    """The block's multiply-adds times 2, as the plain version's products
+    count them."""
+    return 2 * n * h * w * (kt * cin * ci + 9 * ci * ci + ci * cout
+                            + (cin * cout if has_proj else 0))
 
 
 def _lib() -> ctypes.CDLL:

@@ -1,6 +1,7 @@
-"""A reader of flax's msgpack files: the JAX package's ``.jaxckpt``
-checkpoints (``utils/checkpoint.py:103-132`` there), written by
-``flax.serialization.msgpack_serialize``.
+"""A reader and a writer of flax's msgpack files: the JAX package's
+``.jaxckpt`` checkpoints (``utils/checkpoint.py:103-132`` there), written by
+``flax.serialization.msgpack_serialize``, and the port's int8 calibration
+files (``engine/quantize.py``).
 
 The port depends on neither ``msgpack`` nor ``flax``, so this module reads
 the format itself: maps, arrays, str and bin, ints, floats, nil and
@@ -9,6 +10,8 @@ ndarray: a msgpack (shape, dtype name, buffer) triple; code 2, a complex;
 code 3, a numpy scalar) and flax's chunked arrays (``MAX_CHUNK_SIZE``
 pieces of an array larger than 1 GiB). Arrays come back as numpy arrays;
 bfloat16 ones as float32, which holds their values exactly.
+``msgpack_serialize`` writes maps with str keys, str, bytes, lists, ints
+and numpy arrays (extension code 1), which flax reads.
 """
 
 from __future__ import annotations
@@ -133,3 +136,37 @@ def msgpack_restore(data: bytes):
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after the msgpack value")
     return out
+
+
+def _pack(obj, out: list) -> None:
+    if isinstance(obj, str):
+        raw = obj.encode()
+        out.append(struct.pack(">BI", 0xDB, len(raw)) + raw)
+    elif isinstance(obj, bytes):
+        out.append(struct.pack(">BI", 0xC6, len(obj)) + obj)
+    elif isinstance(obj, (list, tuple)):
+        out.append(struct.pack(">BI", 0xDD, len(obj)))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        out.append(struct.pack(">BI", 0xDF, len(obj)))
+        for k, v in obj.items():
+            _pack(str(k), out)
+            _pack(v, out)
+    elif isinstance(obj, np.ndarray):
+        arr = np.array(obj, order="C")  # 0-d stays 0-d
+        data = msgpack_serialize([list(arr.shape), arr.dtype.name,
+                                  arr.tobytes()])
+        out.append(struct.pack(">BIb", 0xC9, len(data), 1) + data)
+    elif isinstance(obj, int):  # a shape's sizes
+        out.append(struct.pack(">Bq", 0xD3, obj))
+    else:
+        raise TypeError(f"msgpack_serialize: cannot write {type(obj)}")
+
+
+def msgpack_serialize(obj) -> bytes:
+    """``obj`` in flax's msgpack format (the inverse of ``msgpack_restore``
+    for the types it writes)."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)

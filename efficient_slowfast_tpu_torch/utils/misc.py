@@ -57,31 +57,129 @@ def cpu_mem_usage():
     return (vram.total - vram.available) / 1024 ** 3, vram.total / 1024 ** 3
 
 
+def register_kernel_flops() -> None:
+    """Give ``torch.utils.flop_counter`` the FLOPs of the port's kernel ops
+    (K1 ``esf_torch::fused_bottleneck``, K2 ``esf_torch::flash_attention``,
+    K3 ``esf_torch::int8_conv``), each what its
+    plain version's products count: the counter sees an op, not the ops
+    inside its CPU version, so without these it would count none of that
+    work on either device."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+
+    from ..ops.kernels import fused_bottleneck as k1
+    from ..ops.kernels import flash_attention as k2
+    from ..ops.kernels import int8_conv as k3
+
+    ops = torch.ops.esf_torch
+    if ops.fused_bottleneck in flop_registry:
+        return
+
+    @register_flop_formula(ops.fused_bottleneck)
+    def _k1(x_shape, t_len, wa_shape, ba_shape, wb_shape, bb_shape,
+            wc_shape, bc_shape, wp_shape, bp_shape, out_shape=None, **kw):
+        n, h, w, cin = x_shape
+        kt, _, ci = wa_shape
+        return k1.flops(n, h, w, cin, ci, wc_shape[-1], kt,
+                        wp_shape is not None)
+
+    @register_flop_formula(ops.flash_attention)
+    def _k2(q_shape, k_shape, v_shape, with_lse, out_shape=None, **kw):
+        b, n, d = q_shape
+        return k2.flops(b, n, k_shape[1], d, v_shape[2])
+
+    @register_flop_formula(ops.int8_conv)
+    def _k3(x_shape, codes_shape, scale_shape, act_shape, bias_shape, kernel,
+            stride, padding, out_dtype, accumulate, out_shape=None, **kw):
+        return k3.conv_flops(x_shape, codes_shape[0], kernel, stride, padding)
+
+
+def _forward_under(modes, model, example_inputs, bboxes):
+    """One eval forward of ``model`` with every dispatch mode of ``modes``
+    (a counter each) watching it."""
+    import contextlib
+
+    was_training = model.training
+    model.eval()
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        for mode in modes:
+            stack.enter_context(mode)
+        if bboxes is None:
+            model(example_inputs)
+        else:
+            model(example_inputs, bboxes)
+    model.train(was_training)
+
+
+def _flop_counter():
+    from torch.utils.flop_counter import FlopCounterMode
+
+    register_kernel_flops()
+    return FlopCounterMode(display=False)
+
+
+def _activation_counter():
+    """A dispatch mode that adds up the elements that convolutions and
+    matrix products produce: the activation count (fvcore's ActivationCountAnalysis, which the
+    reference logs, misc.py:109-150; JAX's ``get_activation_stats`` counts
+    its conv_general_dilated and dot_general outputs, misc.py:60-113
+    there), each kernel op's output counted as one product's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    counted = {aten.convolution.default, aten._convolution.default,
+               aten.mm.default, aten.bmm.default, aten.addmm.default,
+               aten.baddbmm.default}
+    kernels = {"esf_torch::fused_bottleneck", "esf_torch::flash_attention",
+               "esf_torch::int8_conv"}
+
+    class ActivationCount(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in counted or func._schema.name in kernels:
+                first = out[0] if isinstance(out, (tuple, list)) else out
+                self.total += first.numel()
+            return out
+
+    return ActivationCount()
+
+
 def get_flop_stats(model: torch.nn.Module, example_inputs,
                    bboxes=None) -> float:
     """FLOPs of one eval forward on ``example_inputs``, counted by
     ``torch.utils.flop_counter`` (reference: fvcore's flop_count,
     misc.py:109-150). The JAX package reads XLA's cost analysis of the
     compiled program instead; the counter here counts the aten matmuls and
-    convolutions as torch dispatches them, so work done inside the port's
-    own CUDA kernels (the attention's) is not counted. A detection model
-    takes ``bboxes``, its RoIs."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    was_training = model.training
-    model.eval()
-    counter = FlopCounterMode(display=False)
-    with torch.no_grad(), counter:
-        if bboxes is None:
-            model(example_inputs)
-        else:
-            model(example_inputs, bboxes)
-    model.train(was_training)
+    convolutions as torch dispatches them, and the port's kernel ops by
+    their formulas (``register_kernel_flops``), so a CPU and a CUDA run
+    count the same. A detection model takes ``bboxes``, its RoIs."""
+    counter = _flop_counter()
+    _forward_under([counter], model, example_inputs, bboxes)
     return float(counter.get_total_flops())
 
 
+def flops_table(counter) -> str:
+    """The per-module FLOPs of a ``FlopCounterMode`` that watched a
+    forward as a table (the port's counterpart of JAX's ``nn.tabulate``
+    table, misc.py:116-136 there; reference: ptflops' per-layer dump,
+    misc.py:153-162): every module that did counted work, by its path,
+    with its share of the total."""
+    counts = counter.get_flop_counts()
+    total = sum(counts.get("Global", {}).values()) or 1
+    rows = sorted((name, sum(ops.values())) for name, ops in counts.items()
+                  if name != "Global")
+    width = max(len(name) for name, _ in rows)
+    lines = [f"{'module':{width}s}  {'GFLOPs':>10s}  {'share':>7s}"]
+    lines += [f"{name:{width}s}  {flops / 1e9:10.4f}  "
+              f"{100 * flops / total:6.2f}%" for name, flops in rows]
+    return "\n".join(lines)
+
+
 def log_model_info(model: torch.nn.Module, cfg, example_inputs):
-    """Parameters, memory and FLOPs (reference: misc.py:165-190)."""
+    """Parameters, memory, FLOPs and activations, and with
+    ``TPU.LOG_FLOPS_PER_LAYER`` the per-module FLOPs table (reference:
+    misc.py:165-190; JAX: misc.py:160-178), all from one forward."""
     logger.info("Model:\n%s", type(model).__name__)
     logger.info("Params: %s", f"{params_count(model):,}")
     logger.info("Mem: %.2f GB", gpu_mem_usage())
@@ -90,7 +188,11 @@ def log_model_info(model: torch.nn.Module, cfg, example_inputs):
         s = float(example_inputs[0].shape[2])
         bboxes = torch.tensor([[0.0, 0.0, 0.0, s, s]],
                               device=example_inputs[0].device)
-    logger.info("Flops: %.2f G",
-                get_flop_stats(model, example_inputs, bboxes) / 1e9)
+    flops, acts = _flop_counter(), _activation_counter()
+    _forward_under([flops, acts], model, example_inputs, bboxes)
+    logger.info("Flops: %.2f G", flops.get_total_flops() / 1e9)
+    logger.info("Activations: %.2f M", acts.total / 1e6)
+    if cfg.TPU.LOG_FLOPS_PER_LAYER:
+        logger.info("\n%s", flops_table(flops))
     used, total = cpu_mem_usage()
     logger.info("CPU mem: %.2f / %.2f GB", used, total)

@@ -55,6 +55,14 @@ Their fusions follow the rules above (``s1_fuse.bn_f2s.weight``).
 Kernels change layout on the way: 5-D DHWIO ↔ OIDHW, 3-D (k, in, out) ↔
 (out, in, k) (ECA's Conv1d) and 2-D (in, out) ↔ (out, in). BN's
 ``num_batches_tracked`` has no JAX counterpart; it is 0 after conversion.
+
+The int8 calibration (``TPU.INT8_EVAL``) is no part of either checkpoint:
+JAX keeps it in its ``quant`` collection, the port in the non-persistent
+``act_max`` buffer of each int8 conv (``ops/conv.py``), and
+``jax_quant_to_port`` / ``port_quant_to_jax`` carry it across, by the
+conv's kernel name:
+
+  quant s2/pathway0_res0/branch2/a/conv/act_max ↔ s2.pathway0_res0.branch2.a.act_max
 """
 
 from __future__ import annotations
@@ -302,4 +310,33 @@ def state_dict_to_jax_variables(state_dict, cfg=None) -> Dict[str, dict]:
         for m in mods + wrap:
             d = d.setdefault(m, {})
         d[leaf] = np.ascontiguousarray(v)
+    return out
+
+
+def jax_quant_to_port(quant, cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX's ``quant`` collection (numpy leaves) → the port's quant state,
+    {"<conv>.act_max": 0-d float32} (``engine/quantize.py``)."""
+    table = efficient_prefix_table(cfg) if cfg is not None else {}
+    out = {}
+    for path, v in _flatten(quant).items():
+        if path[-1] == "act_max":
+            name = _torch_name(path[:-1] + ("kernel",), table)
+            out[name[:-len("weight")] + "act_max"] = torch.tensor(
+                np.float32(v))
+    return out
+
+
+def port_quant_to_jax(quant, cfg=None) -> Dict[str, Any]:
+    """The inverse: the port's quant state → JAX's ``quant`` tree."""
+    layers = {v: k for k, v in (efficient_prefix_table(cfg).items()
+                                if cfg is not None else ())}
+    out: Dict[str, Any] = {}
+    for name, t in quant.items():
+        prefix = name[:-len(".act_max")]
+        mods = (layers[prefix].split("/") if prefix in layers
+                else [_UNRENAMES.get(m, m) for m in prefix.split(".")])
+        d = out
+        for m in mods + ["conv"]:
+            d = d.setdefault(m, {})
+        d["act_max"] = np.asarray(float(t), np.float32)
     return out

@@ -262,6 +262,49 @@ def test_frame_datasets_run_without_jax(tmp_path):
     assert proc.stdout.strip().endswith("OK")
 
 
+_SERVING = r"""
+import sys
+for name in ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import torch
+import efficient_slowfast_tpu_torch.engine.export
+import efficient_slowfast_tpu_torch.tools.export_serving
+from efficient_slowfast_tpu_torch.config import get_cfg
+from efficient_slowfast_tpu_torch.engine.quantize import (
+    calibrate_int8, load_calibration, save_calibration)
+from efficient_slowfast_tpu_torch.ops.conv import Conv3d, enable_int8
+from efficient_slowfast_tpu_torch.ops.kernels.int8_conv import int8_conv
+cfg = get_cfg()
+cfg.TPU.INT8_EVAL = cfg.TPU.INT8_SPATIAL = True
+cfg.OUTPUT_DIR = sys.argv[1]
+conv = enable_int8(Conv3d(3, 8, (1, 3, 3), padding=(0, 1, 1)), cfg)
+x = torch.randn(2, 3, 2, 8, 8, generator=torch.Generator().manual_seed(0))
+quant = calibrate_int8(conv, [(x,)])
+save_calibration(cfg, conv, quant)
+assert load_calibration(cfg, conv).keys() == quant.keys()
+with torch.no_grad():
+    y = conv(x)
+assert y.shape == (2, 8, 2, 8, 8) and int8_conv.launches == 0
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_int8_serving_and_export_run_without_jax(tmp_path):
+    """engine/quantize.py, engine/export.py, ops/kernels/int8_conv.py and
+    tools/export_serving.py import, and an int8 conv calibrates, persists
+    its range and serves, with JAX blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVING, str(tmp_path)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
 def _python_files():
     for d, _, files in os.walk(PORT):
         for f in files:

@@ -7,6 +7,7 @@ top-k, for SlowFast through the fused engine (K1's plain version here) and
 for CMDA-R50 (K2's plain version), f32 on the CPU."""
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -125,16 +126,42 @@ def test_random_init_is_seeded_and_logged(caplog, tmp_path):
     np.testing.assert_array_equal(run_test(cfg, device="cpu").video_preds, a)
 
 
+def _int8_test_runs(what, cfg, tmp_path):
+    """Item 8's int8 serving, which test() once refused: a
+    seeded random-init classifier on the synthetic split, or AVA detection
+    on tests/test_ava.py's fixture, calibrates on its first test batch,
+    persists the ranges and is scored."""
+    from efficient_slowfast_tpu_torch.engine.quantize import calibration_path
+    from test_ava import detection_engine_cfg, make_ava_fixture
+    from test_torch_port_detection import to_port
+
+    if what == "detection":
+        cfg = to_port(detection_engine_cfg(make_ava_fixture(tmp_path / "ava"),
+                                           tmp_path / "out"))
+        cfg.TRAIN.ENABLE = False
+    else:
+        cfg.TEST.CHECKPOINT_FILE_PATH = ""
+        cfg.RESNET.DEPTH, cfg.RESNET.TRANS_FUNC = 18, "basic_transform"
+        cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[2, 2]] * 4
+        cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS = 1, 1
+    cfg.RESNET.WIDTH_PER_GROUP = 16  # no all-zero conv input at random init
+    cfg.TPU.INT8_EVAL = True
+    meter = run_test(cfg, device="cpu")
+    assert os.path.exists(calibration_path(cfg))
+    if what == "detection":
+        assert 0.0 <= meter.full_map <= 1.0
+    else:
+        assert meter.stats["_type"] == "test_final"
+        assert np.isfinite(meter.video_preds).all()
+
+
 @pytest.mark.parametrize("what", ["detection", "int8", "jax",
                                   "output_dir"])
 def test_what_later_items_bring_raises(what, tmp_path):
     cfg = engine_cfg(get_cfg, tmp_path / "model.pyth", tmp_path)
-    item = {"detection": "item 8", "int8": "item 8"}.get(what, "item 7")
-    if what == "detection":  # ported; its int8 serving is item 8's
-        cfg.DETECTION.ENABLE = True
-        cfg.TPU.INT8_EVAL = True
-    elif what == "int8":
-        cfg.TPU.INT8_EVAL = True
+    item = "item 7"
+    if what in ("detection", "int8"):  # item 8's int8 serving, now ported
+        return _int8_test_runs(what, cfg, tmp_path)
     elif what == "output_dir":  # a JAX run's orbax checkpoint directory
         cfg.TEST.CHECKPOINT_FILE_PATH = ""
         cfg.OUTPUT_DIR = str(tmp_path)
