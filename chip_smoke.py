@@ -24,7 +24,9 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               D or C above 128 HMMA, 3 forward and 4 backward), and the
               FP32-pipe and F2FP instructions per
               MUFU.EX2 in the main loop of the flash-attention bf16 kernels,
-              forward and backward.
+              forward and backward; K3's GEMM must run integer wgmma (IGMMA)
+              in each of its instantiations, as many as its library holds,
+              beside its quantize pass.
 3. kernels  — every stride-1 bottleneck shape of SlowFast-R50 8x8 serving
               (the K1 shape table) and four off-path shapes (slow s5 and
               fast s2 at the 224 crop, a projection with channel counts
@@ -255,10 +257,15 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               (INT8_FAULTS; the gate must see the last); the request and a
               resident 64-clip forward timed beside bf16.
               K3 against its plain version at every int8 conv shape of
-              the request and three off-path shapes (int32 accumulators and
-              bf16 output bit for bit), timed beside its
-              bound, the plain version, cuDNN's bf16 conv and
-              torch._int_mm (pointwise shapes where its rules hold).
+              the request and seven off-path shapes (a 3-channel stem with
+              stride 2, float32 inputs): the quantize pass's code buffer
+              and weight layout, the int32 accumulators and the output bit
+              for bit, the plan's shared memory the library's; each shape
+              timed on the device (K3's two launches and cuDNN's conv
+              under the profiler, per call) and by CUDA events, beside its
+              bound, the plain version, torch._int_mm (pointwise shapes
+              where its rules hold) and the wrapper's host time a call;
+              per request under each option the device and event sums.
               test() of SLOWFAST_8x8_R50.yaml with TPU.INT8_EVAL on the
               synthetic split twice: the first calibrates and persists, the
               second loads the file (K3 launches a batch gated). Export
@@ -280,14 +287,16 @@ and read just after; the kernels' JSON line sums the launches of phases
 4, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15 (its times and bounds are per
 request of the SlowFast and CMDA serving paths and per CMDA train step,
 phase 13's rows standing in where 3b or 3c did not run, and K3's per
-request of the +INT8_SPATIAL SlowFast-R50; its errors the worst on any
-path). The last three lines are the kernels' JSON record, the card's name
+request of the +INT8_SPATIAL SlowFast-R50, its ms and library_ms (cuDNN's
+bf16 conv) device time from phase 15's profiler; its errors the worst on
+any path). The last three lines are the kernels' JSON record, the card's name
 and power limit, and the device JSON line.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import json
 import os
@@ -584,24 +593,36 @@ def wide_sass_counts(tool, lib, pattern, expected):
 
 
 def k3_sass_counts(tool, lib):
-    """Count the int8 tensor-core instructions (mma.sync s8: IMMA) of K3's
-    18 instantiations (input bf16 or f32, output f32, bf16 or int32, tile
-    width 16, 32 or 64), raising if any has none."""
+    """K3's SASS: every GEMM instantiation (conv_gemm_kernel<NWG, BN, out
+    dtype>, as many as the library says it holds) must run integer wgmma
+    (IGMMA), and the quantize pass (conv_quantize_kernel) must be there."""
+    from efficient_slowfast_tpu_torch.ops.kernels import int8_conv as k3
+
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    found, imma = 0, []
+    gemm, quantize = {}, 0
     for func in sass.split("Function : ")[1:]:
-        if "int8_conv_kernel" not in func.split("\n", 1)[0]:
+        head = func.split("\n", 1)[0]
+        if "conv_quantize_kernel" in head:
+            quantize += 1
             continue
-        found += 1
+        name = re.search(r"conv_gemm_kernelILi(\d)ELi(\d+)ELi(\d)E", head)
+        if not name:
+            continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                          func)
-        imma.append(ops.count("IMMA"))
-    log("build", f"int8_conv: {found} kernels, IMMA per kernel in the SASS "
-        f"{sorted(imma)}")
-    if found != 18 or not all(imma):
-        raise AssertionError(f"{found} K3 kernels, IMMA counts {imma}: "
-                             "expected 18, each with IMMA")
+        gemm["/".join(name.groups())] = (ops.count("IGMMA"), ops.count("IMMA"))
+    expected = k3._lib().int8_conv_instantiations()
+    log("build", f"int8_conv: {len(gemm)} GEMM kernels (NWG/BN/out dtype: "
+        f"IGMMA, IMMA in the SASS) " + ", ".join(
+            f"{k}: {v[0]}, {v[1]}" for k, v in sorted(gemm.items())) +
+        f"; {quantize} quantize kernels")
+    if len(gemm) != expected or not all(v[0] for v in gemm.values()) or \
+            quantize != 2:
+        raise AssertionError(
+            f"{len(gemm)} K3 GEMM kernels (expected {expected}), IGMMA "
+            f"counts {gemm}, {quantize} quantize kernels (expected 2): "
+            "every GEMM instantiation must run integer wgmma")
 
 
 SASS_OPS = ("HMMA", "HGMMA", "MUFU.EX2", "FFMA", "FADD", "FMUL", "FMNMX",
@@ -4720,16 +4741,29 @@ def phase_frames(smi):
 # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12
 # K3's shapes beside the SlowFast path, each with a bias: (label, x (B,
-# Cin, T, H, W), Co, kernel, stride, padding): a strided projection with
-# Co not a multiple of 8, K not a multiple of 32 (3·3·12 = 108, 3·1·1·20 =
-# 60) and a temporal kernel with stride
+# Cin, T, H, W), Co, kernel, stride, padding, x's dtype, also the output's):
+# a strided projection with Co not a multiple of 8, K not a multiple of 32
+# (3·3·12 = 108, 3·1·1·20 = 60), a temporal kernel with stride, a
+# 3-channel stem with stride 2 (the padded-channel path), and float32
+# inputs
 K3_OFF_PATH = [
     ("proj 40->100 s2", (4, 40, 8, 28, 28), 100, (1, 1, 1), (1, 2, 2),
-     (0, 0, 0)),
+     (0, 0, 0), torch.bfloat16),
     ("3x3x3 12->20 K108", (4, 12, 8, 20, 20), 20, (3, 3, 3), (1, 1, 1),
-     (1, 1, 1)),
+     (1, 1, 1), torch.bfloat16),
     ("3x1x1 20->36 K60 s2", (4, 20, 16, 14, 14), 36, (3, 1, 1), (2, 1, 1),
-     (1, 0, 0))]
+     (1, 0, 0), torch.bfloat16),
+    ("stem 3->24 1x5x5 s2", (4, 3, 8, 30, 30), 24, (1, 5, 5), (1, 2, 2),
+     (0, 2, 2), torch.bfloat16),
+    ("f32 stem 3->24 1x5x5 s2", (4, 3, 8, 30, 30), 24, (1, 5, 5),
+     (1, 2, 2), (0, 2, 2), torch.float32),
+    ("f32 proj 40->100 s2", (4, 40, 8, 28, 28), 100, (1, 1, 1), (1, 2, 2),
+     (0, 0, 0), torch.float32),
+    ("f32 3x3 64->64", (4, 64, 8, 16, 16), 64, (1, 3, 3), (1, 1, 1),
+     (0, 1, 1), torch.float32)]
+# calls of each shape under phase 15's profiler (K3's and cuDNN's device
+# time per call is the sum over them)
+K3_TRACE_CALLS = 5
 # int8 against bf16 serving, per clip on the centred log probabilities (the
 # logits less their mean, phase 8's measure), over the scale of the bf16
 # ones. Sound int8 read 0.010 (INT8_EVAL) and 0.016 (+INT8_SPATIAL) on the
@@ -4783,10 +4817,10 @@ def calibrate_with_shapes(cfg, model, seed):
     return quant, shapes
 
 
-def k3_cost(x_shape, co, k, s, p):
+def k3_cost(x_shape, co, k, s, p, x_size=2, out_size=2):
     """(int8 operations, bytes, output positions): the input positions the
-    conv reads (a strided 1x1x1 conv reads every s-th) once in bf16, the
-    Co x K weight codes and Co scales, the bf16 output written once."""
+    conv reads (a strided 1x1x1 conv reads every s-th) once in x's dtype,
+    the Co x K weight codes and Co scales, the output written once."""
     b, ci = x_shape[0], x_shape[1]
     out = [(x_shape[2 + i] + 2 * p[i] - k[i]) // s[i] + 1 for i in range(3)]
     read = [len({o * s[i] - p[i] + j for o in range(out[i])
@@ -4795,42 +4829,64 @@ def k3_cost(x_shape, co, k, s, p):
     m = b * out[0] * out[1] * out[2]
     kk = ci * k[0] * k[1] * k[2]
     ops = 2 * m * co * kk
-    nbytes = 2 * b * ci * int(np.prod(read)) + co * kk + 4 * co + 2 * m * co
+    nbytes = (x_size * b * ci * int(np.prod(read)) + co * kk + 4 * co
+              + out_size * m * co)
     return ops, nbytes, m
 
 
 def phase_int8_kernels(shapes, smi):
     """K3 against its plain version at every int8 conv shape of the int8
-    SlowFast-R50 request and the off-path shapes: int32 accumulators and
-    the bf16 outputs bit for bit; timed beside its bound, the
-    plain version, cuDNN's bf16 conv and torch._int_mm (pointwise shapes
-    where its rules hold: M > 16, K and N multiples of 8)."""
+    SlowFast-R50 request and the off-path shapes: the quantize pass's code
+    buffer and weight layout, the int32 accumulators and the output bit for
+    bit; the plan's shared memory against the library's; timed beside its
+    bound, the plain version, cuDNN's conv (x's dtype) and torch._int_mm
+    (pointwise shapes where its rules hold): CUDA events around calls, the
+    wrapper's host time a call, and device time from the profiler (K3's
+    quantize and GEMM launches, cuDNN's kernels)."""
+    from efficient_slowfast_tpu_torch.ops.kernels import int8_conv as k3
     from efficient_slowfast_tpu_torch.ops.kernels.int8_conv import (
         int8_conv, int8_conv_accumulator, int8_conv_reference, weight_codes)
 
+    lib = k3._lib()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     rows = [(names[0] if len(names) == 1 else
              f"{names[0]} (+{len(names) - 1})", x, co, k, s, p, kind,
-             len(names)) for (x, co, k, s, p, kind), names in shapes.items()]
-    rows += [(label, x, co, k, s, p, "off path", 0)
-             for label, x, co, k, s, p in K3_OFF_PATH]
-    record, worst = [], 0.0
-    for label, x_shape, co, k, s, p, kind, count in rows:
+             len(names), torch.bfloat16)
+            for (x, co, k, s, p, kind), names in shapes.items()]
+    rows += [(label, x, co, k, s, p, "off path", 0, dtype)
+             for label, x, co, k, s, p, dtype in K3_OFF_PATH]
+    record, worst, calls = [], 0.0, []
+    for label, x_shape, co, k, s, p, kind, count, dtype in rows:
         x = torch.randn(x_shape, device="cuda", generator=gen).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+            dtype).contiguous(memory_format=torch.channels_last_3d)
         w = torch.randn(co, x_shape[1], *k, device="cuda", generator=gen)
         # the path's convs have no bias (BN follows); the off-path shapes
         # take one, so the epilogue's bias add is held too
         bias = None if count else torch.randn(
-            co, device="cuda", generator=gen).to(torch.bfloat16)
+            co, device="cuda", generator=gen).to(dtype)
         codes, scale = weight_codes(w)
         am = x.float().abs().amax()
+        pl = k3.plan(tuple(x_shape), co, k, s, p, dtype)
+        out_size = 2 if dtype == torch.bfloat16 else 4
+        chunks = pl.k_a // pl.gather if pl.gather else 0
+        smem = lib.int8_conv_smem_bytes(pl.nwg, pl.bn, pl.stages,
+                                        k3._DTYPES[dtype], chunks)
+        if smem != pl.smem or smem != k3.smem_bytes(
+                pl.nwg, pl.bn, pl.stages, out_size, chunks):
+            raise AssertionError(f"int8 {label}: plan smem {pl.smem}, the "
+                                 f"library's {smem}")
+        q, bq = k3.int8_conv_layout(x, codes, am, k, s, p)
+        if not torch.equal(q, k3.quantized_layout(x, am, pl)) or \
+                not torch.equal(bq, k3.padded_codes(codes, pl)):
+            raise AssertionError(f"int8 {label}: the quantize pass's code "
+                                 "buffer or weight layout differs from its "
+                                 "plain version")
+        del q, bq
         acc = int8_conv_accumulator(x, codes, am, k, s, p)
         ref_acc = int8_conv_reference(x, codes, scale, am, None, k, s, p,
-                                      torch.bfloat16, True)
-        y = int8_conv(x, codes, scale, am, bias, k, s, p, torch.bfloat16)
-        ref = int8_conv_reference(x, codes, scale, am, bias, k, s, p,
-                                  torch.bfloat16)
+                                      dtype, True)
+        y = int8_conv(x, codes, scale, am, bias, k, s, p, dtype)
+        ref = int8_conv_reference(x, codes, scale, am, bias, k, s, p, dtype)
         torch.cuda.synchronize()
         if not torch.equal(acc, ref_acc):
             raise AssertionError(
@@ -4839,20 +4895,28 @@ def phase_int8_kernels(shapes, smi):
                 f"(max |d| {(acc - ref_acc).abs().max().item()})")
         err = (y.float() - ref.float()).abs().max().item()
         if not bool(torch.isfinite(y).all()) or not torch.equal(y, ref):
-            raise AssertionError(f"int8 {label}: bf16 output differs from "
+            raise AssertionError(f"int8 {label}: output differs from "
                                  f"the plain version's, max |d| {err}")
         if count:
             worst = max(worst, err)
-        k_ms = cuda_ms(lambda: int8_conv(x, codes, scale, am, bias, k, s, p,
-                                         torch.bfloat16))
+        del acc, ref_acc, y, ref
+        run = functools.partial(int8_conv, x, codes, scale, am, bias, k, s,
+                                p, dtype)
+        k_ms = cuda_ms(run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run()
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
         p_ms = cuda_ms(lambda: int8_conv_reference(
-            x, codes, scale, am, bias, k, s, p, torch.bfloat16), iters=1,
-            reps=2)
-        wb = w.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last_3d)
-        lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x, wb, None, s,
-                                                            p))
-        ops, nbytes, m = k3_cost(x_shape, co, k, s, p)
+            x, codes, scale, am, bias, k, s, p, dtype), iters=1, reps=2)
+        wb = w.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+        lib_run = functools.partial(torch.nn.functional.conv3d, x, wb, None,
+                                    s, p)
+        lib_ms = cuda_ms(lib_run)
+        ops, nbytes, m = k3_cost(x_shape, co, k, s, p,
+                                 x.element_size(), out_size)
         t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         by = "operations" if t_ops >= t_bytes else "bytes"
@@ -4865,30 +4929,123 @@ def phase_int8_kernels(shapes, smi):
                 0, 2, 3, 4, 1).reshape(m, ci).contiguous()
             bmat = codes[:, :ci].contiguous().t()
             int_mm = cuda_ms(lambda: torch._int_mm(a, bmat))
-        log("int8", f"{label:34s} {kind:9s} x{count} x {tuple(x_shape)} Co "
-            f"{co} k {k} s {s} p {p} | acc and bf16 out bit-equal | K3 "
-            f"{k_ms:.4f} ms | plain "
-            f"{p_ms:.4f} ms | cuDNN bf16 {lib_ms:.4f} ms | _int_mm "
-            + (f"{int_mm:.4f} ms" if int_mm is not None else "n/a")
-            + f" | bound {bound:.5f} ms ({by}; {ops / 1e9:.3f} GOP, "
-            f"{nbytes / 1e6:.3f} MB) | K3/bound {k_ms / bound:.2f}, "
-            f"K3/cuDNN {k_ms / lib_ms:.2f} | {smi}")
-        record.append(dict(label=label, kind=kind, count=count, ms=k_ms,
-                           plain_ms=p_ms, library_ms=lib_ms, int_mm_ms=int_mm,
-                           bound_ms=bound, bound_by=by))
-        del x, w, acc, ref_acc, y, ref
+        calls.append((run, lib_run))
+        record.append(dict(label=label, kind=kind, count=count, x=x_shape,
+                           co=co, k=k, s=s, p=p, event_ms=k_ms,
+                           plain_ms=p_ms, library_event_ms=lib_ms,
+                           int_mm_ms=int_mm, bound_ms=bound, bound_by=by,
+                           host_us=host_us, ops=ops, nbytes=nbytes,
+                           plan=f"BM {pl.bm} BN {pl.bn} split {pl.split} "
+                           f"stages {pl.stages} "
+                           f"{'TMA' if not pl.gather else f'gather {pl.gather}'}"
+                           f" CTAs {pl.ctas} smem {pl.smem}"))
+    # device time: every shape's K3 and cuDNN calls under the profiler
+    device = k3_device_times(calls)
+    for r, (k3_dev, launches, quant_ms, lib_dev, how) in zip(record, device):
+        r.update(ms=k3_dev, launches_per_call=launches, quantize_ms=quant_ms,
+                 library_ms=lib_dev, timed_by=how)
+        log("int8", f"{r['label']:34s} {r['kind']:9s} x{r['count']} x "
+            f"{tuple(r['x'])} Co {r['co']} k {r['k']} s {r['s']} p {r['p']} "
+            f"| codes, acc and out bit-equal | {r['plan']} | K3 device "
+            f"{k3_dev:.4f} ms ({launches:g} launches a call, quantize "
+            f"{quant_ms:.4f}; {how}) | cuDNN device {lib_dev:.4f} ms | "
+            f"events: K3 "
+            f"{r['event_ms']:.4f}, cuDNN {r['library_event_ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, _int_mm "
+            + (f"{r['int_mm_ms']:.4f}" if r['int_mm_ms'] is not None else
+               "n/a") + f" ms | host {r['host_us']:.1f} us a call | bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}; {r['ops'] / 1e9:.3f} "
+            f"GOP, {r['nbytes'] / 1e6:.3f} MB) | K3/bound "
+            f"{k3_dev / r['bound_ms']:.2f}, K3/cuDNN {k3_dev / lib_dev:.2f} "
+            f"(device) | {smi}")
     path = [r for r in record if r["count"]]
     for what, keep in (("INT8_EVAL", lambda r: r["kind"] == "pointwise"),
                        ("+INT8_SPATIAL", lambda r: True)):
         sel = [r for r in path if keep(r)]
+        dev, lib_dev = per_request(sel, "ms"), per_request(sel, "library_ms")
         log("int8", f"K3 per 4-clip request under {what}: "
-            f"{sum(r['count'] for r in sel)} launches, kernel "
-            f"{per_request(sel, 'ms'):.3f} ms, bound "
-            f"{per_request(sel, 'bound_ms'):.3f} ms, plain "
-            f"{per_request(sel, 'plain_ms'):.3f} ms, cuDNN bf16 "
-            f"{per_request(sel, 'library_ms'):.3f} ms | {smi}")
+            f"{sum(r['count'] for r in sel)} convs, "
+            f"{sum(r['count'] * r['launches_per_call'] for r in sel):g} CUDA "
+            f"launches | device {dev:.3f} ms (quantize "
+            f"{per_request(sel, 'quantize_ms'):.3f}), cuDNN bf16 device "
+            f"{lib_dev:.3f} ms, K3/cuDNN {dev / lib_dev:.2f} | events: K3 "
+            f"{per_request(sel, 'event_ms'):.3f} ms, cuDNN bf16 "
+            f"{per_request(sel, 'library_event_ms'):.3f}, plain "
+            f"{per_request(sel, 'plain_ms'):.3f} | bound "
+            f"{per_request(sel, 'bound_ms'):.3f} ms, K3 device/bound "
+            f"{dev / per_request(sel, 'bound_ms'):.2f} | host "
+            f"{statistics.median(r['host_us'] for r in sel):.1f} us a call "
+            f"(median) | {smi}")
     torch.cuda.empty_cache()
     return record, worst
+
+
+def k3_device_times(calls):
+    """Each shape's K3 call and its cuDNN conv, K3_TRACE_CALLS times each,
+    in profiler sessions of their own (CUPTI's kernel records; a session
+    holds one side of one shape alone, so every kernel in it is that
+    side's and no host-device time matching is needed): per shape (K3's
+    device ms a call, its CUDA launches a call, the quantize launch's ms a
+    call, cuDNN's device ms a call, how it was timed). Where a session
+    records no kernel (K3's were missing from sessions that followed the
+    earlier phases' traces in one whole run), both sides are timed by
+    CUDA events around replays of a CUDA graph of the same calls, which
+    has no host gaps, and K3's launches are its two by construction."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def recorded(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(K3_TRACE_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        return [(e.key, getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0), e.count)
+                for e in prof.key_averages()
+                if (getattr(e, "device_time_total", None)
+                    or getattr(e, "cuda_time_total", 0)) > 0]
+
+    def replayed(fn, reps=3):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(K3_TRACE_CALLS):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps / K3_TRACE_CALLS
+
+    for run, lib_run in calls:  # warm: cuDNN's plans, the allocator
+        run()
+        lib_run()
+    torch.cuda.synchronize()
+    per = lambda us: us / 1e3 / K3_TRACE_CALLS  # noqa: E731
+    out = []
+    for i, (run, lib_run) in enumerate(calls):
+        k3, lib = recorded(run), recorded(lib_run)
+        if k3 and lib:
+            out.append((per(sum(r[1] for r in k3)),
+                        sum(r[2] for r in k3) / K3_TRACE_CALLS,
+                        per(sum(r[1] for r in k3 if "quantize" in r[0])),
+                        per(sum(r[1] for r in lib)), "profiler"))
+        else:
+            if i == 0:
+                log("int8", f"K3 timing: the profiler recorded K3 {k3} and "
+                    f"cuDNN {[r[0][:60] for r in lib]}; timing by CUDA "
+                    "graph replay")
+            out.append((replayed(run), 2.0, float("nan"), replayed(lib_run),
+                        "graph replay"))
+    return out
 
 
 def centred_logs(p):

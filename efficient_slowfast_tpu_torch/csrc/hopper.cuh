@@ -1,13 +1,16 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads and bulk
-// copies into shared memory, the bulk float32 reduce-add from shared into
-// global memory, warpgroup matrix multiplies (wgmma) with f32 accumulation
-// on bf16 operands, named barriers and register reallocation. Each is a
-// thin wrapper over one PTX instruction (PTX ISA 8.0, sm_90a), so that a
-// kernel's source reads as CUDA C++ and its PTX sits in one place.
+// copies into shared memory, cp.async copies whose completion an mbarrier
+// counts, the bulk float32 reduce-add from shared into global memory,
+// warpgroup matrix multiplies (wgmma) with f32 accumulation on bf16
+// operands and s32 accumulation on s8 operands, named barriers and
+// register reallocation. Each is a thin wrapper over one PTX instruction
+// (PTX ISA 8.0, sm_90a), so that a kernel's source reads as CUDA C++ and
+// its PTX sits in one place.
 //
-// Shared-memory operands of wgmma are described in the no-swizzle
-// ("interleave") layout, whose unit is a core matrix: 8 rows of 16 bytes
-// (8 bf16), 128 contiguous bytes. A tile stored as column panels,
+// Shared-memory operands of wgmma are described in the 128-byte swizzle
+// (desc_sw128, K3) or in the no-swizzle ("interleave") layout, whose unit
+// is a core matrix: 8 rows of 16 bytes
+// (8 bf16 or 16 s8), 128 contiguous bytes. A tile stored as column panels,
 // [cols / 8][rows][8] bf16, is made of such core matrices, and one TMA
 // load of a box 8 columns wide and `rows` high writes one panel. The same
 // panel tile serves both operand orders (PTX ISA, "Shared Memory Matrix
@@ -17,7 +20,9 @@
 //            16 bytes apart.
 //   MN-major (rows = K, panels = M or N):  core matrices along M/N are SBO
 //            = rows * 16 bytes apart, along K LBO = 128 bytes apart.
-// wgmma's accumulator (m64nN, f32) in the registers of thread 4 g + t of
+// An s8 k32 step spans the same 32 bytes of K as a bf16 k16 step, so its
+// operands take the same descriptors; 8-bit wgmma reads K-major only.
+// wgmma's accumulator (m64nN, f32 or s32) in the registers of thread 4 g + t of
 // warp w of the warpgroup: d[4 j + e] is row 16 w + g + 8 (e / 2), column
 // 8 j + 2 t + (e % 2). An A operand in registers (m64k16, bf16x2) has the
 // layout of mma.sync's A: a[0] rows g, columns 2t..2t+1; a[1] row g + 8;
@@ -85,6 +90,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// mbar_wait for kernels that finish in milliseconds: a phase that has not
+// completed within 4 s means a lost arrival, and the kernel traps (a
+// launch failure that the host sees) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer() - t0 > 4000000000ull) __trap();
+}
+
 // ---- TMA and bulk copies ----------------------------------------------
 
 // The box of a 3-D tensor map at coordinates (c0, c1, c2), innermost
@@ -98,6 +120,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box of a 2-D tensor map at coordinates (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 
@@ -140,6 +173,41 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// BYTES (4, 8 or 16; both addresses aligned to it) from global into
+// shared memory by cp.async: L1-cached below 16 bytes, L2 only at 16.
+// No "memory" clobber: the compiler may move other loads across the
+// copy (the copied shared memory is read only after a barrier or a
+// cp.async wait, which do clobber memory).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(BYTES));
+}
+
+// One arrival on `bar` once every cp.async this thread has issued so far
+// has landed; the arrival is one of the barrier's expected count (noinc).
+// The copies are generic-proxy writes: a reader that hands the data to
+// wgmma runs fence_proxy_async after its wait.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Loads a tensor map (a kernel parameter) into the TMA unit's cache ahead
+// of its first use.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // ---- barriers and registers -------------------------------------------
 
 // bar.sync on named barrier `id` (1-15) for `count` threads.
@@ -168,6 +236,15 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
+// K-major operand rows of 128 bytes in the 128-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r at chunk c ^ (r %
+// 8) of its row), 8-row groups SBO = 1024 bytes apart; the tile 1024-byte
+// aligned. A k32 (s8) or k16 (bf16) step j starts at the tile + 32 j.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -187,6 +264,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define ESF_ACC8(i)                                                     \
@@ -295,6 +378,118 @@ struct WgmmaRs<64, TB> {
 
 #undef ESF_ACC8
 
+#define ESF_IACC8(i)                                                    \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (m64 x N, s32) = A B + (accumulate ? d : 0), K = 32, s8 x s8, A and B
+// K-major in shared memory by descriptor (integer wgmma takes neither
+// transposes nor operand scales). N: the widths K3 instantiates.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<8> {
+  __device__ static __forceinline__ void run(int (&d)[4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<16> {
+  __device__ static __forceinline__ void run(int (&d)[8], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+        : ESF_IACC8(0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  __device__ static __forceinline__ void run(int (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, %16, %17, p;\n}\n"
+        : ESF_IACC8(0), ESF_IACC8(8)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  __device__ static __forceinline__ void run(int (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, %32, %33, p;\n}\n"
+        : ESF_IACC8(0), ESF_IACC8(8), ESF_IACC8(16), ESF_IACC8(24)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  __device__ static __forceinline__ void run(int (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+        : ESF_IACC8(0), ESF_IACC8(8), ESF_IACC8(16), ESF_IACC8(24),
+          ESF_IACC8(32), ESF_IACC8(40), ESF_IACC8(48), ESF_IACC8(56)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<256> {
+  __device__ static __forceinline__ void run(int (&d)[128], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}, %128, %129, p;\n}\n"
+        : ESF_IACC8(0), ESF_IACC8(8), ESF_IACC8(16), ESF_IACC8(24),
+          ESF_IACC8(32), ESF_IACC8(40), ESF_IACC8(48), ESF_IACC8(56),
+          ESF_IACC8(64), ESF_IACC8(72), ESF_IACC8(80), ESF_IACC8(88),
+          ESF_IACC8(96), ESF_IACC8(104), ESF_IACC8(112), ESF_IACC8(120)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+
+#undef ESF_IACC8
+
 // ---- host: tensor maps ------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -334,6 +529,26 @@ inline bool make_panel_map(CUtensorMap* map, const void* base, int planes,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An int8 matrix (rows, cols), contiguous, cols a multiple of 16 and base
+// 16-byte aligned, read in boxes of 128 columns by `box_rows` rows in the
+// 128-byte swizzle (desc_sw128's layout), zero outside the matrix: one box
+// fills one K-major operand tile [box_rows][128 bytes] of a ring stage.
+// Returns false where the driver refuses.
+inline bool make_sw128_map(CUtensorMap* map, const void* base, long long rows,
+                           int cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
