@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10, 11, 12, 13 (3b takes its shapes from the CMDA model
+5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 (3b takes its shapes from the CMDA model
 that phase 5 serves and from phase 10's schedule, 3c from the one that
 phase 7 trains and phase 10's schedule; phases 11, 12 and 13 run 3b and 3c
 again at their models' shapes before their own lines). ``--phases`` runs a
@@ -54,7 +54,7 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
 4. serving  — SlowFast-R50 8x8 at full width (400 classes, 32 frames,
               256² test crop, bf16, TPU.FUSED_EVAL) on seeded random weights
               made in the JAX package's layout and carried across by the
-              port's weight bridge; answers three requests through
+              port's weight bridge; answers REQUESTS (2) requests through
               make_forward, checks 26 kernel launches per request and the
               scores, and holds them against the module's own forward,
               printing the fused engine's request time less K1's kernel
@@ -63,7 +63,7 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
 5. cmda     — SlowFastDualAttention-R50 8x8 (the CMDA model) at full width,
               the same way, with the attention's query and key convs
               scaled on a seeded clip so that its logits are of a trained
-              model's order: three requests through make_forward, 4 attention
+              model's order: two requests through make_forward, 4 attention
               launches per request and none of the fused bottleneck, held
               against the same model under TPU.FLASH_ATTENTION False (the
               plain version on the card); then float32 on one clip.
@@ -88,9 +88,10 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               configs/Kinetics/SLOWFAST_8x8_R50.yaml trains (224² crop,
               bf16, 8 clips a card, SGD lr 0.1 with nesterov momentum 0.9,
               weight decay 1e-4, dropout 0.5, final BNs zero-initialised):
-              2 warm-up and 5 timed steps through create_train_state and
-              make_train_step, no kernel launched, every loss finite, BN
-              running statistics moved; then 3 more steps traced by
+              TRAIN_WARMUP (2) warm-up and TRAIN_STEPS (3) timed steps
+              through create_train_state and make_train_step, no kernel
+              launched, every loss finite, BN running statistics moved;
+              then PROFILE_STEPS (2) more steps traced by
               utils/profiler.py (the device-busy share and the top five
               kernels, below); then one timed step (after one warm-up)
               with TPU.REMAT and TPU.REMAT_STAGES [2].
@@ -99,8 +100,8 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               kernels a step and no fused bottleneck; then one step on one
               clip in float32 and one in bfloat16, each held against the
               same step under TPU.FLASH_ATTENTION False (plain forward,
-              backward by autograd through it, on the card); 3 more steps
-              traced after the timed ones, as in phase 6.
+              backward by autograd through it, on the card); PROFILE_STEPS
+              more steps traced after the timed ones, as in phase 6.
 
 8. thirty_view — the 30-view test of configs/Kinetics/SLOWFAST_8x8_R50.yaml
               (TPU.FUSED_EVAL, K1) and then of
@@ -173,20 +174,21 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               backend it picked); K2-bwd at the same shapes at 1 and 8
               clips, against autograd at the smallest, dK and dV (and dQ)
               bit-identical on a second call, each shape's split printed.
-              Then: three 4-clip requests at the 30-view shape (8 frames,
+              Then: two 4-clip requests at the 30-view shape (8 frames,
               256²) through make_forward, 2 K2 launches a request and no
               K1, held against TPU.FLASH_ATTENTION False (bf16, then f32
               on one clip); the 30-view test (phase 8's gates, 2 K2 a
               batch, against test() without the kernels); training as the
               yaml trains (224², 8 clips, SGD 0.1 nesterov, wd 1e-4,
-              dropout 0.5; 2 warm-up and 5 timed steps, 2 K2 and 6 K2-bwd
-              launches a step, finite losses, BN statistics moved, 3
-              steps traced; the non-local γ at the yaml's zero init), and
+              dropout 0.5; TRAIN_WARMUP warm-up and TRAIN_STEPS timed
+              steps, 2 K2 and 6 K2-bwd launches a step, finite losses, BN
+              statistics moved, PROFILE_STEPS steps traced; the non-local γ
+              at the yaml's zero init), and
               one-clip f32 and bf16 steps with γ 1 against the same steps
               under TPU.FLASH_ATTENTION False: the losses, and every
               attention call of the kernel step against the plain
               versions on its inputs (NLN_LOSS_TOL argues why not the
-              whole step, as phase 7 holds); and three requests of
+              whole step, as phase 7 holds); and two requests of
               SLOWFAST_NLN_8x8_R50.yaml (dot_product, two pathways, 32
               frames, 256²; TPU.FUSED_EVAL True, which the fused engine
               refuses): no K1, no K2, finite rows summing to 1.
@@ -201,7 +203,7 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               TPU.FLASH_MIN_TOKENS (N = M = 3136 at D = C = 3 and 6, 12544
               at 2), f32 and bf16 at 1 and 64 clips, timed at 64; K2-bwd at
               the trained families' (ShuffleNetV2, GhostNet), 1 and 64 clips.
-              Then each family: three 4-clip requests through make_forward
+              Then each family: two 4-clip requests through make_forward
               (1, 1, 1, 2 K2 launches a request, gated) against
               TPU.FLASH_ATTENTION False (bf16 at 2e-2 of the scores' scale,
               f32 on one clip at 1e-4), one request traced (device time by
@@ -212,8 +214,9 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               held against test() without the kernels on the mean scores);
               and ShuffleNetV2 and GhostNet trained as the yamls train (64
               clips a step, the yamls' 512 over 8 cards; SGD from lr 0.01,
-              nesterov, wd 1e-4, dropout 0.5): 2 warm-up and 5 timed steps,
-              3 traced, K2 and K2-bwd launches a step gated, then one-clip
+              nesterov, wd 1e-4, dropout 0.5): TRAIN_WARMUP warm-up and
+              TRAIN_STEPS timed steps, PROFILE_STEPS traced, K2 and K2-bwd
+              launches a step gated, then one-clip
               f32 and bf16 steps held as phase 11 holds them.
 13. detection — AVA on a seeded split that the phase writes in the shape of
               tests/test_ava.py's fixture (JPEG frames at 320x568 read with
@@ -237,7 +240,8 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               each call held on its inputs, the logits held against the
               plain attention in bf16 and float32 (below); trained at the
               yaml's 16 clips (4 K2 and 12 K2-bwd launches a step, losses,
-              BN, 3 steps traced) with one-clip steps held as phase 7's.
+              BN, PROFILE_STEPS steps traced) with one-clip steps held as
+              phase 7's.
               Last, SlowFast through tools/run_net.py (SOLVER.MAX_EPOCH 1):
               4 steps of 16 clips, one traced, a val mAP, a checkpoint and
               test() from it.
@@ -248,7 +252,7 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               (serving_cfg, module forward) with TPU.INT8_EVAL and
               +TPU.INT8_SPATIAL on the same seeded weights as a bf16
               module forward: calibrated on one request (each int8 conv's
-              input shape recorded), three requests through make_forward
+              input shape recorded), two requests through make_forward
               (K3 launches a request gated: one per int8 conv), held
               against the same network with K3's plain version on the card
               (bit for bit) and against the bf16 forward (centred log
@@ -277,14 +281,41 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               inside the artifact gated, its MB and export and load
               seconds printed.
 
-The profiler (phases 6, 7, 8, 11, 12, 13) prints, per traced window, the
+16. gradcam — Grad-CAM of CMDA-R50 8x8 (SLOWFAST_DUALATTENTION_8x8_R50.yaml
+              at full width and depth, seeded weights, attention calibrated
+              as in phase 5) on one clip of the synthetic test split (32
+              frames, its centre 256² crop through the test preprocess),
+              through visualization/video_cam.py::gradcam_clip at s4 and s3:
+              4 K2 launches a call and 1 (s4) or 2 (s3) K2-bwd calls, each
+              K2 call held against chunked_attention and each K2-bwd call
+              against attention_backward on its inputs, at the attention
+              tolerances of each output's and gradient's own scale
+              (GRADCAM_SCALE_FLOOR), the gate shown to fail two planted
+              dV faults (zeroed; P dO for Pᵀ dO); the bf16 CAMs
+              no farther from the f32 plain path's than the bf16 plain
+              path's are (CMDA_TRAIN_BF16_RATIO); at s4 also f32 against the
+              plain attention (GRADCAM_F32_ATOL); each fusion's K2-bwd alone
+              at its one-clip shape beside the plain version, SDPA's
+              backward and the bound; ms a gradcam_clip call by CUDA
+              events, K2's and K2-bwd's device time in a traced call, peak
+              memory; the s4
+              overlays written as GIFs (the card's machine cannot build the
+              video decoder, so no mp4).
+
+The depths were cut to make room for phase 16 within the time limit:
+REQUESTS 3 → 2, TRAIN_STEPS 5 → 3, PROFILE_STEPS 3 → 2, FATIGUE_STEPS 4 →
+3 (phase 14 traces its third step), PRECISE_BATCHES 2 → 1,
+FRAME_LIST_STEPS 4 → 2 (no width, shape, gate or kernel hold changed).
+After each phase block the smoke logs the seconds since its start.
+
+The profiler (phases 6, 7, 8, 11, 12, 13, 16) prints, per traced window, the
 device-busy share (the union of the CUDA kernels' intervals over the
 window's wall time) and the top five kernels by device time; the trace
 sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15 (its times and bounds are per
+4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 (its times and bounds are per
 request of the SlowFast and CMDA serving paths and per CMDA train step,
 phase 13's rows standing in where 3b or 3c did not run, and K3's per
 request of the +INT8_SPATIAL SlowFast-R50, its ms and library_ms (cuDNN's
@@ -314,7 +345,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 SEED = 0
-REQUESTS = 3
+REQUESTS = 2
 CLIPS_PER_REQUEST = 4
 # the 30-view test batch: TEST.BATCH_SIZE of the Kinetics yamls (phase 8)
 TEST_CLIPS = 64
@@ -417,9 +448,9 @@ ATTN_BWD_PR5_MS = {"s1_fuse": "6.3493 / 6.4194", "s2_fuse": "8.9250 / 8.8969",
 # training: clips a card (the reference configs train TRAIN.BATCH_SIZE 64
 # over 8 GPUs), warm-up and timed steps
 TRAIN_CLIPS = 8
-TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+TRAIN_WARMUP, TRAIN_STEPS = 2, 3
 # steps traced by torch.profiler after the timed ones (phases 6 and 7)
-PROFILE_STEPS = 3
+PROFILE_STEPS = 2
 # One CMDA train step on one clip with the attention kernels against the
 # same step with the plain attention (FLASH_ATTENTION False).
 # float32, per parameter tensor: |p_kernel - p_plain| over |p_plain -
@@ -2149,7 +2180,8 @@ RECIPE_CUTS = [
      "[4, 16, 158] (sub-BN, 4) and the final [1, 32, 224] (plain BN)"),
     (["BN.NUM_BATCHES_PRECISE", 2], "precise BN over 2 batches (yaml: 200)"),
     (["TENSORBOARD.ENABLE", False],
-     "no TensorBoard (it comes with ROADMAP item 8)"),
+     "no TensorBoard: the CPU tests hold it (the card's machine has "
+     "tensorboard but not the matplotlib its plots need)"),
     (["TPU.FLASH_MIN_TOKENS", 0],
      "every fusion through K2 and K2-bwd (the default 1024 sends fusions "
      "of at most 1024 tokens, 11 of the 24 shapes here, to the dense path)"),
@@ -2800,6 +2832,53 @@ def calibrate_head(cfg, model, seed, phase="nonlocal"):
 NLN_LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+class BackwardCalls:
+    """Every ``flash_attention_backward`` call while the block runs, with
+    its inputs and gradients; its launches stay on the wrapper's count."""
+
+    def __enter__(self):
+        from efficient_slowfast_tpu_torch.ops.kernels import \
+            flash_attention as fa
+
+        self.fa, self.orig, self.calls = fa, fa.flash_attention_backward, []
+
+        def recorded(q, k, v, out, lse, dout):
+            grads = self.orig(q, k, v, out, lse, dout)
+            self.calls.append((q, k, v, out, lse, dout, grads))
+            return grads
+
+        recorded.launches = 0  # the wrapper counts on the module's name
+        self.recorded = recorded
+        fa.flash_attention_backward = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_backward = self.orig
+        self.orig.launches += self.recorded.launches
+
+    def held(self, floor=1.0):
+        """Each call's dQ, dK and dV against attention_backward on its
+        inputs: [[(largest absolute error over max(``floor``, scale),
+        scale)] * 3] a call, the scale the reference gradient's largest
+        magnitude."""
+        return [[(relative_error(g, r, floor), r.float().abs().max().item())
+                 for g, r in zip(grads, self.fa.attention_backward(
+                     q, k, v, out, lse, dout))]
+                for q, k, v, out, lse, dout, grads in self.calls]
+
+    def worst(self, floor=1.0):
+        """The largest error of any call's gradients (``held``)."""
+        return max((e for row in self.held(floor) for e, _ in row),
+                   default=0.0)
+
+
+def relative_error(x, ref, floor):
+    """The largest absolute difference of ``x`` from ``ref`` over
+    max(``floor``, ``ref``'s largest magnitude)."""
+    return ((x.float() - ref.float()).abs().max().item()
+            / max(floor, ref.float().abs().max().item()))
+
+
 def hold_one_clip_attention(phase, cfg_of, state_dict, expect_calls, smi):
     """One train step of one clip from ``state_dict`` in float32 and in
     bfloat16 with the kernels and with the plain attention (``cfg_of(dtype
@@ -2814,33 +2893,18 @@ def hold_one_clip_attention(phase, cfg_of, state_dict, expect_calls, smi):
             (torch.bfloat16, ATTN_BF16_TOL, ATTN_BWD_BF16_TOL)):
         name = str(dtype)[6:]
         batch = train_batches(cfg_of(name, True), 1, 1, SEED + 11, dtype)[0]
-        calls, kernel_bwd = [], fa.flash_attention_backward
-
-        def recorded(q, k, v, out, lse, dout):
-            grads = kernel_bwd(q, k, v, out, lse, dout)
-            calls.append((q, k, v, out, lse, dout, grads))
-            return grads
-
-        recorded.launches = 0  # the wrapper counts on the module's name
-        fa.flash_attention_backward = recorded
-        try:
+        with BackwardCalls() as rec:
             kernel, loss_k = one_step(cfg_of(name, True), state_dict, batch,
                                       SEED, with_loss=True)
-        finally:
-            fa.flash_attention_backward = kernel_bwd
         plain, loss_p = one_step(cfg_of(name, False), state_dict, batch,
                                  SEED, with_loss=True)
-        worst_f = worst_b = 0.0
-        for q, k, v, out, lse, dout, grads in calls:
+        worst_f, worst_b = 0.0, rec.worst()
+        for q, k, v, out, _, _, _ in rec.calls:
             ref = fa.chunked_attention(q, k, v)
             worst_f = max(worst_f, (out.float() - ref.float()).abs().max()
                           .item() / max(1.0, ref.float().abs().max().item()))
-            for g, r in zip(grads, fa.attention_backward(q, k, v, out, lse,
-                                                         dout)):
-                worst_b = max(worst_b, (g.float() - r.float()).abs().max()
-                              .item() / max(1.0, r.float().abs().max().item()))
-        count = len(calls)
-        del calls
+        count = len(rec.calls)
+        del rec
         # the plain step again, its attention output perturbed by 1e-6
         chunked = fa.chunked_attention_lse
         fa.chunked_attention_lse = lambda *a: (
@@ -4098,12 +4162,12 @@ FRAME_FOLDERS, FRAME_JPEGS = 32, 40
 # the fatigue split: FATIGUE_STEPS train steps of the yaml's 128 clips, its
 # val (and test) list FATIGUE_VIDEOS folders; precise BN cut from the yaml's
 # 170 batches to PRECISE_BATCHES
-FATIGUE_STEPS, FATIGUE_BATCH, FATIGUE_VIDEOS = 4, 128, 4
-PRECISE_BATCHES = 2
+FATIGUE_STEPS, FATIGUE_BATCH, FATIGUE_VIDEOS = 3, 128, 4
+PRECISE_BATCHES = 1
 # Charades and SSv2: (train videos, val and test videos, frames a video);
 # train steps at the yamls' 16 clips
 FRAME_LISTS = {"charades": (64, 4, 140), "ssv2": (64, 8, 48)}
-FRAME_LIST_STEPS = 4
+FRAME_LIST_STEPS = 2
 # the fatigue CMDA's fusions at 112², 16 frames (slow T 2): (N, D = C)
 FATIGUE_K2 = [(1568, 8), (1568, 32), (1568, 64)]
 
@@ -5384,6 +5448,306 @@ def phase_int8(smi):
 
 # ---------------------------------------------------------------------------
 # the profiler: the device's busy share of a window
+# ---------------------------------------------------------------------------
+# Phase 16: Grad-CAM of CMDA-R50 on the card
+GRADCAM_YAML = "SLOWFAST_DUALATTENTION_8x8_R50.yaml"
+# (target, K2-bwd calls of one Grad-CAM call: the fusions between the
+# target and the score; s4_fuse for s4, s3_fuse and s4_fuse for s3)
+GRADCAM_TARGETS = [("s4", 1), ("s3", 2)]
+# float32 CAMs, which lie in [0, 1], with the kernels against the plain
+# attention: both paths float32, differing in the attention's summation
+# order (about 1e-6 relative: ATTN_F32_TOL, ATTN_BWD_F32_TOL) carried
+# through the rest of the backward and the CAM's min-max scaling; 1e-3.
+GRADCAM_F32_ATOL = 1e-3
+# Grad-CAM's gradients are d(the top class's probability)/d(activation)
+# through a 400-class head and a spatial mean, far below 1 (the phase prints
+# them), where a loss's are near 1. So each attention call is held at
+# ATTN_*_TOL of its own output's or gradient's largest magnitude, floored
+# only against an all-zero reference, not at max(1, that magnitude) as
+# phases 7 and 11 hold a loss's gradients: under max(1, ·) a K2-bwd that
+# returned zeros would pass here.
+GRADCAM_SCALE_FLOOR = 1e-30
+
+
+def gradcam_cfg(dtype="bfloat16", flash=True):
+    """configs/Kinetics/SLOWFAST_DUALATTENTION_8x8_R50.yaml at full width
+    and depth (400 classes, 32 frames, the 256² test crop) in ``dtype``,
+    the plain attention where not ``flash``."""
+    return yaml_cfg(GRADCAM_YAML, ["TPU.COMPUTE_DTYPE", dtype,
+                                   "TPU.FLASH_ATTENTION", flash])
+
+
+def cam_distance(a, b):
+    """L2 distance of two Grad-CAM results' CAMs over every pathway."""
+    return sum(float(np.sum((x.astype(np.float64) - y) ** 2))
+               for x, y in zip(a["cams"], b["cams"])) ** 0.5
+
+
+def gradcam_run(phase, cfg, model, clip, target, calls, smi):
+    """One Grad-CAM call through the tool's core (gradcam_clip) with every
+    launch count set to 0 just before it; checks its K2 and K2-bwd
+    launches (4 and ``calls`` calls, no K1 or K3), the scores and the CAMs;
+    returns (result, counts, the K2-bwd calls (BackwardCalls), the K2
+    calls [(q, k, v, output)])."""
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+    from efficient_slowfast_tpu_torch.visualization.video_cam import \
+        gradcam_clip
+
+    reset_counts()
+    fwd_calls = []
+    with BackwardCalls() as rec:
+        res, _ = k2_shapes_of(
+            lambda: gradcam_clip(cfg, model, clip, target), fwd_calls)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    flash = cfg.TPU.FLASH_ATTENTION
+    expect = {"fused_bottleneck": 0, "flash_attention": 4 if flash else 0,
+              "flash_attention_backward":
+                  calls * BACKWARD_LAUNCHES_PER_CALL if flash else 0,
+              "int8_conv": 0}
+    if counts != expect or (flash and len(rec.calls) != calls):
+        raise AssertionError(f"{phase} {target}: launches {counts}, "
+                             f"{len(rec.calls)} K2-bwd calls; expected "
+                             f"{expect}")
+    preds = torch.from_numpy(res["predictions"])
+    check_scores(preds, 1, cfg.MODEL.NUM_CLASSES, f"{phase} {target}")
+    for cam in res["cams"]:
+        if not (np.isfinite(cam).all() and cam.min() >= 0 and cam.max() <= 1):
+            raise AssertionError(f"{phase} {target}: CAM outside [0, 1]")
+    return res, counts, rec, fwd_calls
+
+
+def hold_gradcam_calls(target, dtype, rec, fwd_calls):
+    """Each K2 call's output against chunked_attention and each K2-bwd
+    call's dQ, dK and dV against attention_backward, on the call's own
+    inputs, at the attention tolerances of their own scale
+    (GRADCAM_SCALE_FLOOR); returns the worst (forward, backward) error."""
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    f_tol, b_tol = ((ATTN_BF16_TOL, ATTN_BWD_BF16_TOL) if dtype == "bfloat16"
+                    else (ATTN_F32_TOL, ATTN_BWD_F32_TOL))
+    with torch.no_grad():
+        fwd = [(q.shape[1], relative_error(o, fa.chunked_attention(q, k, v),
+                                           GRADCAM_SCALE_FLOOR),
+                o.float().abs().max().item())
+               for q, k, v, o in ((t.detach() for t in c) for c in fwd_calls)]
+    bwd = rec.held(GRADCAM_SCALE_FLOOR)
+    worst_f = max(e for _, e, _ in fwd)
+    worst_b = max(e for row in bwd for e, _ in row)
+    shapes = [(c[0].shape[1], c[1].shape[1], c[0].shape[2], c[2].shape[2])
+              for c in rec.calls]
+    log("gradcam", f"{target} {dtype}: its {len(fwd)} K2 calls against "
+        f"chunked_attention on their inputs, (N, error of its own scale, "
+        f"scale) " + ", ".join(f"({n}, {e:.3e}, {m:.3e})" for n, e, m in fwd)
+        + f" (tol {f_tol}) | its {len(bwd)} K2-bwd calls (N, M, D, C) "
+        f"{shapes} against attention_backward on their inputs, dQ, dK, dV "
+        f"(error of its own scale, scale): " + "; ".join(
+            ", ".join(f"({e:.3e}, {m:.3e})" for e, m in row) for row in bwd)
+        + f" (tol {b_tol})")
+    if worst_f > f_tol or worst_b > b_tol:
+        raise AssertionError(f"gradcam {target} {dtype}: K2 {worst_f} (tol "
+                             f"{f_tol}), K2-bwd {worst_b} (tol {b_tol})")
+    return worst_f, worst_b
+
+
+def planted_backward_faults(call):
+    """The K2-bwd gate on one recorded call with two planted faults in dV,
+    zeroed and P dO in place of Pᵀ dO (the probabilities untransposed; the
+    phase's N equals M): each must exceed ATTN_BWD_BF16_TOL of dV's own
+    scale. Prints each one's error by that rule and by max(1, scale)."""
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        attention_backward
+
+    q, k, v, out, lse, dout, _ = call
+    dv = attention_backward(q, k, v, out, lse, dout)[2]
+    with torch.no_grad():
+        p = torch.exp(torch.bmm(q.float(), k.float().transpose(1, 2))
+                      - lse[..., None])
+        faults = {"dV zeroed": torch.zeros_like(dv),
+                  "dV = P dO": torch.bmm(p, dout.float()).to(dv.dtype)}
+        del p
+    errs = {name: (relative_error(f, dv, GRADCAM_SCALE_FLOOR),
+                   relative_error(f, dv, 1.0)) for name, f in faults.items()}
+    log("gradcam", "planted K2-bwd faults on the N " + str(q.shape[1])
+        + " call, dV's error of its own scale / of max(1, scale): "
+        + ", ".join(f"{name} {a:.3e} / {b:.3e}"
+                    for name, (a, b) in errs.items())
+        + f" (gate {ATTN_BWD_BF16_TOL} of its own scale)")
+    missed = [name for name, (a, _) in errs.items()
+              if not a > ATTN_BWD_BF16_TOL]
+    if missed:
+        raise AssertionError(f"gradcam: the K2-bwd gate passes the planted "
+                             f"faults {missed}")
+
+
+def time_backward_calls(calls, smi):
+    """K2-bwd alone on each captured call's inputs (one clip at 256²):
+    the kernels, the plain version, SDPA's backward, the bound."""
+    import torch.nn.functional as F
+
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
+        attention_backward, backward_split, flash_attention_backward)
+
+    for q, k, v, out, lse, dout, _ in calls:
+        b, n, d = q.shape
+        m, c = v.shape[1], v.shape[2]
+        k_ms = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse,
+                                                        dout))
+        p_ms = cuda_ms(lambda: attention_backward(q, k, v, out, lse, dout),
+                       iters=2, reps=3)
+        q4, k4, v4 = (t[:, None].detach().requires_grad_()
+                      for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), dout[:, None], retain_graph=True))
+        flops, nbytes, exps = attention_backward_cost(b, n, m, d, c)
+        t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_exp = exps / EXP_RATE * 1e3
+        bound = max(t_ops, t_bytes, t_exp)
+        by = "bytes" if t_bytes == bound else "operations"
+        split = backward_split(b, n, m, d, c) if q.dtype == torch.bfloat16 \
+            else {}
+        log("gradcam", f"K2-bwd {str(q.dtype)[6:]} B {b} N {n} M {m} D {d} "
+            f"C {c}: kernels {k_ms:.4f} ms | plain {p_ms:.4f} ms | sdpa "
+            f"({sdpa_backend(q4, k4, v4)}) backward {lib_ms:.4f} ms | bound "
+            f"{bound:.5f} ms ({by}) | kernels/bound {k_ms / bound:.2f} | "
+            f"split {split} | {smi}")
+        del q4, k4, v4, o4
+
+
+def trace_kernel_ms(name):
+    """Device ms of K2's and of K2-bwd's kernels in the traced window
+    ``name`` (trace_window's trace), and of all its kernels."""
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    with open(os.path.join(smoke_dir(), f"profile_{name}",
+                           profiler.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    k2 = bwd = total = 0.0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        total += e["dur"]
+        if "attention_bwd" in e["name"]:
+            bwd += e["dur"]
+        elif "flash_attention" in e["name"]:
+            k2 += e["dur"]
+    return k2 / 1e3, bwd / 1e3, total / 1e3
+
+
+def phase_gradcam(smi):
+    """Phase 16: Grad-CAM of CMDA-R50 on one synthetic test clip. Returns
+    the launch counts of its main-path calls and the worst K2 and K2-bwd
+    errors."""
+    from efficient_slowfast_tpu_torch.data.build import build_dataset
+    from efficient_slowfast_tpu_torch.visualization.video_cam import (
+        gradcam_clip, save_gif)
+
+    cfg = gradcam_cfg()
+    clip = np.ascontiguousarray(
+        build_dataset(cfg.TEST.DATASET, cfg, "test")._fetch(1)[0])
+    log("gradcam", f"clip {tuple(clip.shape)} (synthetic test split, video "
+        "0, temporal view 0, the centre crop)")
+    model = serving_model(cfg, SEED)
+    calibrate_attention(cfg, model, SEED + 16, phase="gradcam")
+    state = model.state_dict()
+    models = {(dtype, flash): model_with(gradcam_cfg(dtype, flash), state)
+              for dtype in ("bfloat16", "float32") for flash in (True, False)
+              if (dtype, flash) != ("bfloat16", True)}
+    models[("bfloat16", True)] = model
+    total = dict.fromkeys(KERNELS, 0)
+    worst_fwd, worst_bwd, timed = 0.0, 0.0, set()
+    for target, calls in GRADCAM_TARGETS:
+        runs = {}
+        for dtype, flash in (("bfloat16", True), ("bfloat16", False),
+                             ("float32", False), ("float32", True)):
+            if dtype == "float32" and flash and target != "s4":
+                continue
+            res, counts, rec, fwd_calls = gradcam_run(
+                "gradcam", gradcam_cfg(dtype, flash), models[(dtype, flash)],
+                clip, target, calls, smi)
+            runs[(dtype, flash)] = res
+            bwd_calls = rec.calls
+            if flash:
+                log("gradcam", f"{target} {dtype}: launches {counts}")
+                worst_f, worst_b = hold_gradcam_calls(target, dtype, rec,
+                                                      fwd_calls)
+                worst_fwd = max(worst_fwd, worst_f)
+                worst_bwd = max(worst_bwd, worst_b)
+                for key, value in counts.items():
+                    total[key] += value
+                if dtype == "bfloat16" and target == "s4":
+                    planted_backward_faults(bwd_calls[0])
+                if dtype == "bfloat16":
+                    # each fusion's backward alone, once (s4_fuse's, then
+                    # s3_fuse's)
+                    time_backward_calls([c for c in bwd_calls
+                                         if c[0].shape[1] not in timed], smi)
+                    timed.update(c[0].shape[1] for c in bwd_calls)
+                    if target == "s4":
+                        bf16_s4 = res
+            del bwd_calls, rec, fwd_calls
+        ref = runs[("float32", False)]
+        e_k = cam_distance(runs[("bfloat16", True)], ref)
+        e_p = cam_distance(runs[("bfloat16", False)], ref)
+        top = [int(np.argmax(r["predictions"])) for r in runs.values()]
+        log("gradcam", f"{target} bf16 CAMs, L2 distance from the f32 plain "
+            f"path's: kernels {e_k:.4e}, plain {e_p:.4e} (ratio "
+            f"{e_k / max(e_p, 1e-30):.3f}, gate {CMDA_TRAIN_BF16_RATIO}); "
+            f"top-1 class of each run {top} | {smi}")
+        if e_k > CMDA_TRAIN_BF16_RATIO * e_p:
+            raise AssertionError(f"gradcam {target}: bf16 kernel CAMs {e_k} "
+                                 f"from f32, plain bf16 {e_p}")
+        if ("float32", True) in runs:
+            err = max(float(np.abs(a - b).max()) for a, b in zip(
+                runs[("float32", True)]["cams"], ref["cams"]))
+            log("gradcam", f"{target} f32 CAMs, kernels vs plain attention: "
+                f"max abs {err:.3e} (tol {GRADCAM_F32_ATOL})")
+            if err > GRADCAM_F32_ATOL:
+                raise AssertionError(f"gradcam {target} f32: {err}")
+        # time and memory of the kernel path's Grad-CAM call alone, through
+        # the tool's core as the gates drive it
+        call = lambda: gradcam_clip(cfg, model, clip, target)  # noqa: E731
+        ms = cuda_ms(call, iters=1, reps=3)  # host-bound: ~0.3 s a call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        name = f"gradcam_{target}"
+        share, _, _, _ = trace_window(name, call)
+        k2_ms, bwd_ms, dev_ms = trace_kernel_ms(name)
+        log("gradcam", f"{target} bf16: {ms:.2f} ms a Grad-CAM call (CUDA "
+            f"events over gradcam_clip: 1 clip to the host, the test "
+            f"preprocess at 256², forward and backward to {target}, the CAMs "
+            f"and the overlays on the host) | "
+            f"device time in one traced call {dev_ms:.3f} ms, of it K2 "
+            f"{k2_ms:.3f} ms and K2-bwd {bwd_ms:.3f} ms (torch.profiler) | "
+            f"device busy {share * 100:.1f}% | peak memory {peak:.2f} GiB "
+            f"| {smi}")
+        del runs
+        torch.cuda.empty_cache()
+    # the tool's core writes the overlays as GIFs (mp4 needs the decoder,
+    # which the card's machine cannot build)
+    out = os.path.join(smoke_dir(), "gradcam")
+    os.makedirs(out, exist_ok=True)
+    for p, (overlay, fps) in enumerate(zip(bf16_s4["overlays"],
+                                           bf16_s4["fps"])):
+        path = save_gif(os.path.join(out, f"gradcam_s4_pathway{p}.gif"),
+                        overlay, fps)
+        crop = cfg.DATA.TEST_CROP_SIZE
+        if overlay.shape[1:] != (crop, crop, 3) or os.path.getsize(path) == 0:
+            raise AssertionError(f"gradcam: overlay {overlay.shape}, {path}")
+        log("gradcam", f"pathway {p}: {overlay.shape[0]} overlay frames at "
+            f"{fps} fps -> {os.path.relpath(path, ROOT)} "
+            f"({os.path.getsize(path)} bytes)")
+    del models, model
+    torch.cuda.empty_cache()
+    return total, worst_fwd, worst_bwd
+
+
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
     a synchronize; returns (device-busy share of the span: the union of
@@ -5481,7 +5845,8 @@ def kernel_entry(name, source, replaces, launches, err, record):
 # the phases that run together: a block runs whole when any of its phases
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
-                ("10",), ("11",), ("12",), ("13",), ("14",), ("15",)]
+                ("10",), ("11",), ("12",), ("13",), ("14",), ("15",),
+                ("16",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -5526,10 +5891,17 @@ def chosen_phases(argv):
 def main(argv=None):
     want = chosen_phases(argv)
     run = lambda *block: want is None or bool(want & set(block))  # noqa: E731
+    start = time.time()
     smi = phase_device()
     phase_build()
+    log("time", f"phases 1, 2 done {time.time() - start:.1f} s after the start")
     launches = dict.fromkeys(KERNELS, 0)  # on the main paths
     records, errs = {}, {k: [] for k in KERNELS}
+
+    def stamp(*block):
+        if run(*block):
+            log("time", f"phases {', '.join(block)} done "
+                f"{time.time() - start:.1f} s after the start")
 
     def add(counts):
         for key, value in counts.items():
@@ -5550,6 +5922,7 @@ def main(argv=None):
 
     recipe_fwd = recipe_bwd = None
     held_fwd = held_bwd = None
+    stamp("3", "4")
     if run("3b", "5"):
         cfg = cmda_cfg()
         model = serving_model(cfg, SEED)
@@ -5568,6 +5941,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     step_clips_per_s = float("nan")
+    stamp("3b", "5")
     if run("3c", "6", "7"):
         cfg = train_cfg("SlowFastDualAttention")
         model = train_model(cfg, SEED)
@@ -5585,6 +5959,7 @@ def main(argv=None):
         del model
         torch.cuda.empty_cache()
 
+    stamp("3c", "6", "7")
     if run("8"):
         none = dict.fromkeys(KERNELS, 0)
         sf_counts, sf_means, cfg, model = phase_thirty_view(
@@ -5605,13 +5980,16 @@ def main(argv=None):
         add(cmda_counts)
         del model
         torch.cuda.empty_cache()
+    stamp("8")
     if run("9"):
         add(phase_epochs(step_clips_per_s, smi))
         torch.cuda.empty_cache()
+    stamp("9")
     if run("10"):
         add(phase_recipe(held_fwd, held_bwd, smi))
         torch.cuda.empty_cache()
         recipe_split_bn_cost(smi)
+    stamp("10")
     if run("11"):
         nln_fwd_err, nln_bwd_err, _ = phase_nonlocal_kernels(smi)
         errs["flash_attention"].append(nln_fwd_err)
@@ -5619,12 +5997,14 @@ def main(argv=None):
         torch.cuda.empty_cache()
         add(phase_nonlocal(smi))
         torch.cuda.empty_cache()
+    stamp("11")
     if run("12"):
         _, eff_fwd_err, eff_bwd_err = phase_efficient_kernels(smi)
         errs["flash_attention"].append(eff_fwd_err)
         errs["flash_attention_backward"].append(eff_bwd_err)
         add(phase_efficient(smi))
         torch.cuda.empty_cache()
+    stamp("12")
     if run("13"):
         det_k2, det_k2_err, det_bwd, det_bwd_err, det_counts = \
             phase_detection(smi)
@@ -5636,6 +6016,7 @@ def main(argv=None):
         errs["flash_attention_backward"].append(det_bwd_err)
         add(det_counts)
         torch.cuda.empty_cache()
+    stamp("13")
     if run("14"):
         frame_records, frame_errs, frame_counts = phase_frames(smi)
         # phase 14's rows stand in where 3, 3b or 3c did not run
@@ -5644,17 +6025,28 @@ def main(argv=None):
             errs[name].append(frame_errs[name])
         add(frame_counts)
         torch.cuda.empty_cache()
+    stamp("14")
     if run("15"):
         k3_record, k3_err, int8_counts = phase_int8(smi)
         records["int8_conv"] = k3_record
         errs["int8_conv"].append(k3_err)
         add(int8_counts)
         torch.cuda.empty_cache()
+    stamp("15")
+    if run("16"):
+        gradcam_counts, gradcam_fwd_err, gradcam_bwd_err = phase_gradcam(smi)
+        errs["flash_attention"].append(gradcam_fwd_err)
+        errs["flash_attention_backward"].append(gradcam_bwd_err)
+        add(gradcam_counts)
+        torch.cuda.empty_cache()
+
+    stamp("16")
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA
     # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
     # the non-local networks (11), the efficient families (12), AVA
-    # detection (13) and the frame datasets (14); times per request of the
+    # detection (13), the frame datasets (14), int8 serving (15) and
+    # Grad-CAM (16); times per request of the
     # serving paths (3, 3b) and per CMDA train step (3c)
     kernels = [kernel_entry(name, *KERNELS[name], launches[name],
                             max(errs[name]), records[name])

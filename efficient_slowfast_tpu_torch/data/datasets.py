@@ -16,9 +16,11 @@ card. A split is a list file of ``path label`` lines (``LIST_FILES`` under
 DATA.PATH_TO_DATA_DIR, the fork's names as a fallback), read for every
 backend; the synthetic backend replaces it with seeded frames (no files,
 byte-identical to the JAX package's for the same RNG_SEED, video and
-view). ``Framefolder`` (``Wheel``, ``Tired``, ``Wheel_gray``) reads a
-folder of JPEG/PNG frames per line; decoding a video file (``Kinetics``,
-``Jester``) comes with ROADMAP item 2b part B.
+view). ``Kinetics`` and ``Jester`` decode video files with the port's
+native FFmpeg library (data/decoder.py): only the clip window, at the
+canvas short side; a test video's temporal views come from one union
+decode where the media allows it. ``Framefolder`` (``Wheel``, ``Tired``,
+``Wheel_gray``) reads a folder of JPEG/PNG frames per line.
 
 Every random draw of an item comes from ``np.random.default_rng([RNG_SEED,
 epoch, index])``, so the loader's threads give the same run in any order;
@@ -37,17 +39,35 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..utils.logging import get_logger
+from . import decoder
 from .build import DATASET_REGISTRY
 
 logger = get_logger(__name__)
 
-_DECODE_LATER = ("decoding the video file {!r} comes with ROADMAP item 2b "
-                 "part B; use the synthetic backend or a frame-folder "
-                 "dataset")
+#: the default long-axis decode cap as a multiple of the short side, the
+#: default of ``cfg.TPU.DECODE_MAX_ASPECT``. The canvas is 2:1, but the
+#: reference's crop protocols span the full long axis at any aspect
+#: (slowfast/datasets/transform.py:359-468): content up to the cap is
+#: decoded, and ``fit_canvas_into`` cuts the 2:1 window per test view or
+#: train draw; content beyond it (no mainstream media) is centre-cropped to
+#: the cap first, with a one-time warning.
+TEST_DECODE_ASPECT = 4.0
 
 
 def canvas_width(short_side: int) -> int:
     return short_side * 2
+
+
+def get_random_sampling_rate(long_cycle_sampling_rate, sampling_rate,
+                             rng: np.random.Generator):
+    """The multigrid long cycle's sampling rate, drawn from ``rng`` between
+    the cfg's rate and the long cycle's (reference: datasets/utils.py:
+    318-329)."""
+    if long_cycle_sampling_rate > 0:
+        assert long_cycle_sampling_rate >= sampling_rate
+        return int(rng.integers(sampling_rate, long_cycle_sampling_rate,
+                                endpoint=True))
+    return sampling_rate
 
 
 def get_start_end_idx(video_size, clip_size, clip_idx, num_clips,
@@ -297,6 +317,9 @@ class CanvasDataset:
 class ClipDataset(CanvasDataset):
     """Shared logic for list-file clip datasets (Kinetics pattern)."""
 
+    #: whether a test video's temporal views are tried as one union decode
+    UNION_DECODE = True
+
     #: the list file of each split under DATA.PATH_TO_DATA_DIR
     LIST_FILES = {"train": "train.csv", "val": "val.csv", "test": "test.csv"}
     #: the fork's list names, read where LIST_FILES' is missing
@@ -318,6 +341,14 @@ class ClipDataset(CanvasDataset):
         self._construct_loader()
         # multi-view test: one decode serves all NUM_SPATIAL_CROPS crops
         self._test_decode_memo = _DecodeMemo() if mode == "test" else None
+        # paths the union decode declined for good (-14/-15/-16): later
+        # items go straight to the per-view memo
+        self._union_unsupported: set = set()
+        # path → its exact long-axis extent at this mode's short side, which
+        # sizes later decode buffers (a file's aspect is constant)
+        self._decode_width_cache: dict = {}
+        self._max_aspect = float(cfg.TPU.DECODE_MAX_ASPECT)
+        self._warned_aspect_cap = False
         self._synth_lock = threading.Lock()
         self._synth_buf = None
         self._synth_blended = {}
@@ -373,6 +404,26 @@ class ClipDataset(CanvasDataset):
         counts = np.bincount(labels, minlength=int(labels.max()) + 1)
         self.sample_weights = 1.0 / np.maximum(counts[labels], 1)
 
+    def _check_aspect_cap(self, frames: Optional[np.ndarray]):
+        """``frames``, with a one-time warning where the TPU.DECODE_MAX_ASPECT
+        cap engaged: a decoded long axis that fills the cap is at, or was
+        centre-cropped from beyond, the cap."""
+        if frames is None or self._warned_aspect_cap:
+            return frames
+        long_axis = max(frames.shape[-3], frames.shape[-2])
+        if long_axis >= int(round(self._max_aspect * self._short_side())):
+            self._warned_aspect_cap = True
+            logger.warning(
+                "content at/beyond the TPU.DECODE_MAX_ASPECT=%.2f cap: "
+                "media longer than %.2f:1 is center-cropped to the cap "
+                "before the crop protocols (raise the cfg key to widen)",
+                self._max_aspect, self._max_aspect)
+        return frames
+
+    def _remember_width(self, path: str, hint, extent: int):
+        if hint is None and len(self._decode_width_cache) < 1_000_000:
+            self._decode_width_cache[path] = extent
+
     # -- decode ----------------------------------------------------------
     def _synthetic_source(self, label: int):
         """(noise buffer, its blend with ``label``'s colour or None). The
@@ -411,7 +462,7 @@ class ClipDataset(CanvasDataset):
         """
         path = self._path_to_videos[index]
         if not path.startswith("synthetic://"):
-            raise NotImplementedError(_DECODE_LATER.format(path))
+            return self._decode_file(path, temporal_idx, rng)
         num_frames = self.cfg.DATA.NUM_FRAMES
         # video id from the path, not hash(path): PYTHONHASHSEED would give
         # each process different content for the same id
@@ -424,6 +475,70 @@ class ClipDataset(CanvasDataset):
                 0, 256, 3).astype(np.uint8)
             return (buf[off:off + num_frames] >> 1) + (color >> 1)
         return blended[off:off + num_frames]
+
+    def _decode_file(self, path: str, temporal_idx: int,
+                      rng: np.random.Generator) -> Optional[np.ndarray]:
+        """The video file's clip ``temporal_idx`` of the test views, or in
+        train and val a random window (one draw from ``rng``, after the
+        long cycle's sampling rate in train), every mode keeping the long
+        axis up to the aspect cap: test windows it per view, train and val
+        at the crop's draw (``fit_canvas_into``)."""
+        cfg = self.cfg
+        sampling = (get_random_sampling_rate(
+            cfg.MULTIGRID.LONG_CYCLE_SAMPLING_RATE, cfg.DATA.SAMPLING_RATE,
+            rng) if self.mode == "train" else cfg.DATA.SAMPLING_RATE)
+        hint = self._decode_width_cache.get(path)
+        frames = decoder.decode_clip(
+            path, num_frames=cfg.DATA.NUM_FRAMES, sampling_rate=sampling,
+            clip_idx=temporal_idx,
+            num_clips=cfg.TEST.NUM_ENSEMBLE_VIEWS if self.mode == "test" else 1,
+            target_fps=cfg.DATA.TARGET_FPS, short_side=self._short_side(),
+            random_clip=self.mode in ("train", "val"),
+            multi_thread=cfg.DATA_LOADER.ENABLE_MULTI_THREAD_DECODE,
+            max_aspect=self._max_aspect, width_hint=hint, rng=rng)
+        if frames is not None:
+            self._remember_width(path, hint, max(frames.shape[1],
+                                                 frames.shape[2]))
+        return self._check_aspect_cap(frames)
+
+    def _decode_all_views(self, index: int) -> Optional[np.ndarray]:
+        """Every temporal test view of the video at ``index``, (
+        NUM_ENSEMBLE_VIEWS, T, H, W, 3), from one union decode: the views
+        overlap, so about two sequential decodes serve them all. None where
+        the decode failed; ``decoder.UnionUnsupported`` where the media
+        cannot take the union, whose views the per-view memo then decodes
+        in parallel on the loader's threads."""
+        cfg = self.cfg
+        path = self._path_to_videos[index]
+        hint = self._decode_width_cache.get(path)
+        frames = decoder.decode_views(
+            path, num_frames=cfg.DATA.NUM_FRAMES,
+            sampling_rate=cfg.DATA.SAMPLING_RATE,
+            num_clips=cfg.TEST.NUM_ENSEMBLE_VIEWS,
+            target_fps=cfg.DATA.TARGET_FPS, short_side=self._short_side(),
+            multi_thread=cfg.DATA_LOADER.ENABLE_MULTI_THREAD_DECODE,
+            max_aspect=self._max_aspect, width_hint=hint)
+        if frames is not None:
+            self._remember_width(path, hint, max(frames.shape[2],
+                                                 frames.shape[3]))
+        return self._check_aspect_cap(frames)
+
+    def _union_views(self, index: int) -> Optional[np.ndarray]:
+        """The union decode of ``index``'s video through the test memo (one
+        entry holds every view), or None where it is not to be tried or
+        failed. Only a structural refusal marks the path for good: a failure
+        that may be transient leaves the union to be tried again."""
+        path = self._path_to_videos[index]
+        if (not self.UNION_DECODE or path.startswith("synthetic://")
+                or path in self._union_unsupported):
+            return None
+        try:
+            return self._test_decode_memo.get_or_compute(
+                path, lambda: self._decode_all_views(index))
+        except decoder.UnionUnsupported:
+            if len(self._union_unsupported) < 1_000_000:
+                self._union_unsupported.add(path)
+            return None
 
     # -- dataset protocol ------------------------------------------------
     def _fetch(self, index: int):
@@ -444,11 +559,16 @@ class ClipDataset(CanvasDataset):
         # requires every video's full clip set
         for retry in range(self._num_retries):
             if self._test_decode_memo is not None:
-                # one decode per (path, view), shared by the spatial crops
-                # (test-mode decodes draw nothing)
-                frames = self._test_decode_memo.get_or_compute(
-                    (self._path_to_videos[index], temporal_idx),
-                    lambda: self._decode_clip(index, temporal_idx, rng))
+                # the union decode of every view where the media takes it,
+                # else one decode per (path, view), shared by the spatial
+                # crops (test-mode decodes draw nothing)
+                frames = self._union_views(index)
+                if frames is not None:
+                    frames = frames[temporal_idx]
+                else:
+                    frames = self._test_decode_memo.get_or_compute(
+                        (self._path_to_videos[index], temporal_idx),
+                        lambda: self._decode_clip(index, temporal_idx, rng))
             else:
                 frames = self._decode_clip(index, temporal_idx, rng)
             if frames is not None:
@@ -480,8 +600,8 @@ class ClipDataset(CanvasDataset):
 
 @DATASET_REGISTRY.register()
 class Kinetics(ClipDataset):
-    """Kinetics (reference: kinetics.py); its videos decode with ROADMAP
-    item 2b part B."""
+    """Kinetics (reference: kinetics.py): a list of ``video label`` lines,
+    each video decoded from its file."""
 
     # the wdf fork hardcodes these names with test->val aliasing
     FORK_LIST_FILES = {
@@ -494,8 +614,7 @@ class Kinetics(ClipDataset):
 @DATASET_REGISTRY.register()
 class Jester(ClipDataset):
     """Jester lists are trainlist/vallist; test aliases to val
-    (reference: jester.py:80-87); its videos decode with ROADMAP item 2b
-    part B."""
+    (reference: jester.py:80-87); its videos decode from their files."""
 
     LIST_FILES = {
         "train": "trainlist.txt", "val": "vallist.txt", "test": "vallist.txt",
@@ -511,6 +630,8 @@ class Framefolder(ClipDataset):
     DATA.GRAY_STYLE's pipeline (``_gray_style``)."""
 
     LIST_FILES = {"train": "train.txt", "val": "val.txt", "test": "val.txt"}
+    # a folder of frames is no video file: its views are read one by one
+    UNION_DECODE = False
 
     def _list_file(self) -> str:
         """The fork's explicit list files where set

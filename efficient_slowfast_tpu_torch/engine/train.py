@@ -33,7 +33,7 @@ from ..ops.norm import (aggregate_sub_bn_stats, convert_bn_stats,
                         effective_num_splits, effective_sync_groups)
 from ..utils import checkpoint as cu
 from ..utils import lr_policy
-from ..utils.logging import get_logger, setup_logging
+from ..utils.logging import get_logger, is_master, setup_logging
 from ..utils.meters import AVAMeter, TrainMeter, ValMeter
 from ..utils.misc import check_nan_losses, log_model_info
 from ..utils.multigrid import MultigridSchedule, short_cycle_shapes
@@ -270,8 +270,6 @@ def train(cfg, device=None):
     the final train state."""
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Train with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
-    if cfg.TENSORBOARD.ENABLE:
-        raise NotImplementedError("TensorBoard comes with ROADMAP item 8")
     dev = resolve_device(device)
     np.random.seed(cfg.RNG_SEED)
     random.seed(cfg.RNG_SEED)
@@ -294,6 +292,11 @@ def train(cfg, device=None):
         return _train_detection(cfg, state, start_epoch, dev)
     cur_bn = _bn_signature(cfg)
     phase = _phase_parts(cfg, state)
+    writer = None
+    if cfg.TENSORBOARD.ENABLE and is_master():
+        from ..visualization.tensorboard_vis import TensorboardWriter
+
+        writer = TensorboardWriter(cfg)
 
     logger.info("Start epoch: %d", start_epoch + 1)
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
@@ -310,7 +313,7 @@ def train(cfg, device=None):
         train_epoch(cfg, state, phase["train_step"], phase["preprocess"],
                     phase["train_loader"], phase["train_meter"], cur_epoch,
                     generator=step_generator(cfg.RNG_SEED, cur_epoch, dev,
-                                             stream=1))
+                                             stream=1), writer=writer)
         if phase["precise_loader"] is not None:
             calculate_and_update_precise_bn(
                 cfg, state, phase["precise_loader"], phase["preprocess"],
@@ -321,8 +324,14 @@ def train(cfg, device=None):
         if cu.is_checkpoint_epoch(cfg, cur_epoch, schedule):
             cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
         if _is_eval_epoch(cfg, cur_epoch, schedule):
-            eval_epoch(cfg, state, phase["eval_step"], phase["preprocess"],
-                       phase["val_loader"], phase["val_meter"], cur_epoch)
+            top1 = eval_epoch(cfg, state, phase["eval_step"],
+                              phase["preprocess"], phase["val_loader"],
+                              phase["val_meter"], cur_epoch, writer=writer)
+            if writer is not None:
+                writer.add_scalars({"Val/Top1_err": top1},
+                                   global_step=cur_epoch)
+    if writer is not None:
+        writer.close()
     return state
 
 

@@ -15,21 +15,20 @@ import functools
 from ..config.parser import load_config, parse_args
 from ..engine.test import test
 from ..engine.train import train
+from ..engine.visualization import visualize
 from ..models.build import resolve_device
 from ..utils.misc import launch_job
 
 
 def main(argv=None) -> dict:
-    """Train (``TRAIN.ENABLE``), then test (``TEST.ENABLE``) the config of
-    ``argv`` (``sys.argv`` by default); returns {"train": the final train
+    """Train (``TRAIN.ENABLE``), test (``TEST.ENABLE``), then write the
+    test inputs to TensorBoard (``TENSORBOARD.MODEL_VIS``) for the config
+    of ``argv`` (``sys.argv`` by default); returns {"train": the final train
     state, "test": the finished TestMeter}, each where it ran."""
     args = parse_args(argv)
     cfg = load_config(args)
     if cfg.DEMO.ENABLE:
         raise NotImplementedError("the demo comes with ROADMAP item 8")
-    if cfg.TENSORBOARD.ENABLE and cfg.TENSORBOARD.MODEL_VIS.ENABLE:
-        raise NotImplementedError(
-            "model visualization comes with ROADMAP item 8")
     device = resolve_device(args.device)
     out = {}
     if cfg.TRAIN.ENABLE:
@@ -38,6 +37,9 @@ def main(argv=None) -> dict:
     if cfg.TEST.ENABLE:
         out["test"] = launch_job(cfg, args.init_method,
                                  functools.partial(test, device=device))
+    if cfg.TENSORBOARD.ENABLE and cfg.TENSORBOARD.MODEL_VIS.ENABLE:
+        launch_job(cfg, args.init_method,
+                   functools.partial(visualize, device=device))
     return out
 
 

@@ -176,6 +176,56 @@ def flops_table(counter) -> str:
     return "\n".join(lines)
 
 
+def get_class_names(path, parent_path=None, subset_path=None):
+    """(names, parents, subset): the class names in index order from a
+    json {name: index}, the parent-category json at ``parent_path`` and the
+    subset list at ``subset_path`` (one name a line), each None where not
+    given (reference: misc.py:306-375)."""
+    import json
+
+    with open(path, "r") as f:
+        class2idx = json.load(f)
+    names = [None] * (max(class2idx.values()) + 1)
+    for k, i in class2idx.items():
+        names[i] = k
+    parent, subset = None, None
+    if parent_path:
+        with open(parent_path, "r") as f:
+            parent = json.load(f)
+    if subset_path:
+        with open(subset_path, "r") as f:
+            subset = [line.strip() for line in f]
+    return names, parent, subset
+
+
+def load_demo_labels(path):
+    """The class names of DEMO.LABEL_FILE_PATH, by class index: an
+    ``id,name`` CSV (Kinetics, Jester: names in row order, as the
+    reference's ``pd.read_csv(...)["name"].values``, so Jester's 1-based
+    ids still give class k row k) or one name a line (AVA's ``.names``)
+    (reference: tools/demo_net.py:141-150)."""
+    with open(path) as f:
+        lines = [line.rstrip("\n") for line in f if line.strip()]
+    if not lines:
+        return []
+    header = [c.strip().lower() for c in lines[0].split(",")]
+    if "name" in header and len(header) > 1:
+        col = header.index("name")
+        return [line.split(",", len(header) - 1)[col].strip()
+                for line in lines[1:]]
+    return [line.strip() for line in lines]
+
+
+def flops_per_layer_table(model: torch.nn.Module, example_inputs,
+                          bboxes=None) -> str:
+    """``flops_table`` of one eval forward on ``example_inputs`` (JAX:
+    ``flops_per_layer_table``, misc.py:116-136 there; reference: ptflops'
+    per-layer dump, misc.py:153-162)."""
+    counter = _flop_counter()
+    _forward_under([counter], model, example_inputs, bboxes)
+    return flops_table(counter)
+
+
 def log_model_info(model: torch.nn.Module, cfg, example_inputs):
     """Parameters, memory, FLOPs and activations, and with
     ``TPU.LOG_FLOPS_PER_LAYER`` the per-module FLOPs table (reference:

@@ -196,6 +196,26 @@ def efficient_prefix_table(cfg) -> Dict[str, str]:
     return t
 
 
+def jax_module_to_torch(path: str, cfg=None) -> str:
+    """The port's module name of the JAX package's slash-joined module
+    path (``s4/pathway1_res3`` → ``s4.pathway1_res3``; with ``cfg``, an
+    efficient family's ``s3/pathway1_block0`` → the ``nn.Sequential`` index
+    of its ``efficient_prefix_table``: the longest common module prefix of
+    the layers under it)."""
+    table = efficient_prefix_table(cfg) if cfg is not None else {}
+    hits = [v.split(".") for k, v in table.items()
+            if k == path or k.startswith(path + "/")]
+    if hits:
+        common = hits[0]
+        for h in hits[1:]:
+            n = 0
+            while n < min(len(common), len(h)) and common[n] == h[n]:
+                n += 1
+            common = common[:n]
+        return ".".join(common)
+    return ".".join(_RENAMES.get(m, m) for m in path.split("/"))
+
+
 def _torch_name(path: Tuple[str, ...],
                 table: Dict[str, str] | None = None) -> str | None:
     *mods, leaf = path

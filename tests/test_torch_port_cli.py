@@ -114,10 +114,33 @@ def test_a_checkpoint_each_epoch_and_the_test_reads_the_last(run):
     assert state.step == sum(len(e["batches"]) for e in run["epochs"])
 
 
-def test_the_cli_raises_for_what_later_items_bring(tmp_path):
+def test_the_cli_raises_for_what_later_items_bring(tmp_path, monkeypatch):
+    """The demo (item 8) and several processes (item 7) raise; TensorBoard
+    has come: MODEL_VIS alone writes every test clip's pathways (240
+    clips, 15 batches of 16)."""
     for opts, flags, item in (
             (["DEMO.ENABLE", "True"], ["--device", "cpu"], "item 8"),
-            ([], ["--device", "cpu", "--num_shards", "2"], "item 7"),
-            (["TENSORBOARD.ENABLE", "True"], ["--device", "cpu"], "item 8")):
+            ([], ["--device", "cpu", "--num_shards", "2"], "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             run_net.main(argv(tmp_path, *opts, flags=flags))
+    from efficient_slowfast_tpu_torch.engine import visualization
+
+    videos = []
+
+    class Writer:
+        def __init__(self, cfg):
+            pass
+
+        def add_video(self, video, tag=None, global_step=None):
+            videos.append((tag, global_step, video.shape[:2]))
+
+        def close(self):
+            videos.append("closed")
+
+    monkeypatch.setattr(visualization, "TensorboardWriter", Writer)
+    assert run_net.main(argv(
+        tmp_path, "TENSORBOARD.ENABLE", "True", "TENSORBOARD.MODEL_VIS.ENABLE",
+        "True", "TRAIN.ENABLE", "False", "TEST.ENABLE", "False")) == {}
+    assert videos[-1] == "closed" and len(videos) == 31
+    assert videos[:2] == [("Video Input Pathway 0", 0, (16, 4)),
+                          ("Video Input Pathway 1", 0, (16, 16))]

@@ -463,13 +463,23 @@ def test_short_cycle_schedule_and_refusal():
 
 
 def test_decoding_a_file_names_its_roadmap_item(tmp_path):
-    (tmp_path / "test.csv").write_text("a.mp4 0\n")
+    """ROADMAP item 2b part B has come: a listed video file decodes (its
+    clip byte for byte JAX's, tests/test_torch_port_video_datasets.py), and
+    a missing one is retried, then raises."""
+    from efficient_slowfast_tpu_torch.data import decoder
+
+    decoder.write_test_video(str(tmp_path / "a.mp4"), np.random.RandomState(
+        0).randint(0, 255, (12, 24, 32, 3), np.uint8))
+    (tmp_path / "test.csv").write_text("a.mp4 0\nmissing.mp4 1\n")
     cfg = data_cfg(get_cfg)
     cfg.DATA.DECODING_BACKEND = "ffmpeg"
-    cfg.DATA.PATH_TO_DATA_DIR = str(tmp_path)
+    cfg.DATA.PATH_TO_DATA_DIR = cfg.DATA.PATH_PREFIX = str(tmp_path)
     ds = datasets.Kinetics(cfg, "test")  # the list is read for any backend
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        ds[0]
+    item = ds[0]
+    assert item["frames"].shape == (4, 16, 32, 3)
+    assert int(item["width"]) == 21 and int(item["label"]) == 0
+    with pytest.raises(RuntimeError, match="after 10 retries"):
+        ds[len(ds) - 1]
 
 
 def test_pinned_ring_and_early_exit_on_the_host(monkeypatch):

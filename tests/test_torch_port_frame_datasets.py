@@ -382,13 +382,23 @@ def test_frame_folder_without_frames_retries_then_raises(folders, tmp_path):
 
 
 def test_video_files_decode_with_part_b(tmp_path):
+    """Jester's video files decode (part B has come; its items against
+    JAX's in tests/test_torch_port_video_datasets.py)."""
+    from efficient_slowfast_tpu_torch.data import decoder
+
+    for name in ("a", "b"):
+        decoder.write_test_video(str(tmp_path / f"{name}.mp4"),
+                                 np.full((20, 24, 32, 3), 60, np.uint8))
     (tmp_path / "trainlist.txt").write_text("a.mp4 0\nb.mp4 1\n")
     cfg = get_cfg()
     cfg.DATA.PATH_TO_DATA_DIR = str(tmp_path)
     ds = build_dataset("jester", cfg, "train")  # the list is read
     assert ds._path_to_videos == ["a.mp4", "b.mp4"] and ds._labels == [0, 1]
-    with pytest.raises(NotImplementedError, match="item 2b part B"):
-        ds[0]
+    cfg.DATA.PATH_PREFIX = str(tmp_path)
+    cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_JITTER_SCALES = 4, [16, 20]
+    item = build_dataset("jester", cfg, "train")[1]
+    assert item["frames"].shape == (4, 20, 40, 3) and int(item["label"]) == 1
+    assert int(item["width"]) == 27
 
 
 def test_fork_list_names_and_separator(tmp_path):

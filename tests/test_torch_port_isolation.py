@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
 package (its SlowFast forward, a tiny synthetic 30-view test, an I3D with
 non-local blocks, the library attention blocks, a narrow ShuffleNetV2
-and GhostNet, and a detection forward with the AVA evaluator run in a
-process where importing them raises), and it never falls back to the CPU
-without being asked."""
+and GhostNet, a detection forward with the AVA evaluator, and a video
+decode with Grad-CAM and TensorBoard run in a process where importing them
+raises), and it never falls back to the CPU without being asked."""
 
 import ast
 import os
@@ -299,6 +299,60 @@ def test_int8_serving_and_export_run_without_jax(tmp_path):
     its range and serves, with JAX blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _SERVING, str(tmp_path)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+_VIDEO_AND_VIS = r"""
+import os, sys, types
+for name in ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+# tensorboard's switch to its TensorFlow stub (TensorFlow imports slowly)
+sys.modules["tensorboard.compat.notf"] = types.ModuleType("notf")
+import numpy as np
+import torch
+from efficient_slowfast_tpu_torch.config import load_cfg
+from efficient_slowfast_tpu_torch.data import decoder
+from efficient_slowfast_tpu_torch.models import build_model
+from efficient_slowfast_tpu_torch.visualization import GradCAM, TensorboardWriter
+from efficient_slowfast_tpu_torch.visualization.video_cam import gradcam_clip
+root, yaml, port_build = sys.argv[1:4]
+torch.set_num_threads(1)
+path = os.path.join(root, "clip.mp4")
+decoder.write_test_video(path, np.random.RandomState(0).randint(
+    0, 255, (24, 40, 48, 3), np.uint8))
+clip = decoder.decode_clip(path, 8, 2, 0, 1, 30, 32, False)
+assert clip.shape == (8, 32, 38, 3), clip.shape
+lib = os.path.realpath(decoder.get_lib()._name)
+assert os.path.dirname(lib) == os.path.realpath(port_build), lib
+cfg = load_cfg(yaml, ["OUTPUT_DIR", root])
+model = build_model(cfg, device="cpu")
+out = gradcam_clip(cfg, model, clip, "s3")
+assert [o.shape for o in out["overlays"]] == [(2, 32, 32, 3), (8, 32, 32, 3)]
+writer = TensorboardWriter(cfg)
+writer.add_scalars({"Train/loss": 1.5}, global_step=0)
+writer.plot_eval(np.eye(10)[[0, 1, 2, 2]], np.array([0, 1, 2, 3]), 0)
+writer.close()
+assert os.listdir(os.path.join(root, "runs-synthetic"))
+loaded = [m for m in sys.modules if m.split(".")[0] in
+          ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_video_decode_gradcam_and_tensorboard_run_without_jax(tmp_path):
+    """A fixture video decodes through the port's own library (built
+    under build/torch_decode/, never the JAX package's), Grad-CAM of a
+    tiny ShuffleNetV2 overlays its clip, and TensorBoard events are
+    written, with JAX blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _VIDEO_AND_VIS, str(tmp_path),
+         os.path.join(ROOT, "configs/Synthetic/SHUFFLENETV2_TINY.yaml"),
+         os.path.join(ROOT, "build", "torch_decode")], cwd=ROOT,
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr[-4000:]
