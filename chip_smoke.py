@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 (3b takes its shapes from the CMDA model
+5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 (3b takes its shapes from the CMDA model
 that phase 5 serves and from phase 10's schedule, 3c from the one that
 phase 7 trains and phase 10's schedule; phases 11, 12 and 13 run 3b and 3c
 again at their models' shapes before their own lines). ``--phases`` runs a
@@ -301,6 +301,31 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               memory; the s4
               overlays written as GIFs (the card's machine cannot build the
               video decoder, so no mp4).
+17. demo    — the demo (engine/demo.py::demo, as tools/run_net.py calls
+              it) on seeded windows of a synthetic stream (DEMO_WINDOWS
+              windows; the card's machine cannot build the video decoder,
+              so no file source and no DEMO.OUTPUT_FILE), each run with a
+              display sink that takes the overlays and reads the launches
+              a window, its weights from a .pyth as TEST.CHECKPOINT_FILE_
+              PATH: (a) demo/Kinetics/SLOWFAST_8x8_R50.yaml with
+              TPU.FUSED_EVAL (26 K1 launches a window, the warm-up's on
+              the first), its scores held against the module forward on the
+              same pathways (SERVE_BF16_ATOL); (b) the CMDA-R50 demo yaml,
+              attention calibrated as in phase 5 (4 K2 a window), each K2
+              call against chunked_attention on its inputs (ATTN_BF16_TOL
+              of its own scale) and the scores against the plain attention
+              (CMDA_BF16_ATOL); (c) (a)'s yaml with TPU.INT8_EVAL: a first
+              run calibrates on its first window and persists, a second
+              loads the file (one K3 op call an int8 conv a window, 47),
+              one window's K3 calls held bit for bit against K3's plain
+              version (codes, accumulators, output), the scores against
+              (a)'s bf16 module forward (INT8_LOGIT_TOL); (d)
+              demo/AVA/SLOWFAST_32x2_R101_50_50.yaml from a boxes file the
+              phase writes, then from a camera capture with a live detector
+              (DEMO.DETECTOR_FN), no kernel. Each prints ms a window with
+              and without the overlays (the demo's logged fps, the scores
+              on the host), the device time, busy share and host-to-device
+              bytes of a traced window, peak memory and the launches.
 
 The depths were cut to make room for phase 16 within the time limit:
 REQUESTS 3 → 2, TRAIN_STEPS 5 → 3, PROFILE_STEPS 3 → 2, FATIGUE_STEPS 4 →
@@ -315,7 +340,7 @@ sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 (its times and bounds are per
+4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 (its times and bounds are per
 request of the SlowFast and CMDA serving paths and per CMDA train step,
 phase 13's rows standing in where 3b or 3c did not run, and K3's per
 request of the +INT8_SPATIAL SlowFast-R50, its ms and library_ms (cuDNN's
@@ -326,6 +351,7 @@ and power limit, and the device JSON line.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import itertools
@@ -5748,6 +5774,539 @@ def phase_gradcam(smi):
     return total, worst_fwd, worst_bwd
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the demo (engine/demo.py) on the card
+# windows a demo run serves (a synthetic stream; the card's machine cannot
+# build the video decoder, so no file source)
+DEMO_WINDOWS = 3
+# the raw frames of the Kinetics streams: 4:3 landscape, as a camera gives
+# them; the demo fits each window's short side to TEST_CROP_SIZE (256 →
+# 256 x 341) on the host
+DEMO_FRAME_HW = (256, 341)
+# the AVA stream's: 16:9, as AVA's movies (phase 13's AVA_FRAME_HW)
+DEMO_AVA_HW = (320, 568)
+# normalized person boxes of the AVA demo's boxes file, by window: two
+# people, one, three
+DEMO_BOXES = {"0": [[0.10, 0.15, 0.45, 0.95], [0.55, 0.10, 0.90, 0.90]],
+              "1": [[0.30, 0.20, 0.70, 0.98]],
+              "2": [[0.05, 0.30, 0.30, 0.90], [0.35, 0.25, 0.60, 0.95],
+                    [0.65, 0.05, 0.95, 0.85]]}
+DEMO_DETECTOR = '''
+import numpy as np
+
+CALLS = []
+
+
+def detect(frames, widx):
+    """Two people a window, over the raw frames."""
+    CALLS.append((widx, frames.shape))
+    return np.asarray([[0.1, 0.2, 0.4, 0.9], [0.5, 0.1, 0.8, 0.95]],
+                      np.float32)
+'''
+
+
+def demo_cfg(yaml, name, *opts):
+    """demo/``yaml`` through the port's config loader: its labels by an
+    absolute path, no output file, logs and any calibration under a fresh
+    build/smoke/demo_``name``, and ``opts``."""
+    from efficient_slowfast_tpu_torch.config import load_cfg
+
+    out = os.path.join(smoke_dir(), f"demo_{name}")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_cfg(os.path.join(ROOT, "demo", yaml), [
+        "DEMO.DATA_SOURCE", "0", "DEMO.OUTPUT_FILE", "", "OUTPUT_DIR", out]
+        + list(opts))
+    cfg.DEMO.LABEL_FILE_PATH = os.path.normpath(os.path.join(
+        ROOT, cfg.DEMO.LABEL_FILE_PATH))
+    return cfg
+
+
+def demo_checkpoint(cfg, name, attention_seed=None):
+    """Seeded weights in the JAX package's layout (serving_model) for
+    ``cfg``, CMDA's attention calibrated as phase 5 does where
+    ``attention_seed`` is given, saved as build/smoke/demo_``name``.pyth;
+    returns its path (the demo's TEST.CHECKPOINT_FILE_PATH)."""
+    model = serving_model(cfg, SEED)
+    if attention_seed is not None:
+        calibrate_attention(cfg, model, attention_seed, phase="demo")
+    path = os.path.join(smoke_dir(), f"demo_{name}.pyth")
+    torch.save({"model_state": model.state_dict()}, path)
+    del model
+    torch.cuda.empty_cache()
+    return path
+
+
+def demo_windows(hw, seed, frames):
+    """DEMO_WINDOWS seeded windows of ``frames`` uint8 RGB frames at
+    ``hw``: [(window index, (T, H, W, 3))]."""
+    rs = np.random.RandomState(seed)
+    return [(w, rs.randint(0, 256, (frames,) + tuple(hw) + (3,), np.uint8))
+            for w in range(DEMO_WINDOWS)]
+
+
+class DisplaySink:
+    """The demo's display: records the launch counts when each window's
+    overlays reach it (after the window's scores reached the host), and
+    never quits."""
+
+    def __init__(self):
+        self.counts = []
+
+    def __call__(self, frames):
+        self.counts.append(read_counts())
+        return True
+
+    def per_window(self, key):
+        """``key``'s launches in each window (the first with the warm-up)."""
+        seen = [c[key] for c in self.counts]
+        return [b - a for a, b in zip([0] + seen[:-1], seen)]
+
+
+class ForwardCalls:
+    """Every forward that the demo builds while the block runs, each call's
+    inputs and scores recorded; ``model`` is the served model."""
+
+    def __init__(self, detection=False):
+        self.name = "make_detection_forward" if detection else "make_forward"
+        self.calls, self.model = [], None
+
+    def __enter__(self):
+        from efficient_slowfast_tpu_torch.engine import demo
+
+        self.mod, self.orig = demo, getattr(demo, self.name)
+
+        def make(cfg, model, device=None):
+            fwd = self.orig(cfg, model, device)
+            self.model = model
+
+            def recorded(*args):
+                out = fwd(*args)
+                self.calls.append((args, out))
+                return out
+            return recorded
+
+        setattr(demo, self.name, make)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+class Int8Calls:
+    """The last ``keep`` int8 conv calls while the block runs (one window's
+    worth): their arguments and outputs; the launches stay on K3's count."""
+
+    def __init__(self, keep):
+        self.calls = collections.deque(maxlen=keep)
+
+    def __enter__(self):
+        import efficient_slowfast_tpu_torch.ops.conv as conv_mod
+
+        self.mod, self.orig = conv_mod, conv_mod.int8_conv
+
+        def recorded(*args):
+            out = self.orig(*args)
+            self.calls.append((args, out))
+            return out
+
+        conv_mod.int8_conv = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.int8_conv = self.orig
+
+
+def traced_stream(windows, name):
+    """``windows`` as a stream whose last window runs under utils/
+    profiler.py's trace, in a smoke_window span from just before the demo
+    takes it to just after the demo asks for the next: its canvas fit,
+    copy, preprocess, forward, scores to the host and log line."""
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    windows = iter(windows)
+    for i, item in enumerate(windows):
+        if i < DEMO_WINDOWS - 1:
+            yield item
+            continue
+        torch.cuda.synchronize()
+        with profiler.trace(os.path.join(smoke_dir(), f"profile_{name}")):
+            with profiler.annotate("smoke_window"):
+                yield item
+                torch.cuda.synchronize()
+
+
+def demo_run(cfg, windows, display=True, trace=None, k2_calls=None,
+             detection=False):
+    """One demo() call over ``windows`` with every launch count set to 0
+    just before and read just after: {results, counts, sink, fwd (the
+    ForwardCalls), peak (GiB)}. ``display`` injects a DisplaySink
+    (the overlays run); ``trace`` traces the last window under that name;
+    ``k2_calls`` gets each K2 call's (q, k, v, output)."""
+    from efficient_slowfast_tpu_torch.engine.demo import demo
+
+    sink = DisplaySink() if display else None
+    stream = windows if trace is None else traced_stream(windows, trace)
+    with ForwardCalls(detection) as fwd:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        results, _ = k2_shapes_of(
+            lambda: demo(cfg, stream=iter(stream), display=sink), k2_calls)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    return dict(results=results, counts=counts, sink=sink, fwd=fwd,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def window_ms(rows, frames):
+    """ms a window from the demo's own logged fps (``frames`` frames over
+    the wall time from the previous window's scores on the host to this
+    one's, or from the warm-up's end for window 0): the mean over
+    ``rows``."""
+    return statistics.mean(1e3 * frames / r["fps"] for r in rows)
+
+
+# the hand-written kernels' names in a trace
+TRACE_KERNELS = {"K1": ("fused_bottleneck",), "K2": ("flash_attention_tc",
+                                                     "flash_attention_k"),
+                 "K3": ("conv_quantize", "conv_gemm")}
+
+
+def demo_report(tag, cfg, run, plain, name, smi):
+    """Prints a served configuration's line: ms a window with the overlays
+    (``run``'s windows after the first, each of whose intervals holds the
+    window before's overlays) and without (``plain``'s windows but the
+    last, which was traced), the logged fps, the traced window's device
+    time, its hand-written kernels' share of it, busy share and
+    host-to-device bytes, peak memory and the launches."""
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    share, span_ms, _, _ = window_profile(name)
+    with open(os.path.join(smoke_dir(), f"profile_{name}",
+                           profiler.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    dev_ms = sum(e["dur"] for e in kernels) / 1e3
+    ours = {k: sum(e["dur"] for e in kernels
+                   if any(p in e["name"] for p in pats)) / 1e3
+            for k, pats in TRACE_KERNELS.items()}
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    h2d = sum(e.get("args", {}).get("bytes", 0) for e in copies
+              if "HtoD" in e["name"])
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    canvas = t * s * 2 * s * 3
+    if h2d < canvas:  # name the copies the trace holds
+        seen = collections.Counter(
+            (e["name"], e.get("args", {}).get("bytes")) for e in copies)
+        log("demo", f"{tag}: the traced window's copies {dict(seen)}")
+    log("demo", f"{tag}: {window_ms(run['results'][1:], t):.2f} ms a window "
+        f"with the overlays, {window_ms(plain['results'][:-1], t):.2f} ms "
+        f"without (wall clock, the scores on the host; the demo's logged "
+        f"fps {[r['fps'] for r in run['results']]} / "
+        f"{[r['fps'] for r in plain['results']]}) | traced window: device "
+        f"time {dev_ms:.3f} ms (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in ours.items() if v) + f"), busy "
+        f"{share * 100:.1f}% of its {span_ms:.2f} ms, host-to-device "
+        f"{h2d / 1e6:.3f} MB (the canvas {canvas / 1e6:.3f} MB) | peak "
+        f"memory "
+        f"{max(run['peak'], plain['peak']):.2f} GiB | launches "
+        f"{run['counts']} in the run with the overlays | "
+        f"{smi}")
+
+
+def gate_windows(tag, run, key, per_window, warm):
+    """Each window's launches of ``key`` per_window (the first also the
+    warm-up's where ``warm``), and no other kernel's."""
+    got = run["sink"].per_window(key)
+    want = [per_window * (2 if warm else 1)] + [per_window] * (
+        DEMO_WINDOWS - 1)
+    others = {k: v for k, v in run["counts"].items() if k != key and v}
+    if got != want or others or len(run["results"]) != DEMO_WINDOWS:
+        raise AssertionError(f"demo {tag}: {key} launches by window {got}, "
+                             f"expected {want}; others {others}; "
+                             f"{len(run['results'])} windows")
+
+
+def demo_scores(tag, run, classes, detection=False):
+    """The windows' scores ([n, classes] on the host, the warm-up left
+    out), checked finite; probabilities summing to 1 for classification,
+    in [0, 1] for the RoI head's sigmoids."""
+    outs = [o.float().cpu() for _, o in run["fwd"].calls[-DEMO_WINDOWS:]]
+    for i, o in enumerate(outs):
+        if detection:
+            if not (bool(torch.isfinite(o).all()) and o.min() >= 0
+                    and o.max() <= 1):
+                raise AssertionError(f"demo {tag} window {i}: scores")
+        else:
+            check_scores(o, 1, classes, f"demo {tag} window {i}")
+    return outs
+
+
+def hold_against(tag, what, cfg_ref, model, run, tol, smi):
+    """The windows' bf16 scores against those of the same pathways through
+    make_forward(cfg_ref) on ``model`` (``what``: no kernel), within
+    ``tol`` of their scale, as phases 4 and 5 hold a request's. Returns
+    the reference scores."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    ref_fwd = make_forward(cfg_ref, model)
+    outs = demo_scores(tag, run, cfg_ref.MODEL.NUM_CLASSES)
+    reset_counts()
+    refs = [ref_fwd(*args).float().cpu()
+            for args, _ in run["fwd"].calls[-DEMO_WINDOWS:]]
+    if any(read_counts().values()):
+        raise AssertionError(f"demo {tag}: the reference launched "
+                             f"{read_counts()}")
+    err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+    scale = max(1.0, max(r.abs().max().item() for r in refs))
+    top = [int(o.argmax()) == int(r.argmax()) for o, r in zip(outs, refs)]
+    # the entries are the scores' top-k, rounded as the demo logs them
+    for entry, o in zip(run["results"], outs):
+        k = len(entry["top_classes"])
+        labels = [i for i in np.argsort(-o[0].numpy())[:k]]
+        if [round(float(o[0, i]), 4) for i in labels] != entry["scores"]:
+            raise AssertionError(f"demo {tag}: entry {entry} is not its "
+                                 f"scores' top-{k}")
+    log("demo", f"{tag}: the {DEMO_WINDOWS} windows' scores vs {what} on "
+        f"the same pathways: max |dp| {err:.3e} (tol {tol * scale:.3e}"
+        f"), top-1 agreement {sum(top)}/{len(top)}, top-1 p "
+        f"{[round(float(o.max()), 4) for o in outs]} | {smi}")
+    if err > tol * scale:
+        raise AssertionError(f"demo {tag}: {err} > {tol} x {scale}")
+    return refs
+
+
+def hold_demo_k3(calls, smi):
+    """Each recorded int8 conv call (one window's) against K3's plain
+    version on its inputs: the quantize pass's code buffer and weight
+    layout, the int32 accumulators and the output, bit for bit."""
+    from efficient_slowfast_tpu_torch.ops.kernels import int8_conv as k3
+
+    shapes = set()
+    for args, out in calls:
+        x, codes, scale, am, bias, k, s, p, dtype = args
+        pl = k3.plan(tuple(x.shape), codes.shape[0], tuple(k), tuple(s),
+                     tuple(p), dtype)
+        q, bq = k3.int8_conv_layout(x, codes, am, k, s, p)
+        acc = k3.int8_conv_accumulator(x, codes, am, k, s, p)
+        ref_acc = k3.int8_conv_reference(x, codes, scale, am, None, k, s, p,
+                                         dtype, True)
+        ref = k3.int8_conv_reference(x, codes, scale, am, bias, k, s, p,
+                                     dtype)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, k3.quantized_layout(x, am, pl))
+                and torch.equal(bq, k3.padded_codes(codes, pl))):
+            raise AssertionError(f"demo int8 {tuple(x.shape)}: the quantize "
+                                 "pass's codes differ from the plain version")
+        if not torch.equal(acc, ref_acc) or not torch.equal(out, ref):
+            raise AssertionError(
+                f"demo int8 {tuple(x.shape)} k {k} s {s}: accumulators or "
+                f"output differ, max |d| out "
+                f"{(out.float() - ref.float()).abs().max().item()}")
+        shapes.add((tuple(x.shape), codes.shape[0], tuple(k), tuple(s)))
+    log("demo", f"int8: each of one window's {len(calls)} K3 calls "
+        f"({len(shapes)} shapes at batch 1, e.g. "
+        f"{sorted(shapes)[0]}) against its plain version on its inputs: "
+        f"codes, accumulators and output bit-equal | {smi}")
+
+
+def phase_demo(smi):
+    """Phase 17: the demo served on the card over synthetic window
+    streams, through engine/demo.py::demo as the CLI calls it. Returns the
+    launches of its runs and K2's worst error."""
+    import efficient_slowfast_tpu_torch.engine.quantize as quantize
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for key, value in counts.items():
+            total[key] += value
+
+    # (a) SlowFast-R50 on the fused engine
+    sf_opts = ["TPU.FUSED_EVAL", True]
+    cfg = demo_cfg("Kinetics/SLOWFAST_8x8_R50.yaml", "slowfast", *sf_opts)
+    sf_ckpt = demo_checkpoint(cfg, "slowfast")
+    cfg.TEST.CHECKPOINT_FILE_PATH = sf_ckpt
+    windows = demo_windows(DEMO_FRAME_HW, SEED + 170, cfg.DATA.NUM_FRAMES)
+    log("demo", f"stream: {DEMO_WINDOWS} windows of {cfg.DATA.NUM_FRAMES} "
+        f"frames at {DEMO_FRAME_HW[0]}x{DEMO_FRAME_HW[1]} (seeded uint8); "
+        f"seeded weights from {os.path.relpath(sf_ckpt, ROOT)}")
+    run = demo_run(cfg, windows)
+    gate_windows("slowfast", run, "fused_bottleneck", 26, True)
+    add(run["counts"])
+    model = run["fwd"].model
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.FUSED_EVAL = False
+    sf_refs = hold_against("slowfast", "the module forward", ref_cfg, model,
+                           run, SERVE_BF16_ATOL, smi)
+    del model
+    run["fwd"].calls.clear()
+    plain = demo_run(cfg, windows, display=False, trace="demo_slowfast")
+    demo_report("SlowFast-R50 (demo/Kinetics/SLOWFAST_8x8_R50.yaml, "
+                "FUSED_EVAL, bf16, 1 clip of 32 frames at 256²: K1 26 a "
+                "window)", cfg, run, plain, "demo_slowfast", smi)
+    del run, plain
+    torch.cuda.empty_cache()
+
+    # (b) CMDA-R50, the paper's model
+    cfg = demo_cfg("Kinetics/SLOWFAST_DUAL_8x8_R50_stepwise_multigrid.yaml",
+                   "cmda")
+    cfg.TEST.CHECKPOINT_FILE_PATH = demo_checkpoint(cfg, "cmda", SEED + 171)
+    k2 = []
+    run = demo_run(cfg, windows, k2_calls=k2)
+    gate_windows("cmda", run, "flash_attention", 4, True)
+    add(run["counts"])
+    with torch.no_grad():
+        errs = [(q.shape[1], relative_error(o, fa.chunked_attention(q, k, v),
+                                            GRADCAM_SCALE_FLOOR))
+                for q, k, v, o in k2]
+    k2_worst = max(e for _, e in errs)
+    log("demo", f"cmda: each of its {len(k2)} K2 calls (the warm-up's and "
+        f"{DEMO_WINDOWS} windows' 4) against chunked_attention on its "
+        f"inputs, the worst error of its own scale by N: " + ", ".join(
+            f"{n} {max(e for m, e in errs if m == n):.3e}"
+            for n in sorted({n for n, _ in errs}, reverse=True))
+        + f" (tol {ATTN_BF16_TOL})")
+    if k2_worst > ATTN_BF16_TOL:
+        raise AssertionError(f"demo cmda: K2 {k2_worst} > {ATTN_BF16_TOL}")
+    del k2
+    plain_cfg = cfg.clone()
+    plain_cfg.TPU.FLASH_ATTENTION = False
+    plain_model = model_with(plain_cfg, run["fwd"].model.state_dict())
+    hold_against("cmda", "the plain attention", plain_cfg, plain_model, run,
+                 CMDA_BF16_ATOL, smi)
+    del plain_model
+    run["fwd"].calls.clear()
+    plain = demo_run(cfg, windows, display=False, trace="demo_cmda")
+    demo_report("CMDA-R50 (demo/Kinetics/SLOWFAST_DUAL_8x8_R50_stepwise_"
+                "multigrid.yaml, bf16, 32 frames at 224²: K2 4 a window)",
+                cfg, run, plain, "demo_cmda", smi)
+    del run, plain
+    torch.cuda.empty_cache()
+
+    # (c) int8 SlowFast-R50: the first run calibrates on its first window
+    # and persists, the second loads the file
+    cfg = demo_cfg("Kinetics/SLOWFAST_8x8_R50.yaml", "int8",
+                   "TPU.INT8_EVAL", True)
+    cfg.TEST.CHECKPOINT_FILE_PATH = sf_ckpt
+    real, calibrations = quantize.calibrate_int8, []
+    quantize.calibrate_int8 = lambda *a, **k: (
+        calibrations.append(1) or real(*a, **k))
+    try:
+        run = demo_run(cfg, windows)
+        first = len(calibrations)
+        convs = len(quantize.quant_state(run["fwd"].model))
+        persisted = os.path.exists(quantize.calibration_path(cfg))
+        gate_windows("int8", run, "int8_conv", convs, False)
+        add(run["counts"])
+        outs = demo_scores("int8", run, cfg.MODEL.NUM_CLASSES)
+        dist = max((centred_logs(o) - centred_logs(r)).abs().max().item()
+                   for o, r in zip(outs, sf_refs))
+        scale = max(centred_logs(r).abs().max().item() for r in sf_refs)
+        run["fwd"].calls.clear()
+        with Int8Calls(convs) as k3_calls:
+            plain = demo_run(cfg, windows, display=False, trace="demo_int8")
+        loaded = len(calibrations) - first
+    finally:
+        quantize.calibrate_int8 = real
+    if (first, persisted, loaded) != (1, True, 0) or convs != 47:
+        raise AssertionError(f"demo int8: {first} calibrations in the first "
+                             f"run (persisted: {persisted}), {loaded} in the"
+                             f" second; {convs} int8 convs")
+    if plain["counts"]["int8_conv"] != convs * (DEMO_WINDOWS + 1):
+        raise AssertionError(f"demo int8, loaded: {plain['counts']}")
+    add(plain["counts"])
+    log("demo", f"int8: {convs} int8 convs; run 1 calibrated on its first "
+        f"window ({first} calibrate_int8 call) and persisted "
+        f"{os.path.relpath(quantize.calibration_path(cfg), ROOT)}; run 2 "
+        f"loaded it (no call, so it warmed up: {plain['counts']['int8_conv']}"
+        f" K3 op calls for {DEMO_WINDOWS} windows) | vs the bf16 module "
+        f"forward on the same windows: centred log probabilities max |d| "
+        f"{dist:.4f} of scale {scale:.4f} (ratio {dist / scale:.3f}, tol "
+        f"{INT8_LOGIT_TOL}) | {smi}")
+    if dist > INT8_LOGIT_TOL * scale:
+        raise AssertionError(f"demo int8: {dist} > {INT8_LOGIT_TOL} x "
+                             f"{scale}")
+    hold_demo_k3(list(k3_calls.calls), smi)
+    del k3_calls
+    demo_report("int8 SlowFast-R50 (the same yaml, TPU.INT8_EVAL: K3 47 op "
+                "calls a window)", cfg, run, plain, "demo_int8", smi)
+    del run, plain
+    torch.cuda.empty_cache()
+
+    # (d) AVA SlowFast-R101 detection: boxes from a file, then a camera
+    # capture with a live detector
+    from efficient_slowfast_tpu_torch.engine.demo import camera_window_stream
+
+    cfg = demo_cfg("AVA/SLOWFAST_32x2_R101_50_50.yaml", "ava")
+    boxes = os.path.join(cfg.OUTPUT_DIR, "boxes.json")
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    with open(boxes, "w") as f:
+        json.dump(DEMO_BOXES, f)
+    cfg.DEMO.BOXES_FILE = boxes
+    cfg.TEST.CHECKPOINT_FILE_PATH = demo_checkpoint(cfg, "ava")
+    ava = demo_windows(DEMO_AVA_HW, SEED + 172, cfg.DATA.NUM_FRAMES)
+    run = demo_run(cfg, ava, detection=True)
+    if any(run["counts"].values()) or len(run["results"]) != DEMO_WINDOWS:
+        raise AssertionError(f"demo ava: launches {run['counts']}, "
+                             f"{len(run['results'])} windows")
+    demo_scores("ava", run, cfg.MODEL.NUM_CLASSES, detection=True)
+    nboxes = [len(e["boxes"]) for e in run["results"]]
+    if nboxes != [len(DEMO_BOXES[str(w)]) for w in range(DEMO_WINDOWS)]:
+        raise AssertionError(f"demo ava: boxes by window {nboxes}")
+    run["fwd"].calls.clear()
+    sys.path.insert(0, cfg.OUTPUT_DIR)
+    with open(os.path.join(cfg.OUTPUT_DIR, "smoke_demo_detector.py"),
+              "w") as f:
+        f.write(DEMO_DETECTOR)
+    import smoke_demo_detector
+
+    live = cfg.clone()
+    live.DEMO.BOXES_FILE = ""
+    live.DEMO.DETECTOR_FN = "smoke_demo_detector:detect"
+    seq = live.DATA.NUM_FRAMES * live.DATA.SAMPLING_RATE
+    rs = np.random.RandomState(SEED + 173)
+    frames = rs.randint(0, 256, (8,) + DEMO_AVA_HW + (3,), np.uint8)
+
+    class Capture:
+        """A camera: read() gives BGR frames, DEMO_WINDOWS windows' worth."""
+        n = 0
+
+        def read(self):
+            if self.n == seq * DEMO_WINDOWS:
+                return False, None
+            self.n += 1
+            return True, frames[self.n % len(frames)][..., ::-1]
+
+    plain = demo_run(live, camera_window_stream(live, Capture()),
+                     display=False, trace="demo_ava", detection=True)
+    sys.path.remove(cfg.OUTPUT_DIR)
+    calls = smoke_demo_detector.CALLS
+    want = [(w, (live.DATA.NUM_FRAMES,) + DEMO_AVA_HW + (3,))
+            for w in range(DEMO_WINDOWS)]
+    if calls != want or any(plain["counts"].values()) or \
+            [len(e["boxes"]) for e in plain["results"]] != [2] * DEMO_WINDOWS:
+        raise AssertionError(f"demo ava, live detector: calls {calls}, "
+                             f"launches {plain['counts']}")
+    demo_scores("ava live", plain, live.MODEL.NUM_CLASSES, detection=True)
+    top = plain["results"][0]["boxes"][0]
+    log("demo", f"ava: boxes file {nboxes} boxes by window; camera capture "
+        f"with the live detector (smoke_demo_detector:detect, called once a "
+        f"window on the raw {DEMO_AVA_HW[0]}x{DEMO_AVA_HW[1]} frames) 2 a "
+        f"window; window 0's first box {top['box']} -> "
+        f"{top['top_classes'][:2]} {top['scores'][:2]}; no kernel launched")
+    demo_report("AVA SlowFast-R101 detection (demo/AVA/SLOWFAST_32x2_R101_"
+                "50_50.yaml, bf16, 32 frames, 256x454 content on the "
+                "256x512 canvas; no hand-written kernel)", cfg, run, plain, "demo_ava", smi)
+    del run, plain
+    torch.cuda.empty_cache()
+    log("demo", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return total, k2_worst
+
+
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
     a synchronize; returns (device-busy share of the span: the union of
@@ -5761,6 +6320,15 @@ def trace_window(name, fn, top_n=5):
         with profiler.annotate("smoke_window"):
             fn()
             torch.cuda.synchronize()
+    return window_profile(name, top_n)
+
+
+def window_profile(name, top_n=5):
+    """trace_window's reading of the trace of build/smoke/profile_``name``
+    (its one smoke_window span)."""
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    log_dir = os.path.join(smoke_dir(), f"profile_{name}")
     with open(os.path.join(log_dir, profiler.TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
     span = [e for e in events if e.get("name") == "smoke_window"
@@ -5846,7 +6414,7 @@ def kernel_entry(name, source, replaces, launches, err, record):
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
                 ("10",), ("11",), ("12",), ("13",), ("14",), ("15",),
-                ("16",)]
+                ("16",), ("17",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -6041,12 +6609,18 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     stamp("16")
+    if run("17"):
+        demo_counts, demo_k2_err = phase_demo(smi)
+        errs["flash_attention"].append(demo_k2_err)
+        add(demo_counts)
+        torch.cuda.empty_cache()
+    stamp("17")
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA
     # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
     # the non-local networks (11), the efficient families (12), AVA
-    # detection (13), the frame datasets (14), int8 serving (15) and
-    # Grad-CAM (16); times per request of the
+    # detection (13), the frame datasets (14), int8 serving (15),
+    # Grad-CAM (16) and the demo (17); times per request of the
     # serving paths (3, 3b) and per CMDA train step (3c)
     kernels = [kernel_entry(name, *KERNELS[name], launches[name],
                             max(errs[name]), records[name])

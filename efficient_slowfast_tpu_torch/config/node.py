@@ -1,9 +1,10 @@
 """Attribute-accessible config tree (yacs/fvcore-style) for the port.
 
 The port's own copy of ``efficient_slowfast_tpu/config/node.py``: attribute
-access, YAML file merge, CLI key-value list merge, freezing and a hashable
-``static()`` view. PyYAML is imported only where a YAML file is read, so a
-config built in code needs nothing beyond the standard library.
+access, YAML file merge, CLI key-value list merge, freezing and thawing, a
+sorted-key YAML dump and a hashable ``static()`` view. PyYAML is imported
+only where a YAML file is read or written, so a config built in code needs
+nothing beyond the standard library.
 CLI values are parsed with ``ast.literal_eval`` (as yacs does).
 """
 
@@ -51,11 +52,23 @@ class CfgNode(dict):
             if isinstance(v, CfgNode):
                 v.freeze()
 
+    def defrost(self) -> None:
+        object.__setattr__(self, _FROZEN, False)
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v.defrost()
+
+    def is_frozen(self) -> bool:
+        return object.__getattribute__(self, _FROZEN)
+
     # -- merge ------------------------------------------------------------
     def merge_from_other_cfg(self, other: "CfgNode") -> None:
         _merge(other, self, [])
 
-    def merge_from_file(self, filename: str) -> None:
+    def merge_from_file(self, filename: str,
+                        allow_unsafe: bool = False) -> None:
+        """Merge a YAML file. ``allow_unsafe`` is yacs's flag, accepted for
+        its callers: the file is read with ``yaml.safe_load`` either way."""
         import yaml
 
         with open(filename, "r") as f:
@@ -84,6 +97,13 @@ class CfgNode(dict):
     def to_dict(self) -> dict:
         return {k: v.to_dict() if isinstance(v, CfgNode) else copy.deepcopy(v)
                 for k, v in self.items()}
+
+    def dump(self) -> str:
+        """The config as block-style YAML with sorted keys."""
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), default_flow_style=False,
+                              sort_keys=True)
 
     def clone(self) -> "CfgNode":
         return CfgNode(self.to_dict())

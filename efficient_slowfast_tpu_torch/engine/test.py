@@ -17,7 +17,6 @@ multi-label mAP of the ensembled scores.
 
 from __future__ import annotations
 
-import json
 
 import numpy as np
 import torch
@@ -112,7 +111,7 @@ def test(cfg, device=None):
     TestMeter: its ``stats`` and per-video ``video_preds``; for detection
     the finished AVAMeter (its mAP in ``full_map``)."""
     setup_logging(cfg.OUTPUT_DIR)
-    logger.info("Test with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
+    logger.info("Test with config:\n%s", cfg.dump())
     dev = resolve_device(device)
     torch.manual_seed(cfg.RNG_SEED)
     model = build_model(cfg, dev)

@@ -17,7 +17,6 @@ frame mAP.
 
 from __future__ import annotations
 
-import json
 import random
 
 import numpy as np
@@ -269,7 +268,7 @@ def train(cfg, device=None):
     multigrid schedule's solver and shapes, as in the reference. Returns
     the final train state."""
     setup_logging(cfg.OUTPUT_DIR)
-    logger.info("Train with config:\n%s", json.dumps(cfg.to_dict(), indent=1))
+    logger.info("Train with config:\n%s", cfg.dump())
     dev = resolve_device(device)
     np.random.seed(cfg.RNG_SEED)
     random.seed(cfg.RNG_SEED)

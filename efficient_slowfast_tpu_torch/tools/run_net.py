@@ -1,8 +1,10 @@
-"""Train, then test (the port's counterpart of ``tools/run_net.py``;
-reference: SlowFast/tools/run_net.py:14-37).
+"""Train, test, demo, then visualize (the port's counterpart of
+``tools/run_net.py``; reference: SlowFast/tools/run_net.py:14-37).
 
     python -m efficient_slowfast_tpu_torch.tools.run_net \
         --cfg configs/Kinetics/SLOWFAST_8x8_R50.yaml [--device cpu] KEY VAL ...
+    python -m efficient_slowfast_tpu_torch.tools.run_net \
+        --cfg demo/Kinetics/SLOWFAST_8x8_R50.yaml DEMO.DATA_SOURCE clip.mp4
 
 Runs on the GPU unless ``--device`` names another torch device; with no
 GPU and no ``--device`` it raises rather than run on the CPU.
@@ -13,6 +15,7 @@ from __future__ import annotations
 import functools
 
 from ..config.parser import load_config, parse_args
+from ..engine.demo import demo
 from ..engine.test import test
 from ..engine.train import train
 from ..engine.visualization import visualize
@@ -21,14 +24,14 @@ from ..utils.misc import launch_job
 
 
 def main(argv=None) -> dict:
-    """Train (``TRAIN.ENABLE``), test (``TEST.ENABLE``), then write the
-    test inputs to TensorBoard (``TENSORBOARD.MODEL_VIS``) for the config
-    of ``argv`` (``sys.argv`` by default); returns {"train": the final train
-    state, "test": the finished TestMeter}, each where it ran."""
+    """Train (``TRAIN.ENABLE``), test (``TEST.ENABLE``), run the demo
+    (``DEMO.ENABLE``), then write the test inputs to TensorBoard
+    (``TENSORBOARD.MODEL_VIS``) for the config of ``argv`` (``sys.argv`` by
+    default); returns {"train": the final train state, "test": the
+    finished TestMeter, "demo": the demo's window entries}, each where it
+    ran."""
     args = parse_args(argv)
     cfg = load_config(args)
-    if cfg.DEMO.ENABLE:
-        raise NotImplementedError("the demo comes with ROADMAP item 8")
     device = resolve_device(args.device)
     out = {}
     if cfg.TRAIN.ENABLE:
@@ -37,6 +40,9 @@ def main(argv=None) -> dict:
     if cfg.TEST.ENABLE:
         out["test"] = launch_job(cfg, args.init_method,
                                  functools.partial(test, device=device))
+    if cfg.DEMO.ENABLE:
+        out["demo"] = launch_job(cfg, args.init_method,
+                                 functools.partial(demo, device=device))
     if cfg.TENSORBOARD.ENABLE and cfg.TENSORBOARD.MODEL_VIS.ENABLE:
         launch_job(cfg, args.init_method,
                    functools.partial(visualize, device=device))

@@ -115,14 +115,13 @@ def test_a_checkpoint_each_epoch_and_the_test_reads_the_last(run):
 
 
 def test_the_cli_raises_for_what_later_items_bring(tmp_path, monkeypatch):
-    """The demo (item 8) and several processes (item 7) raise; TensorBoard
-    has come: MODEL_VIS alone writes every test clip's pathways (240
-    clips, 15 batches of 16)."""
-    for opts, flags, item in (
-            (["DEMO.ENABLE", "True"], ["--device", "cpu"], "item 8"),
-            ([], ["--device", "cpu", "--num_shards", "2"], "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_net.main(argv(tmp_path, *opts, flags=flags))
+    """Several processes (item 7) raise (the demo, item 8, has come:
+    tests/test_torch_port_demo.py drives its branch); TensorBoard has come:
+    MODEL_VIS alone writes every test clip's pathways (240 clips, 15
+    batches of 16)."""
+    with pytest.raises(NotImplementedError, match="item 7"):
+        run_net.main(argv(tmp_path, flags=["--device", "cpu",
+                                           "--num_shards", "2"]))
     from efficient_slowfast_tpu_torch.engine import visualization
 
     videos = []
