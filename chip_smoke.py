@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 (3b takes its shapes from the CMDA model
+5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 (3b takes its shapes from the CMDA model
 that phase 5 serves and from phase 10's schedule, 3c from the one that
 phase 7 trains and phase 10's schedule; phases 11, 12 and 13 run 3b and 3c
 again at their models' shapes before their own lines). ``--phases`` runs a
@@ -88,10 +88,10 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               configs/Kinetics/SLOWFAST_8x8_R50.yaml trains (224² crop,
               bf16, 8 clips a card, SGD lr 0.1 with nesterov momentum 0.9,
               weight decay 1e-4, dropout 0.5, final BNs zero-initialised):
-              TRAIN_WARMUP (2) warm-up and TRAIN_STEPS (3) timed steps
+              TRAIN_WARMUP (1) warm-up and TRAIN_STEPS (3) timed steps
               through create_train_state and make_train_step, no kernel
               launched, every loss finite, BN running statistics moved;
-              then PROFILE_STEPS (2) more steps traced by
+              then PROFILE_STEPS (1) more steps traced by
               utils/profiler.py (the device-busy share and the top five
               kernels, below); then one timed step (after one warm-up)
               with TPU.REMAT and TPU.REMAT_STAGES [2].
@@ -326,11 +326,44 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               and without the overlays (the demo's logged fps, the scores
               on the host), the device time, busy share and host-to-device
               bytes of a traced window, peak memory and the launches.
+18. dist    — distribution (phase_distributed), CMDA-R50 8x8 as phase 7
+              trains it (its seeded weights, attention calibrated, one
+              fixed global batch of TRAIN_CLIPS 224² clips, bf16, the
+              yaml's warm-up lr): (a) one step through DDP over NCCL at
+              world size 1 against the same step without a process group
+              (the loss bit for bit, the parameters within DIST_DDP_BOUND
+              of the step's length, 4 K2 and 12 K2-bwd launches; a DDP
+              step with gradients planted x DIST_PLANTED_SCALE by a comm
+              hook must fail that bound); (b) DIST_WORLD ranks over gloo on
+              cuda:0 (one card: NCCL refuses two ranks on one device),
+              each a process started as the CLI's flags start one
+              (--num_shards, --shard_id, --init_method, --device cuda:0,
+              launch_job) and killed at DIST_DEADLINE_S: DIST_STEPS steps
+              of each rank's half of the global batch (the first step's 4
+              K2 and K2-bwd calls held against the plain versions on their
+              inputs at their own scale, GRADCAM_SCALE_FLOOR, with the
+              planted dV faults of phase 16 on the smallest call; one more
+              step traced: the card's busy share and the host's wall time
+              inside the synchronous all-reduces),
+              then the 30-view test of SLOWFAST_8x8_R50.yaml with
+              TPU.FUSED_EVAL from a .pyth (240 clips, global batches of
+              64: 4 of 32 a rank, the last 24 real). Gates: the launches
+              (12 K2, 36 K2-bwd, then 104 K1, a rank); losses, a crc of the
+              parameters and the gathered per-video scores equal across the
+              ranks; losses within DIST_LOSS_TOL of one process's steps on
+              the global batch, the per-video centred log mean
+              probabilities within TEST_LOGIT_TOL of one process's test().
+              Prints train clips/s at 1 process and 2 ranks, the traced
+              step's busy share and all-reduce waits (and the CPU time of
+              issuing the collectives), each rank's peak memory, and the
+              phase's seconds.
 
 The depths were cut to make room for phase 16 within the time limit:
 REQUESTS 3 → 2, TRAIN_STEPS 5 → 3, PROFILE_STEPS 3 → 2, FATIGUE_STEPS 4 →
 3 (phase 14 traces its third step), PRECISE_BATCHES 2 → 1,
-FRAME_LIST_STEPS 4 → 2 (no width, shape, gate or kernel hold changed).
+FRAME_LIST_STEPS 4 → 2; and for phase 18: TRAIN_WARMUP 2 → 1,
+PROFILE_STEPS 2 → 1, DEMO_WINDOWS 3 → 2 (no width, shape, gate or kernel
+hold changed).
 After each phase block the smoke logs the seconds since its start.
 
 The profiler (phases 6, 7, 8, 11, 12, 13, 16) prints, per traced window, the
@@ -340,7 +373,7 @@ sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 (its times and bounds are per
+4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 (its times and bounds are per
 request of the SlowFast and CMDA serving paths and per CMDA train step,
 phase 13's rows standing in where 3b or 3c did not run, and K3's per
 request of the +INT8_SPATIAL SlowFast-R50, its ms and library_ms (cuDNN's
@@ -474,9 +507,9 @@ ATTN_BWD_PR5_MS = {"s1_fuse": "6.3493 / 6.4194", "s2_fuse": "8.9250 / 8.8969",
 # training: clips a card (the reference configs train TRAIN.BATCH_SIZE 64
 # over 8 GPUs), warm-up and timed steps
 TRAIN_CLIPS = 8
-TRAIN_WARMUP, TRAIN_STEPS = 2, 3
+TRAIN_WARMUP, TRAIN_STEPS = 1, 3
 # steps traced by torch.profiler after the timed ones (phases 6 and 7)
-PROFILE_STEPS = 2
+PROFILE_STEPS = 1
 # One CMDA train step on one clip with the attention kernels against the
 # same step with the plain attention (FLASH_ATTENTION False).
 # float32, per parameter tensor: |p_kernel - p_plain| over |p_plain -
@@ -5578,11 +5611,10 @@ def hold_gradcam_calls(target, dtype, rec, fwd_calls):
     return worst_f, worst_b
 
 
-def planted_backward_faults(call):
-    """The K2-bwd gate on one recorded call with two planted faults in dV,
-    zeroed and P dO in place of Pᵀ dO (the probabilities untransposed; the
-    phase's N equals M): each must exceed ATTN_BWD_BF16_TOL of dV's own
-    scale. Prints each one's error by that rule and by max(1, scale)."""
+def planted_fault_errors(call):
+    """Two planted faults in dV of one recorded K2-bwd call, zeroed and P dO
+    in place of Pᵀ dO (the probabilities untransposed; CMDA's N equals
+    M): {fault: (its error of dV's own scale, of max(1, scale))}."""
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
         attention_backward
 
@@ -5594,17 +5626,22 @@ def planted_backward_faults(call):
         faults = {"dV zeroed": torch.zeros_like(dv),
                   "dV = P dO": torch.bmm(p, dout.float()).to(dv.dtype)}
         del p
-    errs = {name: (relative_error(f, dv, GRADCAM_SCALE_FLOOR),
+    return {name: (relative_error(f, dv, GRADCAM_SCALE_FLOOR),
                    relative_error(f, dv, 1.0)) for name, f in faults.items()}
-    log("gradcam", "planted K2-bwd faults on the N " + str(q.shape[1])
-        + " call, dV's error of its own scale / of max(1, scale): "
-        + ", ".join(f"{name} {a:.3e} / {b:.3e}"
-                    for name, (a, b) in errs.items())
+
+
+def gate_planted_faults(tag, n, errs):
+    """The K2-bwd gate against planted_fault_errors' faults on the N ``n``
+    call: each must exceed ATTN_BWD_BF16_TOL of dV's own scale. Prints
+    each one's error by that rule and by max(1, scale)."""
+    log(tag, f"planted K2-bwd faults on the N {n} call, dV's error of its "
+        "own scale / of max(1, scale): " + ", ".join(
+            f"{name} {a:.3e} / {b:.3e}" for name, (a, b) in errs.items())
         + f" (gate {ATTN_BWD_BF16_TOL} of its own scale)")
     missed = [name for name, (a, _) in errs.items()
               if not a > ATTN_BWD_BF16_TOL]
     if missed:
-        raise AssertionError(f"gradcam: the K2-bwd gate passes the planted "
+        raise AssertionError(f"{tag}: the K2-bwd gate passes the planted "
                              f"faults {missed}")
 
 
@@ -5706,7 +5743,8 @@ def phase_gradcam(smi):
                 for key, value in counts.items():
                     total[key] += value
                 if dtype == "bfloat16" and target == "s4":
-                    planted_backward_faults(bwd_calls[0])
+                    gate_planted_faults("gradcam", bwd_calls[0][0].shape[1],
+                                        planted_fault_errors(bwd_calls[0]))
                 if dtype == "bfloat16":
                     # each fusion's backward alone, once (s4_fuse's, then
                     # s3_fuse's)
@@ -5778,7 +5816,7 @@ def phase_gradcam(smi):
 # Phase 17: the demo (engine/demo.py) on the card
 # windows a demo run serves (a synthetic stream; the card's machine cannot
 # build the video decoder, so no file source)
-DEMO_WINDOWS = 3
+DEMO_WINDOWS = 2
 # the raw frames of the Kinetics streams: 4:3 landscape, as a camera gives
 # them; the demo fits each window's short side to TEST_CROP_SIZE (256 →
 # 256 x 341) on the host
@@ -6307,6 +6345,483 @@ def phase_demo(smi):
     return total, k2_worst
 
 
+# ---------------------------------------------------------------------------
+# phase 18: distribution. The two-rank job's CMDA-R50 train steps, on one
+# fixed global batch of TRAIN_CLIPS clips (each rank its half)
+DIST_WORLD = 2
+DIST_STEPS = 3
+# a rank's deadline (it is killed with its process group after it), and
+# how long the group's rendezvous and collectives wait for a rank
+DIST_DEADLINE_S = 600
+DIST_TIMEOUT_S = 300
+# The two-rank step against one process on the same global batch, bf16:
+# the same arithmetic but for the batch each conv sees (4 clips against
+# 8: cuDNN may pick other algorithms, other bf16 summation orders), BN's
+# statistics (reduced across the ranks in float32 against cuDNN's) and
+# the gradients' sum over the ranks; each of order 2^-8 of a layer's
+# values with random signs, as TEST_LOGIT_TOL argues, which over three
+# steps at the warm-up lr moves the loss by far less than its own value.
+# |loss difference| within 2e-2 of max(1, |loss|), NLN_LOSS_TOL's bf16
+# bound for two paths that differ by bf16 roundings.
+DIST_LOSS_TOL = 2e-2
+# DDP over NCCL at world size 1 against the step without it. The forward
+# is the same (the loss is held bit for bit); the gradients go through
+# DDP's buckets, a sum over one rank and a division by one, all exact. So
+# the parameters after the step differ only where the backward does not
+# repeat: K2-bwd's bf16 dQ is summed by atomic adds and cuDNN's weight
+# gradients may be too, so a second plain step is not the first's bit for
+# bit either. On the H100 (700 W) the DDP step read 6.2e-4 and 1.3e-3 of
+# the step's length from the plain one, and a second plain step 4.1e-4
+# to 4.4e-4. The bound is 5e-3 of the step's length: about 4x the worst
+# reading, and half of what a gradient misscaled by DIST_PLANTED_SCALE
+# moves it, which the phase plants (a DDP comm hook) and must see fail.
+DIST_DDP_BOUND = 5e-3
+DIST_PLANTED_SCALE = 0.99
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_dir():
+    path = os.path.join(smoke_dir(), "dist18")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def param_distance(a, b, keys):
+    return sum((a[k].double() - b[k].double()).norm().item() ** 2
+               for k in keys) ** 0.5
+
+
+def dist_train(cfg, state_dict, batch, device, rows=slice(None),
+               steps=DIST_STEPS, record=None, hook=None):
+    """``steps`` train steps from ``state_dict`` on rows ``rows`` of the
+    global ``batch`` through create_train_state (DDP in a process group,
+    with the comm ``hook`` where given) and make_train_step, the dropout
+    drawn from a seeded generator, at the yaml's warm-up lr; the first
+    step inside ``record`` where given. Returns (state, losses, the later
+    steps' seconds each)."""
+    from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
+                                                           make_train_step)
+    from efficient_slowfast_tpu_torch.models import build_model
+
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict, strict=True)
+    state = create_train_state(cfg, model, device)
+    if hook is not None:
+        state.ddp.register_comm_hook(None, hook)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    x = [t[rows].to(device) for t in batch[0]]
+    y = batch[1][rows].to(device)
+    drop = torch.Generator(device=device).manual_seed(SEED)
+    lr = cfg.SOLVER.WARMUP_START_LR
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        if i == 0 and record is not None:
+            with record:
+                mets = step(state, x, y, lr, drop)
+        else:
+            mets = step(state, x, y, lr, drop)
+        losses.append(mets["loss"].item())
+        torch.cuda.synchronize(device)
+        if i:
+            times.append(time.perf_counter() - t0)
+    return state, losses, times
+
+
+def misscaled_gradients(_, bucket):
+    """A DDP comm hook that plants a fault: the bucket's gradients times
+    DIST_PLANTED_SCALE, not reduced (world size 1)."""
+    fut = torch.futures.Future()
+    fut.set_result(bucket.buffer().mul_(DIST_PLANTED_SCALE))
+    return fut
+
+
+def phase_dist_nccl(cfg, state_dict, batch, smi):
+    """(a) One CMDA-R50 step through DDP over NCCL at world size 1 against
+    the same step without a process group (twice), and a DDP step with
+    misscaled gradients that the gate must refuse. Returns the DDP step's
+    launch counts."""
+    from efficient_slowfast_tpu_torch.parallel import distributed
+
+    params = [k for k in state_dict if not k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))]
+    one = lambda **kw: dist_train(cfg, state_dict, batch, "cuda",  # noqa
+                                  steps=1, **kw)
+
+    def after(run):
+        state, losses, _ = run
+        out = {k: v.detach().clone() for k, v in state.model.state_dict()
+               .items()}
+        return out, losses[0], state.ddp is not None
+
+    plain, loss_p, _ = after(one())
+    again, loss_a, _ = after(one())
+    gcfg = cfg.clone()
+    gcfg.DIST_BACKEND = "nccl"
+    gcfg.NUM_SHARDS, gcfg.SHARD_ID, gcfg.NUM_GPUS = 1, 0, 1
+    distributed.TIMEOUT_S = DIST_TIMEOUT_S
+    distributed.init_distributed(gcfg, 0, torch.device("cuda", 0),
+                                 f"tcp://127.0.0.1:{free_port()}")
+    try:
+        backend = torch.distributed.get_backend()
+        world = distributed.world_size()
+        reset_counts()
+        ddp, loss_d, wrapped = after(one())
+        counts = read_counts()
+        fault, loss_f, _ = after(one(hook=misscaled_gradients))
+    finally:
+        distributed.destroy_distributed()
+    step = param_distance(plain, state_dict, params)
+    r_ddp = param_distance(ddp, plain, params) / step
+    r_again = param_distance(again, plain, params) / step
+    r_fault = param_distance(fault, plain, params) / step
+    log("dist", f"(a) CMDA-R50, bf16, {TRAIN_CLIPS} clips at 224², one step "
+        f"through DDP over {backend} at world size {world} against the "
+        f"step without a process group: loss {loss_d!r} vs {loss_p!r} "
+        f"(a second plain step {loss_a!r}; held bit for bit); parameters, "
+        f"distance from the plain step over the step's length: DDP "
+        f"{r_ddp:.3e}, a second plain step {r_again:.3e}, DDP with the "
+        f"gradients planted x{DIST_PLANTED_SCALE} {r_fault:.3e} (loss "
+        f"{loss_f!r}; bound {DIST_DDP_BOUND}) | kernel launches {counts} | "
+        f"{smi}")
+    expect = {"fused_bottleneck": 0, "flash_attention": 4,
+              "flash_attention_backward": 12, "int8_conv": 0}
+    if not (wrapped and backend == "nccl" and world == 1):
+        raise AssertionError(f"dist (a): DDP {wrapped}, {backend}, {world}")
+    if counts != expect:
+        raise AssertionError(f"dist (a): launches {counts}, expected {expect}")
+    if loss_d != loss_p or not r_ddp <= DIST_DDP_BOUND:
+        raise AssertionError(f"dist (a): loss {loss_d!r} vs {loss_p!r}, "
+                             f"parameters {r_ddp} (bound {DIST_DDP_BOUND})")
+    if not r_fault > DIST_DDP_BOUND:
+        raise AssertionError(f"dist (a): the gate passes gradients planted "
+                             f"x{DIST_PLANTED_SCALE}: {r_fault}")
+    return counts
+
+
+def collective_ms(prof):
+    """{op: (calls, CPU ms)} of the collectives' records in a profile
+    (gloo's and c10d's all-reduce, broadcast and all-gather): the host's
+    time to issue them, not the time it waits for them."""
+    pattern = re.compile(r"gloo|allreduce|all_reduce|broadcast|allgather",
+                         re.I)
+    return {e.key: (e.count, e.cpu_time_total / 1e3)
+            for e in prof.key_averages() if pattern.search(e.key)}
+
+
+def rank18_job(cfg, device):
+    """One rank of phase 18 (b), in a process group that ``launch_job``
+    joined: the CMDA-R50 train steps on this rank's half of the global
+    batch (the first step's attention calls recorded and held against the
+    plain versions on their inputs at their own scale, with planted
+    faults on the smallest; one more step traced, its synchronous
+    all-reduces timed on the host), then the 30-view test; its results
+    in the job's directory."""
+    from efficient_slowfast_tpu_torch.engine.state import make_train_step
+    from efficient_slowfast_tpu_torch.engine.test import test
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from efficient_slowfast_tpu_torch.parallel import distributed
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    job = torch.load(os.path.join(cfg.OUTPUT_DIR, "job.pt"),
+                     weights_only=False)
+    rank, world = distributed.rank(), distributed.world_size()
+    b = job["batch"][1].shape[0] // world
+    torch.cuda.reset_peak_memory_stats(device)
+    rec = BackwardCalls()
+    reset_counts()
+    state, losses, times = dist_train(
+        job["train_cfg"], job["state"], job["batch"], device,
+        rows=slice(rank * b, (rank + 1) * b), record=rec)
+    counts = read_counts()
+    train_peak = torch.cuda.max_memory_allocated(device)  # before the holds
+    with torch.no_grad():
+        fwd = [(q.shape[1], relative_error(out, fa.chunked_attention(q, k, v),
+                                           GRADCAM_SCALE_FLOOR),
+                out.float().abs().max().item())
+               for q, k, v, out, _, _, _ in rec.calls]
+    bwd = rec.held(GRADCAM_SCALE_FLOOR)
+    small = min(rec.calls, key=lambda c: c[0].shape[1])
+    planted = (small[0].shape[1], planted_fault_errors(small))
+    calls = len(rec.calls)
+    del rec, small
+    step = make_train_step(job["train_cfg"], state.model, state.optimizer)
+    x = [t[rank * b:(rank + 1) * b].to(device) for t in job["batch"][0]]
+    y = job["batch"][1][rank * b:(rank + 1) * b].to(device)
+    # the host's wall time inside each synchronous all-reduce (BN's
+    # statistics, the metrics): gloo copies a CUDA tensor to the host once
+    # the stream reaches it, so this is the wait for the card to drain plus
+    # the exchange; DDP's bucket all-reduces are issued from C++ and wait
+    # at the backward's end
+    waits, all_reduce = [], torch.distributed.all_reduce
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        out = all_reduce(*args, **kw)
+        waits.append(time.perf_counter() - t)
+        return out
+
+    name = f"dist18_rank{rank}"
+    torch.distributed.all_reduce = timed
+    try:
+        torch.cuda.synchronize(device)
+        with profiler.trace(os.path.join(smoke_dir(), f"profile_{name}")) \
+                as prof:
+            with profiler.annotate("smoke_window"):
+                step(state, x, y, job["train_cfg"].SOLVER.WARMUP_START_LR,
+                     torch.Generator(device=device).manual_seed(SEED))
+                torch.cuda.synchronize(device)
+    finally:
+        torch.distributed.all_reduce = all_reduce
+    collectives = collective_ms(prof)
+    busy, span_ms, _, _ = window_profile(name)
+    crc = distributed.state_checksum(state.model)
+    del state, step, x, y, prof
+    torch.cuda.empty_cache()
+    distributed.host_barrier("dist18_train")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    meter = test(job["test_cfg"], device)
+    test_s = time.perf_counter() - t0
+    torch.save(dict(
+        rank=rank, world=world, losses=losses, step_s=times, counts=counts,
+        fwd=fwd, bwd=bwd, planted=planted, calls=calls,
+        collectives=collectives, waits=waits, busy=busy, span_ms=span_ms,
+        crc=crc, train_peak=train_peak,
+        test_counts=read_counts(), test_s=test_s,
+        test_peak=torch.cuda.max_memory_allocated(device),
+        video_preds=meter.video_preds, num_clips=meter.num_clips,
+        stats=meter.stats),
+        os.path.join(cfg.OUTPUT_DIR, f"rank{rank}.pt"))
+
+
+def rank18_main(argv):
+    """A rank of phase 18 (b), started as the port's CLI is: the flags of
+    ``config/parser.py`` (``--num_shards``, ``--shard_id``,
+    ``--init_method``, ``--device``) through ``launch_job``."""
+    from efficient_slowfast_tpu_torch.config.parser import (load_config,
+                                                            parse_args)
+    from efficient_slowfast_tpu_torch.models.build import resolve_device
+    from efficient_slowfast_tpu_torch.parallel import distributed
+    from efficient_slowfast_tpu_torch.utils.misc import launch_job
+
+    distributed.TIMEOUT_S = DIST_TIMEOUT_S
+    args = parse_args(argv)
+    launch_job(load_config(args), args.init_method, rank18_job,
+               resolve_device(args.device))
+
+
+def start_ranks(d, yaml):
+    """The DIST_WORLD rank processes of phase 18 (b), each in a session of
+    its own, over gloo on cuda:0."""
+    port = free_port()
+    procs = []
+    for r in range(DIST_WORLD):
+        log_path = os.path.join(d, f"rank{r}.log")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "rank18",
+             "--num_shards", str(DIST_WORLD), "--shard_id", str(r),
+             "--init_method", f"tcp://127.0.0.1:{port}", "--device",
+             "cuda:0", "--cfg", yaml, "DIST_BACKEND", "gloo", "OUTPUT_DIR",
+             d], cwd=ROOT, stdout=open(log_path, "w"),
+            stderr=subprocess.STDOUT, start_new_session=True), log_path))
+    return procs
+
+
+def wait_ranks(procs):
+    """Wait for every rank until DIST_DEADLINE_S; kill what is left (with
+    its process group) and raise with the logs' tails where any failed."""
+    import signal
+
+    t0, errors = time.time(), []
+    for p, log_path in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, DIST_DEADLINE_S - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = "killed at the deadline"
+        if p.poll() is None or rc != 0:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+            with open(log_path) as f:
+                errors.append(f"{log_path}: {rc}\n{f.read()[-4000:]}")
+    if errors:
+        raise AssertionError("dist (b): a rank failed\n" + "\n".join(errors))
+
+
+def phase_dist_ranks(cfg, state_dict, batch, smi):
+    """(b) Two ranks over gloo on cuda:0, started through the CLI's flags:
+    DIST_STEPS CMDA-R50 train steps on the global batch, then the 30-view
+    test of SLOWFAST_8x8_R50.yaml with TPU.FUSED_EVAL on the synthetic
+    split (240 clips, global batches of 64: each rank 4 of 32, its last 24
+    real), each held against one process. Returns the ranks' launches and
+    the worst attention errors."""
+    from efficient_slowfast_tpu_torch.engine.test import test
+
+    d = dist_dir()
+    torch.cuda.reset_peak_memory_stats()
+    _, ref_losses, ref_times = dist_train(cfg, state_dict, batch, "cuda")
+    ref_peak = torch.cuda.max_memory_allocated()
+    # one process on one rank's rows: the peak a rank's batch has alone
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist_train(cfg, state_dict, batch, "cuda",
+               rows=slice(0, batch[1].shape[0] // DIST_WORLD))
+    half_peak = torch.cuda.max_memory_allocated()
+    pyth = os.path.join(d, "slowfast.pyth")
+    tcfg = yaml_cfg("SLOWFAST_8x8_R50.yaml", [
+        "TPU.FUSED_EVAL", True, "OUTPUT_DIR", d,
+        "TEST.CHECKPOINT_FILE_PATH", pyth])
+    model = serving_model(tcfg, SEED)
+    torch.save({"model_state": model.state_dict()}, pyth)
+    del model
+    reset_counts()
+    t0 = time.perf_counter()
+    ref_meter = test(tcfg)
+    ref_test_s = time.perf_counter() - t0
+    ref_test_counts = read_counts()
+    torch.save({"train_cfg": cfg, "test_cfg": tcfg,
+                "state": {k: v.cpu() for k, v in state_dict.items()},
+                "batch": ([t.cpu() for t in batch[0]], batch[1].cpu())},
+               os.path.join(d, "job.pt"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wait_ranks(start_ranks(d, os.path.join(
+        ROOT, "configs", "Kinetics", "SLOWFAST_DUALATTENTION_8x8_R50.yaml")))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(DIST_WORLD)]
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+
+    train_expect = {"fused_bottleneck": 0, "flash_attention": 4 * DIST_STEPS,
+                    "flash_attention_backward":
+                        4 * BACKWARD_LAUNCHES_PER_CALL * DIST_STEPS,
+                    "int8_conv": 0}
+    batches = -(-len(ref_meter.video_preds) * ref_meter.num_clips
+                // DIST_WORLD // (tcfg.TEST.BATCH_SIZE // DIST_WORLD))
+    test_expect = dict.fromkeys(KERNELS, 0)
+    test_expect["fused_bottleneck"] = 26 * batches
+    ref_means = ref_meter.video_preds / ref_meter.num_clips
+    ref_c = centred_log(ref_means)
+    scale = float(np.abs(ref_c).max())
+    clips = batch[1].shape[0]
+    step_s = max(statistics.mean(r["step_s"]) for r in ranks)
+    worst = [0.0, 0.0]
+    log("dist", f"(b) {DIST_WORLD} ranks over gloo on cuda:0 (--num_shards "
+        f"{DIST_WORLD} --shard_id r --init_method tcp://127.0.0.1:<port>), "
+        f"the job {ranks_s:.1f} s with each rank's start | {smi}")
+    for r in ranks:
+        means = r["video_preds"] / r["num_clips"]
+        err = float(np.abs(centred_log(means) - ref_c).max())
+        top1 = float((means.argmax(1) == ref_means.argmax(1)).mean())
+        loss_err = max(abs(a - b) / max(1.0, abs(b))
+                       for a, b in zip(r["losses"], ref_losses))
+        coll = ", ".join(f"{k} {n}x {ms:.2f} ms" for k, (n, ms) in sorted(
+            r["collectives"].items(), key=lambda kv: -kv[1][1])[:4])
+        worst_f = max(e for _, e, _ in r["fwd"])
+        worst_b = max(e for row in r["bwd"] for e, _ in row)
+        log("dist", f"(b) rank {r['rank']}: the first step's {r['calls']} "
+            f"K2 calls against chunked_attention on their inputs (N, error "
+            f"of its own scale, scale) " + ", ".join(
+                f"({n}, {e:.3e}, {m:.3e})" for n, e, m in r["fwd"])
+            + f" (tol {ATTN_BF16_TOL}) | its K2-bwd calls against "
+            f"attention_backward, dQ, dK, dV (error of its own scale, "
+            f"scale): " + "; ".join(", ".join(
+                f"({e:.3e}, {m:.3e})" for e, m in row) for row in r["bwd"])
+            + f" (tol {ATTN_BWD_BF16_TOL})")
+        gate_planted_faults(f"dist (b) rank {r['rank']}", *r["planted"])
+        waits = r["waits"]
+        log("dist", f"(b) rank {r['rank']}: a traced step {r['span_ms']:.1f} "
+            f"ms, the card busy {r['busy'] * 100:.1f}% of it "
+            f"({r['busy'] * r['span_ms']:.1f} ms); the host inside the "
+            f"step's {len(waits)} synchronous all-reduces (BN statistics, "
+            f"metrics; each waits for the card to drain, then exchanges) "
+            f"{sum(waits) * 1e3:.1f} ms in all, median "
+            f"{statistics.median(waits) * 1e3:.2f} ms, largest "
+            f"{max(waits) * 1e3:.2f} ms; issuing the collectives (CPU ms "
+            f"of their records) {coll or 'none recorded'}")
+        log("dist", f"(b) rank {r['rank']}/{r['world']}: {DIST_STEPS} CMDA "
+            f"steps of {clips // DIST_WORLD} clips: losses " + ", ".join(
+                f"{x:.6f}" for x in r["losses"]) + " against one process's "
+            + ", ".join(f"{x:.6f}" for x in ref_losses) + f" (worst rel "
+            f"{loss_err:.3e}, tol {DIST_LOSS_TOL}); parameter crc "
+            f"{r['crc']:#010x}; launches {r['counts']}; train peak memory "
+            f"{r['train_peak'] / 2 ** 30:.2f} GiB | 30-view test "
+            f"{r['test_s']:.1f} s, launches {r['test_counts']}, per-video "
+            f"centred log mean probabilities vs one process max |d| "
+            f"{err:.3e} of scale {scale:.3e} (tol "
+            f"{TEST_LOGIT_TOL * scale:.3e}), top-1 agreement {top1:.3f}, "
+            f"{r['stats']}, test peak memory "
+            f"{r['test_peak'] / 2 ** 30:.2f} GiB")
+        if r["counts"] != train_expect or r["test_counts"] != test_expect:
+            raise AssertionError(f"dist (b) rank {r['rank']}: launches "
+                                 f"{r['counts']} / {r['test_counts']}, "
+                                 f"expected {train_expect} / {test_expect}")
+        if (loss_err > DIST_LOSS_TOL or not worst_f <= ATTN_BF16_TOL
+                or not worst_b <= ATTN_BWD_BF16_TOL
+                or not err <= TEST_LOGIT_TOL * scale
+                or r["calls"] != 4):
+            raise AssertionError(
+                f"dist (b) rank {r['rank']}: losses {loss_err}, attention "
+                f"{worst_f} / {worst_b} ({r['calls']} calls), test {err} "
+                f"of {scale}")
+        worst[0], worst[1] = max(worst[0], worst_f), max(worst[1], worst_b)
+    r0, r1 = ranks
+    if (r0["losses"] != r1["losses"] or r0["crc"] != r1["crc"]
+            or not np.array_equal(r0["video_preds"], r1["video_preds"])):
+        raise AssertionError("dist (b): the ranks differ: losses "
+                             f"{r0['losses']} / {r1['losses']}, crc "
+                             f"{r0['crc']:#x} / {r1['crc']:#x}")
+    log("dist", f"bf16 CMDA-R50 train clips/s on the global batch of "
+        f"{clips}: 1 process {clips / statistics.mean(ref_times):.2f} (peak "
+        f"{ref_peak / 2 ** 30:.2f} GiB; on one rank's "
+        f"{clips // DIST_WORLD} clips {half_peak / 2 ** 30:.2f} GiB), "
+        f"{DIST_WORLD} ranks on one card "
+        f"{clips / step_s:.2f}; the 30-view test of 240 clips: 1 process "
+        f"{ref_test_s:.1f} s ({ref_test_counts['fused_bottleneck']} K1 "
+        f"launches), {DIST_WORLD} ranks "
+        f"{max(r['test_s'] for r in ranks):.1f} s | {smi}")
+    counts = dict.fromkeys(KERNELS, 0)
+    for r in ranks:
+        for key in KERNELS:
+            counts[key] += r["counts"][key] + r["test_counts"][key]
+    return counts, worst[0], worst[1]
+
+
+def phase_distributed(smi):
+    """Phase 18: CMDA-R50 (phase 7's model, attention calibrated) through
+    DDP over NCCL at world size 1 (a), then two gloo ranks on the card (b).
+    Returns the main paths' launches and the worst attention errors."""
+    t0 = time.perf_counter()
+    cfg = train_cfg("SlowFastDualAttention")
+    model = train_model(cfg, SEED)
+    calibrate_attention(cfg, model, SEED + 9, phase="dist")
+    state_dict = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = train_batches(cfg, 1, TRAIN_CLIPS, SEED + 18)[0]
+    counts = dict(phase_dist_nccl(cfg, state_dict, batch, smi))
+    torch.cuda.empty_cache()
+    ranks, worst_f, worst_b = phase_dist_ranks(cfg, state_dict, batch, smi)
+    for key, value in ranks.items():
+        counts[key] += value
+    log("dist", f"phase 18 {time.perf_counter() - t0:.1f} s | {smi}")
+    return counts, worst_f, worst_b
+
+
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
     a synchronize; returns (device-busy share of the span: the union of
@@ -6414,7 +6929,7 @@ def kernel_entry(name, source, replaces, launches, err, record):
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
                 ("10",), ("11",), ("12",), ("13",), ("14",), ("15",),
-                ("16",), ("17",)]
+                ("16",), ("17",), ("18",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -6457,6 +6972,9 @@ def chosen_phases(argv):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["rank18"]:  # a rank process of phase 18 (b)
+        return rank18_main(argv[1:])
     want = chosen_phases(argv)
     run = lambda *block: want is None or bool(want & set(block))  # noqa: E731
     start = time.time()
@@ -6615,12 +7133,20 @@ def main(argv=None):
         add(demo_counts)
         torch.cuda.empty_cache()
     stamp("17")
+    if run("18"):
+        dist_counts, dist_fwd_err, dist_bwd_err = phase_distributed(smi)
+        errs["flash_attention"].append(dist_fwd_err)
+        errs["flash_attention_backward"].append(dist_bwd_err)
+        add(dist_counts)
+        torch.cuda.empty_cache()
+    stamp("18")
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA
     # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
     # the non-local networks (11), the efficient families (12), AVA
     # detection (13), the frame datasets (14), int8 serving (15),
-    # Grad-CAM (16) and the demo (17); times per request of the
+    # Grad-CAM (16), the demo (17) and distribution (18); times per
+    # request of the
     # serving paths (3, 3b) and per CMDA train step (3c)
     kernels = [kernel_entry(name, *KERNELS[name], launches[name],
                             max(errs[name]), records[name])

@@ -180,14 +180,14 @@ _C.SOLVER.OPTIMIZING_METHOD = "sgd"
 # ---------------------------------------------------------------------------
 # Misc options
 # ---------------------------------------------------------------------------
-_C.NUM_GPUS = 1  # interpreted as number of devices (TPU chips) per host
+_C.NUM_GPUS = 1  # processes (one per GPU) on each machine
 _C.NUM_SHARDS = 1
 _C.SHARD_ID = 0
 _C.OUTPUT_DIR = "./tmp"
 _C.RNG_SEED = 1
 _C.LOG_PERIOD = 10
 _C.LOG_MODEL_INFO = True
-_C.DIST_BACKEND = "nccl"  # ignored on TPU (XLA collectives over ICI/DCN)
+_C.DIST_BACKEND = "nccl"  # nccl on GPUs, gloo for CPU processes
 
 # ---------------------------------------------------------------------------
 # Benchmark options

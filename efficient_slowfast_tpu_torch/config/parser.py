@@ -3,7 +3,8 @@ reference: slowfast/utils/parser.py:13-94).
 
 The port's CLI adds one flag to the JAX package's, ``--device``: the
 torch device to run on (the GPU unless it is given). It is not a config
-key.
+key. ``--shard_id``, ``--num_shards`` and ``--init_method`` place this
+machine's processes in the job (``utils/misc.py::launch_job``).
 """
 
 from __future__ import annotations
@@ -23,14 +24,15 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--shard_id", type=int, default=0,
-        help="Shard id (host index) of this node; 0 .. NUM_SHARDS-1.",
+        help="Shard id (machine index) of this node; 0 .. NUM_SHARDS-1.",
     )
     parser.add_argument(
-        "--num_shards", type=int, default=1, help="Number of hosts in the job."
+        "--num_shards", type=int, default=1,
+        help="Number of machines in the job."
     )
     parser.add_argument(
         "--init_method", type=str, default="tcp://localhost:9999",
-        help="Rendezvous address of a multi-host job.",
+        help="Rendezvous address of a multi-process job (machine 0's).",
     )
     parser.add_argument(
         "--cfg", dest="cfg_file", type=str, default=None, help="Path to config yaml."

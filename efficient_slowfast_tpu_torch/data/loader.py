@@ -27,8 +27,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from ..parallel import distributed
 from ..utils.meters import span
 from ..utils.multigrid import short_cycle_batch_sizes
 from .build import build_dataset
@@ -36,11 +36,9 @@ from .datasets import CanvasDataset
 
 
 def process_rank_and_count() -> tuple:
-    """(rank, world size) of this process: torch.distributed's when a
-    process group is up, else (0, 1)."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    """(rank, world size) of this process: the process group's when one
+    is up, else (0, 1)."""
+    return distributed.rank(), distributed.world_size()
 
 
 def shard_indices(indices: np.ndarray, process_count: int,

@@ -10,7 +10,10 @@ so every batch has one output shape whatever the scale drawn. Frames are
 channels-last (B, T, H, W, C), uint8 or float. Random draws take a
 ``torch.Generator`` on the device they are drawn for. Small per-clip arrays
 (widths, boxes, flags) may live on the host: they are copied to the frames'
-device without a synchronisation.
+device without a synchronisation. Across processes every per-clip draw
+is this rank's rows of the draw for the global batch
+(``parallel.distributed.global_rows``), so the ranks together draw what
+one process draws.
 """
 
 from __future__ import annotations
@@ -19,10 +22,19 @@ from typing import Optional
 
 import torch
 
+from ..parallel.distributed import global_rows
 
-def _uniform(generator, shape, lo, hi):
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return u * (hi - lo) + lo
+
+def _rand(generator, shape, dim=0, normal=False):
+    """Draws of ``shape`` from ``generator``, uniform in [0, 1) (normal
+    with ``normal``), axis ``dim`` running over the clips of the batch."""
+    fn = torch.randn if normal else torch.rand
+    return global_rows(lambda s: fn(s, generator=generator,
+                                    device=generator.device), shape, dim)
+
+
+def _uniform(generator, shape, lo, hi, dim=0):
+    return _rand(generator, shape, dim) * (hi - lo) + lo
 
 
 def _on(x, device):
@@ -134,7 +146,7 @@ def random_scale_crop_boxes(
     offset ``u·(L−win)`` is uniform over the full resized long axis.
     """
     dev = generator.device
-    u = torch.rand(3, batch, generator=generator, device=dev)
+    u = _rand(generator, (3, batch), dim=1)
     if inverse_uniform:
         inv = u[0] * (1.0 / min_scale - 1.0 / max_scale) + 1.0 / max_scale
         scale = 1.0 / inv
@@ -202,8 +214,7 @@ def transpose_portrait(frames: torch.Tensor, portrait) -> torch.Tensor:
 
 def horizontal_flip(generator, frames: torch.Tensor, prob: float = 0.5):
     """Per-clip random horizontal flip (reference: transform.py:395-422)."""
-    do = torch.rand(frames.shape[0], generator=generator,
-                    device=generator.device) < prob
+    do = _rand(generator, (frames.shape[0],)) < prob
     do = do.to(frames.device)[:, None, None, None, None]
     return torch.where(do, frames.flip(3), frames)
 
@@ -288,8 +299,7 @@ def horizontal_flip_with_boxes(generator, frames: torch.Tensor, boxes,
     bools, where given, are the decisions instead of draws."""
     b, _, _, w, _ = frames.shape
     if do is None:
-        do = torch.rand(b, generator=generator,
-                        device=generator.device) < prob
+        do = _rand(generator, (b,)) < prob
     do = torch.as_tensor(do).to(frames.device, non_blocking=True)
     frames = torch.where(do[:, None, None, None, None], frames.flip(3),
                          frames)
@@ -334,7 +344,7 @@ def color_jitter(generator, frames, brightness=0.0, contrast=0.0,
     if alphas is None:
         var = torch.tensor([brightness, contrast, saturation],
                            device=generator.device)[:, None]
-        alphas = 1.0 + _uniform(generator, (3, b), -1.0, 1.0) * var
+        alphas = 1.0 + _uniform(generator, (3, b), -1.0, 1.0, dim=1) * var
     alphas = _on(alphas, frames.device)
     fns = [(brightness, brightness_jitter), (contrast, contrast_jitter),
            (saturation, saturation_jitter)]
@@ -353,8 +363,7 @@ def lighting_jitter(generator, frames, alphastd, eigval, eigvec, alpha=None):
         return frames
     b = frames.shape[0]
     if alpha is None:
-        alpha = torch.randn(b, 3, generator=generator,
-                            device=generator.device) * alphastd
+        alpha = _rand(generator, (b, 3), normal=True) * alphastd
     alpha = _on(alpha, frames.device)
     eigval = _on(eigval, frames.device)
     eigvec = _on(eigvec, frames.device)

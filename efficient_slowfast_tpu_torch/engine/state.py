@@ -4,33 +4,53 @@
 One train step is forward, loss, backward and the optimizer update, with
 the BN running statistics updated in the forward and the metrics left on
 the device: ``loss``, ``lr``, ``top1_err`` and ``top{k}_err`` are tensors,
-and nothing in a step waits for the card. Parameters and running
+and in one process nothing in a step waits for the card. Parameters and running
 statistics stay float32 while the activations run in ``TPU.COMPUTE_DTYPE``.
 Detection (AVA) has its own train step and forward, over padded boxes.
+
+Across processes (``parallel/distributed.py``) a rank steps on its rows of
+the global batch: the train state's model is wrapped in
+``DistributedDataParallel`` (gradients averaged over the ranks), after a
+checksum has shown every rank holds the same weights; BN reduces its
+statistics across the ranks (``ops/norm.py``); and the step's loss, top-k
+counts and ``num_valid`` are the global batch's on every rank, as the JAX
+package's step reduces them inside its program.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..models.build import get_compute_dtype, resolve_device
 from ..models.losses import get_elementwise_loss_func, get_loss_func
 from ..models.optimizer import construct_optimizer, set_lr
+from ..parallel import distributed
 from ..utils import metrics as metrics_lib
 
 
 @dataclass
 class TrainState:
     """The model (parameters and BN running statistics), its optimizer
-    (moments) and the count of steps taken."""
+    (moments) and the count of steps taken. ``ddp`` is the model's
+    ``DistributedDataParallel`` wrapper in a process group (the train step
+    runs through it), else None; ``model`` stays the unwrapped module, so
+    checkpoints and ``state_dict`` names are the reference's."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    ddp: Optional[DistributedDataParallel] = None
+
+    @property
+    def net(self) -> torch.nn.Module:
+        """What the train step calls: the DDP wrapper, else the model."""
+        return self.model if self.ddp is None else self.ddp
 
 
 def step_generator(seed: int, counter: int, device,
@@ -65,9 +85,25 @@ def pathway_inputs(cfg, batch_size, dtype=torch.float32, device=None):
 def create_train_state(cfg, model: torch.nn.Module, device=None) -> TrainState:
     """The model on ``device`` (the GPU by default) with a fresh optimizer
     (``construct_optimizer``: zero moments) at step 0. The model keeps the
-    weights it has, from ``build_model``'s init or a loaded state_dict."""
-    model = model.to(resolve_device(device))
-    return TrainState(model=model, optimizer=construct_optimizer(cfg, model))
+    weights it has, from ``build_model``'s init or a loaded state_dict.
+
+    In a process group the ranks' weights and buffers are compared by
+    checksum first (``verify_state_consistency``, which raises where they
+    differ: DDP's constructor would overwrite them with rank 0's without a
+    word), then the model is wrapped in DDP. Its buffers are not
+    broadcast: BN's are equal on every rank by construction."""
+    dev = resolve_device(device)
+    model = model.to(dev)
+    ddp = None
+    if distributed.initialized():
+        distributed.verify_state_consistency(model)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        ddp = DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None,
+            broadcast_buffers=False)
+    return TrainState(model=model, optimizer=construct_optimizer(cfg, model),
+                      ddp=ddp)
 
 
 def _device_inputs(cfg, model, inputs, labels):
@@ -88,7 +124,10 @@ def make_train_step(cfg, model: torch.nn.Module,
     a > 1 the batch runs as a sequential microbatches, each forward updating
     the BN running statistics as a real step would, the gradients averaged
     over them (each microbatch's loss scaled by 1/a), one update; the loss
-    is their mean and the top-k counts their sum.
+    is their mean and the top-k counts their sum. Across processes the
+    microbatches but the last skip DDP's gradient reduction (``no_sync``),
+    and microbatch i is every rank's i-th part; the metrics are the
+    global batch's.
     """
     loss_fn = get_loss_func(cfg.MODEL.LOSS_FUNC)
     topk = cfg.TRAIN.TOPK
@@ -101,20 +140,22 @@ def make_train_step(cfg, model: torch.nn.Module,
         if cfg.MODEL.DROPOUT_RATE > 0 and generator is None:
             raise ValueError("MODEL.DROPOUT_RATE > 0: the train step needs "
                              "a torch.Generator for the dropout masks")
+        net = state.net
         inputs, labels = _device_inputs(cfg, model, inputs, labels)
         b = labels.shape[0]
         assert b % accum == 0, (
             f"batch {b} not divisible by TPU.GRAD_ACCUM_STEPS={accum}")
         m = b // accum
         set_lr(optimizer, lr)
-        model.train()
+        net.train()
         optimizer.zero_grad(set_to_none=True)
         loss_sum, counts = 0.0, [0.0, 0.0]
         for i in range(accum):
             part = slice(i * m, (i + 1) * m)
-            preds = model([x[part] for x in inputs], generator=generator)
-            loss = loss_fn(preds, labels[part])
-            (loss / accum if accum > 1 else loss).backward()
+            with _sync_unless(state.ddp, i < accum - 1):
+                preds = net([x[part] for x in inputs], generator=generator)
+                loss = loss_fn(preds, labels[part])
+                (loss / accum if accum > 1 else loss).backward()
             loss_sum = loss_sum + loss.detach()
             if classify:
                 k1, kk = metrics_lib.topks_correct(preds.detach(),
@@ -123,7 +164,10 @@ def make_train_step(cfg, model: torch.nn.Module,
         optimizer.step()
         state.step += 1
         dev = labels.device
-        mets = {"loss": loss_sum / accum if accum > 1 else loss_sum,
+        loss = loss_sum / accum if accum > 1 else loss_sum
+        if distributed.world_size() > 1:
+            loss, counts, b = _global_metrics(loss, counts, b)
+        mets = {"loss": loss,
                 "lr": torch.full((), lr, dtype=torch.float32, device=dev)}
         if classify:
             mets["top1_err"] = (1.0 - counts[0] / b) * 100.0
@@ -133,13 +177,32 @@ def make_train_step(cfg, model: torch.nn.Module,
     return step
 
 
+def _sync_unless(ddp, skip: bool):
+    """DDP's ``no_sync`` where ``skip`` (a microbatch but the last), else
+    nothing."""
+    return ddp.no_sync() if ddp is not None and skip else \
+        contextlib.nullcontext()
+
+
+def _global_metrics(loss, counts, b: int):
+    """(the global batch's mean loss, its top-k counts, its size) from this
+    rank's, with one all-reduce."""
+    loss = loss.float()
+    vec = torch.stack([loss * b] + [torch.as_tensor(c, dtype=torch.float32,
+                                                    device=loss.device)
+                                    for c in counts]
+                      + [torch.full((), float(b), device=loss.device)])
+    vec = distributed.all_reduce_sum(vec)
+    return vec[0] / vec[-1], list(vec[1:-1]), vec[-1]
+
+
 def make_eval_step(cfg, model: torch.nn.Module) -> Callable:
     """step(state, inputs, labels, valid=None) → metrics and post-activation
     preds, under ``inference_mode``.
 
     ``valid`` is the loader's {1, 0} padding mask: padded samples are left
     out of the error denominators, and ``num_valid`` is their count (the
-    meter's weight).
+    meter's weight). Across processes the counts are the global batch's.
     """
     topk = cfg.TRAIN.TOPK
 
@@ -161,6 +224,10 @@ def make_eval_step(cfg, model: torch.nn.Module) -> Callable:
                     v = valid.to(preds.device, torch.float32)
                     k1, kk = (c1 * v).sum(), (ck * v).sum()
                     num_valid = v.sum()
+                if distributed.world_size() > 1:
+                    k1, kk, num_valid = distributed.all_reduce_sum(
+                        torch.stack([k1.float(), kk.float(),
+                                     num_valid.float()]))
                 n = torch.clamp(num_valid, min=1.0)
                 out["top1_err"] = (1.0 - k1 / n) * 100.0
                 out[f"top{topk}_err"] = (1.0 - kk / n) * 100.0
@@ -234,7 +301,9 @@ def make_detection_train_step(cfg, model: torch.nn.Module,
     multi-hot, ``mask`` (B, MAX) {1, 0} for real and padded box slots. The
     RoI head's scores are post-activation in train mode too, so the loss
     is ``MODEL.LOSS_FUNC``'s elementwise form (``bce``; any other raises
-    here), averaged over the classes and then over the real boxes. With
+    here), averaged over the classes and then over the real boxes (of the
+    global batch, across processes: the count is reduced over the ranks,
+    and each rank's loss scaled by the world size against DDP's mean). With
     ``TPU.GRAD_ACCUM_STEPS`` a > 1 the batch runs as a sequential
     microbatches, each adding the gradient of its unnormalised masked sum
     over the count of real boxes in the whole batch, so the update is the
@@ -261,20 +330,25 @@ def make_detection_train_step(cfg, model: torch.nn.Module,
         assert b % accum == 0, (
             f"batch {b} not divisible by TPU.GRAD_ACCUM_STEPS={accum}")
         m = b // accum
-        denom = torch.clamp(mask.sum(), min=1.0)
+        world = distributed.world_size()
+        denom = torch.clamp(distributed.all_reduce_sum(mask.sum()), min=1.0)
         set_lr(optimizer, lr)
-        model.train()
+        state.net.train()
         optimizer.zero_grad(set_to_none=True)
         loss = 0.0
         for i in range(accum):
             part = slice(i * m, (i + 1) * m)
-            preds = model([x[part] for x in inputs],
-                          flatten_rois(boxes[part]), generator=generator)
-            per_box = elem_loss_fn(
-                preds, labels[part].reshape(-1, labels.shape[-1])).mean(-1)
-            part_loss = (per_box * mask[part].reshape(-1)).sum() / denom
-            part_loss.backward()
+            with _sync_unless(state.ddp, i < accum - 1):
+                preds = state.net([x[part] for x in inputs],
+                                  flatten_rois(boxes[part]),
+                                  generator=generator)
+                per_box = elem_loss_fn(
+                    preds, labels[part].reshape(-1, labels.shape[-1])).mean(-1)
+                part_loss = (per_box * mask[part].reshape(-1)).sum() / denom
+                (part_loss * world if world > 1 else part_loss).backward()
             loss = loss + part_loss.detach()
+        if world > 1:
+            loss = distributed.all_reduce_sum(loss)
         optimizer.step()
         state.step += 1
         return {"loss": loss,

@@ -12,7 +12,10 @@ scores the clips, and the scores come back to the host one batch behind,
 so the card is never idle waiting for the meter. With ``DETECTION.ENABLE``
 the test is AVA's (``perform_detection_test``): every real box of the
 split scored, then the frame mAP; ``DATA.MULTI_LABEL`` gives the
-multi-label mAP of the ensembled scores.
+multi-label mAP of the ensembled scores. Across processes each rank scores
+its share of the split and every batch's real rows are gathered from all
+ranks before the meter (``gather_across_hosts``), so every rank's meter
+sees each view once and no padded row.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..data.loader import construct_loader, prefetch_to_device
 from ..data.preprocess import make_detection_preprocess, make_test_preprocess
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
+from ..parallel import distributed
 from ..utils.checkpoint import load_test_checkpoint
 from ..utils.logging import get_logger, setup_logging
 from ..utils.meters import AVAMeter, TestMeter, span
@@ -34,15 +38,11 @@ logger = get_logger(__name__)
 
 
 def gather_across_hosts(*arrays):
-    """Every process's per-clip eval rows, concatenated: the identity on
-    one process. The multi-process gather (the reference's
-    all_gather_unaligned, distributed.py:155-255) comes with ROADMAP
-    item 7."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "the multi-process test gather comes with ROADMAP item 7")
-    return arrays
+    """Every process's per-clip eval rows, concatenated in rank order
+    (JAX: engine/test.py:28-55; the reference's all_gather_unaligned,
+    distributed.py:155-255): the ranks' row counts differ where each drops
+    its own padded rows. The identity on one process."""
+    return distributed.all_gather_unaligned(*arrays)
 
 
 def _to_host(t: torch.Tensor):
@@ -116,6 +116,7 @@ def test(cfg, device=None):
     torch.manual_seed(cfg.RNG_SEED)
     model = build_model(cfg, dev)
     load_test_checkpoint(cfg, model)
+    distributed.verify_state_consistency(model)
     if cfg.TPU.INT8_EVAL:
         int8_calibration(cfg, model, dev)
     loader = construct_loader(cfg, "test")
@@ -148,7 +149,9 @@ def int8_calibration(cfg, model, device) -> None:
     """Give ``model``'s int8 convs their ranges: the persisted calibration
     where one matches this model and config, else a calibration on the
     first ``TPU.INT8_CALIB_BATCHES`` test batches, persisted for the next
-    run (``engine/test.py:118-135`` there: calibrate once, serve many)."""
+    run (``engine/test.py:118-135`` there: calibrate once, serve many).
+    Across processes the ranges are the maxima over every rank's batches,
+    the global batches', and the master persists them."""
     from .quantize import (calibrate_for_test, load_calibration,
                            load_quant_state, save_calibration)
 
@@ -160,8 +163,13 @@ def int8_calibration(cfg, model, device) -> None:
     logger.info("TPU.INT8_EVAL: calibrating activation ranges on %d test "
                 "batch(es)", max(1, cfg.TPU.INT8_CALIB_BATCHES))
     quant = calibrate_for_test(cfg, model, device)
-    path = save_calibration(cfg, model, quant)
-    logger.info("TPU.INT8_EVAL: persisted calibration to %s", path)
+    if distributed.world_size() > 1:
+        for v in quant.values():
+            torch.distributed.all_reduce(v, op=torch.distributed.ReduceOp.MAX)
+        load_quant_state(model, quant)
+    if distributed.is_master():
+        path = save_calibration(cfg, model, quant)
+        logger.info("TPU.INT8_EVAL: persisted calibration to %s", path)
 
 
 def detection_box_mask(batch) -> np.ndarray:

@@ -12,7 +12,11 @@ every step, train_net.py:133-138). Every draw is seeded by RNG_SEED and
 the step or epoch it belongs to, so a resumed run repeats the one it
 resumes. With ``DETECTION.ENABLE`` the epochs are AVA's
 (``_train_detection``): the detection step over padded boxes and a val
-frame mAP.
+frame mAP. Across processes every rank runs this loop on its share of
+each global batch: the steps' metrics are global, the master writes the
+checkpoints and the TensorBoard events, the val rows are gathered, and
+the ranks meet at ``host_barrier("train_complete")`` before a test reads
+the master's last checkpoint (JAX: engine/train.py:297-301).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
 from ..ops.norm import (aggregate_sub_bn_stats, convert_bn_stats,
                         effective_num_splits, effective_sync_groups)
+from ..parallel import distributed
 from ..utils import checkpoint as cu
 from ..utils import lr_policy
 from ..utils.logging import get_logger, is_master, setup_logging
@@ -75,7 +80,8 @@ def train_epoch(cfg, state, train_step, preprocess, loader, meter, cur_epoch,
                      batch.get("portrait"), batch.get("crop_u"))
         labels = batch["label"]
         mets = train_step(state, inputs, labels, lr, generator)
-        pending.append((cur_iter, labels.shape[0], mets))
+        pending.append((cur_iter, labels.shape[0] * distributed.world_size(),
+                        mets))
         if len(pending) >= cfg.TPU.METRICS_PERIOD or cur_iter == data_size - 1:
             for it, bs, m in pending:
                 m = {k: float(v) for k, v in m.items()}
@@ -135,7 +141,7 @@ def eval_epoch(cfg, state, eval_step, preprocess, loader, meter, cur_epoch,
             all_preds.append(preds)
             all_labels.append(rows)
         if cfg.DATA.MULTI_LABEL:
-            meter.update_predictions(preds, rows)
+            meter.update_predictions(*gather_across_hosts(preds, rows))
         else:
             meter.update_stats(
                 float(out["top1_err"]),
@@ -258,6 +264,7 @@ def _train_detection(cfg, state, start_epoch, device):
                                    device, cur_epoch=cur_epoch)
             val_meter.log_epoch_stats(cur_epoch)
             val_meter.reset()
+    distributed.host_barrier("train_complete")
     return state
 
 
@@ -284,6 +291,8 @@ def train(cfg, device=None):
 
     state = create_train_state(cfg, build_model(cfg, dev), dev)
     state, start_epoch = cu.load_train_checkpoint(cfg, state)
+    # every rank restored the same state (a torn read would diverge)
+    distributed.verify_state_consistency(state.model)
     if cfg.LOG_MODEL_INFO:
         log_model_info(state.model, cfg, pathway_inputs(
             cfg, 1, get_compute_dtype(cfg), dev))
@@ -331,6 +340,7 @@ def train(cfg, device=None):
                                    global_step=cur_epoch)
     if writer is not None:
         writer.close()
+    distributed.host_barrier("train_complete")
     return state
 
 

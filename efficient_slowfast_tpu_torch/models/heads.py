@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import Linear
 from ..ops.pool import avg_pool3d
+from ..parallel.distributed import global_rows
 
 
 class ResNetBasicHead(nn.Module):
@@ -83,6 +84,9 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (torch's
     default one where None): x/(1-rate) where a uniform draw is below
-    1-rate, else 0."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+    1-rate, else 0. Across processes the mask is this rank's rows of the
+    global batch's (``global_rows``)."""
+    keep = global_rows(lambda s: torch.rand(s, generator=generator,
+                                            device=x.device), x.shape)
+    keep = keep < 1 - rate
     return torch.where(keep, x / (1 - rate), torch.zeros_like(x))

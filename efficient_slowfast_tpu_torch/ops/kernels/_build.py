@@ -7,11 +7,15 @@ rebuilt when its source, or any header ``csrc/*.cuh`` that sources may
 include, is newer; several are compiled in parallel, one ``nvcc`` per
 source. Nothing is built at import: the first kernel call (or
 ``build()``) does it, and a failed build raises with the compiler's output.
+Processes that build at once (the ranks of a job started from a fresh
+tree) take turns under a file lock, so only the first compiles.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -53,16 +57,33 @@ def _stale(name: str) -> bool:
     return max(map(os.path.getmtime, inputs)) > os.path.getmtime(so)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every stale library among ``names``; returns ptxas reports.
 
     The compilers run in parallel. Each writes to a temporary file that is
     renamed into place, so a concurrent reader never sees half a library.
     """
-    todo = [n for n in names if _stale(n)]
+    names = list(names)
+    if not any(_stale(n) for n in names):
+        return {}
+    with _build_lock():
+        return _build([n for n in names if _stale(n)])
+
+
+def _build(todo) -> Dict[str, str]:
     if not todo:
         return {}
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in todo:

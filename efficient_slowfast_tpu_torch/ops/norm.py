@@ -28,9 +28,19 @@ aggregated statistics in ``bn`` and the per-split ones in ``split_bn``
 (``num_splits`` x C, split-major). The groups are the JAX package's:
 contiguous runs of B / num_splits clips (the reference interleaves them).
 The conversions between the two forms work on state dicts, as the
-reference's checkpoint helpers do. ``sync_batchnorm`` in one process is
-plain BN (one statistics group, the batch the module sees); across
-processes it comes with the distribution slice (ROADMAP item 7).
+reference's checkpoint helpers do.
+
+Across processes a module sees its rank's rows of the global batch, and
+its train-mode statistics are the global batch's, as under the JAX
+package's SPMD step: one grouped form (``grouped_batch_norm``) combines
+each rank's count, mean and variance of its rows of a group exactly (one
+all-reduce; JAX takes a two-pass variance) and, in the backward, reduces
+the group's Σdy and Σdy·(x - mean) (another).
+Plain BN is one group of the global batch; sync-BN (``SyncBatchNorm3d``)
+``NUM_SYNC_DEVICES``-rank groups of it (one group, plain BN, when they
+span the run); sub-BN ``NUM_SPLITS x world`` contiguous splits of it, as
+JAX multiplies by its data axis. In one process the modules run
+``F.batch_norm`` as before.
 """
 
 from __future__ import annotations
@@ -39,9 +49,108 @@ import functools
 from collections import OrderedDict
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.distributed import all_reduce_sum, rank, world_size
+
+
+def _segments(b: int, groups: int) -> list:
+    """[(first row, end row, group)] of this rank's ``b`` rows of the
+    global batch (every rank's rows in rank order, equal counts) cut into
+    ``groups`` contiguous groups: the runs of its rows in one group."""
+    w, r = world_size(), rank()
+    total = b * w
+    if total % groups:
+        raise ValueError(f"global batch {total} ({w} x {b}) not divisible "
+                         f"into {groups} BN groups")
+    size, out, a = total // groups, [], r * b
+    while a < (r + 1) * b:
+        e = min((a // size + 1) * size, (r + 1) * b)
+        out.append((a - r * b, e - r * b, a // size))
+        a = e
+    return out
+
+
+class _GroupedNorm(torch.autograd.Function):
+    """Train-mode BN of this rank's rows ``x`` with each group's statistics
+    over every rank: y in x's dtype, and the groups' (G, C) float32 means
+    and biased variances. Each rank's (count, mean, variance) of each of
+    its runs go to every rank in one all-reduce and combine exactly (the
+    mean of the means weighted by the counts; the variance as the mean of
+    the variances plus that of the means about the group's); the
+    backward reduces each group's Σdy and Σdy·(x - mean) in another,
+    unless ``local``: every group within one rank, as sub-BN's
+    ``NUM_SPLITS x world`` splits are, where those sums are the rank's
+    own. Saved for the backward: x itself, as cuDNN's BN saves it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, segments, groups: int, eps: float,
+                local: bool):
+        c = x.shape[1]
+        axes = (0,) + tuple(range(2, x.dim()))
+        slots = torch.zeros(world_size(), groups, 2 * c + 1,
+                            dtype=torch.float32, device=x.device)
+        mine = slots[rank()]
+        for a, e, g in segments:
+            var, mean = torch.var_mean(x[a:e].float(), dim=axes,
+                                       correction=0)
+            mine[g, 0] = x[a:e].numel() // c
+            mine[g, 1:c + 1] = mean
+            mine[g, c + 1:] = var
+        all_reduce_sum(slots)
+        n = slots[..., :1]
+        count = n.sum(0)
+        mean = (n * slots[..., 1:c + 1]).sum(0) / count
+        var = (n * (slots[..., c + 1:] + (slots[..., 1:c + 1] - mean)
+                    .square())).sum(0) / count
+        ys = [F.batch_norm(x[a:e], mean[g], var[g], weight, bias, False, 0.0,
+                           eps) for a, e, g in segments]
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps), count)
+        ctx.segments, ctx.local = segments, local
+        ctx.mark_non_differentiable(mean, var)
+        return (ys[0] if len(ys) == 1 else torch.cat(ys)), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _var):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        c = x.shape[1]
+        axes = (0,) + tuple(range(2, x.dim()))
+        view = (1, c) + (1,) * (x.dim() - 2)
+        sums = torch.zeros(mean.shape[0], 2 * c, dtype=torch.float32,
+                           device=x.device)
+        parts, gw, gb = [], torch.zeros_like(weight), torch.zeros_like(weight)
+        for a, e, g in ctx.segments:
+            dy = gy[a:e].float()
+            xmu = x[a:e].float() - mean[g].view(view)
+            sdy, sdx = dy.sum(axes), (dy * xmu).sum(axes)
+            sums[g, :c] += sdy
+            sums[g, c:] += sdx
+            gw += sdx * invstd[g]
+            gb += sdy
+            parts.append((dy, xmu, g))
+        if not ctx.local:
+            all_reduce_sum(sums)
+        sums = sums / count
+        dxs = []
+        for dy, xmu, g in parts:
+            k = invstd[g] * weight
+            dx = (dy - sums[g, :c].view(view) - xmu * (
+                invstd[g].square() * sums[g, c:]).view(view)) * k.view(view)
+            dxs.append(dx.to(x.dtype))
+        dx = dxs[0] if len(dxs) == 1 else torch.cat(dxs)
+        return dx, gw, gb, None, None, None, None
+
+
+def grouped_batch_norm(x, weight, bias, groups: int, eps: float):
+    """Train-mode BN of this rank's rows ``x`` of the global batch (every
+    rank's rows in rank order, equal counts), cut into ``groups``
+    contiguous groups, each normalized by its own statistics over the
+    ranks: (y in x's dtype, (G, C) float32 means, biased variances)."""
+    b = x.shape[0]
+    local = b % (b * world_size() // groups) == 0  # the same on every rank
+    return _GroupedNorm.apply(x, weight, bias, _segments(b, groups), groups,
+                              eps, local)
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -60,9 +169,13 @@ class BatchNorm3d(nn.BatchNorm3d):
         if self.zero_init_gamma:
             nn.init.zeros_(self.weight)
 
+    num_groups = 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if world_size() > 1 or self.num_groups > 1:
+            return self._grouped(x)
         # copies: autograd keeps the statistics it was given, which must
         # not change before the backward; the recompute of a remat stage
         # runs the same op (the checkpoint checks that it saves the same
@@ -79,6 +192,33 @@ class BatchNorm3d(nn.BatchNorm3d):
                                                          alpha=(n - 1) / n)
                 self.num_batches_tracked += 1
         return y
+
+    def _grouped(self, x):
+        """Train mode across ranks: the statistics of ``num_groups``
+        groups of the global batch; the running ones move towards their
+        aggregate (the mean of the means, the mean of the variances plus
+        the variance of the means), as JAX's SyncBatchNorm3d updates."""
+        y, mean, var = grouped_batch_norm(x, self.weight, self.bias,
+                                          self.num_groups, self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                agg_mean, agg_var = _aggregate(mean, var)
+                self.running_mean.mul_(1 - m).add_(agg_mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(agg_var, alpha=m)
+                self.num_batches_tracked += 1
+        return y
+
+
+class SyncBatchNorm3d(BatchNorm3d):
+    """Sync-BN of ``num_groups`` groups (port of ``ops/norm.py:161-258``;
+    reference: batchnorm_helper.py:174-218): ``BN.NUM_SYNC_DEVICES``
+    consecutive ranks share their statistics, which are contiguous rows
+    of the global batch. The state_dict is plain BN's."""
+
+    def __init__(self, num_features: int, num_groups: int = 1, **kw):
+        super().__init__(num_features, **kw)
+        self.num_groups = num_groups
 
 
 class SubBatchNorm3d(nn.Module):
@@ -133,6 +273,8 @@ class SubBatchNorm3d(nn.Module):
             return F.batch_norm(x, self.bn.running_mean, self.bn.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         k, c, m = self.num_splits, self.num_features, self.momentum
+        if world_size() > 1:
+            return self._grouped(x)
         if x.shape[0] % k:
             raise ValueError(f"batch {x.shape[0]} not divisible by "
                              f"BN.NUM_SPLITS={k}")
@@ -155,6 +297,21 @@ class SubBatchNorm3d(nn.Module):
                         var, alpha=(n - 1) / n)
                 self.split_bn.num_batches_tracked += 1
         return torch.cat(ys)
+
+    def _grouped(self, x):
+        """Train mode across ranks: the splits are contiguous groups of
+        the global batch, whose statistics may span two ranks."""
+        k, c, m = self.num_splits, self.num_features, self.momentum
+        y, mean, var = grouped_batch_norm(x, self.weight, self.bias, k,
+                                          self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                self.split_bn.running_mean.view(k, c).mul_(1 - m).add_(
+                    mean, alpha=m)
+                self.split_bn.running_var.view(k, c).mul_(1 - m).add_(
+                    var, alpha=m)
+                self.split_bn.num_batches_tracked += 1
+        return y
 
 
 def _aggregate(split_mean: torch.Tensor, split_var: torch.Tensor):
@@ -302,18 +459,10 @@ def convert_bn_stats(state_dict, old_type: str, new_type: str,
 
 def effective_num_splits(cfg) -> int:
     """The split count of a ``SubBatchNorm3d``: ``BN.NUM_SPLITS`` groups of
-    the batch one module sees. The JAX package's jitted step sees every
-    device's batch and multiplies by the data axis; here a module sees one
-    process's batch, so it is ``NUM_SPLITS`` x 1."""
-    return max(1, int(cfg.BN.NUM_SPLITS))
-
-
-def process_count() -> int:
-    """The processes of the run: torch.distributed's world size, 1 when no
-    process group is up."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    each rank's batch, so ``NUM_SPLITS`` x world groups of the global
+    batch, as the JAX package multiplies by its data axis (one device a
+    rank)."""
+    return max(1, int(cfg.BN.NUM_SPLITS)) * world_size()
 
 
 def effective_sync_groups(cfg) -> int:
@@ -321,7 +470,7 @@ def effective_sync_groups(cfg) -> int:
     :174-192): ``BN.NUM_SYNC_DEVICES``-sized groups of the run's devices,
     one per process here; 0, or a group spanning every process, is one
     global group."""
-    n = process_count()
+    n = world_size()
     sync = int(cfg.BN.NUM_SYNC_DEVICES)
     if sync <= 0 or sync >= n:
         return 1
@@ -342,12 +491,10 @@ def get_norm(cfg):
         return functools.partial(SubBatchNorm3d,
                                  num_splits=effective_num_splits(cfg), **kwargs)
     if cfg.BN.NORM_TYPE == "sync_batchnorm":
-        if process_count() > 1:
-            raise NotImplementedError(
-                "BN.NORM_TYPE sync_batchnorm across processes comes with "
-                "the distribution slice, ROADMAP item 7")
-        # one process: one group, the batch this module sees, which plain
-        # BN computes (the JAX package's one-group case, get_norm:471-476)
-        assert effective_sync_groups(cfg) == 1
-        return functools.partial(BatchNorm3d, **kwargs)
+        groups = effective_sync_groups(cfg)
+        if groups == 1:
+            # one group, the global batch, which plain BN computes (the
+            # JAX package's one-group case, get_norm:471-476)
+            return functools.partial(BatchNorm3d, **kwargs)
+        return functools.partial(SyncBatchNorm3d, num_groups=groups, **kwargs)
     raise NotImplementedError(f"Norm type {cfg.BN.NORM_TYPE} is not supported")

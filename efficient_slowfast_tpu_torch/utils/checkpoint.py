@@ -20,8 +20,9 @@ pickle (``CHECKPOINT_TYPE caffe2``, its blob names translated by
 ``c2_name_to_torch``) or a ``.pyth`` under ``TRAIN.CHECKPOINT_INFLATE``
 (2-D ImageNet weights inflated to 3-D): every tensor of the model whose
 name the file holds in a shape that fits is loaded, the others keep the
-model's values. The JAX package's orbax directories come with the
-distribution slice (ROADMAP item 7).
+model's values. The JAX package's orbax directories, and the port's own
+sharded format, come with ROADMAP item 7b. Across processes the master
+writes and every rank reads.
 """
 
 from __future__ import annotations
@@ -107,7 +108,7 @@ def checkpoint_payload(state, epoch: int, cfg) -> dict:
     if cfg.TPU.CHECKPOINT_BACKEND != "msgpack":
         raise NotImplementedError(
             f"TPU.CHECKPOINT_BACKEND {cfg.TPU.CHECKPOINT_BACKEND}: sharded "
-            "checkpoints come with ROADMAP item 7")
+            "checkpoints come with ROADMAP item 7b")
     return {
         "epoch": epoch,
         "model_state": _to_cpu(sub_to_normal_bn(state.model.state_dict())),
@@ -173,7 +174,7 @@ def load_checkpoint(path: str, model: torch.nn.Module,
         return int(payload.get("epoch", -1))
     if path.endswith(".orbax") or os.path.isdir(path):
         raise NotImplementedError(
-            f"{path}: orbax checkpoint directories come with ROADMAP item 7")
+            f"{path}: orbax checkpoint directories come with ROADMAP item 7b")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     _load_model(model, payload["model_state"])
     if optimizer is not None and "optimizer_state" in payload:
@@ -241,7 +242,7 @@ def _load_external(model: torch.nn.Module, path: str, ckpt_type: str,
     (``utils/weights.py::efficient_prefix_table``)."""
     if path.endswith(".orbax") or os.path.isdir(path):
         raise NotImplementedError(
-            f"{path}: orbax checkpoint directories come with ROADMAP item 7")
+            f"{path}: orbax checkpoint directories come with ROADMAP item 7b")
     if ckpt_type == "jax" or path.endswith(".jaxckpt"):
         _load_model(model, _jax_state_dict(load_jax_checkpoint(path), cfg))
         logger.info("Loaded the JAX checkpoint %s", path)

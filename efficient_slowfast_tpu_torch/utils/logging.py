@@ -13,15 +13,9 @@ import os
 import sys
 from typing import Any, Mapping
 
-import torch.distributed as dist
+from ..parallel.distributed import is_master  # noqa: F401 (re-exported)
 
 _LOGGER_INITIALIZED = False
-
-
-def is_master() -> bool:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
 
 
 def setup_logging(output_dir: str | None = None) -> None:

@@ -1,8 +1,10 @@
 """Misc utilities (port of ``utils/misc.py``; reference: slowfast/utils/misc.py).
 
-``launch_job`` runs the job in this process: one process, one card. The
-reference spawns a process per GPU; the multi-process launch comes with
-the distribution slice (ROADMAP item 7).
+``launch_job`` runs a job as the reference does: one process per GPU,
+``NUM_GPUS`` of them on each of ``NUM_SHARDS`` machines, joined into one
+process group (``parallel/distributed.py``). ``NUM_GPUS`` counts processes
+on a machine here, where the JAX package counts the devices of its one
+process.
 """
 
 from __future__ import annotations
@@ -12,19 +14,53 @@ from typing import Callable
 
 import torch
 
+from ..parallel import distributed
 from .logging import get_logger
 
 logger = get_logger(__name__)
 
 
-def launch_job(cfg, init_method: str, func: Callable):
-    """``func(cfg)`` in this process (reference :275-303); a run over
-    several machines (``NUM_SHARDS`` > 1) raises."""
-    if cfg.NUM_SHARDS > 1:
-        raise NotImplementedError(
-            f"NUM_SHARDS {cfg.NUM_SHARDS} (init method {init_method}): the "
-            "multi-process launch comes with ROADMAP item 7")
-    return func(cfg)
+def _rank_device(device, local_rank: int) -> torch.device:
+    """The device of local rank ``local_rank``: ``cuda:local_rank`` where
+    ``device`` is the GPU with no index, else ``device`` itself (two ranks
+    given ``cuda:0`` share that GPU, over gloo)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", local_rank)
+    return device
+
+
+def _run(local_rank: int, cfg, init_method: str, func: Callable, device):
+    """``func`` as local rank ``local_rank`` of the job: in a process group
+    where the job has more than one process, which it leaves when ``func``
+    returns or raises."""
+    if device is None:  # a host job: func(cfg), its processes on the CPU
+        dev, call = torch.device("cpu"), lambda: func(cfg)
+    else:
+        dev = _rank_device(device, local_rank)
+        call = lambda: func(cfg, device=dev)  # noqa: E731
+    if cfg.NUM_SHARDS * cfg.NUM_GPUS == 1:
+        return call()
+    distributed.init_distributed(cfg, local_rank, dev, init_method)
+    try:
+        return call()
+    finally:
+        distributed.destroy_distributed()
+
+
+def launch_job(cfg, init_method: str, func: Callable, device=None):
+    """Run ``func(cfg, device=...)`` (``func(cfg)`` where ``device`` is
+    None: a job of the host alone) as this machine's ``NUM_GPUS``
+    processes of the job (reference :275-303): with ``NUM_GPUS`` > 1 it
+    spawns them (``torch.multiprocessing``) and returns None; otherwise it
+    runs here, joining the job's group where ``NUM_SHARDS`` > 1, and
+    returns what ``func`` returns."""
+    if cfg.NUM_GPUS > 1:
+        torch.multiprocessing.spawn(
+            _run, nprocs=cfg.NUM_GPUS, args=(cfg, init_method, func, device),
+            daemon=False)
+        return None
+    return _run(0, cfg, init_method, func, device)
 
 
 def check_nan_losses(loss: float):

@@ -115,11 +115,14 @@ def test_a_checkpoint_each_epoch_and_the_test_reads_the_last(run):
 
 
 def test_the_cli_raises_for_what_later_items_bring(tmp_path, monkeypatch):
-    """Several processes (item 7) raise (the demo, item 8, has come:
+    """Several processes (item 7) have come
+    (tests/test_torch_port_distributed.py launches them): over the CPU
+    they need DIST_BACKEND gloo, and the default nccl raises before any
+    rendezvous (the demo, item 8, has come too:
     tests/test_torch_port_demo.py drives its branch); TensorBoard has come:
     MODEL_VIS alone writes every test clip's pathways (240 clips, 15
     batches of 16)."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="DIST_BACKEND nccl needs a CUDA"):
         run_net.main(argv(tmp_path, flags=["--device", "cpu",
                                            "--num_shards", "2"]))
     from efficient_slowfast_tpu_torch.engine import visualization

@@ -381,6 +381,8 @@ def _imports(path):
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = list(_python_files())
     assert len(files) > 15
+    # the distribution runtime is walked too
+    assert os.path.join(PORT, "parallel", "distributed.py") in files
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

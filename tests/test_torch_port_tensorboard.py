@@ -340,8 +340,30 @@ def test_class_names_and_demo_labels_read_as_jax_reads_them(tmp_path):
             jax_misc.load_demo_labels(str(labels))
 
 
-def test_visualize_across_processes_names_item_7(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_vis.visualize(tiny_cfg(get_cfg), device="cpu")
+def test_visualize_across_processes_names_item_7(monkeypatch, tmp_path):
+    """Item 7 has come: across processes each batch's clips are gathered
+    from every rank (here a second rank's rows are the same clips) and
+    only the master writes them."""
+    from efficient_slowfast_tpu_torch.parallel import distributed
+
+    gathered = []
+
+    def gather(*arrays):
+        gathered.append(len(arrays[0]))
+        return tuple(np.concatenate([a, a]) for a in arrays)
+
+    monkeypatch.setattr(port_vis, "gather_across_hosts", gather)
+    monkeypatch.setattr(port_vis, "TensorboardWriter", Writer)
+    written = {}
+    for rank in (0, 1):
+        monkeypatch.setattr(distributed, "is_master", lambda: rank == 0)
+        got = record(lambda: port_vis.visualize(
+            tiny_cfg(get_cfg, str(tmp_path)), device="cpu"))
+        written[rank] = [(c[1], c[2], c[3].shape[:2]) for c in got
+                         if c[0] == "video"]
+    assert gathered == [16, 8] * 2
+    assert written[1] == []
+    assert written[0] == [("Video Input Pathway 0", 0, (32, 2)),
+                          ("Video Input Pathway 1", 0, (32, 8)),
+                          ("Video Input Pathway 0", 1, (16, 2)),
+                          ("Video Input Pathway 1", 1, (16, 8))]
