@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 (3b takes its shapes from the CMDA model
+5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 (3b takes its shapes from the CMDA model
 that phase 5 serves and from phase 10's schedule, 3c from the one that
 phase 7 trains and phase 10's schedule; phases 11, 12 and 13 run 3b and 3c
 again at their models' shapes before their own lines). ``--phases`` runs a
@@ -348,22 +348,50 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               then the 30-view test of SLOWFAST_8x8_R50.yaml with
               TPU.FUSED_EVAL from a .pyth (240 clips, global batches of
               64: 4 of 32 a rank, the last 24 real). Gates: the launches
-              (12 K2, 36 K2-bwd, then 104 K1, a rank); losses, a crc of the
-              parameters and the gathered per-video scores equal across the
-              ranks; losses within DIST_LOSS_TOL of one process's steps on
-              the global batch, the per-video centred log mean
-              probabilities within TEST_LOGIT_TOL of one process's test().
+              (4 K2 and 12 K2-bwd a step, then 104 K1, a rank); losses, a
+              crc of the parameters and the gathered per-video scores equal
+              across the ranks; losses within DIST_LOSS_TOL of one
+              process's steps on the global batch, the per-video centred
+              log mean probabilities within TEST_LOGIT_TOL of one
+              process's test().
               Prints train clips/s at 1 process and 2 ranks, the traced
               step's busy share and all-reduce waits (and the CPU time of
               issuing the collectives), each rank's peak memory, and the
               phase's seconds.
+19. space   — spatial model parallelism (phase_spatial): SPACE_WORLD ranks
+              over gloo on cuda:0 under TPU.SPATIAL_SHARD 2 (D = 1),
+              started through the CLI's flags (rank19_main, launch_job),
+              each rank holding its band of every frame's rows: (a)
+              CMDA-R50 8x8 serving CLIPS_PER_REQUEST clips at 256² (phase
+              5's model, attention calibrated), its 4 K2 calls held
+              against chunked_attention on their inputs (N = 16384 queries
+              against M = 32768 keys at s1_fuse), the scores against one
+              process's; (b) one CMDA-R50 step of TRAIN_CLIPS clips at
+              224² as phase 18 takes it (each K2 and K2-bwd call held,
+              phase 16's planted dV faults with "half the queries" for P
+              dO), the loss within DIST_LOSS_TOL of one process's, then
+              the same step in float32 (TF32 off) with its parameters
+              within DIST_DDP_BOUND of one process's step, and a step with
+              the space group's gradients left unsummed (a DDP comm hook)
+              that must fail that bound (bf16's own distance is printed
+              beside float32's: a random CMDA-R50's bf16 step is
+              chaotic); (c) the fused SlowFast-R50 serving 4 clips at
+              256², its 26 K1 calls on halo slabs held against
+              bottleneck_reference, the probabilities against one
+              process's; (d) the step's TPU.CHECKPOINT_BACKEND orbax save
+              (a .dcp by async_save from both ranks) written while (c)
+              runs, then resumed bit for bit. Prints each rank's peak
+              memory beside one process's at the same clips, ms a request
+              and a step beside one process's, and the launches (4 K2, 26
+              K1, 4 K2 + 12 K2-bwd a rank).
 
 The depths were cut to make room for phase 16 within the time limit:
 REQUESTS 3 → 2, TRAIN_STEPS 5 → 3, PROFILE_STEPS 3 → 2, FATIGUE_STEPS 4 →
 3 (phase 14 traces its third step), PRECISE_BATCHES 2 → 1,
 FRAME_LIST_STEPS 4 → 2; and for phase 18: TRAIN_WARMUP 2 → 1,
-PROFILE_STEPS 2 → 1, DEMO_WINDOWS 3 → 2 (no width, shape, gate or kernel
-hold changed).
+PROFILE_STEPS 2 → 1, DEMO_WINDOWS 3 → 2; and for phase 19: DIST_STEPS
+3 → 2, FRAME_LIST_STEPS 2 → 1 (no width, shape, gate or kernel hold
+changed).
 After each phase block the smoke logs the seconds since its start.
 
 The profiler (phases 6, 7, 8, 11, 12, 13, 16) prints, per traced window, the
@@ -373,7 +401,7 @@ sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 (its times and bounds are per
+4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 (its times and bounds are per
 request of the SlowFast and CMDA serving paths and per CMDA train step,
 phase 13's rows standing in where 3b or 3c did not run, and K3's per
 request of the +INT8_SPATIAL SlowFast-R50, its ms and library_ms (cuDNN's
@@ -4226,7 +4254,7 @@ PRECISE_BATCHES = 1
 # Charades and SSv2: (train videos, val and test videos, frames a video);
 # train steps at the yamls' 16 clips
 FRAME_LISTS = {"charades": (64, 4, 140), "ssv2": (64, 8, 48)}
-FRAME_LIST_STEPS = 2
+FRAME_LIST_STEPS = 1
 # the fatigue CMDA's fusions at 112², 16 frames (slow T 2): (N, D = C)
 FATIGUE_K2 = [(1568, 8), (1568, 32), (1568, 64)]
 
@@ -5614,7 +5642,9 @@ def hold_gradcam_calls(target, dtype, rec, fwd_calls):
 def planted_fault_errors(call):
     """Two planted faults in dV of one recorded K2-bwd call, zeroed and P dO
     in place of Pᵀ dO (the probabilities untransposed; CMDA's N equals
-    M): {fault: (its error of dV's own scale, of max(1, scale))}."""
+    M), or, where a band's N queries meet its space group's M keys (phase
+    19), Pᵀ dO of half the queries: {fault: (its error of dV's own scale,
+    of max(1, scale))}."""
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
         attention_backward
 
@@ -5623,8 +5653,14 @@ def planted_fault_errors(call):
     with torch.no_grad():
         p = torch.exp(torch.bmm(q.float(), k.float().transpose(1, 2))
                       - lse[..., None])
-        faults = {"dV zeroed": torch.zeros_like(dv),
-                  "dV = P dO": torch.bmm(p, dout.float()).to(dv.dtype)}
+        faults = {"dV zeroed": torch.zeros_like(dv)}
+        if q.shape[1] == k.shape[1]:
+            faults["dV = P dO"] = torch.bmm(p, dout.float()).to(dv.dtype)
+        else:
+            half = q.shape[1] // 2
+            faults["dV of half the queries"] = torch.bmm(
+                p[:, :half].transpose(1, 2), dout[:, :half].float()).to(
+                    dv.dtype)
         del p
     return {name: (relative_error(f, dv, GRADCAM_SCALE_FLOOR),
                    relative_error(f, dv, 1.0)) for name, f in faults.items()}
@@ -6349,7 +6385,7 @@ def phase_demo(smi):
 # phase 18: distribution. The two-rank job's CMDA-R50 train steps, on one
 # fixed global batch of TRAIN_CLIPS clips (each rank its half)
 DIST_WORLD = 2
-DIST_STEPS = 3
+DIST_STEPS = 2
 # a rank's deadline (it is killed with its process group after it), and
 # how long the group's rendezvous and collectives wait for a rank
 DIST_DEADLINE_S = 600
@@ -6822,6 +6858,496 @@ def phase_distributed(smi):
     return counts, worst_f, worst_b
 
 
+
+# ---------------------------------------------------------------------------
+# phase 19: spatial model parallelism (TPU.SPATIAL_SHARD 2): two gloo ranks
+# on cuda:0 split each frame's height (parallel/spatial.py)
+SPACE_WORLD = 2
+# a rank's clips: (a) and (c) serve CLIPS_PER_REQUEST clips a request at
+# 256², (b) steps on the global batch of TRAIN_CLIPS clips at 224² (D = 1:
+# each rank all the clips, its band of their rows)
+SPACE_REQUESTS = 1
+
+
+def space_dir():
+    path = os.path.join(smoke_dir(), "space19")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+class AttentionCalls:
+    """Every ``flash_attention`` call of the CMDA fusions while the block
+    runs (ops/attention.py's name): (q, k, v, out); the launches stay on
+    the wrapper's count."""
+
+    def __enter__(self):
+        from efficient_slowfast_tpu_torch.ops import attention
+
+        self.mod, self.orig, self.calls = attention, attention.flash_attention, []
+
+        def recorded(q, k, v):
+            out = self.orig(q, k, v)
+            self.calls.append((q, k, v, out))
+            return out
+
+        attention.flash_attention = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.orig
+
+    def held(self):
+        """[(N, M, error of its own scale, scale)] a call, against
+        chunked_attention on its inputs."""
+        from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+            chunked_attention
+
+        with torch.no_grad():
+            return [(q.shape[1], k.shape[1], relative_error(
+                out, chunked_attention(q, k, v), GRADCAM_SCALE_FLOOR),
+                out.float().abs().max().item())
+                for q, k, v, out in self.calls]
+
+
+class BottleneckCalls:
+    """Every K1 call of the fused engine while the block runs
+    (engine/inference.py's name): its arguments and output."""
+
+    def __enter__(self):
+        from efficient_slowfast_tpu_torch.engine import inference
+
+        self.mod, self.orig, self.calls = (inference,
+                                           inference.fused_bottleneck, [])
+
+        def recorded(*args):
+            out = self.orig(*args)
+            self.calls.append((args, out))
+            return out
+
+        inference.fused_bottleneck = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fused_bottleneck = self.orig
+
+    def held(self):
+        """[(slab height, error of the output's scale)] a call, against
+        bottleneck_reference on its inputs."""
+        from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
+            bottleneck_reference
+
+        with torch.no_grad():
+            return [(args[0].shape[1], relative_error(
+                out, bottleneck_reference(*args), 1.0))
+                for args, out in self.calls]
+
+
+def space_serve(cfg, model, x, device, record):
+    """``make_forward`` of ``model`` on ``x`` inside ``record`` (counts
+    set to 0 before and read after): (scores on the host, launches, ms a
+    request after a warm-up, the peak memory)."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    fwd = make_forward(cfg, model, device)
+    fwd(x)  # cuDNN's plans, K1's plans
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    with record:
+        for _ in range(SPACE_REQUESTS):
+            scores = fwd(x)
+        torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3 / SPACE_REQUESTS
+    return (scores.float().cpu(), read_counts(), ms,
+            torch.cuda.max_memory_allocated(device))
+
+
+def unsummed_gradients(_, bucket):
+    """A DDP comm hook that plants a fault: each rank keeps its own part
+    of the space group's gradient (not summed over the group), divided by
+    the world as DDP's mean divides."""
+    fut = torch.futures.Future()
+    fut.set_result(bucket.buffer().div_(SPACE_WORLD))
+    return fut
+
+
+def rank19_job(cfg, device):
+    """One rank of phase 19 (TPU.SPATIAL_SHARD 2, D = 1), in a process
+    group that ``launch_job`` joined: (a) CMDA-R50 serving, each K2 call
+    held against the plain version on its inputs; (b) one CMDA-R50 train
+    step (each K2-bwd call held), then (d) its async ``.dcp`` save, which
+    runs while (c) the fused SlowFast-R50 serves (each K1 call held), then
+    the resume; one more step with the planted fault; results in the
+    job's directory."""
+    from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
+                                                           make_train_step)
+    from efficient_slowfast_tpu_torch.models import build_model
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        chunked_attention
+    from efficient_slowfast_tpu_torch.parallel import distributed
+    from efficient_slowfast_tpu_torch.utils import checkpoint as cu
+
+    job = torch.load(os.path.join(cfg.OUTPUT_DIR, "job.pt"),
+                     weights_only=False)
+    out = dict(rank=distributed.rank(), world=distributed.world_size(),
+               space=(distributed.space_rank(), distributed.space_size(),
+                      distributed.data_size()))
+
+    def model_of(c, sd):
+        m = build_model(c, device=device)
+        m.load_state_dict(sd, strict=True)
+        return m
+
+    # (a) CMDA-R50 serving
+    x = [t.to(device) for t in job["cmda_x"]]
+    rec = AttentionCalls()
+    scores, counts, ms, peak = space_serve(
+        job["cmda_cfg"], model_of(job["cmda_cfg"], job["cmda"]), x, device,
+        rec)
+    out["cmda"] = dict(scores=scores, counts=counts, ms=ms, peak=peak,
+                       held=rec.held(),
+                       split=[c[0].shape[1] * distributed.space_size()
+                              == c[1].shape[1] for c in rec.calls])
+    del rec, x
+    torch.cuda.empty_cache()
+
+    # (b) one CMDA-R50 train step on the global batch (D = 1)
+    tcfg = job["train_cfg"]
+    batch = job["batch"]
+    torch.cuda.reset_peak_memory_stats(device)
+    brec = BackwardCalls()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, losses, _ = dist_train(tcfg, job["train"], batch, device, steps=1,
+                                  record=brec)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    out["train"] = dict(
+        loss=losses[0], counts=counts, first_ms=step_ms,
+        peak=torch.cuda.max_memory_allocated(device),
+        params={k: v.detach().cpu().clone()
+                for k, v in state.model.state_dict().items()},
+        fwd=[(q.shape[1], k.shape[1], relative_error(
+            o, chunked_attention(q, k, v), GRADCAM_SCALE_FLOOR))
+            for q, k, v, o, _, _, _ in brec.calls],
+        bwd=brec.held(GRADCAM_SCALE_FLOOR), calls=len(brec.calls))
+    small = min(brec.calls, key=lambda c: c[0].shape[1])
+    out["train"]["planted"] = (small[0].shape[1], planted_fault_errors(small))
+    del brec, small
+
+    # (d) the .dcp save of that state, from both ranks, in flight during (c)
+    dcfg = tcfg.clone()
+    dcfg.TPU.CHECKPOINT_BACKEND = "orbax"
+    saved_model = {k: v.detach().cpu().clone()
+                   for k, v in state.model.state_dict().items()}
+    saved_opt = state.optimizer.state_dict()
+    saved_opt = {i: {k: v.detach().cpu().clone() for k, v in s.items()}
+                 for i, s in saved_opt["state"].items()}
+    t0 = time.perf_counter()
+    path = cu.save_checkpoint(cfg.OUTPUT_DIR, state, 0, dcfg)
+    save_call_ms = (time.perf_counter() - t0) * 1e3
+    # a second step, timed, while the save is written
+    step = make_train_step(tcfg, state.model, state.optimizer)
+    x = [t.to(device) for t in batch[0]]
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    step(state, x, batch[1].to(device), tcfg.SOLVER.WARMUP_START_LR,
+         torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize(device)
+    out["train"]["step_ms"] = (time.perf_counter() - t0) * 1e3
+    del state, step, x
+    torch.cuda.empty_cache()
+
+    # (c) the fused SlowFast-R50 on halo slabs
+    x = [t.to(device) for t in job["sf_x"]]
+    krec = BottleneckCalls()
+    scores, counts, ms, peak = space_serve(
+        job["sf_cfg"], model_of(job["sf_cfg"], job["sf"]), x, device, krec)
+    out["slowfast"] = dict(scores=scores, counts=counts, ms=ms, peak=peak,
+                           held=krec.held())
+    del krec, x
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cu.wait_for_saves()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    torch.manual_seed(SEED)  # the ranks' fresh weights alike, for DDP
+    fresh = create_train_state(tcfg, build_model(tcfg, device=device),
+                               device)
+    epoch = cu.load_checkpoint(path, fresh.model, fresh.optimizer, tcfg)
+    model_equal = all(torch.equal(v.cpu(), saved_model[k]) for k, v in
+                      fresh.model.state_dict().items())
+    opt = fresh.optimizer.state_dict()["state"]
+    opt_equal = opt.keys() == saved_opt.keys() and all(
+        torch.equal(v.cpu(), saved_opt[i][k])
+        for i, s in opt.items() for k, v in s.items())
+    out["dcp"] = dict(path=path, files=sorted(os.listdir(path)), epoch=epoch,
+                      model_equal=model_equal, opt_equal=opt_equal,
+                      save_call_ms=save_call_ms, wait_ms=wait_ms)
+    del fresh
+    torch.cuda.empty_cache()
+
+    # (b) in float32 (TF32 off), where the split's arithmetic is one
+    # process's but for summation order: the parameters, and with the
+    # planted fault (the space group's gradients left unsummed)
+    fcfg = job["f32_cfg"]
+    fbatch = ([t.float() for t in batch[0]], batch[1])
+    for key, hook in (("f32", None), ("fault", unsummed_gradients)):
+        state, losses, _ = dist_train(fcfg, job["train"], fbatch, device,
+                                      steps=1, hook=hook)
+        out[key] = dict(loss=losses[0], params={
+            k: v.detach().cpu().clone()
+            for k, v in state.model.state_dict().items()})
+        del state
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(cfg.OUTPUT_DIR,
+                                 f"rank{distributed.rank()}.pt"))
+
+
+def rank19_main(argv):
+    """A rank of phase 19, started as the port's CLI is (the flags of
+    ``config/parser.py``, through ``launch_job``)."""
+    from efficient_slowfast_tpu_torch.config.parser import (load_config,
+                                                            parse_args)
+    from efficient_slowfast_tpu_torch.models.build import resolve_device
+    from efficient_slowfast_tpu_torch.parallel import distributed
+    from efficient_slowfast_tpu_torch.utils.misc import launch_job
+
+    distributed.TIMEOUT_S = DIST_TIMEOUT_S
+    torch.backends.cudnn.allow_tf32 = False  # as phase_device sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = parse_args(argv)
+    launch_job(load_config(args), args.init_method, rank19_job,
+               resolve_device(args.device))
+
+
+def space_reference(cfg, model, x):
+    """One process's scores of ``model`` on ``x``, its ms a request after a
+    warm-up and its peak memory."""
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    fwd = make_forward(cfg, model)
+    fwd(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = fwd(x).float().cpu()
+    ms = (time.perf_counter() - t0) * 1e3
+    return scores, ms, torch.cuda.max_memory_allocated()
+
+
+def phase_spatial(smi):
+    """Phase 19: TPU.SPATIAL_SHARD 2 over two gloo ranks on cuda:0, started
+    through the CLI's flags (rank19_job), each held against one process on
+    the same clips. Returns the launches of the split paths and the worst
+    K1, K2 and K2-bwd errors."""
+    t_phase = time.perf_counter()
+    d = space_dir()
+    gen = torch.Generator().manual_seed(SEED + 19)
+    # (a) CMDA-R50 serving as phase 5 serves it (attention calibrated)
+    ccfg = cmda_cfg()
+    model = serving_model(ccfg, SEED)
+    calibrate_attention(ccfg, model, SEED + 6, phase="space")
+    cmda_x = clips(ccfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
+    cmda_ref, cmda_ms, cmda_peak = space_reference(ccfg, model, cmda_x)
+    cmda_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    # (b) one CMDA-R50 train step as phase 18 takes it
+    tcfg = train_cfg("SlowFastDualAttention")
+    model = train_model(tcfg, SEED)
+    calibrate_attention(tcfg, model, SEED + 9, phase="space")
+    train_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = train_batches(tcfg, 1, TRAIN_CLIPS, SEED + 18)[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, ref_losses, _ = dist_train(tcfg, train_sd, batch, "cuda", steps=1)
+    train_peak = torch.cuda.max_memory_allocated()
+    ref_params = {k: v.detach().cpu().clone()
+                  for k, v in state.model.state_dict().items()}
+    del state
+    ref_step_ms = dist_train(tcfg, train_sd, batch, "cuda",
+                             steps=2)[2][0] * 1e3
+    fcfg = train_cfg("SlowFastDualAttention", dtype="float32")
+    state, f32_losses, _ = dist_train(
+        fcfg, train_sd, ([t.float() for t in batch[0]], batch[1]), "cuda",
+        steps=1)
+    f32_params = {k: v.detach().cpu().clone()
+                  for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    # (c) the fused SlowFast-R50 as phase 4 serves it
+    scfg = serving_cfg()
+    model = serving_model(scfg, SEED)
+    sf_x = clips(scfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
+    sf_ref, sf_ms, sf_peak = space_reference(scfg, model, sf_x)
+    sf_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+
+    def split(c):
+        c = c.clone()
+        c.TPU.SPATIAL_SHARD, c.DIST_BACKEND = SPACE_WORLD, "gloo"
+        return c
+
+    torch.save({"cmda_cfg": split(ccfg), "cmda": cmda_sd,
+                "cmda_x": [t.cpu() for t in cmda_x],
+                "train_cfg": split(tcfg), "f32_cfg": split(fcfg),
+                "train": {k: v.cpu() for k, v in train_sd.items()},
+                "batch": ([t.cpu() for t in batch[0]], batch[1].cpu()),
+                "sf_cfg": split(scfg), "sf": sf_sd,
+                "sf_x": [t.cpu() for t in sf_x]},
+               os.path.join(d, "job.pt"))
+    t0 = time.perf_counter()
+    port = free_port()
+    procs = []
+    for r in range(SPACE_WORLD):
+        log_path = os.path.join(d, f"rank{r}.log")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "rank19",
+             "--num_shards", str(SPACE_WORLD), "--shard_id", str(r),
+             "--init_method", f"tcp://127.0.0.1:{port}", "--device",
+             "cuda:0", "--cfg", os.path.join(
+                 ROOT, "configs", "Kinetics",
+                 "SLOWFAST_DUALATTENTION_8x8_R50.yaml"),
+             "DIST_BACKEND", "gloo", "TPU.SPATIAL_SHARD", str(SPACE_WORLD),
+             "OUTPUT_DIR", d], cwd=ROOT, stdout=open(log_path, "w"),
+            stderr=subprocess.STDOUT, start_new_session=True), log_path))
+    wait_ranks(procs)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(SPACE_WORLD)]
+
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        BACKWARD_LAUNCHES_PER_CALL
+
+    none = dict.fromkeys(KERNELS, 0)
+    expect = {"cmda": {**none, "flash_attention": 4 * SPACE_REQUESTS},
+              "slowfast": {**none, "fused_bottleneck": 26 * SPACE_REQUESTS},
+              "train": {**none, "flash_attention": 4,
+                        "flash_attention_backward":
+                            4 * BACKWARD_LAUNCHES_PER_CALL}}
+    params = [k for k in train_sd if not k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))]
+    train_cpu = {k: v.cpu() for k, v in train_sd.items()}
+    length = param_distance(ref_params, train_cpu, params)
+    f32_length = param_distance(f32_params, train_cpu, params)
+    # bf16's own distance from the float32 step, one process's
+    r_bf16 = param_distance(ref_params, f32_params, params) / f32_length
+    counts = dict.fromkeys(KERNELS, 0)
+    worst = {"fused_bottleneck": 0.0, "flash_attention": 0.0,
+             "flash_attention_backward": 0.0}
+    log("space", f"{SPACE_WORLD} ranks over gloo on cuda:0 (--num_shards "
+        f"{SPACE_WORLD} --shard_id r ... TPU.SPATIAL_SHARD {SPACE_WORLD}), "
+        f"the job {ranks_s:.1f} s with each rank's start | {smi}")
+    for r in ranks:
+        tag = f"space rank {r['rank']}"
+        a, b, c, dd = r["cmda"], r["train"], r["slowfast"], r["dcp"]
+        a_err = float((a["scores"] - cmda_ref).abs().max())
+        c_err = float((c["scores"] - sf_ref).abs().max())
+        loss_err = abs(b["loss"] - ref_losses[0]) / max(1.0,
+                                                       abs(ref_losses[0]))
+        r_step = param_distance(b["params"], ref_params, params) / length
+        r_step_f32 = param_distance(b["params"], f32_params,
+                                    params) / f32_length
+        r_f32 = param_distance(r["f32"]["params"], f32_params,
+                               params) / f32_length
+        r_fault = param_distance(r["fault"]["params"], f32_params,
+                                 params) / f32_length
+        f32_loss_err = abs(r["f32"]["loss"] - f32_losses[0]) / max(
+            1.0, abs(f32_losses[0]))
+        k2 = max(e for _, _, e, _ in a["held"])
+        k2_train = max(e for _, _, e in b["fwd"])
+        k2b = max(e for row in b["bwd"] for e, _ in row)
+        k1 = max(e for _, e in c["held"])
+        log("space", f"{tag} (space index, S, D) {r['space']}: (a) CMDA-R50 "
+            f"{CLIPS_PER_REQUEST} clips at 256², bf16: {a['ms']:.1f} ms a "
+            f"request (one process {cmda_ms:.1f}); its K2 calls (N queries, M keys, error of its own "
+            f"scale, scale) " + ", ".join(
+                f"({n}, {m}, {e:.3e}, {s:.3e})" for n, m, e, s in a["held"])
+            + f" (tol {ATTN_BF16_TOL}), N·S = M {a['split']}; scores "
+            f"vs one process max |d| {a_err:.3e} (tol {CMDA_BF16_ATOL}); "
+            f"peak memory {a['peak'] / 2 ** 30:.2f} GiB against one "
+            f"process's {cmda_peak / 2 ** 30:.2f} GiB; launches "
+            f"{a['counts']}")
+        log("space", f"{tag}: (b) one CMDA-R50 step of {TRAIN_CLIPS} clips "
+            f"at 224² (each rank its band of every clip), {b['step_ms']:.1f}"
+            f" ms a step after the first (one process {ref_step_ms:.1f}; the "
+            f"first, with the holds' records, {b['first_ms']:.1f}): loss {b['loss']!r} vs one process's "
+            f"{ref_losses[0]!r} (rel {loss_err:.3e}, tol {DIST_LOSS_TOL}); "
+            f"parameters' distance from one process's step over the step's "
+            f"length {r_step:.3e}; from the float32 step's {r_step_f32:.3e}"
+            f" (one process's bf16 step {r_bf16:.3e}) | float32 (TF32 off): "
+            f"loss "
+            f"{r['f32']['loss']!r} vs {f32_losses[0]!r} (rel "
+            f"{f32_loss_err:.3e}), parameters {r_f32:.3e} (bound "
+            f"{DIST_DDP_BOUND}), with the space group's gradients left "
+            f"unsummed {r_fault:.3e} | K2 forward "
+            f"(N, M, error) " + ", ".join(
+                f"({n}, {m}, {e:.3e})" for n, m, e in b["fwd"])
+            + " | K2-bwd dQ, dK, dV (error of its own scale, scale): "
+            + "; ".join(", ".join(f"({e:.3e}, {s:.3e})" for e, s in row)
+                        for row in b["bwd"])
+            + f" (tol {ATTN_BWD_BF16_TOL}); peak memory "
+            f"{b['peak'] / 2 ** 30:.2f} GiB against one process's "
+            f"{train_peak / 2 ** 30:.2f} GiB; launches {b['counts']}")
+        gate_planted_faults(tag, *b["planted"])
+        log("space", f"{tag}: (c) fused SlowFast-R50 {CLIPS_PER_REQUEST} "
+            f"clips at 256², bf16: {c['ms']:.1f} ms a request (one "
+            f"process {sf_ms:.1f}); its "
+            f"{len(c['held'])} K1 calls on halo slabs (slab rows, error of "
+            f"the output's scale) " + ", ".join(
+                f"({h}, {e:.2e})" for h, e in c["held"]) + f" (tol "
+            f"{BF16_TOL}); probabilities vs one process max |d| "
+            f"{c_err:.3e} (tol {SERVE_BF16_ATOL}); peak memory "
+            f"{c['peak'] / 2 ** 30:.2f} GiB against one process's "
+            f"{sf_peak / 2 ** 30:.2f} GiB; launches {c['counts']}")
+        log("space", f"{tag}: (d) {os.path.basename(dd['path'])} "
+            f"{dd['files']}, the async save's call {dd['save_call_ms']:.1f} "
+            f"ms, its wait after (c) {dd['wait_ms']:.1f} ms; resumed epoch "
+            f"{dd['epoch']}, the model bit for bit {dd['model_equal']}, the "
+            f"optimizer's moments {dd['opt_equal']}")
+        for what in ("cmda", "train", "slowfast"):
+            if r[what]["counts"] != expect[what]:
+                raise AssertionError(f"{tag} {what}: launches "
+                                     f"{r[what]['counts']}, expected "
+                                     f"{expect[what]}")
+        if (r["space"] != (r["rank"], SPACE_WORLD, 1) or len(a["held"]) != 4
+                or not all(a["split"]) or a["held"][0][:2] != (16384, 32768)
+                or not k2 <= ATTN_BF16_TOL or not k2_train <= ATTN_BF16_TOL
+                or not k2b <= ATTN_BWD_BF16_TOL or not k1 <= BF16_TOL
+                or len(c["held"]) != 26 or not a_err <= CMDA_BF16_ATOL
+                or not c_err <= SERVE_BF16_ATOL
+                or not loss_err <= DIST_LOSS_TOL
+                or not f32_loss_err <= DIST_LOSS_TOL
+                or not r_f32 <= DIST_DDP_BOUND):
+            raise AssertionError(
+                f"{tag}: K2 {k2} / {k2_train}, K2-bwd {k2b}, K1 {k1} "
+                f"({len(c['held'])} calls), scores {a_err} / {c_err}, loss "
+                f"{loss_err} / {f32_loss_err}, parameters {r_f32}, shapes "
+                f"{a['held']}")
+        if not r_fault > DIST_DDP_BOUND:
+            raise AssertionError(f"{tag}: the gate passes the space group's "
+                                 f"gradients unsummed: {r_fault}")
+        if not (dd["model_equal"] and dd["opt_equal"] and dd["epoch"] == 0
+                and ".metadata" in dd["files"]):
+            raise AssertionError(f"{tag}: the .dcp resume {dd}")
+        for what in ("cmda", "train", "slowfast"):
+            for key in KERNELS:
+                counts[key] += r[what]["counts"][key]
+        worst["fused_bottleneck"] = max(worst["fused_bottleneck"], k1)
+        worst["flash_attention"] = max(worst["flash_attention"], k2, k2_train)
+        worst["flash_attention_backward"] = max(
+            worst["flash_attention_backward"], k2b)
+    if ranks[0]["train"]["loss"] != ranks[1]["train"]["loss"]:
+        raise AssertionError("space: the ranks' losses differ")
+    log("space", f"phase 19 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return counts, worst
+
+
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
     a synchronize; returns (device-busy share of the span: the union of
@@ -6929,7 +7455,7 @@ def kernel_entry(name, source, replaces, launches, err, record):
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
                 ("10",), ("11",), ("12",), ("13",), ("14",), ("15",),
-                ("16",), ("17",), ("18",)]
+                ("16",), ("17",), ("18",), ("19",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -6975,6 +7501,8 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["rank18"]:  # a rank process of phase 18 (b)
         return rank18_main(argv[1:])
+    if argv[:1] == ["rank19"]:  # a rank process of phase 19
+        return rank19_main(argv[1:])
     want = chosen_phases(argv)
     run = lambda *block: want is None or bool(want & set(block))  # noqa: E731
     start = time.time()
@@ -7140,13 +7668,20 @@ def main(argv=None):
         add(dist_counts)
         torch.cuda.empty_cache()
     stamp("18")
+    if run("19"):
+        space_counts, space_worst = phase_spatial(smi)
+        for name, err in space_worst.items():
+            errs[name].append(err)
+        add(space_counts)
+        torch.cuda.empty_cache()
+    stamp("19")
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA
     # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
     # the non-local networks (11), the efficient families (12), AVA
     # detection (13), the frame datasets (14), int8 serving (15),
-    # Grad-CAM (16), the demo (17) and distribution (18); times per
-    # request of the
+    # Grad-CAM (16), the demo (17), distribution (18) and the split
+    # height (19); times per request of the
     # serving paths (3, 3b) and per CMDA train step (3c)
     kernels = [kernel_entry(name, *KERNELS[name], launches[name],
                             max(errs[name]), records[name])

@@ -4,8 +4,9 @@
 Replaces the reference's torch DataLoader worker processes and
 DistributedSampler (reference: slowfast/datasets/loader.py:55-137) with:
 
-- per-process index sharding by the ``torch.distributed`` rank and world
-  size (0 and 1 when no process group is up);
+- per-process index sharding by the data axis's index and size
+  (``parallel/distributed.py``: the rank and world size, but under
+  ``TPU.SPATIAL_SHARD``; 0 and 1 when no process group is up);
 - a thread pool pasting samples straight into the batch's canvas array, a
   bounded queue ahead of the consumer;
 - ``prefetch_to_device``: a ring of pinned host canvases that the threads
@@ -36,9 +37,10 @@ from .datasets import CanvasDataset
 
 
 def process_rank_and_count() -> tuple:
-    """(rank, world size) of this process: the process group's when one
-    is up, else (0, 1)."""
-    return distributed.rank(), distributed.world_size()
+    """(data index, data-axis size) of this process: its share of the
+    batch (the rank and the world, but under ``TPU.SPATIAL_SHARD``, whose
+    space groups' ranks load the same clips); (0, 1) in one process."""
+    return distributed.data_rank(), distributed.data_size()
 
 
 def shard_indices(indices: np.ndarray, process_count: int,
@@ -77,8 +79,8 @@ def shard_indices(indices: np.ndarray, process_count: int,
 def construct_loader(cfg, split: str):
     """The split's ClipLoader. The config's batch sizes are global, over
     every process of the run: each process takes its share, the batch size
-    divided by the world size (a train batch must divide; an eval share
-    rounds up, its padding masked by ``_valid``)."""
+    divided by the data axis's size (a train batch must divide; an eval
+    share rounds up, its padding masked by ``_valid``)."""
     assert split in ("train", "val", "test")
     _, world = process_rank_and_count()
     schedule = None
@@ -89,7 +91,8 @@ def construct_loader(cfg, split: str):
         if batch_size % world:
             raise ValueError(
                 f"TRAIN.BATCH_SIZE ({batch_size}) must be divisible by the "
-                f"world size ({world})")
+                f"data-axis size ({world}: the world size over "
+                "TPU.SPATIAL_SHARD, capped at TPU.DATA_AXIS)")
         if cfg.MULTIGRID.SHORT_CYCLE:
             # the short cycle's batch sizes, step by step
             schedule = [b // world for b in short_cycle_batch_sizes(cfg)]

@@ -17,12 +17,18 @@ bilinear weights of each output pixel sum to 1 and the normalization is
 affine per channel, so the order changes only float32 rounding, and the
 64-clip test canvas is never expanded to float32 whole (3.2 GB). The JAX
 package normalizes first (preprocess.py:135-137).
+
+Under ``TPU.SPATIAL_SHARD`` each function's output is this rank's band of
+the pathways' rows (``parallel/spatial.py::constrain``, as JAX's
+``constrain_spatial`` pins it there): every rank of a space group crops the
+same clips with the same draws and keeps its band.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import spatial
 from . import transform as T
 from .pathways import pack_pathway_output
 
@@ -76,7 +82,8 @@ def make_train_preprocess(cfg, dtype=torch.float32, crop_size=None):
             x = T.transpose_portrait(x, portrait)
         if flip:
             x = T.horizontal_flip(generator, x)
-        return pack_pathway_output(cfg, x.to(dtype).contiguous())
+        return spatial.constrain(
+            cfg, pack_pathway_output(cfg, x.to(dtype).contiguous()))
 
     return pre
 
@@ -90,7 +97,8 @@ def make_detection_preprocess(cfg, dtype=torch.float32):
     def pre(frames):
         x = _normalize_(frames.to(torch.float32, copy=True), mean, std,
                         frames.dtype == torch.uint8)
-        return pack_pathway_output(cfg, x.to(dtype).contiguous())
+        return spatial.constrain(
+            cfg, pack_pathway_output(cfg, x.to(dtype).contiguous()))
 
     return pre
 
@@ -130,7 +138,8 @@ def make_detection_train_preprocess(cfg, dtype=torch.float32):
                 x = T.color_jitter(generator, x, 0.4, 0.4, 0.4)
             x = T.lighting_jitter(generator, x, 0.1, eigval, eigvec)
         x = _normalize_(x, mean, std, False)
-        return pack_pathway_output(cfg, x.to(dtype).contiguous()), boxes
+        return spatial.constrain(
+            cfg, pack_pathway_output(cfg, x.to(dtype).contiguous())), boxes
 
     return pre
 
@@ -152,6 +161,7 @@ def make_test_preprocess(cfg, dtype=torch.float32):
             # their original vertical axis (top/center/bottom views) — swap
             # the square crop back (reference: transform.py:425-468)
             x = T.transpose_portrait(x, portrait)
-        return pack_pathway_output(cfg, x.to(dtype).contiguous())
+        return spatial.constrain(
+            cfg, pack_pathway_output(cfg, x.to(dtype).contiguous()))
 
     return pre

@@ -52,6 +52,7 @@ from ..data.datasets import canvas_width, fit_canvas
 from ..data.preprocess import make_detection_preprocess, make_test_preprocess
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
+from ..parallel import spatial
 from ..utils.checkpoint import load_test_checkpoint
 from ..utils.logging import get_logger, log_json_stats, setup_logging
 from ..utils.misc import load_demo_labels
@@ -392,6 +393,7 @@ def demo(cfg, stream=None, display=None, device=None):
     3) uint8 RGB frames)) and ``display`` the DEMO.DISPLAY sink (a
     ``show(frames) -> bool`` callable, False to quit)."""
     setup_logging(cfg.OUTPUT_DIR)
+    spatial.refuse(cfg, "the demo")
     assert stream is not None or cfg.DEMO.DATA_SOURCE or (
         isinstance(cfg.DEMO.DATA_SOURCE, int)
     ), "DEMO.DATA_SOURCE must point to a video file or camera index"

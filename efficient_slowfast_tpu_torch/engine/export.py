@@ -33,6 +33,7 @@ import time
 import torch
 
 from ..models.build import get_compute_dtype, resolve_device
+from ..parallel import spatial
 from ..utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -94,6 +95,7 @@ def export_serving(cfg, model, out_path: str, quant=None,
     (fingerprint-checked), else the export refuses. ``max_boxes``:
     detection only, the static box slots a clip.
     """
+    spatial.refuse(cfg, "the serving export")
     dev = resolve_device(device)
     dtype = get_compute_dtype(cfg)
     model = model.to(dev).eval()

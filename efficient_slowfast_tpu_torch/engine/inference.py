@@ -16,6 +16,14 @@ module's weights change keeps the old ones. On a CPU model the kernel's
 plain version runs (that is how the tests hold this engine against JAX);
 on a CUDA model the kernel runs, and a block it cannot take raises.
 
+Under ``TPU.SPATIAL_SHARD`` each rank serves its band of rows
+(``parallel/spatial.py``): K1 runs on the band with one halo row of each
+neighbour (none beyond the frame's edge, where the kernel's own zero
+padding is the frame's) and the output's halo rows are cropped. Conv a is
+pointwise, so a(halo row) is exact, and K1's zero padding at the slab's
+edge reaches only the cropped rows. The cuDNN convs and pools take their
+halos as the module's do, and the head takes the whole height.
+
 Reference behaviour being reproduced: slowfast/models/video_model_builder.py
 :153-416 (SlowFast forward) and head_helper.py:218-221 (eval
 softmax-then-mean).
@@ -28,8 +36,10 @@ import torch.nn.functional as F
 
 from ..models.build import get_compute_dtype
 from ..models.slowfast import _MODEL_STAGE_DEPTH, _POOL1, to_ncdhw
+from ..ops.conv import conv3d
 from ..ops.kernels.fused_bottleneck import fold_bn, fused_bottleneck
 from ..ops.pool import max_pool3d
+from ..parallel import distributed, spatial
 
 STAGES = ("s2", "s3", "s4", "s5")
 
@@ -94,21 +104,32 @@ def _fold_block(block, stride, dtype):
 
 
 def _kernel_block(x, p):
-    """Stride-1 block: one launch of the fused kernel on the NDHWC view."""
-    b, c, t, h, w = x.shape
-    xn = x.permute(0, 2, 3, 4, 1).reshape(b * t, h, w, c).contiguous()
+    """Stride-1 block: one launch of the fused kernel on the NDHWC view;
+    a split band with a halo row of each neighbour, cropped after."""
+    above = below = 0
+    xs = x
+    if spatial.is_split(x):
+        # every rank exchanges one row each way; the zero rows beyond the
+        # frame's edges are dropped (K1 pads there itself)
+        r, s = distributed.space_rank(), distributed.space_size()
+        above, below = int(r > 0), int(r < s - 1)
+        xs = spatial.halo(x, 1, 1)
+        xs = xs.narrow(3, 1 - above, xs.shape[3] - 2 + above + below)
+    b, c, t, h, w = xs.shape
+    xn = xs.permute(0, 2, 3, 4, 1).reshape(b * t, h, w, c).contiguous()
     y = fused_bottleneck(xn, t, p["wa"], p["ba"], p["wb"], p["bb"],
                          p["wc"], p["bc"], p["wp"], p["bp"])
-    return y.view(b, t, h, w, -1).permute(0, 4, 1, 2, 3)
+    y = y.view(b, t, h, w, -1)[:, :, above:h - below].permute(0, 4, 1, 2, 3)
+    return spatial.like(y, x)
 
 
 def _cudnn_block(x, p):
     """Strided bottleneck block on cuDNN (block 0 of s3..s5)."""
     s, kt = p["stride"], p["wa"].shape[2]
-    a = F.relu(F.conv3d(x, p["wa"], p["ba"], 1, (kt // 2, 0, 0)))
-    b = F.relu(F.conv3d(a, p["wb"], p["bb"], (1, s, s), (0, 1, 1)))
-    c = F.conv3d(b, p["wc"], p["bc"])
-    res = x if p["wp"] is None else F.conv3d(x, p["wp"], p["bp"], (1, s, s))
+    a = F.relu(conv3d(x, p["wa"], p["ba"], 1, (kt // 2, 0, 0)))
+    b = F.relu(conv3d(a, p["wb"], p["bb"], (1, s, s), (0, 1, 1)))
+    c = conv3d(b, p["wc"], p["bc"])
+    res = x if p["wp"] is None else conv3d(x, p["wp"], p["bp"], (1, s, s))
     return F.relu(c + res)
 
 
@@ -153,18 +174,19 @@ def make_fused_eval_forward(cfg, model):
     def fuse(x, name):
         k, b = fuses[name]
         kf = k.shape[2]
-        f = F.relu(F.conv3d(x[1], k, b, (alpha, 1, 1), (kf // 2, 0, 0)))
+        f = F.relu(conv3d(x[1], k, b, (alpha, 1, 1), (kf // 2, 0, 0)))
         cat = torch.cat([x[0], f], dim=1)
         return [cat.contiguous(memory_format=torch.channels_last_3d), x[1]]
 
     def forward(inputs):
+        inputs = spatial.constrain(cfg, inputs)
         # ---- s1: per-pathway stem (conv+BN+ReLU+maxpool) -----------------
         x = []
         for pw in range(2):
             k, b = stems[pw]
             kt = k.shape[2]
-            y = F.relu(F.conv3d(to_ncdhw(inputs[pw].to(dtype)), k, b,
-                                (1, 2, 2), (kt // 2, 3, 3)))
+            y = F.relu(conv3d(to_ncdhw(inputs[pw].to(dtype)), k, b,
+                              (1, 2, 2), (kt // 2, 3, 3)))
             x.append(max_pool3d(y, (1, 3, 3), (1, 2, 2), (0, 1, 1)))
         x = fuse(x, "s1_fuse")
 
@@ -183,8 +205,8 @@ def make_fused_eval_forward(cfg, model):
                 x = [max_pool3d(x[pw], pool1[pw], pool1[pw]) for pw in range(2)]
 
         # ---- head: avgpool → concat → linear → softmax → mean ------------
-        pooled = [F.avg_pool3d(x[pw].float(), psz[pw], 1)
-                  for pw in range(2)]
+        pooled = [F.avg_pool3d(spatial.gather_height(x[pw]).float(),
+                               psz[pw], 1) for pw in range(2)]
         y = torch.cat(pooled, dim=1).permute(0, 2, 3, 4, 1)
         y = (y.to(dtype) @ fc_w).float() + fc_b
         y = torch.softmax(y, dim=-1).mean(dim=(1, 2, 3))

@@ -14,7 +14,12 @@ the global batch: the train state's model is wrapped in
 checksum has shown every rank holds the same weights; BN reduces its
 statistics across the ranks (``ops/norm.py``); and the step's loss, top-k
 counts and ``num_valid`` are the global batch's on every rank, as the JAX
-package's step reduces them inside its program.
+package's step reduces them inside its program. Under
+``TPU.SPATIAL_SHARD`` the S ranks of a space group step on the same clips,
+each on its band of rows (``parallel/spatial.py``): the metrics count each
+clip once (``all_reduce_data``), and DDP's mean over the D·S ranks is the
+data axis's mean, each exchange's backward being its adjoint (the
+gradient summed over a space group is S times its share's).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..models.build import get_compute_dtype, resolve_device
 from ..models.losses import get_elementwise_loss_func, get_loss_func
 from ..models.optimizer import construct_optimizer, set_lr
-from ..parallel import distributed
+from ..parallel import distributed, spatial
 from ..utils import metrics as metrics_lib
 
 
@@ -192,7 +197,7 @@ def _global_metrics(loss, counts, b: int):
                                                     device=loss.device)
                                     for c in counts]
                       + [torch.full((), float(b), device=loss.device)])
-    vec = distributed.all_reduce_sum(vec)
+    vec = distributed.all_reduce_data(vec)
     return vec[0] / vec[-1], list(vec[1:-1]), vec[-1]
 
 
@@ -225,7 +230,7 @@ def make_eval_step(cfg, model: torch.nn.Module) -> Callable:
                     k1, kk = (c1 * v).sum(), (ck * v).sum()
                     num_valid = v.sum()
                 if distributed.world_size() > 1:
-                    k1, kk, num_valid = distributed.all_reduce_sum(
+                    k1, kk, num_valid = distributed.all_reduce_data(
                         torch.stack([k1.float(), kk.float(),
                                      num_valid.float()]))
                 n = torch.clamp(num_valid, min=1.0)
@@ -263,6 +268,8 @@ def make_forward(cfg, model: torch.nn.Module, device=None) -> Callable:
     """
     dev = resolve_device(device)
     dtype = get_compute_dtype(cfg)
+    if cfg.TPU.INT8_EVAL:
+        spatial.refuse(cfg, "int8 serving (TPU.INT8_EVAL)")
     model = model.to(dev).eval()
     fwd = model
     if cfg.TPU.FUSED_EVAL:
@@ -302,8 +309,9 @@ def make_detection_train_step(cfg, model: torch.nn.Module,
     RoI head's scores are post-activation in train mode too, so the loss
     is ``MODEL.LOSS_FUNC``'s elementwise form (``bce``; any other raises
     here), averaged over the classes and then over the real boxes (of the
-    global batch, across processes: the count is reduced over the ranks,
-    and each rank's loss scaled by the world size against DDP's mean). With
+    global batch, across processes: the count is reduced over the data
+    axis, and each rank's loss scaled by its size D against DDP's mean
+    over the D·S ranks, whose space groups' gradients sum to S shares'). With
     ``TPU.GRAD_ACCUM_STEPS`` a > 1 the batch runs as a sequential
     microbatches, each adding the gradient of its unnormalised masked sum
     over the count of real boxes in the whole batch, so the update is the
@@ -330,8 +338,8 @@ def make_detection_train_step(cfg, model: torch.nn.Module,
         assert b % accum == 0, (
             f"batch {b} not divisible by TPU.GRAD_ACCUM_STEPS={accum}")
         m = b // accum
-        world = distributed.world_size()
-        denom = torch.clamp(distributed.all_reduce_sum(mask.sum()), min=1.0)
+        world = distributed.data_size()
+        denom = torch.clamp(distributed.all_reduce_data(mask.sum()), min=1.0)
         set_lr(optimizer, lr)
         state.net.train()
         optimizer.zero_grad(set_to_none=True)
@@ -347,8 +355,8 @@ def make_detection_train_step(cfg, model: torch.nn.Module,
                 part_loss = (per_box * mask[part].reshape(-1)).sum() / denom
                 (part_loss * world if world > 1 else part_loss).backward()
             loss = loss + part_loss.detach()
-        if world > 1:
-            loss = distributed.all_reduce_sum(loss)
+        if distributed.world_size() > 1:
+            loss = distributed.all_reduce_data(loss)
         optimizer.step()
         state.step += 1
         return {"loss": loss,

@@ -152,8 +152,11 @@ def int8_calibration(cfg, model, device) -> None:
     run (``engine/test.py:118-135`` there: calibrate once, serve many).
     Across processes the ranges are the maxima over every rank's batches,
     the global batches', and the master persists them."""
+    from ..parallel import spatial
     from .quantize import (calibrate_for_test, load_calibration,
                            load_quant_state, save_calibration)
+
+    spatial.refuse(cfg, "int8 serving (TPU.INT8_EVAL)")
 
     quant = load_calibration(cfg, model)
     if quant is not None:

@@ -80,7 +80,7 @@ def train_epoch(cfg, state, train_step, preprocess, loader, meter, cur_epoch,
                      batch.get("portrait"), batch.get("crop_u"))
         labels = batch["label"]
         mets = train_step(state, inputs, labels, lr, generator)
-        pending.append((cur_iter, labels.shape[0] * distributed.world_size(),
+        pending.append((cur_iter, labels.shape[0] * distributed.data_size(),
                         mets))
         if len(pending) >= cfg.TPU.METRICS_PERIOD or cur_iter == data_size - 1:
             for it, bs, m in pending:
@@ -264,6 +264,7 @@ def _train_detection(cfg, state, start_epoch, device):
                                    device, cur_epoch=cur_epoch)
             val_meter.log_epoch_stats(cur_epoch)
             val_meter.reset()
+    cu.wait_for_saves()  # drain the in-flight async (.dcp) checkpoint
     distributed.host_barrier("train_complete")
     return state
 
@@ -340,6 +341,7 @@ def train(cfg, device=None):
                                    global_step=cur_epoch)
     if writer is not None:
         writer.close()
+    cu.wait_for_saves()  # drain the in-flight async (.dcp) checkpoint
     distributed.host_barrier("train_complete")
     return state
 

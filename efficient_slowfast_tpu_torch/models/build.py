@@ -4,6 +4,10 @@
 device defaults to the GPU; where there is none, the CPU has to be asked
 for by name, so that a run meant for the card never goes on silently
 without it.
+
+Under ``TPU.SPATIAL_SHARD`` the model splits the pathways it is given
+(``parallel/spatial.py::constrain``) before its forward: whatever calls it,
+it never runs unsplit.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.conv import enable_int8
+from ..parallel import spatial
 from ..utils.registry import Registry
 
 MODEL_REGISTRY = Registry("MODEL")
@@ -35,4 +40,7 @@ def build_model(cfg, device=None) -> torch.nn.Module:
     dev = resolve_device(device)
     model = enable_int8(MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(
         cfg.static()), cfg)
+    if spatial.spatial_shard(cfg) > 1:
+        model.register_forward_pre_hook(
+            lambda m, args: (spatial.constrain(cfg, args[0]),) + args[1:])
     return model.to(dev, memory_format=torch.channels_last_3d)

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import Conv3d, Linear
 from ..ops.norm import BatchNorm3d
-from ..ops.pool import adaptive_avg_pool3d_1
+from ..ops.pool import adaptive_avg_pool3d_1, max_pool3d
 from .fuse import FuseFastAndSlow
 from .heads import dropout
 
@@ -114,6 +114,14 @@ class PathwayStage(nn.Module):
         return [getattr(self, n)(xi) for n, xi in zip(self.names, x)]
 
 
+class MaxPool3d(nn.MaxPool3d):
+    """``nn.MaxPool3d`` through ``ops/pool.py::max_pool3d``, which serves a
+    height-split activation too."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool3d(x, self.kernel_size, self.stride, self.padding)
+
+
 class EfficientStem(nn.Module):
     """Per-pathway 3×3×3/s(1,2,2) conv → BN → activation, with an optional
     3×3×3/s(1,2,2) max pool (pad 1). ``features`` puts the chain under a
@@ -133,7 +141,7 @@ class EfficientStem(nn.Module):
             chain = list(ConvBNAct(dim_in[p], dim_out[p], 3, (1, 2, 2), 1,
                                    act=act, norm=norm, dtype=dtype))
             if with_pool:
-                chain.append(nn.MaxPool3d(3, (1, 2, 2), 1))
+                chain.append(MaxPool3d(3, (1, 2, 2), 1))
             self.add_module(f"pathway{p}_stem", _Features(chain) if features
                             else nn.Sequential(*chain))
 

@@ -7,6 +7,8 @@ projection and the activation. Unlike the classification head, the
 activation is applied in train mode too (reference :126-129: AVA trains
 BCE on sigmoid scores). Pooling runs in float32, the projection in the
 compute dtype, and the scores come out in float32, one row per RoI.
+Under ``TPU.SPATIAL_SHARD`` ROIAlign reads the whole height of each
+pathway (``spatial.gather_height``): boxes cross the bands.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch.nn as nn
 
 from ..ops.conv import Linear
 from ..ops.roi_align import roi_align
+from ..parallel import spatial
 from .heads import dropout
 
 
@@ -49,6 +52,7 @@ class ResNetRoIHead(nn.Module):
             f"Input tensor does not contain {len(self.pool_size)} pathways")
         pooled = []
         for p, x in enumerate(inputs):
+            x = spatial.gather_height(x)  # boxes cross the bands
             assert x.shape[2] == self.pool_size[p][0], (
                 f"pathway {p}: T={x.shape[2]} != pool {self.pool_size[p][0]}")
             # (B, T, H, W, C), the memory's own order: mean over T in f32

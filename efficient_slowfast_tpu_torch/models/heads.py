@@ -5,7 +5,9 @@ in eval mode the activation (softmax/sigmoid, in float32) comes BEFORE the
 mean over (T', H', W') — the order matters for multi-crop test parity
 (:218-221). With a test crop larger than the training crop the head pools
 with the training window at stride 1 and averages the activated scores over
-the positions (fully convolutional testing).
+the positions (fully convolutional testing). Under ``TPU.SPATIAL_SHARD`` the
+head takes the whole height of a split pathway (``spatial.gather_height``),
+and its scores are whole on every rank.
 
 Dropout, in train mode only, draws its mask from the ``torch.Generator``
 that the caller passes down (the train step always passes one; a direct
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import Linear
 from ..ops.pool import avg_pool3d
+from ..parallel import spatial
 from ..parallel.distributed import global_rows
 
 
@@ -46,6 +49,9 @@ class ResNetBasicHead(nn.Module):
     def forward(self, inputs, generator: Optional[torch.Generator] = None):
         pools = []
         for p, x in enumerate(inputs):
+            # a split height is taken whole: the pool's window spans it,
+            # and a larger test crop pools it at every position
+            x = spatial.gather_height(x)
             if self.pool_size is None or self.pool_size[p] is None:
                 x = x.mean(dim=(2, 3, 4), keepdim=True)
             else:  # summed in float32 (the CPU has no bf16 avg_pool3d)

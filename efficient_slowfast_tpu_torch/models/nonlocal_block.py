@@ -18,6 +18,10 @@ package's, rounding where it rounds:
   and the product with g in g's dtype, accumulated in float32.
 - ``dot_product``: θ (φᵀ g) / M by associativity, the (D, D) product in
   float32 rounded to θ's dtype before the second.
+
+Under ``TPU.SPATIAL_SHARD`` the queries are the rank's band's and φ and g
+the space group's (``spatial.gather_tokens``); the branch is chosen by the
+whole frame's query count.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import Conv3d
+from ..parallel import spatial
 from ..ops.kernels.flash_attention import flash_attention, plain_attention
 from ..ops.norm import BatchNorm3d
 from ..ops.pool import max_pool3d
@@ -73,11 +78,14 @@ class Nonlocal(nn.Module):
             return y.permute(0, 2, 3, 4, 1).reshape(b, -1, self.dim_inner)
 
         theta = tokens(self.conv_theta(x))
+        n_q = spatial.global_count(theta, theta.shape[1])
+        theta = spatial.plain(theta)
         if self.pool_size is not None:
             x = max_pool3d(x, self.pool_size, self.pool_size)
-        phi = tokens(self.conv_phi(x))
-        g = tokens(self.conv_g(x))
-        n_q, n_k = theta.shape[1], phi.shape[1]
+        # a split activation's keys and values are its space group's
+        phi = spatial.gather_tokens(tokens(self.conv_phi(x)))
+        g = spatial.gather_tokens(tokens(self.conv_g(x)))
+        n_k = phi.shape[1]
 
         if self.instantiation == "dot_product":
             kv = torch.matmul(phi.float().transpose(1, 2), g.float())
@@ -92,5 +100,6 @@ class Nonlocal(nn.Module):
             aff = F.softmax(logits * self.dim_inner ** -0.5, dim=-1)
             out = torch.matmul(aff.to(g.dtype).float(), g.float())
         out = out.to(identity.dtype).reshape(b, t, h, w, self.dim_inner)
-        out = self.conv_out(out.permute(0, 4, 1, 2, 3))
+        out = self.conv_out(spatial.like(out.permute(0, 4, 1, 2, 3),
+                                         identity))
         return identity + self.bn(out)

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .conv import Conv3d
 from .kernels.flash_attention import flash_attention, plain_attention
 from .norm import BatchNorm3d
@@ -46,6 +47,12 @@ class SpatialAttention(nn.Module):
     kernel has no such limit and the port does not apply it. At the 256²
     test crop two fusions have 32768 keys: bounding the kernel there would
     put the plain version on the serving path.
+
+    Under ``TPU.SPATIAL_SHARD`` a rank's queries are its band's tokens and
+    the keys and values are the space group's (``spatial.gather_tokens``;
+    the softmax over the keys does not depend on their order), so the
+    kernel runs N/S queries against all N keys; the path is chosen by the
+    whole frame's token count, as in one process.
     """
 
     def __init__(self, dim: int, reduction: int = 8, use_flash: bool = True,
@@ -67,10 +74,10 @@ class SpatialAttention(nn.Module):
         def tokens(y):  # NCDHW → (B, N, C'), a view when channels-last
             return y.permute(0, 2, 3, 4, 1).reshape(b, n, -1)
 
-        q = tokens(self.query_conv(x))
-        k = tokens(self.key_conv(x))
-        v = tokens(self.value_conv(x))
-        if n > self.flash_min_tokens:
+        q = spatial.plain(tokens(self.query_conv(x)))
+        k = spatial.gather_tokens(tokens(self.key_conv(x)))
+        v = spatial.gather_tokens(tokens(self.value_conv(x)))
+        if spatial.global_count(x, n) > self.flash_min_tokens:
             attend = flash_attention if self.use_flash else plain_attention
             out = attend(q, k, v)
         else:
@@ -91,7 +98,7 @@ class ECA(nn.Module):
                               bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.float().mean(dim=(2, 3, 4))               # (B, C)
+        y = spatial.mean(x.float(), (2, 3, 4))          # (B, C)
         y = self.conv(y[:, None, :])[:, 0]              # conv over C
         gate = torch.sigmoid(y).to(x.dtype)
         return x * gate[:, :, None, None, None]

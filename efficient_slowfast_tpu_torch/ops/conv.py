@@ -12,6 +12,10 @@ parameters stay float32, as the JAX package keeps ``param_dtype`` float32.
 ``TPU.TAP_DECOMPOSE`` and ``TPU.STEM_D2S`` are exact rewrites of the same
 conv for the TPU; here they run the plain conv.
 
+Under ``TPU.SPATIAL_SHARD`` a conv of a height-split activation runs on
+its band with the neighbours' halo rows, or on the whole height where its
+output would not split (``conv3d``, ``parallel/spatial.py::window``).
+
 int8 serving (port of ``ops/conv.py:184-330, 361-382``): after
 ``enable_int8(model, cfg)`` (which ``build_model`` calls), a model under
 ``TPU.INT8_EVAL`` serves every conv of
@@ -37,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .kernels.int8_conv import int8_conv, weight_codes
 
 def _int8_kind(m, pointwise: bool, spatial: bool):
@@ -77,6 +82,19 @@ def _triple(v) -> tuple:
         assert len(v) == 3
         return tuple(int(x) for x in v)
     return (int(v),) * 3
+
+
+def conv3d(x, weight, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
+           dilation=(1, 1, 1), groups: int = 1) -> torch.Tensor:
+    """``F.conv3d`` of an NCDHW ``x``, split or whole
+    (``spatial.window``)."""
+    stride, padding, dilation = (_triple(stride), _triple(padding),
+                                 _triple(dilation))
+    xin, ph, split = spatial.window(x, weight.shape[3], stride[1],
+                                    padding[1], dilation[1])
+    y = F.conv3d(xin, weight, bias, stride, (padding[0], ph, padding[2]),
+                 dilation, groups)
+    return spatial.as_split(y) if split else y
 
 
 class Conv3d(nn.Conv3d):
@@ -123,6 +141,13 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = self.bias.to(dt) if self.bias is not None else None
+        if spatial.is_split(x):
+            if self.int8:
+                raise NotImplementedError(
+                    "int8 serving under TPU.SPATIAL_SHARD comes with ROADMAP "
+                    "item 7c")
+            return conv3d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                          self.padding, self.dilation, self.groups)
         if self.int8 and not self.calibrating:
             codes, scale = self.weight_codes()
             return int8_conv(x, codes, scale, self.act_max, bias,

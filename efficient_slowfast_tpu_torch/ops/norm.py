@@ -37,10 +37,14 @@ each rank's count, mean and variance of its rows of a group exactly (one
 all-reduce; JAX takes a two-pass variance) and, in the backward, reduces
 the group's Σdy and Σdy·(x - mean) (another).
 Plain BN is one group of the global batch; sync-BN (``SyncBatchNorm3d``)
-``NUM_SYNC_DEVICES``-rank groups of it (one group, plain BN, when they
-span the run); sub-BN ``NUM_SPLITS x world`` contiguous splits of it, as
-JAX multiplies by its data axis. In one process the modules run
-``F.batch_norm`` as before.
+groups of ``NUM_SYNC_DEVICES`` shares of it (one group, plain BN, when
+they span the data axis); sub-BN ``NUM_SPLITS x D`` contiguous splits of
+it, as JAX multiplies by its data axis. The shares are the data axis's D
+(``parallel/distributed.py``): under ``TPU.SPATIAL_SHARD`` the S ranks of
+a space group hold the same clips, each a band of their rows or their
+whole height, and every rank adds its count and moments, so a group's
+statistics are those of its clips' whole frames. In one process the
+modules run ``F.batch_norm`` as before.
 """
 
 from __future__ import annotations
@@ -52,14 +56,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.distributed import all_reduce_sum, rank, world_size
+from ..parallel import spatial
+from ..parallel.distributed import (all_reduce_sum, data_rank, data_size,
+                                    rank, space_size, world_size)
 
 
 def _segments(b: int, groups: int) -> list:
     """[(first row, end row, group)] of this rank's ``b`` rows of the
-    global batch (every rank's rows in rank order, equal counts) cut into
+    global batch (every data share's rows in order, equal counts) cut into
     ``groups`` contiguous groups: the runs of its rows in one group."""
-    w, r = world_size(), rank()
+    w, r = data_size(), data_rank()
     total = b * w
     if total % groups:
         raise ValueError(f"global batch {total} ({w} x {b}) not divisible "
@@ -144,13 +150,17 @@ class _GroupedNorm(torch.autograd.Function):
 
 def grouped_batch_norm(x, weight, bias, groups: int, eps: float):
     """Train-mode BN of this rank's rows ``x`` of the global batch (every
-    rank's rows in rank order, equal counts), cut into ``groups``
+    data share's rows in order, equal counts), cut into ``groups``
     contiguous groups, each normalized by its own statistics over the
-    ranks: (y in x's dtype, (G, C) float32 means, biased variances)."""
+    ranks: (y in x's dtype, split where x is; (G, C) float32 means,
+    biased variances)."""
     b = x.shape[0]
-    local = b % (b * world_size() // groups) == 0  # the same on every rank
-    return _GroupedNorm.apply(x, weight, bias, _segments(b, groups), groups,
-                              eps, local)
+    # the same on every rank; a space group's ranks share their groups
+    local = (b % (b * data_size() // groups) == 0 and space_size() == 1)
+    y, mean, var = _GroupedNorm.apply(spatial.plain(x), weight, bias,
+                                      _segments(b, groups), groups, eps,
+                                      local)
+    return spatial.like(y, x), mean, var
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -459,25 +469,26 @@ def convert_bn_stats(state_dict, old_type: str, new_type: str,
 
 def effective_num_splits(cfg) -> int:
     """The split count of a ``SubBatchNorm3d``: ``BN.NUM_SPLITS`` groups of
-    each rank's batch, so ``NUM_SPLITS`` x world groups of the global
-    batch, as the JAX package multiplies by its data axis (one device a
-    rank)."""
-    return max(1, int(cfg.BN.NUM_SPLITS)) * world_size()
+    each data share's batch, so ``NUM_SPLITS`` x D groups of the global
+    batch, as the JAX package multiplies by its data axis
+    (``mesh_device_count``: the devices over S, capped at
+    ``TPU.DATA_AXIS``)."""
+    return max(1, int(cfg.BN.NUM_SPLITS)) * data_size()
 
 
 def effective_sync_groups(cfg) -> int:
     """Statistics groups of sync-BN (reference: batchnorm_helper.py
-    :174-192): ``BN.NUM_SYNC_DEVICES``-sized groups of the run's devices,
-    one per process here; 0, or a group spanning every process, is one
-    global group."""
-    n = world_size()
+    :174-192): ``BN.NUM_SYNC_DEVICES``-sized groups of the data axis's D
+    shares (JAX's ``mesh_device_count``); 0, or a group spanning the data
+    axis, is one global group."""
+    n = data_size()
     sync = int(cfg.BN.NUM_SYNC_DEVICES)
     if sync <= 0 or sync >= n:
         return 1
     if n % sync != 0:
         raise ValueError(
-            f"BN.NUM_SYNC_DEVICES={sync} does not divide the process "
-            f"count {n} (reference asserts local_size % num_sync == 0, "
+            f"BN.NUM_SYNC_DEVICES={sync} does not divide the data-axis "
+            f"size {n} (reference asserts local_size % num_sync == 0, "
             f"batchnorm_helper.py:184-188)")
     return n // sync
 

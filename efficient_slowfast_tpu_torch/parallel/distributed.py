@@ -17,7 +17,16 @@ does:
   its share (``data/loader.py``), and what the JAX package reduces over
   the global batch inside its step the port reduces across ranks: BN's
   statistics (``ops/norm.py``), the step's metrics (``engine/state.py``)
-  and the eval rows (``all_gather_unaligned``).
+  and the eval rows (``all_gather_unaligned``);
+- the ranks form the JAX package's ``(data, space)`` mesh
+  (``mesh.py::build_mesh``): ``S = TPU.SPATIAL_SHARD`` (1 where it is 0 or
+  1) consecutive ranks are a space group, which splits each frame's height
+  (``parallel/spatial.py``), and ``D = min(world // S, TPU.DATA_AXIS or
+  world // S)`` space groups take the batch. Rank r has data index
+  ``r // S`` and space index ``r % S``. The loader, the draws, the
+  metrics and the gathers go by the data index and count: every rank of a
+  space group holds the same clips, and only its space index 0 counts
+  them.
 
 The JAX package's ``compile_fence`` has no counterpart: nothing is
 compiled ahead of time here. Its role, keeping ranks from drifting apart
@@ -40,6 +49,8 @@ import torch.distributed as dist
 TIMEOUT_S = 1800.0
 
 _gloo = None  # the gloo side group (the default group when it is gloo)
+_ckpt = None  # a gloo group of its own for the async checkpoint's thread
+_space = (1, None)  # (S, this rank's space group): set by init_distributed
 
 
 def initialized() -> bool:
@@ -60,6 +71,54 @@ def is_master() -> bool:
     return rank() == 0
 
 
+def mesh_shape(cfg, world: int) -> tuple:
+    """(D, S) of a job of ``world`` processes (``mesh.py::build_mesh``,
+    ``mesh_device_count``): S is ``TPU.SPATIAL_SHARD`` above 1, else 1;
+    D is ``world // S``, capped at ``TPU.DATA_AXIS`` where it is set. A
+    world that S does not divide raises, as JAX's mesh asserts."""
+    s = int(cfg.TPU.SPATIAL_SHARD)
+    s = s if s > 1 else 1
+    if world < s or world % s:
+        raise AssertionError(
+            f"TPU.SPATIAL_SHARD={s} must divide the job's process count "
+            f"({world}) so that every space group is whole")
+    d = world // s
+    if cfg.TPU.DATA_AXIS:
+        d = min(d, int(cfg.TPU.DATA_AXIS))
+    return d, s
+
+
+def space_size() -> int:
+    """S: the ranks of a space group (1 without ``TPU.SPATIAL_SHARD``)."""
+    return _space[0]
+
+
+def space_rank() -> int:
+    """This rank's index in its space group: the band of rows it holds."""
+    return rank() % _space[0]
+
+
+def space_group():
+    """The process group of this rank's space group (None where S is 1)."""
+    return _space[1]
+
+
+def data_rank() -> int:
+    """This rank's index on the data axis: its share of the batch."""
+    return rank() // _space[0]
+
+
+def data_size() -> int:
+    """D: the shares of the batch (the world where S is 1)."""
+    return world_size() // _space[0]
+
+
+def counts_rows() -> bool:
+    """Whether this rank adds its rows to metrics and gathers: space index
+    0 of each space group (the others hold the same clips)."""
+    return space_rank() == 0
+
+
 def _timeout(seconds: Optional[float] = None) -> datetime.timedelta:
     return datetime.timedelta(seconds=TIMEOUT_S if seconds is None
                               else seconds)
@@ -73,7 +132,7 @@ def init_distributed(cfg, local_rank: int, device,
     over ``cfg.DIST_BACKEND``: ``nccl`` on a CUDA ``device``, ``gloo``
     on either. The group and its gloo side group wait at most
     ``TIMEOUT_S`` for a rank."""
-    global _gloo
+    global _gloo, _ckpt, _space
     device = torch.device(device)
     backend = cfg.DIST_BACKEND
     if backend == "nccl" and device.type != "cuda":
@@ -84,26 +143,59 @@ def init_distributed(cfg, local_rank: int, device,
         raise ValueError(f"DIST_BACKEND {backend}: nccl or gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    world = cfg.NUM_SHARDS * cfg.NUM_GPUS
+    world = job_size(cfg)
     dist.init_process_group(
         backend, init_method=init_method, world_size=world,
         rank=cfg.SHARD_ID * cfg.NUM_GPUS + local_rank, timeout=_timeout())
     _gloo = (dist.new_group(backend="gloo", timeout=_timeout())
              if backend != "gloo" else dist.group.WORLD)
+    _ckpt = dist.new_group(backend="gloo", timeout=_timeout())
+    _, s = mesh_shape(cfg, world)
+    group = None
+    if s > 1:  # every rank makes every group, in the same order
+        for first in range(0, world, s):
+            g = (dist.group.WORLD if s == world else
+                 dist.new_group(list(range(first, first + s)),
+                                timeout=_timeout()))
+            if first <= rank() < first + s:
+                group = g
+    _space = (s, group)
+
+
+def job_size(cfg) -> int:
+    """The processes of the job: ``NUM_SHARDS x NUM_GPUS``, cut to D x S
+    on one machine where ``TPU.DATA_AXIS`` leaves GPUs out of the mesh (as
+    JAX leaves devices out of it); a job of several machines must be D x S
+    already."""
+    world = cfg.NUM_SHARDS * cfg.NUM_GPUS
+    d, s = mesh_shape(cfg, world)
+    if d * s < world and cfg.NUM_SHARDS > 1:
+        raise ValueError(
+            f"TPU.DATA_AXIS={cfg.TPU.DATA_AXIS} x TPU.SPATIAL_SHARD gives a "
+            f"mesh of {d * s} processes, but the job of {cfg.NUM_SHARDS} "
+            f"machines has {world}: set NUM_GPUS so that they are equal")
+    return d * s
 
 
 def destroy_distributed() -> None:
     """Leave the process group, where one is up."""
-    global _gloo
+    global _gloo, _ckpt, _space
     if initialized():
         dist.destroy_process_group()
-    _gloo = None
+    _gloo, _ckpt, _space = None, None, (1, None)
 
 
 def gloo_group():
     """The gloo group of the run: host tensors, barriers, checksums (the
     default group where ``init_distributed`` did not make the run's)."""
     return dist.group.WORLD if _gloo is None else _gloo
+
+
+def checkpoint_group():
+    """The gloo group of the async checkpoint (``utils/checkpoint.py``):
+    its collectives run on a thread of their own, beside the step's on
+    the run's groups. None without a process group."""
+    return _ckpt
 
 
 def host_barrier(name: str, timeout_s: Optional[float] = None) -> None:
@@ -127,20 +219,32 @@ def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
     return tensor
 
 
+def all_reduce_data(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor``, a count or sum of this rank's clips, summed over the
+    data axis, in place: every space group adds it once (its space index
+    0's). The identity in one process."""
+    if world_size() > 1:
+        if not counts_rows():
+            tensor.zero_()
+        dist.all_reduce(tensor)
+    return tensor
+
+
 def global_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int],
                 dim: int = 0) -> torch.Tensor:
     """``draw(shape)``, a random draw whose axis ``dim`` runs over the
     batch, as this rank's rows of the draw a one-process run makes for the
-    global batch: ``draw`` is called for every rank's rows, and rank r
-    keeps rows [r·b, (r+1)·b). Ranks hold equal batches of b rows, the
-    global batch their concatenation in rank order."""
-    w = world_size()
+    global batch: ``draw`` is called for every data share's rows, and the
+    ranks of data index i keep rows [i·b, (i+1)·b). The shares are equal
+    batches of b rows, the global batch their concatenation in order; the
+    ranks of a space group draw the same rows."""
+    w = data_size()
     if w == 1:
         return draw(tuple(shape))
     shape = list(shape)
     b = shape[dim]
     shape[dim] = b * w
-    return draw(tuple(shape)).narrow(dim, rank() * b, b)
+    return draw(tuple(shape)).narrow(dim, data_rank() * b, b)
 
 
 def _host_bytes(t: torch.Tensor) -> bytes:
@@ -186,11 +290,14 @@ def all_gather_unaligned(*arrays):
     array padded to the largest, gathered over the gloo group and cut back
     to each rank's real rows (reference: ``all_gather_unaligned``,
     distributed.py:155-255; JAX: ``engine/test.py::gather_across_hosts``).
-    The identity in one process."""
+    A rank of space index above 0 adds no rows: its space group's index 0
+    holds the same. The identity in one process."""
     w = world_size()
     if w == 1:
         return arrays
     group = gloo_group()
+    if not counts_rows():
+        arrays = tuple(np.asarray(a)[:0] for a in arrays)
     n = int(np.shape(arrays[0])[0])
     counts = [torch.zeros(1, dtype=torch.int64) for _ in range(w)]
     dist.all_gather(counts, torch.tensor([n], dtype=torch.int64), group=group)

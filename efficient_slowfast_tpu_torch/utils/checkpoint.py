@@ -3,7 +3,13 @@ slowfast/utils/checkpoint.py).
 
 A checkpoint is ``OUTPUT_DIR/checkpoints/checkpoint_epoch_{epoch:05d}.pyth``
 in the reference's layout, ``{"epoch", "model_state", "optimizer_state",
-"cfg"}``, written by the master process. The model's BN statistics are
+"cfg"}``, written by the master process. Under ``TPU.CHECKPOINT_BACKEND
+orbax`` (the JAX package's async sharded backend) it is the directory
+``checkpoint_epoch_{epoch:05d}.dcp``, the same payload written by
+``torch.distributed.checkpoint.async_save`` from every rank while the next
+epoch runs (``wait_for_saves`` drains it; at most one save is in flight),
+and the master writes the cfg beside it as ``cfg_epoch_{epoch:05d}.yaml``,
+as JAX's does. The model's BN statistics are
 stored in the plain form (split BNs aggregated, as the reference saves
 them), so any build of the model reads the file with ``strict=True``, the
 JAX package's ``utils/torch_ckpt.py::load_torch_checkpoint`` among them;
@@ -20,13 +26,18 @@ pickle (``CHECKPOINT_TYPE caffe2``, its blob names translated by
 ``c2_name_to_torch``) or a ``.pyth`` under ``TRAIN.CHECKPOINT_INFLATE``
 (2-D ImageNet weights inflated to 3-D): every tensor of the model whose
 name the file holds in a shape that fits is loaded, the others keep the
-model's values. The JAX package's orbax directories, and the port's own
-sharded format, come with ROADMAP item 7b. Across processes the master
-writes and every rank reads.
+model's values. The JAX package's ``.orbax`` directories are read through
+``tensorstore`` (imported at the first such read; the port never imports
+orbax): ``_METADATA`` names every leaf by its tuple of keys, each leaf a
+zarr array in the directory's OCDBT store; they give the model its
+weights as a ``.jaxckpt`` does, and not the optimizer its state. Across
+processes the master writes (every rank, for ``.dcp``) and every rank
+reads.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import re
@@ -44,7 +55,9 @@ from .weights import jax_variables_to_state_dict
 logger = get_logger(__name__)
 
 # the port's checkpoints, and the JAX package's in a run directory of its
-_CKPT_RE = re.compile(r"checkpoint_epoch_(\d+)\.(pyth|jaxckpt|orbax)$")
+_CKPT_RE = re.compile(r"checkpoint_epoch_(\d+)\.(pyth|dcp|jaxckpt|orbax)$")
+
+_pending = None  # the in-flight async save (a Future), if any
 
 
 def get_checkpoint_dir(path_to_job: str) -> str:
@@ -58,10 +71,13 @@ def make_checkpoint_dir(path_to_job: str) -> str:
     return d
 
 
-def get_path_to_checkpoint(path_to_job: str, epoch: int) -> str:
-    """The file of the checkpoint taken after ``epoch`` epochs."""
+def get_path_to_checkpoint(path_to_job: str, epoch: int,
+                           backend: str = "msgpack") -> str:
+    """The file (the directory, for the ``orbax`` backend) of the
+    checkpoint taken after ``epoch`` epochs."""
+    suffix = "dcp" if backend == "orbax" else "pyth"
     return os.path.join(get_checkpoint_dir(path_to_job),
-                        f"checkpoint_epoch_{epoch:05d}.pyth")
+                        f"checkpoint_epoch_{epoch:05d}.{suffix}")
 
 
 def get_last_checkpoint(path_to_job: str) -> Optional[str]:
@@ -105,10 +121,9 @@ def _to_cpu(obj):
 def checkpoint_payload(state, epoch: int, cfg) -> dict:
     """What ``save_checkpoint`` writes for ``state`` after ``epoch``
     (0-based), on the host."""
-    if cfg.TPU.CHECKPOINT_BACKEND != "msgpack":
-        raise NotImplementedError(
-            f"TPU.CHECKPOINT_BACKEND {cfg.TPU.CHECKPOINT_BACKEND}: sharded "
-            "checkpoints come with ROADMAP item 7b")
+    if cfg.TPU.CHECKPOINT_BACKEND not in ("msgpack", "orbax"):
+        raise ValueError(f"TPU.CHECKPOINT_BACKEND "
+                         f"{cfg.TPU.CHECKPOINT_BACKEND}: msgpack or orbax")
     return {
         "epoch": epoch,
         "model_state": _to_cpu(sub_to_normal_bn(state.model.state_dict())),
@@ -119,7 +134,10 @@ def checkpoint_payload(state, epoch: int, cfg) -> dict:
 
 def save_checkpoint(path_to_job: str, state, epoch: int, cfg) -> Optional[str]:
     """Save the train state after ``epoch`` (reference: :107-136); the
-    master process writes, the others return None."""
+    master process writes, the others return None. The ``orbax`` backend
+    saves asynchronously from every rank (``_save_dcp``)."""
+    if cfg.TPU.CHECKPOINT_BACKEND == "orbax":
+        return _save_dcp(path_to_job, state, epoch, cfg)
     if not is_master():
         return None
     make_checkpoint_dir(path_to_job)
@@ -127,6 +145,76 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg) -> Optional[str]:
     torch.save(checkpoint_payload(state, epoch, cfg), path)
     logger.info("Saved checkpoint to %s", path)
     return path
+
+
+def _save_dcp(path_to_job: str, state, epoch: int, cfg) -> str:
+    """``checkpoint_payload`` into ``checkpoint_epoch_{e:05d}.dcp`` by
+    ``torch.distributed.checkpoint.async_save``: every rank takes part
+    (over a gloo group of its own in a process group, as its collectives
+    run on a thread beside the caller's), the files are written while the
+    caller goes on, and a save still in flight is waited for first.
+    The optimizer state's keys are strings there and its param groups a
+    JSON string (``load_dcp_payload`` turns them back)."""
+    import torch.distributed.checkpoint as dcp
+
+    from ..parallel import distributed
+
+    global _pending
+    wait_for_saves()
+    d = get_checkpoint_dir(path_to_job)
+    os.makedirs(d, exist_ok=True)
+    path = get_path_to_checkpoint(path_to_job, epoch + 1, backend="orbax")
+    payload = checkpoint_payload(state, epoch, cfg)
+    opt = payload["optimizer_state"]
+    payload["optimizer_state"] = {
+        "state": {str(k): v for k, v in opt["state"].items()},
+        "param_groups": json.dumps(opt["param_groups"])}
+    _pending = dcp.async_save(payload, checkpoint_id=path,
+                              process_group=distributed.checkpoint_group())
+    if is_master():
+        with open(os.path.join(d, f"cfg_epoch_{epoch + 1:05d}.yaml"),
+                  "w") as f:
+            f.write(payload["cfg"])
+    logger.info("Async-saving checkpoint to %s", path)
+    return path
+
+
+def wait_for_saves() -> None:
+    """Block until the in-flight async checkpoint (if any) is written
+    (JAX: ``utils/checkpoint.py::wait_for_saves``)."""
+    global _pending
+    if _pending is not None:
+        fut, _pending = _pending, None
+        fut.result()
+
+
+def load_dcp_payload(path: str) -> dict:
+    """A ``.dcp`` checkpoint's payload, as ``checkpoint_payload`` made it
+    (the optimizer state's keys back to ints), on the host."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    from ..parallel import distributed
+
+    wait_for_saves()
+    meta = dcp.FileSystemReader(path).read_metadata()
+    payload: dict = {}
+    for fqn, keys in meta.planner_data.items():
+        info = meta.state_dict_metadata[fqn]
+        node = payload
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = (
+            torch.empty(tuple(info.size), dtype=info.properties.dtype)
+            if isinstance(info, TensorStorageMetadata) else None)
+    group = distributed.gloo_group() if distributed.initialized() else None
+    dcp.load(payload, checkpoint_id=path, process_group=group,
+             no_dist=group is None)
+    opt = payload["optimizer_state"]
+    payload["optimizer_state"] = {
+        "state": {int(k): v for k, v in opt.get("state", {}).items()},
+        "param_groups": json.loads(opt["param_groups"])}
+    return payload
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict):
@@ -160,11 +248,11 @@ def load_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     cfg=None) -> int:
     """Restore ``model`` (and ``optimizer`` where given) from the run's
-    checkpoint ``path``; returns the epoch it was taken after (0-based; -1
-    where the file has none). A JAX package's ``.jaxckpt`` gives the model
-    its weights (mapped with ``cfg``'s name table where it is an efficient
-    family), not the optimizer its state (optax's layout is not
-    torch's)."""
+    checkpoint ``path`` (a ``.pyth`` or a ``.dcp``); returns the epoch it
+    was taken after (0-based; -1 where the file has none). A JAX package's
+    ``.jaxckpt`` or ``.orbax`` gives the model its weights (mapped with
+    ``cfg``'s name table where it is an efficient family), not the
+    optimizer its state (optax's layout is not torch's)."""
     if path.endswith(".jaxckpt"):
         payload = load_jax_checkpoint(path)
         _load_model(model, _jax_state_dict(payload, cfg))
@@ -172,10 +260,17 @@ def load_checkpoint(path: str, model: torch.nn.Module,
             logger.warning("%s: the optimizer state of a JAX checkpoint is "
                            "not restored", path)
         return int(payload.get("epoch", -1))
-    if path.endswith(".orbax") or os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories come with ROADMAP item 7b")
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if _is_orbax(path):
+        payload = load_orbax_checkpoint(path)
+        _load_model(model, _jax_state_dict(payload, cfg))
+        if optimizer is not None:
+            logger.warning("%s: the optimizer state of a JAX checkpoint is "
+                           "not restored", path)
+        return int(payload.get("epoch", -1))
+    if path.endswith(".dcp"):
+        payload = load_dcp_payload(path)
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
     _load_model(model, payload["model_state"])
     if optimizer is not None and "optimizer_state" in payload:
         try:
@@ -225,6 +320,65 @@ def load_jax_checkpoint(path: str):
         return msgpack_restore(f.read())
 
 
+def _is_orbax(path: str) -> bool:
+    """A JAX package's orbax directory (not the port's ``.dcp``)."""
+    return path.endswith(".orbax") or (os.path.isdir(path)
+                                       and not path.endswith(".dcp"))
+
+
+def _leaf_array(a) -> np.ndarray:
+    """A tensorstore read as numpy torch takes: a bfloat16 leaf
+    (``ml_dtypes``, which ``torch.from_numpy`` refuses) widened to float32,
+    which is exact."""
+    if a.dtype.name == "bfloat16":
+        return np.asarray(a, dtype=np.float32)
+    return np.asarray(a)
+
+
+def load_orbax_checkpoint(path: str) -> dict:
+    """The JAX package's orbax directory as a tree of numpy leaves,
+    {"epoch", "params", "batch_stats", "opt_state"}: the leaves that
+    ``_METADATA``'s ``tree_metadata`` names by their tuples of keys, each
+    the zarr array at the keys joined by "." in the directory's OCDBT
+    store, read through ``tensorstore``; leaves saved as None are left
+    out. A directory without ``_METADATA`` raises FileNotFoundError."""
+    meta_path = os.path.join(path, "_METADATA")
+    if not os.path.isfile(meta_path):
+        raise FileNotFoundError(
+            f"{path}: not an orbax checkpoint, it has no _METADATA file")
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: reading an orbax checkpoint needs the tensorstore "
+            "package") from e
+    with open(meta_path) as f:
+        meta = json.load(f)
+    zarr = "zarr3" if meta.get("use_zarr3") else "zarr"
+    base = {"driver": "ocdbt", "base": "file://" + os.path.abspath(path)
+            + "/"} if meta.get("use_ocdbt", True) else {
+        "driver": "file", "path": os.path.abspath(path)}
+    leaves = []  # (keys, scalar, the open's future), every open in flight
+    for entry in meta["tree_metadata"].values():
+        value = entry["value_metadata"]
+        if value.get("skip_deserialize") or value["value_type"] == "None":
+            continue
+        keys = [k["key"] for k in entry["key_metadata"]]
+        leaves.append((keys, value["value_type"] == "scalar", ts.open(
+            {"driver": zarr, "kvstore": base, "path": ".".join(keys)},
+            open=True)))
+    reads = [(keys, scalar, opened.result().read())
+             for keys, scalar, opened in leaves]
+    tree: dict = {}
+    for keys, scalar, read in reads:
+        leaf = _leaf_array(read.result())
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf.item() if scalar else leaf
+    return tree
+
+
 def _jax_state_dict(payload, cfg=None) -> dict:
     return jax_variables_to_state_dict(
         {"params": payload["params"],
@@ -239,10 +393,16 @@ def _load_external(model: torch.nn.Module, path: str, ckpt_type: str,
     Caffe2 pickle, and with ``inflate`` a ``.pyth`` whose 2-D weights are
     inflated, both loaded where names and shapes fit
     (``load_matching``). ``cfg`` maps an efficient family's ``.jaxckpt``
-    (``utils/weights.py::efficient_prefix_table``)."""
-    if path.endswith(".orbax") or os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories come with ROADMAP item 7b")
+    (``utils/weights.py::efficient_prefix_table``). A JAX package's
+    ``.orbax`` directory loads as a ``.jaxckpt`` does, a ``.dcp`` as a
+    ``.pyth``."""
+    if _is_orbax(path):
+        _load_model(model, _jax_state_dict(load_orbax_checkpoint(path), cfg))
+        logger.info("Loaded the JAX orbax checkpoint %s", path)
+        return
+    if path.endswith(".dcp"):
+        _load_model(model, load_dcp_payload(path)["model_state"])
+        return
     if ckpt_type == "jax" or path.endswith(".jaxckpt"):
         _load_model(model, _jax_state_dict(load_jax_checkpoint(path), cfg))
         logger.info("Loaded the JAX checkpoint %s", path)

@@ -39,7 +39,7 @@ def _run(local_rank: int, cfg, init_method: str, func: Callable, device):
     else:
         dev = _rank_device(device, local_rank)
         call = lambda: func(cfg, device=dev)  # noqa: E731
-    if cfg.NUM_SHARDS * cfg.NUM_GPUS == 1:
+    if distributed.job_size(cfg) == 1:
         return call()
     distributed.init_distributed(cfg, local_rank, dev, init_method)
     try:
@@ -54,10 +54,18 @@ def launch_job(cfg, init_method: str, func: Callable, device=None):
     processes of the job (reference :275-303): with ``NUM_GPUS`` > 1 it
     spawns them (``torch.multiprocessing``) and returns None; otherwise it
     runs here, joining the job's group where ``NUM_SHARDS`` > 1, and
-    returns what ``func`` returns."""
-    if cfg.NUM_GPUS > 1:
+    returns what ``func`` returns.
+
+    The job is the JAX package's ``(data, space)`` mesh
+    (``distributed.job_size``): on one machine whose ``NUM_GPUS`` exceed
+    ``TPU.DATA_AXIS x TPU.SPATIAL_SHARD`` it starts only that many, as JAX
+    leaves those devices out of its mesh; a job of several machines must
+    match it, and a world that the space axis does not divide raises."""
+    n = distributed.job_size(cfg)
+    n = n if cfg.NUM_SHARDS == 1 else cfg.NUM_GPUS
+    if n > 1:
         torch.multiprocessing.spawn(
-            _run, nprocs=cfg.NUM_GPUS, args=(cfg, init_method, func, device),
+            _run, nprocs=n, args=(cfg, init_method, func, device),
             daemon=False)
         return None
     return _run(0, cfg, init_method, func, device)

@@ -38,8 +38,11 @@ class GradCAM:
     An unknown layer raises ``KeyError``."""
 
     def __init__(self, model: torch.nn.Module, target_layer: str, cfg=None):
+        from ..parallel import spatial
         from ..utils.weights import jax_module_to_torch
 
+        if cfg is not None:
+            spatial.refuse(cfg, "Grad-CAM")
         self.model = model
         modules = dict(model.named_modules())
         name = target_layer

@@ -58,7 +58,10 @@ BN_TOL = dict(rtol=1e-5, atol=1e-5)
 
 def tune(cfg):
     """R18-deep SlowFast bottlenecks at width 16, 8 frames, a 32² crop, as
-    the reference configs train (torch_port_helpers.train_cfg)."""
+    the reference configs train (torch_port_helpers.train_cfg); the data
+    axis capped at 1 for JAX's one process on the suite's 8 devices and
+    the port's one-process references (the ranks lift the cap:
+    ``rank_main``)."""
     cfg.DATA.CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 32
     cfg.DATA.TRAIN_CROP_SIZE = 32
     cfg.DATA.TRAIN_JITTER_SCALES = [36, 45]
@@ -173,6 +176,7 @@ def rank_main(rank, world, port, d):
     data = torch.load(os.path.join(d, "data.pt"), weights_only=False)
     cfg = data["cfg"].clone()
     cfg.NUM_SHARDS, cfg.SHARD_ID = world, rank
+    cfg.TPU.DATA_AXIS = 0  # the port reads it: a cap of 1 is one process
     distributed.init_distributed(cfg, 0, "cpu", f"tcp://127.0.0.1:{port}")
     out = {"rank": distributed.rank(), "world": distributed.world_size()}
     out["bn"] = bn_run(data["bn"], rows(rank, world, 4), rows(rank, world, 6))
@@ -199,7 +203,9 @@ def rank_main(rank, world, port, d):
     out["gather"] = distributed.all_gather_unaligned(
         np.arange(rank * 10, rank * 10 + 3 + 2 * rank),
         np.full((3 + 2 * rank, 2), rank > 0))
-    out["test"] = run_test(data["test_cfg"], device="cpu")
+    test_cfg = data["test_cfg"].clone()
+    test_cfg.TPU.DATA_AXIS = 0
+    out["test"] = run_test(test_cfg, device="cpu")
     out["detection"] = run_test(data["det_cfg"], device="cpu").full_map
     # a rank with other weights: the checksum refuses DDP on every rank
     torch.manual_seed(rank)

@@ -18,7 +18,8 @@ from efficient_slowfast_tpu_torch.engine.state import make_forward
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "efficient_slowfast_tpu_torch")
-FORBIDDEN = ("jax", "flax", "optax", "msgpack", "efficient_slowfast_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax",
+             "efficient_slowfast_tpu")
 
 _TINY_FORWARD = r"""
 import sys
@@ -381,8 +382,9 @@ def _imports(path):
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = list(_python_files())
     assert len(files) > 15
-    # the distribution runtime is walked too
+    # the distribution runtime and the height split are walked too
     assert os.path.join(PORT, "parallel", "distributed.py") in files
+    assert os.path.join(PORT, "parallel", "spatial.py") in files
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -155,26 +155,59 @@ def _int8_test_runs(what, cfg, tmp_path):
         assert np.isfinite(meter.video_preds).all()
 
 
+def _orbax_test_runs(what, cfg, tmp_path):
+    """Item 7b's orbax checkpoints, which test() once refused: the JAX
+    package's orbax directory, written by its ``save_checkpoint``, by
+    path (``jax``) or as a JAX run's last checkpoint (``output_dir``),
+    scores a seeded R18 as the same weights' ``.pyth`` does; an empty
+    directory raises an error that names the ``_METADATA`` it lacks."""
+    from test_torch_port_orbax import write_jax_orbax
+
+    def r18(get):
+        c = engine_cfg(get, "", tmp_path)
+        c.RESNET.DEPTH, c.RESNET.TRANS_FUNC = 18, "basic_transform"
+        c.RESNET.NUM_BLOCK_TEMP_KERNEL = [[2, 2]] * 4
+        c.TEST.NUM_ENSEMBLE_VIEWS, c.TEST.NUM_SPATIAL_CROPS = 1, 1
+        c.TEST.BATCH_SIZE = 8
+        return c
+
+    cfg = r18(get_cfg)
+    variables = seeded_variables(cfg)
+    pyth = tmp_path / "model.pyth"
+    torch.save({"model_state": {
+        k: torch.from_numpy(np.array(v)) for k, v in export_torch_state_dict(
+            variables["params"], variables["batch_stats"]).items()}}, pyth)
+    cfg.TEST.CHECKPOINT_FILE_PATH = str(pyth)
+    want = run_test(cfg, device="cpu").video_preds
+    run = tmp_path / "jax_run"
+    path = write_jax_orbax(r18(jax_get_cfg), variables, run, epoch=0,
+                           opt_state=False)
+    empty = tmp_path / "empty" / "checkpoints" / "checkpoint_epoch_00001.orbax"
+    empty.mkdir(parents=True)
+    for real in (True, False):
+        if what == "output_dir":  # a JAX run's orbax checkpoint directory
+            cfg.TEST.CHECKPOINT_FILE_PATH = ""
+            cfg.OUTPUT_DIR = str(run if real else empty.parent.parent)
+        else:  # the JAX package's orbax directory, by path
+            cfg.TEST.CHECKPOINT_FILE_PATH = path if real else str(empty)
+            cfg.TEST.CHECKPOINT_TYPE = what
+        if real:
+            np.testing.assert_array_equal(
+                run_test(cfg, device="cpu").video_preds, want)
+        else:
+            with pytest.raises(FileNotFoundError, match="_METADATA"):
+                run_test(cfg, device="cpu")
+
+
 @pytest.mark.parametrize("what", ["detection", "int8", "jax",
                                   "output_dir"])
 def test_what_later_items_bring_raises(what, tmp_path):
+    """Each case once raised NotImplementedError naming the ROADMAP item
+    that would bring it; the items have come, and each now runs."""
     cfg = engine_cfg(get_cfg, tmp_path / "model.pyth", tmp_path)
-    item = "item 7"
     if what in ("detection", "int8"):  # item 8's int8 serving, now ported
         return _int8_test_runs(what, cfg, tmp_path)
-    elif what == "output_dir":  # a JAX run's orbax checkpoint directory
-        cfg.TEST.CHECKPOINT_FILE_PATH = ""
-        cfg.OUTPUT_DIR = str(tmp_path)
-        (tmp_path / "checkpoints" / "checkpoint_epoch_00001.orbax").mkdir(
-            parents=True)
-    elif what == "jax":  # the JAX package's orbax directory, by path
-        cfg.TEST.CHECKPOINT_FILE_PATH = str(tmp_path / "ckpt.orbax")
-        (tmp_path / "ckpt.orbax").mkdir()
-        cfg.TEST.CHECKPOINT_TYPE = what
-    else:
-        cfg.TEST.CHECKPOINT_TYPE = what
-    with pytest.raises(NotImplementedError, match=item):
-        run_test(cfg, device="cpu")
+    return _orbax_test_runs(what, cfg, tmp_path)  # item 7b, now ported
 
 
 def test_caffe2_checkpoint_loads(tmp_path):
