@@ -275,8 +275,8 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               second loads the file (K3 launches a batch gated). Export
               round trips (engine/export.py): fused SlowFast (26 K1
               nodes), CMDA-R50 (4 K2) and SlowFast-R50 32x2 AVA detection
-              exported on the card, the int8 SlowFast (110 K3) on the CPU
-              and moved to the card at load; each served on the card at
+              exported on the card (the int8 SlowFast's, 110 K3, is phase
+              20's); each served on the card at
               batches 4 and 1 against the live forward, the launches
               inside the artifact gated, its MB and export and load
               seconds printed.
@@ -360,7 +360,7 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               phase's seconds.
 19. space   — spatial model parallelism (phase_spatial): SPACE_WORLD ranks
               over gloo on cuda:0 under TPU.SPATIAL_SHARD 2 (D = 1),
-              started through the CLI's flags (rank19_main, launch_job),
+              started through the CLI's flags (rank19_job, rank_main),
               each rank holding its band of every frame's rows: (a)
               CMDA-R50 8x8 serving CLIPS_PER_REQUEST clips at 256² (phase
               5's model, attention calibrated), its 4 K2 calls held
@@ -384,14 +384,45 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               memory beside one process's at the same clips, ms a request
               and a step beside one process's, and the launches (4 K2, 26
               K1, 4 K2 + 12 K2-bwd a rank).
+20. entry   — the entry points under TPU.SPATIAL_SHARD 2 (phase_entry):
+              ENTRY_WORLD ranks over gloo on cuda:0 started through the
+              CLI's flags (rank20_job, rank_main), each against one
+              process on the same inputs: (a) int8 SlowFast-R50 8x8 (4
+              clips at 256²) under INT8_EVAL and +INT8_SPATIAL, calibrated
+              on one request by the group's step: the group's ranges the
+              maximum of the ranks' own and within ENTRY_RANGE_TOL of one
+              process's, 47 / 110 K3 calls a request a rank, each on its
+              halo slab bit-equal to int8_conv_reference on its inputs,
+              the scores by ENTRY_INT8_RATIO against one process's bf16
+              and int8 and within ENTRY_INT8_DIRECT_TOL of one process's
+              int8 (a planted fault, rank 1's halo rows zeroed in
+              ENTRY_FAULT_CONV, must fail both); (b) the export of (a)'s
+              +INT8_SPATIAL model written by the master on the CPU (the
+              other rank at a barrier; phase 15's int8 export moved
+              here), moved to the card at load and served at
+              EXPORT_BATCHES: equal to one process's live forward at the
+              group's ranges, bit for bit; (c) Grad-CAM of CMDA-R50
+              8x8 on one clip at 256², s4 and s3 (phase 16's), each K2 and
+              K2-bwd call held against its plain version on its inputs,
+              the scores within CMDA_BF16_ATOL of one process's, the CAMs
+              by CMDA_TRAIN_BF16_RATIO against one process's float32
+              plain path; (d) two injected one-clip windows of
+              demo/Kinetics/SLOWFAST_8x8_R50.yaml fused (K1 on halo slabs,
+              each call held) and int8 (K3, calibrated on the first
+              window), the windows against one process's, only the master
+              showing them. Prints ms a request, a Grad-CAM call and a
+              window at 2 ranks beside one process's, each rank's peak
+              memory, and K3's kernels' device ms in a traced
+              +INT8_SPATIAL request on slabs beside one process's.
 
 The depths were cut to make room for phase 16 within the time limit:
 REQUESTS 3 → 2, TRAIN_STEPS 5 → 3, PROFILE_STEPS 3 → 2, FATIGUE_STEPS 4 →
 3 (phase 14 traces its third step), PRECISE_BATCHES 2 → 1,
 FRAME_LIST_STEPS 4 → 2; and for phase 18: TRAIN_WARMUP 2 → 1,
 PROFILE_STEPS 2 → 1, DEMO_WINDOWS 3 → 2; and for phase 19: DIST_STEPS
-3 → 2, FRAME_LIST_STEPS 2 → 1 (no width, shape, gate or kernel hold
-changed).
+3 → 2, FRAME_LIST_STEPS 2 → 1; and for phase 20: phase 15's int8 export
+moved into phase 20, whose master writes it under the split (no width,
+shape, gate or kernel hold changed).
 After each phase block the smoke logs the seconds since its start.
 
 The profiler (phases 6, 7, 8, 11, 12, 13, 16) prints, per traced window, the
@@ -401,7 +432,7 @@ sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 (its times and bounds are per
+4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (its times and bounds are per
 request of the SlowFast and CMDA serving paths and per CMDA train step,
 phase 13's rows standing in where 3b or 3c did not run, and K3's per
 request of the +INT8_SPATIAL SlowFast-R50, its ms and library_ms (cuDNN's
@@ -413,6 +444,7 @@ and power limit, and the device JSON line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import itertools
@@ -5392,10 +5424,11 @@ def phase_int8_test(convs, smi):
     return total
 
 
-def export_round_trip(name, cfg, model, smi, boxes=False, on="cuda"):
-    """Export ``model``'s serving forward on device ``on``, load it onto the
-    card, serve it at EXPORT_BATCHES against the live forward; returns the
-    launches inside the artifact and its graph's kernel nodes."""
+def export_round_trip(name, cfg, model, smi, boxes=False):
+    """Export ``model``'s serving forward (the detection forward where
+    ``boxes``) on the card, load it there, serve it at EXPORT_BATCHES
+    against the live forward; returns the launches inside the artifact and
+    its graph's kernel nodes."""
     from efficient_slowfast_tpu_torch.data.ava_dataset import MAX_BOXES
     from efficient_slowfast_tpu_torch.engine.export import (export_serving,
                                                             load_serving)
@@ -5404,7 +5437,8 @@ def export_round_trip(name, cfg, model, smi, boxes=False, on="cuda"):
 
     path = os.path.join(smoke_dir(), f"export_{name}")
     t0 = time.perf_counter()
-    path = export_serving(cfg, model, path, max_boxes=MAX_BOXES, device=on)
+    path = export_serving(cfg, model, path, max_boxes=MAX_BOXES,
+                          device="cuda")
     t_export = time.perf_counter() - t0
     t0 = time.perf_counter()
     serving = load_serving(path, device="cuda")
@@ -5448,7 +5482,7 @@ def export_round_trip(name, cfg, model, smi, boxes=False, on="cuda"):
         lines.append(f"batch {b}: max |d| vs live {err:.3e}, launches "
                      f"{ {k: v for k, v in counts.items() if v} }, "
                      f"{dt * 1e3:.2f} ms")
-    log("export", f"{name}: exported on {on}, {os.path.getsize(path) / 1e6:.1f}"
+    log("export", f"{name}: exported on cuda, {os.path.getsize(path) / 1e6:.1f}"
         f" MB, export {t_export:.1f} s, load onto the card {t_load:.1f} s, "
         f"graph kernel nodes {nodes} "
         f"| " + " | ".join(lines) + f" | {smi}")
@@ -5456,12 +5490,12 @@ def export_round_trip(name, cfg, model, smi, boxes=False, on="cuda"):
     return total, nodes
 
 
-def phase_export(int8_model, int8_cfg_, smi):
-    """Export round trips of fused SlowFast-R50 (K1), CMDA-R50 (K2), int8
-    SlowFast-R50 (K3) and SlowFast-R50 32x2 AVA detection. Returns the
-    launches inside the artifacts."""
+def phase_export(smi):
+    """Export round trips of fused SlowFast-R50 (K1), CMDA-R50 (K2) and
+    SlowFast-R50 32x2 AVA detection (int8 SlowFast-R50's, K3, is phase
+    20's, beside the split's). Returns the launches inside the
+    artifacts."""
     from efficient_slowfast_tpu_torch.config import load_cfg
-    from efficient_slowfast_tpu_torch.ops.conv import int8_convs
 
     total = {}
 
@@ -5485,14 +5519,6 @@ def phase_export(int8_model, int8_cfg_, smi):
         raise AssertionError(f"CMDA export: nodes {nodes}, launches {counts}")
     add(counts)
     del model
-    # exported on the CPU (the weight codes quantized there) and moved to
-    # the card at load: the ops dispatch on the tensors' device
-    counts, nodes = export_round_trip("int8_slowfast", int8_cfg_, int8_model,
-                                      smi, on="cpu")
-    convs = len(int8_convs(int8_model))
-    if nodes["int8_conv"] != convs or counts["int8_conv"] != convs * per:
-        raise AssertionError(f"int8 export: nodes {nodes}, launches {counts}")
-    add(counts)
     cfg = load_cfg(AVA_YAML, ["TPU.COMPUTE_DTYPE", "bfloat16"])
     model = serving_model(cfg, SEED)
     counts, nodes = export_round_trip("ava_detection", cfg, model, smi,
@@ -5519,6 +5545,7 @@ def phase_int8(smi):
     float_model = serving_model(serving_cfg_module(), SEED)
     model, cfg, shapes, n = serve_int8(True, float_model, smi)
     add({"int8_conv": n})
+    del model
     record, worst = phase_int8_kernels(shapes, smi)
     eval_model, _, eval_shapes, n = serve_int8(False, float_model, smi)
     add({"int8_conv": n})
@@ -5526,8 +5553,7 @@ def phase_int8(smi):
     torch.cuda.empty_cache()
     convs = sum(len(v) for v in eval_shapes.values())
     add({"int8_conv": phase_int8_test(convs, smi)})
-    add(phase_export(model, cfg, smi))
-    del model
+    add(phase_export(smi))
     torch.cuda.empty_cache()
     log("int8", f"phase 15 took {time.perf_counter() - t0:.1f} s")
     return record, worst, launches
@@ -6642,10 +6668,11 @@ def rank18_job(cfg, device):
         os.path.join(cfg.OUTPUT_DIR, f"rank{rank}.pt"))
 
 
-def rank18_main(argv):
-    """A rank of phase 18 (b), started as the port's CLI is: the flags of
-    ``config/parser.py`` (``--num_shards``, ``--shard_id``,
-    ``--init_method``, ``--device``) through ``launch_job``."""
+def rank_main(job, argv):
+    """A rank process of phase 18 (b), 19 or 20 running ``job``, started
+    as the port's CLI is: the flags of ``config/parser.py``
+    (``--num_shards``, ``--shard_id``, ``--init_method``, ``--device``)
+    through ``launch_job``, TF32 off as phase_device sets it."""
     from efficient_slowfast_tpu_torch.config.parser import (load_config,
                                                             parse_args)
     from efficient_slowfast_tpu_torch.models.build import resolve_device
@@ -6653,24 +6680,27 @@ def rank18_main(argv):
     from efficient_slowfast_tpu_torch.utils.misc import launch_job
 
     distributed.TIMEOUT_S = DIST_TIMEOUT_S
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     args = parse_args(argv)
-    launch_job(load_config(args), args.init_method, rank18_job,
+    launch_job(load_config(args), args.init_method, job,
                resolve_device(args.device))
 
 
-def start_ranks(d, yaml):
-    """The DIST_WORLD rank processes of phase 18 (b), each in a session of
-    its own, over gloo on cuda:0."""
+def start_ranks(tag, d, yaml, world, *opts):
+    """The ``world`` rank processes of ``tag`` (a key of RANK_JOBS), each
+    in a session of its own, over gloo on cuda:0, with ``opts`` after the
+    yaml's; its logs and results in ``d``."""
     port = free_port()
     procs = []
-    for r in range(DIST_WORLD):
+    for r in range(world):
         log_path = os.path.join(d, f"rank{r}.log")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "rank18",
-             "--num_shards", str(DIST_WORLD), "--shard_id", str(r),
+            [sys.executable, os.path.abspath(__file__), tag,
+             "--num_shards", str(world), "--shard_id", str(r),
              "--init_method", f"tcp://127.0.0.1:{port}", "--device",
-             "cuda:0", "--cfg", yaml, "DIST_BACKEND", "gloo", "OUTPUT_DIR",
-             d], cwd=ROOT, stdout=open(log_path, "w"),
+             "cuda:0", "--cfg", yaml, "DIST_BACKEND", "gloo", *opts,
+             "OUTPUT_DIR", d], cwd=ROOT, stdout=open(log_path, "w"),
             stderr=subprocess.STDOUT, start_new_session=True), log_path))
     return procs
 
@@ -6735,8 +6765,9 @@ def phase_dist_ranks(cfg, state_dict, batch, smi):
                os.path.join(d, "job.pt"))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    wait_ranks(start_ranks(d, os.path.join(
-        ROOT, "configs", "Kinetics", "SLOWFAST_DUALATTENTION_8x8_R50.yaml")))
+    wait_ranks(start_ranks("rank18", d, os.path.join(
+        ROOT, "configs", "Kinetics", "SLOWFAST_DUALATTENTION_8x8_R50.yaml"),
+        DIST_WORLD))
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
              for r in range(DIST_WORLD)]
@@ -7106,23 +7137,6 @@ def rank19_job(cfg, device):
                                  f"rank{distributed.rank()}.pt"))
 
 
-def rank19_main(argv):
-    """A rank of phase 19, started as the port's CLI is (the flags of
-    ``config/parser.py``, through ``launch_job``)."""
-    from efficient_slowfast_tpu_torch.config.parser import (load_config,
-                                                            parse_args)
-    from efficient_slowfast_tpu_torch.models.build import resolve_device
-    from efficient_slowfast_tpu_torch.parallel import distributed
-    from efficient_slowfast_tpu_torch.utils.misc import launch_job
-
-    distributed.TIMEOUT_S = DIST_TIMEOUT_S
-    torch.backends.cudnn.allow_tf32 = False  # as phase_device sets it
-    torch.backends.cuda.matmul.allow_tf32 = False
-    args = parse_args(argv)
-    launch_job(load_config(args), args.init_method, rank19_job,
-               resolve_device(args.device))
-
-
 def space_reference(cfg, model, x):
     """One process's scores of ``model`` on ``x``, its ms a request after a
     warm-up and its peak memory."""
@@ -7202,21 +7216,10 @@ def phase_spatial(smi):
                 "sf_x": [t.cpu() for t in sf_x]},
                os.path.join(d, "job.pt"))
     t0 = time.perf_counter()
-    port = free_port()
-    procs = []
-    for r in range(SPACE_WORLD):
-        log_path = os.path.join(d, f"rank{r}.log")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "rank19",
-             "--num_shards", str(SPACE_WORLD), "--shard_id", str(r),
-             "--init_method", f"tcp://127.0.0.1:{port}", "--device",
-             "cuda:0", "--cfg", os.path.join(
-                 ROOT, "configs", "Kinetics",
-                 "SLOWFAST_DUALATTENTION_8x8_R50.yaml"),
-             "DIST_BACKEND", "gloo", "TPU.SPATIAL_SHARD", str(SPACE_WORLD),
-             "OUTPUT_DIR", d], cwd=ROOT, stdout=open(log_path, "w"),
-            stderr=subprocess.STDOUT, start_new_session=True), log_path))
-    wait_ranks(procs)
+    wait_ranks(start_ranks(
+        "rank19", d, os.path.join(ROOT, "configs", "Kinetics",
+                                  "SLOWFAST_DUALATTENTION_8x8_R50.yaml"),
+        SPACE_WORLD, "TPU.SPATIAL_SHARD", str(SPACE_WORLD)))
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
              for r in range(SPACE_WORLD)]
@@ -7348,6 +7351,618 @@ def phase_spatial(smi):
     return counts, worst
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the entry points under TPU.SPATIAL_SHARD 2 (two gloo ranks on
+# cuda:0): int8 serving with K3 on halo slabs, the serving export, Grad-CAM
+# and the demo, each held against one process on the same inputs
+ENTRY_WORLD = 2
+# int8 under the split, by distance ratio (centred log probabilities, phase
+# 15's measure): the split's int8 scores no farther from one process's bf16
+# scores than ENTRY_INT8_RATIO x one process's own int8 scores are. Each
+# split K3 call is bit-equal to the unsplit conv's rows and the group's
+# ranges are the frame's, so the split's departures from one process's
+# int8 are code flips where a bf16 op before a conv summed a slab in
+# another order; each flip is one quantization step, of the kind whose sum
+# is int8's own distance, so by the triangle inequality sound flips stay
+# within 2. The planted fault (one rank's halo rows zeroed in one conv)
+# must exceed it.
+ENTRY_INT8_RATIO = 2.0
+# ... and directly: the split's int8 scores within ENTRY_INT8_DIRECT_TOL
+# (centred log probabilities, max |d|) of one process's int8 scores on the
+# same inputs at the same ranges. Sound runs on an H100 read 1.33e-2 under
+# INT8_EVAL (its bf16 3x3 convs run on slabs, where cuDNN may round
+# otherwise and flip a code downstream) and 0 under +INT8_SPATIAL and in
+# the int8 demo; the gate leaves 3.7x the largest reading, and the planted
+# fault reads 0.368, 7x past it
+ENTRY_INT8_DIRECT_TOL = 0.05
+# the group's ranges against one process's: the activations are bf16, and
+# a band's float ops may round them differently (2^-8 relative)
+ENTRY_RANGE_TOL = 2.0 ** -8
+# the planted fault's conv: s5's stride-2 1x3x3 (8-row bands at 256²)
+ENTRY_FAULT_CONV = "s5.pathway0_res0.branch2.b"
+
+
+def entry_dir():
+    path = os.path.join(smoke_dir(), "entry20")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+class K3Calls:
+    """Every int8 conv call while the block runs (ops/conv.py's name): its
+    arguments and output; the launches stay on K3's count."""
+
+    def __enter__(self):
+        import efficient_slowfast_tpu_torch.ops.conv as conv_mod
+
+        self.mod, self.orig, self.calls = conv_mod, conv_mod.int8_conv, []
+
+        def recorded(*args):
+            out = self.orig(*args)
+            self.calls.append((args, out))
+            return out
+
+        conv_mod.int8_conv = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.int8_conv = self.orig
+
+    def held(self):
+        """[(slab height, output bit-equal to int8_conv_reference on its
+        inputs)] a call."""
+        from efficient_slowfast_tpu_torch.ops.kernels.int8_conv import \
+            int8_conv_reference
+
+        return [(args[0].shape[3], torch.equal(out, int8_conv_reference(
+            *args))) for args, out in self.calls]
+
+
+def traced_kernel_ms(name, patterns):
+    """The device ms of the CUDA kernels whose names hold one of
+    ``patterns`` inside the smoke_window span of trace_window's ``name``
+    (each kernel's own interval, as CUPTI records it)."""
+    from efficient_slowfast_tpu_torch.utils import profiler
+
+    with open(os.path.join(smoke_dir(), f"profile_{name}",
+                           profiler.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("name") == "smoke_window"
+                and e.get("cat") == "user_annotation")
+    w0, w1 = span["ts"], span["ts"] + span["dur"]
+    return sum(min(e["ts"] + e["dur"], w1) - max(e["ts"], w0)
+               for e in events if e.get("cat") == "kernel"
+               and e["ts"] < w1 and e["ts"] + e["dur"] > w0
+               and any(p in e["name"] for p in patterns)) / 1e3
+
+
+class OwnRanges:
+    """Each rank's own ranges before the group's maximum
+    (engine/quantize.py::_job_ranges)."""
+
+    def __enter__(self):
+        from efficient_slowfast_tpu_torch.engine import quantize
+
+        self.mod, self.orig, self.seen = quantize, quantize._job_ranges, []
+
+        def recorded(convs):
+            self.seen.append(torch.stack([m.act_max.detach().float().cpu()
+                                          for m in convs]))
+            self.orig(convs)
+
+        quantize._job_ranges = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._job_ranges = self.orig
+
+
+class PlantedHalo:
+    """Rank 1's halo rows zeroed in the conv ``name`` of ``model``
+    (parallel/spatial.py's halo, while that conv runs)."""
+
+    def __init__(self, model, name):
+        self.conv, self.active = model.get_submodule(name), []
+
+    def __enter__(self):
+        from efficient_slowfast_tpu_torch.parallel import distributed, spatial
+
+        self.mod, self.orig = spatial, spatial.halo
+        self.hooks = [
+            self.conv.register_forward_pre_hook(
+                lambda m, a: self.active.append(1)),
+            self.conv.register_forward_hook(
+                lambda m, a, y: self.active.clear())]
+
+        def zeroed(x, above, below, fill=0.0):
+            out = self.orig(x, above, below, fill)
+            if self.active and distributed.space_rank() == 1 and above:
+                out = out.clone()
+                out[:, :, :, :above] = 0
+            return out
+
+        spatial.halo = zeroed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.halo = self.orig
+        for h in self.hooks:
+            h.remove()
+
+
+def int8_distance(out, ref):
+    """max |d| of the centred log probabilities."""
+    return (centred_logs(out) - centred_logs(ref)).abs().max().item()
+
+
+def entry_int8(c, sd, x, device, name=None, fault=False):
+    """The int8 model of ``c`` from ``sd``: calibrated on ``x`` (the
+    group's step under the split), a request served with each K3 call
+    recorded, where ``name`` one more traced as profile_``name`` (K3's
+    kernels' device time); returns its line's numbers (and, where
+    ``fault``, the scores with PlantedHalo) and the model."""
+    from efficient_slowfast_tpu_torch.engine.quantize import calibrate_int8
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.models import build_model
+
+    model = build_model(c, device=device)
+    model.load_state_dict(sd, strict=True)
+    with OwnRanges() as own:
+        quant = calibrate_int8(model, [x])
+    fwd = make_forward(c, model, device)
+    fwd(x)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    with K3Calls() as rec:
+        scores = fwd(x)
+    counts = read_counts()
+    held = rec.held()
+    del rec
+    k3_ms = None
+    if name:
+        trace_window(name, lambda: fwd(x))
+        k3_ms = traced_kernel_ms(name, TRACE_KERNELS["K3"])
+    ms = cuda_ms(lambda: fwd(x), iters=1, reps=3)
+    out = dict(quant={k: float(v) for k, v in quant.items()},
+               own=own.seen[0].tolist() if own.seen else None,
+               scores=scores.float().cpu(), counts=counts, k3_ms=k3_ms,
+               held=held, ms=ms, peak=torch.cuda.max_memory_allocated(device))
+    if fault:
+        with PlantedHalo(model, ENTRY_FAULT_CONV):
+            out["fault"] = fwd(x).float().cpu()
+    return out, model
+
+
+def rank20_job(cfg, device):
+    """One rank of phase 20 (TPU.SPATIAL_SHARD 2, D = 1), in a process
+    group that ``launch_job`` joined: (a) int8 SlowFast-R50 under
+    INT8_EVAL and +INT8_SPATIAL, (b) the export of the latter (the master
+    writes it), (c) Grad-CAM of CMDA-R50, (d) the fused and int8 demos;
+    results in the job's directory."""
+    from efficient_slowfast_tpu_torch.engine.export import export_serving
+    from efficient_slowfast_tpu_torch.models import build_model
+    from efficient_slowfast_tpu_torch.parallel import distributed
+    from efficient_slowfast_tpu_torch.visualization.video_cam import \
+        gradcam_clip
+
+    job = torch.load(os.path.join(cfg.OUTPUT_DIR, "job.pt"),
+                     weights_only=False)
+    out = dict(rank=distributed.rank(),
+               space=(distributed.space_rank(), distributed.space_size(),
+                      distributed.data_size()))
+    smi = job["smi"]
+    seconds, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        seconds[name] = now - t_part
+        t_part = now
+
+    # (a) int8 serving, then (b) the export of +INT8_SPATIAL's model
+    x = [t.to(device) for t in job["x"]]
+    for spatial_opt in (False, True):
+        c = job["int8_cfg"][spatial_opt]
+        out[spatial_opt], model = entry_int8(
+            c, job["sd"], x, device,
+            spatial_opt and f"entry20_k3_rank{distributed.rank()}",
+            fault=spatial_opt)
+        if spatial_opt:
+            part("a")
+            t0 = time.perf_counter()
+            # on the CPU (the weight codes quantized there), moved to the
+            # card at load: the ops dispatch on the tensors' device
+            out["export"] = export_serving(
+                c, model, os.path.join(cfg.OUTPUT_DIR, "split_int8"),
+                device="cpu")
+            out["export_s"] = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+    del x
+    part("b")
+
+    # (c) Grad-CAM of CMDA-R50
+    gcfg = job["gradcam_cfg"]
+    gmodel = build_model(gcfg, device=device)
+    gmodel.load_state_dict(job["gradcam"], strict=True)
+    gmodel.eval()
+    out["gradcam"] = {}
+    worst = [0.0, 0.0]
+    part("c build")
+    for target, calls in GRADCAM_TARGETS:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        res, counts, rec, fwd_calls = gradcam_run(
+            "entry", gcfg, gmodel, job["clip"], target, calls, smi)
+        peak = torch.cuda.max_memory_allocated(device)
+        part(f"c {target} run")
+        wf, wb = hold_gradcam_calls(target, "bfloat16", rec, fwd_calls)
+        worst = [max(worst[0], wf), max(worst[1], wb)]
+        split = [c[0].shape[1] * ENTRY_WORLD == c[1].shape[1]
+                 for c in fwd_calls]
+        del rec, fwd_calls
+        part(f"c {target} hold")
+        call = functools.partial(gradcam_clip, gcfg, gmodel, job["clip"],
+                                 target)
+        ms = cuda_ms(call, iters=1, reps=2)
+        part(f"c {target} time")
+        out["gradcam"][target] = dict(
+            scores=res["predictions"], cams=res["cams"], counts=counts,
+            split=split, ms=ms, peak=peak)
+    out["gradcam_worst"] = worst
+    del gmodel
+    torch.cuda.empty_cache()
+    part("c")
+
+    # (d) the demos: two injected one-clip windows each
+    out["demo"] = {}
+    for kind in ("fused", "int8"):
+        dcfg = job["demo_cfg"][kind]
+        krec = BottleneckCalls() if kind == "fused" else \
+            contextlib.nullcontext()
+        with krec:
+            run = demo_run(dcfg, job["windows"])
+        held = krec.held() if kind == "fused" else []
+        out["demo"][kind] = dict(
+            scores=[o.float().cpu() for _, o in
+                    run["fwd"].calls[-DEMO_WINDOWS:]],
+            windows=len(run["results"]), counts=run["counts"],
+            shown=len(run["sink"].counts), held=held, peak=run["peak"],
+            ms=window_ms(run["results"][1:] or run["results"],
+                         dcfg.DATA.NUM_FRAMES))
+        del run, krec
+        torch.cuda.empty_cache()
+    part("d")
+    out["seconds"] = seconds
+    torch.save(out, os.path.join(cfg.OUTPUT_DIR,
+                                 f"rank{distributed.rank()}.pt"))
+
+
+def entry_export(path, c, model, quant, x, smi):
+    """(b) The split master's artifact at ``path`` (the one-device graph,
+    traced from a model built without the split that holds the group's
+    ranges) loaded onto the card and served at EXPORT_BATCHES against one
+    process's live forward of ``model`` (``c``) at the group's ranges
+    ``quant``: the same graph on the same inputs, bit for bit. Returns the
+    launches inside."""
+    from efficient_slowfast_tpu_torch.engine.export import load_serving
+    from efficient_slowfast_tpu_torch.engine.quantize import load_quant_state
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+
+    load_quant_state(model, {k: torch.tensor(v) for k, v in quant.items()})
+    live = make_forward(c, model)
+    t0 = time.perf_counter()
+    art = load_serving(path, device="cuda")
+    t_load = time.perf_counter() - t0
+    nodes = str(art.program.graph).count("esf_torch.int8_conv.default")
+    total = dict.fromkeys(KERNELS, 0)
+    lines = []
+    for b in EXPORT_BATCHES:
+        xb = [t[:b] for t in x]
+        want = live(xb).float().cpu().numpy()
+        art(xb)  # warm-up
+        reset_counts()
+        got = art(xb)
+        for k, v in read_counts().items():
+            total[k] += v
+        err = float(np.abs(got - want).max())
+        lines.append(f"batch {b}: max |d| {err:.3e}")
+        if err != 0.0 or got.shape != (b, c.MODEL.NUM_CLASSES):
+            raise AssertionError(f"entry export batch {b}: {got.shape}, "
+                                 f"max |d| {err} from one process's")
+    log("entry", f"(b) +INT8_SPATIAL export written by the master under the "
+        f"split on the CPU ({os.path.getsize(path) / 1e6:.1f} MB, {nodes} "
+        f"K3 graph nodes), moved onto the card at load in {t_load:.1f} s, "
+        f"against one process's live forward at the group's ranges: "
+        + ", ".join(lines)
+        + f" | launches inside {total} | {smi}")
+    if nodes != 110 or total["int8_conv"] != 110 * len(EXPORT_BATCHES):
+        raise AssertionError(f"entry export: nodes {nodes}, launches {total}")
+    os.remove(path)
+    return total
+
+
+def phase_entry(smi):
+    """Phase 20: the entry points under TPU.SPATIAL_SHARD 2 over two gloo
+    ranks on cuda:0, started through the CLI's flags (rank20_job), each
+    held against one process on the same inputs. Returns the launches of
+    the split paths and the worst K1, K2, K2-bwd and K3 errors."""
+    from efficient_slowfast_tpu_torch.data.build import build_dataset
+    from efficient_slowfast_tpu_torch.engine.state import make_forward
+    from efficient_slowfast_tpu_torch.visualization.video_cam import \
+        gradcam_clip
+
+    t_phase = time.perf_counter()
+    d = entry_dir()
+    gen = torch.Generator().manual_seed(SEED + 20)
+
+    def split(c, out=None):
+        c = c.clone()
+        c.TPU.SPATIAL_SHARD, c.DIST_BACKEND = ENTRY_WORLD, "gloo"
+        if out is not None:
+            c.OUTPUT_DIR = out
+        return c
+
+    # (a) one process: bf16 and int8 SlowFast-R50 on one 4-clip request
+    fcfg = serving_cfg_module()
+    float_model = serving_model(fcfg, SEED)
+    sd = {k: v.detach().cpu() for k, v in float_model.state_dict().items()}
+    x = clips(fcfg, CLIPS_PER_REQUEST, gen, torch.bfloat16)
+    bf16 = make_forward(fcfg, float_model)(x).float().cpu()
+    del float_model
+    one, int8_cfgs = {}, {}
+    for spatial_opt in (False, True):
+        int8_cfgs[spatial_opt] = int8_cfg(spatial_opt)
+        one[spatial_opt], model = entry_int8(
+            int8_cfgs[spatial_opt], sd, x, "cuda",
+            spatial_opt and "entry20_k3_one")
+        if spatial_opt:
+            export_model = model
+        else:
+            del model
+    torch.cuda.empty_cache()
+    # (c) one process: Grad-CAM of CMDA-R50 in bf16 (kernels) and float32
+    # (the plain attention, phase 16's reference)
+    gcfg = gradcam_cfg()
+    clip = np.ascontiguousarray(
+        build_dataset(gcfg.TEST.DATASET, gcfg, "test")._fetch(1)[0])
+    gmodel = serving_model(gcfg, SEED)
+    calibrate_attention(gcfg, gmodel, SEED + 16, phase="entry")
+    gstate = {k: v.detach().cpu() for k, v in gmodel.state_dict().items()}
+    f32 = model_with(gradcam_cfg("float32", False), gstate)
+    cam_one = {}
+    for target, _ in GRADCAM_TARGETS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = gradcam_clip(gcfg, gmodel, clip, target)
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_ms(functools.partial(gradcam_clip, gcfg, gmodel, clip,
+                                       target), iters=1, reps=2)
+        cam_one[target] = dict(
+            bf16=res, ms=ms, peak=peak,
+            f32=gradcam_clip(gradcam_cfg("float32", False), f32, clip,
+                             target))
+    del gmodel, f32
+    torch.cuda.empty_cache()
+    # (d) one process: the fused and int8 demos of
+    # demo/Kinetics/SLOWFAST_8x8_R50.yaml on the same windows
+    demo_cfgs, demo_one = {}, {}
+    sf_ckpt = None
+    windows = None
+    for kind, opts in (("fused", ["TPU.FUSED_EVAL", True]),
+                       ("int8", ["TPU.INT8_EVAL", True])):
+        dcfg = demo_cfg("Kinetics/SLOWFAST_8x8_R50.yaml", f"entry_{kind}",
+                        *opts)
+        if sf_ckpt is None:
+            sf_ckpt = demo_checkpoint(dcfg, "entry")
+            windows = demo_windows(DEMO_FRAME_HW, SEED + 200,
+                                   dcfg.DATA.NUM_FRAMES)
+        dcfg.TEST.CHECKPOINT_FILE_PATH = sf_ckpt
+        run = demo_run(dcfg, windows)
+        demo_one[kind] = dict(
+            scores=[o.float().cpu() for _, o in
+                    run["fwd"].calls[-DEMO_WINDOWS:]],
+            ms=window_ms(run["results"][1:] or run["results"],
+                         dcfg.DATA.NUM_FRAMES), peak=run["peak"])
+        demo_cfgs[kind] = split(dcfg, os.path.join(d, f"demo_{kind}"))
+        del run
+        torch.cuda.empty_cache()
+
+    t_refs = time.perf_counter() - t_phase
+    torch.save({"smi": smi, "sd": sd, "x": [t.cpu() for t in x],
+                "int8_cfg": {k: split(v) for k, v in int8_cfgs.items()},
+                "gradcam_cfg": split(gcfg), "gradcam": gstate, "clip": clip,
+                "demo_cfg": demo_cfgs, "windows": windows},
+               os.path.join(d, "job.pt"))
+    t0 = time.perf_counter()
+    wait_ranks(start_ranks(
+        "rank20", d, os.path.join(ROOT, "configs", "Kinetics",
+                                  "SLOWFAST_8x8_R50.yaml"),
+        ENTRY_WORLD, "TPU.SPATIAL_SHARD", str(ENTRY_WORLD)))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(ENTRY_WORLD)]
+    with open(os.path.join(d, "rank0.log")) as f:
+        for line in f:
+            if "Exported" in line or line.startswith("[gradcam]"):
+                log("entry", f"rank 0 logged: {line.strip()[:600]}")
+    log("entry", f"{ENTRY_WORLD} ranks over gloo on cuda:0 (--num_shards "
+        f"{ENTRY_WORLD} --shard_id r ... TPU.SPATIAL_SHARD {ENTRY_WORLD}), "
+        f"the job {ranks_s:.1f} s with each rank's start (rank 0's parts, s: "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in ranks[0]["seconds"].items())
+        + f"); one process's references before it {t_refs:.1f} s | {smi}")
+
+    none = dict.fromkeys(KERNELS, 0)
+    counts = dict.fromkeys(KERNELS, 0)
+    worst = dict.fromkeys(KERNELS, 0.0)
+
+    def add(c):
+        for key in KERNELS:
+            counts[key] += c[key]
+
+    # (a) the ranges, each K3 call on its slab, the scores by the ratio
+    for spatial_opt, convs in ((False, 47), (True, 110)):
+        what = "+INT8_SPATIAL" if spatial_opt else "INT8_EVAL"
+        ref = one[spatial_opt]
+        own = np.maximum(*[np.asarray(r[spatial_opt]["own"]) for r in ranks])
+        group = ranks[0][spatial_opt]["quant"]
+        names = list(group)
+        ones = np.asarray([ref["quant"][k] for k in names])
+        rel = float(np.max(np.abs(np.asarray(list(group.values())) - ones)
+                           / ones))
+        own_dist = int8_distance(ref["scores"], bf16)
+        group_is_max = np.array_equal(own, np.asarray(list(group.values()),
+                                                      np.float32))
+        for r in ranks:
+            a = r[spatial_opt]
+            tag = f"entry rank {r['rank']} {what}"
+            dist = int8_distance(a["scores"], bf16)
+            direct = int8_distance(a["scores"], ref["scores"])
+            equal = sum(eq for _, eq in a["held"])
+            heights = sorted({h for h, _ in a["held"]})
+            log("entry", f"{tag}: (a) {len(a['held'])} K3 calls on slabs "
+                f"({len(heights)} slab heights, {heights[0]}-{heights[-1]} "
+                f"rows), {equal} bit-equal to int8_conv_reference on their "
+                f"inputs | group ranges vs one process's max rel "
+                f"{rel:.3e} (tol {ENTRY_RANGE_TOL:.3e}), the max of the "
+                f"ranks' own {group_is_max} "
+                f"| centred log probabilities vs one process's bf16 max |d| "
+                f"{dist:.4f}, one process's int8 {own_dist:.4f} (ratio "
+                f"{dist / own_dist:.3f}, gate {ENTRY_INT8_RATIO}); vs one "
+                f"process's int8 max |d| {direct:.4e} (tol "
+                f"{ENTRY_INT8_DIRECT_TOL}) | "
+                f"{a['ms']:.1f} ms a request (one process {ref['ms']:.1f}); "
+                + (f"K3's kernels {a['k3_ms']:.3f} device ms in a traced "
+                   f"request on its slabs, the other rank's sharing the "
+                   f"card (one process {ref['k3_ms']:.3f}); "
+                   if spatial_opt else "") + f"peak memory "
+                f"{a['peak'] / 2 ** 30:.2f} GiB (one process "
+                f"{ref['peak'] / 2 ** 30:.2f}) | launches {a['counts']} | "
+                f"{smi}")
+            if (a["counts"] != {**none, "int8_conv": convs}
+                    or equal != convs or a["quant"] != group
+                    or not group_is_max or rel > ENTRY_RANGE_TOL
+                    or dist > ENTRY_INT8_RATIO * own_dist
+                    or direct > ENTRY_INT8_DIRECT_TOL):
+                raise AssertionError(f"{tag}: launches {a['counts']}, "
+                                     f"{equal} of {convs} bit-equal, ranges "
+                                     f"{rel}, ratio {dist / own_dist}, "
+                                     f"direct {direct}")
+            if spatial_opt:
+                fault = int8_distance(a["fault"], bf16)
+                fault_direct = int8_distance(a["fault"], ref["scores"])
+                log("entry", f"{tag}: planted fault (rank 1's halo rows "
+                    f"zeroed in {ENTRY_FAULT_CONV}): ratio "
+                    f"{fault / own_dist:.3f} (must exceed "
+                    f"{ENTRY_INT8_RATIO}), vs one process's int8 "
+                    f"{fault_direct:.4e} (must exceed "
+                    f"{ENTRY_INT8_DIRECT_TOL})")
+                if not (fault > ENTRY_INT8_RATIO * own_dist
+                        and fault_direct > ENTRY_INT8_DIRECT_TOL):
+                    raise AssertionError(f"{tag}: a gate passes the planted "
+                                         f"fault ({fault}, {fault_direct})")
+            check_scores(a["scores"], CLIPS_PER_REQUEST, 400, tag)
+            add(a["counts"])
+        if ranks[0][spatial_opt]["own"] == ranks[1][spatial_opt]["own"]:
+            raise AssertionError(f"entry {what}: the ranks' own ranges are "
+                                 "equal: no band saw less than the frame")
+    worst["int8_conv"] = 0.0  # bit for bit
+
+    # (b) the export
+    if not (ranks[0]["export"] == ranks[1]["export"]
+            and os.path.exists(ranks[0]["export"])):
+        raise AssertionError(f"entry export: {ranks[0]['export']}, "
+                             f"{ranks[1]['export']}")
+    log("entry", f"(b) the master's export under the split took "
+        f"{ranks[0]['export_s']:.1f} s, the other rank waited "
+        f"{ranks[1]['export_s']:.1f} s at the barrier")
+    add(entry_export(ranks[0]["export"], int8_cfgs[True], export_model,
+                     ranks[0][True]["quant"], x, smi))
+    del export_model
+    torch.cuda.empty_cache()
+
+    # (c) Grad-CAM against one process's
+    for target, calls in GRADCAM_TARGETS:
+        o = cam_one[target]
+        e_one = cam_distance(o["bf16"], o["f32"])
+        for r in ranks:
+            g = r["gradcam"][target]
+            tag = f"entry rank {r['rank']} Grad-CAM {target}"
+            res = {"cams": g["cams"]}
+            e_split = cam_distance(res, o["f32"])
+            err = float(np.abs(g["scores"] - o["bf16"]["predictions"]).max())
+            log("entry", f"{tag}: (c) scores vs one process's max |d| "
+                f"{err:.3e} (tol {CMDA_BF16_ATOL}); CAMs' L2 distance from "
+                f"one process's float32 plain path's {e_split:.4e}, one "
+                f"process's bf16 {e_one:.4e} (ratio "
+                f"{e_split / max(e_one, 1e-30):.3f}, gate "
+                f"{CMDA_TRAIN_BF16_RATIO}); K2 queries a band's "
+                f"{all(g['split'])} | {g['ms']:.1f} ms a call (one process "
+                f"{o['ms']:.1f}); peak memory {g['peak'] / 2 ** 30:.2f} GiB "
+                f"(one process {o['peak'] / 2 ** 30:.2f}) | launches "
+                f"{g['counts']} | {smi}")
+            if (err > CMDA_BF16_ATOL or e_split > CMDA_TRAIN_BF16_RATIO * e_one
+                    or not all(g["split"]) or [c.shape for c in g["cams"]]
+                    != [c.shape for c in o["bf16"]["cams"]]):
+                raise AssertionError(f"{tag}: scores {err}, CAMs {e_split} "
+                                     f"against {e_one}")
+            add(g["counts"])
+    for r in ranks:
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       r["gradcam_worst"][0])
+        worst["flash_attention_backward"] = max(
+            worst["flash_attention_backward"], r["gradcam_worst"][1])
+
+    # (d) the demos against one process's windows
+    for r in ranks:
+        for kind, key, per in (("fused", "fused_bottleneck", 26),
+                               ("int8", "int8_conv", 47)):
+            g, o = r["demo"][kind], demo_one[kind]
+            tag = f"entry rank {r['rank']} demo {kind}"
+            want = per * (DEMO_WINDOWS + (kind == "fused"))
+            shown = DEMO_WINDOWS if r["rank"] == 0 else 0
+            if kind == "fused":
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(g["scores"], o["scores"]))
+                held = max(e for _, e in g["held"])
+                worst["fused_bottleneck"] = max(worst["fused_bottleneck"],
+                                                held)
+                ok = err <= SERVE_BF16_ATOL and held <= BF16_TOL and len(
+                    g["held"]) == want
+                line = (f"probabilities vs one process's max |d| {err:.3e} "
+                        f"(tol {SERVE_BF16_ATOL}); its {len(g['held'])} K1 "
+                        f"calls on halo slabs vs bottleneck_reference worst "
+                        f"{held:.2e} (tol {BF16_TOL})")
+            else:
+                dist = max(int8_distance(a, f) for a, f in zip(
+                    g["scores"], demo_one["fused"]["scores"]))
+                own_d = max(int8_distance(a, f) for a, f in zip(
+                    o["scores"], demo_one["fused"]["scores"]))
+                direct = max(int8_distance(a, b) for a, b in zip(
+                    g["scores"], o["scores"]))
+                ok = (dist <= ENTRY_INT8_RATIO * own_d
+                      and direct <= ENTRY_INT8_DIRECT_TOL)
+                line = (f"centred log probabilities vs one process's fused "
+                        f"windows max |d| {dist:.4f}, one process's int8 "
+                        f"{own_d:.4f} (ratio {dist / own_d:.3f}, gate "
+                        f"{ENTRY_INT8_RATIO}); vs one process's int8 "
+                        f"windows {direct:.4e} (tol {ENTRY_INT8_DIRECT_TOL});"
+                        " calibrated on the first window over the group")
+            log("entry", f"{tag}: (d) {g['windows']} windows, {line} | "
+                f"{g['ms']:.1f} ms a window (one process {o['ms']:.1f}); "
+                f"shown {g['shown']} | peak memory {g['peak']:.2f} GiB (one "
+                f"process {o['peak']:.2f}) | launches {g['counts']} | {smi}")
+            if (not ok or g["windows"] != DEMO_WINDOWS or g["shown"] != shown
+                    or g["counts"] != {**none, key: want}):
+                raise AssertionError(f"{tag}: {line}, shown {g['shown']}, "
+                                     f"launches {g['counts']}")
+            add(g["counts"])
+    log("entry", f"phase 20 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return counts, worst
+
+
 def trace_window(name, fn, top_n=5):
     """``fn()`` under utils/profiler.py's trace, in a span that ends after
     a synchronize; returns (device-busy share of the span: the union of
@@ -7455,7 +8070,7 @@ def kernel_entry(name, source, replaces, launches, err, record):
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
                 ("10",), ("11",), ("12",), ("13",), ("14",), ("15",),
-                ("16",), ("17",), ("18",), ("19",)]
+                ("16",), ("17",), ("18",), ("19",), ("20",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -7497,12 +8112,14 @@ def chosen_phases(argv):
     return want
 
 
+RANK_JOBS = {"rank18": rank18_job, "rank19": rank19_job,
+             "rank20": rank20_job}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["rank18"]:  # a rank process of phase 18 (b)
-        return rank18_main(argv[1:])
-    if argv[:1] == ["rank19"]:  # a rank process of phase 19
-        return rank19_main(argv[1:])
+    if argv[:1] and argv[0] in RANK_JOBS:  # a rank of phase 18, 19 or 20
+        return rank_main(RANK_JOBS[argv[0]], argv[1:])
     want = chosen_phases(argv)
     run = lambda *block: want is None or bool(want & set(block))  # noqa: E731
     start = time.time()
@@ -7675,13 +8292,20 @@ def main(argv=None):
         add(space_counts)
         torch.cuda.empty_cache()
     stamp("19")
+    if run("20"):
+        entry_counts, entry_worst = phase_entry(smi)
+        for name, err in entry_worst.items():
+            errs[name].append(err)
+        add(entry_counts)
+        torch.cuda.empty_cache()
+    stamp("20")
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA
     # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
     # the non-local networks (11), the efficient families (12), AVA
     # detection (13), the frame datasets (14), int8 serving (15),
-    # Grad-CAM (16), the demo (17), distribution (18) and the split
-    # height (19); times per request of the
+    # Grad-CAM (16), the demo (17), distribution (18), the split height
+    # (19) and the entry points under it (20); times per request of the
     # serving paths (3, 3b) and per CMDA train step (3c)
     kernels = [kernel_entry(name, *KERNELS[name], launches[name],
                             max(errs[name]), records[name])

@@ -45,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import decoder
 from ..data.ava_dataset import MAX_BOXES
@@ -52,7 +53,7 @@ from ..data.datasets import canvas_width, fit_canvas
 from ..data.preprocess import make_detection_preprocess, make_test_preprocess
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
-from ..parallel import spatial
+from ..parallel import distributed
 from ..utils.checkpoint import load_test_checkpoint
 from ..utils.logging import get_logger, log_json_stats, setup_logging
 from ..utils.misc import load_demo_labels
@@ -365,11 +366,14 @@ def _load_detector(cfg):
 def _demo_calibrate(cfg, model, batch, widx) -> None:
     """Lazy first-window int8 calibration, persisted so that the next demo
     or test run loads it (calibrate once, serve many). ``batch`` is the
-    pathway list, or (inputs, rois) for detection."""
+    pathway list, or (inputs, rois) for detection. In a job every rank
+    calibrates on the window (its band of it under TPU.SPATIAL_SHARD),
+    the ranges are the job's maxima, and the master persists them."""
     quant = quantize.calibrate_int8(model, [batch])
-    path = quantize.save_calibration(cfg, model, quant)
-    logger.info("TPU.INT8_EVAL: calibrated activation ranges on window %d; "
-                "persisted to %s", widx, path)
+    if distributed.is_master():
+        path = quantize.save_calibration(cfg, model, quant)
+        logger.info("TPU.INT8_EVAL: calibrated activation ranges on window "
+                    "%d; persisted to %s", widx, path)
 
 
 def _file_or_camera_stream(cfg, stream):
@@ -386,14 +390,62 @@ def _file_or_camera_stream(cfg, stream):
     return stream, cfg.DATA.TARGET_FPS
 
 
+def _job_windows(cfg, stream, prepare):
+    """(this rank's windows, the source's frame rate); a window is (widx,
+    frames, ``prepare(frames, widx)``), the payload a tuple of host arrays
+    and numbers. In a process group the master alone opens the source (a
+    camera opens once), prepares each window and broadcasts (widx,
+    payload) over the gloo group, so that every rank serves the same
+    window, as JAX replicates each window on its mesh; the other ranks'
+    frames are None. The master's stream ending, or its loop leaving it
+    (``close``), ends every rank's."""
+    master = distributed.is_master()
+    fps = None
+    if master:
+        source, fps = _file_or_camera_stream(cfg, stream)
+    if distributed.world_size() == 1:
+        return ((w, f, prepare(f, w)) for w, f in source), fps
+    group = distributed.gloo_group()
+    box = [fps]
+    dist.broadcast_object_list(box, src=0, group=group)
+    windows = (_broadcast_windows(source, prepare, group) if master
+               else _received_windows(group))
+    return windows, box[0]
+
+
+def _broadcast_windows(source, prepare, group):
+    try:
+        for widx, frames in source:
+            payload = prepare(frames, widx)
+            dist.broadcast_object_list([(widx, payload)], src=0, group=group)
+            yield widx, frames, payload
+    finally:
+        dist.broadcast_object_list([None], src=0, group=group)
+
+
+def _received_windows(group):
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=group)
+        if box[0] is None:
+            return
+        widx, payload = box[0]
+        yield widx, None, payload
+
+
 def demo(cfg, stream=None, display=None, device=None):
     """Run the sliding-window demo on ``device`` (the GPU by default,
     raising where there is none) and return the windows' entries.
     ``stream`` overrides the window source (an iterable of (widx, (T, H, W,
     3) uint8 RGB frames)) and ``display`` the DEMO.DISPLAY sink (a
-    ``show(frames) -> bool`` callable, False to quit)."""
+    ``show(frames) -> bool`` callable, False to quit).
+
+    In a job (``launch_job``; under ``TPU.SPATIAL_SHARD`` each rank
+    serves its band of every window) the master reads the source and
+    sends each window to the others (``_job_windows``), every rank runs
+    the preprocess and the forward and returns the entries, and only the
+    master draws, writes DEMO.OUTPUT_FILE and drives the display."""
     setup_logging(cfg.OUTPUT_DIR)
-    spatial.refuse(cfg, "the demo")
     assert stream is not None or cfg.DEMO.DATA_SOURCE or (
         isinstance(cfg.DEMO.DATA_SOURCE, int)
     ), "DEMO.DATA_SOURCE must point to a video file or camera index"
@@ -425,17 +477,21 @@ def demo(cfg, stream=None, display=None, device=None):
     # source frames, so real-time playback of the annotated output is
     # source_rate/SAMPLING_RATE, and the window timestamps follow the
     # source's rate (the capture's for a camera).
-    stream, src_fps = _file_or_camera_stream(cfg, stream)
+    short = cfg.DATA.TEST_CROP_SIZE
+    windows, src_fps = _job_windows(
+        cfg, stream, lambda frames, widx: fit_canvas(frames, short)[:2])
     out_fps = src_fps / cfg.DATA.SAMPLING_RATE
     clip_len_s = cfg.DATA.NUM_FRAMES * cfg.DATA.SAMPLING_RATE / src_fps
 
-    short = cfg.DATA.TEST_CROP_SIZE
     topk_n = cfg.TENSORBOARD.HISTOGRAM.TOPK or 3
     centre = torch.ones(1, dtype=torch.int64)
     results = []
-    writer = _LazyWriter(cfg.DEMO.OUTPUT_FILE, out_fps)
+    master = distributed.is_master()
+    writer = _LazyWriter(cfg.DEMO.OUTPUT_FILE if master else "", out_fps)
     close_display = lambda: None  # noqa: E731
-    if display is None:
+    if not master:
+        display = None
+    elif display is None:
         display, close_display = _make_display(cfg)
     if fwd is not None:
         # warm up on a dummy window so that window 0's fps measures the
@@ -447,8 +503,7 @@ def demo(cfg, stream=None, display=None, device=None):
     t0 = time.time()
     t_prev = t0
     try:
-        for widx, frames in stream:
-            canvas, width, _ = fit_canvas(frames, short)
+        for widx, frames, (canvas, width) in windows:
             inputs = preprocess(torch.from_numpy(canvas[None]).to(dev),
                                 torch.tensor([width]), centre)
             if fwd is None:
@@ -474,7 +529,7 @@ def demo(cfg, stream=None, display=None, device=None):
             }
             log_json_stats(entry)
             results.append(entry)
-            if cfg.DEMO.OUTPUT_FILE or display is not None:
+            if writer.path or display is not None:
                 drawn = _annotate(frames, entry)
                 writer.write(drawn)
                 if display is not None and not display(drawn):
@@ -483,6 +538,7 @@ def demo(cfg, stream=None, display=None, device=None):
     finally:
         # always release the display and finalize the mp4 (trailer): an
         # interrupted recording must stay playable
+        windows.close()
         close_display()
         writer.close()
     fps_measured = len(results) * cfg.DATA.NUM_FRAMES / max(time.time() - t0, 1e-6)
@@ -496,20 +552,16 @@ def _demo_detection(cfg, model, dev, calibrated, labels, display=None,
     DEMO.DETECTOR_FN live detector (per-window callable over the raw
     frames; the reference's detectron2 branch, tools/demo_net.py:130-146,
     with the detector pluggable) or a DEMO.BOXES_FILE json of precomputed
-    normalized [x1, y1, x2, y2] boxes per window."""
-    if cfg.DEMO.DETECTOR_FN:
-        get_boxes = _load_detector(cfg)
-    else:
+    normalized [x1, y1, x2, y2] boxes per window. In a job the master
+    finds each window's boxes and sends them with its canvas."""
+    master = distributed.is_master()
+    get_boxes = None
+    if not cfg.DEMO.DETECTOR_FN:
         assert cfg.DEMO.BOXES_FILE, (
             "detection demo needs person boxes: set DEMO.DETECTOR_FN "
             "('module:symbol' live detector) or DEMO.BOXES_FILE (json: "
             "window idx -> normalized [x1,y1,x2,y2] boxes)"
         )
-        with open(cfg.DEMO.BOXES_FILE) as f:
-            boxes_by_window = {int(k): np.asarray(v, np.float32)
-                               for k, v in json.load(f).items()}
-        get_boxes = lambda frames, widx: boxes_by_window.get(  # noqa: E731
-            widx, np.zeros((0, 4), np.float32))
         assert stream is not None or not _is_camera_source(
             cfg.DEMO.DATA_SOURCE), (
             "DEMO.BOXES_FILE holds per-window boxes of a known video, "
@@ -517,22 +569,34 @@ def _demo_detection(cfg, model, dev, calibrated, labels, display=None,
             "a live person detector (any detector plugs in), or use a "
             "file source"
         )
+    if master and cfg.DEMO.DETECTOR_FN:
+        get_boxes = _load_detector(cfg)
+    elif master:
+        with open(cfg.DEMO.BOXES_FILE) as f:
+            boxes_by_window = {int(k): np.asarray(v, np.float32)
+                               for k, v in json.load(f).items()}
+        get_boxes = lambda frames, widx: boxes_by_window.get(  # noqa: E731
+            widx, np.zeros((0, 4), np.float32))
     preprocess = make_detection_preprocess(cfg, get_compute_dtype(cfg))
     fwd = make_detection_forward(cfg, model, dev) if calibrated else None
 
-    stream, src_fps = _file_or_camera_stream(cfg, stream)
+    short = cfg.DATA.TEST_CROP_SIZE
+    wc = canvas_width(short)
+    windows, src_fps = _job_windows(
+        cfg, stream, lambda frames, widx: _canvas_boxes(
+            frames, get_boxes(frames, widx), widx, short, wc))
     clip_len_s = cfg.DATA.NUM_FRAMES * cfg.DATA.SAMPLING_RATE / src_fps
 
-    short = cfg.DATA.TEST_CROP_SIZE
     results = []
     # windows hold NUM_FRAMES frames spanning NUM_FRAMES*SAMPLING_RATE
     # source frames: NUM_FRAMES/clip_len_s is that rate after subsampling
-    writer = _LazyWriter(cfg.DEMO.OUTPUT_FILE,
+    writer = _LazyWriter(cfg.DEMO.OUTPUT_FILE if master else "",
                          cfg.DATA.NUM_FRAMES / clip_len_s)
     close_display = lambda: None  # noqa: E731
-    if display is None:
+    if not master:
+        display = None
+    elif display is None:
         display, close_display = _make_display(cfg)
-    wc = canvas_width(short)
     if fwd is not None:
         # warm up so window 0's fps measures the inference (as the
         # classification path does)
@@ -542,16 +606,17 @@ def _demo_detection(cfg, model, dev, calibrated, labels, display=None,
     t0 = time.time()
     try:
         _detection_window_loop(
-            cfg, model, dev, fwd, preprocess, get_boxes, stream, short, wc,
-            clip_len_s, labels, results, writer, display)
+            cfg, model, dev, fwd, preprocess, windows, clip_len_s, labels,
+            results, writer, display)
     finally:
+        windows.close()
         close_display()
         writer.close()
     fps_measured = (len(results) * cfg.DATA.NUM_FRAMES
                     / max(time.time() - t0, 1e-6))
     logger.info("Demo done: %d detection windows, %.1f frames/s",
                 len(results), fps_measured)
-    if cfg.DEMO.OUTPUT_FILE and writer.frames_written == 0:
+    if writer.path and writer.frames_written == 0:
         logger.warning(
             "DEMO.OUTPUT_FILE set but no window produced frames "
             "(detector/boxes yielded nothing for any window?) — "
@@ -559,38 +624,43 @@ def _demo_detection(cfg, model, dev, calibrated, labels, display=None,
     return results
 
 
-def _detection_window_loop(cfg, model, dev, fwd, preprocess, get_boxes,
-                           stream, short, wc, clip_len_s, labels, results,
-                           writer, display):
+def _canvas_boxes(frames, nboxes, widx, short, wc):
+    """(canvas, content width, boxes (MAX_BOXES, 4) in canvas pixels, the
+    count of real boxes) of a window and its normalized boxes over the
+    raw frame."""
+    canvas, width, _ = fit_canvas(frames, short)
+    if len(nboxes) > MAX_BOXES:
+        logger.warning(
+            "window %d: %d boxes exceed MAX_BOXES=%d; extra boxes "
+            "dropped", widx, len(nboxes), MAX_BOXES)
+    # normalized (over the raw frame) -> canvas pixels: undo the
+    # fit_canvas resize and centre crops so boxes land on the content
+    _, fh, fw, _ = frames.shape
+    if fh <= fw:
+        nh, nw = short, max(short, int(round(fw * short / fh)))
+    else:
+        nh, nw = int(round(fh * short / fw)), short
+    yoff = max((nh - short) // 2, 0)
+    xoff = max((nw - wc) // 2, 0)
+    px = np.zeros((MAX_BOXES, 4), np.float32)
+    n = min(len(nboxes), MAX_BOXES)
+    px[:n, 0] = np.clip(nboxes[:n, 0] * nw - xoff, 0, width)
+    px[:n, 1] = np.clip(nboxes[:n, 1] * nh - yoff, 0, short)
+    px[:n, 2] = np.clip(nboxes[:n, 2] * nw - xoff, 0, width)
+    px[:n, 3] = np.clip(nboxes[:n, 3] * nh - yoff, 0, short)
+    return canvas, width, px, n
+
+
+def _detection_window_loop(cfg, model, dev, fwd, preprocess, windows,
+                           clip_len_s, labels, results, writer, display):
     topk_n = cfg.TENSORBOARD.HISTOGRAM.TOPK or 3
     t_prev = time.time()
-    for widx, frames in stream:
-        canvas, width, _ = fit_canvas(frames, short)
-        nboxes = get_boxes(frames, widx)
-        if len(nboxes) == 0:
+    for widx, _, (canvas, width, px, n) in windows:
+        if n == 0:
             # keep the output video time-continuous: pass the window
             # through un-annotated instead of dropping it
             writer.write(canvas)
             continue
-        if len(nboxes) > MAX_BOXES:
-            logger.warning(
-                "window %d: %d boxes exceed MAX_BOXES=%d; extra boxes "
-                "dropped", widx, len(nboxes), MAX_BOXES)
-        # normalized (over the raw frame) -> canvas pixels: undo the
-        # fit_canvas resize and centre crops so boxes land on the content
-        _, fh, fw, _ = frames.shape
-        if fh <= fw:
-            nh, nw = short, max(short, int(round(fw * short / fh)))
-        else:
-            nh, nw = int(round(fh * short / fw)), short
-        yoff = max((nh - short) // 2, 0)
-        xoff = max((nw - wc) // 2, 0)
-        px = np.zeros((MAX_BOXES, 4), np.float32)
-        n = min(len(nboxes), MAX_BOXES)
-        px[:n, 0] = np.clip(nboxes[:n, 0] * nw - xoff, 0, width)
-        px[:n, 1] = np.clip(nboxes[:n, 1] * nh - yoff, 0, short)
-        px[:n, 2] = np.clip(nboxes[:n, 2] * nw - xoff, 0, width)
-        px[:n, 3] = np.clip(nboxes[:n, 3] * nh - yoff, 0, short)
         inputs = preprocess(torch.from_numpy(canvas[None]).to(dev))
         boxes = torch.from_numpy(px[None])
         if fwd is None:
@@ -618,7 +688,7 @@ def _detection_window_loop(cfg, model, dev, fwd, preprocess, get_boxes,
         }
         log_json_stats(entry)
         results.append(entry)
-        if cfg.DEMO.OUTPUT_FILE or display is not None:
+        if writer.path or display is not None:
             # draw on the canvas (the coordinate frame the boxes live in)
             drawn = _annotate_boxes(canvas, entry)
             writer.write(drawn)

@@ -33,7 +33,7 @@ import time
 import torch
 
 from ..models.build import get_compute_dtype, resolve_device
-from ..parallel import spatial
+from ..parallel import distributed, spatial
 from ..utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -83,6 +83,24 @@ def _serving_int8(cfg, model, quant):
         conv.weight_codes()  # the codes the graph bakes in
 
 
+def _unsplit(cfg, model, dev):
+    """(cfg, model) as one process serves them: ``cfg`` with
+    ``TPU.SPATIAL_SHARD`` 0, and a model built from it (``build_model``
+    splits every forward of a model under the split) on ``dev`` holding
+    ``model``'s state dict and, where calibrated, its int8 ranges."""
+    from ..models import build_model
+    from ..ops.conv import quant_is_calibrated
+    from .quantize import load_quant_state, quant_state
+
+    cfg = cfg.clone()
+    cfg.TPU.SPATIAL_SHARD = 0
+    twin = build_model(cfg, dev)
+    twin.load_state_dict(model.state_dict(), strict=True)
+    if quant_is_calibrated(model):
+        load_quant_state(twin, quant_state(model))
+    return cfg, twin
+
+
 def export_serving(cfg, model, out_path: str, quant=None,
                    max_boxes: int = 32, device=None) -> str:
     """Export the serving forward of ``model`` to ``out_path`` (``.pt2``
@@ -94,9 +112,22 @@ def export_serving(cfg, model, out_path: str, quant=None,
     it the model's own ranges, else the persisted calibration
     (fingerprint-checked), else the export refuses. ``max_boxes``:
     detection only, the static box slots a clip.
+
+    Under ``TPU.SPATIAL_SHARD`` the artifact is the one-device serving
+    graph, as JAX's (its ``ShapeDtypeStruct`` specs carry no sharding):
+    the master traces a model built without the split (``_unsplit``) that
+    holds the same state and ranges (the space group's, after a split
+    calibration), and every other rank of the job waits for the file at a
+    barrier.
     """
-    spatial.refuse(cfg, "the serving export")
     dev = resolve_device(device)
+    if spatial.spatial_shard(cfg) > 1:
+        if distributed.is_master():
+            cfg, model = _unsplit(cfg, model, dev)
+            out_path = export_serving(cfg, model, out_path, quant,
+                                      max_boxes, dev)
+        distributed.host_barrier("serving export")
+        return out_path if out_path.endswith(SUFFIX) else out_path + SUFFIX
     dtype = get_compute_dtype(cfg)
     model = model.to(dev).eval()
     if cfg.TPU.INT8_EVAL:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.conv import int8_convs, quant_is_calibrated
+from ..parallel import distributed
 from ..utils.flax_msgpack import msgpack_restore, msgpack_serialize
 
 def quant_state(model) -> Dict[str, torch.Tensor]:
@@ -46,13 +47,31 @@ def load_quant_state(model, quant: Dict[str, torch.Tensor]) -> None:
                                             dtype=torch.float32))
 
 
+def _job_ranges(convs) -> None:
+    """Each range raised to its maximum over the job's ranks, in one
+    all-reduce: under ``TPU.SPATIAL_SHARD`` a rank saw its band of each
+    frame, and across the data axis its share of the batches (JAX
+    calibrates the global batch's whole frames). On the host, over the
+    gloo group. The identity in one process."""
+    if distributed.world_size() == 1:
+        return
+    ranges = torch.stack([m.act_max.detach().float().cpu() for m in convs])
+    torch.distributed.all_reduce(ranges, op=torch.distributed.ReduceOp.MAX,
+                                 group=distributed.gloo_group())
+    with torch.no_grad():
+        for m, v in zip(convs, ranges):
+            m.act_max.copy_(v)
+
+
 def calibrate_int8(model, batches) -> Dict[str, torch.Tensor]:
     """Record each int8 conv's activation range over ``batches``: each a
     [slow, fast] pathway list, or an (inputs, rois) tuple for detection
     models, on the model's device in the compute dtype. The ranges start
-    from 0. Returns the quant state; raises if there was no batch or no
-    int8 conv recorded a range (a model built without TPU.INT8_EVAL)."""
-    convs = int8_convs(model).values()
+    from 0. In a process group every rank calibrates, and the ranges are
+    the maxima over the ranks' (``_job_ranges``). Returns the quant state;
+    raises if there was no batch or no int8 conv recorded a range (a model
+    built without TPU.INT8_EVAL)."""
+    convs = list(int8_convs(model).values())
     if not convs:
         raise ValueError("calibration recorded no activation ranges: was the "
                          "model built with cfg.TPU.INT8_EVAL=True?")
@@ -73,6 +92,7 @@ def calibrate_int8(model, batches) -> Dict[str, torch.Tensor]:
         model.train(was_training)
     if n == 0:
         raise ValueError("calibrate_int8 needs at least one batch")
+    _job_ranges(convs)
     if not quant_is_calibrated(model):
         raise ValueError("calibration left an int8 conv with a zero range")
     return quant_state(model)

@@ -35,7 +35,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..models.build import get_compute_dtype, resolve_device
 from ..models.losses import get_elementwise_loss_func, get_loss_func
 from ..models.optimizer import construct_optimizer, set_lr
-from ..parallel import distributed, spatial
+from ..parallel import distributed
 from ..utils import metrics as metrics_lib
 
 
@@ -268,8 +268,6 @@ def make_forward(cfg, model: torch.nn.Module, device=None) -> Callable:
     """
     dev = resolve_device(device)
     dtype = get_compute_dtype(cfg)
-    if cfg.TPU.INT8_EVAL:
-        spatial.refuse(cfg, "int8 serving (TPU.INT8_EVAL)")
     model = model.to(dev).eval()
     fwd = model
     if cfg.TPU.FUSED_EVAL:

@@ -150,13 +150,11 @@ def int8_calibration(cfg, model, device) -> None:
     where one matches this model and config, else a calibration on the
     first ``TPU.INT8_CALIB_BATCHES`` test batches, persisted for the next
     run (``engine/test.py:118-135`` there: calibrate once, serve many).
-    Across processes the ranges are the maxima over every rank's batches,
-    the global batches', and the master persists them."""
-    from ..parallel import spatial
+    Across processes the ranges are the maxima over every rank's batches
+    and bands (``quantize.calibrate_int8``), and the master persists
+    them."""
     from .quantize import (calibrate_for_test, load_calibration,
                            load_quant_state, save_calibration)
-
-    spatial.refuse(cfg, "int8 serving (TPU.INT8_EVAL)")
 
     quant = load_calibration(cfg, model)
     if quant is not None:
@@ -166,10 +164,6 @@ def int8_calibration(cfg, model, device) -> None:
     logger.info("TPU.INT8_EVAL: calibrating activation ranges on %d test "
                 "batch(es)", max(1, cfg.TPU.INT8_CALIB_BATCHES))
     quant = calibrate_for_test(cfg, model, device)
-    if distributed.world_size() > 1:
-        for v in quant.values():
-            torch.distributed.all_reduce(v, op=torch.distributed.ReduceOp.MAX)
-        load_quant_state(model, quant)
     if distributed.is_master():
         path = save_calibration(cfg, model, quant)
         logger.info("TPU.INT8_EVAL: persisted calibration to %s", path)

@@ -14,7 +14,10 @@ conv for the TPU; here they run the plain conv.
 
 Under ``TPU.SPATIAL_SHARD`` a conv of a height-split activation runs on
 its band with the neighbours' halo rows, or on the whole height where its
-output would not split (``conv3d``, ``parallel/spatial.py::window``).
+output would not split (``conv3d``, ``parallel/spatial.py::window``); an
+int8 conv the same way, K3 on the slab: its integer products and per
+element dequantization give the unsplit conv's output rows bit for bit,
+at the space group's range.
 
 int8 serving (port of ``ops/conv.py:184-330, 361-382``): after
 ``enable_int8(model, cfg)`` (which ``build_model`` calls), a model under
@@ -141,25 +144,30 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = self.bias.to(dt) if self.bias is not None else None
-        if spatial.is_split(x):
-            if self.int8:
-                raise NotImplementedError(
-                    "int8 serving under TPU.SPATIAL_SHARD comes with ROADMAP "
-                    "item 7c")
+        if not self.int8:
             return conv3d(x.to(dt), self.weight.to(dt), bias, self.stride,
                           self.padding, self.dilation, self.groups)
-        if self.int8 and not self.calibrating:
-            codes, scale = self.weight_codes()
-            return int8_conv(x, codes, scale, self.act_max, bias,
-                             self.kernel_size, self.stride, self.padding, dt)
-        if self.int8:
-            xs = x[:, :, ::self.stride[0], ::self.stride[1],
-                   ::self.stride[2]] if self.int8 == "pointwise" else x
+        # a split x: its band with the halo rows, or the whole height
+        # (``conv3d``'s window; int8 convs have dilation 1)
+        xin, ph, split = spatial.window(x, self.kernel_size[1],
+                                        self.stride[1], self.padding[1])
+        padding = (self.padding[0], ph, self.padding[2])
+        if self.calibrating:
+            # the range of what the int8 conv reads: a pointwise conv's
+            # strided positions; a band's range is raised to the group's
+            # by ``engine/quantize.py::calibrate_int8``
+            xs = xin[:, :, ::self.stride[0], ::self.stride[1],
+                     ::self.stride[2]] if self.int8 == "pointwise" else xin
             with torch.no_grad():
                 self.act_max.copy_(torch.maximum(
                     self.act_max, xs.abs().amax().float()))
-        return F.conv3d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+            y = F.conv3d(xin.to(dt), self.weight.to(dt), bias, self.stride,
+                         padding, self.dilation, self.groups)
+        else:
+            codes, scale = self.weight_codes()
+            y = int8_conv(xin, codes, scale, self.act_max, bias,
+                          self.kernel_size, self.stride, padding, dt)
+        return spatial.as_split(y) if split else y
 
 
 def int8_convs(model: nn.Module):

@@ -114,14 +114,6 @@ def spatial_shard(cfg) -> int:
     return s if s > 1 else 1
 
 
-def refuse(cfg, what: str) -> None:
-    """Raise where ``cfg`` splits the height and ``what`` has no split
-    path: it never runs unsplit."""
-    if spatial_shard(cfg) > 1:
-        raise NotImplementedError(
-            f"{what} under TPU.SPATIAL_SHARD comes with ROADMAP item 7c")
-
-
 def _group():
     return distributed.space_group()
 
@@ -222,6 +214,14 @@ def gather_height(x: torch.Tensor) -> torch.Tensor:
     if not is_split(x):
         return x
     return _ncdhw(_Gather.apply(_bthwc(plain(x)), 2))
+
+
+def gather_pathway(x: torch.Tensor) -> torch.Tensor:
+    """A split (B, T, H, W, C) pathway (``constrain``'s band) whole on
+    every rank (plain); anything else as it is."""
+    if not is_split(x):
+        return x
+    return _Gather.apply(plain(x), 2)
 
 
 def gather_tokens(t: torch.Tensor) -> torch.Tensor:

@@ -11,11 +11,18 @@ at the target layer, writes one overlay mp4 per pathway (and a GIF with
 ``--gif``) and prints the top five classes. ``--print-flops`` prints the
 per-layer FLOPs table instead. Runs on the GPU unless ``--device`` names
 another torch device.
+
+Under ``TPU.SPATIAL_SHARD S`` it runs as a job of S processes
+(``utils/misc.py::launch_job``; ``NUM_GPUS S`` on one machine, ranks on
+``cuda:0`` to ``cuda:S-1``, or ``DIST_BACKEND gloo`` with ``--device
+cpu``), each explaining its band of the clip's rows; the master writes
+the files and prints the classes.
 """
 
 from __future__ import annotations
 
 import argparse
+from functools import partial
 
 from ..config.parser import load_config_from
 
@@ -41,6 +48,9 @@ def main(argv=None):
                     help="Print the per-layer FLOPs table and exit.")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU, required).")
+    ap.add_argument("--init_method", default="tcp://localhost:9999",
+                    help="Rendezvous address of a job of several "
+                         "processes (TPU.SPATIAL_SHARD).")
     ap.add_argument("opts", nargs=argparse.REMAINDER, default=None,
                     help="KEY VALUE config override pairs.")
     args = ap.parse_args(argv)
@@ -58,12 +68,24 @@ def main(argv=None):
         print(table)
         return table
 
+    from ..models.build import resolve_device
+    from ..utils.misc import launch_job
+
+    return launch_job(cfg, args.init_method, partial(_explain, args=args),
+                      resolve_device(args.device))
+
+
+def _explain(cfg, args, device):
+    """One process's Grad-CAM of the video; the master prints."""
+    from ..parallel import distributed
     from ..visualization.video_cam import gradcam_video
 
     result = gradcam_video(cfg, args.video, args.target_layer,
                            target_class=args.target_class,
                            out_dir=args.out_dir, write_gif=args.gif,
-                           device=args.device)
+                           device=device)
+    if not distributed.is_master():
+        return result
     preds = result["predictions"][0]
     labels = None
     if cfg.DEMO.LABEL_FILE_PATH:

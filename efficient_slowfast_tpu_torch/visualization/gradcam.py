@@ -7,6 +7,12 @@ CAM = ReLU(Σ_c mean_{T,H,W}(d score / dA_c) · A_c), scaled to [0, 1] per
 clip. The model runs in eval mode with autograd on for the call only; on
 the card its attention runs K2 forward and K2-bwd from the score back to
 the target.
+
+Under ``TPU.SPATIAL_SHARD`` every rank of a space group calls it on the
+same clips: the forward and ``autograd.grad`` run split (their exchanges'
+adjoints are collectives), and a band's activation and gradient are
+gathered before the CAM (``_whole``), so every rank returns the whole
+frame's CAM.
 """
 
 from __future__ import annotations
@@ -15,6 +21,21 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..parallel import distributed, spatial
+
+
+def _whole(act: torch.Tensor, grad: torch.Tensor):
+    """(act, grad) of the whole frame: a band's gathered over its space
+    group. The group's score is every rank's copy of the one score, so the
+    gradient at a band is S times the one process's (each exchange's
+    backward is its adjoint); it is divided back."""
+    if not spatial.is_split(act):
+        return act, grad
+    s = distributed.space_size()
+    with torch.no_grad():
+        return (spatial.gather_height(act.detach()),
+                spatial.gather_height(spatial.as_split(grad)) / s)
 
 
 def _cam(act: torch.Tensor, grad: torch.Tensor) -> np.ndarray:
@@ -38,11 +59,8 @@ class GradCAM:
     An unknown layer raises ``KeyError``."""
 
     def __init__(self, model: torch.nn.Module, target_layer: str, cfg=None):
-        from ..parallel import spatial
         from ..utils.weights import jax_module_to_torch
 
-        if cfg is not None:
-            spatial.refuse(cfg, "Grad-CAM")
         self.model = model
         modules = dict(model.named_modules())
         name = target_layer
@@ -79,8 +97,8 @@ class GradCAM:
                 grads = torch.autograd.grad(score, acts)
         finally:
             hook.remove()
-        cams = [_cam(a, g) for a, g in zip(acts, grads)]
-        scores = preds.detach().float().cpu().numpy()
+        cams = [_cam(*_whole(a, g)) for a, g in zip(acts, grads)]
+        scores = spatial.plain(preds).detach().float().cpu().numpy()
         return scores, (cams if isinstance(act, (list, tuple)) else cams[0])
 
 

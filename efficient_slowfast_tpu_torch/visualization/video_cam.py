@@ -20,6 +20,7 @@ from ..data import decoder
 from ..data.preprocess import make_test_preprocess
 from ..models import build_model
 from ..models.build import get_compute_dtype, resolve_device
+from ..parallel import distributed, spatial
 from ..utils.checkpoint import load_test_checkpoint
 from ..utils.logging import get_logger
 from .gradcam import GradCAM, overlay_heatmap
@@ -66,6 +67,7 @@ def gradcam_clip(cfg, model: torch.nn.Module, clip: np.ndarray,
     fast_fps = cfg.DATA.TARGET_FPS / max(cfg.DATA.SAMPLING_RATE, 1)
     overlays, fps = [], []
     for pathway, cam in zip(inputs, cams):
+        pathway = spatial.gather_pathway(pathway)  # a band: the frame
         frames = _denormalize(pathway[0].float().cpu().numpy(),
                               cfg.DATA.MEAN, cfg.DATA.STD)
         overlays.append(overlay_heatmap(frames, cam[0]))
@@ -95,9 +97,13 @@ def gradcam_video(cfg, video_path: str, target_layer: str,
     in ``out_dir`` (OUTPUT_DIR by default). ``target_layer``: see
     ``GradCAM`` (the reference offers s4, s5 and the fusions,
     gradcam_video.py:31-36). Returns {"predictions": (1, C), "outputs":
-    the files written}."""
+    the files written}. In a job (``TPU.SPATIAL_SHARD``: every rank of
+    the space group explains the same clip) only the master writes, and
+    the others' ``outputs`` are empty."""
     out_dir = out_dir or cfg.OUTPUT_DIR or "."
-    os.makedirs(out_dir, exist_ok=True)
+    writes = distributed.is_master()
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
     dev = resolve_device(device)
     torch.manual_seed(cfg.RNG_SEED)
     model = build_model(cfg, dev)
@@ -115,6 +121,8 @@ def gradcam_video(cfg, video_path: str, target_layer: str,
     outputs = []
     for p, (overlay, fps) in enumerate(zip(result["overlays"],
                                            result["fps"])):
+        if not writes:
+            break
         path = os.path.join(
             out_dir, f"gradcam_{stem}_{safe_layer}_pathway{p}.mp4")
         with decoder.VideoEncoder(path, overlay.shape[2], overlay.shape[1],
@@ -123,5 +131,6 @@ def gradcam_video(cfg, video_path: str, target_layer: str,
         outputs.append(path)
         if write_gif:
             outputs.append(save_gif(path[:-4] + ".gif", overlay, fps))
-    logger.info("Wrote %s", ", ".join(outputs))
+    if writes:
+        logger.info("Wrote %s", ", ".join(outputs))
     return {"predictions": result["predictions"], "outputs": outputs}

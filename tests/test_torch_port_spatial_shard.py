@@ -35,8 +35,8 @@ crop, unless said):
   one process's (their train steps are chaotic at random init: a change
   of BN's float32 arithmetic alone moves a MobileNetV2 gradient by more
   than its size, so none is held here).
-Also: the job's shape and its refusals, and the entry points that raise
-under ``SPATIAL_SHARD``."""
+Also: the job's shape and its refusals, and a forward outside a job of
+space groups, which raises."""
 
 import os
 import signal
@@ -556,27 +556,14 @@ def test_mesh_shape_and_its_refusals():
             distributed.mesh_shape(cfg, world)
 
 
-def test_entry_points_without_a_split_path_raise(tmp_path):
-    """int8 serving, the export, the demo and Grad-CAM raise under
-    SPATIAL_SHARD, naming the ROADMAP item they are left to; a model
-    forward outside a job of S-rank space groups raises too. None runs
-    unsplit."""
-    from efficient_slowfast_tpu_torch.engine.demo import demo
-    from efficient_slowfast_tpu_torch.engine.export import export_serving
-    from efficient_slowfast_tpu_torch.visualization.gradcam import GradCAM
-
+def test_a_forward_outside_a_job_of_space_groups_raises():
+    """A model built under SPATIAL_SHARD splits every forward, so outside
+    a job of S-rank space groups its forward raises: it never runs
+    unsplit. (The entry points' split paths, int8 serving, the export,
+    the demo and Grad-CAM, are held in
+    tests/test_torch_port_spatial_entry.py.)"""
     cfg = model_cfg(get_cfg, s=2)
     model = build_model(cfg, device="cpu")
-    int8 = cfg.clone()
-    int8.TPU.INT8_EVAL = True
-    calls = [lambda: make_forward(int8, model, "cpu"),
-             lambda: export_serving(cfg, model, str(tmp_path / "m"),
-                                    device="cpu"),
-             lambda: demo(cfg, stream=iter(()), device="cpu"),
-             lambda: GradCAM(model, "s4", cfg)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7c"):
-            call()
     x = [torch.from_numpy(a) for a in inputs(cfg, 2, 0)]
     with pytest.raises(RuntimeError, match="space groups"):
         model.eval()(x)
