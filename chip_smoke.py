@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines and raising on failure (the script then
 exits non-zero and prints no final line), run in the order 1, 2, 3, 4, 3b,
-5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 (3b takes its shapes from the CMDA model
+5, 3c, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 (3b takes its shapes from the CMDA model
 that phase 5 serves and from phase 10's schedule, 3c from the one that
 phase 7 trains and phase 10's schedule; phases 11, 12 and 13 run 3b and 3c
 again at their models' shapes before their own lines). ``--phases`` runs a
@@ -21,7 +21,8 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               libraries' bf16 kernels, raising if any has none (K2-bwd's
               one-pass kernel must have HGMMA, wgmma, in each of its four
               instantiations, one per padded width; the wide kernels of
-              D or C above 128 HMMA, 3 forward and 4 backward), and the
+              D or C above 128 HMMA, 3 forward and 4 backward, and the
+              chunked ones above 512 HMMA, 2 forward and 2 backward), and the
               FP32-pipe and F2FP instructions per
               MUFU.EX2 in the main loop of the flash-attention bf16 kernels,
               forward and backward; K3's GEMM must run integer wgmma (IGMMA)
@@ -414,6 +415,29 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               window at 2 ranks beside one process's, each rank's peak
               memory, and K3's kernels' device ms in a traced
               +INT8_SPATIAL request on slabs beside one process's.
+21. wide    — attention wider than 512, the chunked kernels
+              (phase_wide): (a) K2 and K2-bwd against their plain
+              versions in f32 and bf16 at 3b's and 3c's gates at the
+              slice's shapes (WIDE_ROWS: D = C = 1024; N 4096 and M 1024,
+              the path's 256 x 512 frames, and N 2048 and M 512, a 256²
+              crop, at TEST.BATCH_SIZE; N 1568 and M 392 at
+              TRAIN.BATCH_SIZE, K2-bwd there too) and WIDE_OFF_PATH (D 600 C
+              700; D 64 C 2048; D 2048 C 64), and a planted fault, the
+              last 128 columns of D left out of the logits, that must fail
+              both gates; (b) configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml with
+              WIDE_NONLOCAL (a softmax non-local block after block 1 of
+              the slow res5, D = C = 1024) at full width and depth, its
+              θ and φ calibrated: one val batch served (1 K2 launch, each
+              call held, the logits against the TPU.FLASH_ATTENTION False
+              paths as phase 13 holds CMDA's, one f32 clip), one train
+              step of TRAIN.BATCH_SIZE clips (1 K2 and 3 K2-bwd launches,
+              each call held) and one clip's step in f32 and bf16 against
+              the plain step at phase 13's tolerances
+              (hold_one_clip_steps); (c) at the slice's
+              shapes each kernel's time beside its bound, the operations
+              its per-slice recompute adds (wide_work), the plain
+              version's time and SDPA's (scale 1.0) with the backend that
+              ran.
 
 The depths were cut to make room for phase 16 within the time limit:
 REQUESTS 3 → 2, TRAIN_STEPS 5 → 3, PROFILE_STEPS 3 → 2, FATIGUE_STEPS 4 →
@@ -432,7 +456,7 @@ sits in build/smoke/profile_*/trace.json.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the kernels' JSON line sums the launches of phases
-4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (its times and bounds are per
+4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21 (its times and bounds are per
 request of the SlowFast and CMDA serving paths and per CMDA train step,
 phase 13's rows standing in where 3b or 3c did not run, and K3's per
 request of the +INT8_SPATIAL SlowFast-R50, its ms and library_ms (cuDNN's
@@ -714,10 +738,18 @@ def phase_build():
                      r"flash_attention_tc_wide_kernelILi(\d+)E", 3)
     wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
                      r"attention_bwd_rows_kernelILi(\d+)ELb(\d)E", 4)
+    # above 512: the chunked kernels (q resident or streamed; key or query
+    # rows)
+    wide_sass_counts(tool, _build.lib_path("flash_attention"),
+                     r"flash_attention_tc_chunked_kernelILb(\d)E", 2,
+                     "chunked (q resident)")
+    wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
+                     r"attention_bwd_chunked_kernelILb(\d)E", 2,
+                     "chunked (key rows)")
     k3_sass_counts(tool, _build.lib_path("int8_conv"))
 
 
-def wide_sass_counts(tool, lib, pattern, expected):
+def wide_sass_counts(tool, lib, pattern, expected, label="wide"):
     """Count the tensor-core instructions (mma.sync: HMMA) of the wide bf16
     kernels (D or C above 128) whose mangled names match ``pattern``,
     raising if any has none or if there are not ``expected`` of them."""
@@ -731,7 +763,7 @@ def wide_sass_counts(tool, lib, pattern, expected):
         found += 1
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                          func)
-        log("build", f"{os.path.basename(lib)} wide bf16 "
+        log("build", f"{os.path.basename(lib)} {label} bf16 "
             f"{'/'.join(name.groups())}: HMMA {ops.count('HMMA')}, MUFU "
             f"{ops.count('MUFU')} in the SASS")
         if not ops.count("HMMA"):
@@ -2876,10 +2908,11 @@ def nonlocal_rows(cfg, model, crop, batch):
     return rows
 
 
-def calibrate_nonlocal(cfg, model, seed):
+def calibrate_nonlocal(cfg, model, seed, run=None):
     """Scale each non-local block's θ and φ convs (weight and bias, by one
     factor each) so that its scaled logits θφᵀ/√D have ATTN_LOGIT_STD on a
-    seeded clip, block by block in the forward's order: phase 5's rule
+    seeded clip (or in the forward that ``run()`` makes), block by block in
+    the forward's order: phase 5's rule
     (calibrate_attention) for the non-local blocks, whose logits on random
     weights are not of a trained model's order either (std 3-1.5e4 in
     I3D-NLN's blocks, up to 1e16 in SlowFast-NLN's dot_product blocks,
@@ -2887,14 +2920,17 @@ def calibrate_nonlocal(cfg, model, seed):
     from efficient_slowfast_tpu_torch.engine.state import make_forward
     from efficient_slowfast_tpu_torch.ops.pool import max_pool3d
 
-    fwd = make_forward(cfg, model)
-    req = clips(cfg, 1, torch.Generator().manual_seed(seed), torch.float32)
+    if run is None:
+        fwd = make_forward(cfg, model)
+        req = clips(cfg, 1, torch.Generator().manual_seed(seed),
+                    torch.float32)
+        run = lambda: fwd(req)  # noqa: E731
     stds = []
     for _, blk in nonlocal_blocks(model):
         seen = {}
         hook = blk.register_forward_hook(
             lambda m, inp, out: seen.update(x=inp[0]))
-        fwd(req)
+        run()
         hook.remove()
         with torch.inference_mode():
             x = seen["x"]
@@ -3586,6 +3622,17 @@ def write_ava_split(root):
     return dirs
 
 
+def ava_split():
+    """The seeded AVA split of phases 13 and 21 under smoke_dir()."""
+    t0 = time.perf_counter()
+    dirs = write_ava_split(os.path.join(smoke_dir(), "ava"))
+    log("detection", f"AVA split written in {time.perf_counter() - t0:.1f} s:"
+        f" {AVA_VIDEOS['train']} train and {AVA_VIDEOS['val']} val videos, "
+        f"{len(AVA_SECONDS)} keyframes each, JPEG frames {AVA_FRAME_HW} read "
+        f"with PIL, 80 action ids, exclusion {AVA_EXCLUDED}")
+    return dirs
+
+
 def ava_opts(dirs):
     """The split's locations (the yamls name AVA's own files)."""
     return ["AVA.FRAME_DIR", dirs["frames"],
@@ -3877,12 +3924,15 @@ def calibrate_detection_attention(cfg, model, inputs, boxes, phase):
                         run=lambda: fwd([x[:1] for x in inputs], boxes[:1]))
 
 
-def k2_shapes_of(run, calls=None):
+def k2_shapes_of(run, calls=None, module=None):
     """(result of ``run()``, the (B, N, M, D, C) of each K2 call in it);
-    ``calls``, where given, gets each call's (q, k, v, output)."""
+    ``calls``, where given, gets each call's (q, k, v, output). The calls
+    recorded are those through ``module``'s ``flash_attention``
+    (``ops/attention.py``'s, the CMDA fusions', by default)."""
     from efficient_slowfast_tpu_torch.ops import attention
 
-    orig, seen = attention.flash_attention, []
+    module = module or attention
+    orig, seen = module.flash_attention, []
 
     def recorded(q, k, v):
         seen.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
@@ -3892,11 +3942,11 @@ def k2_shapes_of(run, calls=None):
             calls.append((q, k, v, out))
         return out
 
-    attention.flash_attention = recorded
+    module.flash_attention = recorded
     try:
         return run(), seen
     finally:
-        attention.flash_attention = orig
+        module.flash_attention = orig
 
 
 def detection_train_batches(cfg, loader, count, dtype):
@@ -4243,15 +4293,11 @@ def phase_detection_cli(dirs, smi):
                              f"loaded {rec.loaded}, launches {counts}")
 
 
-def phase_detection(smi):
-    """Phase 13: AVA detection on the card. Returns (K2 record, K2 error,
-    K2-bwd record, K2-bwd error, the main paths' launch counts)."""
+def phase_detection(dirs, smi):
+    """Phase 13: AVA detection on the card (the split ``dirs``). Returns (K2
+    record, K2 error, K2-bwd record, K2-bwd error, the main paths' launch
+    counts)."""
     t0 = time.perf_counter()
-    dirs = write_ava_split(os.path.join(smoke_dir(), "ava"))
-    log("detection", f"AVA split written in {time.perf_counter() - t0:.1f} s:"
-        f" {AVA_VIDEOS['train']} train and {AVA_VIDEOS['val']} val videos, "
-        f"{len(AVA_SECONDS)} keyframes each, JPEG frames {AVA_FRAME_HW} read "
-        f"with PIL, 80 action ids, exclusion {AVA_EXCLUDED}")
     counts = phase_detection_serving(dirs, smi)
     torch.cuda.empty_cache()
     k2_record, k2_err, bwd_record, bwd_err, cmda_counts = \
@@ -8065,12 +8111,319 @@ def kernel_entry(name, source, replaces, launches, err, record):
         bound_by="operations" if ops_share >= 0.5 else "bytes",
         library_ms=library)
 
+# ---------------------------------------------------------------------------
+# phase 21: attention wider than 512
+# the slice's model: configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml with one
+# softmax non-local block after block 1 of the slow res5 (dim 2048, dim_inner
+# 1024: D = C = 1024), NONLOCAL.POOL at its default 1 x 2 x 2
+WIDE_NONLOCAL = ["NONLOCAL.LOCATION",
+                 "[[[], []], [[], []], [[], []], [[1], []]]",
+                 "NONLOCAL.INSTANTIATION", "softmax"]
+# its K2 shapes (the slow res5 at stride 16 over 8 frames, the pool's
+# quarter of the queries as keys): (label, N, M, D, C, on the path, batch
+# of serving or training). Served at TEST.BATCH_SIZE on the path's 256 x
+# 512 frames (AVA_FRAME_HW's 16:9 at the 256 short side: 8·16·32
+# queries), and at a 256² crop (8·16·16) beside it; trained at
+# TRAIN.BATCH_SIZE on 224² crops (8·14·14), the K2-bwd row too
+WIDE_ROWS = [("res5 nl 256x512", 4096, 1024, 1024, 1024, 1, "serve"),
+             ("res5 nl 256²", 2048, 512, 1024, 1024, 0, "serve"),
+             ("res5 nl 224²", 1568, 392, 1024, 1024, 1, "train")]
+# beside the path: (label, N, M, D, C, clips)
+WIDE_OFF_PATH = [("d 600 c 700", 777, 190, 600, 700, 1),
+                 ("d 64 c 2048", 1000, 250, 64, 2048, 2),
+                 ("d 2048 c 64", 1000, 250, 2048, 64, 2)]
+# the planted fault: the last 128-column chunk of D left out of the logits
+WIDE_FAULT_COLS = 128
+
+
+def wide_cfg(dirs, dtype="bfloat16", *opts):
+    return ava_cfg(AVA_YAML, dirs, dtype, *WIDE_NONLOCAL, *opts)
+
+
+def wide_work(d, c):
+    """(forward, backward) operations of the kernels over the bound's, per
+    (query, key) pair, D and C unpadded: a block owns a 128-column slice
+    of the output and recomputes the logits over all of D for it (and,
+    backward, dO vᵀ over all of C), ceil(C / 128) times forward; backward
+    the key rows' ceil(max(D, C) / 128) and the query rows' ceil(D / 128)
+    slices, beside dK, dV and dQ once."""
+    s_c, s_d = -(-c // 128), -(-d // 128)
+    s_kv = max(s_c, s_d)
+    return ((d * s_c + c) / (d + c),
+            ((s_kv + s_d) * (d + c) + 128 * (2 * s_d + s_c)) / (3 * d + 2 * c))
+
+
+def train_mode_run(model, inputs, boxes):
+    """A detection forward of ``model`` in train mode (batch statistics,
+    as the train step sees them), without grad, its BN running
+    statistics restored after: calibrate_nonlocal's ``run`` for a
+    training path. On the eval-mode statistics of the zero-initialised
+    train weights the res5 block's logits read std 0.0059 (3.18 on the
+    step's batch statistics), so calibrating there scaled the step's
+    logits ~500x: an argmax softmax whose float32 rounding put the kernel
+    step 4.9e-3 of its length from the plain one at s1_fuse.bn.weight (on
+    an H100; PERF.md), where on the step's statistics it is 6.7e-5."""
+    from efficient_slowfast_tpu_torch.engine.state import flatten_rois
+
+    def run():
+        saved = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked"))}
+        model.train()
+        with torch.no_grad():
+            model(inputs, flatten_rois(boxes.float()))
+        model.load_state_dict(saved, strict=False)
+        model.eval()
+    return run
+
+
+def wide_planted_faults(b, n, m, d, c, smi):
+    """K2 and K2-bwd with the last WIDE_FAULT_COLS columns of D left out
+    of the logits (q's columns zeroed), held against the plain versions on
+    the whole q: both gates must fail."""
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    f = logit_scale(d, ATTN_LOGIT_STD)
+    q, k, v, dout = (torch.randn(b, x, w, generator=gen, device="cuda")
+                     .mul(s).bfloat16() for x, w, s in
+                     ((n, d, f), (m, d, f), (m, c, 1.0), (n, c, 1.0)))
+    out, lse = fa._forward(q, k, v, with_lse=True)
+    cut = q.clone()
+    cut[..., -WIDE_FAULT_COLS:] = 0
+    fwd_err = relative_error(fa.flash_attention(cut, k, v),
+                             fa.chunked_attention(q, k, v), 1.0)
+    grads = fa.flash_attention_backward(cut, k, v, out, lse, dout)
+    refs = fa.attention_backward(q, k, v, out, lse, dout)
+    bwd_err = max(relative_error(g, r, 1.0) for g, r in zip(grads, refs))
+    log("wide", f"planted fault (B, N, M, D, C) {(b, n, m, d, c)}, the last "
+        f"{WIDE_FAULT_COLS} columns of D out of the logits: K2 "
+        f"{fwd_err:.3e} of the scale (gate {ATTN_BF16_TOL}), K2-bwd "
+        f"{bwd_err:.3e} (gate {ATTN_BWD_BF16_TOL}): both fail | {smi}")
+    if fwd_err <= ATTN_BF16_TOL or bwd_err <= ATTN_BWD_BF16_TOL:
+        raise AssertionError(f"the planted fault passed: K2 {fwd_err}, "
+                             f"K2-bwd {bwd_err}")
+
+
+def phase_wide_kernels(serve_b, train_b, smi):
+    """21 (a) and (c): K2 and K2-bwd at the slice's shapes and
+    WIDE_OFF_PATH against their plain versions, f32 and bf16 (3b's and
+    3c's gates), timed beside their bounds, the kernels' recompute, the
+    plain versions and SDPA; the planted faults. Returns (K2 record, K2
+    error, K2-bwd record, K2-bwd error)."""
+    batch = {"serve": serve_b, "train": train_b}
+    rows = [r[:6] + (batch[r[6]],) for r in WIDE_ROWS]
+    train_rows = [r[:6] for r in WIDE_ROWS if r[6] == "train"]
+    off = [(label, n, m, d, c, 0, b) for label, n, m, d, c, b in
+           WIDE_OFF_PATH]
+    k2_record, k2_err, _ = phase_attention(
+        rows + off, smi, off_path=(), path_batch=serve_b,
+        logit_std=ATTN_LOGIT_STD)
+    bwd_record, bwd_err, _ = phase_attention_backward(
+        train_rows, smi, off_path=(), batch=train_b,
+        logit_std=ATTN_LOGIT_STD)
+    bwd_off, _, _ = phase_attention_backward(
+        [r[:6] for r in off], smi, off_path=(), batch=2,
+        logit_std=ATTN_LOGIT_STD)
+    for rec, shapes, bwd in ((k2_record, rows + off, False),
+                             (bwd_record + bwd_off, train_rows + off, True)):
+        for r, (label, n, m, d, c, *_) in zip(rec, shapes):
+            work = wide_work(d, c)[bwd]
+            lib = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+            log("wide", f"{'K2-bwd' if bwd else 'K2'} {label} N {n} M {m} "
+                f"D {d} C {c}: kernel {r['ms']:.4f} ms | bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}); the kernel "
+                f"recomputes the logits{' and dO vᵀ' if bwd else ''} for "
+                f"each 128-column output slice: {work:.2f}x the bound's "
+                f"operations, {r['bound_ms'] * work:.5f} ms at the same peak"
+                f" | plain {r['plain_ms']:.4f} ms | sdpa {lib} | {smi}")
+    wide_planted_faults(serve_b, *WIDE_ROWS[0][1:5], smi)
+    return k2_record, k2_err, bwd_record, bwd_err
+
+
+def phase_wide_model(dirs, smi):
+    """21 (b): the slice's AVA model (WIDE_NONLOCAL) at full width and
+    depth on seeded weights, its non-local θ and φ calibrated: one val
+    batch served through make_detection_forward (1 K2 launch) against the
+    same weights under TPU.FLASH_ATTENTION False, as phase 13 holds CMDA's
+    (each K2 call against the plain version on its inputs, the real boxes'
+    logits by CMDA_TRAIN_BF16_RATIO from the f32 plain path's, one f32
+    clip within CMDA_F32_ATOL); then one detection train step of
+    TRAIN.BATCH_SIZE clips (1 K2 and one K2-bwd call, 3 launches; each
+    call held against the plain versions on its inputs) and one clip's
+    step in f32 and bf16 against the plain step (hold_one_clip_steps,
+    phase 13's), the block's θ and φ calibrated on the step's own batch
+    statistics (train_mode_run). Returns (launch counts of the two path runs, K2 error,
+    K2-bwd error)."""
+    from efficient_slowfast_tpu_torch.data.loader import construct_loader
+    from efficient_slowfast_tpu_torch.data.preprocess import \
+        make_detection_preprocess
+    from efficient_slowfast_tpu_torch.engine.state import (
+        create_train_state, make_detection_forward, make_detection_train_step)
+    from efficient_slowfast_tpu_torch.models import nonlocal_block
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    none = dict.fromkeys(KERNELS, 0)
+    totals = dict(none)
+    cfg = wide_cfg(dirs)
+    model = serving_model(cfg, SEED + 40)
+    blocks = nonlocal_blocks(model)
+    (batch,) = first_batches(construct_loader(cfg, "test"), 1)
+    inputs = make_detection_preprocess(cfg, torch.bfloat16)(batch["frames"])
+    boxes = batch["boxes"]
+    fwd = make_detection_forward(cfg, model)
+    calibrate_nonlocal(cfg, model, None, run=lambda: fwd(
+        [x[:1] for x in inputs], boxes[:1]))
+    fwd(inputs, boxes)  # warm-up
+    reset_counts()
+    calls = []
+    out, shapes = k2_shapes_of(lambda: fwd(inputs, boxes), calls,
+                               nonlocal_block)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # the res5 block's dim_inner: half the slow res5's 32 x WIDTH_PER_GROUP
+    dim = cfg.RESNET.WIDTH_PER_GROUP * 16
+    if counts != {**none, "flash_attention": 1} or len(shapes) != 1 or \
+            shapes[0][3:] != (dim, dim):
+        raise AssertionError(f"wide serving: launches {counts}, K2 at "
+                             f"{shapes}; expected one K2 at D = C = {dim}")
+    for k, v in counts.items():
+        totals[k] += v
+    detection_scores_check(out, boxes.numel() // 4, "wide serving")
+    worst_fwd = max(relative_error(o, fa.chunked_attention(q, k, v), 1.0)
+                    for q, k, v, o in calls)
+    del calls
+    k_ms = cuda_ms(lambda: fwd(inputs, boxes), iters=2, reps=3)
+    state = model.state_dict()
+    paths = {}
+    for name, dtype in (("plain bf16", "bfloat16"), ("plain f32", "float32")):
+        pcfg = wide_cfg(dirs, dtype, "TPU.FLASH_ATTENTION", False)
+        pmodel = model_with(pcfg, state)
+        pfwd = make_detection_forward(pcfg, pmodel)
+        x = inputs if dtype == "bfloat16" else make_detection_preprocess(
+            pcfg)(batch["frames"])
+        reset_counts()
+        paths[name] = head_logits(pfwd, pmodel, x, boxes)
+        torch.cuda.synchronize()
+        if any(read_counts().values()):
+            raise AssertionError(f"the plain attention launched "
+                                 f"{read_counts()}")
+        if name == "plain bf16":
+            p_ms = cuda_ms(lambda: pfwd(inputs, boxes), iters=2, reps=3)
+        del pmodel, pfwd, x
+    _, lk = head_logits(fwd, model, inputs, boxes)
+    real = (batch["box_mask"].reshape(-1) > 0).cuda()
+    l32 = paths["plain f32"][1][real]
+    d_k = (lk[real] - l32).norm().item()
+    d_p = (paths["plain bf16"][1][real] - l32).norm().item()
+    cfg32 = wide_cfg(dirs, "float32")
+    pcfg32 = wide_cfg(dirs, "float32", "TPU.FLASH_ATTENTION", False)
+    x32 = make_detection_preprocess(cfg32)(batch["frames"][:1])
+    o32 = make_detection_forward(cfg32, model_with(cfg32, state))(
+        x32, boxes[:1])
+    r32 = make_detection_forward(pcfg32, model_with(pcfg32, state))(
+        x32, boxes[:1])
+    err32 = (o32 - r32).abs().max().item()
+    log("wide", f"AVA SlowFast-R50 32x2 + a softmax non-local block after "
+        f"block 1 of the slow res5 ({len(blocks)} block: {blocks[0][0]}, "
+        f"D = C = {blocks[0][1].dim_inner}), serving {inputs[0].shape[0]} "
+        f"clips, bf16: launches {counts}, K2 at (B, N, M, D, C) {shapes} | "
+        f"the K2 call vs the plain version on its inputs {worst_fwd:.3e} of "
+        f"the scale (tol {ATTN_BF16_TOL}) | the real boxes' logits from the "
+        f"f32 plain path's, L2: with K2 {d_k:.4e}, plain bf16 {d_p:.4e} "
+        f"(ratio {d_k / max(d_p, 1e-30):.3f}, tol {CMDA_TRAIN_BF16_RATIO}) "
+        f"| f32, 1 clip: K2 vs plain max |d| {err32:.3e} (tol "
+        f"{CMDA_F32_ATOL}) | forward {k_ms:.2f} ms with K2, {p_ms:.2f} ms "
+        f"with the plain attention | {smi}")
+    if worst_fwd > ATTN_BF16_TOL or d_k > CMDA_TRAIN_BF16_RATIO * d_p or \
+            err32 > CMDA_F32_ATOL:
+        raise AssertionError(f"wide serving: K2 call {worst_fwd}, logits "
+                             f"{d_k} vs plain bf16's {d_p}, f32 {err32}")
+    del model, paths, lk, o32, r32, x32, inputs, batch, state
+    torch.cuda.empty_cache()
+
+    # training: one step of the yaml's clips at 224²; the non-local block's
+    # final BN γ 1 (at its zero init the block adds nothing and its
+    # gradients are zeros)
+    model = train_model(cfg, SEED + 41)
+    with torch.no_grad():
+        for _, blk in nonlocal_blocks(model):
+            blk.bn.weight.fill_(1.0)
+    batches = detection_train_batches(cfg, construct_loader(cfg, "train"), 1,
+                                      torch.bfloat16)
+    x0, b0 = batches[0][:2]
+    calibrate_nonlocal(cfg, model, None, run=train_mode_run(
+        model, [x[:1] for x in x0], b0[:1]))
+    state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+    tstate = create_train_state(cfg, model)
+    step = make_detection_train_step(cfg, tstate.model, tstate.optimizer)
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    calls = []
+    reset_counts()
+    with BackwardCalls() as rec:
+        mets, shapes = k2_shapes_of(lambda: step(
+            tstate, *batches[0], cfg.SOLVER.BASE_LR, drop), calls,
+            nonlocal_block)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    loss = mets["loss"].item()
+    expect = {**none, "flash_attention": 1,
+              "flash_attention_backward": fa.BACKWARD_LAUNCHES_PER_CALL}
+    worst_t = max(relative_error(o, fa.chunked_attention(q, k, v), 1.0)
+                  for q, k, v, o in calls)
+    worst_bwd = rec.worst()
+    log("wide", f"training, one step of {x0[0].shape[0]} clips at "
+        f"{cfg.DATA.TRAIN_CROP_SIZE}², bf16: loss {loss:.4f}, launches "
+        f"{counts}, K2 at {shapes} | the K2 call vs the plain version "
+        f"{worst_t:.3e} (tol {ATTN_BF16_TOL}), the K2-bwd call vs "
+        f"attention_backward {worst_bwd:.3e} (tol {ATTN_BWD_BF16_TOL}) of "
+        f"the scale | {smi}")
+    if counts != expect or not np.isfinite(loss) or len(rec.calls) != 1 or \
+            worst_t > ATTN_BF16_TOL or worst_bwd > ATTN_BWD_BF16_TOL:
+        raise AssertionError(f"wide training: launches {counts} (expected "
+                             f"{expect}), loss {loss}, K2 {worst_t}, K2-bwd "
+                             f"{worst_bwd}")
+    for k, v in counts.items():
+        totals[k] += v
+    del rec, calls, tstate, step, model
+    torch.cuda.empty_cache()
+
+    def batch_of(cfg_, dtype):
+        x, bx, lab, mask = batches[0]
+        return ([v[:1].to(dtype) for v in x], bx[:1], lab[:1], mask[:1])
+
+    hold_one_clip_steps(
+        "wide", lambda name, flash: wide_cfg(
+            dirs, name, "TPU.FLASH_ATTENTION", flash),
+        state_dict, smi, batch_of=batch_of, one=one_detection_step)
+    del batches, state_dict
+    torch.cuda.empty_cache()
+    return totals, max(worst_fwd, worst_t), worst_bwd
+
+
+def phase_wide(dirs, smi):
+    """Phase 21: K2 and K2-bwd above 512 (the chunked kernels), the AVA
+    model on the split ``dirs``. Returns (K2 record, K2 error, K2-bwd
+    record, K2-bwd error, the path's launch counts)."""
+    t0 = time.perf_counter()
+    cfg = wide_cfg(dirs)
+    k2_record, k2_err, bwd_record, bwd_err = phase_wide_kernels(
+        cfg.TEST.BATCH_SIZE, cfg.TRAIN.BATCH_SIZE, smi)
+    torch.cuda.empty_cache()
+    counts, path_k2, path_bwd = phase_wide_model(dirs, smi)
+    log("wide", f"phase 21 in {time.perf_counter() - t0:.1f} s")
+    return (k2_record, max(k2_err, path_k2), bwd_record,
+            max(bwd_err, path_bwd), counts)
+
 
 # the phases that run together: a block runs whole when any of its phases
 # is chosen (each takes what the one before it made); 1 and 2 always run
 PHASE_BLOCKS = [("3", "4"), ("3b", "5"), ("3c", "6", "7"), ("8",), ("9",),
                 ("10",), ("11",), ("12",), ("13",), ("14",), ("15",),
-                ("16",), ("17",), ("18",), ("19",), ("20",)]
+                ("16",), ("17",), ("18",), ("19",), ("20",), ("21",)]
 KERNELS = {
     "fused_bottleneck": (
         "efficient_slowfast_tpu_torch/csrc/fused_bottleneck.cu",
@@ -8137,6 +8490,8 @@ def main(argv=None):
     def add(counts):
         for key, value in counts.items():
             launches[key] += value
+
+    ava_dirs = None  # the AVA split of phases 13 and 21, written once
 
     if run("3", "4"):
         cfg = serving_cfg()
@@ -8237,8 +8592,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     stamp("12")
     if run("13"):
+        ava_dirs = ava_split()
         det_k2, det_k2_err, det_bwd, det_bwd_err, det_counts = \
-            phase_detection(smi)
+            phase_detection(ava_dirs, smi)
         # the times stay the serving and training paths' of 3b and 3c;
         # phase 13's own rows stand in where those did not run
         records.setdefault("flash_attention", det_k2)
@@ -8299,13 +8655,26 @@ def main(argv=None):
         add(entry_counts)
         torch.cuda.empty_cache()
     stamp("20")
+    if run("21"):
+        ava_dirs = ava_dirs or ava_split()
+        wide_k2, wide_k2_err, wide_bwd, wide_bwd_err, wide_counts = \
+            phase_wide(ava_dirs, smi)
+        # phase 21's rows stand in where 3b and 3c did not run
+        records.setdefault("flash_attention", wide_k2)
+        records.setdefault("flash_attention_backward", wide_bwd)
+        errs["flash_attention"].append(wide_k2_err)
+        errs["flash_attention_backward"].append(wide_bwd_err)
+        add(wide_counts)
+        torch.cuda.empty_cache()
+    stamp("21")
 
     # launches on the main paths of the phases run: serving (4, 5), CMDA
     # training (7), the 30-view tests (8), the epochs (9), the recipe (10),
     # the non-local networks (11), the efficient families (12), AVA
     # detection (13), the frame datasets (14), int8 serving (15),
     # Grad-CAM (16), the demo (17), distribution (18), the split height
-    # (19) and the entry points under it (20); times per request of the
+    # (19), the entry points under it (20) and the wide attention (21);
+    # times per request of the
     # serving paths (3, 3b) and per CMDA train step (3c)
     kernels = [kernel_entry(name, *KERNELS[name], launches[name],
                             max(errs[name]), records[name])

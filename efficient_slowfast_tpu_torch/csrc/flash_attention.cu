@@ -11,8 +11,9 @@
 // running sum, f32 accumulator), dividing by max(row_sum, 1e-30) and
 // writing v's dtype, as the TPU kernel does. Unlike the TPU kernel it masks
 // a key count that is not a multiple of the tile (keys >= M get logit -inf)
-// and skips query rows >= N, and it takes any M. D and C range over 1..512
-// (above 128 the wide kernels at the end of this file), B up to 65535. Given a non-null lse buffer, a launch also writes each
+// and skips query rows >= N, and it takes any M, D and C (above 128 the
+// wide kernels, and in bf16 above D = 512 the chunked kernel, at the end of
+// this file), B up to 65535. Given a non-null lse buffer, a launch also writes each
 // row's float32 log-sum-exp, row max + log(row sum), from which the
 // backward (flash_attention_bwd.cu) recomputes the probabilities; the
 // serving path passes null, and the output is the same either way.
@@ -590,8 +591,9 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// D or C above 128, up to 512: the wide kernels (non-local blocks: D = C =
-// 256 in s3, 512 in s4). A grid dimension runs over 128-column slices of C:
+// D or C above 128: the wide kernels (non-local blocks: D = C = 256 in s3,
+// 512 in s4, 1024 in res5; bf16 above D = 512 takes the chunked kernel
+// below). A grid dimension runs over 128-column slices of C:
 // the blocks of slice z compute out[:, 128 z .. 128 z + 127] and each
 // recomputes the logits over the whole of D, and their exponentials, so a
 // call does ceil(C / 128) times the q k^T work of one pass (2x at C = 256,
@@ -604,15 +606,22 @@ constexpr int kWideCols = 128;  // columns of C a block owns
 // float32 (the tolerance checks): 256 threads, 64 query rows, four threads
 // a row, tiles of 32 keys. A thread reads its q row from global memory
 // (through L1) and computes the logits of 8 of the tile's keys over D
-// against k rows in shared memory (d + 1 floats a row: the four threads'
-// keys fall in four banks), then the online softmax of the narrow kernel
-// and its share of the 128 columns of P v.
+// against k rows in shared memory, then the online softmax of the narrow
+// kernel and its share of the 128 columns of P v. The k rows come in
+// chunks of at most kWideF32DC columns of D (one chunk up to D = 512; rows
+// of chunk + 1 floats: the four threads' keys fall in four banks), so any
+// D fits shared memory; the logits' sums run over D in order either way.
 constexpr int kWideF32BK = 32;
 constexpr int kWideF32LdV = kWideCols + 4;
+constexpr int kWideF32DC = 512;
+
+__host__ __device__ inline int wide_f32_chunk(int d) {
+  return d < kWideF32DC ? d : kWideF32DC;
+}
 
 __host__ __device__ inline size_t wide_f32_smem_floats(int d) {
-  return (size_t)kWideF32BK * (d + 1) + (size_t)kWideF32BK * kWideF32LdV +
-         (size_t)kBQ * (kWideF32BK + 1);
+  return (size_t)kWideF32BK * (wide_f32_chunk(d) + 1) +
+         (size_t)kWideF32BK * kWideF32LdV + (size_t)kBQ * (kWideF32BK + 1);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -623,9 +632,10 @@ flash_attention_wide_kernel(const float* __restrict__ q,
                             int n, int m, int d, int c) {
   constexpr int kBK = kWideF32BK, kKeys = kBK / 4;
   constexpr int kLdP = kBK + 1;
+  const int dc = wide_f32_chunk(d), ldk = dc + 1;
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [kBK][d + 1]
-  float* vs = ks + kBK * (d + 1);               // [kBK][kWideF32LdV]
+  float* ks = reinterpret_cast<float*>(smem4);  // [kBK][ldk]
+  float* vs = ks + kBK * ldk;                   // [kBK][kWideF32LdV]
   float* ps = vs + kBK * kWideF32LdV;           // [kBQ][kLdP]
   const int tid = threadIdx.x, sr = tid >> 2, sp = tid & 3;
   const int row = blockIdx.x * kBQ + sr;
@@ -642,27 +652,31 @@ flash_attention_wide_kernel(const float* __restrict__ q,
 
   for (int k0 = 0; k0 < m; k0 += kBK) {
     __syncthreads();  // the last tile's k, v and P are no longer read
-    for (int i = tid; i < kBK * d; i += kThreads) {
-      const int r = i / d, j = i - r * d;
-      ks[r * (d + 1) + j] = k0 + r < m ? kb[(size_t)(k0 + r) * d + j] : 0.f;
-    }
     for (int i = tid; i < kBK * kWideCols; i += kThreads) {
       const int r = i / kWideCols, j = i % kWideCols;
       vs[r * kWideF32LdV + j] = k0 + r < m && col0 + j < c
                                     ? vb[(size_t)(k0 + r) * c + j]
                                     : 0.f;
     }
-    __syncthreads();
-
-    // logits of row sr at keys sp + 4 t, in log2 units
+    // logits of row sr at keys sp + 4 t, in log2 units, chunk by chunk
     float p[kKeys];
 #pragma unroll
     for (int t = 0; t < kKeys; ++t) p[t] = 0.f;
-    for (int e = 0; e < d; ++e) {
-      const float qe = qr[e];
+    for (int e0 = 0; e0 < d; e0 += dc) {
+      const int w = d - e0 < dc ? d - e0 : dc;
+      if (e0 > 0) __syncthreads();  // the last chunk is no longer read
+      for (int i = tid; i < kBK * w; i += kThreads) {
+        const int r = i / w, j = i - r * w;
+        ks[r * ldk + j] =
+            k0 + r < m ? kb[(size_t)(k0 + r) * d + e0 + j] : 0.f;
+      }
+      __syncthreads();
+      for (int e = 0; e < w; ++e) {
+        const float qe = qr[e0 + e];
 #pragma unroll
-      for (int t = 0; t < kKeys; ++t)
-        p[t] = fmaf(qe, ks[(sp + 4 * t) * (d + 1) + e], p[t]);
+        for (int t = 0; t < kKeys; ++t)
+          p[t] = fmaf(qe, ks[(sp + 4 * t) * ldk + e], p[t]);
+      }
     }
     float mx = -INFINITY;
 #pragma unroll
@@ -752,37 +766,6 @@ __host__ __device__ inline size_t wide_tc_smem_bytes(int dp) {
           (size_t)kTcStages * kWideBK * (kWideCols + kTcPad));
 }
 
-// Rows r0 .. r0 + kRowsT - 1 and columns col0 .. col0 + kWideCols - 1 of a
-// (count x c) bf16 matrix into shared rows of kWideCols + kTcPad, zero past
-// c and past count. vec: c is a multiple of 8 and src 16-byte aligned (16-
-// byte cp.async chunks, as tc::load_rows); else element by element.
-template <int kRowsT>
-__device__ __forceinline__ void load_slice(bf16* dst, const bf16* src,
-                                           int r0, int count, int c,
-                                           int col0, bool vec) {
-  constexpr int kLd = kWideCols + kTcPad;
-  const bf16* base = src + (size_t)r0 * c + col0;
-  const int left = count - r0, w = c - col0;
-  if (vec) {
-    constexpr int kChunks = kWideCols / 8, kTotal = kRowsT * kChunks;
-    static_assert(kTotal % kWideThreads == 0, "whole chunks a thread");
-#pragma unroll
-    for (int u = 0; u < kTotal / kWideThreads; ++u) {
-      const int i = threadIdx.x + u * kWideThreads;
-      const int r = i / kChunks, j = i % kChunks * 8;
-      const bool in = r < left && j < w;
-      tc::cp_async_16(dst + r * kLd + j, in ? base + (size_t)r * c + j : src,
-                      in ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRowsT * kWideCols; i += kWideThreads) {
-      const int r = i / kWideCols, j = i % kWideCols;
-      dst[r * kLd + j] = r < left && j < w ? base[(size_t)r * c + j]
-                                           : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
 // S = q k^T for one tile of kWideBK keys, 16 rows per warp, with q's A
 // fragments read from shared memory (qw: the lane's ldmatrix row of q).
 template <int DP>
@@ -807,6 +790,38 @@ __device__ __forceinline__ void wide_tile_logits(float (&s)[kWideBK / 8][4],
   }
 }
 
+// The end of a wide kernel's warp: the quad's parts of the row sums met,
+// then rows0 + g (and + 8) of out's 128 columns col0 .. in bf16 (those
+// below c), and the rows' log-sum-exp from slice 0 where lse is given.
+__device__ __forceinline__ void wide_epilogue(float (&o)[kWideCols / 8][4],
+                                              const float (&row_max)[2],
+                                              float (&row_sum)[2],
+                                              bf16* out, float* lse,
+                                              size_t bi, int n, int c,
+                                              int rows0, int col0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+    const float denom = fmaxf(row_sum[h], 1e-30f);
+    const int row = rows0 + g + 8 * h;
+    if (row < n) {
+      if (lse != nullptr && blockIdx.z == 0 && t == 0)
+        lse[bi * n + row] = row_max[h] + logf(row_sum[h]);
+      bf16* orow = out + (bi * n + row) * c + col0;
+#pragma unroll
+      for (int j = 0; j < kWideCols / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col0 + col < c)
+          orow[col] = __float2bfloat16_rn(o[j][2 * h] / denom);
+        if (col0 + col + 1 < c)
+          orow[col + 1] = __float2bfloat16_rn(o[j][2 * h + 1] / denom);
+      }
+    }
+  }
+}
+
 template <int DP>
 __global__ void __launch_bounds__(kWideThreads)
 flash_attention_tc_wide_kernel(const bf16* __restrict__ q,
@@ -824,7 +839,7 @@ flash_attention_tc_wide_kernel(const bf16* __restrict__ q,
   bf16* vs = ks + kTcStages * kKTile;         // [kTcStages][kWideBK][kLdV]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int t = lane & 3;
   const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
   const int k_lane = (lr + 8 * l16) * kLdK + 8 * l8;  // k: keys x D
   const int v_lane = (lr + 8 * l8) * kLdV + 8 * l16;  // v: keys x C, .trans
@@ -839,8 +854,8 @@ flash_attention_tc_wide_kernel(const bf16* __restrict__ q,
     const int buf = it % kTcStages;
     tc::load_rows<DP, kWideBK, kWideThreads>(ks + buf * kKTile, kb,
                                              it * kWideBK, m, d, qk_vec);
-    load_slice<kWideBK>(vs + buf * kVTile, vb, it * kWideBK, m, c, col0,
-                        v_vec);
+    tc::load_cols<kWideCols, kWideBK, kWideThreads>(
+        vs + buf * kVTile, kLdV, vb, it * kWideBK, m, c, col0, v_vec);
     tc::cp_async_commit();
   };
 
@@ -896,26 +911,8 @@ flash_attention_tc_wide_kernel(const bf16* __restrict__ q,
     step(sa, sb, it, ragged);
   }
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
-    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
-    const float denom = fmaxf(row_sum[h], 1e-30f);
-    const int row = q0 + 16 * warp + g + 8 * h;
-    if (row < n) {
-      if (lse != nullptr && blockIdx.z == 0 && t == 0)
-        lse[bi * n + row] = row_max[h] + logf(row_sum[h]);
-      bf16* orow = out + (bi * n + row) * c + col0;
-#pragma unroll
-      for (int j = 0; j < kWideCols / 8; ++j) {
-        const int col = 8 * j + 2 * t;
-        if (col0 + col < c)
-          orow[col] = __float2bfloat16_rn(o[j][2 * h] / denom);
-        if (col0 + col + 1 < c)
-          orow[col + 1] = __float2bfloat16_rn(o[j][2 * h + 1] / denom);
-      }
-    }
-  }
+  wide_epilogue(o, row_max, row_sum, out, lse, bi, n, c, q0 + 16 * warp,
+                col0);
 }
 
 template <int DP>
@@ -948,12 +945,194 @@ int dispatch_tc_wide(const void* q, const void* k, const void* v, void* out,
   return launch_tc_wide<512>(q, k, v, out, lse, b, n, m, d, c, s);
 }
 
+// ---------------------------------------------------------------------------
+// D above 512, bfloat16: the chunked kernel. The wide kernel's q (64 x DP)
+// and three k tiles (32 x DP) take 164 KB of shared memory at DP = 512 and
+// do not fit above. Here the logits S = q k^T of a 32-key tile accumulate
+// over D in chunks of kChunk = 128 columns into the same 16 x 32 fragment
+// a warp (the wide kernel's mma.sync steps), each k chunk (and q's, where
+// q streams) arriving by cp.async through a ring of stages; the flat
+// sequence of (tile, chunk) loads runs kStages - 1 ahead of the products,
+// one __syncthreads a chunk. After a tile's last chunk the softmax and P v
+// over the block's 128-column slice of C are the wide kernel's
+// (tile_softmax_pv<kWideCols, kWideBK>), the v slice loaded with the
+// tile's first chunk into one of two buffers. q stays resident in shared
+// memory (64 x D) where that fits beside the ring (kQRes: D up to 1280,
+// 180 KB at D = 1024), else its chunk streams beside k's from L2 once a
+// tile. The slices of C keep the wide kernel's grid dimension, so a call
+// computes the logits ceil(C / 128) times (8x at C = 1024): the simplest
+// split that keeps one 16 x 128 float32 accumulator a warp and reuses the
+// wide kernel's softmax step; chip_smoke.py counts that recompute beside
+// the bound.
+constexpr int kChunk = 128;
+constexpr int kChunkLd = kChunk + kTcPad;
+constexpr int kWideVElems = kWideBK * (kWideCols + kTcPad);
+
+__host__ __device__ constexpr int chunked_stages(bool q_res) {
+  return q_res ? 4 : 3;
+}
+
+// Shared memory: q (kWideRows x (chunks * kChunk + pad)) where resident,
+// kStages ring stages (a k chunk kWideBK x kChunkLd, and q's kWideRows x
+// kChunkLd where q streams), then two v slices (kWideBK x kWideCols + pad).
+__host__ __device__ inline size_t chunked_smem_bytes(bool q_res, int d) {
+  const int chunks = (d + kChunk - 1) / kChunk;
+  const size_t q = q_res ? (size_t)kWideRows * (chunks * kChunk + kTcPad) : 0;
+  const size_t stage = (size_t)(kWideBK + (q_res ? 0 : kWideRows)) * kChunkLd;
+  return sizeof(bf16) *
+         (q + chunked_stages(q_res) * stage + 2 * (size_t)kWideVElems);
+}
+
+template <bool kQRes>
+__global__ void __launch_bounds__(kWideThreads)
+flash_attention_tc_chunked_kernel(const bf16* __restrict__ q,
+                                  const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v,
+                                  bf16* __restrict__ out,
+                                  float* __restrict__ lse, int n, int m,
+                                  int d, int c, bool qk_vec, bool v_vec) {
+  constexpr int kStages = chunked_stages(kQRes);
+  constexpr int kLdV = kWideCols + kTcPad;
+  constexpr int kKElems = kWideBK * kChunkLd;
+  constexpr int kStageElems = kKElems + (kQRes ? 0 : kWideRows * kChunkLd);
+  constexpr int kNT = kWideBK / 8;
+  const int chunks = (d + kChunk - 1) / kChunk;
+  const int ldq = kQRes ? chunks * kChunk + kTcPad : kChunkLd;
+  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
+  bf16* qs = reinterpret_cast<bf16*>(smem4);         // [kWideRows][ldq]
+  bf16* ring = qs + (kQRes ? kWideRows * ldq : 0);   // [kStages][k, q chunk]
+  bf16* vs = ring + kStages * kStageElems;           // [2][kWideBK][kLdV]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int k_lane = (lr + 8 * l16) * kChunkLd + 8 * l8;  // k: keys x D
+  const int v_lane = (lr + 8 * l8) * kLdV + 8 * l16;      // v: .trans
+  const int q_lane = (16 * warp + lr + 8 * l8) * ldq + 8 * l16;
+  const int q0 = blockIdx.x * kWideRows, col0 = blockIdx.z * kWideCols;
+  const size_t bi = blockIdx.y;
+  const bf16* qb = q + bi * n * d;
+  const bf16* kb = k + bi * m * d;
+  const bf16* vb = v + bi * m * c;
+  const int tiles = (m + kWideBK - 1) / kWideBK, total = tiles * chunks;
+  // load l of the flat sequence: chunk l % chunks of tile l / chunks into
+  // stage l % kStages, and with a tile's first chunk its v slice. Every
+  // call commits a group (empty past the end), so that the wait below
+  // counts groups alike at the tail. The launcher ensures chunks >=
+  // kStages - 1: the v buffer of tile it is refilled (tile it + 2) only
+  // after tile it's P v.
+  auto issue = [&](int l) {
+    if (l < total) {
+      const int it = l / chunks, kc = l - it * chunks;
+      bf16* st = ring + l % kStages * kStageElems;
+      tc::load_cols<kChunk, kWideBK, kWideThreads>(
+          st, kChunkLd, kb, it * kWideBK, m, d, kc * kChunk, qk_vec);
+      if constexpr (!kQRes)
+        tc::load_cols<kChunk, kWideRows, kWideThreads>(
+            st + kKElems, kChunkLd, qb, q0, n, d, kc * kChunk, qk_vec);
+      if (kc == 0)
+        tc::load_cols<kWideCols, kWideBK, kWideThreads>(
+            vs + (it & 1) * kWideVElems, kLdV, vb, it * kWideBK, m, c, col0,
+            v_vec);
+    }
+    tc::cp_async_commit();
+  };
+  if constexpr (kQRes)  // in the first group, with load 0
+    for (int kc = 0; kc < chunks; ++kc)
+      tc::load_cols<kChunk, kWideRows, kWideThreads>(
+          qs + kc * kChunk, ldq, qb, q0, n, d, kc * kChunk, qk_vec);
+  for (int l = 0; l < kStages - 1; ++l) issue(l);
+
+  float o[kWideCols / 8][4];
+#pragma unroll
+  for (int j = 0; j < kWideCols / 8; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+  float s[kNT][4];
+  for (int l = 0; l < total; ++l) {
+    tc::cp_async_wait<kStages - 2>();  // load l has landed for this thread
+    __syncthreads();  // ... for every thread, and all are past load l - 1
+    issue(l + kStages - 1);  // into load l - 1's stage
+    const int it = l / chunks, kc = l - it * chunks;
+    if (kc == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    }
+    const bf16* st = ring + l % kStages * kStageElems;
+    const bf16* qw = kQRes ? qs + q_lane + kc * kChunk : st + kKElems + q_lane;
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      uint32_t a[4];
+      tc::ldmatrix_x4(a, qw + 16 * kk);
+#pragma unroll
+      for (int np = 0; np < kWideBK / 16; ++np) {
+        uint32_t b[4];
+        tc::ldmatrix_x4(b, st + k_lane + 16 * np * kChunkLd + 16 * kk);
+        tc::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
+        tc::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    if (kc == chunks - 1) {  // the tile's logits are whole
+      const int k0 = it * kWideBK;
+      if (k0 + kWideBK > m) {  // keys >= m get -inf
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int key = k0 + 8 * nt + 2 * t;
+          if (key >= m) s[nt][0] = s[nt][2] = -INFINITY;
+          if (key + 1 >= m) s[nt][1] = s[nt][3] = -INFINITY;
+        }
+      }
+      tile_softmax_pv<kWideCols, kWideBK>(
+          s, o, row_max, row_sum, vs + (it & 1) * kWideVElems + v_lane);
+    }
+  }
+
+  wide_epilogue(o, row_max, row_sum, out, lse, bi, n, c, q0 + 16 * warp,
+                col0);
+}
+
+template <bool kQRes>
+int launch_tc_chunked(const void* q, const void* k, const void* v, void* out,
+                      float* lse, int b, int n, int m, int d, int c,
+                      cudaStream_t stream) {
+  if ((d + kChunk - 1) / kChunk < chunked_stages(kQRes) - 1)
+    return (int)cudaErrorInvalidValue;  // the v buffers' reuse needs it
+  auto kernel = flash_attention_tc_chunked_kernel<kQRes>;
+  const size_t smem = chunked_smem_bytes(kQRes, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool qk_vec = d % 8 == 0 && aligned16(q) && aligned16(k);
+  const bool v_vec = c % 8 == 0 && aligned16(v);
+  const dim3 grid((n + kWideRows - 1) / kWideRows, b,
+                  (c + kWideCols - 1) / kWideCols);
+  kernel<<<grid, kWideThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, n, m, d,
+      c, qk_vec, v_vec);
+  return (int)cudaGetLastError();
+}
+
+// q resident where it fits a block's shared memory beside the ring
+constexpr size_t kBlockSmem = 232448;
+
+int dispatch_tc_chunked(const void* q, const void* k, const void* v,
+                        void* out, float* lse, int b, int n, int m, int d,
+                        int c, cudaStream_t s) {
+  if (chunked_smem_bytes(true, d) <= kBlockSmem)
+    return launch_tc_chunked<true>(q, k, v, out, lse, b, n, m, d, c, s);
+  return launch_tc_chunked<false>(q, k, v, out, lse, b, n, m, d, c, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel);
-// D or C above 128 (at most 512) take the wide kernels.
+// D or C above 128 take the wide kernels, in bfloat16 the chunked kernel
+// where D is above 512.
 // q (b, n, d), k (b, m, d), v (b, m, c) and out (b, n, c) are contiguous.
 // lse: null, or a float32 (b, n) buffer that receives each row's
 // log-sum-exp of its logits, max + log(sum of exp(logit - max)), for the
@@ -961,12 +1140,13 @@ extern "C" {
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, float* lse, int b, int n,
                            int m, int d, int c, void* stream) {
-  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 512 ||
-      c <= 0 || c > 512)
+  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || c <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 128 || c > 128) {
     if (dtype == 0) return launch_wide_f32(q, k, v, out, lse, b, n, m, d, c, s);
+    if (dtype == 1 && d > 512)
+      return dispatch_tc_chunked(q, k, v, out, lse, b, n, m, d, c, s);
     if (dtype == 1)
       return dispatch_tc_wide(q, k, v, out, lse, b, n, m, d, c, s);
     return (int)cudaErrorInvalidValue;

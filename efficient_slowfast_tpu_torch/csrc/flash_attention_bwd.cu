@@ -674,8 +674,8 @@ int dispatch_f32(const void* a1, const void* a2, const void* b1,
 }
 
 // ---------------------------------------------------------------------------
-// D or C above 128, up to 512 (non-local blocks: 256 in s3, 512 in s4):
-// the wide kernels. The one-pass kernel keeps dK and dV (Bc x WP float32
+// D or C above 128 (non-local blocks: 256 in s3, 512 in s4, 1024 in
+// res5): the wide kernels. The one-pass kernel keeps dK and dV (Bc x WP float32
 // each) in a consumer warpgroup's registers, 256 a thread at WP = 256, and
 // k, v, q and dO (64 rows each) would not fit shared memory at 512. So the
 // wide path splits the work as the float32 path does, into a key-rows
@@ -685,8 +685,9 @@ int dispatch_f32(const void* a1, const void* a2, const void* b1,
 // the whole of D and C for its slice: S and dP are computed once per
 // slice in each launch, so at D = C = W (S = W / 128 slices) a call does
 // (8 S + 6) N M W operations where the bound counts the five products
-// once, 10 N M W: 2.2x at W = 256, 3.8x at 512. No atomics: dQ, dK and dV
-// are all deterministic here.
+// once, 10 N M W: 2.2x at W = 256, 3.8x at 512, 7.0x at 1024 (the
+// chunked kernel above 512, whose query rows take slices of D only). No
+// atomics: dQ, dK and dV are all deterministic here.
 // Three launches per call, as the narrow widths: the statistics, key rows,
 // query rows.
 
@@ -708,7 +709,8 @@ __global__ void attention_bwd_stats_kernel(const bf16* __restrict__ out,
   stats[r] = make_float2(lse[r] * kLog2e, s);
 }
 
-// bf16 (b), (c): the rows kernel on the tensor cores (mma.sync m16n8k16,
+// bf16 (b), (c) up to W = max(D, C) = 512: the rows kernel on the tensor
+// cores (mma.sync m16n8k16,
 // the forward's fragment plumbing), 4 warps of 16 rows. KEY_ROWS: the rows
 // are keys, a1 = k and a2 = v stay in shared memory, and the columns
 // streamed past them in tiles of kBN are queries, b1 = q and b2 = dO, with
@@ -735,6 +737,61 @@ __host__ __device__ inline int rows_smem_bytes(int wp) {
   const int bn = rows_tile(wp), ld = wp + kRowsPad;
   return 2 * (2 * kRowsR * ld + kRowsStages * 2 * bn * ld) +
          8 * kRowsStages * bn;
+}
+
+// A tile's gradient step for 16 rows a warp: X and Y (16 x kBN columns,
+// fragment layout) become P = ex2(X log2 e - lse log2 e) and dS = P (Y -
+// Dl) in place (rows g, g + 8; columns 8 nt + 2 t, + 1; columns at or
+// past ``left`` get P = 0), then acc_d += dS b1 (with_d) and, for key rows,
+// acc_c += P b2 (with_c) over 128 output columns; two 8-column tiles of P
+// or dS are one k16 A fragment. b1, b2: the lane's ldmatrix.trans rows of
+// the tile's b1 and b2 at the output slice, kLd elements a row. stt: the
+// columns' statistics (key rows); st_r: the rows' (query rows).
+template <bool KEY_ROWS, int kBN, int kLd, int kOut>
+__device__ __forceinline__ void tile_gradients(
+    float (&x)[kBN / 8][4], float (&y)[kBN / 8][4], const float2* stt,
+    const float2 (&st_r)[2], int left, const bf16* b1, const bf16* b2,
+    bool with_d, bool with_c, float (&acc_d)[kWideCols / 8][4],
+    float (&acc_c)[kOut][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < kBN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * nt + 2 * t + (e & 1);
+      const float2 st = KEY_ROWS ? stt[col] : st_r[e >> 1];
+      float p = tc::ex2(fmaf(x[nt][e], kLog2e, -st.x));
+      if (col >= left) p = 0.f;
+      x[nt][e] = p;
+      y[nt][e] = p * (y[nt][e] - st.y);
+    }
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint32_t da[4] = {tc::pack_bf16x2(y[2 * kk][0], y[2 * kk][1]),
+                            tc::pack_bf16x2(y[2 * kk][2], y[2 * kk][3]),
+                            tc::pack_bf16x2(y[2 * kk + 1][0], y[2 * kk + 1][1]),
+                            tc::pack_bf16x2(y[2 * kk + 1][2], y[2 * kk + 1][3])};
+    const uint32_t pa[4] = {tc::pack_bf16x2(x[2 * kk][0], x[2 * kk][1]),
+                            tc::pack_bf16x2(x[2 * kk][2], x[2 * kk][3]),
+                            tc::pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                            tc::pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < kWideCols / 16; ++np) {
+      uint32_t bb[4];
+      if (with_d) {
+        tc::ldmatrix_x4_trans(bb, b1 + 16 * kk * kLd + 16 * np);
+        tc::mma_bf16_16816(acc_d[2 * np], da, bb[0], bb[1]);
+        tc::mma_bf16_16816(acc_d[2 * np + 1], da, bb[2], bb[3]);
+      }
+      if constexpr (KEY_ROWS) {
+        if (with_c) {
+          tc::ldmatrix_x4_trans(bb, b2 + 16 * kk * kLd + 16 * np);
+          tc::mma_bf16_16816(acc_c[2 * np], pa, bb[0], bb[1]);
+          tc::mma_bf16_16816(acc_c[2 * np + 1], pa, bb[2], bb[3]);
+        }
+      }
+    }
+  }
 }
 
 template <int WP, bool KEY_ROWS>
@@ -848,47 +905,10 @@ attention_bwd_rows_kernel(const bf16* __restrict__ a1,
       }
     }
 
-    // P and dS in place (rows g, g + 8; columns 8 nt + 2 t, + 1); columns
-    // past the end get P = 0
-    const int c0 = it * kBN;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * nt + 2 * t + (e & 1);
-        const float2 st = KEY_ROWS ? stt[col] : st_r[e >> 1];
-        float p = tc::ex2(fmaf(x[nt][e], kLog2e, -st.x));
-        if (c0 + col >= cols) p = 0.f;
-        x[nt][e] = p;
-        y[nt][e] = p * (y[nt][e] - st.y);
-      }
-    // out_d += dS b1[:, slice] (and out_c += P b2[:, slice]): two 8-column
-    // tiles of P or dS are one k16 A fragment
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint32_t da[4] = {tc::pack_bf16x2(y[2 * kk][0], y[2 * kk][1]),
-                              tc::pack_bf16x2(y[2 * kk][2], y[2 * kk][3]),
-                              tc::pack_bf16x2(y[2 * kk + 1][0], y[2 * kk + 1][1]),
-                              tc::pack_bf16x2(y[2 * kk + 1][2], y[2 * kk + 1][3])};
-      const uint32_t pa[4] = {tc::pack_bf16x2(x[2 * kk][0], x[2 * kk][1]),
-                              tc::pack_bf16x2(x[2 * kk][2], x[2 * kk][3]),
-                              tc::pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                              tc::pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < kWideCols / 16; ++np) {
-        uint32_t bb[4];
-        tc::ldmatrix_x4_trans(bb, b1t + bt_lane + 16 * kk * kLd + col0 +
-                                      16 * np);
-        tc::mma_bf16_16816(acc_d[2 * np], da, bb[0], bb[1]);
-        tc::mma_bf16_16816(acc_d[2 * np + 1], da, bb[2], bb[3]);
-        if constexpr (KEY_ROWS) {
-          tc::ldmatrix_x4_trans(bb, b2t + bt_lane + 16 * kk * kLd + col0 +
-                                        16 * np);
-          tc::mma_bf16_16816(acc_c[2 * np], pa, bb[0], bb[1]);
-          tc::mma_bf16_16816(acc_c[2 * np + 1], pa, bb[2], bb[3]);
-        }
-      }
-    }
+    // P, dS, then out_d += dS b1[:, slice] (and out_c += P b2[:, slice])
+    tile_gradients<KEY_ROWS, kBN, kLd, kOut>(
+        x, y, stt, st_r, cols - it * kBN, b1t + bt_lane + col0,
+        b2t + bt_lane + col0, true, true, acc_d, acc_c);
     __syncthreads();  // stage buf is read: tile it + 2 goes into it
   }
 
@@ -950,14 +970,244 @@ int launch_wide_bf16(const void* q, const void* k, const void* v,
                                 d, c, s);
 }
 
+// bf16 (b), (c) above W = 512: the chunked rows kernel. a1 and a2 (64 x W
+// each) would take 264 KB of shared memory at W = 1024, so nothing stays
+// resident: per column tile of kChunkBN = 32, X = a1 b1^T accumulates over
+// D and Y = a2 b2^T over C in chunks of 128 columns into the same 16 x 32
+// fragments a warp (mma.sync, as the rows kernel), each chunk of a (64
+// rows) and of b (32 columns) arriving by cp.async through a three-stage
+// ring; the flat sequence of (tile, chunk) loads runs two ahead of the
+// products, one __syncthreads a chunk. The tile's slice of b1 (and of b2,
+// key rows) for the block's 128 output columns, and its statistics, come
+// with its first chunk into one of two buffers. P, dS and the output
+// products are the rows kernel's. The a rows stream from L2 once a tile.
+// 113.7 KB of shared memory: two blocks an SM.
+constexpr int kChunkCols = 128;
+constexpr int kChunkLd = kChunkCols + kRowsPad;
+constexpr int kChunkBN = 32;
+constexpr int kChunkStages = 3;
+constexpr int kChunkAElems = kRowsR * kChunkLd;
+constexpr int kChunkStageElems = (kRowsR + kChunkBN) * kChunkLd;
+constexpr int kChunkSliceElems = kChunkBN * kChunkLd;
+
+// Shared memory: kChunkStages stages (a chunk, b chunk), two buffers of a
+// tile's b1 and b2 slices, then two of its statistics (kChunkBN float2).
+__host__ __device__ constexpr int chunked_rows_smem_bytes() {
+  return 2 * (kChunkStages * kChunkStageElems + 2 * 2 * kChunkSliceElems) +
+         8 * 2 * kChunkBN;
+}
+
+// acc (16 rows x kChunkBN columns a warp) += a chunk times b chunk^T over
+// its 128 columns; a, b: the lane's ldmatrix rows.
+__device__ __forceinline__ void chunk_product(float (&acc)[kChunkBN / 8][4],
+                                              const bf16* a, const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < kChunkCols / 16; ++kk) {
+    uint32_t af[4];
+    tc::ldmatrix_x4(af, a + 16 * kk);
+#pragma unroll
+    for (int np = 0; np < kChunkBN / 16; ++np) {
+      uint32_t bb[4];
+      tc::ldmatrix_x4(bb, b + 16 * np * kChunkLd + 16 * kk);
+      tc::mma_bf16_16816(acc[2 * np], af, bb[0], bb[1]);
+      tc::mma_bf16_16816(acc[2 * np + 1], af, bb[2], bb[3]);
+    }
+  }
+}
+
+template <bool KEY_ROWS>
+__global__ void __launch_bounds__(kRowsThreads)
+attention_bwd_chunked_kernel(const bf16* __restrict__ a1,
+                             const bf16* __restrict__ a2,
+                             const bf16* __restrict__ b1,
+                             const bf16* __restrict__ b2,
+                             const float2* __restrict__ stats,
+                             bf16* __restrict__ out_d,
+                             bf16* __restrict__ out_c, int rows, int cols,
+                             int d, int c) {
+  constexpr int kNT = kChunkBN / 8;
+  constexpr int kOut = KEY_ROWS ? kWideCols / 8 : 1;
+  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
+  bf16* ring = reinterpret_cast<bf16*>(smem4);  // [stages][a, b chunk]
+  bf16* slices = ring + kChunkStages * kChunkStageElems;  // [2][b1, b2]
+  float2* st_s = reinterpret_cast<float2*>(slices + 4 * kChunkSliceElems);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int a_lane = (16 * warp + lr + 8 * l8) * kChunkLd + 8 * l16;  // A
+  const int b_lane = (lr + 8 * l16) * kChunkLd + 8 * l8;  // B of X = a b^T
+  const int bt_lane = (lr + 8 * l8) * kChunkLd + 8 * l16;  // B, .trans
+  const int r0 = blockIdx.x * kRowsR, col0 = blockIdx.z * kWideCols;
+  const size_t bi = blockIdx.y;
+  const size_t queries = KEY_ROWS ? cols : rows;
+  a1 += bi * rows * d;
+  a2 += bi * rows * c;
+  b1 += bi * cols * d;
+  b2 += bi * cols * c;
+  stats += bi * queries;
+  // output columns of this block's slice: of out_d (D wide), and of out_c
+  // (C wide, key rows); a slice past either has no work there
+  const bool d_slice = col0 < d, c_slice = KEY_ROWS && col0 < c;
+  const int nd = (d + kChunkCols - 1) / kChunkCols;
+  const int per = nd + (c + kChunkCols - 1) / kChunkCols;  // chunks a tile
+  const int tiles = (cols + kChunkBN - 1) / kChunkBN, total = tiles * per;
+
+  // load l: chunk l % per of tile l / per (a1, b1 over D, then a2, b2 over
+  // C) into stage l % kChunkStages, and with a tile's first chunk its
+  // slices and statistics into buffer tile % 2 (refilled by tile + 2's
+  // first load, kChunkStages - 1 <= per loads after this tile's last
+  // product). Every call commits a group.
+  auto issue = [&](int l) {
+    if (l < total) {
+      const int it = l / per, kc = l - it * per;
+      const bool on_d = kc < nd;
+      const int w = on_d ? d : c, cc = (on_d ? kc : kc - nd) * kChunkCols;
+      bf16* st = ring + l % kChunkStages * kChunkStageElems;
+      tc::load_cols<kChunkCols, kRowsR, kRowsThreads>(
+          st, kChunkLd, on_d ? a1 : a2, r0, rows, w, cc, true);
+      tc::load_cols<kChunkCols, kChunkBN, kRowsThreads>(
+          st + kChunkAElems, kChunkLd, on_d ? b1 : b2, it * kChunkBN, cols,
+          w, cc, true);
+      if (kc == 0) {
+        bf16* sl = slices + (it & 1) * 2 * kChunkSliceElems;
+        if (d_slice)
+          tc::load_cols<kWideCols, kChunkBN, kRowsThreads>(
+              sl, kChunkLd, b1, it * kChunkBN, cols, d, col0, true);
+        if (c_slice)
+          tc::load_cols<kWideCols, kChunkBN, kRowsThreads>(
+              sl + kChunkSliceElems, kChunkLd, b2, it * kChunkBN, cols, c,
+              col0, true);
+        if (KEY_ROWS && threadIdx.x < kChunkBN) {
+          const int j = it * kChunkBN + threadIdx.x;
+          st_s[(it & 1) * kChunkBN + threadIdx.x] =
+              j < cols ? stats[j] : make_float2(0.f, 0.f);
+        }
+      }
+    }
+    tc::cp_async_commit();
+  };
+  for (int l = 0; l < kChunkStages - 1; ++l) issue(l);
+
+  float2 st_r[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+  if (!KEY_ROWS) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 16 * warp + g + 8 * h;
+      if (row < rows) st_r[h] = stats[row];
+    }
+  }
+  float acc_d[kWideCols / 8][4], acc_c[kOut][4];
+#pragma unroll
+  for (int j = 0; j < kWideCols / 8; ++j)
+    acc_d[j][0] = acc_d[j][1] = acc_d[j][2] = acc_d[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kOut; ++j)
+    acc_c[j][0] = acc_c[j][1] = acc_c[j][2] = acc_c[j][3] = 0.f;
+
+  float x[kNT][4], y[kNT][4];
+  for (int l = 0; l < total; ++l) {
+    tc::cp_async_wait<kChunkStages - 2>();  // load l landed (this thread)
+    __syncthreads();  // ... for every thread, all past load l - 1's stage
+    issue(l + kChunkStages - 1);
+    const int it = l / per, kc = l - it * per;
+    if (kc == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[nt][e] = y[nt][e] = 0.f;
+    }
+    const bf16* at = ring + l % kChunkStages * kChunkStageElems;
+    if (kc < nd)
+      chunk_product(x, at + a_lane, at + kChunkAElems + b_lane);
+    else
+      chunk_product(y, at + a_lane, at + kChunkAElems + b_lane);
+    if (kc != per - 1) continue;
+
+    // the tile's X and Y are whole: P, dS and the output products
+    const bf16* sl = slices + (it & 1) * 2 * kChunkSliceElems + bt_lane;
+    tile_gradients<KEY_ROWS, kChunkBN, kChunkLd, kOut>(
+        x, y, st_s + (it & 1) * kChunkBN, st_r, cols - it * kChunkBN, sl,
+        sl + kChunkSliceElems, d_slice, c_slice, acc_d, acc_c);
+  }
+  tc::cp_async_wait<0>();  // no copy in flight when the block exits
+
+  // rows g, g + 8 of the warp; columns col0 + 8 j + 2 t, + 1 (d and c are
+  // multiples of 8, so a pair is whole)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * warp + g + 8 * h;
+    if (row >= rows) continue;
+    __nv_bfloat162* od = reinterpret_cast<__nv_bfloat162*>(
+        out_d + ((size_t)bi * rows + row) * d);
+    __nv_bfloat162* oc = reinterpret_cast<__nv_bfloat162*>(
+        (KEY_ROWS ? out_c : out_d) + ((size_t)bi * rows + row) * c);
+#pragma unroll
+    for (int j = 0; j < kWideCols / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      if (col < d)
+        od[col / 2] = __floats2bfloat162_rn(acc_d[j][2 * h],
+                                            acc_d[j][2 * h + 1]);
+      if constexpr (KEY_ROWS)
+        if (col < c)
+          oc[col / 2] = __floats2bfloat162_rn(acc_c[j][2 * h],
+                                              acc_c[j][2 * h + 1]);
+    }
+  }
+}
+
+template <bool KEY_ROWS>
+int launch_chunked(const void* a1, const void* a2, const void* b1,
+                   const void* b2, const float2* stats, void* out_d,
+                   void* out_c, int b, int rows, int cols, int d, int c,
+                   cudaStream_t s) {
+  auto kernel = attention_bwd_chunked_kernel<KEY_ROWS>;
+  constexpr int smem = chunked_rows_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // key rows: slices of dK's D and dV's C columns; query rows: of dQ's D
+  const int slices = KEY_ROWS ? wide_slices(d, c) : wide_slices(d, d);
+  const dim3 grid((rows + kRowsR - 1) / kRowsR, b, slices);
+  kernel<<<grid, kRowsThreads, smem, s>>>(
+      static_cast<const bf16*>(a1), static_cast<const bf16*>(a2),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(b2), stats,
+      static_cast<bf16*>(out_d), static_cast<bf16*>(out_c), rows, cols, d,
+      c);
+  return (int)cudaGetLastError();
+}
+
 // float32 (b), (c): the scalar kernel's rows and tiles of 32 columns with
 // an output slice of 128 columns per block (32 accumulators a thread for
-// each output), the b1 and b2 tiles in shared memory at the sliced width
-// wp (a multiple of 128, zero past D and C; rows of wp + 1 floats), and a
-// thread's own row of a1 and a2 read from global memory (through L1).
+// each output), the b1 and b2 tiles in shared memory in chunks of cw =
+// min(wp, kF32Chunk) columns (wp: the sliced width, a multiple of 128; zero
+// past D and C; rows of cw + 1 floats), and a thread's own row of a1 and
+// a2 read from global memory (through L1). Up to wp = 512 a chunk is the
+// whole width. Above, X and Y add up chunk by chunk, and the chunk that
+// holds the block's slice comes last, so that it is in shared memory for
+// the output products.
+constexpr int kF32Chunk = 512;
+
+__host__ __device__ inline int f32_chunk(int wp) {
+  return wp < kF32Chunk ? wp : kF32Chunk;
+}
+
 __host__ __device__ inline size_t f32_wide_smem_floats(int wp) {
-  return (size_t)2 * kF32Cols * (wp + 1) + (size_t)2 * kF32Rows * kF32LdP +
-         2 * kF32Cols;
+  return (size_t)2 * kF32Cols * (f32_chunk(wp) + 1) +
+         (size_t)2 * kF32Rows * kF32LdP + 2 * kF32Cols;
+}
+
+// Columns col0 .. col0 + cw - 1 of rows r0 .. r0 + kF32Cols - 1 of a
+// (count x w) matrix into shared rows of ld floats, zero past w and count.
+__device__ __forceinline__ void load_f32_cols(float* dst, const float* src,
+                                              int r0, int count, int w,
+                                              int col0, int cw, int ld) {
+  for (int i = threadIdx.x; i < kF32Cols * cw; i += kF32Threads) {
+    const int r = i / cw, j = i - r * cw;
+    dst[r * ld + j] = r0 + r < count && col0 + j < w
+                          ? src[(size_t)(r0 + r) * w + col0 + j]
+                          : 0.f;
+  }
 }
 
 template <bool KEY_ROWS>
@@ -972,7 +1222,7 @@ attention_bwd_scalar_wide_kernel(const float* __restrict__ a1,
                                  float* __restrict__ out_c, int rows,
                                  int cols, int d, int c, int wp) {
   constexpr int kU = kF32Cols / 4, kV = kWideCols / 4;
-  const int ld = wp + 1;
+  const int cw = f32_chunk(wp), ld = cw + 1;
   extern __shared__ float4 smem4[];
   float* b1s = reinterpret_cast<float*>(smem4);  // [kF32Cols][ld]
   float* b2s = b1s + kF32Cols * ld;              // [kF32Cols][ld]
@@ -1001,31 +1251,43 @@ attention_bwd_scalar_wide_kernel(const float* __restrict__ a1,
     if constexpr (KEY_ROWS) acc_c[v] = 0.f;
   }
 
+  // chunks of D and of C; the ones that hold col0 come last
+  const int nd = (d + cw - 1) / cw, nc = (c + cw - 1) / cw;
+  const int last_d = col0 / cw < nd ? col0 / cw : nd - 1;
+  const int last_c = col0 / cw < nc ? col0 / cw : nc - 1;
   for (int c0 = 0; c0 < cols; c0 += kF32Cols) {
-    __syncthreads();  // the last tile is no longer read
-    load_f32(b1s, b1, c0, kF32Cols, cols, d, wp, ld);
-    load_f32(b2s, b2, c0, kF32Cols, cols, c, wp, ld);
-    if (KEY_ROWS && tid < kF32Cols) {
-      lse_s[tid] = c0 + tid < cols ? lse[c0 + tid] * kLog2e : INFINITY;
-      dl_s[tid] = c0 + tid < cols ? delta[c0 + tid] : 0.f;
-    }
-    __syncthreads();
     // X and Y of row r at columns part + 4 u, over all of D and C
     float x[kU], y[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) x[u] = y[u] = 0.f;
-    if (live) {
-      for (int e = 0; e < d; ++e) {
-        const float av = a1r[e];
-#pragma unroll
-        for (int u = 0; u < kU; ++u)
-          x[u] = fmaf(av, b1s[(part + 4 * u) * ld + e], x[u]);
+    for (int i = 0; i < nd + nc; ++i) {
+      const bool on_d = i < nd;
+      const int ch = on_d ? (last_d + 1 + i) % nd : (last_c + 1 + i - nd) % nc;
+      const int w = on_d ? d : c, e0 = ch * cw;
+      const int we = w - e0 < cw ? w - e0 : cw;
+      float* bs = on_d ? b1s : b2s;
+      __syncthreads();  // the last tile or chunk is no longer read
+      load_f32_cols(bs, on_d ? b1 : b2, c0, cols, w, e0, cw, ld);
+      if (i == 0 && KEY_ROWS && tid < kF32Cols) {
+        lse_s[tid] = c0 + tid < cols ? lse[c0 + tid] * kLog2e : INFINITY;
+        dl_s[tid] = c0 + tid < cols ? delta[c0 + tid] : 0.f;
       }
-      for (int e = 0; e < c; ++e) {
-        const float av = a2r[e];
+      __syncthreads();
+      if (!live) continue;
+      if (on_d) {
+        for (int e = 0; e < we; ++e) {
+          const float av = a1r[e0 + e];
 #pragma unroll
-        for (int u = 0; u < kU; ++u)
-          y[u] = fmaf(av, b2s[(part + 4 * u) * ld + e], y[u]);
+          for (int u = 0; u < kU; ++u)
+            x[u] = fmaf(av, bs[(part + 4 * u) * ld + e], x[u]);
+        }
+      } else {
+        for (int e = 0; e < we; ++e) {
+          const float av = a2r[e0 + e];
+#pragma unroll
+          for (int u = 0; u < kU; ++u)
+            y[u] = fmaf(av, bs[(part + 4 * u) * ld + e], y[u]);
+        }
       }
     }
 #pragma unroll
@@ -1038,16 +1300,23 @@ attention_bwd_scalar_wide_kernel(const float* __restrict__ a1,
       dss[r * kF32LdP + j] = p * (y[u] - dl);
     }
     __syncwarp();  // the four threads of row r share a warp
+    // the slice's columns, in the chunks loaded last
     for (int j = 0; j < kF32Cols; ++j) {
-      const float ds = dss[r * kF32LdP + j];
-      const float* b1r = b1s + j * ld + col0 + part;
+      if (col0 < d) {
+        const float ds = dss[r * kF32LdP + j];
+        const float* b1r = b1s + j * ld + col0 - last_d * cw + part;
 #pragma unroll
-      for (int v = 0; v < kV; ++v) acc_d[v] = fmaf(ds, b1r[4 * v], acc_d[v]);
+        for (int v = 0; v < kV; ++v)
+          acc_d[v] = fmaf(ds, b1r[4 * v], acc_d[v]);
+      }
       if constexpr (KEY_ROWS) {
-        const float p = ps[r * kF32LdP + j];
-        const float* b2r = b2s + j * ld + col0 + part;
+        if (col0 < c) {
+          const float p = ps[r * kF32LdP + j];
+          const float* b2r = b2s + j * ld + col0 - last_c * cw + part;
 #pragma unroll
-        for (int v = 0; v < kV; ++v) acc_c[v] = fmaf(p, b2r[4 * v], acc_c[v]);
+          for (int v = 0; v < kV; ++v)
+            acc_c[v] = fmaf(p, b2r[4 * v], acc_c[v]);
+        }
       }
     }
   }
@@ -1068,7 +1337,10 @@ int launch_f32_wide(const void* a1, const void* a2, const void* b1,
                     void* out_d, void* out_c, int b, int rows, int cols,
                     int d, int c, cudaStream_t s) {
   auto kernel = attention_bwd_scalar_wide_kernel<KEY_ROWS>;
-  const int slices = wide_slices(d, c), wp = slices * kWideCols;
+  // wp: the sliced width of b1 and b2 (both D and C); the query rows'
+  // output, dQ, has slices of D only
+  const int wp = wide_slices(d, c) * kWideCols;
+  const int slices = KEY_ROWS ? wide_slices(d, c) : wide_slices(d, d);
   const size_t smem = f32_wide_smem_floats(wp) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1102,13 +1374,18 @@ long long flash_attention_backward_workspace(int dtype, int b, int n, int d,
 // WP, blocks resident on an SM, output column slices}. Above 128 (the wide
 // path) it is the key-rows launch's: 64 keys a block, kBN queries a tile,
 // and a block per 128-column slice; the query-rows launch has the same
-// tile, shared memory and slices with the roles swapped.
+// tile and shared memory with the roles swapped, and slices of D only.
+// Above 512 (the chunked kernel) WP is the width padded to its 128-column
+// chunks, and stages its ring's.
 void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
   split[7] = 1;
   if (d > 128 || c > 128) {
-    const int wp = (d > c ? d : c) <= 256 ? 256 : 512;
-    const int slices = wide_slices(d, c), smem = rows_smem_bytes(wp);
-    const int v[8] = {kRowsR, rows_tile(wp), kRowsStages,
+    const int w = d > c ? d : c, slices = wide_slices(d, c);
+    const bool chunked = w > 512;
+    const int wp = chunked ? slices * kWideCols : w <= 256 ? 256 : 512;
+    const int smem = chunked ? chunked_rows_smem_bytes() : rows_smem_bytes(wp);
+    const int v[8] = {kRowsR, chunked ? kChunkBN : rows_tile(wp),
+                      chunked ? kChunkStages : kRowsStages,
                       (m + kRowsR - 1) / kRowsR * b * slices, smem, wp,
                       kSmemSm / (smem + 1024), slices};
     for (int i = 0; i < 8; ++i) split[i] = v[i];
@@ -1123,7 +1400,7 @@ void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
 }
 
 // dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (the one-pass wgmma
-// kernel; D or C above 128, at most 512, the wide kernels). q (b, n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c),
+// kernel; D or C above 128 the wide kernels, above 512 the chunked ones). q (b, n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c),
 // and dq, dk, dv (the shapes of q, k, v) are contiguous in dtype; lse (b, n)
 // holds the forward's float32 log-sum-exp; workspace holds
 // flash_attention_backward_workspace bytes. In bfloat16, d and c must be
@@ -1136,8 +1413,8 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
                                     void* dq, void* dk, void* dv,
                                     void* workspace, int b, int n, int m,
                                     int d, int c, void* stream) {
-  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || d > 512 ||
-      c <= 0 || c > 512 || (dtype != 0 && dtype != 1))
+  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || d <= 0 || c <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = d > 128 || c > 128;
@@ -1174,10 +1451,17 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
         stats, rows, c);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
-    if ((d > c ? d : c) <= 256)
+    const int w = d > c ? d : c;
+    if (w <= 256)
       return launch_wide_bf16<256>(q, k, v, dout, stats, dq, dk, dv, b, n,
                                    m, d, c, s);
-    return launch_wide_bf16<512>(q, k, v, dout, stats, dq, dk, dv, b, n, m,
+    if (w <= 512)
+      return launch_wide_bf16<512>(q, k, v, dout, stats, dq, dk, dv, b, n,
+                                   m, d, c, s);
+    const int e = launch_chunked<true>(k, v, q, dout, stats, dk, dv, b, m, n,
+                                       d, c, s);
+    if (e != 0) return e;
+    return launch_chunked<false>(q, dout, k, v, stats, dq, nullptr, b, n, m,
                                  d, c, s);
   }
   const int wp = padded_width(d > c ? d : c);

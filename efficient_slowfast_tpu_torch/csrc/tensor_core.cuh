@@ -2,7 +2,8 @@
 // later (Hopper included): ldmatrix, mma.sync m16n8k16 with f32
 // accumulation, cp.async with zero fill, ex2.approx and packed bf16
 // conversion, each a thin wrapper over one PTX instruction; and a
-// block-wide loader of a tile of matrix rows into padded shared memory.
+// block-wide loader of a window of matrix rows and columns into padded
+// shared memory.
 //
 // Fragment layouts of mma.sync.m16n8k16 with bf16 inputs (PTX ISA, "Matrix
 // Fragments for mma.m16n8k16"), for lane = 4 g + t:
@@ -97,38 +98,50 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // of an ldmatrix phase then fall on 8 different bank groups.
 constexpr int kSmemPad = 8;
 
-// Rows r0 .. r0 + kRowsT - 1 of a (count x w) bf16 matrix into shared rows
-// of WP + kSmemPad elements, zero-padded to WP columns and past count, by
-// the kThreads threads of the block. vec: w is a multiple of 8 and src is
-// 16-byte aligned, so each row goes as WP / 8 16-byte cp.async chunks
-// (zero-filled where they fall outside the matrix), a fixed number per
-// thread; else element by element.
-template <int WP, int kRowsT, int kThreads>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+// Rows r0 .. r0 + kRowsT - 1 and columns col0 .. col0 + kCols - 1 of a
+// (count x w) bf16 matrix into shared rows `ld` elements apart, zero past w
+// and past count, by the kThreads threads of the block. vec: w is a
+// multiple of 8 and src is 16-byte aligned, so each row goes as kCols / 8
+// 16-byte cp.async chunks (zero-filled where they fall outside the matrix),
+// a fixed number per thread; else element by element.
+template <int kCols, int kRowsT, int kThreads>
+__device__ __forceinline__ void load_cols(__nv_bfloat16* dst, int ld,
                                           const __nv_bfloat16* src, int r0,
-                                          int count, int w, bool vec) {
-  constexpr int kLd = WP + kSmemPad;
-  const __nv_bfloat16* base = src + (size_t)r0 * w;
+                                          int count, int w, int col0,
+                                          bool vec) {
+  const __nv_bfloat16* base = src + (size_t)r0 * w + col0;
   const int left = count - r0;  // rows of the matrix from r0 on
+  const int wl = w - col0;      // columns of the matrix from col0 on
   if (vec) {
-    constexpr int kChunks = WP / 8, kTotal = kRowsT * kChunks;
+    constexpr int kChunks = kCols / 8, kTotal = kRowsT * kChunks;
 #pragma unroll
     for (int u = 0; u < (kTotal + kThreads - 1) / kThreads; ++u) {
       const int i = threadIdx.x + u * kThreads;
       if (kTotal % kThreads == 0 || i < kTotal) {
         const int r = i / kChunks, j = i % kChunks * 8;
-        const bool in = r < left && j < w;
-        cp_async_16(dst + r * kLd + j, in ? base + r * w + j : src,
+        const bool in = r < left && j < wl;
+        cp_async_16(dst + r * ld + j, in ? base + r * w + j : src,
                     in ? 16 : 0);
       }
     }
   } else {
-    for (int i = threadIdx.x; i < kRowsT * WP; i += kThreads) {
-      const int r = i / WP, j = i % WP;
-      dst[r * kLd + j] = r < left && j < w ? base[r * w + j]
+    for (int i = threadIdx.x; i < kRowsT * kCols; i += kThreads) {
+      const int r = i / kCols, j = i % kCols;
+      dst[r * ld + j] = r < left && j < wl ? base[r * w + j]
                                            : __float2bfloat16_rn(0.f);
     }
   }
+}
+
+// Rows r0 .. r0 + kRowsT - 1 of a (count x w) bf16 matrix into shared rows
+// of WP + kSmemPad elements, zero-padded to WP columns and past count
+// (load_cols from column 0).
+template <int WP, int kRowsT, int kThreads>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int count, int w, bool vec) {
+  load_cols<WP, kRowsT, kThreads>(dst, WP + kSmemPad, src, r0, count, w, 0,
+                                  vec);
 }
 
 }  // namespace tc

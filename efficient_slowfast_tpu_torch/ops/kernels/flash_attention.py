@@ -40,14 +40,16 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   the output the forward returned (bf16 where the inputs are), as FA2 and
   SDPA do; autograd through ``chunked_attention`` takes it from the
   unrounded one.
-- Wide widths. D or C above 128 (non-local blocks: 256 in s3, 512 in s4)
-  run the wide kernels of the same two sources: each block owns a
-  128-column slice of the output and recomputes the logits over all of D,
-  so the forward does ceil(C / 128) times the q kᵀ work in its one launch;
-  the backward's three launches are the statistics, a key-rows kernel (dK,
-  dV) and a query-rows kernel (dQ), with no atomics (all three gradients
-  deterministic). Above 512 the wrappers raise, where the Pallas kernel
-  takes any width.
+- Wide widths. D or C above 128 (non-local blocks: 256 in s3, 512 in s4,
+  1024 in a res5) run the wide kernels of the same two sources: each block
+  owns a 128-column slice of the output and recomputes the logits over all
+  of D, so the forward does ceil(C / 128) times the q kᵀ work in its one
+  launch; the backward's three launches are the statistics, a key-rows
+  kernel (dK, dV) and a query-rows kernel (dQ), with no atomics (all three
+  gradients deterministic). Above 512 (D in the bf16 forward, D or C in the
+  bf16 backward) the chunked kernels accumulate the logits (and dO vᵀ) over
+  128-column chunks streamed through shared memory, so every width runs on
+  a kernel, as the Pallas kernel takes any width.
 
 ``plain_attention`` is the same Function over the plain versions, on any
 device: the explicit opt-out ``TPU.FLASH_ATTENTION False``.
@@ -75,8 +77,6 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
-# widest D and C the kernels take (above 128 the wide kernels run)
-MAX_DIM = 512
 # kernel launches of one flash_attention_backward call on CUDA
 BACKWARD_LAUNCHES_PER_CALL = 3
 
@@ -155,9 +155,6 @@ def _check(q, k, v):
                          f"v {tuple(v.shape)}")
     if any(size == 0 for size in (b, n, m, d, c)):
         raise ValueError("flash_attention: empty input")
-    if d > MAX_DIM or c > MAX_DIM:
-        raise ValueError(f"flash_attention: D = {d} and C = {c} must be at "
-                         f"most {MAX_DIM}")
     for t in (q, k, v):
         if t.dtype != q.dtype:
             raise TypeError("flash_attention: q, k and v must share a dtype")
@@ -329,7 +326,8 @@ def backward_split(b, n, m, d, c) -> dict:
     tile, ring stages, blocks, shared memory bytes, the padded width, the
     blocks resident on an SM and the output column slices (above 128, the
     wide path's key-rows launch: a block per 64 keys and 128-column
-    slice)."""
+    slice; above 512 the chunked kernel's, its width padded to whole
+    128-column chunks)."""
     split = (ctypes.c_int * 8)()
     _bwd_lib().flash_attention_backward_plan(
         b, m, -(-d // 8) * 8, -(-c // 8) * 8, split)
@@ -367,8 +365,8 @@ def _records(q, k, v) -> bool:
 
 
 def flash_attention(q, k, v):
-    """softmax(q kᵀ) v. q: (B, N, D), k: (B, M, D), v: (B, M, C), D and C
-    at most 512, float32 or bfloat16. Returns (B, N, C) in v's dtype.
+    """softmax(q kᵀ) v. q: (B, N, D), k: (B, M, D), v: (B, M, C), any D
+    and C, float32 or bfloat16. Returns (B, N, C) in v's dtype.
 
     On a CUDA tensor it launches the kernel; on a CPU tensor it runs
     ``chunked_attention``. Where autograd records (grad enabled and an

@@ -4,7 +4,7 @@ int8 ``test()``, the serving export, Grad-CAM and the demo, each on two
 gloo ranks (this file run as a script, ``rank_main``, with a deadline, as
 ``tests/test_torch_port_spatial_shard.py`` starts its ranks), held against
 the port's one process and, where named, against the JAX package on the
-suite's 8 virtual devices (one child, ``jax_main``). f32 on the CPU,
+suite's 8 virtual devices (two children, ``jax_main``). f32 on the CPU,
 SlowFast with R18-deep bottlenecks at width 16, 8 frames, a 32² crop.
 
 How int8 under the split is held. A float change of 1e-7 flips a
@@ -66,8 +66,8 @@ from efficient_slowfast_tpu_torch.parallel import (  # noqa: E402
     distributed, spatial)
 from efficient_slowfast_tpu_torch.visualization.gradcam import \
     GradCAM  # noqa: E402
-from test_torch_port_spatial_shard import (finish, free_port,  # noqa: E402
-                                           inputs, model_cfg, start)
+from test_torch_port_spatial_shard import (  # noqa: E402
+    JAX_CHILD_FLAGS, finish, free_port, inputs, model_cfg, start)
 
 WORLD = 2
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -315,14 +315,19 @@ def rank_main(rank, port, d):
 
 
 # -- JAX's references, in one child ------------------------------------------
-def jax_main(d):
-    """JAX's scores and CAMs on the suite's 8 virtual CPU devices, saved to
-    ``d/jax.pt``: the float and int8 forwards unsplit (int8 calibrated
-    unsplit, as JAX's test engine calibrates), INT8_EVAL on the S = 2
-    mesh, +INT8_SPATIAL at 128² unsplit and on the mesh, and Grad-CAM of
-    each target on mesh-constrained inputs."""
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
-                               "force_host_platform_device_count=8")
+# JAX's references in two children that run side by side: the forwards,
+# and Grad-CAM (each traces and compiles its own models)
+JAX_PARTS = ("serve", "cam")
+
+
+def jax_main(part, d):
+    """JAX's scores (``part`` "serve") or CAMs ("cam") on the suite's 8
+    virtual CPU devices, saved to ``d/jax_{part}.pt``: the float and int8
+    forwards unsplit (int8 calibrated unsplit, as JAX's test engine
+    calibrates), INT8_EVAL on the S = 2 mesh, +INT8_SPATIAL at 128²
+    unsplit and on the mesh; Grad-CAM of each target on mesh-constrained
+    inputs."""
+    os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + JAX_CHILD_FLAGS
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -368,6 +373,17 @@ def jax_main(d):
 
     out = {}
     try:
+        if part == "cam":
+            for which, target in CAMS:
+                cfg = cam_cfg(jax_get_cfg, which, s=2)
+                x = shard_batch(build_mesh(cfg),
+                                [jnp.asarray(a) for a in data["x1"]],
+                                spatial=True)
+                scores, cams = JaxGradCAM(jax_build_model(cfg),
+                                          tree(v[which]), target)(x)
+                out[f"cam_{which}_{target}"] = (np.asarray(scores),
+                                                [np.asarray(c) for c in cams])
+            return
         plain = {"params": tree(v["sf"]["params"]),
                  "batch_stats": tree(v["sf"]["batch_stats"])}
         out["float"] = serve(jcfg(), plain, data["x"])
@@ -380,18 +396,9 @@ def jax_main(d):
         var = calibrated(jcfg(True, crop=128), data["x128"])
         out["big"] = serve(jcfg(True, crop=128), var, data["x128"])
         out["big_mesh"] = serve(jcfg(True, s=2, crop=128), var, data["x128"])
-        for which, target in CAMS:
-            cfg = cam_cfg(jax_get_cfg, which, s=2)
-            x = shard_batch(build_mesh(cfg),
-                            [jnp.asarray(a) for a in data["x1"]],
-                            spatial=True)
-            scores, cams = JaxGradCAM(jax_build_model(cfg), tree(v[which]),
-                                      target)(x)
-            out[f"cam_{which}_{target}"] = (np.asarray(scores),
-                                            [np.asarray(c) for c in cams])
     finally:
         configure(jax_get_cfg())
-    torch.save(out, os.path.join(d, "jax.pt"))
+        torch.save(out, os.path.join(d, f"jax_{part}.pt"))
 
 
 # -- the fixture ---------------------------------------------------------------
@@ -433,11 +440,13 @@ def job(tmp_path_factory):
 
     t0 = time.time()
     port = free_port()
-    logs = [str(d / "jax.log")] + [str(d / f"rank{r}.log")
-                                   for r in range(WORLD)]
-    procs = [start([__file__, "jax", str(d)], open(logs[0], "w"))]
+    logs = ([str(d / f"jax_{part}.log") for part in JAX_PARTS]
+            + [str(d / f"rank{r}.log") for r in range(WORLD)])
+    procs = [start([__file__, "jax", part, str(d)], open(log, "w"))
+             for part, log in zip(JAX_PARTS, logs)]
     procs += [start([__file__, str(r), str(port), str(d)],
-                    open(logs[1 + r], "w")) for r in range(WORLD)]
+                    open(logs[len(JAX_PARTS) + r], "w"))
+              for r in range(WORLD)]
 
     ref = dict(data=data)
     ref["float"] = make_forward(one, model_of(one, sd), "cpu")(
@@ -463,7 +472,8 @@ def job(tmp_path_factory):
         ref[f"demo_{kind}"] = demo_run(demo_cfg(
             str(d / "demo1"), kind, ckpt=data[f"ckpt_{kind}"]))
     finish(procs, logs, t0)
-    ref["jax"] = torch.load(d / "jax.pt", weights_only=False)
+    ref["jax"] = {k: v for part in JAX_PARTS for k, v in torch.load(
+        d / f"jax_{part}.pt", weights_only=False).items()}
     ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
              for r in range(WORLD)]
     return ref, ranks, d
@@ -681,6 +691,6 @@ def test_entry_point_clis_under_the_split(tmp_path):
 
 if __name__ == "__main__":
     if sys.argv[1] == "jax":
-        jax_main(sys.argv[2])
+        jax_main(sys.argv[2], sys.argv[3])
     else:
         rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -213,6 +213,15 @@ def rank_main(job, rank, world, port, d):
 
 
 # -- the children ----------------------------------------------------------------
+# XLA flags of the JAX children: the suite's 8 virtual CPU devices, and
+# XLA's lowest backend optimisation: their references compile in three
+# quarters of the CPU time, and their float32 results differ from the
+# optimised build's only in rounding
+JAX_CHILD_FLAGS = (" --xla_force_host_platform_device_count=8"
+                   " --xla_backend_optimization_level=0"
+                   " --xla_llvm_disable_expensive_passes=true")
+
+
 def free_port():
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -321,8 +330,7 @@ def jax_main(part, d):
     forwards at S = 2 (``DATA_AXIS 1``) with the BN counts; the SlowFast
     step on the ``DATA_AXIS 2 x SPATIAL_SHARD 2`` mesh; CMDA's forward;
     CMDA's step at S = 2. Saved to ``d/{part}.pt``."""
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
-                               "force_host_platform_device_count=8")
+    os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + JAX_CHILD_FLAGS
     import jax
 
     jax.config.update("jax_platforms", "cpu")
