@@ -20,9 +20,15 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               instructions (HMMA, HGMMA) in the SASS of the three
               libraries' bf16 kernels, raising if any has none (K2-bwd's
               one-pass kernel must have HGMMA, wgmma, in each of its four
-              instantiations, one per padded width; the wide kernels of
-              D or C above 128 HMMA, 3 forward and 4 backward, and the
-              chunked ones above 512 HMMA, 2 forward and 2 backward), and the
+              instantiations, one per padded width; K2's cluster kernel of
+              D or C above 128 HGMMA in each of its six, and no spill,
+              K2's chunked kernel beyond the cluster kernel's plan HMMA
+              in each of 2; the
+              backward's wide kernels HMMA in each of 4 and its chunked
+              ones above 512 in each of 2), K2's cluster kernel launched
+              at each instantiation with forward_split's shared-memory
+              bytes held against the library's arithmetic and the
+              launched kernel's attribute, and the
               FP32-pipe and F2FP instructions per
               MUFU.EX2 in the main loop of the flash-attention bf16 kernels,
               forward and backward; K3's GEMM must run integer wgmma (IGMMA)
@@ -51,7 +57,9 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               1 and 4 clips and bf16 at its largest phase-10 batch (up to
               128 clips); at the request batch it also times the kernel, the plain version and
               scaled_dot_product_attention, beside the shape's bound, and
-              prints the kernel's ratio to each.
+              prints the kernel's ratio to each. Where D or C is above 128
+              (bf16: K2's cluster kernel) a second call must give the same
+              bits, and the timed shape prints forward_split's plan.
 4. serving  — SlowFast-R50 8x8 at full width (400 classes, 32 frames,
               256² test crop, bf16, TPU.FUSED_EVAL) on seeded random weights
               made in the JAX package's layout and carried across by the
@@ -415,27 +423,34 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               window at 2 ranks beside one process's, each rank's peak
               memory, and K3's kernels' device ms in a traced
               +INT8_SPATIAL request on slabs beside one process's.
-21. wide    — attention wider than 512, the chunked kernels
-              (phase_wide): (a) K2 and K2-bwd against their plain
+21. wide    — attention wider than 512 (phase_wide): K2's cluster
+              kernel (and its chunked one beyond the cluster kernel's
+              plan) and K2-bwd's chunked ones. (a) K2 and K2-bwd against
+              their plain
               versions in f32 and bf16 at 3b's and 3c's gates at the
               slice's shapes (WIDE_ROWS: D = C = 1024; N 4096 and M 1024,
               the path's 256 x 512 frames, and N 2048 and M 512, a 256²
               crop, at TEST.BATCH_SIZE; N 1568 and M 392 at
               TRAIN.BATCH_SIZE, K2-bwd there too) and WIDE_OFF_PATH (D 600 C
-              700; D 64 C 2048; D 2048 C 64), and a planted fault, the
+              700; D 64 C 2048; D 2048 C 64; K2's chunked kernel at D 3072
+              C 3072 and D 300 C 2100), and a planted fault, the
               last 128 columns of D left out of the logits, that must fail
               both gates; (b) configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml with
               WIDE_NONLOCAL (a softmax non-local block after block 1 of
               the slow res5, D = C = 1024) at full width and depth, its
               θ and φ calibrated: one val batch served (1 K2 launch, each
               call held, the logits against the TPU.FLASH_ATTENTION False
-              paths as phase 13 holds CMDA's, one f32 clip), one train
+              paths as phase 13 holds CMDA's, one f32 clip; the forward
+              timed with K2 and with the plain attention in
+              WIDE_TIME_ROUNDS alternating rounds and as the device
+              time of a traced forward each), one train
               step of TRAIN.BATCH_SIZE clips (1 K2 and 3 K2-bwd launches,
               each call held) and one clip's step in f32 and bf16 against
               the plain step at phase 13's tolerances
               (hold_one_clip_steps); (c) at the slice's
               shapes each kernel's time beside its bound, the operations
-              its per-slice recompute adds (wide_work), the plain
+              its recompute adds (wide_work: forward_split's for K2, the
+              128-column slices' for K2-bwd), the plain
               version's time and SDPA's (scale 1.0) with the backend that
               ran.
 
@@ -449,7 +464,7 @@ moved into phase 20, whose master writes it under the split (no width,
 shape, gate or kernel hold changed).
 After each phase block the smoke logs the seconds since its start.
 
-The profiler (phases 6, 7, 8, 11, 12, 13, 16) prints, per traced window, the
+The profiler (phases 6, 7, 8, 11, 12, 13, 16, 21) prints, per traced window, the
 device-busy share (the union of the CUDA kernels' intervals over the
 window's wall time) and the top five kernels by device time; the trace
 sits in build/smoke/profile_*/trace.json.
@@ -714,6 +729,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     reports = _build.build()
+    spills = []
     for name, out in reports.items():
         func = "?"
         for line in out.splitlines():
@@ -727,34 +743,52 @@ def phase_build():
                     for a in args) + ">"
             elif "registers" in line or "spill" in line or "error" in line:
                 log("build", f"{name}: {func}: {line.split(':', 1)[-1].strip()}")
+                stores = re.search(r"(\d+) bytes spill stores", line)
+                if "cluster_kernel" in func and stores and int(stores[1]):
+                    spills.append(f"{func}: {line.strip()}")
     log("build", f"built {sorted(reports) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if spills:  # the cluster kernel's accumulators live in registers
+        raise AssertionError(f"K2's cluster kernel spills: {spills}")
     # cuobjdump ships beside nvcc in the CUDA toolkit
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_counts(tool, _build.lib_path("flash_attention"))
     k1_sass_counts(tool, _build.lib_path("fused_bottleneck"))
     bwd_sass_counts(tool, _build.lib_path("flash_attention_bwd"))
+    # K2's bf16 forward above 128: the cluster kernel, wgmma (HGMMA) in
+    # each (accumulator width, exchange) instantiation
     wide_sass_counts(tool, _build.lib_path("flash_attention"),
-                     r"flash_attention_tc_wide_kernelILi(\d+)E", 3)
+                     r"flash_attention_tc_cluster_kernelILi(\d+)ELb(\d)E", 6,
+                     "cluster (width/exchange)", op="HGMMA")
     wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
                      r"attention_bwd_rows_kernelILi(\d+)ELb(\d)E", 4)
-    # above 512: the chunked kernels (q resident or streamed; key or query
-    # rows)
+    # K2's bf16 forward beyond the cluster kernel's plan: the chunked
+    # kernel, mma.sync (HMMA), q resident or streamed
     wide_sass_counts(tool, _build.lib_path("flash_attention"),
                      r"flash_attention_tc_chunked_kernelILb(\d)E", 2,
                      "chunked (q resident)")
+    # K2-bwd above 512: the chunked kernels (key or query rows)
     wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
                      r"attention_bwd_chunked_kernelILb(\d)E", 2,
                      "chunked (key rows)")
     k3_sass_counts(tool, _build.lib_path("int8_conv"))
+    cluster_plan_bytes()
 
 
-def wide_sass_counts(tool, lib, pattern, expected, label="wide"):
-    """Count the tensor-core instructions (mma.sync: HMMA) of the wide bf16
-    kernels (D or C above 128) whose mangled names match ``pattern``,
-    raising if any has none or if there are not ``expected`` of them."""
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+@functools.lru_cache(maxsize=None)
+def sass_of(tool, lib):
+    """The SASS of the library ``lib`` (``cuobjdump -sass``), dumped once
+    for all of phase 2's counts."""
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def wide_sass_counts(tool, lib, pattern, expected, label="wide", op="HMMA"):
+    """Count the tensor-core instructions (``op``: HMMA for mma.sync, HGMMA
+    for wgmma) of the wide bf16 kernels (D or C above 128) whose mangled
+    names match ``pattern``, raising if any has none or if there are not
+    ``expected`` of them."""
+    sass = sass_of(tool, lib)
     found = 0
     for func in sass.split("Function : ")[1:]:
         name = re.search(pattern, func.split("\n", 1)[0])
@@ -764,14 +798,53 @@ def wide_sass_counts(tool, lib, pattern, expected, label="wide"):
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                          func)
         log("build", f"{os.path.basename(lib)} {label} bf16 "
-            f"{'/'.join(name.groups())}: HMMA {ops.count('HMMA')}, MUFU "
+            f"{'/'.join(name.groups())}: {op} {ops.count(op)}, MUFU "
             f"{ops.count('MUFU')} in the SASS")
-        if not ops.count("HMMA"):
-            raise AssertionError(f"{lib}: a wide bf16 kernel uses no "
-                                 "tensor-core instruction")
+        if not ops.count(op):
+            raise AssertionError(f"{lib}: a wide bf16 kernel has no {op}")
     if found != expected:
         raise AssertionError(f"{found} wide bf16 kernels in {lib}, expected "
                              f"{expected}")
+
+
+# (D, C) of the cluster kernel's six instantiations (accumulator width 64,
+# 128, 256; blocks exchanging partial logits or not), launched once each
+CLUSTER_PLAN_WIDTHS = [(256, 64), (256, 128), (256, 256), (1024, 64),
+                       (1024, 384), (1024, 1024)]
+
+
+def cluster_plan_bytes():
+    """K2's cluster kernel on a small bf16 input at each of its
+    instantiations: forward_split's shared-memory bytes against the
+    library's own arithmetic and against the attribute the launch set on
+    the kernel (cudaFuncGetAttributes)."""
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    seen = set()
+    for d, c in CLUSTER_PLAN_WIDTHS:
+        q, k, v = (torch.randn(1, n, w, generator=gen, device="cuda")
+                   .bfloat16() for n, w in ((130, d), (70, d), (70, c)))
+        fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        plan = fa.forward_split(1, 130, 70, d, c)
+        lib = fa._lib()
+        own = lib.flash_attention_cluster_smem(
+            plan["d_slice"], plan["width"], plan["keys"], plan["k_stages"],
+            plan["v_stages"], int(plan["exchange"]), plan["cluster"])
+        attr = lib.flash_attention_cluster_smem_attr(plan["width"],
+                                                     plan["keys"])
+        seen.add((plan["width"], plan["exchange"]))
+        log("build", f"cluster kernel D {d} C {c}: plan {plan} | the "
+            f"library's bytes {own}, the launched kernel's attribute {attr}")
+        if not plan["smem"] == own == attr:
+            raise AssertionError(f"D {d} C {c}: forward_split's "
+                                 f"{plan['smem']} bytes, the library's "
+                                 f"{own}, the kernel's attribute {attr}")
+    if len(seen) != 6:
+        raise AssertionError(f"CLUSTER_PLAN_WIDTHS reach {sorted(seen)}, "
+                             "not the six instantiations")
 
 
 def k3_sass_counts(tool, lib):
@@ -780,8 +853,7 @@ def k3_sass_counts(tool, lib):
     (IGMMA), and the quantize pass (conv_quantize_kernel) must be there."""
     from efficient_slowfast_tpu_torch.ops.kernels import int8_conv as k3
 
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    sass = sass_of(tool, lib)
     gemm, quantize = {}, 0
     for func in sass.split("Function : ")[1:]:
         head = func.split("\n", 1)[0]
@@ -817,8 +889,7 @@ def sass_counts(tool, lib):
     (the loop whose body holds the most MUFU.EX2: 32 logits and 2
     rescales per tile and warp lane), the FP32-pipe instructions per
     MUFU.EX2."""
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    sass = sass_of(tool, lib)
     total = dict.fromkeys(("HMMA", "HGMMA"), 0)
     for func in sass.split("Function : ")[1:]:
         shape = re.search(r"flash_attention_tc_kernelILi(\d+)ELi(\d+)E",
@@ -860,8 +931,7 @@ def sass_counts(tool, lib):
 def k1_sass_counts(tool, lib):
     """Count the tensor-core instructions of K1's bf16 kernels (one per
     kt, projection and warp tile), raising if any has none."""
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    sass = sass_of(tool, lib)
     found = 0
     for func in sass.split("Function : ")[1:]:
         name = re.search(r"fused_bottleneck_tc_kernelILi(\d)ELb(\d)ELi(\d)E",
@@ -890,8 +960,7 @@ def bwd_sass_counts(tool, lib):
     FP32-pipe and F2FP
     instructions per MUFU.EX2 of its main loop (the loop whose body holds
     the most MUFU.EX2: 32 per tile and thread)."""
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    sass = sass_of(tool, lib)
     found = 0
     for func in sass.split("Function : ")[1:]:
         name = re.search(
@@ -1478,9 +1547,19 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
             err = (out.float() - ref.float()).abs().max().item()
             scale = max(1.0, ref.float().abs().max().item())
             finite = bool(torch.isfinite(out).all())
+            # the cluster and chunked kernels (bf16, D or C above 128)
+            # have no atomics: a second call gives the same bits
+            same = ""
+            if dtype == torch.bfloat16 and (d > 128 or c > 128):
+                same = torch.equal(out, flash_attention(q, k, v))
+                if not same:
+                    raise AssertionError(f"{label} clips {b}: the wide bf16 "
+                                         "kernel's output differs between "
+                                         "two calls")
+                same = " | a second call bit-identical"
             log("attention", f"{label:16s} {str(dtype)[6:]:8s} clips {b} "
                 f"max_abs_err {err:.3e} (scale {scale:.3g}, tol "
-                f"{tol * scale:.3e})")
+                f"{tol * scale:.3e}){same}")
             if out.dtype != dtype or not finite or err > tol * scale:
                 raise AssertionError(f"{label} {dtype} clips {b}: "
                                      f"err {err} > {tol * scale}")
@@ -1511,6 +1590,15 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
                 iters=2 if big else 10, reps=3 if big else 5)
         lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         ratio = "n/a" if lib_ms is None else f"{k_ms / lib_ms:.2f}"
+        if d > 128 or c > 128:
+            from efficient_slowfast_tpu_torch.ops.kernels.flash_attention \
+                import chunked_widths, forward_split
+            log("attention", f"{label:16s} bf16 (B, N, M, D, C) "
+                f"{(b, n, m, d, c)}: " + (
+                    f"the chunked kernel, {-(-c // 128)} slices of 128 "
+                    "columns of C, each computing the logits"
+                    if chunked_widths(d, c) else "the cluster kernel's "
+                    f"split {forward_split(b, n, m, d, c)}"))
         flops, nbytes, exps = attention_cost(b, n, m, d, c)
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -8131,9 +8219,16 @@ WIDE_ROWS = [("res5 nl 256x512", 4096, 1024, 1024, 1024, 1, "serve"),
 # beside the path: (label, N, M, D, C, clips)
 WIDE_OFF_PATH = [("d 600 c 700", 777, 190, 600, 700, 1),
                  ("d 64 c 2048", 1000, 250, 64, 2048, 2),
-                 ("d 2048 c 64", 1000, 250, 2048, 64, 2)]
+                 ("d 2048 c 64", 1000, 250, 2048, 64, 2),
+                 # beyond the cluster kernel's plan: the chunked kernel,
+                 # q streamed (D 3072) and resident (D 300)
+                 ("d 3072 c 3072", 777, 190, 3072, 3072, 1),
+                 ("d 300 c 2100", 777, 190, 300, 2100, 1)]
 # the planted fault: the last 128-column chunk of D left out of the logits
 WIDE_FAULT_COLS = 128
+# rounds of readings of the AVA forward with K2 and with the plain
+# attention, in turn (K2 first, then plain first, ...)
+WIDE_TIME_ROUNDS = 2
 
 
 def wide_cfg(dirs, dtype="bfloat16", *opts):
@@ -8142,14 +8237,22 @@ def wide_cfg(dirs, dtype="bfloat16", *opts):
 
 def wide_work(d, c):
     """(forward, backward) operations of the kernels over the bound's, per
-    (query, key) pair, D and C unpadded: a block owns a 128-column slice
-    of the output and recomputes the logits over all of D for it (and,
-    backward, dO vᵀ over all of C), ceil(C / 128) times forward; backward
-    the key rows' ceil(max(D, C) / 128) and the query rows' ceil(D / 128)
-    slices, beside dK, dV and dQ once."""
+    (query, key) pair, D and C unpadded. Forward: the cluster kernel
+    computes q kᵀ forward_split's ``recompute`` times (once where its
+    cluster splits D, R times where every block holds D), the chunked
+    kernel (chunked_widths) ceil(C / 128) times, P v once.
+    Backward: a block owns a 128-column slice of the output and recomputes
+    the logits over all of D for it and dO vᵀ over all of C, the key rows'
+    ceil(max(D, C) / 128) and the query rows' ceil(D / 128) slices, beside
+    dK, dV and dQ once."""
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        chunked_widths, forward_split
+
     s_c, s_d = -(-c // 128), -(-d // 128)
     s_kv = max(s_c, s_d)
-    return ((d * s_c + c) / (d + c),
+    recompute = (s_c if chunked_widths(d, c)  # a block per 128 columns of C
+                 else forward_split(1, 128, 64, d, c)["recompute"])
+    return ((d * recompute + c) / (d + c),
             ((s_kv + s_d) * (d + c) + 128 * (2 * s_d + s_c)) / (3 * d + 2 * c))
 
 
@@ -8212,6 +8315,9 @@ def phase_wide_kernels(serve_b, train_b, smi):
     3c's gates), timed beside their bounds, the kernels' recompute, the
     plain versions and SDPA; the planted faults. Returns (K2 record, K2
     error, K2-bwd record, K2-bwd error)."""
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
+        chunked_widths
+
     batch = {"serve": serve_b, "train": train_b}
     rows = [r[:6] + (batch[r[6]],) for r in WIDE_ROWS]
     train_rows = [r[:6] for r in WIDE_ROWS if r[6] == "train"]
@@ -8232,13 +8338,17 @@ def phase_wide_kernels(serve_b, train_b, smi):
             work = wide_work(d, c)[bwd]
             lib = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
+            how = ("recomputes the logits and dO vᵀ for each 128-column "
+                   "output slice" if bwd else "(chunked) "
+                   "computes the logits once a 128-column slice of C"
+                   if chunked_widths(d, c) else "computes the logits "
+                   "forward_split's recompute times")
             log("wide", f"{'K2-bwd' if bwd else 'K2'} {label} N {n} M {m} "
                 f"D {d} C {c}: kernel {r['ms']:.4f} ms | bound "
                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}); the kernel "
-                f"recomputes the logits{' and dO vᵀ' if bwd else ''} for "
-                f"each 128-column output slice: {work:.2f}x the bound's "
-                f"operations, {r['bound_ms'] * work:.5f} ms at the same peak"
-                f" | plain {r['plain_ms']:.4f} ms | sdpa {lib} | {smi}")
+                f"{how}: {work:.2f}x the bound's operations, "
+                f"{r['bound_ms'] * work:.5f} ms at the same peak | plain "
+                f"{r['plain_ms']:.4f} ms | sdpa {lib} | {smi}")
     wide_planted_faults(serve_b, *WIDE_ROWS[0][1:5], smi)
     return k2_record, k2_err, bwd_record, bwd_err
 
@@ -8296,7 +8406,6 @@ def phase_wide_model(dirs, smi):
     worst_fwd = max(relative_error(o, fa.chunked_attention(q, k, v), 1.0)
                     for q, k, v, o in calls)
     del calls
-    k_ms = cuda_ms(lambda: fwd(inputs, boxes), iters=2, reps=3)
     state = model.state_dict()
     paths = {}
     for name, dtype in (("plain bf16", "bfloat16"), ("plain f32", "float32")):
@@ -8312,8 +8421,26 @@ def phase_wide_model(dirs, smi):
             raise AssertionError(f"the plain attention launched "
                                  f"{read_counts()}")
         if name == "plain bf16":
-            p_ms = cuda_ms(lambda: pfwd(inputs, boxes), iters=2, reps=3)
+            plain_fwd = pfwd
         del pmodel, pfwd, x
+    # the forward with K2 and with the plain attention, timed in turn
+    # (K2, plain, plain, K2, ...: a drift of the card's clock falls on both)
+    timed = {True: [], False: []}
+    for r in range(WIDE_TIME_ROUNDS):
+        for flash in ((True, False) if r % 2 == 0 else (False, True)):
+            timed[flash].append(cuda_ms(
+                lambda: (fwd if flash else plain_fwd)(inputs, boxes),
+                iters=2, reps=3))
+    k_ms, p_ms = (statistics.median(timed[f]) for f in (True, False))
+    # and each forward's device time, its kernels' intervals summed from a
+    # trace (the host's launch gaps do not count)
+    device = {True: [], False: []}
+    for i, flash in enumerate((True, False)):
+        name = f"wide_forward_{i}_{'k2' if flash else 'plain'}"
+        trace_window(name, lambda: (fwd if flash else plain_fwd)(
+            inputs, boxes), top_n=1)
+        device[flash].append(trace_kernel_ms(name)[2])
+    del plain_fwd
     _, lk = head_logits(fwd, model, inputs, boxes)
     real = (batch["box_mask"].reshape(-1) > 0).cuda()
     l32 = paths["plain f32"][1][real]
@@ -8336,8 +8463,13 @@ def phase_wide_model(dirs, smi):
         f"f32 plain path's, L2: with K2 {d_k:.4e}, plain bf16 {d_p:.4e} "
         f"(ratio {d_k / max(d_p, 1e-30):.3f}, tol {CMDA_TRAIN_BF16_RATIO}) "
         f"| f32, 1 clip: K2 vs plain max |d| {err32:.3e} (tol "
-        f"{CMDA_F32_ATOL}) | forward {k_ms:.2f} ms with K2, {p_ms:.2f} ms "
-        f"with the plain attention | {smi}")
+        f"{CMDA_F32_ATOL}) | forward, median of {WIDE_TIME_ROUNDS} "
+        f"alternating readings: {k_ms:.2f} ms with K2 "
+        f"{[round(t, 2) for t in timed[True]]}, {p_ms:.2f} ms with the "
+        f"plain attention {[round(t, 2) for t in timed[False]]}; device "
+        f"time of a traced forward (its kernels summed): with K2 "
+        f"{[round(t, 3) for t in device[True]]}, plain "
+        f"{[round(t, 3) for t in device[False]]} ms | {smi}")
     if worst_fwd > ATTN_BF16_TOL or d_k > CMDA_TRAIN_BF16_RATIO * d_p or \
             err32 > CMDA_F32_ATOL:
         raise AssertionError(f"wide serving: K2 call {worst_fwd}, logits "
@@ -8405,7 +8537,8 @@ def phase_wide_model(dirs, smi):
 
 
 def phase_wide(dirs, smi):
-    """Phase 21: K2 and K2-bwd above 512 (the chunked kernels), the AVA
+    """Phase 21: K2 and K2-bwd above 512 (K2's cluster kernel and its
+    chunked one beyond the plan, K2-bwd's chunked kernels), the AVA
     model on the split ``dirs``. Returns (K2 record, K2 error, K2-bwd
     record, K2-bwd error, the path's launch counts)."""
     t0 = time.perf_counter()

@@ -12,8 +12,10 @@
 // writing v's dtype, as the TPU kernel does. Unlike the TPU kernel it masks
 // a key count that is not a multiple of the tile (keys >= M get logit -inf)
 // and skips query rows >= N, and it takes any M, D and C (above 128 the
-// wide kernels, and in bf16 above D = 512 the chunked kernel, at the end of
-// this file), B up to 65535. Given a non-null lse buffer, a launch also writes each
+// float32 wide kernel and the bf16 cluster kernel, at the end of this file;
+// the cluster kernel's plan takes D and C up to 2048, and any C where D is
+// up to 256, and the bf16 chunked kernel the wider rest), B up to 65535. Given a
+// non-null lse buffer, a launch also writes each
 // row's float32 log-sum-exp, row max + log(row sum), from which the
 // backward (flash_attention_bwd.cu) recomputes the probabilities; the
 // serving path passes null, and the output is the same either way.
@@ -95,6 +97,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -352,8 +355,8 @@ __device__ __forceinline__ void tile_logits(float (&s)[kTcNT][4],
 
 // The online softmax of one tile's logits s (rows g and g + 8 of the
 // warp's 16, as h = 0, 1), then O += P v. vt: the lane's ldmatrix row in
-// the v tile.
-// BK: keys of the tile (kTcBK, or the wide kernel's kWideBK).
+// the v tile. BK: keys of the tile (kTcBK, or the chunked kernel's
+// kWideBK).
 template <int CP, int BK = kTcBK>
 __device__ __forceinline__ void tile_softmax_pv(float (&s)[BK / 8][4],
                                                 float (&o)[CP / 8][4],
@@ -591,15 +594,15 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// D or C above 128: the wide kernels (non-local blocks: D = C = 256 in s3,
-// 512 in s4, 1024 in res5; bf16 above D = 512 takes the chunked kernel
-// below). A grid dimension runs over 128-column slices of C:
-// the blocks of slice z compute out[:, 128 z .. 128 z + 127] and each
-// recomputes the logits over the whole of D, and their exponentials, so a
-// call does ceil(C / 128) times the q k^T work of one pass (2x at C = 256,
-// 4x at 512) and the bound counts it once. Still one launch per call. The
-// slices' row maxima and sums are the same arithmetic in the same order,
-// so they normalise alike; slice 0 writes the log-sum-exp.
+// D or C above 128 (non-local blocks: D = C = 256 in s3, 512 in s4, 1024
+// in res5). float32: the wide kernel below, whose grid dimension runs over
+// 128-column slices of C: the blocks of slice z compute
+// out[:, 128 z .. 128 z + 127] and each recomputes the logits over the
+// whole of D, and their exponentials, so a call does ceil(C / 128) times
+// the q k^T work of one pass and the bound counts it once. Still one
+// launch per call. The slices' row maxima and sums are the same
+// arithmetic in the same order, so they normalise alike; slice 0 writes
+// the log-sum-exp. bfloat16: the cluster kernel at the end of this file.
 
 constexpr int kWideCols = 128;  // columns of C a block owns
 
@@ -747,50 +750,514 @@ int launch_wide_f32(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// bfloat16: the narrow tensor-core kernel with two changes that its
-// registers and shared memory force. q stays in shared memory and each
-// warp reads its A fragments by ldmatrix at every tile (held in registers
-// they would be DP / 4 a thread: 64 at D = 256, 128 at 512, beside the
-// 16 x 128 float32 accumulator of the slice, 64). Tiles are 32 keys (a
-// ring of three 64-key k tiles is 192 KB at D = 512 before q). 4 warps,
-// 64 query rows a block; DP is D padded to 128, 256 or 512.
+// ---------------------------------------------------------------------------
+// bfloat16, D or C above 128: the cluster kernel
+// (flash_attention_tc_cluster_kernel<CW, kExchange>), one launch a call.
+//
+// What bounds it: at the non-local widths (D = C = 256 to 1024) the work
+// is 2 B N M (D + C) operations on a few tens of MB, 800 or more per byte,
+// so operations bound it; chip_smoke.py computes the bound per shape.
+//
+// Split. R blocks (R = forward_split's "cluster", a power of two) own one
+// tile of kClRows = 128 query rows; block r of them owns columns
+// [r cs, (r + 1) cs) of the output (cs <= CW <= 256: the float32
+// accumulator of 64 rows x CW columns a warpgroup is CW / 2 registers a
+// thread). A block's logits span ds = kClDSlice = 256 columns of D. Where
+// D is wider (kExchange), the R blocks are one thread block cluster and
+// block r also owns columns [r ds, (r + 1) ds) of D: for each tile of
+// keys it computes the partial logits q[:, D_r] k[:, D_r]^T and sends them
+// to the other blocks of the cluster (push_partial: bulk copies into their
+// shared memory), and each block adds the R partials in rank order, 0
+// first (sum_partials), so that every block of the cluster holds the same
+// float32 logits, bit for bit, and runs the same softmax: q k^T is
+// computed once a call, as the bound counts it. Where D fits one block,
+// each of the R blocks computes the logits over all of D (forward_split's
+// "recompute" is then R, and the blocks are no cluster). Each block then
+// adds P v[:, C_r] into its own output columns.
+//
+// Inside a block, 256 threads: warpgroups 0 and 1, 64 query rows each.
+// Thread 0 also issues the TMA loads of q's slice and of k, thread 128
+// those of v, into mbarrier full / empty rings (ks and vs stages of tiles
+// of 64 keys, or 32 where the blocks exchange: the slots and the rings
+// then fit shared memory). A warpgroup computes S = q k^T by wgmma with
+// both operands in shared memory (f32 in registers), runs the online
+// softmax in registers (the narrow kernel's arithmetic: f32 logits, ex2
+// with the max folded in, row sums of the unrounded probabilities, the
+// accumulator rescaled only where a row's max moved), rounds P once to
+// bf16 and uses its registers as the A operand of the wgmma O += P v (v
+// read MN-major in place, N = CW). S of the next tile is issued with P v
+// of this one. Every operand is a tile of 64-column atoms in the 128-byte
+// swizzle (hopper.cuh: make_sw128_tile_map, one TMA copy a tile;
+// desc_sw128, desc_sw128_mn); TMA fills rows past N or M and columns past
+// D or C with zeros, so ragged edges need no masking beyond keys >= m,
+// which get -inf after the sum.
+//
+// The exchange: each warpgroup has a slot for every block's partial; the
+// blocks signal each other by mbarriers (x_full: the peers' pushes have
+// landed, by the copies' transaction bytes; x_free: every peer has read my
+// last push, by its leader's remote arrival), never by a barrier of the
+// whole cluster. Up to R = 4 it is deferred: tile j + 1's partial is
+// pushed right after tile j's sum and summed a tile later, so the copies
+// fly while tile j's softmax and products run (S then runs two tiles
+// ahead, and k's ring has three stages). At R = 8 a slot holds half a
+// partial and each tile's exchange is two rounds, at once.
+//
+// Registers set the block's shape: ptxas sizes a wgmma kernel's registers
+// by whole warpgroups, and a consumer's 64 x CW float32 accumulator takes
+// CW / 2 of them. With a producer warp (288 threads, sized as 384) every
+// thread had 168, setmaxnreg or not, and the CW = 256 accumulator spilled
+// even beside 32-key tiles; two warpgroups have 255 each (PERF.md).
+//
+// Shared memory (cluster_smem_bytes, forward_split's arithmetic): q
+// (128 x 256), ks k stages (keys x 256), vs v stages (keys x CW), the
+// exchange's slots (128 x 32 float32 for each block of the cluster, half
+// that at R = 8), 256 bytes of mbarriers, 1024 bytes of alignment. At
+// D = C = 1024 (R = 4, cs = 256, three stages each) that is 64 + 48 +
+// 48 + 64 KB of the 227 KB a block may have.
+// D and C must be multiples of 64 and the data 16-byte aligned (the TMA
+// maps): the wrapper gives other inputs zero-padded copies, which is exact.
+// The output has no atomics and is bit-identical from call to call.
+
+constexpr int kClRows = 128;     // query rows of a block
+// columns of D in a block's logits: four 64-column atoms, whose 16 k16
+// steps a wgmma chain takes unrolled (a loop over the atoms carries the
+// accumulator across its back edge, and ptxas then serializes the chain,
+// its C7519)
+constexpr int kClDSlice = 256;
+constexpr int kClExchangeKeys = 32;  // keys of a tile where blocks exchange
+constexpr int kClThreads = 256;  // two consumer warpgroups
+constexpr int kClMinStages = 2;  // of each ring
+constexpr int kClMaxStages = 3;
+constexpr int kClBarrierBytes = 256;
+constexpr int kClSmemLimit = 232448;  // dynamic shared memory of a block
+
+// The exchange's slots: a partial (64 rows x 32 keys float32, or half of
+// it at R = 8) for each warpgroup and block of the cluster.
+__host__ __device__ inline size_t cluster_slot_bytes(int split) {
+  return (size_t)2 * split * 64 * kClExchangeKeys * 4 / (split > 4 ? 2 : 1);
+}
+
+// (+ 1024: the tiles start at a 1024-byte boundary, as the swizzle needs)
+__host__ __device__ inline size_t cluster_smem_bytes(int ds, int width,
+                                                     int keys, int ks, int vs,
+                                                     bool exchange,
+                                                     int split) {
+  return 2 * ((size_t)kClRows * ds + (size_t)ks * keys * ds +
+              (size_t)vs * keys * width) +
+         (exchange ? cluster_slot_bytes(split) : 0) + kClBarrierBytes + 1024;
+}
+
+struct ClusterArgs {
+  bf16* out;
+  float* lse;
+  int n, m, c;
+  int split;     // R: blocks a query tile
+  int exchange;  // 1: the R blocks are a cluster splitting D
+  int cs;        // C columns of a block's slice
+  int ks, vs;    // ring stages of k and of v
+};
+
+// The exchange of partial logits between the blocks of a cluster, a round
+// at a time. Slot [wg][r] holds block r's partial for warpgroup wg in
+// rounds of kF4 float4 a thread, float4 i of thread t128 at [i][t128].
+// push_partial: once every peer has read my last push (x_free: each
+// peer's leader arrives there), the warpgroup writes floats [e0, e0 + 4
+// kF4) of its partial into its own slot, and its leader pushes that slot
+// into the same slot of every peer by bulk copies, which complete on the
+// peer's x_full. sum_partials: once every peer's push of the round has
+// landed, the warpgroup adds the R slots in rank order into the same
+// floats and frees them (an arrival on every peer's x_free).
+struct Exchange {
+  float4* wslots;  // this warpgroup's slots
+  uint64_t* full;
+  uint64_t* free;
+  int split, rank, t128, wg;
+};
+
+template <int kF4, int NS>
+__device__ __forceinline__ void push_partial(const Exchange& x,
+                                             const float (&s)[NS], int e0,
+                                             uint32_t round) {
+  constexpr uint32_t kBytes = kF4 * 128 * 16;
+  float4* mine = x.wslots + x.rank * kF4 * 128;
+  const bool leader = x.t128 == 0;
+  if (leader && round >= 1) hp::mbar_wait_cluster(x.free, (round - 1) & 1);
+  hp::named_barrier(1 + x.wg, 128);
+#pragma unroll
+  for (int i = 0; i < kF4; ++i) {
+    const int e = e0 + 4 * i;
+    mine[i * 128 + x.t128] = make_float4(s[e], s[e + 1], s[e + 2], s[e + 3]);
+  }
+  hp::fence_proxy_async();  // the copies read what the threads wrote
+  hp::named_barrier(1 + x.wg, 128);
+  if (leader) {
+    hp::mbar_arrive_expect_tx(x.full, (x.split - 1) * kBytes);
+    for (int r = 0; r < x.split; ++r)
+      if (r != x.rank)
+        hp::bulk_copy_cluster(hp::cluster_addr(mine, r), mine, kBytes,
+                              hp::cluster_addr(x.full, r));
+  }
+}
+
+template <int kF4, int NS>
+__device__ __forceinline__ void sum_partials(const Exchange& x,
+                                             float (&s)[NS], int e0,
+                                             uint32_t round) {
+  hp::mbar_wait_cluster(x.full, round & 1);
+  for (int r = 0; r < x.split; ++r) {
+    const float4* slot = x.wslots + r * kF4 * 128 + x.t128;
+#pragma unroll
+    for (int i = 0; i < kF4; ++i) {
+      const float4 v = slot[i * 128];
+      const int e = e0 + 4 * i;
+      if (r == 0) {
+        s[e] = v.x, s[e + 1] = v.y, s[e + 2] = v.z, s[e + 3] = v.w;
+      } else {
+        s[e] += v.x, s[e + 1] += v.y, s[e + 2] += v.z, s[e + 3] += v.w;
+      }
+    }
+  }
+  hp::named_barrier(1 + x.wg, 128);  // the slots are read
+  if (x.t128 == 0)
+    for (int r = 0; r < x.split; ++r)
+      if (r != x.rank) hp::mbar_arrive_cluster(x.free, r);
+}
+
+// CW: the output columns a block accumulates (64, 128 or 256), at least
+// its slice cs; kExchange: the blocks are a cluster that exchanges partial
+// logits, in tiles of 32 keys (the slots and the rings then fit shared
+// memory), else of 64.
+template <int CW, bool kExchange>
+__global__ void __launch_bounds__(kClThreads, 1)
+flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
+                                  const __grid_constant__ CUtensorMap k_map,
+                                  const __grid_constant__ CUtensorMap v_map,
+                                  const ClusterArgs a) {
+  constexpr int BK = kExchange ? kClExchangeKeys : 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int ds = kClDSlice;
+  // tiles of 64-column atoms, each [rows][64] bf16 in the 128-byte swizzle
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ds / 64][kClRows][64]
+  bf16* k_s = q_s + kClRows * ds;             // [ks][ds / 64][BK][64]
+  bf16* v_s = k_s + a.ks * BK * ds;           // [vs][CW / 64][BK][64]
+  unsigned char* x_bytes =
+      reinterpret_cast<unsigned char*>(v_s + a.vs * BK * CW);
+  float4* slots = reinterpret_cast<float4*>(x_bytes);  // [wg][r][f4][128]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      x_bytes + (a.exchange ? cluster_slot_bytes(a.split) : 0));
+  uint64_t* q_full = bar;
+  uint64_t* k_full = bar + 1;                  // [ks]
+  uint64_t* k_empty = k_full + kClMaxStages;   // [ks]
+  uint64_t* v_full = k_empty + kClMaxStages;   // [vs]
+  uint64_t* v_empty = v_full + kClMaxStages;   // [vs]
+  uint64_t* x_full = v_empty + kClMaxStages;   // [warpgroup]
+  uint64_t* x_free = x_full + 2;               // [warpgroup]
+
+  const int split = a.split, slice = blockIdx.x % split;
+  const int q0 = blockIdx.x / split * kClRows, bi = blockIdx.y;
+  const int dcol0 = a.exchange ? slice * ds : 0, ccol0 = slice * a.cs;
+  const int tiles = (a.m + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < kClMaxStages; ++s) {
+      hp::mbar_init(&k_full[s], 1);
+      hp::mbar_init(&k_empty[s], 256);
+      hp::mbar_init(&v_full[s], 1);
+      hp::mbar_init(&v_empty[s], 256);
+    }
+    if (a.exchange)
+      for (int i = 0; i < 2; ++i) {
+        hp::mbar_init(&x_full[i], 1);
+        hp::mbar_init(&x_free[i], split - 1);
+      }
+    hp::mbar_init_fence();
+  }
+  // every block of the cluster has its barriers before any arrives there
+  if (a.exchange)
+    hp::cluster_sync();
+  else
+    __syncthreads();
+
+  // TMA loads, one copy a tile (make_sw128_tile_map): thread 0 issues q's
+  // slice and k's, thread 128 v's; the rings' first stages here, the rest
+  // in the loop below, each at least a tile ahead of its use.
+  const int v_atoms = a.cs / 64;
+  auto load_k = [&](int j) {
+    uint64_t* full = &k_full[j % a.ks];
+    hp::mbar_arrive_expect_tx(full, BK * ds * 2);
+    hp::tma_load_4d(k_s + j % a.ks * BK * ds, &k_map, full, 0, j * BK,
+                    dcol0 / 64, bi);
+  };
+  auto load_v = [&](int j) {
+    uint64_t* full = &v_full[j % a.vs];
+    hp::mbar_arrive_expect_tx(full, BK * 64 * v_atoms * 2);
+    hp::tma_load_4d(v_s + j % a.vs * BK * CW, &v_map, full, 0, j * BK,
+                    ccol0 / 64, bi);
+  };
+  const bool k_issuer = threadIdx.x == 0, v_issuer = threadIdx.x == 128;
+  if (k_issuer) {
+    hp::prefetch_tensormap(&q_map);
+    hp::prefetch_tensormap(&k_map);
+    hp::mbar_arrive_expect_tx(q_full, kClRows * ds * 2);
+    hp::tma_load_4d(q_s, &q_map, q_full, 0, q0, dcol0 / 64, bi);
+    for (int j = 0; j < a.ks && j < tiles; ++j) load_k(j);
+  }
+  if (v_issuer) {
+    hp::prefetch_tensormap(&v_map);
+    for (int j = 0; j < a.vs && j < tiles; ++j) load_v(j);
+  }
+
+  // a consumer warpgroup: query rows q0 + 64 wg ..
+  const int t128 = threadIdx.x % 128, warp = t128 / 32, lane = t128 % 32;
+  const int g = lane / 4, t = lane % 4;
+  float o[CW / 2];  // O, wgmma's accumulator layout (hopper.cuh)
+#pragma unroll
+  for (int i = 0; i < CW / 2; ++i) o[i] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 of the warp
+  float row_sum[2] = {0.f, 0.f};              // this lane's part
+  const bf16* qa = q_s + 64 * wg * 64;  // this warpgroup's rows of an atom
+  float s[BK / 2];   // S (64 rows x BK keys, f32) of the tile in softmax
+  float sn[BK / 2];  // S of a later tile, as its wgmma leaves it
+  // S of tile j into acc, as one wgmma group (committed, not waited): the
+  // four k16 steps of each 64-column atom, 32 bytes apart. A descriptor's
+  // start address is its low bits in 16-byte units, so each step's is the
+  // tile's plus an immediate; the base is taken anew each tile, so that
+  // the compiler does not keep sixteen descriptors live across the loop.
+  auto issue_logits = [&](float (&acc)[BK / 2], int j) {
+    const uint64_t qd = hp::desc_sw128(hp::opaque(qa));
+    const uint64_t kd = hp::desc_sw128(k_s + j % a.ks * BK * ds);
+#pragma unroll
+    for (int kk = 0; kk < ds / 16; ++kk)  // atom kk / 4, 32 bytes a step
+      hp::Wgmma<BK, 0, 0>::run(
+          acc, qd + (kk / 4 * kClRows * 128 + kk % 4 * 32) / 16,
+          kd + (kk / 4 * BK * 128 + kk % 4 * 32) / 16, kk > 0);
+    hp::wgmma_commit();
+  };
+  // The exchange. Up to R = 4 it is deferred: tile j + 1's partial is
+  // pushed right after tile j's sum, and its own sum waits a tile, so the
+  // copies fly while tile j's softmax and products run (S runs two tiles
+  // ahead; a k ring of three stages). At R = 8 its slots hold half a
+  // partial: each tile's exchange is two rounds, at once.
+  const int slot_f4 = split > 4 ? BK / 16 : BK / 8;  // float4 a round
+  const Exchange xc{slots + wg * split * slot_f4 * 128, &x_full[wg],
+                    &x_free[wg], split, slice, t128, wg};
+  const bool deferred = kExchange && split <= 4;
+  const int ahead = deferred ? 2 : 1;  // S runs this many tiles ahead
+  uint32_t last_round = 0;
+  auto exchange_now = [&](float (&acc)[BK / 2], int j) {
+    if constexpr (kExchange) {
+      constexpr int kHalf = BK / 16;  // float4 a thread a round
+      push_partial<kHalf>(xc, acc, 0, 2 * j);
+      sum_partials<kHalf>(xc, acc, 0, 2 * j);
+      push_partial<kHalf>(xc, acc, 4 * kHalf, 2 * j + 1);
+      sum_partials<kHalf>(xc, acc, 4 * kHalf, 2 * j + 1);
+      last_round = 2 * j + 1;
+    }
+  };
+  hp::mbar_wait_bounded(q_full, 0);
+  hp::mbar_wait_bounded(&k_full[0], 0);
+  hp::wgmma_fence();
+  issue_logits(s, 0);
+  hp::wgmma_wait<0>();
+  hp::fence_regs(s);
+  hp::mbar_arrive(&k_empty[0]);
+  if (deferred) {
+    push_partial<BK / 8>(xc, s, 0, 0);
+    if (tiles > 1) {
+      hp::mbar_wait_bounded(&k_full[1], 0);
+      hp::wgmma_fence();
+      issue_logits(sn, 1);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(sn);
+      hp::mbar_arrive(&k_empty[1]);
+    }
+  } else if (kExchange) {
+    exchange_now(s, 0);
+  }
+
+  // Tile j: its softmax, then S of tile j + ahead and P v of tile j issued
+  // together; without a deferred exchange, tile j + 1's runs while P v is
+  // on the tensor cores.
+  for (int j = 0; j < tiles; ++j) {
+    if (deferred) {
+      sum_partials<BK / 8>(xc, s, 0, j);
+      if (j + 1 < tiles) push_partial<BK / 8>(xc, sn, 0, j + 1);
+      last_round = j;
+    }
+    const int key0 = j * BK;
+    if (key0 + BK > a.m) {  // keys >= m get -inf
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+        const int key = key0 + 8 * jj + 2 * t;
+        if (key >= a.m) s[4 * jj] = s[4 * jj + 2] = -INFINITY;
+        if (key + 1 >= a.m) s[4 * jj + 1] = s[4 * jj + 3] = -INFINITY;
+      }
+    }
+    // the online softmax: element 4 jj + e is row g + 8 (e / 2), key
+    // 8 jj + 2 t + (e % 2)
+    float mx[2] = {row_max[0], row_max[1]};
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * jj], s[4 * jj + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+    }
+    float ml[2];  // the new max in log2 units
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      // finite: a tile holds a key < m; the first tile's corr is ex2(-inf)
+      const float corr = tc::ex2((row_max[h] - mx[h]) * kLog2e);
+      row_max[h] = mx[h];
+      ml[h] = mx[h] * kLog2e;
+      row_sum[h] *= corr;
+      if (corr != 1.f) {  // the row's max moved (exact to skip at 1)
+#pragma unroll
+        for (int jj = 0; jj < CW / 8; ++jj) {
+          o[4 * jj + 2 * h] *= corr;
+          o[4 * jj + 2 * h + 1] *= corr;
+        }
+      }
+    }
+    // P in bf16 as the A fragments of the BK / 16 k16 steps over the
+    // tile's keys (hopper.cuh: register r of step kk holds elements
+    // 8 kk + 2 r, + 1, of row g + 8 (r % 2))
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 8 * kk + 2 * r, h = r & 1;
+        const float p0 = tc::ex2(fmaf(s[e], kLog2e, -ml[h]));
+        const float p1 = tc::ex2(fmaf(s[e + 1], kLog2e, -ml[h]));
+        row_sum[h] += p0 + p1;
+        pa[kk][r] = tc::pack_bf16x2(p0, p1);
+      }
+
+    const int jn = j + ahead;
+    const bool next = jn < tiles;
+    if (next) hp::mbar_wait_bounded(&k_full[jn % a.ks], (jn / a.ks) & 1);
+    hp::mbar_wait_bounded(&v_full[j % a.vs], (j / a.vs) & 1);
+    const bf16* vt = v_s + j % a.vs * BK * CW;
+    hp::wgmma_fence();
+    if (next) issue_logits(sn, jn);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hp::WgmmaRs<CW, 1>::run(
+          o, pa[kk], hp::desc_sw128_mn(vt + 16 * kk * 64, BK * 128), 1);
+    hp::wgmma_commit();
+    if (next) {
+      hp::wgmma_wait<1>();  // S of tile jn; P v may run on
+      hp::fence_regs(sn);
+      hp::mbar_arrive(&k_empty[jn % a.ks]);
+      if (!deferred) {  // the next tile's S, summed over the cluster now
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s[i] = sn[i];
+        exchange_now(s, jn);
+      }
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hp::fence_regs(pa[kk]);
+    hp::mbar_arrive(&v_empty[j % a.vs]);
+    // refills: k for tile j + ks and v for tile j + vs, into the stages
+    // that tile j's products freed, once the other warpgroup's are done too
+    if (k_issuer && j + a.ks < tiles) {
+      hp::mbar_wait_bounded(&k_empty[j % a.ks], (j / a.ks) & 1);
+      load_k(j + a.ks);
+    }
+    if (v_issuer && j + a.vs < tiles) {
+      hp::mbar_wait_bounded(&v_empty[j % a.vs], (j / a.vs) & 1);
+      load_v(j + a.vs);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+    const float denom = fmaxf(row_sum[h], 1e-30f);
+    const int row = q0 + 64 * wg + 16 * warp + g + 8 * h;
+    if (row < a.n) {
+      if (a.lse != nullptr && slice == 0 && t == 0)
+        a.lse[(size_t)bi * a.n + row] = row_max[h] + logf(row_sum[h]);
+      bf16* orow = a.out + ((size_t)bi * a.n + row) * a.c + ccol0;
+#pragma unroll
+      for (int jj = 0; jj < CW / 8; ++jj) {
+        const int col = 8 * jj + 2 * t;
+        if (col < a.cs && ccol0 + col < a.c)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[4 * jj + 2 * h] / denom,
+                                    o[4 * jj + 2 * h + 1] / denom);
+      }
+    }
+  }
+  // keep this block's shared memory until every peer has read my last push
+  // (after that no peer writes or arrives here)
+  if (kExchange && t128 == 0) hp::mbar_wait_cluster(xc.free, last_round & 1);
+}
+
+template <int CW, bool kExchange>
+int launch_cluster(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                   const CUtensorMap& v_map, const ClusterArgs& a, int b,
+                   size_t smem, cudaStream_t stream) {
+  auto kernel = flash_attention_tc_cluster_kernel<CW, kExchange>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.split * ((a.n + kClRows - 1) / kClRows), b, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.exchange ? a.split : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, q_map, k_map, v_map, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int CW, bool kExchange>
+int cluster_smem_attr() {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, flash_attention_tc_cluster_kernel<CW, kExchange>);
+  return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 at the widths that the cluster kernel's plan cannot hold: D
+// above 2048 (eight blocks' 256-column slices), or C above 2048 (eight
+// blocks' 256 output columns) with D above 256. No config of the zoo
+// reaches them. The chunked kernel: 4 warps, 64 query rows a block, tiles
+// of 32 keys, mma.sync m16n8k16 (HMMA). The logits S = q k^T of a tile
+// accumulate over D in chunks of kChunk = 128 columns into a 16 x 32
+// fragment a warp, each k chunk (and q's, where q streams) arriving by
+// cp.async through a ring of stages; the flat sequence of (tile, chunk)
+// loads runs kStages - 1 ahead of the products, one __syncthreads a chunk.
+// After a tile's last chunk the softmax and P v over the block's
+// 128-column slice of C are the narrow kernel's
+// (tile_softmax_pv<kWideCols, kWideBK>), the v slice loaded with the
+// tile's first chunk into one of two buffers. q stays resident in shared
+// memory (64 x D) where that fits beside the ring (kQRes: D up to 1280),
+// else its chunk streams beside k's from L2 once a tile. A grid dimension
+// runs over the 128-column slices of C, so a call computes the logits
+// ceil(C / 128) times; chip_smoke.py counts that recompute beside the
+// bound. D must be above 256 (the v buffers' reuse needs three chunks).
 constexpr int kWideBK = 32;
 constexpr int kWideRows = 64;
 constexpr int kWideThreads = 2 * kWideRows;
 
-// q (kWideRows x DP), kTcStages k tiles (kWideBK x DP) and kTcStages v
-// slices (kWideBK x kWideCols), rows padded by kTcPad.
-__host__ __device__ inline size_t wide_tc_smem_bytes(int dp) {
-  return sizeof(bf16) *
-         ((size_t)(kWideRows + kTcStages * kWideBK) * (dp + kTcPad) +
-          (size_t)kTcStages * kWideBK * (kWideCols + kTcPad));
-}
-
-// S = q k^T for one tile of kWideBK keys, 16 rows per warp, with q's A
-// fragments read from shared memory (qw: the lane's ldmatrix row of q).
-template <int DP>
-__device__ __forceinline__ void wide_tile_logits(float (&s)[kWideBK / 8][4],
-                                                 const bf16* qw,
-                                                 const bf16* kt) {
-  constexpr int kLdK = DP + kTcPad;
-#pragma unroll
-  for (int nt = 0; nt < kWideBK / 8; ++nt)
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll 8
-  for (int kc = 0; kc < DP / 16; ++kc) {
-    uint32_t a[4];
-    tc::ldmatrix_x4(a, qw + 16 * kc);
-#pragma unroll
-    for (int np = 0; np < kWideBK / 16; ++np) {
-      uint32_t b[4];
-      tc::ldmatrix_x4(b, kt + 16 * np * kLdK + 16 * kc);
-      tc::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
-      tc::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// The end of a wide kernel's warp: the quad's parts of the row sums met,
+// The end of a chunked kernel's warp: the quad's parts of the row sums met,
 // then rows0 + g (and + 8) of out's 128 columns col0 .. in bf16 (those
 // below c), and the rows' log-sum-exp from slice 0 where lse is given.
 __device__ __forceinline__ void wide_epilogue(float (&o)[kWideCols / 8][4],
@@ -822,148 +1289,6 @@ __device__ __forceinline__ void wide_epilogue(float (&o)[kWideCols / 8][4],
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kWideThreads)
-flash_attention_tc_wide_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
-                               bf16* __restrict__ out,
-                               float* __restrict__ lse, int n, int m, int d,
-                               int c, bool qk_vec, bool v_vec) {
-  constexpr int kLdK = DP + kTcPad, kLdV = kWideCols + kTcPad;
-  constexpr int kKTile = kWideBK * kLdK, kVTile = kWideBK * kLdV;
-  constexpr int kNT = kWideBK / 8;
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [kWideRows][kLdK]
-  bf16* ks = qs + kWideRows * kLdK;           // [kTcStages][kWideBK][kLdK]
-  bf16* vs = ks + kTcStages * kKTile;         // [kTcStages][kWideBK][kLdV]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
-  const int k_lane = (lr + 8 * l16) * kLdK + 8 * l8;  // k: keys x D
-  const int v_lane = (lr + 8 * l8) * kLdV + 8 * l16;  // v: keys x C, .trans
-  const bf16* qw = qs + (16 * warp + lr + 8 * l8) * kLdK + 8 * l16;
-  const int q0 = blockIdx.x * kWideRows, col0 = blockIdx.z * kWideCols;
-  const size_t bi = blockIdx.y;
-  const bf16* qb = q + bi * n * d;
-  const bf16* kb = k + bi * m * d;
-  const bf16* vb = v + bi * m * c;
-  const int tiles = (m + kWideBK - 1) / kWideBK, full = m / kWideBK;
-  auto load_tile = [&](int it) {  // k and v's slice of tile it
-    const int buf = it % kTcStages;
-    tc::load_rows<DP, kWideBK, kWideThreads>(ks + buf * kKTile, kb,
-                                             it * kWideBK, m, d, qk_vec);
-    tc::load_cols<kWideCols, kWideBK, kWideThreads>(
-        vs + buf * kVTile, kLdV, vb, it * kWideBK, m, c, col0, v_vec);
-    tc::cp_async_commit();
-  };
-
-  tc::load_rows<DP, kWideRows, kWideThreads>(qs, qb, q0, n, d, qk_vec);
-  load_tile(0);
-  tc::cp_async_wait<0>();
-  __syncthreads();
-  if (tiles > 1) load_tile(1);
-
-  float o[kWideCols / 8][4];
-#pragma unroll
-  for (int j = 0; j < kWideCols / 8; ++j)
-    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};
-
-  // as the narrow kernel's step: tile it's softmax and P v beside tile
-  // it + 1's logits, the three-buffer ring refilled two tiles ahead
-  auto step = [&](float (&s)[kNT][4], float (&s_next)[kNT][4], int it,
-                  auto ragged) {
-    if (it + 1 < tiles) {
-      tc::cp_async_wait<0>();
-      __syncthreads();
-      if (it + 2 < tiles) load_tile(it + 2);
-    }
-    if constexpr (decltype(ragged)::value) {
-      const int k0 = it * kWideBK;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int key = k0 + 8 * nt + 2 * t;
-        if (key >= m) s[nt][0] = s[nt][2] = -INFINITY;
-        if (key + 1 >= m) s[nt][1] = s[nt][3] = -INFINITY;
-      }
-    }
-    wide_tile_logits<DP>(s_next, qw,
-                         ks + (it + 1) % kTcStages * kKTile + k_lane);
-    tile_softmax_pv<kWideCols, kWideBK>(
-        s, o, row_max, row_sum, vs + it % kTcStages * kVTile + v_lane);
-  };
-  const std::false_type whole{};
-  const std::true_type ragged{};
-  float sa[kNT][4], sb[kNT][4];
-  wide_tile_logits<DP>(sa, qw, ks + k_lane);
-  int it = 0;
-  for (; it + 1 < full; it += 2) {
-    step(sa, sb, it, whole);
-    step(sb, sa, it + 1, whole);
-  }
-  if (it < full) {
-    step(sa, sb, it++, whole);
-    if (it < tiles) step(sb, sa, it, ragged);
-  } else if (it < tiles) {
-    step(sa, sb, it, ragged);
-  }
-
-  wide_epilogue(o, row_max, row_sum, out, lse, bi, n, c, q0 + 16 * warp,
-                col0);
-}
-
-template <int DP>
-int launch_tc_wide(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int b, int n, int m, int d, int c,
-                   cudaStream_t stream) {
-  auto kernel = flash_attention_tc_wide_kernel<DP>;
-  const size_t smem = wide_tc_smem_bytes(DP);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool qk_vec = d % 8 == 0 && aligned16(q) && aligned16(k);
-  const bool v_vec = c % 8 == 0 && aligned16(v);
-  const dim3 grid((n + kWideRows - 1) / kWideRows, b,
-                  (c + kWideCols - 1) / kWideCols);
-  kernel<<<grid, kWideThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, n, m, d,
-      c, qk_vec, v_vec);
-  return (int)cudaGetLastError();
-}
-
-int dispatch_tc_wide(const void* q, const void* k, const void* v, void* out,
-                     float* lse, int b, int n, int m, int d, int c,
-                     cudaStream_t s) {
-  if (d <= 128)
-    return launch_tc_wide<128>(q, k, v, out, lse, b, n, m, d, c, s);
-  if (d <= 256)
-    return launch_tc_wide<256>(q, k, v, out, lse, b, n, m, d, c, s);
-  return launch_tc_wide<512>(q, k, v, out, lse, b, n, m, d, c, s);
-}
-
-// ---------------------------------------------------------------------------
-// D above 512, bfloat16: the chunked kernel. The wide kernel's q (64 x DP)
-// and three k tiles (32 x DP) take 164 KB of shared memory at DP = 512 and
-// do not fit above. Here the logits S = q k^T of a 32-key tile accumulate
-// over D in chunks of kChunk = 128 columns into the same 16 x 32 fragment
-// a warp (the wide kernel's mma.sync steps), each k chunk (and q's, where
-// q streams) arriving by cp.async through a ring of stages; the flat
-// sequence of (tile, chunk) loads runs kStages - 1 ahead of the products,
-// one __syncthreads a chunk. After a tile's last chunk the softmax and P v
-// over the block's 128-column slice of C are the wide kernel's
-// (tile_softmax_pv<kWideCols, kWideBK>), the v slice loaded with the
-// tile's first chunk into one of two buffers. q stays resident in shared
-// memory (64 x D) where that fits beside the ring (kQRes: D up to 1280,
-// 180 KB at D = 1024), else its chunk streams beside k's from L2 once a
-// tile. The slices of C keep the wide kernel's grid dimension, so a call
-// computes the logits ceil(C / 128) times (8x at C = 1024): the simplest
-// split that keeps one 16 x 128 float32 accumulator a warp and reuses the
-// wide kernel's softmax step; chip_smoke.py counts that recompute beside
-// the bound.
 constexpr int kChunk = 128;
 constexpr int kChunkLd = kChunk + kTcPad;
 constexpr int kWideVElems = kWideBK * (kWideCols + kTcPad);
@@ -1115,13 +1440,11 @@ int launch_tc_chunked(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// q resident where it fits a block's shared memory beside the ring
-constexpr size_t kBlockSmem = 232448;
-
 int dispatch_tc_chunked(const void* q, const void* k, const void* v,
                         void* out, float* lse, int b, int n, int m, int d,
                         int c, cudaStream_t s) {
-  if (chunked_smem_bytes(true, d) <= kBlockSmem)
+  // q resident where it fits a block's shared memory beside the ring
+  if (chunked_smem_bytes(true, d) <= (size_t)kClSmemLimit)
     return launch_tc_chunked<true>(q, k, v, out, lse, b, n, m, d, c, s);
   return launch_tc_chunked<false>(q, k, v, out, lse, b, n, m, d, c, s);
 }
@@ -1130,9 +1453,10 @@ int dispatch_tc_chunked(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel);
-// D or C above 128 take the wide kernels, in bfloat16 the chunked kernel
-// where D is above 512.
+// dtype: 0 = float32 (scalar kernel; D or C above 128 the wide one), 1 =
+// bfloat16 (tensor-core kernel, D and C up to 128; wider bf16 calls go to
+// flash_attention_cluster_launch with their plan, and here only at the
+// widths that no plan holds, to the chunked kernel: D above 256).
 // q (b, n, d), k (b, m, d), v (b, m, c) and out (b, n, c) are contiguous.
 // lse: null, or a float32 (b, n) buffer that receives each row's
 // log-sum-exp of its logits, max + log(sum of exp(logit - max)), for the
@@ -1145,16 +1469,86 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 128 || c > 128) {
     if (dtype == 0) return launch_wide_f32(q, k, v, out, lse, b, n, m, d, c, s);
-    if (dtype == 1 && d > 512)
-      return dispatch_tc_chunked(q, k, v, out, lse, b, n, m, d, c, s);
     if (dtype == 1)
-      return dispatch_tc_wide(q, k, v, out, lse, b, n, m, d, c, s);
+      return dispatch_tc_chunked(q, k, v, out, lse, b, n, m, d, c, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, lse, b, n, m, d, c, s);
   if (dtype == 1) return dispatch_tc(q, k, v, out, lse, b, n, m, d, c, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory bytes of one block of the cluster kernel.
+size_t flash_attention_cluster_smem(int ds, int width, int keys, int ks,
+                                    int vs, int exchange, int split) {
+  return cluster_smem_bytes(ds, width, keys, ks, vs, exchange != 0, split);
+}
+
+// The dynamic shared memory attribute of the cluster kernel of (width,
+// keys) (what its last launch set), or a negative CUDA error code.
+int flash_attention_cluster_smem_attr(int width, int keys) {
+  if (keys == 64 && width == 64) return cluster_smem_attr<64, false>();
+  if (keys == 64 && width == 128) return cluster_smem_attr<128, false>();
+  if (keys == 64 && width == 256) return cluster_smem_attr<256, false>();
+  if (keys == 32 && width == 64) return cluster_smem_attr<64, true>();
+  if (keys == 32 && width == 128) return cluster_smem_attr<128, true>();
+  if (keys == 32 && width == 256) return cluster_smem_attr<256, true>();
+  return -(int)cudaErrorInvalidValue;
+}
+
+// bfloat16 with D or C above 128: the cluster kernel on the plan
+// {split, exchange, ds, cs, width, keys, ks, vs, smem} of the wrapper's
+// forward_split (its fields "cluster", "exchange", "d_slice", "c_slice",
+// "width", "keys", "k_stages", "v_stages", "smem"). D and C multiples of
+// 64, the tensors 16-byte aligned; lse as above. A plan the kernel cannot
+// run returns cudaErrorInvalidValue; otherwise the CUDA error code of the
+// launch.
+int flash_attention_cluster_launch(const void* q, const void* k,
+                                   const void* v, void* out, float* lse,
+                                   int b, int n, int m, int d, int c,
+                                   const int* plan, void* stream) {
+  const int split = plan[0], exchange = plan[1], ds = plan[2], cs = plan[3];
+  const int width = plan[4], keys = plan[5], ks = plan[6], vs = plan[7];
+  const int smem = plan[8];
+  const bool ok =
+      b > 0 && b <= 65535 && n > 0 && m > 0 && d > 0 && c > 0 &&
+      d % 64 == 0 && c % 64 == 0 && aligned16(q) && aligned16(k) &&
+      aligned16(v) && aligned16(out) && split >= 1 &&
+      (exchange == 0 ? keys == 64
+                     : exchange == 1 && keys == kClExchangeKeys &&
+                           (split == 2 || split == 4 || split == 8) &&
+                           (split == 8 || ks == 3)) &&
+      ds == kClDSlice && (long long)ds * (exchange ? split : 1) >= d &&
+      (width == 64 || width == 128 || width == 256) && cs > 0 &&
+      cs % 64 == 0 && cs <= width && (long long)cs * split >= c &&
+      ks >= kClMinStages &&
+      ks <= kClMaxStages && vs >= kClMinStages && vs <= kClMaxStages &&
+      smem > 0 &&
+      (size_t)smem ==
+          cluster_smem_bytes(ds, width, keys, ks, vs, exchange, split) &&
+      smem <= kClSmemLimit &&
+      (long long)split * ((n + kClRows - 1) / kClRows) <= 0x7fffffff;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map;
+  if (!hp::make_sw128_tile_map(&q_map, q, b, n, d, kClRows, ds / 64) ||
+      !hp::make_sw128_tile_map(&k_map, k, b, m, d, keys, ds / 64) ||
+      !hp::make_sw128_tile_map(&v_map, v, b, m, c, keys, cs / 64))
+    return (int)cudaErrorInvalidValue;
+  const ClusterArgs a{static_cast<bf16*>(out), lse, n, m, c, split,
+                      exchange, cs, ks, vs};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CUtensorMap &qm = q_map, &km = k_map, &vm = v_map;
+  if (keys == 64 && width == 64)
+    return launch_cluster<64, false>(qm, km, vm, a, b, smem, s);
+  if (keys == 64 && width == 128)
+    return launch_cluster<128, false>(qm, km, vm, a, b, smem, s);
+  if (keys == 64)
+    return launch_cluster<256, false>(qm, km, vm, a, b, smem, s);
+  if (width == 64) return launch_cluster<64, true>(qm, km, vm, a, b, smem, s);
+  if (width == 128)
+    return launch_cluster<128, true>(qm, km, vm, a, b, smem, s);
+  return launch_cluster<256, true>(qm, km, vm, a, b, smem, s);
 }
 
 }  // extern "C"

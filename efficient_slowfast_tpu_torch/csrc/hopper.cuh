@@ -1,18 +1,20 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads and bulk
-// copies into shared memory, cp.async copies whose completion an mbarrier
-// counts, the bulk float32 reduce-add from shared into global memory,
-// warpgroup matrix multiplies (wgmma) with f32 accumulation on bf16
-// operands and s32 accumulation on s8 operands, named barriers and
-// register reallocation. Each is a thin wrapper over one PTX instruction
-// (PTX ISA 8.0, sm_90a), so that a kernel's source reads as CUDA C++ and
-// its PTX sits in one place.
+// Hopper (sm_90a) building blocks: mbarriers, distributed shared memory
+// (bulk copies into and arrivals on the other blocks of a cluster), TMA tile
+// loads and bulk copies into shared memory, cp.async copies whose
+// completion an mbarrier counts, the bulk float32 reduce-add from shared
+// into global memory, warpgroup matrix multiplies (wgmma) with f32
+// accumulation on bf16 operands and s32 accumulation on s8 operands, named
+// barriers and register reallocation. Each is a thin wrapper over one PTX
+// instruction (PTX ISA 8.0, sm_90a), so that a kernel's source reads as
+// CUDA C++ and its PTX sits in one place.
 //
 // Shared-memory operands of wgmma are described in the 128-byte swizzle
 // (desc_sw128, K3) or in the no-swizzle ("interleave") layout, whose unit
 // is a core matrix: 8 rows of 16 bytes
 // (8 bf16 or 16 s8), 128 contiguous bytes. A tile stored as column panels,
 // [cols / 8][rows][8] bf16, is made of such core matrices, and one TMA
-// load of a box 8 columns wide and `rows` high writes one panel. The same
+// load of a box 8 columns wide and `rows` high writes one panel
+// (make_panel_map). The same
 // panel tile serves both operand orders (PTX ISA, "Shared Memory Matrix
 // Layout", canonical layouts without swizzling):
 //   K-major  (rows = M or N, panels = K):  core matrices along M/N are SBO
@@ -107,6 +109,59 @@ __device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
     if (globaltimer() - t0 > 4000000000ull) __trap();
 }
 
+// ---- thread block clusters --------------------------------------------
+
+// The address of `p`'s counterpart in the shared memory of block `rank`
+// of the cluster, for the ::cluster state space.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// One arrival on `bar` in the shared memory of block `rank` of the
+// cluster, releasing this thread's earlier writes (and those ordered
+// before it) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          cluster_addr(bar, rank))
+      : "memory");
+}
+
+// mbar_wait_bounded whose completion acquires at cluster scope: what the
+// other blocks of the cluster wrote before their arrivals is visible.
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint64_t* bar,
+                                                      uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  if (mbar_try_wait_cluster(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try_wait_cluster(bar, parity))
+    if (globaltimer() - t0 > 4000000000ull) __trap();
+}
+
+// Every thread of every block of the cluster: the cluster's barrier
+// (arrive with release, wait with acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // ---- TMA and bulk copies ----------------------------------------------
 
 // The box of a 3-D tensor map at coordinates (c0, c1, c2), innermost
@@ -120,6 +175,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -142,6 +210,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from this block's shared memory to the cluster
+// address `dst` (cluster_addr) in another block's, completing the
+// transactions of the mbarrier at the cluster address `bar` there.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst,
+                                                  const void* src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -236,12 +318,31 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
+// p, hidden from the compiler's view (it cannot hoist what depends on it).
+template <typename T>
+__device__ __forceinline__ const T* opaque(const T* p) {
+  uint64_t v = reinterpret_cast<uint64_t>(p);
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(v));
+  return reinterpret_cast<const T*>(v);
+}
+
 // K-major operand rows of 128 bytes in the 128-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r at chunk c ^ (r %
 // 8) of its row), 8-row groups SBO = 1024 bytes apart; the tile 1024-byte
 // aligned. A k32 (s8) or k16 (bf16) step j starts at the tile + 32 j.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// MN-major operand in the 128-byte swizzle: atoms of 64 M/N elements (128
+// bytes, one row) by K rows, 8-row groups SBO = 1024 bytes apart, atoms
+// along M/N `lbo` bytes apart; each atom 1024-byte aligned. A k16 step kk
+// starts at the tile + 2048 kk (16 rows of 128 bytes).
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p,
+                                                  uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -268,6 +369,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 
 template <int R>
 __device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The same for an A operand in registers: wgmma reads it until its wait,
+// so it is kept from reuse until then.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
@@ -371,6 +480,55 @@ struct WgmmaRs<64, TB> {
         "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
         "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : ESF_ACC8(0), ESF_ACC8(8), ESF_ACC8(16), ESF_ACC8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRs<128, TB> {
+  __device__ static __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
+        "%67}, %68, p, 1, 1, %70;\n}\n"
+        : ESF_ACC8(0), ESF_ACC8(8), ESF_ACC8(16), ESF_ACC8(24), ESF_ACC8(32),
+          ESF_ACC8(40), ESF_ACC8(48), ESF_ACC8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRs<256, TB> {
+  __device__ static __forceinline__ void run(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : ESF_ACC8(0), ESF_ACC8(8), ESF_ACC8(16), ESF_ACC8(24), ESF_ACC8(32),
+          ESF_ACC8(40), ESF_ACC8(48), ESF_ACC8(56), ESF_ACC8(64), ESF_ACC8(72),
+          ESF_ACC8(80), ESF_ACC8(88), ESF_ACC8(96), ESF_ACC8(104),
+          ESF_ACC8(112), ESF_ACC8(120)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
           "r"(accumulate), "n"(TB));
   }
@@ -529,6 +687,32 @@ inline bool make_panel_map(CUtensorMap* map, const void* base, int planes,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor (planes, rows, cols), contiguous, cols a multiple of 64
+// and base 16-byte aligned, seen as (planes, cols / 64, rows, 64) and read
+// in the 128-byte swizzle in boxes of `box_atoms` 64-column atoms by
+// `box_rows` rows (coordinates: 0, first row, first atom, plane): one box
+// fills a tile [box_atoms][box_rows][128 bytes], K-major (desc_sw128) or
+// MN-major (desc_sw128_mn), in one copy; atoms and rows outside the tensor
+// arrive as zeros. Returns false where cuTensorMapEncodeTiled refuses.
+inline bool make_sw128_tile_map(CUtensorMap* map, const void* base,
+                                int planes, int rows, int cols, int box_rows,
+                                int box_atoms) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode || cols % 64) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)rows, (cuuint64_t)cols / 64,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 2, 128,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, (cuuint32_t)box_atoms,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

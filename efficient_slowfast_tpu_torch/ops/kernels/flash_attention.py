@@ -41,15 +41,25 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   SDPA do; autograd through ``chunked_attention`` takes it from the
   unrounded one.
 - Wide widths. D or C above 128 (non-local blocks: 256 in s3, 512 in s4,
-  1024 in a res5) run the wide kernels of the same two sources: each block
-  owns a 128-column slice of the output and recomputes the logits over all
-  of D, so the forward does ceil(C / 128) times the q kᵀ work in its one
-  launch; the backward's three launches are the statistics, a key-rows
-  kernel (dK, dV) and a query-rows kernel (dQ), with no atomics (all three
-  gradients deterministic). Above 512 (D in the bf16 forward, D or C in the
-  bf16 backward) the chunked kernels accumulate the logits (and dO vᵀ) over
-  128-column chunks streamed through shared memory, so every width runs on
-  a kernel, as the Pallas kernel takes any width.
+  1024 in a res5). The bf16 forward runs the cluster kernel in its one
+  launch, on the split that ``forward_split`` plans: R blocks share a tile
+  of 128 queries, each owning up to 256 columns of the output; where D is
+  wide they form a thread block cluster that also splits D and adds its
+  partial logits over distributed shared memory in rank order, so q kᵀ is
+  computed once (at D = C = 1024, R = 4); where D is narrow against C each
+  block computes the logits whole. ``wgmma`` products, TMA loads in the
+  128-byte swizzle; D and C reach it as multiples of 64, zero-padded
+  copies where they are not (exact). Its plan covers D and C up to 2048,
+  and any C where D is up to 256. The rest (``chunked_widths``: D above
+  2048, or C above 2048 with D above 256; no config of the zoo) runs the
+  chunked kernel, mma.sync over 128-column chunks of D in blocks that
+  each own a 128-column slice of C and recompute the logits for it. The
+  float32 forward keeps its wide kernel (a block per 128-column slice of
+  C, recomputing the logits). The backward's three launches are
+  the statistics, a key-rows kernel (dK, dV) and a query-rows kernel (dQ),
+  with no atomics (all three gradients deterministic); above 512 (D or C
+  in bf16) its chunked kernels accumulate the logits and dO vᵀ over
+  128-column chunks streamed through shared memory.
 
 ``plain_attention`` is the same Function over the plain versions, on any
 device: the explicit opt-out ``TPU.FLASH_ATTENTION False``.
@@ -215,21 +225,156 @@ def flops(b, n, m, d, c) -> int:
     return 2 * b * n * m * (d + c)
 
 
+# The bf16 cluster kernel of D or C above 128 (csrc/flash_attention.cu,
+# cluster_smem_bytes): query rows of a tile, the largest output slice of a
+# block, the shared memory of a block and its mbarriers, the ring stages
+# tried (k, v), most first: a tile's stages are refilled after its
+# products, so a ring needs two, and where the exchange is deferred (R up
+# to 4: S then runs two tiles ahead) k's needs three.
+_CLUSTER_ROWS = 128
+# keys of a tile: 64, or 32 where the blocks exchange partial logits (the
+# slots and the rings then fit shared memory)
+_CLUSTER_KEYS = 64
+_EXCHANGE_KEYS = 32
+# D and C reach the kernel as multiples of its 64-column atoms (the 128-byte
+# swizzle), zero-padded where they are not
+_CLUSTER_ATOM = 64
+_CLUSTER_MAX_COLS = 256
+_SMEM_LIMIT = 232448
+_BARRIER_BYTES = 256
+_STAGES = ((3, 3), (3, 2), (2, 2))
+_DEFERRED_STAGES = ((3, 3), (3, 2))
+# the blocks of a query tile that may form one cluster (its portable size)
+_MAX_CLUSTER = 8
+# columns of D in a block's logits (the kernel's kClDSlice: four atoms,
+# whose k steps its wgmma chain takes unrolled)
+_D_SLICE = 256
+_SPLIT_FIELDS = ("cluster", "exchange", "d_slice", "c_slice", "width",
+                 "keys", "k_stages", "v_stages", "smem")
+
+
+def _ceil(x, to):
+    return -(-x // to) * to
+
+
+def cluster_smem_bytes(d_slice, width, keys, k_stages, v_stages, exchange,
+                       cluster) -> int:
+    """Shared memory of one block of the cluster kernel: q (128 x d_slice),
+    the k stages (keys x d_slice) and v stages (keys x width) in bf16,
+    where the blocks exchange a float32 slot of 128 x keys partial logits
+    for each block of the cluster (half of it at 8, which exchanges in two
+    rounds), the mbarriers, and 1024 bytes to align the tiles (the 128-byte
+    swizzle): the kernel's own arithmetic."""
+    slots = (cluster * _CLUSTER_ROWS * _EXCHANGE_KEYS * 4
+             // (2 if cluster > 4 else 1))
+    return (2 * (_CLUSTER_ROWS * d_slice + k_stages * keys * d_slice
+                 + v_stages * keys * width)
+            + (slots if exchange else 0) + _BARRIER_BYTES + 1024)
+
+
+def forward_split(b, n, m, d, c) -> dict:
+    """The bf16 cluster kernel's split of one call with D or C above 128,
+    D and C rounded up to multiples of 64 as the kernel takes them (the
+    wrapper pads them with zero columns).
+
+    ``cluster`` (R) blocks own a tile of ``rows`` queries, block r the
+    output columns [r c_slice, (r + 1) c_slice): the least power of two
+    with C / R ≤ 256 (a block's float32 accumulator) and, where D is wider
+    than a block's ``d_slice`` of 256 columns, D / R ≤ 256. Then
+    (``exchange``) the R blocks are one thread block cluster, block r also
+    owns D's columns [r d_slice, (r + 1) d_slice), and they add their
+    partial logits in rank order, so q kᵀ is computed once; else every
+    block computes the logits over all of D and the blocks are no cluster
+    (R may then exceed 8, for C above 2048). ``recompute`` is the q kᵀ work
+    over the bound's, padding included (1.0 at D = C = 256 and 1024);
+    ``keys`` a tile (32 where the blocks exchange, so that the slots and
+    the rings fit, else 64), ``k_stages`` and ``v_stages`` the rings (three
+    each where they fit, else two; a deferred exchange, R up to 4, needs
+    three of k), ``smem`` a block's bytes, ``width`` the accumulator's
+    columns (64, 128 or 256), ``blocks`` the grid. Raises ValueError where
+    no split fits: at ``chunked_widths``."""
+    d_in = d
+    d, c = _ceil(d, _CLUSTER_ATOM), _ceil(c, _CLUSTER_ATOM)
+    exchange = d > _D_SLICE
+    for split in (1, 2, 4, 8, 16, 32, 64):
+        if -(-c // split) > _CLUSTER_MAX_COLS or (
+                exchange and (split * _D_SLICE < d or split == 1)):
+            continue
+        if exchange and split > _MAX_CLUSTER:
+            break
+        c_slice = _ceil(-(-c // split), _CLUSTER_ATOM)
+        width = next(w for w in (64, 128, _CLUSTER_MAX_COLS) if c_slice <= w)
+        keys = _EXCHANGE_KEYS if exchange else _CLUSTER_KEYS
+        deferred = exchange and split <= 4
+        for k_stages, v_stages in (_DEFERRED_STAGES if deferred
+                                   else _STAGES):
+            smem = cluster_smem_bytes(_D_SLICE, width, keys, k_stages,
+                                      v_stages, exchange, split)
+            if smem <= _SMEM_LIMIT:
+                return dict(
+                    cluster=split, exchange=exchange, d_slice=_D_SLICE,
+                    c_slice=c_slice, width=width, k_stages=k_stages,
+                    v_stages=v_stages, smem=smem, rows=_CLUSTER_ROWS,
+                    keys=keys, blocks=split * -(-n // _CLUSTER_ROWS) * b,
+                    recompute=split * _D_SLICE / d_in)
+    raise ValueError(f"flash_attention: no bf16 kernel split for D {d}, C "
+                     f"{c} (D up to 2048, C up to 2048, or any C where D is "
+                     "up to 256)")
+
+
+def chunked_widths(d, c) -> bool:
+    """Whether a bf16 call of widths D, C runs the chunked kernel: the
+    widths that ``forward_split`` cannot plan, D above eight blocks' 256
+    columns, or C above eight blocks' 256 output columns where D needs a
+    cluster (above 256), D and C rounded up to multiples of 64 as
+    there."""
+    d, c = _ceil(d, _CLUSTER_ATOM), _ceil(c, _CLUSTER_ATOM)
+    return d > _MAX_CLUSTER * _D_SLICE or (
+        d > _D_SLICE and c > _MAX_CLUSTER * _CLUSTER_MAX_COLS)
+
+
+def _pad(t, width, multiple=8):
+    """A zero copy of ``t`` whose last dimension is ``width`` rounded up to
+    ``multiple``, holding ``t`` in its first ``width`` columns."""
+    copy = t.new_zeros(*t.shape[:-1], _ceil(width, multiple))
+    copy[..., :width] = t
+    return copy
+
+
 def _launch_forward(q, k, v, with_lse: bool):
     _check(q, k, v)
     _check_cuda((q, k, v))
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
+    # bf16 above 128: the cluster kernel, or the chunked one (any width
+    # and alignment) where no split fits
+    cluster = (q.dtype == torch.bfloat16 and (d > 128 or c > 128)
+               and not chunked_widths(d, c))
+    if cluster and not _tma_ready((q, k, v), _CLUSTER_ATOM):
+        # exact: zero columns of q and k leave the logits, and zero columns
+        # of v the first C columns of the output, unchanged
+        out, lse = _launch_forward(
+            _pad(q, d, _CLUSTER_ATOM), _pad(k, d, _CLUSTER_ATOM),
+            _pad(v, c, _CLUSTER_ATOM), with_lse)
+        return out[..., :c].contiguous(), lse
     out = torch.empty((b, n, c), dtype=v.dtype, device=v.device)
     lse = (torch.empty((b, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = _lib()
+    lse_ptr = None if lse is None else _ptr(lse)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_launch(
-            0 if q.dtype == torch.float32 else 1, _ptr(q), _ptr(k), _ptr(v),
-            _ptr(out), None if lse is None else _ptr(lse), b, n, m, d, c,
-            ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if cluster:
+            split = forward_split(b, n, m, d, c)
+            plan = (ctypes.c_int * len(_SPLIT_FIELDS))(
+                *(int(split[f]) for f in _SPLIT_FIELDS))
+            err = lib.flash_attention_cluster_launch(
+                _ptr(q), _ptr(k), _ptr(v), _ptr(out), lse_ptr, b, n, m, d, c,
+                plan, stream)
+        else:
+            err = lib.flash_attention_launch(
+                0 if q.dtype == torch.float32 else 1, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(out), lse_ptr, b, n, m, d, c, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} (q "
@@ -248,22 +393,16 @@ def padded_backward(backward, q, k, v, out, lse, dout):
     columns of v, out and dout leave D = rowsum(dO∘O) and dO vᵀ unchanged,
     so every gradient's first D (or C) columns are the unpadded ones."""
     d, c = q.shape[-1], v.shape[-1]
-
-    def pad(t, width):
-        copy = t.new_zeros(*t.shape[:-1], -(-width // 8) * 8)
-        copy[..., :width] = t
-        return copy
-
-    dq, dk, dv = backward(pad(q, d), pad(k, d), pad(v, c), pad(out, c), lse,
-                          pad(dout, c))
+    dq, dk, dv = backward(_pad(q, d), _pad(k, d), _pad(v, c), _pad(out, c),
+                          lse, _pad(dout, c))
     return (dq[..., :d].contiguous(), dk[..., :d].contiguous(),
             dv[..., :c].contiguous())
 
 
-def _tma_ready(tensors) -> bool:
-    """The bf16 kernel's TMA loads take widths that are multiples of 8 and
-    16-byte aligned data."""
-    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+def _tma_ready(tensors, multiple=8) -> bool:
+    """The bf16 kernels' TMA loads take widths that are multiples of 8 (the
+    forward's cluster kernel: of 64) and 16-byte aligned data."""
+    return all(t.shape[-1] % multiple == 0 and t.data_ptr() % 16 == 0
                for t in tensors)
 
 
@@ -399,6 +538,16 @@ def _lib() -> ctypes.CDLL:
     f = lib.flash_attention_launch
     f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    f = lib.flash_attention_cluster_launch
+    f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p] * 2)
+    f.restype = ctypes.c_int
+    f = lib.flash_attention_cluster_smem
+    f.argtypes = [ctypes.c_int] * 7
+    f.restype = ctypes.c_size_t
+    f = lib.flash_attention_cluster_smem_attr
+    f.argtypes = [ctypes.c_int] * 2
     f.restype = ctypes.c_int
     return lib
 

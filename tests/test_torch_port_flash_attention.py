@@ -131,21 +131,28 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         tfa.flash_attention(*args)
 
 
-def _kernel_bf16_model(q, k, v, tile=64):
+def _kernel_bf16_model(q, k, v, tile=64, split=1, d_slice=None):
     """The arithmetic of ``csrc/flash_attention.cu``'s bfloat16 kernels: f32
-    logits of the bf16 q and k, the softmax online over key tiles (64, or
-    32 in the wide kernel, whose 128-column slices repeat the same
-    softmax) in f32, each probability rounded once to bf16 before the
-    f32-accumulated product with the bf16 v, the row sum taken from the
-    unrounded probabilities. Returns the f32 output before its rounding to
-    bf16."""
-    b, n, _ = q.shape
+    logits of the bf16 q and k, the softmax online over key tiles in f32,
+    each probability rounded once to bf16 before the f32-accumulated
+    product with the bf16 v, the row sum taken from the unrounded
+    probabilities. The cluster kernel (D or C above 128) takes ``tile`` =
+    32 or 64 keys and, where its ``split`` blocks exchange, adds their
+    partial logits over slices of ``d_slice`` columns of D in rank order in
+    float32. Returns the f32 output before its rounding to bf16."""
+    b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
     acc = torch.zeros(b, n, c)
     row_max = torch.full((b, n), -float("inf"))
     row_sum = torch.zeros(b, n)
+    width = d_slice or d
     for s in range(0, m, tile):
-        logits = q.float() @ k[:, s:s + tile].float().transpose(1, 2)
+        kt = k[:, s:s + tile].float()
+        logits = q[..., :width].float() @ kt[..., :width].transpose(1, 2)
+        for r in range(1, split):  # the partials of blocks 1 .. R - 1
+            cols = slice(r * width, (r + 1) * width)
+            logits = logits + (q[..., cols].float()
+                               @ kt[..., cols].transpose(1, 2))
         new_max = torch.maximum(row_max, logits.amax(-1))
         corr = torch.exp(row_max - new_max)
         p = torch.exp(logits - new_max[..., None])
@@ -156,18 +163,42 @@ def _kernel_bf16_model(q, k, v, tile=64):
     return acc / row_sum.clamp(min=1e-30)[..., None]
 
 
+def _kernel_split(b, n, m, d, c):
+    """(tile, split, d_slice) of the kernel that takes D, C: the narrow one
+    up to 128, the chunked kernel (32-key tiles, the logits over all of D)
+    where no cluster split fits, else the cluster kernel's
+    forward_split."""
+    if d <= 128 and c <= 128:
+        return 64, 1, None
+    if tfa.chunked_widths(d, c):
+        return 32, 1, None
+    plan = tfa.forward_split(b, n, m, d, c)
+    if plan["exchange"]:
+        return plan["keys"], plan["cluster"], plan["d_slice"]
+    return plan["keys"], 1, None
+
+
 @pytest.mark.parametrize("logit_std", [3.0, 11.0])
-@pytest.mark.parametrize("dim", [8, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dim", [8, 32, 64, 128, 256, 512] + [
+    pytest.param(dc, id=f"{dc[0]}x{dc[1]}")
+    for dc in ((1024, 1024), (64, 1100), (1100, 64), (600, 700),
+               (3072, 3072), (300, 2100))])
 def test_bf16_kernel_arithmetic_within_attn_bf16_tol(dim, logit_std):
-    # D = C as at the four CMDA-R50 fusions and the non-local blocks; N
-    # small, M ragged against the kernel's key tile; q and k scaled so that
-    # the logits have the given standard deviation (3 as chip_smoke
-    # calibrates the model, 11 a peakier softmax)
+    # D = C as at the four CMDA-R50 fusions and the non-local blocks (256,
+    # 512, the res5's 1024), and D and C apart where the cluster kernel
+    # splits C over 8 blocks that each compute the logits whole (64, 1100),
+    # splits D over a cluster of 4 (1100, 64) or both (600, 700); beyond
+    # its plan, the chunked kernel (3072, 3072), (300, 2100); N small,
+    # M ragged against the kernel's key tile; q and k scaled so that the
+    # logits have the given standard deviation (3 as chip_smoke calibrates
+    # the model, 11 a peakier softmax)
+    d, c = dim if isinstance(dim, tuple) else (dim, dim)
     b, n, m = 2, 70, 200
-    q, k, v = _qkv(b, n, m, dim, dim, seed=dim)
-    scale = (logit_std / np.sqrt(dim)) ** 0.5
+    q, k, v = _qkv(b, n, m, d, c, seed=d if d == c else d + 7 * c)
+    scale = (logit_std / np.sqrt(d)) ** 0.5
     q, k, v = (torch.from_numpy(a).bfloat16() for a in (q * scale, k * scale, v))
-    model = _kernel_bf16_model(q, k, v, tile=64 if dim <= 128 else 32)
+    tile, split, d_slice = _kernel_split(b, n, m, d, c)
+    model = _kernel_bf16_model(q, k, v, tile, split, d_slice)
     exact = tfa.chunked_attention(q.float(), k.float(), v.float())
     # the rounding of P alone moves the output by at most 2^-9 max|v| (the
     # weights are off by at most 2^-9 relative); f32 sums add ~1e-6
