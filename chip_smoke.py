@@ -164,7 +164,7 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               checkpoint bit-identical to what was saved and loaded back
               bit-identically into a model of its BN form; the test's
               per-video scores equal to test() of the last checkpoint by
-              path; then the CLI again with AUTO_RESUME from the second
+              path; then the CLI again with AUTO_RESUME from the third
               checkpoint: it starts at the next epoch from that file's state
               bit for bit, at the policy's lr (run 1's). Prints per epoch
               train clips/s and peak memory, precise BN's seconds, each
@@ -423,16 +423,16 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               window at 2 ranks beside one process's, each rank's peak
               memory, and K3's kernels' device ms in a traced
               +INT8_SPATIAL request on slabs beside one process's.
-21. wide    — attention wider than 512 (phase_wide): K2's cluster
-              kernel (and its chunked one beyond the cluster kernel's
-              plan) and K2-bwd's chunked ones. (a) K2 and K2-bwd against
+21. wide    — attention wider than 512 (phase_wide): K2's and K2-bwd's
+              cluster kernels (and their chunked ones beyond the cluster
+              kernels' plans). (a) K2 and K2-bwd against
               their plain
               versions in f32 and bf16 at 3b's and 3c's gates at the
               slice's shapes (WIDE_ROWS: D = C = 1024; N 4096 and M 1024,
               the path's 256 x 512 frames, and N 2048 and M 512, a 256²
               crop, at TEST.BATCH_SIZE; N 1568 and M 392 at
               TRAIN.BATCH_SIZE, K2-bwd there too) and WIDE_OFF_PATH (D 600 C
-              700; D 64 C 2048; D 2048 C 64; K2's chunked kernel at D 3072
+              700; D 64 C 2048; D 2048 C 64; the chunked kernels at D 3072
               C 3072 and D 300 C 2100), and a planted fault, the
               last 128 columns of D left out of the logits, that must fail
               both gates; (b) configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml with
@@ -449,20 +449,26 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               the plain step at phase 13's tolerances
               (hold_one_clip_steps); (c) at the slice's
               shapes each kernel's time beside its bound, the operations
-              its recompute adds (wide_work: forward_split's for K2, the
-              128-column slices' for K2-bwd), the plain
+              its recompute adds (wide_work: forward_split's for K2,
+              backward_split's for K2-bwd), the plain
               version's time and SDPA's (scale 1.0) with the backend that
               ran.
 
 The depths were cut to make room for phase 16 within the time limit:
 REQUESTS 3 → 2, TRAIN_STEPS 5 → 3, PROFILE_STEPS 3 → 2, FATIGUE_STEPS 4 →
-3 (phase 14 traces its third step), PRECISE_BATCHES 2 → 1,
+3 (phase 14 traces its third step), phase 14's precise BN 2 → 1 batch,
 FRAME_LIST_STEPS 4 → 2; and for phase 18: TRAIN_WARMUP 2 → 1,
 PROFILE_STEPS 2 → 1, DEMO_WINDOWS 3 → 2; and for phase 19: DIST_STEPS
 3 → 2, FRAME_LIST_STEPS 2 → 1; and for phase 20: phase 15's int8 export
 moved into phase 20, whose master writes it under the split (no width,
-shape, gate or kernel hold changed).
-After each phase block the smoke logs the seconds since its start.
+shape, gate or kernel hold changed); and to win back time for the limit
+(PR 22; no width, shape, gate or kernel hold changed): phase 14's loader
+benchmark over FATIGUE_BENCH_BATCHES = 1 batch of 128 clips (was the
+train list's 3), its fatigue CLI run without precise BN (phase 10 holds
+precise BN through the same CLI), phase 10's resumed run from the third
+checkpoint (one epoch, was two).
+After each phase block the smoke logs the seconds since its start, and
+each line the seconds since the start (@).
 
 The profiler (phases 6, 7, 8, 11, 12, 13, 16, 21) prints, per traced window, the
 device-busy share (the union of the CUDA kernels' intervals over the
@@ -664,8 +670,13 @@ ATTN_OFF_PATH = [("ragged keys", 1296, 1300, 8, 16),
                  ("c 100", 1500, 777, 64, 100)]
 
 
+_START = time.time()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the smoke's output, with the seconds since the script
+    started (what each step costs of the call's time limit)."""
+    print(f"[{phase}] {msg} (@{time.time() - _START:.1f} s)", flush=True)
 
 
 def kernel_counters():
@@ -745,11 +756,12 @@ def phase_build():
                 log("build", f"{name}: {func}: {line.split(':', 1)[-1].strip()}")
                 stores = re.search(r"(\d+) bytes spill stores", line)
                 if "cluster_kernel" in func and stores and int(stores[1]):
-                    spills.append(f"{func}: {line.strip()}")
+                    spills.append(f"{name}: {func}: {line.strip()}")
     log("build", f"built {sorted(reports) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
-    if spills:  # the cluster kernel's accumulators live in registers
-        raise AssertionError(f"K2's cluster kernel spills: {spills}")
+    if spills:  # the cluster kernels' accumulators live in registers
+        raise AssertionError(f"K2's or K2-bwd's cluster kernel spills: "
+                             f"{spills}")
     # cuobjdump ships beside nvcc in the CUDA toolkit
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_counts(tool, _build.lib_path("flash_attention"))
@@ -760,19 +772,24 @@ def phase_build():
     wide_sass_counts(tool, _build.lib_path("flash_attention"),
                      r"flash_attention_tc_cluster_kernelILi(\d+)ELb(\d)E", 6,
                      "cluster (width/exchange)", op="HGMMA")
+    # K2-bwd's bf16 backward above 128: the cluster kernel, wgmma (HGMMA)
+    # in each instantiation (16 or 32 queries a tile)
     wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
-                     r"attention_bwd_rows_kernelILi(\d+)ELb(\d)E", 4)
+                     r"attention_bwd_cluster_kernelILi(\d+)E", 2,
+                     "cluster (queries a tile)", op="HGMMA")
     # K2's bf16 forward beyond the cluster kernel's plan: the chunked
     # kernel, mma.sync (HMMA), q resident or streamed
     wide_sass_counts(tool, _build.lib_path("flash_attention"),
                      r"flash_attention_tc_chunked_kernelILb(\d)E", 2,
                      "chunked (q resident)")
-    # K2-bwd above 512: the chunked kernels (key or query rows)
+    # K2-bwd beyond the cluster kernel's plan: the chunked kernels (key or
+    # query rows)
     wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
                      r"attention_bwd_chunked_kernelILb(\d)E", 2,
                      "chunked (key rows)")
     k3_sass_counts(tool, _build.lib_path("int8_conv"))
     cluster_plan_bytes()
+    bwd_cluster_plan_bytes()
 
 
 @functools.lru_cache(maxsize=None)
@@ -845,6 +862,46 @@ def cluster_plan_bytes():
     if len(seen) != 6:
         raise AssertionError(f"CLUSTER_PLAN_WIDTHS reach {sorted(seen)}, "
                              "not the six instantiations")
+
+
+# (D, C) of K2-bwd's cluster kernel at each instantiation (16 or 32
+# queries a tile) and ring (two or three stages), launched once each
+BWD_CLUSTER_PLAN_WIDTHS = [(256, 256), (1024, 1024), (2048, 64)]
+
+
+def bwd_cluster_plan_bytes():
+    """K2-bwd's cluster kernel on a small bf16 input at each of its
+    instantiations: backward_split's shared-memory bytes against the
+    library's own arithmetic and against the attribute the launch set on
+    the kernel (cudaFuncGetAttributes)."""
+    from efficient_slowfast_tpu_torch.ops.kernels import \
+        flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 47)
+    seen = set()
+    for d, c in BWD_CLUSTER_PLAN_WIDTHS:
+        q, k, v, dout = (torch.randn(1, n, w, generator=gen, device="cuda")
+                         .bfloat16() for n, w in ((130, d), (70, d), (70, c),
+                                                  (130, c)))
+        out, lse = fa._forward(q, k, v, with_lse=True)
+        fa.flash_attention_backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        plan = fa.backward_split(1, 130, 70, d, c)
+        lib = fa._bwd_lib()
+        own = lib.flash_attention_backward_cluster_smem(
+            plan["cluster"], plan["queries"], plan["stages"])
+        attr = lib.flash_attention_backward_cluster_smem_attr(
+            plan["queries"])
+        seen.add((plan["queries"], plan["stages"]))
+        log("build", f"K2-bwd cluster kernel D {d} C {c}: plan {plan} | the "
+            f"library's bytes {own}, the launched kernel's attribute {attr}")
+        if plan["kernel"] != "cluster" or not plan["smem"] == own == attr:
+            raise AssertionError(f"D {d} C {c}: backward_split's "
+                                 f"{plan['smem']} bytes, the library's "
+                                 f"{own}, the kernel's attribute {attr}")
+    if {q for q, _ in seen} != {16, 32} or {s_ for _, s_ in seen} != {2, 3}:
+        raise AssertionError(f"BWD_CLUSTER_PLAN_WIDTHS reach {sorted(seen)}, "
+                             "not both instantiations and both rings")
 
 
 def k3_sass_counts(tool, lib):
@@ -1709,7 +1766,8 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
                 again = flash_attention_backward(q, k, v, out, lse, dout)
                 torch.cuda.synchronize()
                 # dK and dV are sums in a fixed order; bf16 dQ is summed
-                # over key blocks by float32 atomic adds in any order
+                # over key blocks by float32 reduce-adds in any order (the
+                # chunked kernels' dQ is deterministic too)
                 exact = [torch.equal(g, a) for g, a in zip(grads, again)]
                 dq_moved = (grads[0].float() - again[0].float()).abs().max(
                     ).item()
@@ -1792,8 +1850,9 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
             f"{k_ms / lib_ms:.2f} | bound "
             f"{bound:.5f} ms ({by}; tensor cores {t_ops:.5f} ms for "
             f"{flops / 1e9:.3f} GFLOP, exp {t_exp:.5f} ms for {exps:.3e}, "
-            f"memory {t_bytes:.5f} ms for {nbytes / 1e6:.3f} MB) | split: "
-            f"Bc {split['keys']} keys, Br {split['queries']} queries, "
+            f"memory {t_bytes:.5f} ms for {nbytes / 1e6:.3f} MB) | split "
+            f"({split['kernel']} kernel): cluster {split['cluster']}, Bc "
+            f"{split['keys']} keys, Br {split['queries']} queries, "
             f"{split['stages']} stages, {split['blocks']} CTAs "
             f"({split['per_sm']} an SM), {split['smem']} B shared memory, "
             f"width {split['width']}, {split['slices']} column slices | "
@@ -2865,17 +2924,20 @@ def phase_recipe(held_fwd, held_bwd, smi):
     if diff != 0.0:
         bad.append(f"the test's scores differ from test() of {last}: {diff}")
 
-    # run 2: the CLI again with AUTO_RESUME after the last two checkpoints
-    for sv in run1.saves[2:]:
+    # run 2: the CLI again with AUTO_RESUME after the last checkpoint: it
+    # resumes from the [4, 16, 158] epoch (4-split BN) into the final
+    # [1, 32, 224] one (plain BN)
+    for sv in run1.saves[3:]:
         os.remove(sv["path"])
-    resume_from = run1.saves[1]
+    resume_from = run1.saves[2]
     run2 = RecipeRun()
     recipe_main(run2, recipe_argv(out_dir, "TEST.ENABLE", False))
     first = run2.epochs[0] if run2.epochs else {}
     same = [(tree_mismatch(run2.start[k], resume_from["payload"][s]))
             for k, s in (("model", "model_state"),
                          ("optimizer", "optimizer_state"))]
-    lrs1 = [x[0] for e in run1.epochs if e["epoch"] >= 2 for x in e["steps"]]
+    lrs1 = [x[0] for e in run1.epochs if e["epoch"] > resume_from["epoch"]
+            for x in e["steps"]]
     lrs2 = [x[0] for e in run2.epochs for x in e["steps"]]
     log("recipe", f"resume: AUTO_RESUME from "
         f"{os.path.basename(resume_from['path'])} (epoch "
@@ -4413,10 +4475,10 @@ SSV2_YAML = os.path.join(ROOT, "configs", "SSv2", "SLOWFAST_16x8_R50.yaml")
 FRAME_HW = (240, 320)
 FRAME_FOLDERS, FRAME_JPEGS = 32, 40
 # the fatigue split: FATIGUE_STEPS train steps of the yaml's 128 clips, its
-# val (and test) list FATIGUE_VIDEOS folders; precise BN cut from the yaml's
-# 170 batches to PRECISE_BATCHES
+# val (and test) list FATIGUE_VIDEOS folders; the loader benchmark over the
+# first FATIGUE_BENCH_BATCHES batches of the train list (its own list)
 FATIGUE_STEPS, FATIGUE_BATCH, FATIGUE_VIDEOS = 3, 128, 4
-PRECISE_BATCHES = 1
+FATIGUE_BENCH_BATCHES = 1
 # Charades and SSv2: (train videos, val and test videos, frames a video);
 # train steps at the yamls' 16 clips
 FRAME_LISTS = {"charades": (64, 4, 140), "ssv2": (64, 8, 48)}
@@ -4429,7 +4491,8 @@ def write_frame_split(root):
     """The phase's seeded split under ``root``: FRAME_FOLDERS folders of
     FRAME_JPEGS JPEGs (smooth seeded content, a 16-pixel cell moving a
     frame); the fatigue lists (``folder label`` lines: FATIGUE_STEPS x 128
-    train, FATIGUE_VIDEOS val), and the Charades and SSv2 frame lists over
+    train, the benchmark's first FATIGUE_BENCH_BATCHES x 128 of them,
+    FATIGUE_VIDEOS val), and the Charades and SSv2 frame lists over
     the same JPEGs (Charades: 1-3 of its 157 labels a video, on every
     frame; SSv2: label jsons of its 174 templates)."""
     from PIL import Image
@@ -4449,9 +4512,11 @@ def write_frame_split(root):
     split = {"root": root}
     fatigue = os.path.join(root, "fatigue")
     os.makedirs(fatigue, exist_ok=True)
+    train = [(folders[i % FRAME_FOLDERS], i % 3)
+             for i in range(FATIGUE_STEPS * FATIGUE_BATCH)]
     for name, lines in (
-            ("train", [(folders[i % FRAME_FOLDERS], i % 3)
-                       for i in range(FATIGUE_STEPS * FATIGUE_BATCH)]),
+            ("train", train),
+            ("bench", train[:FATIGUE_BENCH_BATCHES * FATIGUE_BATCH]),
             ("val", [(folders[(16 + v) % FRAME_FOLDERS], v % 3)
                      for v in range(FATIGUE_VIDEOS)])):
         split[f"fatigue_{name}"] = os.path.join(fatigue, f"{name}.txt")
@@ -4708,12 +4773,14 @@ def host_breakdown(cfg, clips=8, top=8):
 
 
 def phase_frame_benchmark(split, smi):
-    """benchmark_data_loading over the fatigue train split: the loader's
-    clips/s alone, no device work. Returns the epoch's clips/s."""
+    """benchmark_data_loading over the fatigue train split's first
+    FATIGUE_BENCH_BATCHES batches: the loader's clips/s alone, no device
+    work. Returns the epoch's clips/s."""
     from efficient_slowfast_tpu_torch.utils import benchmark
 
     cfg = frame_cfg(FATIGUE_CMDA_YAML, split, "bfloat16",
-                    "BENCHMARK.NUM_EPOCHS", 1, "BENCHMARK.LOG_PERIOD", 1)
+                    "BENCHMARK.NUM_EPOCHS", 1, "BENCHMARK.LOG_PERIOD", 1,
+                    "DATA.PATH_TO_TRAIN_DATA_TXT", split["fatigue_bench"])
     records, orig = [], benchmark.log_json_stats
     benchmark.log_json_stats = lambda s: (records.append(dict(s)), orig(s))
     try:
@@ -4722,7 +4789,7 @@ def phase_frame_benchmark(split, smi):
         benchmark.log_json_stats = orig
     windows = [r["clips_per_s"] for r in records
                if r["_type"] == "benchmark_iter"]
-    clips = FATIGUE_STEPS * FATIGUE_BATCH
+    clips = FATIGUE_BENCH_BATCHES * FATIGUE_BATCH
     log("frames", f"benchmark_data_loading, fatigue train split "
         f"({cfg.TRAIN.DATASET}, {clips} clips of {cfg.DATA.NUM_FRAMES} JPEGs "
         f"in batches of {cfg.TRAIN.BATCH_SIZE}, {LOADER_WORKERS} threads on "
@@ -4733,7 +4800,7 @@ def phase_frame_benchmark(split, smi):
         f"records {[r['_type'] for r in records]}")
     host_breakdown(cfg)
     types = [r["_type"] for r in records]
-    if types != ["benchmark_iter"] * FATIGUE_STEPS + [
+    if types != ["benchmark_iter"] * FATIGUE_BENCH_BATCHES + [
             "benchmark_epoch", "benchmark_final"] or not all(
                 x > 0 for x in windows):
         raise AssertionError(f"benchmark_data_loading records {records}")
@@ -4790,7 +4857,7 @@ def phase_fatigue_cmda(split, loader_clips_per_s, smi):
         split, FATIGUE_CMDA_YAML)] + [
         "TPU.COMPUTE_DTYPE", "bfloat16", "DATA_LOADER.NUM_WORKERS",
         str(LOADER_WORKERS), "SOLVER.MAX_EPOCH", "1",
-        "BN.NUM_BATCHES_PRECISE", str(PRECISE_BATCHES),
+        "BN.USE_PRECISE_STATS", "False",
         "TRAIN.CHECKPOINT_FILE_PATH", init, "TRAIN.CHECKPOINT_TYPE",
         "pytorch", "OUTPUT_DIR", out_dir]
     rec = FrameRun("frames_fatigue_cmda_step")
@@ -4812,7 +4879,7 @@ def phase_fatigue_cmda(split, loader_clips_per_s, smi):
         sum(s["s"] for s in steps) + sum(waits) / 1e3)
     share, window_ms = rec.trace[0], rec.trace[1]
     log("frames", f"fatigue CMDA CLI (train then test, SOLVER.MAX_EPOCH 1, "
-        f"precise BN {PRECISE_BATCHES} batches): {len(steps)} steps of "
+        f"no precise BN: phase 10 holds it): {len(steps)} steps of "
         f"{[s['clips'] for s in steps]} clips, losses " + ", ".join(
             f"{x:.4f}" for x in losses) + " | ms a step " + ", ".join(
             f"{s['s'] * 1e3:.1f}" for s in steps) + " (the first with cuDNN's"
@@ -4823,21 +4890,23 @@ def phase_fatigue_cmda(split, loader_clips_per_s, smi):
             f"{w:.1f}" for w in waits) + f" ms (the loader alone "
         f"{loader_clips_per_s:.2f} clips/s: {train_b / loader_clips_per_s * 1e3:.0f}"
         f" ms a batch) | traced step: device busy {share * 100:.1f}% of "
-        f"{window_ms:.2f} ms | precise BN {rec.stages['precise_bn']['s']:.2f}"
-        f" s, val {rec.stages['val']['s']:.2f} s | peak memory "
+        f"{window_ms:.2f} ms | val {rec.stages['val']['s']:.2f} s | peak "
+        f"memory "
         f"{peak / 2 ** 30:.2f} GiB | kernel launches {counts} | {dt:.1f} s | "
         f"{smi}")
     bwd = 3 * BACKWARD_LAUNCHES_PER_CALL
     bad = [s["counts"] for s in steps if s["counts"] != {
         "fused_bottleneck": 0, "flash_attention": 3,
         "flash_attention_backward": bwd, "int8_conv": 0}]
-    per_forward = {"precise_bn": PRECISE_BATCHES, "val": 1,
+    per_forward = {"val": 1,
                    "test": rec.stages["test_batches"]}
     for name, n in per_forward.items():
         if rec.stages[name]["counts"] != {"fused_bottleneck": 0,
                                           "flash_attention": 3 * n,
                                           "flash_attention_backward": 0, "int8_conv": 0}:
             bad.append((name, rec.stages[name]["counts"]))
+    if "precise_bn" in rec.stages:  # off in this run (phase 10 holds it)
+        bad.append(("precise_bn", rec.stages["precise_bn"]))
     staged = len(steps) * 3 + 3 * sum(per_forward.values())
     # the one forward left is log_model_info's (a 1-clip FLOP count)
     if (bad or len(steps) != FATIGUE_STEPS or counts != {
@@ -8241,19 +8310,25 @@ def wide_work(d, c):
     computes q kᵀ forward_split's ``recompute`` times (once where its
     cluster splits D, R times where every block holds D), the chunked
     kernel (chunked_widths) ceil(C / 128) times, P v once.
-    Backward: a block owns a 128-column slice of the output and recomputes
-    the logits over all of D for it and dO vᵀ over all of C, the key rows'
-    ceil(max(D, C) / 128) and the query rows' ceil(D / 128) slices, beside
-    dK, dV and dQ once."""
-    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
-        chunked_widths, forward_split
+    Backward: the cluster kernel computes each of the five products once
+    over 2 R slices of 128 columns of D and C, those past D or C on zeros
+    (backward_split's ``recompute``); the chunked kernels
+    (backward_chunked_widths) own a 128-column slice of the output a block
+    and recompute the logits over all of D and dO vᵀ over all of C for it,
+    the key rows' ceil(max(D, C) / 128) and the query rows' ceil(D / 128)
+    slices, beside dK, dV and dQ once."""
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
+        backward_chunked_widths, backward_cluster_split, chunked_widths,
+        forward_split)
 
     s_c, s_d = -(-c // 128), -(-d // 128)
     s_kv = max(s_c, s_d)
     recompute = (s_c if chunked_widths(d, c)  # a block per 128 columns of C
                  else forward_split(1, 128, 64, d, c)["recompute"])
-    return ((d * recompute + c) / (d + c),
-            ((s_kv + s_d) * (d + c) + 128 * (2 * s_d + s_c)) / (3 * d + 2 * c))
+    backward = (((s_kv + s_d) * (d + c) + 128 * (2 * s_d + s_c))
+                / (3 * d + 2 * c) if backward_chunked_widths(d, c)
+                else backward_cluster_split(1, 128, 64, d, c)["recompute"])
+    return (d * recompute + c) / (d + c), backward
 
 
 def train_mode_run(model, inputs, boxes):
@@ -8315,8 +8390,8 @@ def phase_wide_kernels(serve_b, train_b, smi):
     3c's gates), timed beside their bounds, the kernels' recompute, the
     plain versions and SDPA; the planted faults. Returns (K2 record, K2
     error, K2-bwd record, K2-bwd error)."""
-    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import \
-        chunked_widths
+    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
+        backward_chunked_widths, chunked_widths)
 
     batch = {"serve": serve_b, "train": train_b}
     rows = [r[:6] + (batch[r[6]],) for r in WIDE_ROWS]
@@ -8338,11 +8413,13 @@ def phase_wide_kernels(serve_b, train_b, smi):
             work = wide_work(d, c)[bwd]
             lib = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
-            how = ("recomputes the logits and dO vᵀ for each 128-column "
-                   "output slice" if bwd else "(chunked) "
-                   "computes the logits once a 128-column slice of C"
-                   if chunked_widths(d, c) else "computes the logits "
-                   "forward_split's recompute times")
+            how = (("(chunked) recomputes the logits and dO vᵀ for each "
+                    "128-column output slice" if backward_chunked_widths(d, c)
+                    else "(cluster) computes each product once over 2 R "
+                    "slices of 128 columns, past D and C on zeros") if bwd
+                   else "(chunked) computes the logits once a 128-column "
+                   "slice of C" if chunked_widths(d, c) else "computes the "
+                   "logits forward_split's recompute times")
             log("wide", f"{'K2-bwd' if bwd else 'K2'} {label} N {n} M {m} "
                 f"D {d} C {c}: kernel {r['ms']:.4f} ms | bound "
                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}); the kernel "
@@ -8537,9 +8614,9 @@ def phase_wide_model(dirs, smi):
 
 
 def phase_wide(dirs, smi):
-    """Phase 21: K2 and K2-bwd above 512 (K2's cluster kernel and its
-    chunked one beyond the plan, K2-bwd's chunked kernels), the AVA
-    model on the split ``dirs``. Returns (K2 record, K2 error, K2-bwd
+    """Phase 21: K2 and K2-bwd above 512 (their cluster kernels and the
+    chunked ones beyond the plans), the AVA model on the split
+    ``dirs``. Returns (K2 record, K2 error, K2-bwd
     record, K2-bwd error, the path's launch counts)."""
     t0 = time.perf_counter()
     cfg = wide_cfg(dirs)

@@ -25,7 +25,10 @@
 // tensor cores above (s3/s4_fuse). chip_smoke.py computes the bound per
 // shape.
 //
-// bfloat16: three launches, (a) the prologue, (b) one pass, (c) dQ.
+// bfloat16 with D and C up to 128: three launches, (a) the prologue, (b)
+// one pass, (c) dQ. Above 128 the cluster kernel (its section below) takes
+// (b), with the columns split over a thread block cluster, and beyond its
+// plan (D or C above 2048) the chunked kernels.
 //   (a) attention_bwd_prologue_kernel: per query (lse log2 e, Dl) in
 //       float32, rows padded to the query tile, and the float32 dQ
 //       accumulator zeroed.
@@ -193,7 +196,8 @@ __device__ __forceinline__ void mma_ss(float (&acc)[N / 2], const bf16* a,
 }
 
 // (a) Per query row of (B, npad): stats = (lse log2 e, Dl), (0, 0) on the
-// padding rows; and the row's WP accumulator floats set to 0. out and dO
+// padding rows; and the row's WP accumulator floats set to 0 (none at WP =
+// 0: the cluster kernel's accumulator is zeroed by a memset). out and dO
 // are (B, N, C) with C a multiple of 8, 16-byte aligned.
 __global__ void attention_bwd_prologue_kernel(
     const bf16* __restrict__ out, const bf16* __restrict__ dout,
@@ -433,16 +437,19 @@ attention_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
 }
 
 // (c) dq (B, N, D) = the accumulator's rows < N and columns < D in bf16,
-// 8 columns a thread (D a multiple of 8).
+// 8 columns a thread (D a multiple of 8). The accumulator is (B, slices,
+// npad, sw): column j of D in slice j / sw at j % sw (one slice of WP
+// columns for the one-pass kernel, 2 R of 128 for the cluster kernel).
 __global__ void attention_bwd_dq_kernel(const float* __restrict__ dq_acc,
                                         bf16* __restrict__ dq, int b, int n,
-                                        int npad, int d, int wp) {
+                                        int npad, int d, int slices, int sw) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)b * n * (d / 8)) return;
   const long long row = i / (d / 8);
   const int col = (int)(i % (d / 8)) * 8;
   const float4* src = reinterpret_cast<const float4*>(
-      dq_acc + (row / n * npad + row % n) * wp + col);
+      dq_acc + ((row / n * slices + col / sw) * npad + row % n) * sw +
+      col % sw);
   const float4 lo = src[0], hi = src[1];
   __nv_bfloat162 o[4] = {__floats2bfloat162_rn(lo.x, lo.y),
                          __floats2bfloat162_rn(lo.z, lo.w),
@@ -674,22 +681,443 @@ int dispatch_f32(const void* a1, const void* a2, const void* b1,
 }
 
 // ---------------------------------------------------------------------------
-// D or C above 128 (non-local blocks: 256 in s3, 512 in s4, 1024 in
-// res5): the wide kernels. The one-pass kernel keeps dK and dV (Bc x WP float32
-// each) in a consumer warpgroup's registers, 256 a thread at WP = 256, and
-// k, v, q and dO (64 rows each) would not fit shared memory at 512. So the
-// wide path splits the work as the float32 path does, into a key-rows
-// launch (dK, dV) and a query-rows launch (dQ), each block owning 64 rows
-// and one 128-column slice of the outputs (a grid dimension over
-// ceil(max(D, C) / 128) slices) and recomputing the logits and dP over
-// the whole of D and C for its slice: S and dP are computed once per
-// slice in each launch, so at D = C = W (S = W / 128 slices) a call does
-// (8 S + 6) N M W operations where the bound counts the five products
-// once, 10 N M W: 2.2x at W = 256, 3.8x at 512, 7.0x at 1024 (the
-// chunked kernel above 512, whose query rows take slices of D only). No
-// atomics: dQ, dK and dV are all deterministic here.
-// Three launches per call, as the narrow widths: the statistics, key rows,
-// query rows.
+// bfloat16, D or C above 128 (non-local blocks: 256 in s3, 512 in s4, 1024
+// in a res5): the cluster kernel (attention_bwd_cluster_kernel<BR>), three
+// launches a call as at the narrow widths: (a) the prologue, (b) the
+// cluster kernel, (c) dQ. The one-pass kernel above stops at 128: a
+// consumer warpgroup holds dK and dV (64 keys x WP float32 each), 256
+// registers a thread at WP = 256. So here the columns are split too, as
+// the forward's cluster kernel splits them (csrc/flash_attention.cu,
+// push_partial / sum_partials):
+//
+// Split. A block owns kClKeys = 64 keys of one clip and two consumer
+// warpgroups, both on those keys; warpgroup w of block r (virtual rank
+// v = 2 r + w) owns the kClSlice = 128 columns [128 v, 128 v + 128) of D
+// and of C (its dK and dV accumulators: 64 + 64 registers a thread). R
+// blocks (the plan's "cluster": the least of 1, 2, 4, 8 with 256 R >= D
+// and >= C) form one thread block cluster over a clip's key block; columns
+// past D or C arrive as zeros and give zeros. Per query tile of BR queries
+// (32, or 16 where R = 8: the slots then fit shared memory) a warpgroup
+// computes the partial S^T = k q^T over its D columns and the partial
+// dP^T = v dO^T over its C columns (wgmma, both operands in shared memory,
+// keys as M); the block adds its two warpgroups' partials, and the cluster
+// adds its blocks' partials in rank order, 0 first, over distributed
+// shared memory: every block leader pushes its partial (S^T and dP^T,
+// float32) into the same slot of every other block by bulk copies (x_full:
+// transaction bytes; x_free: each peer's arrival once it has read my last
+// push), then every thread sums the R slots. So all 2 R warpgroups hold the
+// same S^T and dP^T, bit for bit, and compute the same P^T = ex2(S^T log2 e
+// - lse log2 e) and dS^T = P^T o (dP^T - Dl) (rounded to bf16 once, as the
+// one-pass kernel rounds them), then
+//   dV[:, its C columns] += P^T dO,  dK[:, its D columns] += dS^T q
+// (register A fragments, dO and q read MN-major in place), and
+//   dQ[tile, its D columns]^T = k^T dS^T
+// (k and dS from shared memory, both MN-major: M = 128 columns of D, so a
+// query tile of 32 needs no 64-row wgmma). Each of the five products is
+// computed once a call where D and C are multiples of 256 R (the zoo's
+// 256, 512, 1024, 2048); elsewhere the warpgroups whose columns lie past D
+// or C multiply zeros ("recompute" in backward_split). The exponentials
+// run 2 R times (cheap beside the products: 0.02 ms at the AVA res5 step).
+//
+// dQ: option (a), a bulk reduce-add (cp.reduce.async.bulk .add.f32) of
+// each warpgroup's BR x 128 float32 part into a (B, 2 R, npad, 128)
+// accumulator, as the one-pass kernel adds its dQ. N D ceil(M / 64) x 4
+// bytes a clip of traffic (0.1 ms of the card's memory at I3D-NLN's s3, 8
+// clips; 0.2 ms at the AVA res5 step), where a deterministic second pass
+// over the query tiles (b) would recompute S and dP, 2 N M (2 D + C) more
+// operations (1.4x the bound's work at D = C). So bf16 dQ is NOT
+// deterministic here either: its float32 adds arrive in any order. dK and
+// dV are sums inside one block in a fixed order and are bit-identical
+// across calls.
+//
+// Grid: R blocks a key block, ceil(M / 64) key blocks, B clips; one block
+// an SM (256 threads, 255 registers a thread, up to 201 KB of shared
+// memory). At I3D-NLN's s3 (8 clips, M = 784, D = C = 256: R = 1) that is
+// 104 blocks, one wave on 79% of the card's 132 SMs; at 256^2 (M = 1024)
+// 128 blocks (97%); at the AVA res5 step (16 clips, M = 392, D = C = 1024:
+// R = 4) 448 blocks in clusters of 4, 3.4 waves.
+//
+// Loads: thread 0 issues TMA copies (hopper.cuh make_panels_map: one copy
+// a tile of 32 column panels) of the block's 256 columns of k and v once,
+// and per query tile of q, dO (the block's 256 columns) and the (lse log2 e,
+// Dl) statistics into a ring of stages (full: one arrival and the copies'
+// bytes; empty: one arrival per warpgroup once its products and its dQ
+// reduce-add have read the stage). A stage holds [statistics][q][dO]; its
+// q and dO become the warpgroups' dQ staging once both have read them.
+//
+// Shared memory (cl_smem_bytes, backward_split's arithmetic): k and v (64
+// x 256 bf16 each), the stages (256 + 1024 BR bytes each, three where they
+// fit, else two), dS (BR x 64 bf16), R slots (BR x 64 x 2 float32 each),
+// the mbarriers. D and C reach it as multiples of 8 with 16-byte aligned
+// data (the wrapper pads other inputs, exactly, as for the narrow path).
+
+constexpr int kClKeys = 64;            // keys a block (wgmma's M)
+constexpr int kClSlice = 128;          // columns of D and of C a warpgroup owns
+constexpr int kClCols = 2 * kClSlice;  // of a block
+constexpr int kClThreads = 256;        // two consumer warpgroups
+constexpr int kClMaxCluster = 8;
+constexpr int kClMinStages = 2;
+constexpr int kClMaxStages = 3;
+constexpr int kClStatsBytes = 256;     // a stage's statistics (BR x 8 bytes)
+constexpr int kClBarrierBytes = 256;
+constexpr int kClKvBytes = kClKeys * kClCols * 2;  // k or v
+
+__host__ __device__ constexpr int cl_stage_bytes(int br) {
+  return kClStatsBytes + 4 * br * kClCols;  // statistics, q, dO
+}
+
+// a block's partial: S^T and dP^T (64 keys x BR queries float32 each)
+__host__ __device__ constexpr int cl_slot_bytes(int br) { return 512 * br; }
+
+__host__ __device__ inline int cl_smem_bytes(int split, int br, int stages) {
+  return 2 * kClKvBytes + stages * cl_stage_bytes(br) + kClKeys * br * 2 +
+         split * cl_slot_bytes(br) + kClBarrierBytes;
+}
+
+struct ClusterBwdArgs {
+  const float2* stats;  // (B, npad): (lse log2 e, Dl)
+  float* dq_acc;        // (B, 2 R, npad, 128) float32, added to
+  bf16* dk;
+  bf16* dv;
+  int n, m, d, c, npad;
+  int split;   // R
+  int stages;  // of the ring
+};
+
+template <int BR>
+__global__ void __launch_bounds__(kClThreads, 1)
+attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const ClusterBwdArgs a) {
+  constexpr int kF4 = BR / 4;  // float4 a thread in a slot: S^T, then dP^T
+  constexpr uint32_t kPanelK = kClKeys * 16;  // bytes between panels of k, v
+  constexpr uint32_t kPanelQ = BR * 16;       // of q and dO
+  extern __shared__ __align__(128) unsigned char smem[];
+  // tiles of column panels [cols / 8][rows][8] (hopper.cuh)
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [32][64][8]
+  bf16* v_s = k_s + kClKeys * kClCols;        // [32][64][8]
+  unsigned char* stage0 = smem + 2 * kClKvBytes;
+  bf16* ds_s = reinterpret_cast<bf16*>(stage0 +
+                                       a.stages * cl_stage_bytes(BR));
+  float4* slots = reinterpret_cast<float4*>(ds_s + kClKeys * BR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(slots) + a.split * cl_slot_bytes(BR));
+  uint64_t* empty = full + kClMaxStages;
+  uint64_t* kv_full = empty + kClMaxStages;
+  uint64_t* x_full = kv_full + 1;
+  uint64_t* x_free = x_full + 1;
+
+  const int split = a.split, rank = blockIdx.x % split, b = blockIdx.y;
+  const int kb = blockIdx.x / split, key0 = kb * kClKeys;
+  const int tiles = a.npad / BR, first = kb % tiles;
+  const int tid = threadIdx.x, wg = tid / 128, t128 = tid % 128;
+  const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int col0 = (2 * rank + wg) * kClSlice;  // of D and of C
+  auto stage = [&](int s) { return stage0 + s * cl_stage_bytes(BR); };
+  if (tid == 0) {
+    for (int s = 0; s < kClMaxStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 2);
+    }
+    hp::mbar_init(kv_full, 1);
+    hp::mbar_init(x_full, 1);
+    hp::mbar_init(x_free, split > 1 ? split - 1 : 1);
+    hp::mbar_init_fence();
+  }
+  // every block of the cluster has its barriers before any arrives there
+  if (split > 1)
+    hp::cluster_sync();
+  else
+    __syncthreads();
+
+  // tile i's statistics, q and dO (the block's 256 columns) into stage
+  // i % stages
+  auto load_tile = [&](int i) {
+    const int s = i % a.stages, q0 = (first + i) % tiles * BR;
+    unsigned char* st = stage(s);
+    hp::mbar_arrive_expect_tx(&full[s], 8 * BR + 4 * BR * kClCols);
+    hp::bulk_load(st, a.stats + (size_t)b * a.npad + q0, 8 * BR, &full[s]);
+    hp::tma_load_4d(st + kClStatsBytes, &q_map, &full[s], 0, q0,
+                    rank * kClCols / 8, b);
+    hp::tma_load_4d(st + kClStatsBytes + 2 * BR * kClCols, &do_map,
+                    &full[s], 0, q0, rank * kClCols / 8, b);
+  };
+  if (tid == 0) {
+    hp::prefetch_tensormap(&q_map);
+    hp::prefetch_tensormap(&do_map);
+    hp::mbar_arrive_expect_tx(kv_full, 2 * kClKvBytes);
+    hp::tma_load_4d(k_s, &k_map, kv_full, 0, key0, rank * kClCols / 8, b);
+    hp::tma_load_4d(v_s, &v_map, kv_full, 0, key0, rank * kClCols / 8, b);
+    for (int i = 0; i < a.stages && i < tiles; ++i) load_tile(i);
+  }
+  // (the wgmma and barrier instructions below are warp-aligned: each branch
+  // of one thread is followed by __syncwarp)
+  __syncwarp();
+
+  const int krow = 16 * warp + g;  // this thread's keys krow, krow + 8
+  const bool keys_ragged = key0 + kClKeys > a.m;
+  float4* mine = slots + rank * kF4 * 128;
+  float dv_acc[kClSlice / 2], dk_acc[kClSlice / 2];
+#pragma unroll
+  for (int i = 0; i < kClSlice / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  hp::mbar_wait_bounded(kv_full, 0);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % a.stages, q0 = (first + i) % tiles * BR;
+    unsigned char* st = stage(s);
+    const float2* stt = reinterpret_cast<const float2*>(st);
+    const bf16* qt = reinterpret_cast<const bf16*>(st + kClStatsBytes);
+    const bf16* dot = qt + BR * kClCols;
+    hp::mbar_wait_bounded(&full[s], (i / a.stages) & 1);
+    __syncwarp();
+
+    // this warpgroup's partial S^T = k q^T and dP^T = v dO^T (64 keys x BR
+    // queries) over its 128 columns: panels 16 wg .. 16 wg + 15
+    float sp[BR / 2], dp[BR / 2];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kClSlice / 16; ++kk) {
+      const int p = 16 * wg + 2 * kk;
+      hp::Wgmma<BR, 0, 0>::run(sp, hp::desc(k_s + p * kClKeys * 8, kPanelK, 128),
+                               hp::desc(qt + p * BR * 8, kPanelQ, 128), kk);
+      hp::Wgmma<BR, 0, 0>::run(dp, hp::desc(v_s + p * kClKeys * 8, kPanelK, 128),
+                               hp::desc(dot + p * BR * 8, kPanelQ, 128), kk);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sp);
+    hp::fence_regs(dp);
+
+    // the block's partial (warpgroup 0's plus warpgroup 1's) in my slot,
+    // once every peer has read my last push
+    if (split > 1 && tid == 0 && i > 0)
+      hp::mbar_wait_cluster(x_free, (i - 1) & 1);
+    __syncwarp();
+    hp::named_barrier(1, kClThreads);
+    if (wg == 1) {
+#pragma unroll
+      for (int f = 0; f < kF4; ++f) {
+        const float* x = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
+        mine[f * 128 + t128] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+    }
+    hp::named_barrier(1, kClThreads);
+    if (wg == 0) {
+#pragma unroll
+      for (int f = 0; f < kF4; ++f) {
+        const float* x = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
+        const float4 y = mine[f * 128 + t128];
+        mine[f * 128 + t128] =
+            make_float4(x[0] + y.x, x[1] + y.y, x[2] + y.z, x[3] + y.w);
+      }
+      hp::fence_proxy_async();  // the bulk copies read what was written
+    }
+    hp::named_barrier(1, kClThreads);
+    if (split > 1) {
+      if (tid == 0) {
+        constexpr uint32_t kBytes = cl_slot_bytes(BR);
+        hp::mbar_arrive_expect_tx(x_full, (split - 1) * kBytes);
+        for (int r = 0; r < split; ++r)
+          if (r != rank)
+            hp::bulk_copy_cluster(hp::cluster_addr(mine, r), mine, kBytes,
+                                  hp::cluster_addr(x_full, r));
+      }
+      hp::mbar_wait_cluster(x_full, i & 1);
+      __syncwarp();
+    }
+    // the cluster's S^T and dP^T: the R slots in rank order
+    for (int r = 0; r < split; ++r) {
+      const float4* slot = slots + r * kF4 * 128 + t128;
+#pragma unroll
+      for (int f = 0; f < kF4; ++f) {
+        const float4 y = slot[f * 128];
+        float* x = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
+        if (r == 0) {
+          x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+        } else {
+          x[0] += y.x, x[1] += y.y, x[2] += y.z, x[3] += y.w;
+        }
+      }
+    }
+    hp::named_barrier(1, kClThreads);  // the slots are read
+    if (split > 1 && tid == 0)
+      for (int r = 0; r < split; ++r)
+        if (r != rank) hp::mbar_arrive_cluster(x_free, r);
+    __syncwarp();
+
+    // P^T and dS^T in place; keys past M and queries past N get P = 0
+    const bool edge = keys_ragged || q0 + BR > a.n;
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j) {
+      const float4 sj = *reinterpret_cast<const float4*>(stt + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l2 = e & 1 ? sj.z : sj.x, dl = e & 1 ? sj.w : sj.y;
+        float p = tc::ex2(fmaf(sp[4 * j + e], kLog2e, -l2));
+        if (edge && (q0 + 8 * j + 2 * t + (e & 1) >= a.n ||
+                     key0 + krow + 8 * (e >> 1) >= a.m))
+          p = 0.f;
+        sp[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - dl);
+      }
+    }
+    // bf16 A fragments of k16 step kk (queries 16 kk ..); warpgroup 0 also
+    // stores dS^T: element (query, key) at [query / 8][key][query % 8], so
+    // that each register's two queries of one key are one 4-byte store
+    uint32_t pa[BR / 16][4], da[BR / 16][4];
+    uint32_t* dss = reinterpret_cast<uint32_t*>(ds_s);
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = tc::pack_bf16x2(sp[8 * kk + 2 * r], sp[8 * kk + 2 * r + 1]);
+        da[kk][r] = tc::pack_bf16x2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        if (wg == 0)
+          dss[((2 * kk + (r >> 1)) * kClKeys + krow + 8 * (r & 1)) * 4 + t] =
+              da[kk][r];
+      }
+    if (wg == 0) hp::fence_proxy_async();  // dS^T is read by wgmma
+
+    // dV += P^T dO, dK += dS^T q over this warpgroup's columns
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {
+      const int off = (16 * wg * BR + 16 * kk) * 8;
+      mma_rs<kClSlice>(dv_acc, pa[kk], dot + off, kPanelQ);
+      mma_rs<kClSlice>(dk_acc, da[kk], qt + off, kPanelQ);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dv_acc);
+    hp::fence_regs(dk_acc);
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {
+      hp::fence_regs(pa[kk]);
+      hp::fence_regs(da[kk]);
+    }
+    // both warpgroups are done with q and dO, and dS^T is in ds_s
+    hp::named_barrier(1, kClThreads);
+
+    // dQ^T = k^T dS^T over this warpgroup's 128 columns of D, two 64-row
+    // wgmmas (k MN-major: rows = keys, panels = D; dS^T MN-major: rows =
+    // keys, panels = queries)
+    float dq[2][BR / 2];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int mp = 0; mp < 2; ++mp)
+#pragma unroll
+      for (int kk = 0; kk < kClKeys / 16; ++kk)
+        hp::Wgmma<BR, 1, 1>::run(
+            dq[mp],
+            hp::desc(k_s + ((16 * wg + 8 * mp) * kClKeys + 16 * kk) * 8, 128,
+                     kPanelK),
+            hp::desc(ds_s + 16 * kk * 8, 128, kClKeys * 16), kk);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dq[0]);
+    hp::fence_regs(dq[1]);
+    // staged [query][128] float32 where this stage's q and dO were, then
+    // added to the accumulator's rows q0 .. of slice 2 rank + wg
+    float* dq_s = reinterpret_cast<float*>(st + kClStatsBytes) +
+                  wg * BR * kClSlice;
+#pragma unroll
+    for (int mp = 0; mp < 2; ++mp)
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dq_s[(8 * j + 2 * t + (e & 1)) * kClSlice + 64 * mp + krow +
+               8 * (e >> 1)] = dq[mp][4 * j + e];
+    hp::fence_proxy_async();
+    hp::named_barrier(2 + wg, 128);
+    if (t128 == 0) {
+      hp::bulk_reduce_add_f32(
+          a.dq_acc + (((size_t)b * 2 * split + 2 * rank + wg) * a.npad + q0) *
+                         kClSlice,
+          dq_s, BR * kClSlice * 4);
+      hp::bulk_commit();
+      hp::bulk_wait_read();
+      hp::mbar_arrive(&empty[s]);  // this warpgroup is done with stage s
+    }
+    __syncwarp();
+    // refill: tile i + stages into stage s once both warpgroups left it
+    if (tid == 0 && i + a.stages < tiles) {
+      hp::mbar_wait_bounded(&empty[s], (i / a.stages) & 1);
+      load_tile(i + a.stages);
+    }
+    __syncwarp();
+  }
+
+  // dK and dV rows of this thread's keys, its warpgroup's columns < d (c)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + krow + 8 * h;
+    if (key >= a.m) continue;
+    __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(
+        a.dk + ((size_t)b * a.m + key) * a.d);
+    __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(
+        a.dv + ((size_t)b * a.m + key) * a.c);
+#pragma unroll
+    for (int j = 0; j < kClSlice / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      if (col < a.d)
+        ok[col / 2] = __floats2bfloat162_rn(dk_acc[4 * j + 2 * h],
+                                            dk_acc[4 * j + 2 * h + 1]);
+      if (col < a.c)
+        ov[col / 2] = __floats2bfloat162_rn(dv_acc[4 * j + 2 * h],
+                                            dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+  // keep this block's shared memory until every peer has read my last push
+  // (after that no peer writes or arrives here)
+  if (split > 1 && tid == 0) hp::mbar_wait_cluster(x_free, (tiles - 1) & 1);
+}
+
+template <int BR>
+int launch_cluster_bwd(const CUtensorMap& k_map, const CUtensorMap& v_map,
+                       const CUtensorMap& q_map, const CUtensorMap& do_map,
+                       const ClusterBwdArgs& a, int b, int smem,
+                       cudaStream_t stream) {
+  auto kernel = attention_bwd_cluster_kernel<BR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.split * ((a.m + kClKeys - 1) / kClKeys), b, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, k_map, v_map, q_map, do_map, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int BR>
+int cluster_bwd_smem_attr() {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, attention_bwd_cluster_kernel<BR>);
+  return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 at the widths that the cluster kernel's plan cannot hold (D or C
+// above 2048; no config of the zoo): the chunked kernels, in three
+// launches, the statistics, key rows (dK, dV) and query rows (dQ), each
+// block owning 64 rows and one 128-column slice of the outputs (a grid
+// dimension over ceil(max(D, C) / 128) slices) and recomputing the logits
+// and dP over the whole of D and C for its slice: (8 S + 6) N M W
+// operations at D = C = W (S = W / 128 slices) where the bound counts 10 N
+// M W. No atomics: dQ, dK and dV are all deterministic there.
 
 constexpr int kWideCols = 128;  // output columns a block owns
 
@@ -709,35 +1137,11 @@ __global__ void attention_bwd_stats_kernel(const bf16* __restrict__ out,
   stats[r] = make_float2(lse[r] * kLog2e, s);
 }
 
-// bf16 (b), (c) up to W = max(D, C) = 512: the rows kernel on the tensor
-// cores (mma.sync m16n8k16,
-// the forward's fragment plumbing), 4 warps of 16 rows. KEY_ROWS: the rows
-// are keys, a1 = k and a2 = v stay in shared memory, and the columns
-// streamed past them in tiles of kBN are queries, b1 = q and b2 = dO, with
-// their statistics; out_d = dK and out_c = dV. Else the rows are queries
-// (a1 = q, a2 = dO, their statistics in registers), the columns keys (b1 =
-// k, b2 = v) and out_d = dQ. Per tile a warp computes X = a1 b1^T and
-// Y = a2 b2^T (16 x kBN, over all of D and C), P = ex2(X log2 e - lse
-// log2 e) and dS = P (Y - Dl), rounds both to bf16 A fragments in
-// registers, and adds dS b1[:, slice] (and P b2[:, slice]) into its 16 x
-// 128 float32 accumulators (64 registers each). A two-stage cp.async ring
-// of b1 and b2 tiles; rows padded by 16 bytes (ldmatrix without bank
-// conflicts). kBN is 32 at WP = 256 and 16 at 512, where a1 and a2 (64 x
-// 512 each) take 130 KB.
+// The chunked kernels' rows: 64 a block, 16 a warp of 128 threads; shared
+// rows padded by 16 bytes (ldmatrix without bank conflicts).
 constexpr int kRowsR = 64;
 constexpr int kRowsThreads = 128;
-constexpr int kRowsStages = 2;
 constexpr int kRowsPad = tc::kSmemPad;
-
-__host__ __device__ constexpr int rows_tile(int wp) { return wp <= 256 ? 32 : 16; }
-
-// Shared memory: a1, a2 ([kRowsR][WP + pad] each), kRowsStages stages of
-// b1, b2 ([kBN][WP + pad] each), then kRowsStages x kBN float2 statistics.
-__host__ __device__ inline int rows_smem_bytes(int wp) {
-  const int bn = rows_tile(wp), ld = wp + kRowsPad;
-  return 2 * (2 * kRowsR * ld + kRowsStages * 2 * bn * ld) +
-         8 * kRowsStages * bn;
-}
 
 // A tile's gradient step for 16 rows a warp: X and Y (16 x kBN columns,
 // fragment layout) become P = ex2(X log2 e - lse log2 e) and dS = P (Y -
@@ -794,193 +1198,21 @@ __device__ __forceinline__ void tile_gradients(
   }
 }
 
-template <int WP, bool KEY_ROWS>
-__global__ void __launch_bounds__(kRowsThreads)
-attention_bwd_rows_kernel(const bf16* __restrict__ a1,
-                          const bf16* __restrict__ a2,
-                          const bf16* __restrict__ b1,
-                          const bf16* __restrict__ b2,
-                          const float2* __restrict__ stats,
-                          bf16* __restrict__ out_d, bf16* __restrict__ out_c,
-                          int rows, int cols, int d, int c) {
-  constexpr int kBN = rows_tile(WP), kNT = kBN / 8;
-  constexpr int kLd = WP + kRowsPad, kBTile = kBN * kLd;
-  constexpr int kOut = KEY_ROWS ? kWideCols / 8 : 1;
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
-  bf16* a1s = reinterpret_cast<bf16*>(smem4);  // [kRowsR][kLd]
-  bf16* a2s = a1s + kRowsR * kLd;              // [kRowsR][kLd]
-  bf16* bs = a2s + kRowsR * kLd;               // [stages][b1, b2][kBN][kLd]
-  float2* st_s = reinterpret_cast<float2*>(bs + kRowsStages * 2 * kBTile);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
-  const int a_lane = (16 * warp + lr + 8 * l8) * kLd + 8 * l16;  // A
-  const int b_lane = (lr + 8 * l16) * kLd + 8 * l8;   // B of X = a b^T
-  const int bt_lane = (lr + 8 * l8) * kLd + 8 * l16;  // B of P b, .trans
-  const int r0 = blockIdx.x * kRowsR, col0 = blockIdx.z * kWideCols;
-  const size_t bi = blockIdx.y;
-  const size_t queries = KEY_ROWS ? cols : rows;
-  a1 += bi * rows * d;
-  a2 += bi * rows * c;
-  b1 += bi * cols * d;
-  b2 += bi * cols * c;
-  stats += bi * queries;
-  const int tiles = (cols + kBN - 1) / kBN;
-  const int kd = (d + 15) / 16, kc_end = (c + 15) / 16;  // k16 steps
-
-  auto load_tile = [&](int it) {  // b1, b2 (and statistics) of tile it
-    const int buf = it % kRowsStages;
-    bf16* bt = bs + buf * 2 * kBTile;
-    tc::load_rows<WP, kBN, kRowsThreads>(bt, b1, it * kBN, cols, d, true);
-    tc::load_rows<WP, kBN, kRowsThreads>(bt + kBTile, b2, it * kBN, cols, c,
-                                         true);
-    if (KEY_ROWS && threadIdx.x < kBN) {
-      const int j = it * kBN + threadIdx.x;
-      st_s[buf * kBN + threadIdx.x] =
-          j < cols ? stats[j] : make_float2(0.f, 0.f);
-    }
-    tc::cp_async_commit();
-  };
-  tc::load_rows<WP, kRowsR, kRowsThreads>(a1s, a1, r0, rows, d, true);
-  tc::load_rows<WP, kRowsR, kRowsThreads>(a2s, a2, r0, rows, c, true);
-  load_tile(0);  // one group with a1 and a2
-
-  float2 st_r[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
-  if (!KEY_ROWS) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 16 * warp + g + 8 * h;
-      if (row < rows) st_r[h] = stats[row];
-    }
-  }
-  float acc_d[kWideCols / 8][4], acc_c[kOut][4];
-#pragma unroll
-  for (int j = 0; j < kWideCols / 8; ++j)
-    acc_d[j][0] = acc_d[j][1] = acc_d[j][2] = acc_d[j][3] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kOut; ++j)
-    acc_c[j][0] = acc_c[j][1] = acc_c[j][2] = acc_c[j][3] = 0.f;
-
-  for (int it = 0; it < tiles; ++it) {
-    if (it + 1 < tiles) {
-      load_tile(it + 1);
-      tc::cp_async_wait<1>();  // tile it (and a1, a2) landed
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int buf = it % kRowsStages;
-    const bf16* b1t = bs + buf * 2 * kBTile;
-    const bf16* b2t = b1t + kBTile;
-    const float2* stt = st_s + buf * kBN;
-
-    float x[kNT][4], y[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[nt][e] = y[nt][e] = 0.f;
-#pragma unroll 4
-    for (int kc = 0; kc < kd; ++kc) {
-      uint32_t a[4];
-      tc::ldmatrix_x4(a, a1s + a_lane + 16 * kc);
-#pragma unroll
-      for (int np = 0; np < kBN / 16; ++np) {
-        uint32_t bb[4];
-        tc::ldmatrix_x4(bb, b1t + b_lane + 16 * np * kLd + 16 * kc);
-        tc::mma_bf16_16816(x[2 * np], a, bb[0], bb[1]);
-        tc::mma_bf16_16816(x[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-#pragma unroll 4
-    for (int kc = 0; kc < kc_end; ++kc) {
-      uint32_t a[4];
-      tc::ldmatrix_x4(a, a2s + a_lane + 16 * kc);
-#pragma unroll
-      for (int np = 0; np < kBN / 16; ++np) {
-        uint32_t bb[4];
-        tc::ldmatrix_x4(bb, b2t + b_lane + 16 * np * kLd + 16 * kc);
-        tc::mma_bf16_16816(y[2 * np], a, bb[0], bb[1]);
-        tc::mma_bf16_16816(y[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-
-    // P, dS, then out_d += dS b1[:, slice] (and out_c += P b2[:, slice])
-    tile_gradients<KEY_ROWS, kBN, kLd, kOut>(
-        x, y, stt, st_r, cols - it * kBN, b1t + bt_lane + col0,
-        b2t + bt_lane + col0, true, true, acc_d, acc_c);
-    __syncthreads();  // stage buf is read: tile it + 2 goes into it
-  }
-
-  // rows g, g + 8 of the warp; columns col0 + 8 j + 2 t, + 1 (d and c are
-  // multiples of 8, so a pair is whole)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 16 * warp + g + 8 * h;
-    if (row >= rows) continue;
-    __nv_bfloat162* od = reinterpret_cast<__nv_bfloat162*>(
-        out_d + ((size_t)bi * rows + row) * d);
-    __nv_bfloat162* oc = reinterpret_cast<__nv_bfloat162*>(
-        (KEY_ROWS ? out_c : out_d) + ((size_t)bi * rows + row) * c);
-#pragma unroll
-    for (int j = 0; j < kWideCols / 8; ++j) {
-      const int col = col0 + 8 * j + 2 * t;
-      if (col < d)
-        od[col / 2] = __floats2bfloat162_rn(acc_d[j][2 * h],
-                                            acc_d[j][2 * h + 1]);
-      if constexpr (KEY_ROWS)
-        if (col < c)
-          oc[col / 2] = __floats2bfloat162_rn(acc_c[j][2 * h],
-                                              acc_c[j][2 * h + 1]);
-    }
-  }
-}
-
 inline int wide_slices(int d, int c) {
   return ((d > c ? d : c) + kWideCols - 1) / kWideCols;
 }
 
-template <int WP, bool KEY_ROWS>
-int launch_rows(const void* a1, const void* a2, const void* b1,
-                const void* b2, const float2* stats, void* out_d, void* out_c,
-                int b, int rows, int cols, int d, int c, cudaStream_t s) {
-  auto kernel = attention_bwd_rows_kernel<WP, KEY_ROWS>;
-  const int smem = rows_smem_bytes(WP);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((rows + kRowsR - 1) / kRowsR, b, wide_slices(d, c));
-  kernel<<<grid, kRowsThreads, smem, s>>>(
-      static_cast<const bf16*>(a1), static_cast<const bf16*>(a2),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(b2), stats,
-      static_cast<bf16*>(out_d), static_cast<bf16*>(out_c), rows, cols, d,
-      c);
-  return (int)cudaGetLastError();
-}
-
-template <int WP>
-int launch_wide_bf16(const void* q, const void* k, const void* v,
-                     const void* dout, const float2* stats, void* dq,
-                     void* dk, void* dv, int b, int n, int m, int d, int c,
-                     cudaStream_t s) {
-  const int err = launch_rows<WP, true>(k, v, q, dout, stats, dk, dv, b, m,
-                                        n, d, c, s);
-  if (err != 0) return err;
-  return launch_rows<WP, false>(q, dout, k, v, stats, dq, nullptr, b, n, m,
-                                d, c, s);
-}
-
-// bf16 (b), (c) above W = 512: the chunked rows kernel. a1 and a2 (64 x W
-// each) would take 264 KB of shared memory at W = 1024, so nothing stays
-// resident: per column tile of kChunkBN = 32, X = a1 b1^T accumulates over
-// D and Y = a2 b2^T over C in chunks of 128 columns into the same 16 x 32
-// fragments a warp (mma.sync, as the rows kernel), each chunk of a (64
+// bf16 (b), (c) beyond the cluster kernel's plan: the chunked rows kernel.
+// a1 and a2 (64 x W each) would take 264 KB of shared memory at W = 1024,
+// so nothing stays resident: per column tile of kChunkBN = 32, X = a1 b1^T
+// accumulates over D and Y = a2 b2^T over C in chunks of 128 columns into
+// the same 16 x 32 fragments a warp (mma.sync m16n8k16), each chunk of a (64
 // rows) and of b (32 columns) arriving by cp.async through a three-stage
 // ring; the flat sequence of (tile, chunk) loads runs two ahead of the
 // products, one __syncthreads a chunk. The tile's slice of b1 (and of b2,
 // key rows) for the block's 128 output columns, and its statistics, come
 // with its first chunk into one of two buffers. P, dS and the output
-// products are the rows kernel's. The a rows stream from L2 once a tile.
+// products are tile_gradients'. The a rows stream from L2 once a tile.
 // 113.7 KB of shared memory: two blocks an SM.
 constexpr int kChunkCols = 128;
 constexpr int kChunkLd = kChunkCols + kRowsPad;
@@ -1360,34 +1592,31 @@ extern "C" {
 
 // Bytes of the workspace that flash_attention_backward_launch needs:
 // float32, Dl (b, n); bfloat16, the statistics (b, npad) float2 and the dQ
-// accumulator (b, npad, WP) float32, npad = n rounded up to the tile.
+// accumulator (b, npad, WP) float32, npad = n rounded up to the tile; above
+// 128 (the chunked kernels) the statistics (b, n).
 long long flash_attention_backward_workspace(int dtype, int b, int n, int d,
                                              int c) {
   if (dtype == 0) return 4LL * b * n;
-  if (d > 128 || c > 128) return 8LL * b * n;  // the wide path's statistics
+  if (d > 128 || c > 128) return 8LL * b * n;
   const long long npad = (long long)(n + kBr - 1) / kBr * kBr;
   return 8LL * b * npad + 4LL * b * npad * padded_width(d > c ? d : c);
 }
 
 // The bf16 kernels' split for this problem: split[0..7] = {keys a block
 // (Bc), queries a tile, stages, blocks, shared memory bytes, padded width
-// WP, blocks resident on an SM, output column slices}. Above 128 (the wide
-// path) it is the key-rows launch's: 64 keys a block, kBN queries a tile,
-// and a block per 128-column slice; the query-rows launch has the same
-// tile and shared memory with the roles swapped, and slices of D only.
-// Above 512 (the chunked kernel) WP is the width padded to its 128-column
-// chunks, and stages its ring's.
+// WP, blocks resident on an SM, output column slices}. D and C up to 128:
+// the one-pass kernel's. Above (the chunked kernels, which run only where
+// the cluster kernel's plan holds no split): the key-rows launch's, 64 keys
+// a block, a block per 128-column slice, WP the width padded to whole
+// 128-column chunks and stages its ring's; the query-rows launch has the
+// same tile and shared memory with the roles swapped, and slices of D only.
 void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
   split[7] = 1;
   if (d > 128 || c > 128) {
-    const int w = d > c ? d : c, slices = wide_slices(d, c);
-    const bool chunked = w > 512;
-    const int wp = chunked ? slices * kWideCols : w <= 256 ? 256 : 512;
-    const int smem = chunked ? chunked_rows_smem_bytes() : rows_smem_bytes(wp);
-    const int v[8] = {kRowsR, chunked ? kChunkBN : rows_tile(wp),
-                      chunked ? kChunkStages : kRowsStages,
-                      (m + kRowsR - 1) / kRowsR * b * slices, smem, wp,
-                      kSmemSm / (smem + 1024), slices};
+    const int slices = wide_slices(d, c), smem = chunked_rows_smem_bytes();
+    const int v[8] = {kRowsR, kChunkBN, kChunkStages,
+                      (m + kRowsR - 1) / kRowsR * b * slices, smem,
+                      slices * kWideCols, kSmemSm / (smem + 1024), slices};
     for (int i = 0; i < 8; ++i) split[i] = v[i];
     return;
   }
@@ -1400,9 +1629,11 @@ void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
 }
 
 // dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (the one-pass wgmma
-// kernel; D or C above 128 the wide kernels, above 512 the chunked ones). q (b, n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c),
-// and dq, dk, dv (the shapes of q, k, v) are contiguous in dtype; lse (b, n)
-// holds the forward's float32 log-sum-exp; workspace holds
+// kernel; D or C above 128 the chunked kernels: the wrapper sends bf16
+// calls there only where the cluster kernel's plan holds no split). q (b,
+// n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c), and dq, dk, dv
+// (the shapes of q, k, v) are contiguous in dtype; lse (b, n) holds the
+// forward's float32 log-sum-exp; workspace holds
 // flash_attention_backward_workspace bytes. In bfloat16, d and c must be
 // multiples of 8 and q, k, v, out, dout and dq 16-byte aligned. Three
 // launches on the stream. Returns the first CUDA error code, 0 if all
@@ -1451,13 +1682,6 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
         stats, rows, c);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
-    const int w = d > c ? d : c;
-    if (w <= 256)
-      return launch_wide_bf16<256>(q, k, v, dout, stats, dq, dk, dv, b, n,
-                                   m, d, c, s);
-    if (w <= 512)
-      return launch_wide_bf16<512>(q, k, v, dout, stats, dq, dk, dv, b, n,
-                                   m, d, c, s);
     const int e = launch_chunked<true>(k, v, q, dout, stats, dk, dv, b, m, n,
                                        d, c, s);
     if (e != 0) return e;
@@ -1487,7 +1711,87 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
   if (err != 0) return err;
   const long long chunks = (long long)b * n * (d / 8);
   attention_bwd_dq_kernel<<<(int)((chunks + 255) / 256), 256, 0, s>>>(
-      dq_acc, static_cast<bf16*>(dq), b, n, npad, d, wp);
+      dq_acc, static_cast<bf16*>(dq), b, n, npad, d, 1, wp);
+  return (int)cudaGetLastError();
+}
+
+// The cluster kernel's shared memory bytes for a plan (cluster R, queries
+// BR a tile, stages), and its workspace bytes for (b, n): the statistics
+// (b, npad) float2 and the dQ accumulator (b, 2 R, npad, 128) float32,
+// npad = n rounded up to BR.
+int flash_attention_backward_cluster_smem(int split, int rows, int stages) {
+  return cl_smem_bytes(split, rows, stages);
+}
+
+long long flash_attention_backward_cluster_workspace(int b, int n, int split,
+                                                     int rows) {
+  const long long npad = (long long)(n + rows - 1) / rows * rows;
+  return 8LL * b * npad + 4LL * b * 2 * split * npad * kClSlice;
+}
+
+// The dynamic shared memory attribute of the cluster kernel of BR queries
+// a tile (what its last launch set), or a negative CUDA error code.
+int flash_attention_backward_cluster_smem_attr(int rows) {
+  if (rows == 32) return cluster_bwd_smem_attr<32>();
+  if (rows == 16) return cluster_bwd_smem_attr<16>();
+  return -(int)cudaErrorInvalidValue;
+}
+
+// bfloat16 with D or C above 128: the cluster kernel on the plan {cluster,
+// queries, stages, smem} of the wrapper's backward_split (its fields of
+// those names), three launches: the prologue (statistics, the accumulator
+// zeroed), the cluster kernel, dQ. Tensors and workspace
+// (flash_attention_backward_cluster_workspace bytes) as for
+// flash_attention_backward_launch in bfloat16. A plan the kernel cannot
+// run returns cudaErrorInvalidValue; otherwise the first CUDA error code.
+int flash_attention_backward_cluster_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    void* workspace, int b, int n, int m, int d, int c, const int* plan,
+    void* stream) {
+  const int split = plan[0], rows = plan[1], stages = plan[2], smem = plan[3];
+  const bool ok =
+      b > 0 && b <= 65535 && n > 0 && m > 0 && d > 0 && c > 0 && d % 8 == 0 &&
+      c % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+      aligned16(out) && aligned16(dout) && aligned16(dq) &&
+      (split == 1 || split == 2 || split == 4 || split == kClMaxCluster) &&
+      (long long)kClCols * split >= (d > c ? d : c) &&
+      (rows == 16 || rows == 32) && stages >= kClMinStages &&
+      stages <= kClMaxStages && smem == cl_smem_bytes(split, rows, stages) &&
+      smem <= kSmemLimit &&
+      (long long)split * ((m + kClKeys - 1) / kClKeys) <= 0x7fffffff;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  CUtensorMap k_map, v_map, q_map, do_map;
+  if (!hp::make_panels_map(&k_map, k, b, m, d, kClKeys, kClCols / 8) ||
+      !hp::make_panels_map(&v_map, v, b, m, c, kClKeys, kClCols / 8) ||
+      !hp::make_panels_map(&q_map, q, b, n, d, rows, kClCols / 8) ||
+      !hp::make_panels_map(&do_map, dout, b, n, c, rows, kClCols / 8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int npad = (n + rows - 1) / rows * rows, slices = 2 * split;
+  float2* stats = static_cast<float2*>(workspace);
+  float* dq_acc = reinterpret_cast<float*>(stats + (size_t)b * npad);
+  const long long qrows = (long long)b * npad;
+  // the accumulator zeroed by the runtime's memset (coalesced), the
+  // prologue computing only the statistics
+  int err = (int)cudaMemsetAsync(dq_acc, 0, 4 * qrows * slices * kClSlice, s);
+  if (err != 0) return err;
+  attention_bwd_prologue_kernel<<<(int)((qrows + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
+      stats, dq_acc, b, n, npad, c, 0);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const ClusterBwdArgs a{stats, dq_acc, static_cast<bf16*>(dk),
+                         static_cast<bf16*>(dv), n, m, d, c, npad, split,
+                         stages};
+  err = rows == 32 ? launch_cluster_bwd<32>(k_map, v_map, q_map, do_map, a, b,
+                                            smem, s)
+                   : launch_cluster_bwd<16>(k_map, v_map, q_map, do_map, a, b,
+                                            smem, s);
+  if (err != 0) return err;
+  const long long chunks = (long long)b * n * (d / 8);
+  attention_bwd_dq_kernel<<<(int)((chunks + 255) / 256), 256, 0, s>>>(
+      dq_acc, static_cast<bf16*>(dq), b, n, npad, d, slices, kClSlice);
   return (int)cudaGetLastError();
 }
 

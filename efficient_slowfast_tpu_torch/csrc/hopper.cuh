@@ -691,6 +691,32 @@ inline bool make_panel_map(CUtensorMap* map, const void* base, int planes,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A bf16 tensor (planes, rows, cols), contiguous, cols a multiple of 8 and
+// base 16-byte aligned, seen as (planes, cols / 8, rows, 8) and read in
+// boxes of `box_panels` 8-column panels by `box_rows` rows (coordinates: 0,
+// first row, first panel, plane): one box fills a tile of column panels
+// [box_panels][box_rows][8] (the no-swizzle layout above) in one copy;
+// panels and rows outside the tensor arrive as zeros. Returns false where
+// the driver refuses.
+inline bool make_panels_map(CUtensorMap* map, const void* base, int planes,
+                            int rows, int cols, int box_rows,
+                            int box_panels) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode || cols % 8) return false;
+  const cuuint64_t dims[4] = {8, (cuuint64_t)rows, (cuuint64_t)cols / 8,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 2, 16,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)box_rows, (cuuint32_t)box_panels,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A bf16 tensor (planes, rows, cols), contiguous, cols a multiple of 64
 // and base 16-byte aligned, seen as (planes, cols / 64, rows, 64) and read
 // in the 128-byte swizzle in boxes of `box_atoms` 64-column atoms by

@@ -28,8 +28,9 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   In bfloat16 with D, C ≤ 128 the kernel makes one pass over the queries
   for each block of keys (``wgmma``, TMA loads by a producer warpgroup) and
   adds each block's part of dQ into a float32 accumulator, so **dQ is not
-  deterministic** there: the adds arrive in any order and dQ may differ in
-  its last bits from call to call, while dK and dV are bit-identical.
+  deterministic** there (nor above 128, up to 2048: the wide widths below):
+  the adds arrive in any order and dQ may differ in its last bits from call
+  to call, while dK and dV are bit-identical.
   Inputs whose D or C is
   not a multiple of 8, or whose data is not 16-byte aligned, go to the
   kernel as zero-padded copies (``padded_backward``, exact), never to the
@@ -55,11 +56,21 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   chunked kernel, mma.sync over 128-column chunks of D in blocks that
   each own a 128-column slice of C and recompute the logits for it. The
   float32 forward keeps its wide kernel (a block per 128-column slice of
-  C, recomputing the logits). The backward's three launches are
-  the statistics, a key-rows kernel (dK, dV) and a query-rows kernel (dQ),
-  with no atomics (all three gradients deterministic); above 512 (D or C
-  in bf16) its chunked kernels accumulate the logits and dO vᵀ over
-  128-column chunks streamed through shared memory.
+  C, recomputing the logits). The bf16 backward above 128 runs the
+  backward's cluster kernel in its three launches (the statistics, the
+  kernel, dQ), on the split that ``backward_split`` plans: a block owns 64
+  keys and two warpgroups, each owning 128 columns of D and of C (its dK and
+  dV); R blocks (256 R ≥ D and ≥ C, R ≤ 8) form a thread block cluster
+  that adds the partial logits q kᵀ and dO vᵀ in rank order over
+  distributed shared memory, so each of the five products is computed
+  once; ``wgmma`` products, TMA loads. As at the narrow widths its dQ is
+  added over key blocks by float32 bulk reduce-adds, so **bf16 dQ is not
+  deterministic above 128 either**; dK and dV are bit-identical across
+  calls. Beyond its plan (``backward_chunked_widths``: D or C above 2048)
+  the backward's chunked kernels run, a key-rows and a query-rows launch
+  over 128-column chunks, recomputing the logits per output slice, all
+  three gradients deterministic. The float32 wide backward (a block per
+  128-column output slice, recomputing the logits) is deterministic.
 
 ``plain_attention`` is the same Function over the plain versions, on any
 device: the explicit opt-out ``TPU.FLASH_ATTENTION False``.
@@ -412,15 +423,32 @@ def _launch_backward(q, k, v, out, lse, dout):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dtype = 0 if q.dtype == torch.float32 else 1
     lib = _bwd_lib()
+    # bf16 above 128: the cluster kernel on backward_split's plan, or the
+    # chunked kernels (any width) where no plan holds
+    cluster = (dtype == 1 and (d > 128 or c > 128)
+               and not backward_chunked_widths(d, c))
     with torch.cuda.device(q.device):
-        workspace = torch.empty(
-            lib.flash_attention_backward_workspace(dtype, b, n, d, c),
-            dtype=torch.uint8, device=q.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_backward_launch(
-            dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout),
-            _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(workspace), b, n,
-            m, d, c, ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if cluster:
+            split = backward_split(b, n, m, d, c)
+            workspace = torch.empty(
+                lib.flash_attention_backward_cluster_workspace(
+                    b, n, split["cluster"], split["queries"]),
+                dtype=torch.uint8, device=q.device)
+            plan = (ctypes.c_int * len(_BWD_PLAN_FIELDS))(
+                *(int(split[f]) for f in _BWD_PLAN_FIELDS))
+            err = lib.flash_attention_backward_cluster_launch(
+                _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
+                _ptr(dq), _ptr(dk), _ptr(dv), _ptr(workspace), b, n, m, d, c,
+                plan, stream)
+        else:
+            workspace = torch.empty(
+                lib.flash_attention_backward_workspace(dtype, b, n, d, c),
+                dtype=torch.uint8, device=q.device)
+            err = lib.flash_attention_backward_launch(
+                dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout),
+                _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(workspace), b,
+                n, m, d, c, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention backward kernel launch failed: CUDA error "
@@ -436,9 +464,11 @@ def flash_attention_backward(q, k, v, out, lse, dout):
 
     On CUDA tensors it launches the backward kernels (three launches); on
     CPU tensors it runs ``attention_backward``. In bfloat16 on CUDA with
-    D, C ≤ 128, dq is summed over key blocks by float32 atomic adds and may
-    differ in its last bits from call to call; dk and dv are
-    deterministic (and above 128 all three)."""
+    D and C up to 2048 (the one-pass kernel to 128, the cluster kernel
+    above), dq is summed over key blocks by float32 bulk reduce-adds and
+    may differ in its last bits from call to call; dk and dv are
+    deterministic. Beyond (D or C above 2048, the chunked kernels) and in
+    float32 all three are deterministic."""
     _check(q, k, v)
     b, n, _ = q.shape
     c = v.shape[2]
@@ -460,18 +490,93 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     return _launch_backward(q, k, v, out, lse, dout)
 
 
+# The bf16 backward's cluster kernel (csrc/flash_attention_bwd.cu,
+# cl_smem_bytes): keys a block, columns of D and of C a consumer warpgroup
+# owns (two a block), the most blocks a cluster, query tiles (32, or 16
+# where the slots of a cluster of 8 would not fit), ring stages (three
+# where they fit, else two); a stage holds the statistics (256 bytes), q
+# and dO (the block's 256 columns, bf16)
+_BWD_KEYS = 64
+_BWD_SLICE = 128
+_BWD_BLOCK_COLS = 2 * _BWD_SLICE
+_BWD_MAX_CLUSTER = 8
+_BWD_ROWS = (32, 16)
+_BWD_STAGES = (3, 2)
+_BWD_PLAN_FIELDS = ("cluster", "queries", "stages", "smem")
+
+
+def backward_cluster_smem_bytes(cluster, rows, stages) -> int:
+    """Shared memory of one block of the backward's cluster kernel: k and
+    v (64 keys x 256 columns, bf16), ``stages`` stages of the statistics
+    (256 bytes), q and dO (``rows`` queries x 256 columns, bf16), dS (rows
+    x 64, bf16), a float32 slot of the partial Sᵀ and dPᵀ (64 x rows each)
+    for each block of the cluster, and 256 bytes of mbarriers: the
+    kernel's own arithmetic."""
+    stage = 256 + 4 * rows * _BWD_BLOCK_COLS
+    return (2 * 2 * _BWD_KEYS * _BWD_BLOCK_COLS + stages * stage
+            + 2 * _BWD_KEYS * rows + cluster * 512 * rows + _BARRIER_BYTES)
+
+
+def backward_chunked_widths(d, c) -> bool:
+    """Whether a bf16 backward call of widths D, C runs the chunked kernels:
+    D or C above eight blocks' 256 columns, where the cluster kernel's plan
+    holds no split."""
+    return max(d, c) > _BWD_MAX_CLUSTER * _BWD_BLOCK_COLS
+
+
+def backward_cluster_split(b, n, m, d, c) -> dict:
+    """The bf16 backward's cluster kernel's split of one call with D or C
+    above 128, D and C rounded up to multiples of 8 as the wrapper pads
+    them.
+
+    ``cluster`` (R) blocks own 64 ``keys`` of a clip, the least power of
+    two with 256 R ≥ D and ≥ C; each block's two warpgroups own 128 columns
+    of D and of C each (``slices`` = 2 R of them, ``width`` 256 a block),
+    and the R blocks add their partial logits and dO vᵀ in rank order over
+    distributed shared memory. ``queries`` a tile (32, or 16 where a
+    cluster of 8's slots would not fit), ``stages`` of its ring (three where
+    they fit, else two), ``smem`` a block's bytes, ``blocks`` the grid
+    (``per_sm`` 1), ``recompute`` the tensor-core work over the bound's,
+    columns past D and C included (1.0 where they are multiples of 256 R).
+    The launch entry checks the plan against its own arithmetic and refuses
+    another. Raises ValueError at ``backward_chunked_widths``."""
+    d, c = _ceil(d, 8), _ceil(c, 8)
+    if backward_chunked_widths(d, c):
+        raise ValueError(f"flash_attention_backward: no bf16 cluster split "
+                         f"for D {d}, C {c} (D and C up to 2048)")
+    cluster = next(r for r in (1, 2, 4, _BWD_MAX_CLUSTER)
+                   if r * _BWD_BLOCK_COLS >= max(d, c))
+    for rows in _BWD_ROWS:
+        for stages in _BWD_STAGES:
+            smem = backward_cluster_smem_bytes(cluster, rows, stages)
+            if smem <= _SMEM_LIMIT:
+                return dict(
+                    kernel="cluster", cluster=cluster, keys=_BWD_KEYS,
+                    queries=rows, stages=stages, smem=smem,
+                    width=_BWD_BLOCK_COLS, slices=2 * cluster, per_sm=1,
+                    blocks=cluster * -(-m // _BWD_KEYS) * b,
+                    recompute=5 * cluster * _BWD_BLOCK_COLS / (3 * d + 2 * c))
+    raise ValueError(f"flash_attention_backward: no bf16 cluster split for "
+                     f"D {d}, C {c}")
+
+
 def backward_split(b, n, m, d, c) -> dict:
-    """The bf16 backward kernel's split of one call: keys a block, queries a
-    tile, ring stages, blocks, shared memory bytes, the padded width, the
-    blocks resident on an SM and the output column slices (above 128, the
-    wide path's key-rows launch: a block per 64 keys and 128-column
-    slice; above 512 the chunked kernel's, its width padded to whole
-    128-column chunks)."""
+    """The bf16 backward kernel's split of one call (``kernel`` names it):
+    D and C up to 128, the one-pass kernel's from the C library (keys a
+    block, queries a tile, ring stages, blocks, shared memory bytes, the
+    padded width, the blocks resident on an SM); above, up to 2048,
+    ``backward_cluster_split``; beyond (``backward_chunked_widths``) the
+    chunked kernels' key-rows launch from the C library, with its
+    128-column output ``slices``."""
+    d8, c8 = _ceil(d, 8), _ceil(c, 8)
+    if max(d8, c8) > 128 and not backward_chunked_widths(d8, c8):
+        return backward_cluster_split(b, n, m, d8, c8)
     split = (ctypes.c_int * 8)()
-    _bwd_lib().flash_attention_backward_plan(
-        b, m, -(-d // 8) * 8, -(-c // 8) * 8, split)
-    return dict(zip(("keys", "queries", "stages", "blocks", "smem",
-                     "width", "per_sm", "slices"), split))
+    _bwd_lib().flash_attention_backward_plan(b, m, d8, c8, split)
+    plan = dict(zip(("keys", "queries", "stages", "blocks", "smem", "width",
+                     "per_sm", "slices"), split))
+    return dict(plan, cluster=1,
+                kernel="one-pass" if max(d8, c8) <= 128 else "chunked")
 
 
 flash_attention_backward.launches = 0
@@ -564,4 +669,17 @@ def _bwd_lib() -> ctypes.CDLL:
     f = lib.flash_attention_backward_plan
     f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     f.restype = None
+    f = lib.flash_attention_backward_cluster_launch
+    f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p] * 2)
+    f.restype = ctypes.c_int
+    f = lib.flash_attention_backward_cluster_workspace
+    f.argtypes = [ctypes.c_int] * 4
+    f.restype = ctypes.c_longlong
+    f = lib.flash_attention_backward_cluster_smem
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_int
+    f = lib.flash_attention_backward_cluster_smem_attr
+    f.argtypes = [ctypes.c_int]
+    f.restype = ctypes.c_int
     return lib

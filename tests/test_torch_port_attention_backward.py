@@ -20,6 +20,7 @@ import torch
 from chip_smoke import ATTN_BWD_BF16_TOL
 from efficient_slowfast_tpu.ops.pallas import flash_attention as jfa
 from efficient_slowfast_tpu_torch.ops.kernels import flash_attention as tfa
+from torch_port_helpers import compiled
 
 CASES = {
     # (B, N, M, D, C)
@@ -42,11 +43,15 @@ def _arrays(b, n, m, d, c, seed=0, logit_std=3.0):
             rs.randn(b, n, c).astype(np.float32))
 
 
+def _forward_and_vjp(q, k, v, g):
+    out, vjp = jax.vjp(jfa.flash_attention, q, k, v)
+    return (out, *vjp(g))
+
+
 def _jax_vjp(q, k, v, g, dtype=jnp.float32):
-    args = [jnp.asarray(a, dtype) for a in (q, k, v)]
-    out, vjp = jax.vjp(jfa.flash_attention, *args)
-    return [np.asarray(t.astype(jnp.float32))
-            for t in (out, *vjp(jnp.asarray(g, dtype)))]
+    # one compiled program a shape: the forward and its vjp together
+    return [np.asarray(t.astype(jnp.float32)) for t in compiled(
+        _forward_and_vjp, *(jnp.asarray(a, dtype) for a in (q, k, v, g)))]
 
 
 def _port_grads(q, k, v, g, dtype=torch.float32):
@@ -159,31 +164,56 @@ def test_attention_backward_matches_autograd_of_chunked_attention(chunk):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
-def _kernel_bwd_bf16_model(q, k, v, out, lse, dout):
-    """The arithmetic of ``csrc/flash_attention_bwd.cu``'s bf16 one-pass
-    kernel: f32 products of the bf16 operands (its wgmma accumulates in
-    f32), D from the bf16 out and dout in f32, P = exp(q kᵀ − lse) and
-    dS = P∘(dO vᵀ − D) in f32, each rounded once to bf16 (P and dS as the
-    register A operands of Pᵀ dO and dSᵀ q, dS also as the shared-memory
-    A operand of dS k), the sums in f32; dQ's sum over key blocks in f32
-    too, in an order that ``_one_pass_dq_model`` varies. Returns the f32
-    gradients before their rounding to bf16."""
+def _kernel_bwd_bf16_model(q, k, v, out, lse, dout, seed=0):
+    """The arithmetic of ``csrc/flash_attention_bwd.cu``'s bf16 kernels:
+    f32 products of the bf16 operands (its wgmma accumulates in f32), D
+    from the bf16 out and dout in f32, P = exp(q kᵀ − lse) and dS = P∘(dO vᵀ
+    − D) in f32, each rounded once to bf16 (P and dS as the register A
+    operands of Pᵀ dO and dSᵀ q, dS also as the shared-memory operand of
+    dS k), the sums in f32. With D or C above 128 (the cluster kernel) q kᵀ
+    and dO vᵀ are sums of partials over 128-column slices: a block's two
+    warpgroups' added first, then the cluster's R blocks' in rank order;
+    dQ is the sum of the 64-key blocks' parts dS k, added into a float32
+    accumulator in an order (``seed``) as its bulk reduce-adds arrive.
+    Returns the f32 gradients before their rounding to bf16."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
     delta = (gf * of).sum(-1)
-    p = torch.exp(qf @ kf.transpose(1, 2) - lse[..., None])
-    ds = p * (gf @ vf.transpose(1, 2) - delta[..., None])
+    d, c = q.shape[-1], v.shape[-1]
+    if max(d, c) <= 128:
+        s, dp = qf @ kf.transpose(1, 2), gf @ vf.transpose(1, 2)
+    else:
+        r = tfa.backward_cluster_split(1, q.shape[1], k.shape[1], d,
+                                       c)["cluster"]
+        part = lambda x, y, j: (x[..., 128 * j:128 * j + 128]
+                                @ y[..., 128 * j:128 * j + 128]
+                                .transpose(1, 2))
+        s = dp = 0
+        for rank in range(r):  # rank order, each block's two warpgroups
+            s = s + (part(qf, kf, 2 * rank) + part(qf, kf, 2 * rank + 1))
+            dp = dp + (part(gf, vf, 2 * rank) + part(gf, vf, 2 * rank + 1))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dp - delta[..., None])
     pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
-    return dsb @ kf, dsb.transpose(1, 2) @ qf, pb.transpose(1, 2) @ gf
+    dq = torch.zeros_like(qf)
+    starts = list(range(0, k.shape[1], 64))
+    np.random.RandomState(seed).shuffle(starts)
+    for j in starts:
+        dq += dsb[..., j:j + 64] @ kf[:, j:j + 64]
+    return dq, dsb.transpose(1, 2) @ qf, pb.transpose(1, 2) @ gf
 
 
 @pytest.mark.parametrize("logit_std", [3.0, 11.0])
-@pytest.mark.parametrize("dim", [8, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dim", [8, 32, 64, 128, 256, 512] + [
+    pytest.param(w, id=f"{w[0]}x{w[1]}")
+    for w in ((1024, 1024), (600, 700), (64, 2048), (2048, 64))])
 def test_bf16_kernel_arithmetic_within_attn_bwd_bf16_tol(dim, logit_std):
     # D = C as at the four CMDA-R50 fusions and the non-local blocks (the
-    # wide kernels round P and dS to bf16 as the one-pass kernel does);
+    # cluster kernel above 128 rounds P and dS to bf16 as the one-pass
+    # kernel does), and the wide widths D, C of the cluster kernel's plan;
     # logits of std 3 (the smoke's calibration) and 11 (randn q and k at
     # D = 128, as phase 3c feeds them)
-    q, k, v, g = _arrays(1, 400, 333, dim, dim, seed=dim, logit_std=logit_std)
+    d, c = dim if isinstance(dim, tuple) else (dim, dim)
+    q, k, v, g = _arrays(1, 400, 333, d, c, seed=d, logit_std=logit_std)
     q, k, v, g = (torch.from_numpy(a).bfloat16() for a in (q, k, v, g))
     out, lse = tfa.chunked_attention_lse(q, k, v)
     model = _kernel_bwd_bf16_model(q, k, v, out, lse, g)

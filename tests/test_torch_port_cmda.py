@@ -28,7 +28,7 @@ from efficient_slowfast_tpu_torch.ops.kernels.fused_bottleneck import \
 from efficient_slowfast_tpu_torch.utils.weights import \
     jax_variables_to_state_dict
 from torch_port_helpers import (_jitter, _numpy_tree, attention_params,
-                                inputs_np, jax_model_and_variables,
+                                compiled, inputs_np, jax_model_and_variables,
                                 port_model, seeded_variables, small_cfg,
                                 torch_inputs)
 
@@ -141,8 +141,9 @@ def test_port_cmda_eval_matches_jax(cmda_setup, min_tokens):
     jax_model = jax_build_model(small_cfg(jax_get_cfg, model=CMDA,
                                           flash_min_tokens=min_tokens))
     assert options.flash_min_tokens == min_tokens
-    ref = np.asarray(jax_model.apply(
-        variables, [jnp.asarray(x) for x in inputs], train=False))
+    ref = np.asarray(compiled(
+        lambda v, x: jax_model.apply(v, x, train=False), variables,
+        [jnp.asarray(x) for x in inputs]))
     _, model = port_model(variables, model=CMDA, flash_min_tokens=min_tokens)
     fuses = [model.s1_fuse, model.s2_fuse, model.s3_fuse, model.s4_fuse]
     assert [f.attention_spatial_s2f.flash_min_tokens

@@ -36,7 +36,7 @@ from efficient_slowfast_tpu_torch.models.detection import ResNetRoIHead
 from efficient_slowfast_tpu_torch.utils.weights import (
     jax_variables_to_state_dict, state_dict_to_jax_variables)
 from test_ava import make_ava_fixture, tiny_detection_cfg
-from torch_port_helpers import flat_leaves, seeded_variables
+from torch_port_helpers import compiled, flat_leaves, seeded_variables
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CANVAS = (32, 64)  # the serving canvas: short side 32, twice as wide
@@ -204,8 +204,8 @@ def test_detection_train_step_matches_jax(fx, accum):
         step=jnp.zeros((), jnp.int32), params=variables["params"],
         batch_stats=variables["batch_stats"],
         opt_state=tx.init(variables["params"]))
-    jstate, jmets = jstep(jstate, [jnp.asarray(x) for x in inputs], boxes,
-                          labels, mask, 0.01, jax.random.PRNGKey(0))
+    jstate, jmets = compiled(jstep, jstate, [jnp.asarray(x) for x in inputs],
+                             boxes, labels, mask, 0.01, jax.random.PRNGKey(0))
 
     model = build_model(cfg, device="cpu")
     model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)

@@ -39,9 +39,9 @@ from efficient_slowfast_tpu_torch.ops import pool
 from efficient_slowfast_tpu_torch.ops.kernels import flash_attention as fa
 from efficient_slowfast_tpu_torch.utils.weights import (
     jax_variables_to_state_dict, state_dict_to_jax_variables)
-from torch_port_helpers import (EFFICIENT, calibrate_fusions, efficient_cfg,
-                                efficient_variables, flat_leaves, inputs_np,
-                                torch_inputs)
+from torch_port_helpers import (EFFICIENT, calibrate_fusions, compiled,
+                                efficient_cfg, efficient_variables,
+                                flat_leaves, inputs_np, torch_inputs)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TRAIN_TOL = dict(rtol=1e-3, atol=2e-3)
@@ -183,13 +183,12 @@ def test_family_matches_jax(family, monkeypatch):
     variables = calibrate_fusions(cfg, efficient_variables(cfg), inputs)
     jmodel = jax_build_model(jcfg)
 
-    @jax.jit
     def forwards(v, x):
         train, stats = jmodel.apply(v, x, train=True,
                                     mutable=["batch_stats"])
         return jmodel.apply(v, x, train=False), train, stats
 
-    jeval, jtrain, jstats = forwards(variables,
+    jeval, jtrain, jstats = compiled(forwards, variables,
                                      [jnp.asarray(x) for x in inputs])
 
     model = build_model(cfg, device="cpu")

@@ -50,7 +50,7 @@ from efficient_slowfast_tpu_torch.engine.state import (create_train_state,
 from efficient_slowfast_tpu_torch.models import build_model
 from efficient_slowfast_tpu_torch.utils.weights import (
     jax_variables_to_state_dict, state_dict_to_jax_variables)
-from torch_port_helpers import (calibrate_fusions, efficient_cfg,
+from torch_port_helpers import (calibrate_fusions, compiled, efficient_cfg,
                                 efficient_variables, flat_leaves, inputs_np,
                                 torch_inputs)
 
@@ -77,8 +77,8 @@ def _jax_step(family, variables, inputs, labels):
                           params=tree(variables["params"]),
                           batch_stats=tree(variables["batch_stats"]),
                           opt_state=tx.init(variables["params"]))
-    state, mets = step(state, [jnp.asarray(x) for x in inputs],
-                       jnp.asarray(labels), LR, jax.random.PRNGKey(0))
+    state, mets = compiled(step, state, [jnp.asarray(x) for x in inputs],
+                           jnp.asarray(labels), LR, jax.random.PRNGKey(0))
     after = jax.tree_util.tree_map(
         lambda a: np.array(a, copy=True),
         {"params": state.params, "batch_stats": state.batch_stats})

@@ -62,7 +62,8 @@ from efficient_slowfast_tpu_torch.utils.weights import (
     jax_variables_to_state_dict, state_dict_to_jax_variables)
 from test_torch_port_frame_datasets import (NumpyWithRandom, Recorder, Replay,
                                           frame)
-from torch_port_helpers import flat_leaves, inputs_np, seeded_variables
+from torch_port_helpers import (compiled, flat_leaves, inputs_np,
+                                seeded_variables)
 
 jax_train_engine = importlib.import_module("efficient_slowfast_tpu.engine.train")
 jax_test_engine = importlib.import_module("efficient_slowfast_tpu.engine.test")
@@ -202,10 +203,12 @@ def test_charades_train_step_and_eval_forward_match_jax():
         batch_stats=jax.tree_util.tree_map(jnp.asarray,
                                            variables["batch_stats"]),
         opt_state=tx.init(variables["params"]))
-    scores = np.asarray(jax.jit(lambda v, x: model.apply(v, x, train=False))(
-        variables, [jnp.asarray(x) for x in inputs]))
-    state, mets = jax_make_train_step(jcfg, model, tx)(
-        state, [jnp.asarray(x) for x in inputs], jnp.asarray(labels), lr,
+    scores = np.asarray(compiled(
+        lambda v, x: model.apply(v, x, train=False), variables,
+        [jnp.asarray(x) for x in inputs]))
+    state, mets = compiled(
+        jax_make_train_step(jcfg, model, tx), state,
+        [jnp.asarray(x) for x in inputs], jnp.asarray(labels), lr,
         jax.random.PRNGKey(0))
     theirs = flat_leaves({"params": state.params,
                           "batch_stats": state.batch_stats})

@@ -26,7 +26,7 @@ from efficient_slowfast_tpu_torch.models import build_model
 from efficient_slowfast_tpu_torch.ops.kernels import flash_attention as fa
 from efficient_slowfast_tpu_torch.utils.weights import (
     jax_variables_to_state_dict, state_dict_to_jax_variables)
-from torch_port_helpers import (NLN_R50, flat_leaves, inputs_np,
+from torch_port_helpers import (NLN_R50, compiled, flat_leaves, inputs_np,
                                 jax_train_runs, port_train_run,
                                 seeded_variables, small_cfg, torch_inputs,
                                 train_batches, train_cfg)
@@ -75,8 +75,8 @@ def test_eval_forward_matches_jax(name, monkeypatch):
     variables = seeded_variables(cfg)
     inputs = inputs_np(cfg)
     jmodel = jax_build_model(jcfg)
-    ref = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
-        variables, [jnp.asarray(x) for x in inputs]))
+    ref = np.asarray(compiled(lambda v, x: jmodel.apply(v, x, train=False),
+                              variables, [jnp.asarray(x) for x in inputs]))
     model = build_model(cfg, device="cpu")
     model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
     calls = []

@@ -13,8 +13,9 @@ import torch
 
 from efficient_slowfast_tpu.config import get_cfg as jax_get_cfg
 from efficient_slowfast_tpu_torch.config import get_cfg
-from torch_port_helpers import (inputs_np, jax_model_and_variables,
-                                port_model, small_cfg, torch_inputs)
+from torch_port_helpers import (compiled, inputs_np,
+                                jax_model_and_variables, port_model,
+                                small_cfg, torch_inputs)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = {"r50_bottleneck": dict(depth=50, trans="bottleneck_transform"),
@@ -26,8 +27,8 @@ def setup(request):
     kw = ARCHS[request.param]
     inputs = inputs_np(small_cfg())
     model, variables = jax_model_and_variables(inputs, **kw)
-    ref = np.asarray(model.apply(variables, [jnp.asarray(x) for x in inputs],
-                                 train=False))
+    ref = np.asarray(compiled(lambda v, x: model.apply(v, x, train=False),
+                              variables, [jnp.asarray(x) for x in inputs]))
     return inputs, variables, ref, kw
 
 

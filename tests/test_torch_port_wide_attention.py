@@ -44,8 +44,9 @@ from efficient_slowfast_tpu_torch.ops.kernels import flash_attention as tfa
 from efficient_slowfast_tpu_torch.utils.weights import (
     jax_variables_to_state_dict, state_dict_to_jax_variables)
 from torch_port_helpers import (_jitter, _numpy_tree, attention_params,
-                                flat_leaves, inputs_np, nonlocal_params,
-                                seeded_variables, torch_inputs, train_cfg)
+                                compiled, flat_leaves, inputs_np,
+                                nonlocal_params, seeded_variables,
+                                torch_inputs, train_cfg)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = 2e-2
@@ -73,15 +74,6 @@ def _qkv(b, n, m, d, c, seed=0):
             rs.randn(b, m, d).astype(np.float32) * f,
             rs.randn(b, m, c).astype(np.float32),
             rs.randn(b, n, c).astype(np.float32))
-
-
-def compiled(fn, *args):
-    """``fn(*args)``, jitted and compiled at XLA's lowest backend
-    optimisation (``fn`` may be jitted already)."""
-    fn = fn if hasattr(fn, "lower") else jax.jit(fn)
-    return fn.lower(*args).compile(compiler_options={
-        "xla_backend_optimization_level": 0,
-        "xla_llvm_disable_expensive_passes": True})(*args)
 
 
 def _forward_and_vjp(q, k, v, g):

@@ -19,6 +19,22 @@ from efficient_slowfast_tpu_torch.utils.weights import \
     jax_variables_to_state_dict
 
 
+def executable(fn, *args):
+    """``fn`` jitted (or as jitted already) and compiled for ``args`` at
+    XLA's lowest backend optimisation: the JAX references of the port's
+    tests spend their time compiling, and op by op (eagerly) a model
+    compiles each of its operations apart."""
+    fn = fn if hasattr(fn, "lower") else jax.jit(fn)
+    return fn.lower(*args).compile(compiler_options={
+        "xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True})
+
+
+def compiled(fn, *args):
+    """``fn(*args)`` through ``executable``."""
+    return executable(fn, *args)(*args)
+
+
 # the stage depths of RESNET.DEPTH, as NUM_BLOCK_TEMP_KERNEL lists them
 _DEPTHS = {18: [2, 2, 2, 2], 50: [3, 4, 6, 3], 101: [3, 4, 23, 3]}
 # I3D-NLN-R50's non-local blocks (configs/Kinetics/I3D_NLN_8x8_R50.yaml):
@@ -156,8 +172,9 @@ def jax_model_and_variables(inputs, **kw):
     cfg = small_cfg(jax_get_cfg, **kw)
     model = jax_build_model(cfg)
     rng = jax.random.PRNGKey(0)
-    variables = jax.jit(functools.partial(model.init, train=False))(
-        {"params": rng, "dropout": rng}, [jnp.asarray(x) for x in inputs])
+    variables = compiled(functools.partial(model.init, train=False),
+                         {"params": rng, "dropout": rng},
+                         [jnp.asarray(x) for x in inputs])
     params = attention_params(_numpy_tree(variables["params"]),
                               np.random.RandomState(1))
     return model, {"params": params,
@@ -224,8 +241,7 @@ def jax_train_runs(variables, runs, **kw):
     cfg = train_cfg(jax_get_cfg, **kw)
     model = jax_build_model(cfg)
     tx, _ = construct_optimizer(cfg, variables["params"])
-    step = make_train_step(cfg, model, tx)
-    out = []
+    step, out = make_train_step(cfg, model, tx), []
     for run in runs:
         state = TrainState(step=jnp.zeros((), jnp.int32),
                            params=jax.tree_util.tree_map(jnp.asarray,
@@ -235,8 +251,11 @@ def jax_train_runs(variables, runs, **kw):
                            opt_state=tx.init(variables["params"]))
         losses, snaps = [], []
         for inputs, labels, lr in run:
-            state, mets = step(state, [jnp.asarray(x) for x in inputs],
-                               jnp.asarray(labels), lr, jax.random.PRNGKey(0))
+            args = (state, [jnp.asarray(x) for x in inputs],
+                    jnp.asarray(labels), lr, jax.random.PRNGKey(0))
+            if hasattr(step, "lower"):  # compiled once, for every run
+                step = executable(step, *args)
+            state, mets = step(*args)
             losses.append(float(mets["loss"]))
             # copies: the next step donates the state's buffers
             snaps.append(jax.tree_util.tree_map(
@@ -287,8 +306,9 @@ def jax_train_variables(inputs, **kw):
     ``jax_model_and_variables``."""
     model = jax_build_model(train_cfg(jax_get_cfg, **kw))
     rng = jax.random.PRNGKey(0)
-    variables = jax.jit(functools.partial(model.init, train=False))(
-        {"params": rng, "dropout": rng}, [jnp.asarray(x) for x in inputs])
+    variables = compiled(functools.partial(model.init, train=False),
+                         {"params": rng, "dropout": rng},
+                         [jnp.asarray(x) for x in inputs])
     params = attention_params(_numpy_tree(variables["params"]),
                               np.random.RandomState(1))
     return {"params": params,
