@@ -21,14 +21,13 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               libraries' bf16 kernels, raising if any has none (K2-bwd's
               one-pass kernel must have HGMMA, wgmma, in each of its four
               instantiations, one per padded width; K2's cluster kernel of
-              D or C above 128 HGMMA in each of its six, and no spill,
-              K2's chunked kernel beyond the cluster kernel's plan HMMA
-              in each of 2; the
-              backward's wide kernels HMMA in each of 4 and its chunked
-              ones above 512 in each of 2), K2's cluster kernel launched
-              at each instantiation with forward_split's shared-memory
-              bytes held against the library's arithmetic and the
-              launched kernel's attribute, and the
+              D or C above 128 HGMMA in each of its nine, the backward's
+              in each of its four, and no spill in either; ptxas's wgmma
+              serialization notes, C7519, printed), K2's and K2-bwd's
+              cluster kernels launched at each instantiation with
+              forward_split's and backward_split's shared-memory bytes
+              held against the library's arithmetic and the launched
+              kernel's attribute, and the
               FP32-pipe and F2FP instructions per
               MUFU.EX2 in the main loop of the flash-attention bf16 kernels,
               forward and backward; K3's GEMM must run integer wgmma (IGMMA)
@@ -424,18 +423,20 @@ chosen phase with the rest of its block (PHASE_BLOCKS: 3 and 4; 3b and 5;
               memory, and K3's kernels' device ms in a traced
               +INT8_SPATIAL request on slabs beside one process's.
 21. wide    — attention wider than 512 (phase_wide): K2's and K2-bwd's
-              cluster kernels (and their chunked ones beyond the cluster
-              kernels' plans). (a) K2 and K2-bwd against
+              cluster kernels, at any width. (a) K2 and K2-bwd against
               their plain
               versions in f32 and bf16 at 3b's and 3c's gates at the
               slice's shapes (WIDE_ROWS: D = C = 1024; N 4096 and M 1024,
               the path's 256 x 512 frames, and N 2048 and M 512, a 256²
               crop, at TEST.BATCH_SIZE; N 1568 and M 392 at
               TRAIN.BATCH_SIZE, K2-bwd there too) and WIDE_OFF_PATH (D 600 C
-              700; D 64 C 2048; D 2048 C 64; the chunked kernels at D 3072
-              C 3072 and D 300 C 2100), and a planted fault, the
-              last 128 columns of D left out of the logits, that must fail
-              both gates; (b) configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml with
+              700; D 64 C 2048; D 2048 C 64; beyond 2048, two column groups:
+              D 3072 C 3072 at 1 clip and at the res5 step's 16 clips
+              (K2-bwd's float32 there at 1 clip), D 300 C 2100; nine: D
+              256 C 16448, K2 only), and a planted
+              fault, the last 128 columns of D left out of the logits,
+              that must fail both gates at the res5 shape and beyond 2048;
+              (b) configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml with
               WIDE_NONLOCAL (a softmax non-local block after block 1 of
               the slow res5, D = C = 1024) at full width and depth, its
               θ and φ calibrated: one val batch served (1 K2 launch, each
@@ -752,7 +753,8 @@ def phase_build():
                 func = entry.group(1) + "<" + ",".join(
                     {"__nv_bfloat16": "bf16", "f": "float"}.get(a, a)
                     for a in args) + ">"
-            elif "registers" in line or "spill" in line or "error" in line:
+            elif ("registers" in line or "spill" in line or "error" in line
+                  or "C7519" in line):
                 log("build", f"{name}: {func}: {line.split(':', 1)[-1].strip()}")
                 stores = re.search(r"(\d+) bytes spill stores", line)
                 if "cluster_kernel" in func and stores and int(stores[1]):
@@ -768,25 +770,17 @@ def phase_build():
     k1_sass_counts(tool, _build.lib_path("fused_bottleneck"))
     bwd_sass_counts(tool, _build.lib_path("flash_attention_bwd"))
     # K2's bf16 forward above 128: the cluster kernel, wgmma (HGMMA) in
-    # each (accumulator width, exchange) instantiation
+    # each (accumulator width, mode) instantiation (mode 0 one block a
+    # query tile, 1 a cluster with q resident, 2 with q streamed)
     wide_sass_counts(tool, _build.lib_path("flash_attention"),
-                     r"flash_attention_tc_cluster_kernelILi(\d+)ELb(\d)E", 6,
-                     "cluster (width/exchange)", op="HGMMA")
+                     r"flash_attention_tc_cluster_kernelILi(\d+)ELi(\d)E", 9,
+                     "cluster (width/mode)", op="HGMMA")
     # K2-bwd's bf16 backward above 128: the cluster kernel, wgmma (HGMMA)
-    # in each instantiation (16 or 32 queries a tile)
+    # in each instantiation (16 or 32 queries a tile; mode 0 one column
+    # group, 1 and 2 column groups with one or two rounds of exchange)
     wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
-                     r"attention_bwd_cluster_kernelILi(\d+)E", 2,
-                     "cluster (queries a tile)", op="HGMMA")
-    # K2's bf16 forward beyond the cluster kernel's plan: the chunked
-    # kernel, mma.sync (HMMA), q resident or streamed
-    wide_sass_counts(tool, _build.lib_path("flash_attention"),
-                     r"flash_attention_tc_chunked_kernelILb(\d)E", 2,
-                     "chunked (q resident)")
-    # K2-bwd beyond the cluster kernel's plan: the chunked kernels (key or
-    # query rows)
-    wide_sass_counts(tool, _build.lib_path("flash_attention_bwd"),
-                     r"attention_bwd_chunked_kernelILb(\d)E", 2,
-                     "chunked (key rows)")
+                     r"attention_bwd_cluster_kernelILi(\d+)ELi(\d)E", 4,
+                     "cluster (queries a tile/mode)", op="HGMMA")
     k3_sass_counts(tool, _build.lib_path("int8_conv"))
     cluster_plan_bytes()
     bwd_cluster_plan_bytes()
@@ -824,10 +818,12 @@ def wide_sass_counts(tool, lib, pattern, expected, label="wide", op="HMMA"):
                              f"{expected}")
 
 
-# (D, C) of the cluster kernel's six instantiations (accumulator width 64,
-# 128, 256; blocks exchanging partial logits or not), launched once each
+# (D, C) of the cluster kernel's nine instantiations (accumulator width 64,
+# 128, 256; one block a query tile, a cluster with q resident, a cluster
+# with q streamed beside k), launched once each
 CLUSTER_PLAN_WIDTHS = [(256, 64), (256, 128), (256, 256), (1024, 64),
-                       (1024, 384), (1024, 1024)]
+                       (1024, 384), (1024, 1024), (3072, 64), (3072, 384),
+                       (3072, 1024)]
 
 
 def cluster_plan_bytes():
@@ -847,26 +843,28 @@ def cluster_plan_bytes():
         torch.cuda.synchronize()
         plan = fa.forward_split(1, 130, 70, d, c)
         lib = fa._lib()
+        mode = (0 if not plan["exchange"] else 2 if plan["stream"] else 1)
         own = lib.flash_attention_cluster_smem(
-            plan["d_slice"], plan["width"], plan["keys"], plan["k_stages"],
-            plan["v_stages"], int(plan["exchange"]), plan["cluster"])
-        attr = lib.flash_attention_cluster_smem_attr(plan["width"],
-                                                     plan["keys"])
-        seen.add((plan["width"], plan["exchange"]))
+            mode, plan["width"], plan["keys"], plan["k_stages"],
+            plan["v_stages"], plan["pushers"], plan["rounds"])
+        attr = lib.flash_attention_cluster_smem_attr(plan["width"], mode)
+        seen.add((plan["width"], mode))
         log("build", f"cluster kernel D {d} C {c}: plan {plan} | the "
             f"library's bytes {own}, the launched kernel's attribute {attr}")
         if not plan["smem"] == own == attr:
             raise AssertionError(f"D {d} C {c}: forward_split's "
                                  f"{plan['smem']} bytes, the library's "
                                  f"{own}, the kernel's attribute {attr}")
-    if len(seen) != 6:
+    if len(seen) != 9:
         raise AssertionError(f"CLUSTER_PLAN_WIDTHS reach {sorted(seen)}, "
-                             "not the six instantiations")
+                             "not the nine instantiations")
 
 
 # (D, C) of K2-bwd's cluster kernel at each instantiation (16 or 32
-# queries a tile) and ring (two or three stages), launched once each
-BWD_CLUSTER_PLAN_WIDTHS = [(256, 256), (1024, 1024), (2048, 64)]
+# queries a tile), ring (two or three stages), one column group or two
+# (an extra ring) and one round of exchange or two, launched once each
+BWD_CLUSTER_PLAN_WIDTHS = [(256, 256), (1024, 1024), (2048, 64),
+                           (3072, 3072), (4096, 4096)]
 
 
 def bwd_cluster_plan_bytes():
@@ -889,19 +887,23 @@ def bwd_cluster_plan_bytes():
         plan = fa.backward_split(1, 130, 70, d, c)
         lib = fa._bwd_lib()
         own = lib.flash_attention_backward_cluster_smem(
-            plan["cluster"], plan["queries"], plan["stages"])
+            plan["cluster"], plan["queries"], plan["stages"],
+            plan["extra_stages"], plan["rounds"])
         attr = lib.flash_attention_backward_cluster_smem_attr(
-            plan["queries"])
-        seen.add((plan["queries"], plan["stages"]))
+            plan["queries"], plan["rounds"] if plan["groups"] > 1 else 0)
+        seen.add((plan["queries"], plan["stages"], plan["groups"] > 1,
+                  plan["rounds"]))
         log("build", f"K2-bwd cluster kernel D {d} C {c}: plan {plan} | the "
             f"library's bytes {own}, the launched kernel's attribute {attr}")
         if plan["kernel"] != "cluster" or not plan["smem"] == own == attr:
             raise AssertionError(f"D {d} C {c}: backward_split's "
                                  f"{plan['smem']} bytes, the library's "
                                  f"{own}, the kernel's attribute {attr}")
-    if {q for q, _ in seen} != {16, 32} or {s_ for _, s_ in seen} != {2, 3}:
+    if [{x[i] for x in seen} for i in range(4)] != [
+            {16, 32}, {2, 3}, {False, True}, {1, 2}]:
         raise AssertionError(f"BWD_CLUSTER_PLAN_WIDTHS reach {sorted(seen)}, "
-                             "not both instantiations and both rings")
+                             "not both query tiles, both rings, one and "
+                             "two column groups, one and two rounds")
 
 
 def k3_sass_counts(tool, lib):
@@ -1604,8 +1606,8 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
             err = (out.float() - ref.float()).abs().max().item()
             scale = max(1.0, ref.float().abs().max().item())
             finite = bool(torch.isfinite(out).all())
-            # the cluster and chunked kernels (bf16, D or C above 128)
-            # have no atomics: a second call gives the same bits
+            # the cluster kernel (bf16, D or C above 128) has no atomics:
+            # a second call gives the same bits
             same = ""
             if dtype == torch.bfloat16 and (d > 128 or c > 128):
                 same = torch.equal(out, flash_attention(q, k, v))
@@ -1635,7 +1637,10 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
         q, k, v = (draw(b, n, d, dtype=dtype) * f,
                    draw(b, m, d, dtype=dtype) * f,
                    draw(b, m, c, dtype=dtype))
-        big = b * n * m > 2 ** 30  # the 32768-token rows: few repetitions
+        # the 32768-token rows, and those beyond 2048 columns at a
+        # training batch: few repetitions
+        big = b * n * m > 2 ** 30 or (max(d, c) > 2048
+                                       and b * n * m > 2 ** 22)
         k_ms = cuda_ms(lambda: flash_attention(q, k, v),
                        iters=2 if big else 10, reps=3 if big else 5)
         p_ms = cuda_ms(lambda: chunked_attention(q, k, v), iters=1, reps=3)
@@ -1649,13 +1654,10 @@ def phase_attention(rows, smi, recipe_rows=(), off_path=ATTN_OFF_PATH,
         ratio = "n/a" if lib_ms is None else f"{k_ms / lib_ms:.2f}"
         if d > 128 or c > 128:
             from efficient_slowfast_tpu_torch.ops.kernels.flash_attention \
-                import chunked_widths, forward_split
+                import forward_split
             log("attention", f"{label:16s} bf16 (B, N, M, D, C) "
-                f"{(b, n, m, d, c)}: " + (
-                    f"the chunked kernel, {-(-c // 128)} slices of 128 "
-                    "columns of C, each computing the logits"
-                    if chunked_widths(d, c) else "the cluster kernel's "
-                    f"split {forward_split(b, n, m, d, c)}"))
+                f"{(b, n, m, d, c)}: the cluster kernel's split "
+                f"{forward_split(b, n, m, d, c)}")
         flops, nbytes, exps = attention_cost(b, n, m, d, c)
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1725,13 +1727,17 @@ def attention_backward_cost(b, n, m, d, c):
 
 def phase_attention_backward(rows, smi, recipe_rows=(),
                              off_path=ATTN_BWD_OFF_PATH, batch=TRAIN_CLIPS,
-                             logit_std=None):
+                             logit_std=None, f32_batch=True,
+                             card_draws=False):
     """K2-bwd against attention_backward at the training shapes ``rows``,
     off-path shapes and ``recipe_rows`` (phase 10's training shapes, each
     with its largest batch, in bf16); returns (per-shape record, worst bf16
     error on the path at the training batch, the largest bf16 batch held at
     each (N, M, D, C)). ``batch`` is the training batch it holds and
-    times at; ``logit_std`` scales q and k as phase_attention does."""
+    times at (float32 at 1 clip only without ``f32_batch``); ``logit_std``
+    scales q and k as phase_attention does; with ``card_draws`` the inputs
+    beyond a request's clips are drawn on the card (phase 21: the host's
+    draws took ~1 s each at its 16-clip D = C = 3072 row)."""
     import torch.nn.functional as F
 
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
@@ -1739,8 +1745,14 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
         flash_attention_backward)
 
     gen = torch.Generator().manual_seed(SEED + 7)
-    rn = lambda *shape, dtype: torch.randn(*shape, generator=gen).to(
+    card_gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rn_host = lambda *shape, dtype: torch.randn(*shape, generator=gen).to(
         "cuda", dtype)
+    rn_card = lambda *shape, dtype: torch.randn(
+        *shape, generator=card_gen, device="cuda").to(dtype)
+    rn = lambda *shape, dtype: (
+        rn_card if card_draws and shape[0] > CLIPS_PER_REQUEST
+        else rn_host)(*shape, dtype=dtype)
     smallest = min(r[1] for r in rows)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_recipe = 0.0
@@ -1749,7 +1761,8 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
             rows + [r + (0,) for r in off_path] + list(recipe_rows)):
         for dtype, tol in ((torch.float32, ATTN_BWD_F32_TOL),
                            (torch.bfloat16, ATTN_BWD_BF16_TOL)):
-            batches = [1, batch]
+            batches = [1, batch] if f32_batch or dtype == torch.bfloat16 \
+                else [1]
             if big and dtype == torch.bfloat16 and big[0] not in batches:
                 batches.append(big[0])
             for b in batches:
@@ -1766,8 +1779,7 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
                 again = flash_attention_backward(q, k, v, out, lse, dout)
                 torch.cuda.synchronize()
                 # dK and dV are sums in a fixed order; bf16 dQ is summed
-                # over key blocks by float32 reduce-adds in any order (the
-                # chunked kernels' dQ is deterministic too)
+                # over key blocks by float32 reduce-adds in any order
                 exact = [torch.equal(g, a) for g, a in zip(grads, again)]
                 dq_moved = (grads[0].float() - again[0].float()).abs().max(
                     ).item()
@@ -1821,7 +1833,8 @@ def phase_attention_backward(rows, smi, recipe_rows=(),
                          rn(b, m, d, dtype=dtype) * f,
                          rn(b, m, c, dtype=dtype), rn(b, n, c, dtype=dtype))
         out, lse = _forward(q, k, v, with_lse=True)
-        big = b * n * m > 2 ** 30
+        big = b * n * m > 2 ** 30 or (max(d, c) > 2048
+                                       and b * n * m > 2 ** 22)
         reps = dict(iters=2 if big else 10, reps=3 if big else 5)
         k_ms = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse,
                                                         dout), **reps)
@@ -8289,12 +8302,19 @@ WIDE_ROWS = [("res5 nl 256x512", 4096, 1024, 1024, 1024, 1, "serve"),
 WIDE_OFF_PATH = [("d 600 c 700", 777, 190, 600, 700, 1),
                  ("d 64 c 2048", 1000, 250, 64, 2048, 2),
                  ("d 2048 c 64", 1000, 250, 2048, 64, 2),
-                 # beyond the cluster kernel's plan: the chunked kernel,
-                 # q streamed (D 3072) and resident (D 300)
+                 # beyond 2048: two column groups, q streamed over 6
+                 # slices (D 3072) and resident (D 300)
                  ("d 3072 c 3072", 777, 190, 3072, 3072, 1),
                  ("d 300 c 2100", 777, 190, 300, 2100, 1)]
-# the planted fault: the last 128-column chunk of D left out of the logits
+# beyond 2048 at the AVA res5 train step's tokens and clips, K2 and K2-bwd
+# (about 1 GB of tensors); and K2 alone at nine column groups, the widths
+# where a planner that tried 64 blocks at most found no split
+WIDE_BEYOND = [("d 3072 res5 step", 1568, 392, 3072, 3072, 16)]
+WIDE_FORWARD_ONLY = [("d 256 c 16448", 777, 190, 256, 16448, 1)]
+# the planted fault: the last 128 columns of D left out of the logits, at
+# the res5 shape (WIDE_ROWS[0]) and at these (B, N, M, D, C), beyond 2048
 WIDE_FAULT_COLS = 128
+WIDE_FAULT_BEYOND = [(1, 777, 190, 3072, 3072), (1, 777, 190, 300, 2100)]
 # rounds of readings of the AVA forward with K2 and with the plain
 # attention, in turn (K2 first, then plain first, ...)
 WIDE_TIME_ROUNDS = 2
@@ -8307,28 +8327,18 @@ def wide_cfg(dirs, dtype="bfloat16", *opts):
 def wide_work(d, c):
     """(forward, backward) operations of the kernels over the bound's, per
     (query, key) pair, D and C unpadded. Forward: the cluster kernel
-    computes q kᵀ forward_split's ``recompute`` times (once where its
-    cluster splits D, R times where every block holds D), the chunked
-    kernel (chunked_widths) ceil(C / 128) times, P v once.
-    Backward: the cluster kernel computes each of the five products once
-    over 2 R slices of 128 columns of D and C, those past D or C on zeros
-    (backward_split's ``recompute``); the chunked kernels
-    (backward_chunked_widths) own a 128-column slice of the output a block
-    and recompute the logits over all of D and dO vᵀ over all of C for it,
-    the key rows' ceil(max(D, C) / 128) and the query rows' ceil(D / 128)
-    slices, beside dK, dV and dQ once."""
+    computes q kᵀ forward_split's ``recompute`` times (once a column
+    group: once up to C = 2048) over its ``padded`` share of D's columns
+    (the pushers' slices, zeros past D), P v once. Backward: the cluster
+    kernel computes dV, dK and dQ once over 2 R G slices of 128 columns of
+    D and C and the two logits products once a column group, those past D
+    or C on zeros (backward_split's ``recompute``)."""
     from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
-        backward_chunked_widths, backward_cluster_split, chunked_widths,
-        forward_split)
+        backward_cluster_split, forward_split)
 
-    s_c, s_d = -(-c // 128), -(-d // 128)
-    s_kv = max(s_c, s_d)
-    recompute = (s_c if chunked_widths(d, c)  # a block per 128 columns of C
-                 else forward_split(1, 128, 64, d, c)["recompute"])
-    backward = (((s_kv + s_d) * (d + c) + 128 * (2 * s_d + s_c))
-                / (3 * d + 2 * c) if backward_chunked_widths(d, c)
-                else backward_cluster_split(1, 128, 64, d, c)["recompute"])
-    return (d * recompute + c) / (d + c), backward
+    split = forward_split(1, 128, 64, d, c)
+    forward = (d * split["recompute"] * split["padded"] + c) / (d + c)
+    return forward, backward_cluster_split(1, 128, 64, d, c)["recompute"]
 
 
 def train_mode_run(model, inputs, boxes):
@@ -8390,36 +8400,41 @@ def phase_wide_kernels(serve_b, train_b, smi):
     3c's gates), timed beside their bounds, the kernels' recompute, the
     plain versions and SDPA; the planted faults. Returns (K2 record, K2
     error, K2-bwd record, K2-bwd error)."""
-    from efficient_slowfast_tpu_torch.ops.kernels.flash_attention import (
-        backward_chunked_widths, chunked_widths)
-
     batch = {"serve": serve_b, "train": train_b}
     rows = [r[:6] + (batch[r[6]],) for r in WIDE_ROWS]
     train_rows = [r[:6] for r in WIDE_ROWS if r[6] == "train"]
-    off = [(label, n, m, d, c, 0, b) for label, n, m, d, c, b in
-           WIDE_OFF_PATH]
+    off, beyond, fwd_only = ([(label, n, m, d, c, 0, b) for label, n, m, d,
+                              c, b in x] for x in (
+        WIDE_OFF_PATH, WIDE_BEYOND, WIDE_FORWARD_ONLY))
     k2_record, k2_err, _ = phase_attention(
-        rows + off, smi, off_path=(), path_batch=serve_b,
-        logit_std=ATTN_LOGIT_STD)
+        rows + off + beyond + fwd_only, smi, off_path=(),
+        path_batch=serve_b, logit_std=ATTN_LOGIT_STD)
     bwd_record, bwd_err, _ = phase_attention_backward(
         train_rows, smi, off_path=(), batch=train_b,
-        logit_std=ATTN_LOGIT_STD)
+        logit_std=ATTN_LOGIT_STD, card_draws=True)
     bwd_off, _, _ = phase_attention_backward(
         [r[:6] for r in off], smi, off_path=(), batch=2,
         logit_std=ATTN_LOGIT_STD)
-    for rec, shapes, bwd in ((k2_record, rows + off, False),
-                             (bwd_record + bwd_off, train_rows + off, True)):
+    # (float32's wide backward, not this phase's subject, at 1 clip: at 16
+    # clips it took 4.3 s of the phase)
+    bwd_beyond = []
+    for r in beyond:
+        bwd_beyond += phase_attention_backward(
+            [r[:6]], smi, off_path=(), batch=r[6],
+            logit_std=ATTN_LOGIT_STD, f32_batch=False, card_draws=True)[0]
+    for rec, shapes, bwd in (
+            (k2_record, rows + off + beyond + fwd_only, False),
+            (bwd_record + bwd_off + bwd_beyond, train_rows + off + beyond,
+             True)):
         for r, (label, n, m, d, c, *_) in zip(rec, shapes):
             work = wide_work(d, c)[bwd]
             lib = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
-            how = (("(chunked) recomputes the logits and dO vᵀ for each "
-                    "128-column output slice" if backward_chunked_widths(d, c)
-                    else "(cluster) computes each product once over 2 R "
-                    "slices of 128 columns, past D and C on zeros") if bwd
-                   else "(chunked) computes the logits once a 128-column "
-                   "slice of C" if chunked_widths(d, c) else "computes the "
-                   "logits forward_split's recompute times")
+            how = ("(cluster) computes dV, dK, dQ once over 2 R G slices "
+                   "of 128 columns and the logits once a column group, "
+                   "past D and C on zeros" if bwd else "(cluster) computes "
+                   "the logits forward_split's recompute times over its "
+                   "padded columns")
             log("wide", f"{'K2-bwd' if bwd else 'K2'} {label} N {n} M {m} "
                 f"D {d} C {c}: kernel {r['ms']:.4f} ms | bound "
                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}); the kernel "
@@ -8427,6 +8442,8 @@ def phase_wide_kernels(serve_b, train_b, smi):
                 f"{r['bound_ms'] * work:.5f} ms at the same peak | plain "
                 f"{r['plain_ms']:.4f} ms | sdpa {lib} | {smi}")
     wide_planted_faults(serve_b, *WIDE_ROWS[0][1:5], smi)
+    for shape in WIDE_FAULT_BEYOND:
+        wide_planted_faults(*shape, smi)
     return k2_record, k2_err, bwd_record, bwd_err
 
 
@@ -8614,9 +8631,8 @@ def phase_wide_model(dirs, smi):
 
 
 def phase_wide(dirs, smi):
-    """Phase 21: K2 and K2-bwd above 512 (their cluster kernels and the
-    chunked ones beyond the plans), the AVA model on the split
-    ``dirs``. Returns (K2 record, K2 error, K2-bwd
+    """Phase 21: K2 and K2-bwd above 512 (their cluster kernels, at any
+    width), the AVA model on the split ``dirs``. Returns (K2 record, K2 error, K2-bwd
     record, K2-bwd error, the path's launch counts)."""
     t0 = time.perf_counter()
     cfg = wide_cfg(dirs)

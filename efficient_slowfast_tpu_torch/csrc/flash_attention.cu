@@ -12,11 +12,9 @@
 // writing v's dtype, as the TPU kernel does. Unlike the TPU kernel it masks
 // a key count that is not a multiple of the tile (keys >= M get logit -inf)
 // and skips query rows >= N, and it takes any M, D and C (above 128 the
-// float32 wide kernel and the bf16 cluster kernel, at the end of this file;
-// the cluster kernel's plan takes D and C up to 2048, and any C where D is
-// up to 256, and the bf16 chunked kernel the wider rest), B up to 65535. Given a
-// non-null lse buffer, a launch also writes each
-// row's float32 log-sum-exp, row max + log(row sum), from which the
+// float32 wide kernel and the bf16 cluster kernel, at the end of this
+// file), B up to 65535. Given a non-null lse buffer, a launch also writes
+// each row's float32 log-sum-exp, row max + log(row sum), from which the
 // backward (flash_attention_bwd.cu) recomputes the probabilities; the
 // serving path passes null, and the output is the same either way.
 //
@@ -355,15 +353,14 @@ __device__ __forceinline__ void tile_logits(float (&s)[kTcNT][4],
 
 // The online softmax of one tile's logits s (rows g and g + 8 of the
 // warp's 16, as h = 0, 1), then O += P v. vt: the lane's ldmatrix row in
-// the v tile. BK: keys of the tile (kTcBK, or the chunked kernel's
-// kWideBK).
-template <int CP, int BK = kTcBK>
-__device__ __forceinline__ void tile_softmax_pv(float (&s)[BK / 8][4],
+// the v tile.
+template <int CP>
+__device__ __forceinline__ void tile_softmax_pv(float (&s)[kTcNT][4],
                                                 float (&o)[CP / 8][4],
                                                 float (&row_max)[2],
                                                 float (&row_sum)[2],
                                                 const bf16* vt) {
-  constexpr int kNT = BK / 8;
+  constexpr int kNT = kTcNT;
   constexpr int kLdV = CP + kTcPad;
   float mx[2] = {row_max[0], row_max[1]};
 #pragma unroll
@@ -402,7 +399,7 @@ __device__ __forceinline__ void tile_softmax_pv(float (&s)[BK / 8][4],
   // two 8-key tiles of P are one 16-key A fragment; per 16 keys and 16 of
   // C, one ldmatrix.trans gives two B fragments
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < kTcBK / 16; ++kk) {
     const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
                            pf[2 * kk + 1][1]};
 #pragma unroll
@@ -752,31 +749,46 @@ int launch_wide_f32(const void* q, const void* k, const void* v, void* out,
 
 // ---------------------------------------------------------------------------
 // bfloat16, D or C above 128: the cluster kernel
-// (flash_attention_tc_cluster_kernel<CW, kExchange>), one launch a call.
+// (flash_attention_tc_cluster_kernel<CW, MODE>), one launch a call, any D
+// and C.
 //
 // What bounds it: at the non-local widths (D = C = 256 to 1024) the work
 // is 2 B N M (D + C) operations on a few tens of MB, 800 or more per byte,
 // so operations bound it; chip_smoke.py computes the bound per shape.
 //
-// Split. R blocks (R = forward_split's "cluster", a power of two) own one
-// tile of kClRows = 128 query rows; block r of them owns columns
-// [r cs, (r + 1) cs) of the output (cs <= CW <= 256: the float32
+// Split (forward_split's plan). A tile of kClRows = 128 query rows belongs
+// to G column groups (a grid dimension) of R blocks each (R = the plan's
+// "cluster", a power of two up to 8): block r of group g owns the output
+// columns [(g R + r) cs, (g R + r + 1) cs) (cs <= CW <= 256: the float32
 // accumulator of 64 rows x CW columns a warpgroup is CW / 2 registers a
-// thread). A block's logits span ds = kClDSlice = 256 columns of D. Where
-// D is wider (kExchange), the R blocks are one thread block cluster and
-// block r also owns columns [r ds, (r + 1) ds) of D: for each tile of
-// keys it computes the partial logits q[:, D_r] k[:, D_r]^T and sends them
-// to the other blocks of the cluster (push_partial: bulk copies into their
-// shared memory), and each block adds the R partials in rank order, 0
-// first (sum_partials), so that every block of the cluster holds the same
-// float32 logits, bit for bit, and runs the same softmax: q k^T is
-// computed once a call, as the bound counts it. Where D fits one block,
-// each of the R blocks computes the logits over all of D (forward_split's
-// "recompute" is then R, and the blocks are no cluster). Each block then
-// adds P v[:, C_r] into its own output columns.
+// thread), so G = ceil(C / 2048) groups hold any C. Where D is up to 256
+// and C up to 2048 (MODE 0) every block computes the logits over all of D
+// itself (R times a call: at (64, 2048) that took a third of the time of
+// one block broadcasting them, PERF.md) and the blocks are no cluster.
+// Else the R blocks of a group are one thread block cluster whose
+// first P blocks (the "pushers") compute partial logits: pusher p owns the
+// ds = kClDSlice = 256-column slices [p nds, (p + 1) nds) of D. For each
+// tile of keys a pusher sends its partial to the other blocks of the
+// cluster (push_partial: bulk copies into their shared memory), and each
+// block adds the P partials in rank order, 0 first (sum_partials), so that
+// every block of the group holds the same float32 logits, bit for bit, and
+// runs the same softmax. So a group computes q k^T once and a call G times
+// (forward_split's "recompute"), whatever D: where D fits one slice (C
+// above 2048), one pusher computes the logits and the other blocks
+// receive them. Each block then adds P v[:, its columns] into its own
+// output columns.
+//
+// q. Up to D = 2048 (MODE 1, one slice a pusher; and MODE 0) a block's q
+// slice (128 x 256) stays in shared memory for the whole call. Beyond
+// (MODE 2) a pusher owns nds > 1 slices, whose q would not fit: a k stage
+// then holds a slice of q beside the slice of k, the loads run over (tile,
+// slice) in turn, and a tile's logits add up slice by slice, each slice's
+// 16 k16 steps one wgmma group that is waited before the next slice's
+// stage is read (no wgmma is in flight across the slice loop's back edge).
+// q then streams from L2 once a tile.
 //
 // Inside a block, 256 threads: warpgroups 0 and 1, 64 query rows each.
-// Thread 0 also issues the TMA loads of q's slice and of k, thread 128
+// Thread 0 of a pusher also issues the TMA loads of q and k, thread 128
 // those of v, into mbarrier full / empty rings (ks and vs stages of tiles
 // of 64 keys, or 32 where the blocks exchange: the slots and the rings
 // then fit shared memory). A warpgroup computes S = q k^T by wgmma with
@@ -792,15 +804,16 @@ int launch_wide_f32(const void* q, const void* k, const void* v, void* out,
 // D or C with zeros, so ragged edges need no masking beyond keys >= m,
 // which get -inf after the sum.
 //
-// The exchange: each warpgroup has a slot for every block's partial; the
-// blocks signal each other by mbarriers (x_full: the peers' pushes have
-// landed, by the copies' transaction bytes; x_free: every peer has read my
-// last push, by its leader's remote arrival), never by a barrier of the
-// whole cluster. Up to R = 4 it is deferred: tile j + 1's partial is
+// The exchange: each warpgroup has a slot for every pusher's partial; the
+// blocks signal each other by mbarriers (x_full: the pushes of a round have
+// landed, by the copies' transaction bytes; x_free: every other block has
+// read my last push, by its leader's remote arrival), never by a barrier
+// of the whole cluster. Where P whole slots fit (beside resident q and
+// three k stages: P up to 4) it is deferred: tile j + 1's partial is
 // pushed right after tile j's sum and summed a tile later, so the copies
 // fly while tile j's softmax and products run (S then runs two tiles
-// ahead, and k's ring has three stages). At R = 8 a slot holds half a
-// partial and each tile's exchange is two rounds, at once.
+// ahead). Elsewhere a slot holds half a partial (the plan's "rounds" 2)
+// and each tile's exchange is two rounds, at once.
 //
 // Registers set the block's shape: ptxas sizes a wgmma kernel's registers
 // by whole warpgroups, and a consumer's 64 x CW float32 accumulator takes
@@ -808,12 +821,14 @@ int launch_wide_f32(const void* q, const void* k, const void* v, void* out,
 // thread had 168, setmaxnreg or not, and the CW = 256 accumulator spilled
 // even beside 32-key tiles; two warpgroups have 255 each (PERF.md).
 //
-// Shared memory (cluster_smem_bytes, forward_split's arithmetic): q
-// (128 x 256), ks k stages (keys x 256), vs v stages (keys x CW), the
-// exchange's slots (128 x 32 float32 for each block of the cluster, half
-// that at R = 8), 256 bytes of mbarriers, 1024 bytes of alignment. At
-// D = C = 1024 (R = 4, cs = 256, three stages each) that is 64 + 48 +
-// 48 + 64 KB of the 227 KB a block may have.
+// Shared memory (cluster_smem_bytes, forward_split's arithmetic): q (128 x
+// 256, MODE 0 and 1), ks k stages (keys x 256, beside a 128 x 256 slice of
+// q in MODE 2), vs v stages (keys x CW), the exchange's slots (128 x 32
+// float32 for each pusher, halved over two rounds), 256 bytes of
+// mbarriers, 1024 bytes of alignment. At D = C = 1024 (R = P = 4, cs =
+// 256, three stages each) that is 64 + 48 + 48 + 64 KB of the 227 KB a
+// block may have; at D = C = 3072 (G = 2, R = 8, P = 4 pushers of 3
+// slices, two stages each, the slots halved) 160 + 32 + 32 KB.
 // D and C must be multiples of 64 and the data 16-byte aligned (the TMA
 // maps): the wrapper gives other inputs zero-padded copies, which is exact.
 // The output has no atomics and is bit-identical from call to call.
@@ -831,47 +846,54 @@ constexpr int kClMaxStages = 3;
 constexpr int kClBarrierBytes = 256;
 constexpr int kClSmemLimit = 232448;  // dynamic shared memory of a block
 
-// The exchange's slots: a partial (64 rows x 32 keys float32, or half of
-// it at R = 8) for each warpgroup and block of the cluster.
-__host__ __device__ inline size_t cluster_slot_bytes(int split) {
-  return (size_t)2 * split * 64 * kClExchangeKeys * 4 / (split > 4 ? 2 : 1);
+// The exchange's slots: a partial (64 rows x 32 keys float32), or its half
+// where a tile's exchange takes two rounds, for each warpgroup and pusher.
+__host__ __device__ inline size_t cluster_slot_bytes(int pushers,
+                                                     int rounds) {
+  return (size_t)2 * pushers * 64 * kClExchangeKeys * 4 / rounds;
 }
 
 // (+ 1024: the tiles start at a 1024-byte boundary, as the swizzle needs)
-__host__ __device__ inline size_t cluster_smem_bytes(int ds, int width,
+__host__ __device__ inline size_t cluster_smem_bytes(int mode, int width,
                                                      int keys, int ks, int vs,
-                                                     bool exchange,
-                                                     int split) {
-  return 2 * ((size_t)kClRows * ds + (size_t)ks * keys * ds +
-              (size_t)vs * keys * width) +
-         (exchange ? cluster_slot_bytes(split) : 0) + kClBarrierBytes + 1024;
+                                                     int pushers,
+                                                     int rounds) {
+  const size_t q = mode == 2 ? 0 : (size_t)kClRows * kClDSlice;
+  const size_t stage = (size_t)(mode == 2 ? kClRows + keys : keys) *
+                       kClDSlice;
+  return 2 * (q + ks * stage + (size_t)vs * keys * width) +
+         (mode > 0 ? cluster_slot_bytes(pushers, rounds) : 0) +
+         kClBarrierBytes + 1024;
 }
 
 struct ClusterArgs {
   bf16* out;
   float* lse;
   int n, m, c;
-  int split;     // R: blocks a query tile
-  int exchange;  // 1: the R blocks are a cluster splitting D
-  int cs;        // C columns of a block's slice
-  int ks, vs;    // ring stages of k and of v
+  int split;    // R: blocks of a column group (a cluster where R > 1)
+  int pushers;  // P: its blocks that compute partial logits
+  int nds;      // kClDSlice-column slices of D a pusher owns
+  int cs;       // C columns of a block's slice
+  int ks, vs;   // ring stages of k and of v
+  int rounds;   // of a tile's exchange
 };
 
 // The exchange of partial logits between the blocks of a cluster, a round
-// at a time. Slot [wg][r] holds block r's partial for warpgroup wg in
+// at a time. Slot [wg][p] holds pusher p's partial for warpgroup wg in
 // rounds of kF4 float4 a thread, float4 i of thread t128 at [i][t128].
-// push_partial: once every peer has read my last push (x_free: each
-// peer's leader arrives there), the warpgroup writes floats [e0, e0 + 4
-// kF4) of its partial into its own slot, and its leader pushes that slot
-// into the same slot of every peer by bulk copies, which complete on the
-// peer's x_full. sum_partials: once every peer's push of the round has
-// landed, the warpgroup adds the R slots in rank order into the same
-// floats and frees them (an arrival on every peer's x_free).
+// push_partial (pushers only): once every other block has read my last
+// push (x_free: each one's leader arrives there), the warpgroup writes
+// floats [e0, e0 + 4 kF4) of its partial into its own slot, and its leader
+// pushes that slot into the same slot of every other block by bulk
+// copies, which complete on that block's x_full. sum_partials: once every
+// pusher's push of the round has landed, the warpgroup adds the P slots in
+// rank order into the same floats and frees them (an arrival on every
+// other pusher's x_free).
 struct Exchange {
   float4* wslots;  // this warpgroup's slots
   uint64_t* full;
   uint64_t* free;
-  int split, rank, t128, wg;
+  int split, pushers, rank, t128, wg;
 };
 
 template <int kF4, int NS>
@@ -879,6 +901,7 @@ __device__ __forceinline__ void push_partial(const Exchange& x,
                                              const float (&s)[NS], int e0,
                                              uint32_t round) {
   constexpr uint32_t kBytes = kF4 * 128 * 16;
+  if (x.rank >= x.pushers) return;  // the whole block alike
   float4* mine = x.wslots + x.rank * kF4 * 128;
   const bool leader = x.t128 == 0;
   if (leader && round >= 1) hp::mbar_wait_cluster(x.free, (round - 1) & 1);
@@ -891,7 +914,7 @@ __device__ __forceinline__ void push_partial(const Exchange& x,
   hp::fence_proxy_async();  // the copies read what the threads wrote
   hp::named_barrier(1 + x.wg, 128);
   if (leader) {
-    hp::mbar_arrive_expect_tx(x.full, (x.split - 1) * kBytes);
+    hp::mbar_arrive_expect_tx(x.full, (x.pushers - 1) * kBytes);
     for (int r = 0; r < x.split; ++r)
       if (r != x.rank)
         hp::bulk_copy_cluster(hp::cluster_addr(mine, r), mine, kBytes,
@@ -903,8 +926,12 @@ template <int kF4, int NS>
 __device__ __forceinline__ void sum_partials(const Exchange& x,
                                              float (&s)[NS], int e0,
                                              uint32_t round) {
+  constexpr uint32_t kBytes = kF4 * 128 * 16;
+  // a block that pushes nothing expects the P pushes on its own arrival
+  if (x.rank >= x.pushers && x.t128 == 0)
+    hp::mbar_arrive_expect_tx(x.full, x.pushers * kBytes);
   hp::mbar_wait_cluster(x.full, round & 1);
-  for (int r = 0; r < x.split; ++r) {
+  for (int r = 0; r < x.pushers; ++r) {
     const float4* slot = x.wslots + r * kF4 * 128 + x.t128;
 #pragma unroll
     for (int i = 0; i < kF4; ++i) {
@@ -919,34 +946,53 @@ __device__ __forceinline__ void sum_partials(const Exchange& x,
   }
   hp::named_barrier(1 + x.wg, 128);  // the slots are read
   if (x.t128 == 0)
-    for (int r = 0; r < x.split; ++r)
+    for (int r = 0; r < x.pushers; ++r)
       if (r != x.rank) hp::mbar_arrive_cluster(x.free, r);
 }
 
+// A tile's exchange at once, in kRounds rounds (numbered from kRounds j);
+// returns the last round's number.
+template <int kRounds, int NS>
+__device__ __forceinline__ uint32_t exchange_rounds(const Exchange& x,
+                                                    float (&s)[NS], int j) {
+  constexpr int kF4 = NS / 4 / kRounds;
+#pragma unroll
+  for (int h = 0; h < kRounds; ++h) {
+    push_partial<kF4>(x, s, 4 * kF4 * h, kRounds * j + h);
+    sum_partials<kF4>(x, s, 4 * kF4 * h, kRounds * j + h);
+  }
+  return kRounds * j + kRounds - 1;
+}
+
 // CW: the output columns a block accumulates (64, 128 or 256), at least
-// its slice cs; kExchange: the blocks are a cluster that exchanges partial
-// logits, in tiles of 32 keys (the slots and the rings then fit shared
-// memory), else of 64.
-template <int CW, bool kExchange>
+// its slice cs; MODE: 0 one block a query tile (tiles of 64 keys), 1 a
+// cluster that exchanges partial logits, q resident, 2 the same with q
+// streamed beside k (tiles of 32 keys where they exchange: the slots and
+// the rings then fit shared memory).
+template <int CW, int MODE>
 __global__ void __launch_bounds__(kClThreads, 1)
 flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
                                   const __grid_constant__ CUtensorMap k_map,
                                   const __grid_constant__ CUtensorMap v_map,
                                   const ClusterArgs a) {
+  constexpr bool kExchange = MODE > 0, kStream = MODE == 2;
   constexpr int BK = kExchange ? kClExchangeKeys : 64;
+  constexpr int ds = kClDSlice;
+  constexpr int kQElems = kClRows * ds;
+  // a k stage: a slice of k (BK x ds), after a slice of q where q streams
+  constexpr int kStage = (kStream ? kClRows + BK : BK) * ds;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  constexpr int ds = kClDSlice;
   // tiles of 64-column atoms, each [rows][64] bf16 in the 128-byte swizzle
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ds / 64][kClRows][64]
-  bf16* k_s = q_s + kClRows * ds;             // [ks][ds / 64][BK][64]
-  bf16* v_s = k_s + a.ks * BK * ds;           // [vs][CW / 64][BK][64]
+  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [ds / 64][kClRows][64]
+  bf16* k_s = q_s + (kStream ? 0 : kQElems);   // [ks][(q), ds / 64][BK][64]
+  bf16* v_s = k_s + a.ks * kStage;             // [vs][CW / 64][BK][64]
   unsigned char* x_bytes =
       reinterpret_cast<unsigned char*>(v_s + a.vs * BK * CW);
-  float4* slots = reinterpret_cast<float4*>(x_bytes);  // [wg][r][f4][128]
+  float4* slots = reinterpret_cast<float4*>(x_bytes);  // [wg][p][f4][128]
   uint64_t* bar = reinterpret_cast<uint64_t*>(
-      x_bytes + (a.exchange ? cluster_slot_bytes(a.split) : 0));
+      x_bytes + (kExchange ? cluster_slot_bytes(a.pushers, a.rounds) : 0));
   uint64_t* q_full = bar;
   uint64_t* k_full = bar + 1;                  // [ks]
   uint64_t* k_empty = k_full + kClMaxStages;   // [ks]
@@ -955,10 +1001,14 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* x_full = v_empty + kClMaxStages;   // [warpgroup]
   uint64_t* x_free = x_full + 2;               // [warpgroup]
 
-  const int split = a.split, slice = blockIdx.x % split;
+  const int split = a.split, rank = blockIdx.x % split, group = blockIdx.z;
   const int q0 = blockIdx.x / split * kClRows, bi = blockIdx.y;
-  const int dcol0 = a.exchange ? slice * ds : 0, ccol0 = slice * a.cs;
+  const bool pusher = rank < a.pushers;  // MODE 0: every block
+  const int dcol0 = kExchange ? rank * a.nds * ds : 0;
+  const int ccol0 = (group * split + rank) * a.cs;
   const int tiles = (a.m + BK - 1) / BK;
+  const int nds = kStream ? a.nds : 1;
+  const int loads = tiles * nds;  // of the k ring: (tile, slice) in turn
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     hp::mbar_init(q_full, 1);
@@ -968,7 +1018,7 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
       hp::mbar_init(&v_full[s], 1);
       hp::mbar_init(&v_empty[s], 256);
     }
-    if (a.exchange)
+    if (kExchange)
       for (int i = 0; i < 2; ++i) {
         hp::mbar_init(&x_full[i], 1);
         hp::mbar_init(&x_free[i], split - 1);
@@ -976,20 +1026,28 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
     hp::mbar_init_fence();
   }
   // every block of the cluster has its barriers before any arrives there
-  if (a.exchange)
+  if (kExchange)
     hp::cluster_sync();
   else
     __syncthreads();
 
-  // TMA loads, one copy a tile (make_sw128_tile_map): thread 0 issues q's
-  // slice and k's, thread 128 v's; the rings' first stages here, the rest
-  // in the loop below, each at least a tile ahead of its use.
+  // TMA loads, one copy a tile (make_sw128_tile_map): thread 0 of a pusher
+  // issues q's slice and k's, thread 128 v's; the rings' first stages
+  // here, the rest as stages free up, each at least a tile ahead of its
+  // use. Load l of the k ring: tile l / nds, slice l % nds of the pusher's
+  // (and, where q streams, that slice of q).
   const int v_atoms = a.cs / 64;
-  auto load_k = [&](int j) {
-    uint64_t* full = &k_full[j % a.ks];
-    hp::mbar_arrive_expect_tx(full, BK * ds * 2);
-    hp::tma_load_4d(k_s + j % a.ks * BK * ds, &k_map, full, 0, j * BK,
-                    dcol0 / 64, bi);
+  auto load_k = [&](int l) {
+    const int s = l % a.ks, j = l / nds;
+    const int atom = (dcol0 + (l - j * nds) * ds) / 64;
+    uint64_t* full = &k_full[s];
+    bf16* st = k_s + s * kStage;
+    hp::mbar_arrive_expect_tx(full, kStage * 2);
+    if constexpr (kStream) {
+      hp::tma_load_4d(st, &q_map, full, 0, q0, atom, bi);
+      st += kQElems;
+    }
+    hp::tma_load_4d(st, &k_map, full, 0, j * BK, atom, bi);
   };
   auto load_v = [&](int j) {
     uint64_t* full = &v_full[j % a.vs];
@@ -997,13 +1055,16 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
     hp::tma_load_4d(v_s + j % a.vs * BK * CW, &v_map, full, 0, j * BK,
                     ccol0 / 64, bi);
   };
-  const bool k_issuer = threadIdx.x == 0, v_issuer = threadIdx.x == 128;
+  const bool k_issuer = threadIdx.x == 0 && pusher;
+  const bool v_issuer = threadIdx.x == 128;
   if (k_issuer) {
     hp::prefetch_tensormap(&q_map);
     hp::prefetch_tensormap(&k_map);
-    hp::mbar_arrive_expect_tx(q_full, kClRows * ds * 2);
-    hp::tma_load_4d(q_s, &q_map, q_full, 0, q0, dcol0 / 64, bi);
-    for (int j = 0; j < a.ks && j < tiles; ++j) load_k(j);
+    if constexpr (!kStream) {
+      hp::mbar_arrive_expect_tx(q_full, kQElems * 2);
+      hp::tma_load_4d(q_s, &q_map, q_full, 0, q0, dcol0 / 64, bi);
+    }
+    for (int l = 0; l < a.ks && l < loads; ++l) load_k(l);
   }
   if (v_issuer) {
     hp::prefetch_tensormap(&v_map);
@@ -1018,63 +1079,89 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < CW / 2; ++i) o[i] = 0.f;
   float row_max[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 of the warp
   float row_sum[2] = {0.f, 0.f};              // this lane's part
-  const bf16* qa = q_s + 64 * wg * 64;  // this warpgroup's rows of an atom
   float s[BK / 2];   // S (64 rows x BK keys, f32) of the tile in softmax
   float sn[BK / 2];  // S of a later tile, as its wgmma leaves it
-  // S of tile j into acc, as one wgmma group (committed, not waited): the
-  // four k16 steps of each 64-column atom, 32 bytes apart. A descriptor's
-  // start address is its low bits in 16-byte units, so each step's is the
-  // tile's plus an immediate; the base is taken anew each tile, so that
-  // the compiler does not keep sixteen descriptors live across the loop.
-  auto issue_logits = [&](float (&acc)[BK / 2], int j) {
-    const uint64_t qd = hp::desc_sw128(hp::opaque(qa));
-    const uint64_t kd = hp::desc_sw128(k_s + j % a.ks * BK * ds);
+  // The 16 k16 steps of a slice of S into acc, the four of each 64-column
+  // atom 32 bytes apart (q, k: this warpgroup's rows of the slice's
+  // tiles). A descriptor's start address is its low bits in 16-byte units,
+  // so each step's is the tile's plus an immediate; the base is taken anew
+  // each tile, so that the compiler does not keep sixteen descriptors live
+  // across the loop.
+  auto slice_logits = [&](float (&acc)[BK / 2], const bf16* q,
+                          const bf16* k, bool accumulate) {
+    const uint64_t qd = hp::desc_sw128(hp::opaque(q + 64 * wg * 64));
+    const uint64_t kd = hp::desc_sw128(k);
 #pragma unroll
     for (int kk = 0; kk < ds / 16; ++kk)  // atom kk / 4, 32 bytes a step
       hp::Wgmma<BK, 0, 0>::run(
           acc, qd + (kk / 4 * kClRows * 128 + kk % 4 * 32) / 16,
-          kd + (kk / 4 * BK * 128 + kk % 4 * 32) / 16, kk > 0);
-    hp::wgmma_commit();
+          kd + (kk / 4 * BK * 128 + kk % 4 * 32) / 16, accumulate || kk > 0);
   };
-  // The exchange. Up to R = 4 it is deferred: tile j + 1's partial is
+  // S of tile j into acc: q resident, one wgmma group, committed and not
+  // waited, its k stage released by the caller; q streamed, a group a
+  // slice, each waited and its stage released (and refilled) here
+  auto issue_logits = [&](float (&acc)[BK / 2], int j) {
+    if constexpr (kStream) {
+      for (int i = 0; i < nds; ++i) {
+        const int l = j * nds + i, st = l % a.ks;
+        const bf16* stage = k_s + st * kStage;
+        hp::mbar_wait_bounded(&k_full[st], (l / a.ks) & 1);
+        hp::wgmma_fence();
+        slice_logits(acc, stage, stage + kQElems, i > 0);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(acc);
+        hp::mbar_arrive(&k_empty[st]);
+        if (k_issuer && l + a.ks < loads) {
+          hp::mbar_wait_bounded(&k_empty[st], (l / a.ks) & 1);
+          load_k(l + a.ks);
+        }
+        __syncwarp();
+      }
+    } else {
+      slice_logits(acc, q_s, k_s + j % a.ks * kStage, false);
+      hp::wgmma_commit();
+    }
+  };
+  // The exchange. Deferred (one round a tile), tile j + 1's partial is
   // pushed right after tile j's sum, and its own sum waits a tile, so the
   // copies fly while tile j's softmax and products run (S runs two tiles
-  // ahead; a k ring of three stages). At R = 8 its slots hold half a
-  // partial: each tile's exchange is two rounds, at once.
-  const int slot_f4 = split > 4 ? BK / 16 : BK / 8;  // float4 a round
-  const Exchange xc{slots + wg * split * slot_f4 * 128, &x_full[wg],
-                    &x_free[wg], split, slice, t128, wg};
-  const bool deferred = kExchange && split <= 4;
+  // ahead; with q resident a k ring of three stages). Else each tile's
+  // exchange is two rounds, at once.
+  const int slot_f4 = BK / 8 / a.rounds;  // float4 a round
+  const Exchange xc{slots + wg * a.pushers * slot_f4 * 128, &x_full[wg],
+                    &x_free[wg], split, a.pushers, rank, t128, wg};
+  const bool deferred = kExchange && a.rounds == 1;
   const int ahead = deferred ? 2 : 1;  // S runs this many tiles ahead
   uint32_t last_round = 0;
   auto exchange_now = [&](float (&acc)[BK / 2], int j) {
     if constexpr (kExchange) {
-      constexpr int kHalf = BK / 16;  // float4 a thread a round
-      push_partial<kHalf>(xc, acc, 0, 2 * j);
-      sum_partials<kHalf>(xc, acc, 0, 2 * j);
-      push_partial<kHalf>(xc, acc, 4 * kHalf, 2 * j + 1);
-      sum_partials<kHalf>(xc, acc, 4 * kHalf, 2 * j + 1);
-      last_round = 2 * j + 1;
+      last_round = a.rounds == 1 ? exchange_rounds<1>(xc, acc, j)
+                                 : exchange_rounds<2>(xc, acc, j);
     }
   };
-  hp::mbar_wait_bounded(q_full, 0);
-  hp::mbar_wait_bounded(&k_full[0], 0);
-  hp::wgmma_fence();
-  issue_logits(s, 0);
-  hp::wgmma_wait<0>();
-  hp::fence_regs(s);
-  hp::mbar_arrive(&k_empty[0]);
+  if (pusher) {
+    if constexpr (!kStream) {
+      hp::mbar_wait_bounded(q_full, 0);
+      hp::mbar_wait_bounded(&k_full[0], 0);
+    }
+    hp::wgmma_fence();
+    issue_logits(s, 0);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s);
+    if constexpr (!kStream) hp::mbar_arrive(&k_empty[0]);
+  }
   if (deferred) {
     push_partial<BK / 8>(xc, s, 0, 0);
-    if (tiles > 1) {
-      hp::mbar_wait_bounded(&k_full[1], 0);
+    if (tiles > 1 && pusher) {
+      if constexpr (!kStream) hp::mbar_wait_bounded(&k_full[1], 0);
       hp::wgmma_fence();
       issue_logits(sn, 1);
       hp::wgmma_wait<0>();
       hp::fence_regs(sn);
-      hp::mbar_arrive(&k_empty[1]);
+      if constexpr (!kStream) hp::mbar_arrive(&k_empty[1]);
     }
-  } else if (kExchange) {
+  } else {
     exchange_now(s, 0);
   }
 
@@ -1138,12 +1225,13 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
       }
 
     const int jn = j + ahead;
-    const bool next = jn < tiles;
-    if (next) hp::mbar_wait_bounded(&k_full[jn % a.ks], (jn / a.ks) & 1);
+    const bool next = jn < tiles, logits = next && pusher;
+    if (logits && !kStream)
+      hp::mbar_wait_bounded(&k_full[jn % a.ks], (jn / a.ks) & 1);
     hp::mbar_wait_bounded(&v_full[j % a.vs], (j / a.vs) & 1);
     const bf16* vt = v_s + j % a.vs * BK * CW;
     hp::wgmma_fence();
-    if (next) issue_logits(sn, jn);
+    if (logits) issue_logits(sn, jn);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       hp::WgmmaRs<CW, 1>::run(
@@ -1152,7 +1240,7 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
     if (next) {
       hp::wgmma_wait<1>();  // S of tile jn; P v may run on
       hp::fence_regs(sn);
-      hp::mbar_arrive(&k_empty[jn % a.ks]);
+      if (logits && !kStream) hp::mbar_arrive(&k_empty[jn % a.ks]);
       if (!deferred) {  // the next tile's S, summed over the cluster now
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) s[i] = sn[i];
@@ -1164,9 +1252,10 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) hp::fence_regs(pa[kk]);
     hp::mbar_arrive(&v_empty[j % a.vs]);
-    // refills: k for tile j + ks and v for tile j + vs, into the stages
-    // that tile j's products freed, once the other warpgroup's are done too
-    if (k_issuer && j + a.ks < tiles) {
+    // refills: k for tile j + ks (q resident) and v for tile j + vs, into
+    // the stages that tile j's products freed, once the other warpgroup's
+    // are done too
+    if (!kStream && k_issuer && j + a.ks < tiles) {
       hp::mbar_wait_bounded(&k_empty[j % a.ks], (j / a.ks) & 1);
       load_k(j + a.ks);
     }
@@ -1183,7 +1272,7 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
     const float denom = fmaxf(row_sum[h], 1e-30f);
     const int row = q0 + 64 * wg + 16 * warp + g + 8 * h;
     if (row < a.n) {
-      if (a.lse != nullptr && slice == 0 && t == 0)
+      if (a.lse != nullptr && rank == 0 && group == 0 && t == 0)
         a.lse[(size_t)bi * a.n + row] = row_max[h] + logf(row_sum[h]);
       bf16* orow = a.out + ((size_t)bi * a.n + row) * a.c + ccol0;
 #pragma unroll
@@ -1196,27 +1285,28 @@ flash_attention_tc_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
-  // keep this block's shared memory until every peer has read my last push
-  // (after that no peer writes or arrives here)
-  if (kExchange && t128 == 0) hp::mbar_wait_cluster(xc.free, last_round & 1);
+  // a pusher keeps its shared memory until every other block has read its
+  // last push (after that no block writes or arrives here)
+  if (kExchange && pusher && t128 == 0)
+    hp::mbar_wait_cluster(xc.free, last_round & 1);
 }
 
-template <int CW, bool kExchange>
+template <int CW, int MODE>
 int launch_cluster(const CUtensorMap& q_map, const CUtensorMap& k_map,
                    const CUtensorMap& v_map, const ClusterArgs& a, int b,
-                   size_t smem, cudaStream_t stream) {
-  auto kernel = flash_attention_tc_cluster_kernel<CW, kExchange>;
+                   int groups, size_t smem, cudaStream_t stream) {
+  auto kernel = flash_attention_tc_cluster_kernel<CW, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.split * ((a.n + kClRows - 1) / kClRows), b, 1);
+  cfg.gridDim = dim3(a.split * ((a.n + kClRows - 1) / kClRows), b, groups);
   cfg.blockDim = dim3(kClThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.exchange ? a.split : 1;
+  attr[0].val.clusterDim.x = MODE > 0 ? a.split : 1;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1226,227 +1316,35 @@ int launch_cluster(const CUtensorMap& q_map, const CUtensorMap& k_map,
   return (int)cudaGetLastError();
 }
 
-template <int CW, bool kExchange>
+template <int MODE>
+int launch_cluster_mode(int width, const CUtensorMap& q_map,
+                        const CUtensorMap& k_map, const CUtensorMap& v_map,
+                        const ClusterArgs& a, int b, int groups, size_t smem,
+                        cudaStream_t s) {
+  if (width == 64)
+    return launch_cluster<64, MODE>(q_map, k_map, v_map, a, b, groups, smem,
+                                    s);
+  if (width == 128)
+    return launch_cluster<128, MODE>(q_map, k_map, v_map, a, b, groups, smem,
+                                     s);
+  return launch_cluster<256, MODE>(q_map, k_map, v_map, a, b, groups, smem,
+                                   s);
+}
+
+template <int CW, int MODE>
 int cluster_smem_attr() {
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(
-      &attr, flash_attention_tc_cluster_kernel<CW, kExchange>);
+      &attr, flash_attention_tc_cluster_kernel<CW, MODE>);
   return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16 at the widths that the cluster kernel's plan cannot hold: D
-// above 2048 (eight blocks' 256-column slices), or C above 2048 (eight
-// blocks' 256 output columns) with D above 256. No config of the zoo
-// reaches them. The chunked kernel: 4 warps, 64 query rows a block, tiles
-// of 32 keys, mma.sync m16n8k16 (HMMA). The logits S = q k^T of a tile
-// accumulate over D in chunks of kChunk = 128 columns into a 16 x 32
-// fragment a warp, each k chunk (and q's, where q streams) arriving by
-// cp.async through a ring of stages; the flat sequence of (tile, chunk)
-// loads runs kStages - 1 ahead of the products, one __syncthreads a chunk.
-// After a tile's last chunk the softmax and P v over the block's
-// 128-column slice of C are the narrow kernel's
-// (tile_softmax_pv<kWideCols, kWideBK>), the v slice loaded with the
-// tile's first chunk into one of two buffers. q stays resident in shared
-// memory (64 x D) where that fits beside the ring (kQRes: D up to 1280),
-// else its chunk streams beside k's from L2 once a tile. A grid dimension
-// runs over the 128-column slices of C, so a call computes the logits
-// ceil(C / 128) times; chip_smoke.py counts that recompute beside the
-// bound. D must be above 256 (the v buffers' reuse needs three chunks).
-constexpr int kWideBK = 32;
-constexpr int kWideRows = 64;
-constexpr int kWideThreads = 2 * kWideRows;
-
-// The end of a chunked kernel's warp: the quad's parts of the row sums met,
-// then rows0 + g (and + 8) of out's 128 columns col0 .. in bf16 (those
-// below c), and the rows' log-sum-exp from slice 0 where lse is given.
-__device__ __forceinline__ void wide_epilogue(float (&o)[kWideCols / 8][4],
-                                              const float (&row_max)[2],
-                                              float (&row_sum)[2],
-                                              bf16* out, float* lse,
-                                              size_t bi, int n, int c,
-                                              int rows0, int col0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
-    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
-    const float denom = fmaxf(row_sum[h], 1e-30f);
-    const int row = rows0 + g + 8 * h;
-    if (row < n) {
-      if (lse != nullptr && blockIdx.z == 0 && t == 0)
-        lse[bi * n + row] = row_max[h] + logf(row_sum[h]);
-      bf16* orow = out + (bi * n + row) * c + col0;
-#pragma unroll
-      for (int j = 0; j < kWideCols / 8; ++j) {
-        const int col = 8 * j + 2 * t;
-        if (col0 + col < c)
-          orow[col] = __float2bfloat16_rn(o[j][2 * h] / denom);
-        if (col0 + col + 1 < c)
-          orow[col + 1] = __float2bfloat16_rn(o[j][2 * h + 1] / denom);
-      }
-    }
-  }
-}
-
-constexpr int kChunk = 128;
-constexpr int kChunkLd = kChunk + kTcPad;
-constexpr int kWideVElems = kWideBK * (kWideCols + kTcPad);
-
-__host__ __device__ constexpr int chunked_stages(bool q_res) {
-  return q_res ? 4 : 3;
-}
-
-// Shared memory: q (kWideRows x (chunks * kChunk + pad)) where resident,
-// kStages ring stages (a k chunk kWideBK x kChunkLd, and q's kWideRows x
-// kChunkLd where q streams), then two v slices (kWideBK x kWideCols + pad).
-__host__ __device__ inline size_t chunked_smem_bytes(bool q_res, int d) {
-  const int chunks = (d + kChunk - 1) / kChunk;
-  const size_t q = q_res ? (size_t)kWideRows * (chunks * kChunk + kTcPad) : 0;
-  const size_t stage = (size_t)(kWideBK + (q_res ? 0 : kWideRows)) * kChunkLd;
-  return sizeof(bf16) *
-         (q + chunked_stages(q_res) * stage + 2 * (size_t)kWideVElems);
-}
-
-template <bool kQRes>
-__global__ void __launch_bounds__(kWideThreads)
-flash_attention_tc_chunked_kernel(const bf16* __restrict__ q,
-                                  const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v,
-                                  bf16* __restrict__ out,
-                                  float* __restrict__ lse, int n, int m,
-                                  int d, int c, bool qk_vec, bool v_vec) {
-  constexpr int kStages = chunked_stages(kQRes);
-  constexpr int kLdV = kWideCols + kTcPad;
-  constexpr int kKElems = kWideBK * kChunkLd;
-  constexpr int kStageElems = kKElems + (kQRes ? 0 : kWideRows * kChunkLd);
-  constexpr int kNT = kWideBK / 8;
-  const int chunks = (d + kChunk - 1) / kChunk;
-  const int ldq = kQRes ? chunks * kChunk + kTcPad : kChunkLd;
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
-  bf16* qs = reinterpret_cast<bf16*>(smem4);         // [kWideRows][ldq]
-  bf16* ring = qs + (kQRes ? kWideRows * ldq : 0);   // [kStages][k, q chunk]
-  bf16* vs = ring + kStages * kStageElems;           // [2][kWideBK][kLdV]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
-  const int k_lane = (lr + 8 * l16) * kChunkLd + 8 * l8;  // k: keys x D
-  const int v_lane = (lr + 8 * l8) * kLdV + 8 * l16;      // v: .trans
-  const int q_lane = (16 * warp + lr + 8 * l8) * ldq + 8 * l16;
-  const int q0 = blockIdx.x * kWideRows, col0 = blockIdx.z * kWideCols;
-  const size_t bi = blockIdx.y;
-  const bf16* qb = q + bi * n * d;
-  const bf16* kb = k + bi * m * d;
-  const bf16* vb = v + bi * m * c;
-  const int tiles = (m + kWideBK - 1) / kWideBK, total = tiles * chunks;
-  // load l of the flat sequence: chunk l % chunks of tile l / chunks into
-  // stage l % kStages, and with a tile's first chunk its v slice. Every
-  // call commits a group (empty past the end), so that the wait below
-  // counts groups alike at the tail. The launcher ensures chunks >=
-  // kStages - 1: the v buffer of tile it is refilled (tile it + 2) only
-  // after tile it's P v.
-  auto issue = [&](int l) {
-    if (l < total) {
-      const int it = l / chunks, kc = l - it * chunks;
-      bf16* st = ring + l % kStages * kStageElems;
-      tc::load_cols<kChunk, kWideBK, kWideThreads>(
-          st, kChunkLd, kb, it * kWideBK, m, d, kc * kChunk, qk_vec);
-      if constexpr (!kQRes)
-        tc::load_cols<kChunk, kWideRows, kWideThreads>(
-            st + kKElems, kChunkLd, qb, q0, n, d, kc * kChunk, qk_vec);
-      if (kc == 0)
-        tc::load_cols<kWideCols, kWideBK, kWideThreads>(
-            vs + (it & 1) * kWideVElems, kLdV, vb, it * kWideBK, m, c, col0,
-            v_vec);
-    }
-    tc::cp_async_commit();
-  };
-  if constexpr (kQRes)  // in the first group, with load 0
-    for (int kc = 0; kc < chunks; ++kc)
-      tc::load_cols<kChunk, kWideRows, kWideThreads>(
-          qs + kc * kChunk, ldq, qb, q0, n, d, kc * kChunk, qk_vec);
-  for (int l = 0; l < kStages - 1; ++l) issue(l);
-
-  float o[kWideCols / 8][4];
-#pragma unroll
-  for (int j = 0; j < kWideCols / 8; ++j)
-    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};
-  float s[kNT][4];
-  for (int l = 0; l < total; ++l) {
-    tc::cp_async_wait<kStages - 2>();  // load l has landed for this thread
-    __syncthreads();  // ... for every thread, and all are past load l - 1
-    issue(l + kStages - 1);  // into load l - 1's stage
-    const int it = l / chunks, kc = l - it * chunks;
-    if (kc == 0) {
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
-    const bf16* st = ring + l % kStages * kStageElems;
-    const bf16* qw = kQRes ? qs + q_lane + kc * kChunk : st + kKElems + q_lane;
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      uint32_t a[4];
-      tc::ldmatrix_x4(a, qw + 16 * kk);
-#pragma unroll
-      for (int np = 0; np < kWideBK / 16; ++np) {
-        uint32_t b[4];
-        tc::ldmatrix_x4(b, st + k_lane + 16 * np * kChunkLd + 16 * kk);
-        tc::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
-        tc::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    if (kc == chunks - 1) {  // the tile's logits are whole
-      const int k0 = it * kWideBK;
-      if (k0 + kWideBK > m) {  // keys >= m get -inf
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int key = k0 + 8 * nt + 2 * t;
-          if (key >= m) s[nt][0] = s[nt][2] = -INFINITY;
-          if (key + 1 >= m) s[nt][1] = s[nt][3] = -INFINITY;
-        }
-      }
-      tile_softmax_pv<kWideCols, kWideBK>(
-          s, o, row_max, row_sum, vs + (it & 1) * kWideVElems + v_lane);
-    }
-  }
-
-  wide_epilogue(o, row_max, row_sum, out, lse, bi, n, c, q0 + 16 * warp,
-                col0);
-}
-
-template <bool kQRes>
-int launch_tc_chunked(const void* q, const void* k, const void* v, void* out,
-                      float* lse, int b, int n, int m, int d, int c,
-                      cudaStream_t stream) {
-  if ((d + kChunk - 1) / kChunk < chunked_stages(kQRes) - 1)
-    return (int)cudaErrorInvalidValue;  // the v buffers' reuse needs it
-  auto kernel = flash_attention_tc_chunked_kernel<kQRes>;
-  const size_t smem = chunked_smem_bytes(kQRes, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool qk_vec = d % 8 == 0 && aligned16(q) && aligned16(k);
-  const bool v_vec = c % 8 == 0 && aligned16(v);
-  const dim3 grid((n + kWideRows - 1) / kWideRows, b,
-                  (c + kWideCols - 1) / kWideCols);
-  kernel<<<grid, kWideThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, n, m, d,
-      c, qk_vec, v_vec);
-  return (int)cudaGetLastError();
-}
-
-int dispatch_tc_chunked(const void* q, const void* k, const void* v,
-                        void* out, float* lse, int b, int n, int m, int d,
-                        int c, cudaStream_t s) {
-  // q resident where it fits a block's shared memory beside the ring
-  if (chunked_smem_bytes(true, d) <= (size_t)kClSmemLimit)
-    return launch_tc_chunked<true>(q, k, v, out, lse, b, n, m, d, c, s);
-  return launch_tc_chunked<false>(q, k, v, out, lse, b, n, m, d, c, s);
+template <int MODE>
+int cluster_smem_attr_mode(int width) {
+  if (width == 64) return cluster_smem_attr<64, MODE>();
+  if (width == 128) return cluster_smem_attr<128, MODE>();
+  if (width == 256) return cluster_smem_attr<256, MODE>();
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1455,8 +1353,7 @@ extern "C" {
 
 // dtype: 0 = float32 (scalar kernel; D or C above 128 the wide one), 1 =
 // bfloat16 (tensor-core kernel, D and C up to 128; wider bf16 calls go to
-// flash_attention_cluster_launch with their plan, and here only at the
-// widths that no plan holds, to the chunked kernel: D above 256).
+// flash_attention_cluster_launch with their plan, and are refused here).
 // q (b, n, d), k (b, m, d), v (b, m, c) and out (b, n, c) are contiguous.
 // lse: null, or a float32 (b, n) buffer that receives each row's
 // log-sum-exp of its logits, max + log(sum of exp(logit - max)), for the
@@ -1469,8 +1366,6 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 128 || c > 128) {
     if (dtype == 0) return launch_wide_f32(q, k, v, out, lse, b, n, m, d, c, s);
-    if (dtype == 1)
-      return dispatch_tc_chunked(q, k, v, out, lse, b, n, m, d, c, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0)
@@ -1479,76 +1374,83 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory bytes of one block of the cluster kernel.
-size_t flash_attention_cluster_smem(int ds, int width, int keys, int ks,
-                                    int vs, int exchange, int split) {
-  return cluster_smem_bytes(ds, width, keys, ks, vs, exchange != 0, split);
+// Shared memory bytes of one block of the cluster kernel in MODE mode.
+size_t flash_attention_cluster_smem(int mode, int width, int keys, int ks,
+                                    int vs, int pushers, int rounds) {
+  return cluster_smem_bytes(mode, width, keys, ks, vs, pushers, rounds);
 }
 
 // The dynamic shared memory attribute of the cluster kernel of (width,
-// keys) (what its last launch set), or a negative CUDA error code.
-int flash_attention_cluster_smem_attr(int width, int keys) {
-  if (keys == 64 && width == 64) return cluster_smem_attr<64, false>();
-  if (keys == 64 && width == 128) return cluster_smem_attr<128, false>();
-  if (keys == 64 && width == 256) return cluster_smem_attr<256, false>();
-  if (keys == 32 && width == 64) return cluster_smem_attr<64, true>();
-  if (keys == 32 && width == 128) return cluster_smem_attr<128, true>();
-  if (keys == 32 && width == 256) return cluster_smem_attr<256, true>();
+// mode) (what its last launch set), or a negative CUDA error code.
+int flash_attention_cluster_smem_attr(int width, int mode) {
+  if (mode == 0) return cluster_smem_attr_mode<0>(width);
+  if (mode == 1) return cluster_smem_attr_mode<1>(width);
+  if (mode == 2) return cluster_smem_attr_mode<2>(width);
   return -(int)cudaErrorInvalidValue;
 }
 
-// bfloat16 with D or C above 128: the cluster kernel on the plan
-// {split, exchange, ds, cs, width, keys, ks, vs, smem} of the wrapper's
-// forward_split (its fields "cluster", "exchange", "d_slice", "c_slice",
-// "width", "keys", "k_stages", "v_stages", "smem"). D and C multiples of
-// 64, the tensors 16-byte aligned; lse as above. A plan the kernel cannot
-// run returns cudaErrorInvalidValue; otherwise the CUDA error code of the
-// launch.
+// bfloat16 with D or C above 128: the cluster kernel on the plan {split,
+// exchange, pushers, groups, nds, cs, width, keys, ks, vs, rounds, smem}
+// of the wrapper's forward_split (its fields "cluster", "exchange",
+// "pushers", "groups", "slices", "c_slice", "width", "keys", "k_stages",
+// "v_stages", "rounds", "smem"); its mode is 0 without the exchange (each
+// block computes the logits), else 2 where nds > 1, else 1.
+// D and C multiples of 64, the tensors 16-byte aligned; lse as above. A
+// plan the kernel cannot run returns cudaErrorInvalidValue; otherwise the
+// CUDA error code of the launch.
 int flash_attention_cluster_launch(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int b, int n, int m, int d, int c,
                                    const int* plan, void* stream) {
-  const int split = plan[0], exchange = plan[1], ds = plan[2], cs = plan[3];
-  const int width = plan[4], keys = plan[5], ks = plan[6], vs = plan[7];
-  const int smem = plan[8];
+  const int split = plan[0], exchange = plan[1], pushers = plan[2];
+  const int groups = plan[3], nds = plan[4], cs = plan[5], width = plan[6];
+  const int keys = plan[7], ks = plan[8], vs = plan[9], rounds = plan[10];
+  const int smem = plan[11];
+  const int mode = exchange == 0 ? 0 : nds > 1 ? 2 : 1;
+  const long long d_cols =
+      (long long)(mode == 0 ? 1 : pushers) * nds * kClDSlice;
   const bool ok =
       b > 0 && b <= 65535 && n > 0 && m > 0 && d > 0 && c > 0 &&
       d % 64 == 0 && c % 64 == 0 && aligned16(q) && aligned16(k) &&
-      aligned16(v) && aligned16(out) && split >= 1 &&
-      (exchange == 0 ? keys == 64
-                     : exchange == 1 && keys == kClExchangeKeys &&
-                           (split == 2 || split == 4 || split == 8) &&
-                           (split == 8 || ks == 3)) &&
-      ds == kClDSlice && (long long)ds * (exchange ? split : 1) >= d &&
+      aligned16(v) && aligned16(out) &&
+      (split == 1 || split == 2 || split == 4 || split == 8) &&
+      (exchange == 0 || exchange == 1) && pushers >= 1 &&
+      pushers <= split && nds >= 1 && groups >= 1 && groups <= 65535 &&
+      // the pushers' slices cover D, and each holds a column of it
+      d_cols >= d && d_cols - (long long)nds * kClDSlice < d &&
+      (mode == 0 ? keys == 64 && rounds == 1 && groups == 1 && nds == 1 &&
+                       pushers == split
+                 : split > 1 && keys == kClExchangeKeys &&
+                       (rounds == 1 || rounds == 2)) &&
+      // deferred with q resident (one round): S two tiles ahead, three k
+      // stages
+      (mode != 1 || rounds != 1 || ks == 3) &&
       (width == 64 || width == 128 || width == 256) && cs > 0 &&
-      cs % 64 == 0 && cs <= width && (long long)cs * split >= c &&
-      ks >= kClMinStages &&
+      cs % 64 == 0 && cs <= width &&
+      (long long)cs * split * groups >= c && ks >= kClMinStages &&
       ks <= kClMaxStages && vs >= kClMinStages && vs <= kClMaxStages &&
       smem > 0 &&
       (size_t)smem ==
-          cluster_smem_bytes(ds, width, keys, ks, vs, exchange, split) &&
+          cluster_smem_bytes(mode, width, keys, ks, vs, pushers, rounds) &&
       smem <= kClSmemLimit &&
       (long long)split * ((n + kClRows - 1) / kClRows) <= 0x7fffffff;
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
-  if (!hp::make_sw128_tile_map(&q_map, q, b, n, d, kClRows, ds / 64) ||
-      !hp::make_sw128_tile_map(&k_map, k, b, m, d, keys, ds / 64) ||
+  if (!hp::make_sw128_tile_map(&q_map, q, b, n, d, kClRows, kClDSlice / 64) ||
+      !hp::make_sw128_tile_map(&k_map, k, b, m, d, keys, kClDSlice / 64) ||
       !hp::make_sw128_tile_map(&v_map, v, b, m, c, keys, cs / 64))
     return (int)cudaErrorInvalidValue;
-  const ClusterArgs a{static_cast<bf16*>(out), lse, n, m, c, split,
-                      exchange, cs, ks, vs};
+  const ClusterArgs a{static_cast<bf16*>(out), lse, n, m, c, split, pushers,
+                      nds, cs, ks, vs, rounds};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const CUtensorMap &qm = q_map, &km = k_map, &vm = v_map;
-  if (keys == 64 && width == 64)
-    return launch_cluster<64, false>(qm, km, vm, a, b, smem, s);
-  if (keys == 64 && width == 128)
-    return launch_cluster<128, false>(qm, km, vm, a, b, smem, s);
-  if (keys == 64)
-    return launch_cluster<256, false>(qm, km, vm, a, b, smem, s);
-  if (width == 64) return launch_cluster<64, true>(qm, km, vm, a, b, smem, s);
-  if (width == 128)
-    return launch_cluster<128, true>(qm, km, vm, a, b, smem, s);
-  return launch_cluster<256, true>(qm, km, vm, a, b, smem, s);
+  if (mode == 0)
+    return launch_cluster_mode<0>(width, q_map, k_map, v_map, a, b, groups,
+                                  smem, s);
+  if (mode == 1)
+    return launch_cluster_mode<1>(width, q_map, k_map, v_map, a, b, groups,
+                                  smem, s);
+  return launch_cluster_mode<2>(width, q_map, k_map, v_map, a, b, groups,
+                                smem, s);
 }
 
 }  // extern "C"

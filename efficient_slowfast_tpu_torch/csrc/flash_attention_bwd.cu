@@ -26,9 +26,9 @@
 // shape.
 //
 // bfloat16 with D and C up to 128: three launches, (a) the prologue, (b)
-// one pass, (c) dQ. Above 128 the cluster kernel (its section below) takes
-// (b), with the columns split over a thread block cluster, and beyond its
-// plan (D or C above 2048) the chunked kernels.
+// one pass, (c) dQ. Above 128, at any width, the cluster kernel (its
+// section below) takes (b), with the columns split over a thread block
+// cluster (and over column groups of clusters beyond 2048).
 //   (a) attention_bwd_prologue_kernel: per query (lse log2 e, Dl) in
 //       float32, rows padded to the query tile, and the float32 dQ
 //       accumulator zeroed.
@@ -682,45 +682,54 @@ int dispatch_f32(const void* a1, const void* a2, const void* b1,
 
 // ---------------------------------------------------------------------------
 // bfloat16, D or C above 128 (non-local blocks: 256 in s3, 512 in s4, 1024
-// in a res5): the cluster kernel (attention_bwd_cluster_kernel<BR>), three
-// launches a call as at the narrow widths: (a) the prologue, (b) the
-// cluster kernel, (c) dQ. The one-pass kernel above stops at 128: a
-// consumer warpgroup holds dK and dV (64 keys x WP float32 each), 256
-// registers a thread at WP = 256. So here the columns are split too, as
-// the forward's cluster kernel splits them (csrc/flash_attention.cu,
+// in a res5): the cluster kernel (attention_bwd_cluster_kernel<BR, MODE>),
+// three launches a call as at the narrow widths: (a) the prologue, (b) the
+// cluster kernel, (c) dQ; any D and C. The one-pass kernel above stops at
+// 128: a consumer warpgroup holds dK and dV (64 keys x WP float32 each),
+// 256 registers a thread at WP = 256. So here the columns are split too,
+// as the forward's cluster kernel splits them (csrc/flash_attention.cu,
 // push_partial / sum_partials):
 //
 // Split. A block owns kClKeys = 64 keys of one clip and two consumer
-// warpgroups, both on those keys; warpgroup w of block r (virtual rank
-// v = 2 r + w) owns the kClSlice = 128 columns [128 v, 128 v + 128) of D
-// and of C (its dK and dV accumulators: 64 + 64 registers a thread). R
-// blocks (the plan's "cluster": the least of 1, 2, 4, 8 with 256 R >= D
-// and >= C) form one thread block cluster over a clip's key block; columns
-// past D or C arrive as zeros and give zeros. Per query tile of BR queries
-// (32, or 16 where R = 8: the slots then fit shared memory) a warpgroup
-// computes the partial S^T = k q^T over its D columns and the partial
-// dP^T = v dO^T over its C columns (wgmma, both operands in shared memory,
-// keys as M); the block adds its two warpgroups' partials, and the cluster
-// adds its blocks' partials in rank order, 0 first, over distributed
-// shared memory: every block leader pushes its partial (S^T and dP^T,
-// float32) into the same slot of every other block by bulk copies (x_full:
-// transaction bytes; x_free: each peer's arrival once it has read my last
-// push), then every thread sums the R slots. So all 2 R warpgroups hold the
-// same S^T and dP^T, bit for bit, and compute the same P^T = ex2(S^T log2 e
-// - lse log2 e) and dS^T = P^T o (dP^T - Dl) (rounded to bf16 once, as the
+// warpgroups, both on those keys. The 256-column slices of D and of C are
+// dealt to G column groups (a grid dimension) of R blocks each (the plan's
+// "groups" and "cluster": G = 1 and the least of 1, 2, 4, 8 with 256 R >=
+// D and >= C up to 2048; beyond, G = ceil(max(D, C) / 2048) and R =
+// ceil(max(D, C) / 256 G)): block r of group g owns slice o = g R + r, and
+// its warpgroup w the kClSlice = 128 columns [128 (2 o + w), + 128) of D
+// and of C (its dK and dV accumulators: 64 + 64 registers a thread). The R
+// blocks of a group form one thread block cluster over a clip's key block;
+// columns past D or C arrive as zeros and give zeros. Per query tile of BR
+// queries (32, or 16 where the slots would not fit beside the rings) a
+// warpgroup computes the partial S^T = k q^T and dP^T = v dO^T over its
+// columns of the block's slices of D and of C (wgmma, both operands in
+// shared memory, keys as M): its own slice o, and where G > 1 the
+// "extra" slices r + R j (j != g) below D's (C's) count, whose k (v) and q
+// (dO) stream through a ring of their own once a query tile, so that the
+// group's R blocks together cover all of D and C. The block adds its two
+// warpgroups' partials, and the cluster its blocks' partials in rank
+// order, 0 first, over distributed shared memory: every block leader
+// pushes its partial (S^T and dP^T, float32; over two rounds, S^T then
+// dP^T, where the slots of one would not fit) into the same slot of every
+// other block by bulk copies (x_full: transaction bytes; x_free: each
+// peer's arrival once it has read my last push), then every thread sums
+// the R slots. So all 2 R warpgroups of a group hold the same S^T and
+// dP^T, bit for bit, and compute the same P^T = ex2(S^T log2 e - lse
+// log2 e) and dS^T = P^T o (dP^T - Dl) (rounded to bf16 once, as the
 // one-pass kernel rounds them), then
 //   dV[:, its C columns] += P^T dO,  dK[:, its D columns] += dS^T q
 // (register A fragments, dO and q read MN-major in place), and
 //   dQ[tile, its D columns]^T = k^T dS^T
 // (k and dS from shared memory, both MN-major: M = 128 columns of D, so a
-// query tile of 32 needs no 64-row wgmma). Each of the five products is
-// computed once a call where D and C are multiples of 256 R (the zoo's
-// 256, 512, 1024, 2048); elsewhere the warpgroups whose columns lie past D
-// or C multiply zeros ("recompute" in backward_split). The exponentials
-// run 2 R times (cheap beside the products: 0.02 ms at the AVA res5 step).
+// query tile of 32 needs no 64-row wgmma). dV, dK and dQ are computed once
+// a call where D and C are multiples of 256 R G (the zoo's 256, 512, 1024,
+// 2048), and the two logits products G times (elsewhere the warpgroups
+// whose own columns lie past D or C multiply zeros: "recompute" in
+// backward_split). The exponentials run 2 R G times (cheap beside the
+// products: 0.02 ms at the AVA res5 step).
 //
 // dQ: option (a), a bulk reduce-add (cp.reduce.async.bulk .add.f32) of
-// each warpgroup's BR x 128 float32 part into a (B, 2 R, npad, 128)
+// each warpgroup's BR x 128 float32 part into a (B, 2 R G, npad, 128)
 // accumulator, as the one-pass kernel adds its dQ. N D ceil(M / 64) x 4
 // bytes a clip of traffic (0.1 ms of the card's memory at I3D-NLN's s3, 8
 // clips; 0.2 ms at the AVA res5 step), where a deterministic second pass
@@ -730,26 +739,30 @@ int dispatch_f32(const void* a1, const void* a2, const void* b1,
 // dV are sums inside one block in a fixed order and are bit-identical
 // across calls.
 //
-// Grid: R blocks a key block, ceil(M / 64) key blocks, B clips; one block
-// an SM (256 threads, 255 registers a thread, up to 201 KB of shared
-// memory). At I3D-NLN's s3 (8 clips, M = 784, D = C = 256: R = 1) that is
-// 104 blocks, one wave on 79% of the card's 132 SMs; at 256^2 (M = 1024)
-// 128 blocks (97%); at the AVA res5 step (16 clips, M = 392, D = C = 1024:
-// R = 4) 448 blocks in clusters of 4, 3.4 waves.
+// Grid: R blocks a key block and group, ceil(M / 64) key blocks, B clips,
+// G groups; one block an SM (256 threads, 255 registers a thread, up to
+// 227 KB of shared memory). At I3D-NLN's s3 (8 clips, M = 784, D = C =
+// 256: R = 1) that is 104 blocks, one wave on 79% of the card's 132 SMs;
+// at 256^2 (M = 1024) 128 blocks (97%); at the AVA res5 step (16 clips,
+// M = 392, D = C = 1024: R = 4) 448 blocks in clusters of 4, 3.4 waves.
 //
 // Loads: thread 0 issues TMA copies (hopper.cuh make_panels_map: one copy
-// a tile of 32 column panels) of the block's 256 columns of k and v once,
-// and per query tile of q, dO (the block's 256 columns) and the (lse log2 e,
-// Dl) statistics into a ring of stages (full: one arrival and the copies'
-// bytes; empty: one arrival per warpgroup once its products and its dQ
-// reduce-add have read the stage). A stage holds [statistics][q][dO]; its
-// q and dO become the warpgroups' dQ staging once both have read them.
+// a tile of 32 column panels) of the block's own 256 columns of k and v
+// once, per query tile of q, dO (the block's 256 columns) and the
+// (lse log2 e, Dl) statistics into a ring of stages (full: one arrival and
+// the copies' bytes; empty: one arrival per warpgroup once its products and
+// its dQ reduce-add have read the stage), and per (query tile, extra
+// slice) in turn the slice's k and q, or v and dO, into the extra ring
+// (xfull, xempty). A stage holds [statistics][q][dO]; its q and dO become
+// the warpgroups' dQ staging once both have read them.
 //
 // Shared memory (cl_smem_bytes, backward_split's arithmetic): k and v (64
 // x 256 bf16 each), the stages (256 + 1024 BR bytes each, three where they
-// fit, else two), dS (BR x 64 bf16), R slots (BR x 64 x 2 float32 each),
-// the mbarriers. D and C reach it as multiples of 8 with 16-byte aligned
-// data (the wrapper pads other inputs, exactly, as for the narrow path).
+// fit, else two), where G > 1 two extra stages (64 x 256 and BR x 256
+// bf16 each), dS (BR x 64 bf16), R slots (BR x 64 x 2 float32 each, over
+// the rounds), the mbarriers. D and C reach it as multiples of 8 with
+// 16-byte aligned data (the wrapper pads other inputs, exactly, as for the
+// narrow path).
 
 constexpr int kClKeys = 64;            // keys a block (wgmma's M)
 constexpr int kClSlice = 128;          // columns of D and of C a warpgroup owns
@@ -758,6 +771,7 @@ constexpr int kClThreads = 256;        // two consumer warpgroups
 constexpr int kClMaxCluster = 8;
 constexpr int kClMinStages = 2;
 constexpr int kClMaxStages = 3;
+constexpr int kClMaxExtraStages = 2;
 constexpr int kClStatsBytes = 256;     // a stage's statistics (BR x 8 bytes)
 constexpr int kClBarrierBytes = 256;
 constexpr int kClKvBytes = kClKeys * kClCols * 2;  // k or v
@@ -766,25 +780,36 @@ __host__ __device__ constexpr int cl_stage_bytes(int br) {
   return kClStatsBytes + 4 * br * kClCols;  // statistics, q, dO
 }
 
+// an extra stage: a slice of k (or v), and of q (or dO) for one tile
+__host__ __device__ constexpr int cl_extra_bytes(int br) {
+  return kClKvBytes + 2 * br * kClCols;
+}
+
 // a block's partial: S^T and dP^T (64 keys x BR queries float32 each)
 __host__ __device__ constexpr int cl_slot_bytes(int br) { return 512 * br; }
 
-__host__ __device__ inline int cl_smem_bytes(int split, int br, int stages) {
-  return 2 * kClKvBytes + stages * cl_stage_bytes(br) + kClKeys * br * 2 +
-         split * cl_slot_bytes(br) + kClBarrierBytes;
+__host__ __device__ inline int cl_smem_bytes(int split, int br, int stages,
+                                             int xstages, int rounds) {
+  return 2 * kClKvBytes + stages * cl_stage_bytes(br) +
+         xstages * cl_extra_bytes(br) + kClKeys * br * 2 +
+         split * cl_slot_bytes(br) / rounds + kClBarrierBytes;
 }
 
 struct ClusterBwdArgs {
   const float2* stats;  // (B, npad): (lse log2 e, Dl)
-  float* dq_acc;        // (B, 2 R, npad, 128) float32, added to
+  float* dq_acc;        // (B, 2 R G, npad, 128) float32, added to
   bf16* dk;
   bf16* dv;
   int n, m, d, c, npad;
-  int split;   // R
-  int stages;  // of the ring
+  int split;    // R
+  int groups;   // G
+  int stages;   // of the ring
+  int xstages;  // of the extra ring (G > 1)
 };
 
-template <int BR>
+// MODE: 0 one column group (no extra slices, one round of exchange), 1
+// column groups with one round, 2 with two
+template <int BR, int MODE>
 __global__ void __launch_bounds__(kClThreads, 1)
 attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
@@ -792,6 +817,9 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap do_map,
                              const ClusterBwdArgs a) {
   constexpr int kF4 = BR / 4;  // float4 a thread in a slot: S^T, then dP^T
+  constexpr bool kExtra = MODE > 0;
+  constexpr int kRounds = MODE == 2 ? 2 : 1;
+  constexpr int per = kF4 / kRounds;  // float4 a thread a round
   constexpr uint32_t kPanelK = kClKeys * 16;  // bytes between panels of k, v
   constexpr uint32_t kPanelQ = BR * 16;       // of q and dO
   extern __shared__ __align__(128) unsigned char smem[];
@@ -799,27 +827,47 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // [32][64][8]
   bf16* v_s = k_s + kClKeys * kClCols;        // [32][64][8]
   unsigned char* stage0 = smem + 2 * kClKvBytes;
-  bf16* ds_s = reinterpret_cast<bf16*>(stage0 +
-                                       a.stages * cl_stage_bytes(BR));
+  unsigned char* xstage0 = stage0 + a.stages * cl_stage_bytes(BR);
+  bf16* ds_s = reinterpret_cast<bf16*>(xstage0 +
+                                       a.xstages * cl_extra_bytes(BR));
   float4* slots = reinterpret_cast<float4*>(ds_s + kClKeys * BR);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      reinterpret_cast<unsigned char*>(slots) + a.split * cl_slot_bytes(BR));
+      reinterpret_cast<unsigned char*>(slots) +
+      a.split * cl_slot_bytes(BR) / kRounds);
   uint64_t* empty = full + kClMaxStages;
   uint64_t* kv_full = empty + kClMaxStages;
   uint64_t* x_full = kv_full + 1;
   uint64_t* x_free = x_full + 1;
+  uint64_t* xfull = x_free + 1;                 // [xstages]
+  uint64_t* xempty = xfull + kClMaxExtraStages;  // [xstages]
 
   const int split = a.split, rank = blockIdx.x % split, b = blockIdx.y;
+  const int group = blockIdx.z, own = group * split + rank;
   const int kb = blockIdx.x / split, key0 = kb * kClKeys;
   const int tiles = a.npad / BR, first = kb % tiles;
   const int tid = threadIdx.x, wg = tid / 128, t128 = tid % 128;
   const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int col0 = (2 * rank + wg) * kClSlice;  // of D and of C
+  const int col0 = (2 * own + wg) * kClSlice;  // of D and of C
+  // the extra slices rank + R j (j != group) below D's and C's counts of
+  // 256 columns: ed of D, then of C, ex in all, a tile
+  auto extras = [&](int cols) {
+    const int slices = (cols + kClCols - 1) / kClCols;
+    int j = slices > rank ? (slices - rank + split - 1) / split : 0;
+    j = j < a.groups ? j : a.groups;
+    return j - (group < j ? 1 : 0);
+  };
+  const int ed = kExtra ? extras(a.d) : 0;
+  const int ex = kExtra ? ed + extras(a.c) : 0;
   auto stage = [&](int s) { return stage0 + s * cl_stage_bytes(BR); };
+  auto xstage = [&](int s) { return xstage0 + s * cl_extra_bytes(BR); };
   if (tid == 0) {
     for (int s = 0; s < kClMaxStages; ++s) {
       hp::mbar_init(&full[s], 1);
       hp::mbar_init(&empty[s], 2);
+    }
+    for (int s = 0; s < kClMaxExtraStages; ++s) {
+      hp::mbar_init(&xfull[s], 1);
+      hp::mbar_init(&xempty[s], kClThreads);
     }
     hp::mbar_init(kv_full, 1);
     hp::mbar_init(x_full, 1);
@@ -840,17 +888,35 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
     hp::mbar_arrive_expect_tx(&full[s], 8 * BR + 4 * BR * kClCols);
     hp::bulk_load(st, a.stats + (size_t)b * a.npad + q0, 8 * BR, &full[s]);
     hp::tma_load_4d(st + kClStatsBytes, &q_map, &full[s], 0, q0,
-                    rank * kClCols / 8, b);
+                    own * kClCols / 8, b);
     hp::tma_load_4d(st + kClStatsBytes + 2 * BR * kClCols, &do_map,
-                    &full[s], 0, q0, rank * kClCols / 8, b);
+                    &full[s], 0, q0, own * kClCols / 8, b);
   };
+  // extra load l: extra l % ex of tile l / ex, its slice of k and q (of D)
+  // or of v and dO (of C), into extra stage l % xstages
+  auto load_extra = [&](int l) {
+    const int i = l / ex, e = l - i * ex, s = l % a.xstages;
+    const int q0 = (first + i) % tiles * BR;
+    const bool on_d = e < ed;
+    int j = on_d ? e : e - ed;
+    j += j >= group;
+    const int panel = (rank + split * j) * kClCols / 8;
+    unsigned char* st = xstage(s);
+    hp::mbar_arrive_expect_tx(&xfull[s], cl_extra_bytes(BR));
+    hp::tma_load_4d(st, on_d ? &k_map : &v_map, &xfull[s], 0, key0, panel, b);
+    hp::tma_load_4d(st + kClKvBytes, on_d ? &q_map : &do_map, &xfull[s], 0,
+                    q0, panel, b);
+  };
+  const int xloads = tiles * ex;
   if (tid == 0) {
     hp::prefetch_tensormap(&q_map);
     hp::prefetch_tensormap(&do_map);
     hp::mbar_arrive_expect_tx(kv_full, 2 * kClKvBytes);
-    hp::tma_load_4d(k_s, &k_map, kv_full, 0, key0, rank * kClCols / 8, b);
-    hp::tma_load_4d(v_s, &v_map, kv_full, 0, key0, rank * kClCols / 8, b);
+    hp::tma_load_4d(k_s, &k_map, kv_full, 0, key0, own * kClCols / 8, b);
+    hp::tma_load_4d(v_s, &v_map, kv_full, 0, key0, own * kClCols / 8, b);
     for (int i = 0; i < a.stages && i < tiles; ++i) load_tile(i);
+    if constexpr (kExtra)
+      for (int l = 0; l < a.xstages && l < xloads; ++l) load_extra(l);
   }
   // (the wgmma and barrier instructions below are warp-aligned: each branch
   // of one thread is followed by __syncwarp)
@@ -858,11 +924,41 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
 
   const int krow = 16 * warp + g;  // this thread's keys krow, krow + 8
   const bool keys_ragged = key0 + kClKeys > a.m;
-  float4* mine = slots + rank * kF4 * 128;
+  float4* mine = slots + rank * per * 128;
   float dv_acc[kClSlice / 2], dk_acc[kClSlice / 2];
 #pragma unroll
   for (int i = 0; i < kClSlice / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
   hp::mbar_wait_bounded(kv_full, 0);
+
+  // acc += this warpgroup's 128 columns of extra load l's slice (k q^T or
+  // v dO^T), a wgmma group of its own (folding the first two into the own
+  // products' group had ptxas inject warpgroup arrives, C7519, and was
+  // slower: PERF.md); then the stage released and refilled (at
+  // once: refilled at the tile's end instead, the 3072 step ran 4% slower)
+  auto extra_product = [&](float (&acc)[BR / 2], int l) {
+    const int s = l % a.xstages;
+    const bf16* xa = reinterpret_cast<const bf16*>(xstage(s));
+    const bf16* xb = xa + kClKeys * kClCols;
+    hp::mbar_wait_bounded(&xfull[s], (l / a.xstages) & 1);
+    __syncwarp();
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kClSlice / 16; ++kk) {
+      const int p = 16 * wg + 2 * kk;
+      hp::Wgmma<BR, 0, 0>::run(acc,
+                               hp::desc(xa + p * kClKeys * 8, kPanelK, 128),
+                               hp::desc(xb + p * BR * 8, kPanelQ, 128), 1);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    hp::mbar_arrive(&xempty[s]);
+    if (tid == 0 && l + a.xstages < xloads) {
+      hp::mbar_wait_bounded(&xempty[s], (l / a.xstages) & 1);
+      load_extra(l + a.xstages);
+    }
+    __syncwarp();
+  };
 
   for (int i = 0; i < tiles; ++i) {
     const int s = i % a.stages, q0 = (first + i) % tiles * BR;
@@ -874,7 +970,8 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
     __syncwarp();
 
     // this warpgroup's partial S^T = k q^T and dP^T = v dO^T (64 keys x BR
-    // queries) over its 128 columns: panels 16 wg .. 16 wg + 15
+    // queries) over its 128 columns of the own slice: panels 16 wg .. 16 wg
+    // + 15; then of the extra slices
     float sp[BR / 2], dp[BR / 2];
     hp::wgmma_fence();
 #pragma unroll
@@ -889,63 +986,76 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
     hp::wgmma_wait<0>();
     hp::fence_regs(sp);
     hp::fence_regs(dp);
+    if constexpr (kExtra) {
+      for (int e = 0; e < ed; ++e) extra_product(sp, i * ex + e);
+      for (int e = ed; e < ex; ++e) extra_product(dp, i * ex + e);
+    }
 
-    // the block's partial (warpgroup 0's plus warpgroup 1's) in my slot,
-    // once every peer has read my last push
-    if (split > 1 && tid == 0 && i > 0)
-      hp::mbar_wait_cluster(x_free, (i - 1) & 1);
-    __syncwarp();
-    hp::named_barrier(1, kClThreads);
-    if (wg == 1) {
+    // per round h (S^T and dP^T at once, or S^T then dP^T): the block's
+    // partial (warpgroup 0's plus warpgroup 1's) in my slot, once every
+    // peer has read my last push; pushed to every peer; the R slots summed
 #pragma unroll
-      for (int f = 0; f < kF4; ++f) {
-        const float* x = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
-        mine[f * 128 + t128] = make_float4(x[0], x[1], x[2], x[3]);
-      }
-    }
-    hp::named_barrier(1, kClThreads);
-    if (wg == 0) {
-#pragma unroll
-      for (int f = 0; f < kF4; ++f) {
-        const float* x = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
-        const float4 y = mine[f * 128 + t128];
-        mine[f * 128 + t128] =
-            make_float4(x[0] + y.x, x[1] + y.y, x[2] + y.z, x[3] + y.w);
-      }
-      hp::fence_proxy_async();  // the bulk copies read what was written
-    }
-    hp::named_barrier(1, kClThreads);
-    if (split > 1) {
-      if (tid == 0) {
-        constexpr uint32_t kBytes = cl_slot_bytes(BR);
-        hp::mbar_arrive_expect_tx(x_full, (split - 1) * kBytes);
-        for (int r = 0; r < split; ++r)
-          if (r != rank)
-            hp::bulk_copy_cluster(hp::cluster_addr(mine, r), mine, kBytes,
-                                  hp::cluster_addr(x_full, r));
-      }
-      hp::mbar_wait_cluster(x_full, i & 1);
+    for (int h = 0; h < kRounds; ++h) {
+      const int x = i * kRounds + h;
+      if (split > 1 && tid == 0 && x > 0)
+        hp::mbar_wait_cluster(x_free, (x - 1) & 1);
       __syncwarp();
-    }
-    // the cluster's S^T and dP^T: the R slots in rank order
-    for (int r = 0; r < split; ++r) {
-      const float4* slot = slots + r * kF4 * 128 + t128;
+      hp::named_barrier(1, kClThreads);
+      if (wg == 1) {
 #pragma unroll
-      for (int f = 0; f < kF4; ++f) {
-        const float4 y = slot[f * 128];
-        float* x = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
-        if (r == 0) {
-          x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
-        } else {
-          x[0] += y.x, x[1] += y.y, x[2] += y.z, x[3] += y.w;
+        for (int f = 0; f < kF4; ++f) {
+          if (f / per != h) continue;
+          const float* y = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
+          mine[(f - h * per) * 128 + t128] = make_float4(y[0], y[1], y[2],
+                                                         y[3]);
         }
       }
+      hp::named_barrier(1, kClThreads);
+      if (wg == 0) {
+#pragma unroll
+        for (int f = 0; f < kF4; ++f) {
+          if (f / per != h) continue;
+          const float* y = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
+          const float4 z = mine[(f - h * per) * 128 + t128];
+          mine[(f - h * per) * 128 + t128] =
+              make_float4(y[0] + z.x, y[1] + z.y, y[2] + z.z, y[3] + z.w);
+        }
+        hp::fence_proxy_async();  // the bulk copies read what was written
+      }
+      hp::named_barrier(1, kClThreads);
+      if (split > 1) {
+        if (tid == 0) {
+          const uint32_t bytes = per * 128 * 16;
+          hp::mbar_arrive_expect_tx(x_full, (split - 1) * bytes);
+          for (int r = 0; r < split; ++r)
+            if (r != rank)
+              hp::bulk_copy_cluster(hp::cluster_addr(mine, r), mine, bytes,
+                                    hp::cluster_addr(x_full, r));
+        }
+        hp::mbar_wait_cluster(x_full, x & 1);
+        __syncwarp();
+      }
+      // the cluster's S^T and dP^T: the R slots in rank order
+      for (int r = 0; r < split; ++r) {
+        const float4* slot = slots + r * per * 128 + t128;
+#pragma unroll
+        for (int f = 0; f < kF4; ++f) {
+          if (f / per != h) continue;
+          const float4 z = slot[(f - h * per) * 128];
+          float* y = f < kF4 / 2 ? sp + 4 * f : dp + 4 * (f - kF4 / 2);
+          if (r == 0) {
+            y[0] = z.x, y[1] = z.y, y[2] = z.z, y[3] = z.w;
+          } else {
+            y[0] += z.x, y[1] += z.y, y[2] += z.z, y[3] += z.w;
+          }
+        }
+      }
+      hp::named_barrier(1, kClThreads);  // the slots are read
+      if (split > 1 && tid == 0)
+        for (int r = 0; r < split; ++r)
+          if (r != rank) hp::mbar_arrive_cluster(x_free, r);
+      __syncwarp();
     }
-    hp::named_barrier(1, kClThreads);  // the slots are read
-    if (split > 1 && tid == 0)
-      for (int r = 0; r < split; ++r)
-        if (r != rank) hp::mbar_arrive_cluster(x_free, r);
-    __syncwarp();
 
     // P^T and dS^T in place; keys past M and queries past N get P = 0
     const bool edge = keys_ragged || q0 + BR > a.n;
@@ -1019,7 +1129,7 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
     hp::fence_regs(dq[0]);
     hp::fence_regs(dq[1]);
     // staged [query][128] float32 where this stage's q and dO were, then
-    // added to the accumulator's rows q0 .. of slice 2 rank + wg
+    // added to the accumulator's rows q0 .. of slice 2 own + wg
     float* dq_s = reinterpret_cast<float*>(st + kClStatsBytes) +
                   wg * BR * kClSlice;
 #pragma unroll
@@ -1034,8 +1144,9 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
     hp::named_barrier(2 + wg, 128);
     if (t128 == 0) {
       hp::bulk_reduce_add_f32(
-          a.dq_acc + (((size_t)b * 2 * split + 2 * rank + wg) * a.npad + q0) *
-                         kClSlice,
+          a.dq_acc +
+              (((size_t)b * 2 * split * a.groups + 2 * own + wg) * a.npad +
+               q0) * kClSlice,
           dq_s, BR * kClSlice * 4);
       hp::bulk_commit();
       hp::bulk_wait_read();
@@ -1072,20 +1183,21 @@ attention_bwd_cluster_kernel(const __grid_constant__ CUtensorMap k_map,
   }
   // keep this block's shared memory until every peer has read my last push
   // (after that no peer writes or arrives here)
-  if (split > 1 && tid == 0) hp::mbar_wait_cluster(x_free, (tiles - 1) & 1);
+  if (split > 1 && tid == 0)
+    hp::mbar_wait_cluster(x_free, (tiles * kRounds - 1) & 1);
 }
 
-template <int BR>
+template <int BR, int MODE>
 int launch_cluster_bwd(const CUtensorMap& k_map, const CUtensorMap& v_map,
                        const CUtensorMap& q_map, const CUtensorMap& do_map,
                        const ClusterBwdArgs& a, int b, int smem,
                        cudaStream_t stream) {
-  auto kernel = attention_bwd_cluster_kernel<BR>;
+  auto kernel = attention_bwd_cluster_kernel<BR, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.split * ((a.m + kClKeys - 1) / kClKeys), b, 1);
+  cfg.gridDim = dim3(a.split * ((a.m + kClKeys - 1) / kClKeys), b, a.groups);
   cfg.blockDim = dim3(kClThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1101,312 +1213,23 @@ int launch_cluster_bwd(const CUtensorMap& k_map, const CUtensorMap& v_map,
   return (int)cudaGetLastError();
 }
 
-template <int BR>
+template <int BR, int MODE>
 int cluster_bwd_smem_attr() {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      cudaFuncGetAttributes(&attr, attention_bwd_cluster_kernel<BR>);
+      cudaFuncGetAttributes(&attr, attention_bwd_cluster_kernel<BR, MODE>);
   return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at the widths that the cluster kernel's plan cannot hold (D or C
-// above 2048; no config of the zoo): the chunked kernels, in three
-// launches, the statistics, key rows (dK, dV) and query rows (dQ), each
-// block owning 64 rows and one 128-column slice of the outputs (a grid
-// dimension over ceil(max(D, C) / 128) slices) and recomputing the logits
-// and dP over the whole of D and C for its slice: (8 S + 6) N M W
-// operations at D = C = W (S = W / 128 slices) where the bound counts 10 N
-// M W. No atomics: dQ, dK and dV are all deterministic there.
+// float32, D or C above 128: a grid dimension over 128-column slices of the
+// outputs, each block recomputing X and Y over all of D and C for its
+// slice; deterministic.
 
 constexpr int kWideCols = 128;  // output columns a block owns
 
-// bf16 (a): stats[r] = (lse log2 e, Dl) for each query row of (B N).
-__global__ void attention_bwd_stats_kernel(const bf16* __restrict__ out,
-                                           const bf16* __restrict__ dout,
-                                           const float* __restrict__ lse,
-                                           float2* __restrict__ stats,
-                                           long long rows, int c) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const bf16* o = out + r * c;
-  const bf16* g = dout + r * c;
-  float s = 0.f;
-  for (int j = 0; j < c; ++j)
-    s = fmaf(__bfloat162float(o[j]), __bfloat162float(g[j]), s);
-  stats[r] = make_float2(lse[r] * kLog2e, s);
-}
-
-// The chunked kernels' rows: 64 a block, 16 a warp of 128 threads; shared
-// rows padded by 16 bytes (ldmatrix without bank conflicts).
-constexpr int kRowsR = 64;
-constexpr int kRowsThreads = 128;
-constexpr int kRowsPad = tc::kSmemPad;
-
-// A tile's gradient step for 16 rows a warp: X and Y (16 x kBN columns,
-// fragment layout) become P = ex2(X log2 e - lse log2 e) and dS = P (Y -
-// Dl) in place (rows g, g + 8; columns 8 nt + 2 t, + 1; columns at or
-// past ``left`` get P = 0), then acc_d += dS b1 (with_d) and, for key rows,
-// acc_c += P b2 (with_c) over 128 output columns; two 8-column tiles of P
-// or dS are one k16 A fragment. b1, b2: the lane's ldmatrix.trans rows of
-// the tile's b1 and b2 at the output slice, kLd elements a row. stt: the
-// columns' statistics (key rows); st_r: the rows' (query rows).
-template <bool KEY_ROWS, int kBN, int kLd, int kOut>
-__device__ __forceinline__ void tile_gradients(
-    float (&x)[kBN / 8][4], float (&y)[kBN / 8][4], const float2* stt,
-    const float2 (&st_r)[2], int left, const bf16* b1, const bf16* b2,
-    bool with_d, bool with_c, float (&acc_d)[kWideCols / 8][4],
-    float (&acc_c)[kOut][4]) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < kBN / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * nt + 2 * t + (e & 1);
-      const float2 st = KEY_ROWS ? stt[col] : st_r[e >> 1];
-      float p = tc::ex2(fmaf(x[nt][e], kLog2e, -st.x));
-      if (col >= left) p = 0.f;
-      x[nt][e] = p;
-      y[nt][e] = p * (y[nt][e] - st.y);
-    }
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint32_t da[4] = {tc::pack_bf16x2(y[2 * kk][0], y[2 * kk][1]),
-                            tc::pack_bf16x2(y[2 * kk][2], y[2 * kk][3]),
-                            tc::pack_bf16x2(y[2 * kk + 1][0], y[2 * kk + 1][1]),
-                            tc::pack_bf16x2(y[2 * kk + 1][2], y[2 * kk + 1][3])};
-    const uint32_t pa[4] = {tc::pack_bf16x2(x[2 * kk][0], x[2 * kk][1]),
-                            tc::pack_bf16x2(x[2 * kk][2], x[2 * kk][3]),
-                            tc::pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            tc::pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < kWideCols / 16; ++np) {
-      uint32_t bb[4];
-      if (with_d) {
-        tc::ldmatrix_x4_trans(bb, b1 + 16 * kk * kLd + 16 * np);
-        tc::mma_bf16_16816(acc_d[2 * np], da, bb[0], bb[1]);
-        tc::mma_bf16_16816(acc_d[2 * np + 1], da, bb[2], bb[3]);
-      }
-      if constexpr (KEY_ROWS) {
-        if (with_c) {
-          tc::ldmatrix_x4_trans(bb, b2 + 16 * kk * kLd + 16 * np);
-          tc::mma_bf16_16816(acc_c[2 * np], pa, bb[0], bb[1]);
-          tc::mma_bf16_16816(acc_c[2 * np + 1], pa, bb[2], bb[3]);
-        }
-      }
-    }
-  }
-}
-
 inline int wide_slices(int d, int c) {
   return ((d > c ? d : c) + kWideCols - 1) / kWideCols;
-}
-
-// bf16 (b), (c) beyond the cluster kernel's plan: the chunked rows kernel.
-// a1 and a2 (64 x W each) would take 264 KB of shared memory at W = 1024,
-// so nothing stays resident: per column tile of kChunkBN = 32, X = a1 b1^T
-// accumulates over D and Y = a2 b2^T over C in chunks of 128 columns into
-// the same 16 x 32 fragments a warp (mma.sync m16n8k16), each chunk of a (64
-// rows) and of b (32 columns) arriving by cp.async through a three-stage
-// ring; the flat sequence of (tile, chunk) loads runs two ahead of the
-// products, one __syncthreads a chunk. The tile's slice of b1 (and of b2,
-// key rows) for the block's 128 output columns, and its statistics, come
-// with its first chunk into one of two buffers. P, dS and the output
-// products are tile_gradients'. The a rows stream from L2 once a tile.
-// 113.7 KB of shared memory: two blocks an SM.
-constexpr int kChunkCols = 128;
-constexpr int kChunkLd = kChunkCols + kRowsPad;
-constexpr int kChunkBN = 32;
-constexpr int kChunkStages = 3;
-constexpr int kChunkAElems = kRowsR * kChunkLd;
-constexpr int kChunkStageElems = (kRowsR + kChunkBN) * kChunkLd;
-constexpr int kChunkSliceElems = kChunkBN * kChunkLd;
-
-// Shared memory: kChunkStages stages (a chunk, b chunk), two buffers of a
-// tile's b1 and b2 slices, then two of its statistics (kChunkBN float2).
-__host__ __device__ constexpr int chunked_rows_smem_bytes() {
-  return 2 * (kChunkStages * kChunkStageElems + 2 * 2 * kChunkSliceElems) +
-         8 * 2 * kChunkBN;
-}
-
-// acc (16 rows x kChunkBN columns a warp) += a chunk times b chunk^T over
-// its 128 columns; a, b: the lane's ldmatrix rows.
-__device__ __forceinline__ void chunk_product(float (&acc)[kChunkBN / 8][4],
-                                              const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < kChunkCols / 16; ++kk) {
-    uint32_t af[4];
-    tc::ldmatrix_x4(af, a + 16 * kk);
-#pragma unroll
-    for (int np = 0; np < kChunkBN / 16; ++np) {
-      uint32_t bb[4];
-      tc::ldmatrix_x4(bb, b + 16 * np * kChunkLd + 16 * kk);
-      tc::mma_bf16_16816(acc[2 * np], af, bb[0], bb[1]);
-      tc::mma_bf16_16816(acc[2 * np + 1], af, bb[2], bb[3]);
-    }
-  }
-}
-
-template <bool KEY_ROWS>
-__global__ void __launch_bounds__(kRowsThreads)
-attention_bwd_chunked_kernel(const bf16* __restrict__ a1,
-                             const bf16* __restrict__ a2,
-                             const bf16* __restrict__ b1,
-                             const bf16* __restrict__ b2,
-                             const float2* __restrict__ stats,
-                             bf16* __restrict__ out_d,
-                             bf16* __restrict__ out_c, int rows, int cols,
-                             int d, int c) {
-  constexpr int kNT = kChunkBN / 8;
-  constexpr int kOut = KEY_ROWS ? kWideCols / 8 : 1;
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
-  bf16* ring = reinterpret_cast<bf16*>(smem4);  // [stages][a, b chunk]
-  bf16* slices = ring + kChunkStages * kChunkStageElems;  // [2][b1, b2]
-  float2* st_s = reinterpret_cast<float2*>(slices + 4 * kChunkSliceElems);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lr = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
-  const int a_lane = (16 * warp + lr + 8 * l8) * kChunkLd + 8 * l16;  // A
-  const int b_lane = (lr + 8 * l16) * kChunkLd + 8 * l8;  // B of X = a b^T
-  const int bt_lane = (lr + 8 * l8) * kChunkLd + 8 * l16;  // B, .trans
-  const int r0 = blockIdx.x * kRowsR, col0 = blockIdx.z * kWideCols;
-  const size_t bi = blockIdx.y;
-  const size_t queries = KEY_ROWS ? cols : rows;
-  a1 += bi * rows * d;
-  a2 += bi * rows * c;
-  b1 += bi * cols * d;
-  b2 += bi * cols * c;
-  stats += bi * queries;
-  // output columns of this block's slice: of out_d (D wide), and of out_c
-  // (C wide, key rows); a slice past either has no work there
-  const bool d_slice = col0 < d, c_slice = KEY_ROWS && col0 < c;
-  const int nd = (d + kChunkCols - 1) / kChunkCols;
-  const int per = nd + (c + kChunkCols - 1) / kChunkCols;  // chunks a tile
-  const int tiles = (cols + kChunkBN - 1) / kChunkBN, total = tiles * per;
-
-  // load l: chunk l % per of tile l / per (a1, b1 over D, then a2, b2 over
-  // C) into stage l % kChunkStages, and with a tile's first chunk its
-  // slices and statistics into buffer tile % 2 (refilled by tile + 2's
-  // first load, kChunkStages - 1 <= per loads after this tile's last
-  // product). Every call commits a group.
-  auto issue = [&](int l) {
-    if (l < total) {
-      const int it = l / per, kc = l - it * per;
-      const bool on_d = kc < nd;
-      const int w = on_d ? d : c, cc = (on_d ? kc : kc - nd) * kChunkCols;
-      bf16* st = ring + l % kChunkStages * kChunkStageElems;
-      tc::load_cols<kChunkCols, kRowsR, kRowsThreads>(
-          st, kChunkLd, on_d ? a1 : a2, r0, rows, w, cc, true);
-      tc::load_cols<kChunkCols, kChunkBN, kRowsThreads>(
-          st + kChunkAElems, kChunkLd, on_d ? b1 : b2, it * kChunkBN, cols,
-          w, cc, true);
-      if (kc == 0) {
-        bf16* sl = slices + (it & 1) * 2 * kChunkSliceElems;
-        if (d_slice)
-          tc::load_cols<kWideCols, kChunkBN, kRowsThreads>(
-              sl, kChunkLd, b1, it * kChunkBN, cols, d, col0, true);
-        if (c_slice)
-          tc::load_cols<kWideCols, kChunkBN, kRowsThreads>(
-              sl + kChunkSliceElems, kChunkLd, b2, it * kChunkBN, cols, c,
-              col0, true);
-        if (KEY_ROWS && threadIdx.x < kChunkBN) {
-          const int j = it * kChunkBN + threadIdx.x;
-          st_s[(it & 1) * kChunkBN + threadIdx.x] =
-              j < cols ? stats[j] : make_float2(0.f, 0.f);
-        }
-      }
-    }
-    tc::cp_async_commit();
-  };
-  for (int l = 0; l < kChunkStages - 1; ++l) issue(l);
-
-  float2 st_r[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
-  if (!KEY_ROWS) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 16 * warp + g + 8 * h;
-      if (row < rows) st_r[h] = stats[row];
-    }
-  }
-  float acc_d[kWideCols / 8][4], acc_c[kOut][4];
-#pragma unroll
-  for (int j = 0; j < kWideCols / 8; ++j)
-    acc_d[j][0] = acc_d[j][1] = acc_d[j][2] = acc_d[j][3] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kOut; ++j)
-    acc_c[j][0] = acc_c[j][1] = acc_c[j][2] = acc_c[j][3] = 0.f;
-
-  float x[kNT][4], y[kNT][4];
-  for (int l = 0; l < total; ++l) {
-    tc::cp_async_wait<kChunkStages - 2>();  // load l landed (this thread)
-    __syncthreads();  // ... for every thread, all past load l - 1's stage
-    issue(l + kChunkStages - 1);
-    const int it = l / per, kc = l - it * per;
-    if (kc == 0) {
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[nt][e] = y[nt][e] = 0.f;
-    }
-    const bf16* at = ring + l % kChunkStages * kChunkStageElems;
-    if (kc < nd)
-      chunk_product(x, at + a_lane, at + kChunkAElems + b_lane);
-    else
-      chunk_product(y, at + a_lane, at + kChunkAElems + b_lane);
-    if (kc != per - 1) continue;
-
-    // the tile's X and Y are whole: P, dS and the output products
-    const bf16* sl = slices + (it & 1) * 2 * kChunkSliceElems + bt_lane;
-    tile_gradients<KEY_ROWS, kChunkBN, kChunkLd, kOut>(
-        x, y, st_s + (it & 1) * kChunkBN, st_r, cols - it * kChunkBN, sl,
-        sl + kChunkSliceElems, d_slice, c_slice, acc_d, acc_c);
-  }
-  tc::cp_async_wait<0>();  // no copy in flight when the block exits
-
-  // rows g, g + 8 of the warp; columns col0 + 8 j + 2 t, + 1 (d and c are
-  // multiples of 8, so a pair is whole)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 16 * warp + g + 8 * h;
-    if (row >= rows) continue;
-    __nv_bfloat162* od = reinterpret_cast<__nv_bfloat162*>(
-        out_d + ((size_t)bi * rows + row) * d);
-    __nv_bfloat162* oc = reinterpret_cast<__nv_bfloat162*>(
-        (KEY_ROWS ? out_c : out_d) + ((size_t)bi * rows + row) * c);
-#pragma unroll
-    for (int j = 0; j < kWideCols / 8; ++j) {
-      const int col = col0 + 8 * j + 2 * t;
-      if (col < d)
-        od[col / 2] = __floats2bfloat162_rn(acc_d[j][2 * h],
-                                            acc_d[j][2 * h + 1]);
-      if constexpr (KEY_ROWS)
-        if (col < c)
-          oc[col / 2] = __floats2bfloat162_rn(acc_c[j][2 * h],
-                                              acc_c[j][2 * h + 1]);
-    }
-  }
-}
-
-template <bool KEY_ROWS>
-int launch_chunked(const void* a1, const void* a2, const void* b1,
-                   const void* b2, const float2* stats, void* out_d,
-                   void* out_c, int b, int rows, int cols, int d, int c,
-                   cudaStream_t s) {
-  auto kernel = attention_bwd_chunked_kernel<KEY_ROWS>;
-  constexpr int smem = chunked_rows_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  // key rows: slices of dK's D and dV's C columns; query rows: of dQ's D
-  const int slices = KEY_ROWS ? wide_slices(d, c) : wide_slices(d, d);
-  const dim3 grid((rows + kRowsR - 1) / kRowsR, b, slices);
-  kernel<<<grid, kRowsThreads, smem, s>>>(
-      static_cast<const bf16*>(a1), static_cast<const bf16*>(a2),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(b2), stats,
-      static_cast<bf16*>(out_d), static_cast<bf16*>(out_c), rows, cols, d,
-      c);
-  return (int)cudaGetLastError();
 }
 
 // float32 (b), (c): the scalar kernel's rows and tiles of 32 columns with
@@ -1591,35 +1414,23 @@ int launch_f32_wide(const void* a1, const void* a2, const void* b1,
 extern "C" {
 
 // Bytes of the workspace that flash_attention_backward_launch needs:
-// float32, Dl (b, n); bfloat16, the statistics (b, npad) float2 and the dQ
-// accumulator (b, npad, WP) float32, npad = n rounded up to the tile; above
-// 128 (the chunked kernels) the statistics (b, n).
+// float32, Dl (b, n); bfloat16 (D and C up to 128), the statistics (b,
+// npad) float2 and the dQ accumulator (b, npad, WP) float32, npad = n
+// rounded up to the tile.
 long long flash_attention_backward_workspace(int dtype, int b, int n, int d,
                                              int c) {
   if (dtype == 0) return 4LL * b * n;
-  if (d > 128 || c > 128) return 8LL * b * n;
   const long long npad = (long long)(n + kBr - 1) / kBr * kBr;
   return 8LL * b * npad + 4LL * b * npad * padded_width(d > c ? d : c);
 }
 
-// The bf16 kernels' split for this problem: split[0..7] = {keys a block
-// (Bc), queries a tile, stages, blocks, shared memory bytes, padded width
-// WP, blocks resident on an SM, output column slices}. D and C up to 128:
-// the one-pass kernel's. Above (the chunked kernels, which run only where
-// the cluster kernel's plan holds no split): the key-rows launch's, 64 keys
-// a block, a block per 128-column slice, WP the width padded to whole
-// 128-column chunks and stages its ring's; the query-rows launch has the
-// same tile and shared memory with the roles swapped, and slices of D only.
+// The one-pass bf16 kernel's split for this problem (D and C up to 128;
+// wider calls run the cluster kernel on the wrapper's
+// backward_cluster_split): split[0..7] = {keys a block (Bc), queries a
+// tile, stages, blocks, shared memory bytes, padded width WP, blocks
+// resident on an SM, output column slices}.
 void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
   split[7] = 1;
-  if (d > 128 || c > 128) {
-    const int slices = wide_slices(d, c), smem = chunked_rows_smem_bytes();
-    const int v[8] = {kRowsR, kChunkBN, kChunkStages,
-                      (m + kRowsR - 1) / kRowsR * b * slices, smem,
-                      slices * kWideCols, kSmemSm / (smem + 1024), slices};
-    for (int i = 0; i < 8; ++i) split[i] = v[i];
-    return;
-  }
   switch (padded_width(d > c ? d : c)) {
     case 16: plan_of<16>(b, m, split); break;
     case 32: plan_of<32>(b, m, split); break;
@@ -1629,8 +1440,8 @@ void flash_attention_backward_plan(int b, int m, int d, int c, int* split) {
 }
 
 // dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (the one-pass wgmma
-// kernel; D or C above 128 the chunked kernels: the wrapper sends bf16
-// calls there only where the cluster kernel's plan holds no split). q (b,
+// kernel, D and C up to 128; wider bf16 calls go to
+// flash_attention_backward_cluster_launch, and are refused here). q (b,
 // n, d), k (b, m, d), v (b, m, c), out and dout (b, n, c), and dq, dk, dv
 // (the shapes of q, k, v) are contiguous in dtype; lse (b, n) holds the
 // forward's float32 log-sum-exp; workspace holds
@@ -1671,23 +1482,9 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
     return dispatch_f32<false>(q, dout, k, v, lse, delta, dq, nullptr, b, n,
                                m, d, c, s);
   }
-  if (d % 8 || c % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
-      !aligned16(out) || !aligned16(dout) || !aligned16(dq))
+  if (wide || d % 8 || c % 8 || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(out) || !aligned16(dout) || !aligned16(dq))
     return (int)cudaErrorInvalidValue;
-  if (wide) {
-    float2* stats = static_cast<float2*>(workspace);
-    const long long rows = (long long)b * n;
-    attention_bwd_stats_kernel<<<(int)((rows + 255) / 256), 256, 0, s>>>(
-        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
-        stats, rows, c);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    const int e = launch_chunked<true>(k, v, q, dout, stats, dk, dv, b, m, n,
-                                       d, c, s);
-    if (e != 0) return e;
-    return launch_chunked<false>(q, dout, k, v, stats, dq, nullptr, b, n, m,
-                                 d, c, s);
-  }
   const int wp = padded_width(d > c ? d : c);
   const int npad = (n + kBr - 1) / kBr * kBr;
   float2* stats = static_cast<float2*>(workspace);
@@ -1716,32 +1513,38 @@ int flash_attention_backward_launch(int dtype, const void* q, const void* k,
 }
 
 // The cluster kernel's shared memory bytes for a plan (cluster R, queries
-// BR a tile, stages), and its workspace bytes for (b, n): the statistics
-// (b, npad) float2 and the dQ accumulator (b, 2 R, npad, 128) float32,
-// npad = n rounded up to BR.
-int flash_attention_backward_cluster_smem(int split, int rows, int stages) {
-  return cl_smem_bytes(split, rows, stages);
+// BR a tile, stages, extra stages, rounds of a tile's exchange), and its
+// workspace bytes for (b, n): the statistics (b, npad) float2 and the dQ
+// accumulator (b, 2 R G, npad, 128) float32, npad = n rounded up to BR.
+int flash_attention_backward_cluster_smem(int split, int rows, int stages,
+                                          int xstages, int rounds) {
+  return cl_smem_bytes(split, rows, stages, xstages, rounds);
 }
 
 long long flash_attention_backward_cluster_workspace(int b, int n, int split,
-                                                     int rows) {
+                                                     int groups, int rows) {
   const long long npad = (long long)(n + rows - 1) / rows * rows;
-  return 8LL * b * npad + 4LL * b * 2 * split * npad * kClSlice;
+  return 8LL * b * npad + 4LL * b * 2 * split * groups * npad * kClSlice;
 }
 
 // The dynamic shared memory attribute of the cluster kernel of BR queries
-// a tile (what its last launch set), or a negative CUDA error code.
-int flash_attention_backward_cluster_smem_attr(int rows) {
-  if (rows == 32) return cluster_bwd_smem_attr<32>();
-  if (rows == 16) return cluster_bwd_smem_attr<16>();
+// a tile and mode (0 one column group; 1, 2 column groups and the rounds
+// of a tile's exchange) (what its last launch set), or a negative CUDA
+// error code.
+int flash_attention_backward_cluster_smem_attr(int rows, int mode) {
+  if (rows == 32 && mode == 0) return cluster_bwd_smem_attr<32, 0>();
+  if (rows == 16 && mode == 0) return cluster_bwd_smem_attr<16, 0>();
+  if (rows == 16 && mode == 1) return cluster_bwd_smem_attr<16, 1>();
+  if (rows == 16 && mode == 2) return cluster_bwd_smem_attr<16, 2>();
   return -(int)cudaErrorInvalidValue;
 }
 
 // bfloat16 with D or C above 128: the cluster kernel on the plan {cluster,
-// queries, stages, smem} of the wrapper's backward_split (its fields of
-// those names), three launches: the prologue (statistics, the accumulator
-// zeroed), the cluster kernel, dQ. Tensors and workspace
-// (flash_attention_backward_cluster_workspace bytes) as for
+// groups, queries, stages, extra stages, rounds, smem} of the wrapper's
+// backward_split (its fields "cluster", "groups", "queries", "stages",
+// "extra_stages", "rounds", "smem"), three launches: the prologue
+// (statistics, the accumulator zeroed), the cluster kernel, dQ. Tensors
+// and workspace (flash_attention_backward_cluster_workspace bytes) as for
 // flash_attention_backward_launch in bfloat16. A plan the kernel cannot
 // run returns cudaErrorInvalidValue; otherwise the first CUDA error code.
 int flash_attention_backward_cluster_launch(
@@ -1749,15 +1552,20 @@ int flash_attention_backward_cluster_launch(
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
     void* workspace, int b, int n, int m, int d, int c, const int* plan,
     void* stream) {
-  const int split = plan[0], rows = plan[1], stages = plan[2], smem = plan[3];
+  const int split = plan[0], groups = plan[1], rows = plan[2];
+  const int stages = plan[3], xstages = plan[4], rounds = plan[5];
+  const int smem = plan[6];
   const bool ok =
       b > 0 && b <= 65535 && n > 0 && m > 0 && d > 0 && c > 0 && d % 8 == 0 &&
       c % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-      aligned16(out) && aligned16(dout) && aligned16(dq) &&
-      (split == 1 || split == 2 || split == 4 || split == kClMaxCluster) &&
-      (long long)kClCols * split >= (d > c ? d : c) &&
-      (rows == 16 || rows == 32) && stages >= kClMinStages &&
-      stages <= kClMaxStages && smem == cl_smem_bytes(split, rows, stages) &&
+      aligned16(out) && aligned16(dout) && aligned16(dq) && split >= 1 &&
+      split <= kClMaxCluster && groups >= 1 && groups <= 65535 &&
+      (long long)kClCols * split * groups >= (d > c ? d : c) &&
+      (rows == 16 || (rows == 32 && groups == 1)) && stages >= kClMinStages &&
+      stages <= kClMaxStages && (groups == 1) == (xstages == 0) &&
+      xstages <= kClMaxExtraStages && (rounds == 1 || rounds == 2) &&
+      (groups > 1 || rounds == 1) &&
+      smem == cl_smem_bytes(split, rows, stages, xstages, rounds) &&
       smem <= kSmemLimit &&
       (long long)split * ((m + kClKeys - 1) / kClKeys) <= 0x7fffffff;
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -1768,7 +1576,7 @@ int flash_attention_backward_cluster_launch(
       !hp::make_panels_map(&do_map, dout, b, n, c, rows, kClCols / 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int npad = (n + rows - 1) / rows * rows, slices = 2 * split;
+  const int npad = (n + rows - 1) / rows * rows, slices = 2 * split * groups;
   float2* stats = static_cast<float2*>(workspace);
   float* dq_acc = reinterpret_cast<float*>(stats + (size_t)b * npad);
   const long long qrows = (long long)b * npad;
@@ -1783,11 +1591,15 @@ int flash_attention_backward_cluster_launch(
   if (err != 0) return err;
   const ClusterBwdArgs a{stats, dq_acc, static_cast<bf16*>(dk),
                          static_cast<bf16*>(dv), n, m, d, c, npad, split,
-                         stages};
-  err = rows == 32 ? launch_cluster_bwd<32>(k_map, v_map, q_map, do_map, a, b,
-                                            smem, s)
-                   : launch_cluster_bwd<16>(k_map, v_map, q_map, do_map, a, b,
-                                            smem, s);
+                         groups, stages, xstages};
+  if (rows == 32)
+    err = launch_cluster_bwd<32, 0>(k_map, v_map, q_map, do_map, a, b, smem, s);
+  else if (groups == 1)
+    err = launch_cluster_bwd<16, 0>(k_map, v_map, q_map, do_map, a, b, smem, s);
+  else if (rounds == 1)
+    err = launch_cluster_bwd<16, 1>(k_map, v_map, q_map, do_map, a, b, smem, s);
+  else
+    err = launch_cluster_bwd<16, 2>(k_map, v_map, q_map, do_map, a, b, smem, s);
   if (err != 0) return err;
   const long long chunks = (long long)b * n * (d / 8);
   attention_bwd_dq_kernel<<<(int)((chunks + 255) / 256), 256, 0, s>>>(

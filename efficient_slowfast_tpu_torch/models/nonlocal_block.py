@@ -15,8 +15,8 @@ package's, rounding where it rounds:
   forward and backward) or, with ``use_flash`` off, ``plain_attention``.
   In s3 of I3D-NLN-R50 that is D = C = 256 over 3136 queries at 224²;
   in the slow res5 of AVA's SlowFast-R50 (stride 1), D = C = 1024 over
-  1568 (the forward's cluster kernel, the backward's chunked kernels:
-  every width runs on a kernel).
+  1568 (the forward's and the backward's cluster kernels: every width
+  runs on a kernel).
 - ``softmax`` at or below it: float32 logits, then the scale, the softmax,
   and the product with g in g's dtype, accumulated in float32.
 - ``dot_product``: θ (φᵀ g) / M by associativity, the (D, D) product in

@@ -28,7 +28,7 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   In bfloat16 with D, C ≤ 128 the kernel makes one pass over the queries
   for each block of keys (``wgmma``, TMA loads by a producer warpgroup) and
   adds each block's part of dQ into a float32 accumulator, so **dQ is not
-  deterministic** there (nor above 128, up to 2048: the wide widths below):
+  deterministic** there (nor above 128: the wide widths below):
   the adds arrive in any order and dQ may differ in its last bits from call
   to call, while dK and dV are bit-identical.
   Inputs whose D or C is
@@ -42,35 +42,32 @@ package's ``jax.custom_vjp`` is (``flash_attention.py:157-225``):
   SDPA do; autograd through ``chunked_attention`` takes it from the
   unrounded one.
 - Wide widths. D or C above 128 (non-local blocks: 256 in s3, 512 in s4,
-  1024 in a res5). The bf16 forward runs the cluster kernel in its one
-  launch, on the split that ``forward_split`` plans: R blocks share a tile
-  of 128 queries, each owning up to 256 columns of the output; where D is
-  wide they form a thread block cluster that also splits D and adds its
-  partial logits over distributed shared memory in rank order, so q kᵀ is
-  computed once (at D = C = 1024, R = 4); where D is narrow against C each
-  block computes the logits whole. ``wgmma`` products, TMA loads in the
-  128-byte swizzle; D and C reach it as multiples of 64, zero-padded
-  copies where they are not (exact). Its plan covers D and C up to 2048,
-  and any C where D is up to 256. The rest (``chunked_widths``: D above
-  2048, or C above 2048 with D above 256; no config of the zoo) runs the
-  chunked kernel, mma.sync over 128-column chunks of D in blocks that
-  each own a 128-column slice of C and recompute the logits for it. The
-  float32 forward keeps its wide kernel (a block per 128-column slice of
-  C, recomputing the logits). The bf16 backward above 128 runs the
-  backward's cluster kernel in its three launches (the statistics, the
-  kernel, dQ), on the split that ``backward_split`` plans: a block owns 64
-  keys and two warpgroups, each owning 128 columns of D and of C (its dK and
-  dV); R blocks (256 R ≥ D and ≥ C, R ≤ 8) form a thread block cluster
-  that adds the partial logits q kᵀ and dO vᵀ in rank order over
-  distributed shared memory, so each of the five products is computed
-  once; ``wgmma`` products, TMA loads. As at the narrow widths its dQ is
-  added over key blocks by float32 bulk reduce-adds, so **bf16 dQ is not
-  deterministic above 128 either**; dK and dV are bit-identical across
-  calls. Beyond its plan (``backward_chunked_widths``: D or C above 2048)
-  the backward's chunked kernels run, a key-rows and a query-rows launch
-  over 128-column chunks, recomputing the logits per output slice, all
-  three gradients deterministic. The float32 wide backward (a block per
-  128-column output slice, recomputing the logits) is deterministic.
+  1024 in a res5), any D and C. The bf16 forward runs the cluster kernel
+  in its one launch, on the split that ``forward_split`` plans: the output
+  columns of a tile of 128 queries go to column groups (one up to C =
+  2048) of R blocks, each owning up to 256 columns of the output; where
+  D is up to 256 and C up to 2048 each block computes the logits itself;
+  else the blocks of a group form a thread block cluster whose first
+  blocks own slices of D and add their partial logits over distributed
+  shared memory in rank order, so each group computes q kᵀ once (at D = C
+  = 1024, R = 4); q stays in shared memory up to D = 2048 and streams
+  beside k beyond. ``wgmma`` products, TMA loads in the 128-byte swizzle;
+  D and C reach it as multiples of 64, zero-padded copies where they are
+  not (exact). The float32 forward keeps its wide kernel (a block per
+  128-column slice of C, recomputing the logits). The bf16 backward above
+  128 runs the backward's cluster kernel in its three launches (the
+  statistics, the kernel, dQ), on the split that ``backward_split`` plans:
+  a block owns 64 keys and two warpgroups, each owning 128 columns of D
+  and of C (its dK and dV); R blocks (256 R ≥ D and ≥ C up to 2048; beyond,
+  column groups of up to 8) form a thread block cluster that adds the
+  partial logits q kᵀ and dO vᵀ over all of D and C in rank order over
+  distributed shared memory, so each group computes them once and dV, dK
+  and dQ are computed once; ``wgmma`` products, TMA loads. As at the
+  narrow widths its dQ is added over key blocks by float32 bulk
+  reduce-adds, so **bf16 dQ is not deterministic above 128 either**; dK
+  and dV are bit-identical across calls. The float32 wide backward (a
+  block per 128-column output slice, recomputing the logits) is
+  deterministic.
 
 ``plain_attention`` is the same Function over the plain versions, on any
 device: the explicit opt-out ``TPU.FLASH_ATTENTION False``.
@@ -91,9 +88,12 @@ and bounds nothing here.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -240,8 +240,9 @@ def flops(b, n, m, d, c) -> int:
 # cluster_smem_bytes): query rows of a tile, the largest output slice of a
 # block, the shared memory of a block and its mbarriers, the ring stages
 # tried (k, v), most first: a tile's stages are refilled after its
-# products, so a ring needs two, and where the exchange is deferred (R up
-# to 4: S then runs two tiles ahead) k's needs three.
+# products, so a ring needs two, and where the exchange is deferred (q
+# resident, the slots of one round: S then runs two tiles ahead) k's needs
+# three; where q streams beside k a stage holds 80 KB, and two each fit.
 _CLUSTER_ROWS = 128
 # keys of a tile: 64, or 32 where the blocks exchange partial logits (the
 # slots and the rings then fit shared memory)
@@ -255,101 +256,128 @@ _SMEM_LIMIT = 232448
 _BARRIER_BYTES = 256
 _STAGES = ((3, 3), (3, 2), (2, 2))
 _DEFERRED_STAGES = ((3, 3), (3, 2))
-# the blocks of a query tile that may form one cluster (its portable size)
+_STREAM_STAGES = ((2, 2),)
+# the blocks of a column group (one cluster: its portable size)
 _MAX_CLUSTER = 8
 # columns of D in a block's logits (the kernel's kClDSlice: four atoms,
 # whose k steps its wgmma chain takes unrolled)
 _D_SLICE = 256
-_SPLIT_FIELDS = ("cluster", "exchange", "d_slice", "c_slice", "width",
-                 "keys", "k_stages", "v_stages", "smem")
+_SPLIT_FIELDS = ("cluster", "exchange", "pushers", "groups", "slices",
+                 "c_slice", "width", "keys", "k_stages", "v_stages", "rounds",
+                 "smem")
 
 
 def _ceil(x, to):
     return -(-x // to) * to
 
 
-def cluster_smem_bytes(d_slice, width, keys, k_stages, v_stages, exchange,
-                       cluster) -> int:
-    """Shared memory of one block of the cluster kernel: q (128 x d_slice),
-    the k stages (keys x d_slice) and v stages (keys x width) in bf16,
+def cluster_smem_bytes(mode, width, keys, k_stages, v_stages, pushers=1,
+                       rounds=1) -> int:
+    """Shared memory of one block of the cluster kernel in ``mode`` (0 one
+    block a query tile, 1 a cluster with q resident, 2 a cluster with q
+    streamed): q (128 x 256 bf16, modes 0 and 1), the k stages (keys x 256,
+    beside a 128 x 256 slice of q in mode 2), the v stages (keys x width),
     where the blocks exchange a float32 slot of 128 x keys partial logits
-    for each block of the cluster (half of it at 8, which exchanges in two
-    rounds), the mbarriers, and 1024 bytes to align the tiles (the 128-byte
-    swizzle): the kernel's own arithmetic."""
-    slots = (cluster * _CLUSTER_ROWS * _EXCHANGE_KEYS * 4
-             // (2 if cluster > 4 else 1))
-    return (2 * (_CLUSTER_ROWS * d_slice + k_stages * keys * d_slice
-                 + v_stages * keys * width)
-            + (slots if exchange else 0) + _BARRIER_BYTES + 1024)
+    for each pusher over the ``rounds`` of a tile's exchange, the
+    mbarriers, and 1024 bytes to align the tiles (the 128-byte swizzle):
+    the kernel's own arithmetic."""
+    q = 0 if mode == 2 else _CLUSTER_ROWS * _D_SLICE
+    stage = (_CLUSTER_ROWS + keys if mode == 2 else keys) * _D_SLICE
+    slots = (pushers * _CLUSTER_ROWS * _EXCHANGE_KEYS * 4 // rounds
+             if mode else 0)
+    return (2 * (q + k_stages * stage + v_stages * keys * width) + slots
+            + _BARRIER_BYTES + 1024)
 
 
 def forward_split(b, n, m, d, c) -> dict:
     """The bf16 cluster kernel's split of one call with D or C above 128,
     D and C rounded up to multiples of 64 as the kernel takes them (the
-    wrapper pads them with zero columns).
+    wrapper pads them with zero columns). Every D and C has one.
 
-    ``cluster`` (R) blocks own a tile of ``rows`` queries, block r the
-    output columns [r c_slice, (r + 1) c_slice): the least power of two
-    with C / R ≤ 256 (a block's float32 accumulator) and, where D is wider
-    than a block's ``d_slice`` of 256 columns, D / R ≤ 256. Then
-    (``exchange``) the R blocks are one thread block cluster, block r also
-    owns D's columns [r d_slice, (r + 1) d_slice), and they add their
-    partial logits in rank order, so q kᵀ is computed once; else every
-    block computes the logits over all of D and the blocks are no cluster
-    (R may then exceed 8, for C above 2048). ``recompute`` is the q kᵀ work
-    over the bound's, padding included (1.0 at D = C = 256 and 1024);
-    ``keys`` a tile (32 where the blocks exchange, so that the slots and
-    the rings fit, else 64), ``k_stages`` and ``v_stages`` the rings (three
-    each where they fit, else two; a deferred exchange, R up to 4, needs
-    three of k), ``smem`` a block's bytes, ``width`` the accumulator's
-    columns (64, 128 or 256), ``blocks`` the grid. Raises ValueError where
-    no split fits: at ``chunked_widths``."""
+    A tile of ``rows`` queries belongs to ``groups`` (G = ceil(C / 2048))
+    column groups of ``cluster`` (R) blocks, block r of group g owning the
+    output columns [(g R + r) c_slice, (g R + r + 1) c_slice) (c_slice up
+    to 256: a block's float32 accumulator). Where D and C are up to 256
+    and 2048 (one slice of D, one group) each block computes the logits
+    itself and the blocks are no cluster (``exchange`` False; ``recompute``
+    R: on the card that is faster than one block's broadcast). Else the R
+    blocks of a group are one thread block cluster whose first ``pushers``
+    (P) each own ``slices`` 256-column slices of D and add their partial
+    logits in rank order over distributed shared memory, so a group
+    computes q kᵀ once: ``recompute``, the times a call computes it, is
+    then G (1 up to C = 2048), and ``padded`` the columns it multiplies
+    over D's (the slices' zero columns). Up to D = 2048 a pusher owns one
+    slice, whose q stays in shared memory (``stream`` False); beyond,
+    several, whose q streams beside k: at the fewest ``rounds`` of a
+    tile's exchange (one, deferred, or two halves), the fewest slices a
+    pusher whose slots fit. ``keys`` a tile (32 where the blocks exchange,
+    so that the slots and the rings fit, else 64), ``k_stages`` and
+    ``v_stages`` the rings, ``smem`` a block's bytes, ``width`` the
+    accumulator's columns (64, 128 or 256), ``blocks`` the grid. Raises
+    ValueError for a width below 1, which no kernel holds."""
+    plan = _forward_plan(d, c)
+    return dict(plan, blocks=plan["blocks"] * -(-n // _CLUSTER_ROWS) * b)
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_plan(d, c) -> dict:
+    """forward_split's plan of widths D, C; its ``blocks`` those of one
+    query tile of one clip (the wrapper asks once a width, not once a
+    call)."""
+    if d < 1 or c < 1:
+        raise ValueError(f"flash_attention: no bf16 kernel split for D {d}, "
+                         f"C {c}")
     d_in = d
     d, c = _ceil(d, _CLUSTER_ATOM), _ceil(c, _CLUSTER_ATOM)
-    exchange = d > _D_SLICE
-    for split in (1, 2, 4, 8, 16, 32, 64):
-        if -(-c // split) > _CLUSTER_MAX_COLS or (
-                exchange and (split * _D_SLICE < d or split == 1)):
-            continue
-        if exchange and split > _MAX_CLUSTER:
-            break
-        c_slice = _ceil(-(-c // split), _CLUSTER_ATOM)
-        width = next(w for w in (64, 128, _CLUSTER_MAX_COLS) if c_slice <= w)
-        keys = _EXCHANGE_KEYS if exchange else _CLUSTER_KEYS
-        deferred = exchange and split <= 4
-        for k_stages, v_stages in (_DEFERRED_STAGES if deferred
-                                   else _STAGES):
-            smem = cluster_smem_bytes(_D_SLICE, width, keys, k_stages,
-                                      v_stages, exchange, split)
+    groups = -(-c // (_MAX_CLUSTER * _CLUSTER_MAX_COLS))
+    d_slices = -(-d // _D_SLICE)
+    stream = d_slices > _MAX_CLUSTER
+    # one slice of D and one column group: each of R blocks computes the
+    # logits itself, no cluster (faster on the card than one block's
+    # broadcast at (64, 2048), PERF.md)
+    alone = d_slices == 1 and groups == 1
+    need = max(-(-d_slices // _MAX_CLUSTER), 1)
+    for rounds, slices in itertools.product(
+            (1, 2), range(need, d_slices + 1) if stream else (1,)):
+        pushers = -(-d_slices // slices)
+        cluster = 1
+        while cluster < max(pushers, -(-c // (_CLUSTER_MAX_COLS
+                                               * groups))):
+            cluster *= 2
+        exchange = cluster > 1 and not alone
+        if alone:
+            pushers = cluster
+        c_slice = _ceil(-(-c // (groups * cluster)), _CLUSTER_ATOM)
+        width = next(w for w in (64, 128, _CLUSTER_MAX_COLS)
+                     if c_slice <= w)
+        mode = 0 if not exchange else 2 if stream else 1
+        keys = _EXCHANGE_KEYS if mode else _CLUSTER_KEYS
+        stages = (_STREAM_STAGES if stream else _DEFERRED_STAGES
+                  if mode and rounds == 1 else _STAGES)
+        for k_stages, v_stages in stages:
+            smem = cluster_smem_bytes(mode, width, keys, k_stages,
+                                      v_stages, pushers, rounds)
             if smem <= _SMEM_LIMIT:
                 return dict(
-                    cluster=split, exchange=exchange, d_slice=_D_SLICE,
-                    c_slice=c_slice, width=width, k_stages=k_stages,
-                    v_stages=v_stages, smem=smem, rows=_CLUSTER_ROWS,
-                    keys=keys, blocks=split * -(-n // _CLUSTER_ROWS) * b,
-                    recompute=split * _D_SLICE / d_in)
-    raise ValueError(f"flash_attention: no bf16 kernel split for D {d}, C "
-                     f"{c} (D up to 2048, C up to 2048, or any C where D is "
-                     "up to 256)")
-
-
-def chunked_widths(d, c) -> bool:
-    """Whether a bf16 call of widths D, C runs the chunked kernel: the
-    widths that ``forward_split`` cannot plan, D above eight blocks' 256
-    columns, or C above eight blocks' 256 output columns where D needs a
-    cluster (above 256), D and C rounded up to multiples of 64 as
-    there."""
-    d, c = _ceil(d, _CLUSTER_ATOM), _ceil(c, _CLUSTER_ATOM)
-    return d > _MAX_CLUSTER * _D_SLICE or (
-        d > _D_SLICE and c > _MAX_CLUSTER * _CLUSTER_MAX_COLS)
+                    cluster=cluster, exchange=exchange, pushers=pushers,
+                    groups=groups, slices=slices, stream=stream,
+                    d_slice=_D_SLICE, c_slice=c_slice, width=width,
+                    k_stages=k_stages, v_stages=v_stages, rounds=rounds,
+                    smem=smem, rows=_CLUSTER_ROWS, keys=keys,
+                    blocks=groups * cluster,
+                    recompute=cluster if alone else groups,
+                    padded=slices * _D_SLICE / d_in * (
+                        1 if alone else pushers))
+    raise AssertionError(f"forward_split: no split fits D {d}, C {c}")
 
 
 def _pad(t, width, multiple=8):
-    """A zero copy of ``t`` whose last dimension is ``width`` rounded up to
-    ``multiple``, holding ``t`` in its first ``width`` columns."""
-    copy = t.new_zeros(*t.shape[:-1], _ceil(width, multiple))
-    copy[..., :width] = t
-    return copy
+    """A fresh contiguous copy of ``t`` whose last dimension is ``width``
+    rounded up to ``multiple``, holding ``t`` in its first ``width``
+    columns and zeros after them (one op: the padded calls' host time)."""
+    extra = _ceil(width, multiple) - width
+    return F.pad(t, (0, extra)) if extra else t.clone(
+        memory_format=torch.contiguous_format)
 
 
 def _launch_forward(q, k, v, with_lse: bool):
@@ -357,10 +385,8 @@ def _launch_forward(q, k, v, with_lse: bool):
     _check_cuda((q, k, v))
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
-    # bf16 above 128: the cluster kernel, or the chunked one (any width
-    # and alignment) where no split fits
-    cluster = (q.dtype == torch.bfloat16 and (d > 128 or c > 128)
-               and not chunked_widths(d, c))
+    # bf16 above 128: the cluster kernel, at any width
+    cluster = q.dtype == torch.bfloat16 and (d > 128 or c > 128)
     if cluster and not _tma_ready((q, k, v), _CLUSTER_ATOM):
         # exact: zero columns of q and k leave the logits, and zero columns
         # of v the first C columns of the output, unchanged
@@ -423,17 +449,17 @@ def _launch_backward(q, k, v, out, lse, dout):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dtype = 0 if q.dtype == torch.float32 else 1
     lib = _bwd_lib()
-    # bf16 above 128: the cluster kernel on backward_split's plan, or the
-    # chunked kernels (any width) where no plan holds
-    cluster = (dtype == 1 and (d > 128 or c > 128)
-               and not backward_chunked_widths(d, c))
+    # bf16 above 128: the cluster kernel on backward_split's plan, at any
+    # width
+    cluster = dtype == 1 and (d > 128 or c > 128)
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         if cluster:
             split = backward_split(b, n, m, d, c)
             workspace = torch.empty(
                 lib.flash_attention_backward_cluster_workspace(
-                    b, n, split["cluster"], split["queries"]),
+                    b, n, split["cluster"], split["groups"],
+                    split["queries"]),
                 dtype=torch.uint8, device=q.device)
             plan = (ctypes.c_int * len(_BWD_PLAN_FIELDS))(
                 *(int(split[f]) for f in _BWD_PLAN_FIELDS))
@@ -463,11 +489,10 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     ``dout``, from its ``out`` and float32 ``lse`` (B, N).
 
     On CUDA tensors it launches the backward kernels (three launches); on
-    CPU tensors it runs ``attention_backward``. In bfloat16 on CUDA with
-    D and C up to 2048 (the one-pass kernel to 128, the cluster kernel
-    above), dq is summed over key blocks by float32 bulk reduce-adds and
-    may differ in its last bits from call to call; dk and dv are
-    deterministic. Beyond (D or C above 2048, the chunked kernels) and in
+    CPU tensors it runs ``attention_backward``. In bfloat16 on CUDA, at
+    any width (the one-pass kernel to 128, the cluster kernel above), dq
+    is summed over key blocks by float32 bulk reduce-adds and may differ
+    in its last bits from call to call; dk and dv are deterministic. In
     float32 all three are deterministic."""
     _check(q, k, v)
     b, n, _ = q.shape
@@ -493,90 +518,125 @@ def flash_attention_backward(q, k, v, out, lse, dout):
 # The bf16 backward's cluster kernel (csrc/flash_attention_bwd.cu,
 # cl_smem_bytes): keys a block, columns of D and of C a consumer warpgroup
 # owns (two a block), the most blocks a cluster, query tiles (32, or 16
-# where the slots of a cluster of 8 would not fit), ring stages (three
-# where they fit, else two); a stage holds the statistics (256 bytes), q
-# and dO (the block's 256 columns, bf16)
+# where the slots of a cluster would not fit), ring stages (three where
+# they fit, else two), extra stages where G > 1, rounds of a tile's
+# exchange (S and dP at once, or S then dP where the slots of one would
+# not fit); a stage holds the statistics (256 bytes), q and dO (the
+# block's 256 columns, bf16), an extra stage a slice of k or v (64 x 256)
+# and of q or dO (a tile's rows x 256)
 _BWD_KEYS = 64
 _BWD_SLICE = 128
 _BWD_BLOCK_COLS = 2 * _BWD_SLICE
 _BWD_MAX_CLUSTER = 8
 _BWD_ROWS = (32, 16)
 _BWD_STAGES = (3, 2)
-_BWD_PLAN_FIELDS = ("cluster", "queries", "stages", "smem")
+_BWD_EXTRA_STAGES = 2
+_BWD_PLAN_FIELDS = ("cluster", "groups", "queries", "stages", "extra_stages",
+                    "rounds", "smem")
 
 
-def backward_cluster_smem_bytes(cluster, rows, stages) -> int:
+def backward_cluster_smem_bytes(cluster, rows, stages, extra_stages=0,
+                                rounds=1) -> int:
     """Shared memory of one block of the backward's cluster kernel: k and
     v (64 keys x 256 columns, bf16), ``stages`` stages of the statistics
-    (256 bytes), q and dO (``rows`` queries x 256 columns, bf16), dS (rows
-    x 64, bf16), a float32 slot of the partial Sᵀ and dPᵀ (64 x rows each)
-    for each block of the cluster, and 256 bytes of mbarriers: the
-    kernel's own arithmetic."""
+    (256 bytes), q and dO (``rows`` queries x 256 columns, bf16),
+    ``extra_stages`` of a slice of k or v and of q or dO, dS (rows x 64,
+    bf16), a float32 slot of the partial Sᵀ and dPᵀ (64 x rows each) for
+    each block of the cluster over the ``rounds``, and 256 bytes of
+    mbarriers: the kernel's own arithmetic."""
+    kv = 2 * _BWD_KEYS * _BWD_BLOCK_COLS
     stage = 256 + 4 * rows * _BWD_BLOCK_COLS
-    return (2 * 2 * _BWD_KEYS * _BWD_BLOCK_COLS + stages * stage
-            + 2 * _BWD_KEYS * rows + cluster * 512 * rows + _BARRIER_BYTES)
-
-
-def backward_chunked_widths(d, c) -> bool:
-    """Whether a bf16 backward call of widths D, C runs the chunked kernels:
-    D or C above eight blocks' 256 columns, where the cluster kernel's plan
-    holds no split."""
-    return max(d, c) > _BWD_MAX_CLUSTER * _BWD_BLOCK_COLS
+    extra = kv + 2 * rows * _BWD_BLOCK_COLS
+    return (2 * kv + stages * stage + extra_stages * extra
+            + 2 * _BWD_KEYS * rows + cluster * 512 * rows // rounds
+            + _BARRIER_BYTES)
 
 
 def backward_cluster_split(b, n, m, d, c) -> dict:
     """The bf16 backward's cluster kernel's split of one call with D or C
     above 128, D and C rounded up to multiples of 8 as the wrapper pads
-    them.
+    them. Every D and C has one.
 
-    ``cluster`` (R) blocks own 64 ``keys`` of a clip, the least power of
-    two with 256 R ≥ D and ≥ C; each block's two warpgroups own 128 columns
-    of D and of C each (``slices`` = 2 R of them, ``width`` 256 a block),
-    and the R blocks add their partial logits and dO vᵀ in rank order over
-    distributed shared memory. ``queries`` a tile (32, or 16 where a
-    cluster of 8's slots would not fit), ``stages`` of its ring (three where
-    they fit, else two), ``smem`` a block's bytes, ``blocks`` the grid
-    (``per_sm`` 1), ``recompute`` the tensor-core work over the bound's,
-    columns past D and C included (1.0 where they are multiples of 256 R).
-    The launch entry checks the plan against its own arithmetic and refuses
-    another. Raises ValueError at ``backward_chunked_widths``."""
-    d, c = _ceil(d, 8), _ceil(c, 8)
-    if backward_chunked_widths(d, c):
+    The 256-column slices of D and C (S of them, the more of the two) go
+    to ``groups`` (G) column groups of ``cluster`` (R) blocks over each 64
+    ``keys`` of a clip: up to 2048 G = 1 and R the least power of two with
+    256 R ≥ D and ≥ C, beyond G = ceil(S / 8) and R = ceil(S / G). Block r
+    of group g owns slice g R + r, its two warpgroups 128 columns of D and
+    of C each (``slices`` = 2 R G of them, ``width`` 256 a block); the R
+    blocks of a group add their partial logits and dO vᵀ over all of D and
+    C in rank order over distributed shared memory, block r computing
+    them over slices r + R j (those j ≠ g stream through its extra ring).
+    ``queries`` a tile (32, or 16 where the slots would not fit),
+    ``stages`` of its ring (three where they fit, else two),
+    ``extra_stages`` (two where G > 1), ``rounds`` of a tile's exchange
+    (the fewest whose slots fit), ``smem`` a block's bytes, ``blocks`` the
+    grid (``per_sm`` 1), ``logits`` the times the two logits products run
+    (G), ``recompute`` the tensor-core work over the bound's, columns past
+    D and C included (1.0 where they are multiples of 256 R G). The launch
+    entry checks the plan against its own arithmetic and refuses another.
+    Raises ValueError for a width below 1, which no kernel holds."""
+    plan = _backward_plan(d, c)
+    return dict(plan, blocks=plan["blocks"] * -(-m // _BWD_KEYS) * b)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_plan(d, c) -> dict:
+    """backward_cluster_split's plan of widths D, C; its ``blocks`` those
+    of one key block of one clip."""
+    if d < 1 or c < 1:
         raise ValueError(f"flash_attention_backward: no bf16 cluster split "
-                         f"for D {d}, C {c} (D and C up to 2048)")
-    cluster = next(r for r in (1, 2, 4, _BWD_MAX_CLUSTER)
-                   if r * _BWD_BLOCK_COLS >= max(d, c))
-    for rows in _BWD_ROWS:
-        for stages in _BWD_STAGES:
-            smem = backward_cluster_smem_bytes(cluster, rows, stages)
-            if smem <= _SMEM_LIMIT:
-                return dict(
-                    kernel="cluster", cluster=cluster, keys=_BWD_KEYS,
-                    queries=rows, stages=stages, smem=smem,
-                    width=_BWD_BLOCK_COLS, slices=2 * cluster, per_sm=1,
-                    blocks=cluster * -(-m // _BWD_KEYS) * b,
-                    recompute=5 * cluster * _BWD_BLOCK_COLS / (3 * d + 2 * c))
-    raise ValueError(f"flash_attention_backward: no bf16 cluster split for "
-                     f"D {d}, C {c}")
+                         f"for D {d}, C {c}")
+    d, c = _ceil(d, 8), _ceil(c, 8)
+    s_d, s_c = -(-d // _BWD_BLOCK_COLS), -(-c // _BWD_BLOCK_COLS)
+    slices = max(s_d, s_c)
+    if slices <= _BWD_MAX_CLUSTER:
+        groups = 1
+        cluster = next(r for r in (1, 2, 4, _BWD_MAX_CLUSTER)
+                       if r >= slices)
+    else:
+        groups = -(-slices // _BWD_MAX_CLUSTER)
+        cluster = -(-slices // groups)
+    extra_stages = _BWD_EXTRA_STAGES if groups > 1 else 0
+    # the logits' work in 256-column slices: each block its own slice
+    # (zeros past D or C), and its extra slices r + R j, j != g, below D's
+    # (C's) count
+    extra = sum(1 for g in range(groups) for r in range(cluster)
+                for j in range(groups) for count in (s_d, s_c)
+                if j != g and r + cluster * j < count)
+    for rounds in (1, 2):
+        for rows in _BWD_ROWS:
+            for stages in _BWD_STAGES:
+                smem = backward_cluster_smem_bytes(cluster, rows, stages,
+                                                   extra_stages, rounds)
+                if smem <= _SMEM_LIMIT:
+                    return dict(
+                        kernel="cluster", cluster=cluster, groups=groups,
+                        keys=_BWD_KEYS, queries=rows, stages=stages,
+                        extra_stages=extra_stages, rounds=rounds, smem=smem,
+                        width=_BWD_BLOCK_COLS, slices=2 * cluster * groups,
+                        per_sm=1,
+                        blocks=groups * cluster,
+                        logits=groups,
+                        recompute=(5 * groups * cluster + extra)
+                        * _BWD_BLOCK_COLS / (3 * d + 2 * c))
+    raise AssertionError(f"backward_cluster_split: no split fits D {d}, C "
+                         f"{c}")
 
 
 def backward_split(b, n, m, d, c) -> dict:
     """The bf16 backward kernel's split of one call (``kernel`` names it):
     D and C up to 128, the one-pass kernel's from the C library (keys a
     block, queries a tile, ring stages, blocks, shared memory bytes, the
-    padded width, the blocks resident on an SM); above, up to 2048,
-    ``backward_cluster_split``; beyond (``backward_chunked_widths``) the
-    chunked kernels' key-rows launch from the C library, with its
-    128-column output ``slices``."""
+    padded width, the blocks resident on an SM); above,
+    ``backward_cluster_split``."""
     d8, c8 = _ceil(d, 8), _ceil(c, 8)
-    if max(d8, c8) > 128 and not backward_chunked_widths(d8, c8):
+    if max(d8, c8) > 128:
         return backward_cluster_split(b, n, m, d8, c8)
     split = (ctypes.c_int * 8)()
     _bwd_lib().flash_attention_backward_plan(b, m, d8, c8, split)
     plan = dict(zip(("keys", "queries", "stages", "blocks", "smem", "width",
                      "per_sm", "slices"), split))
-    return dict(plan, cluster=1,
-                kernel="one-pass" if max(d8, c8) <= 128 else "chunked")
+    return dict(plan, cluster=1, kernel="one-pass")
 
 
 flash_attention_backward.launches = 0
@@ -640,6 +700,8 @@ def plain_attention(q, k, v):
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
+    if getattr(lib, "_esf_typed", False):  # typed once a library
+        return lib
     f = lib.flash_attention_launch
     f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -654,11 +716,14 @@ def _lib() -> ctypes.CDLL:
     f = lib.flash_attention_cluster_smem_attr
     f.argtypes = [ctypes.c_int] * 2
     f.restype = ctypes.c_int
+    lib._esf_typed = True
     return lib
 
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
+    if getattr(lib, "_esf_typed", False):
+        return lib
     f = lib.flash_attention_backward_launch
     f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -674,12 +739,13 @@ def _bwd_lib() -> ctypes.CDLL:
                   + [ctypes.c_void_p] * 2)
     f.restype = ctypes.c_int
     f = lib.flash_attention_backward_cluster_workspace
-    f.argtypes = [ctypes.c_int] * 4
+    f.argtypes = [ctypes.c_int] * 5
     f.restype = ctypes.c_longlong
     f = lib.flash_attention_backward_cluster_smem
-    f.argtypes = [ctypes.c_int] * 3
+    f.argtypes = [ctypes.c_int] * 5
     f.restype = ctypes.c_int
     f = lib.flash_attention_backward_cluster_smem_attr
-    f.argtypes = [ctypes.c_int]
+    f.argtypes = [ctypes.c_int] * 2
     f.restype = ctypes.c_int
+    lib._esf_typed = True
     return lib

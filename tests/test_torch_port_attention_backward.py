@@ -171,26 +171,36 @@ def _kernel_bwd_bf16_model(q, k, v, out, lse, dout, seed=0):
     − D) in f32, each rounded once to bf16 (P and dS as the register A
     operands of Pᵀ dO and dSᵀ q, dS also as the shared-memory operand of
     dS k), the sums in f32. With D or C above 128 (the cluster kernel) q kᵀ
-    and dO vᵀ are sums of partials over 128-column slices: a block's two
-    warpgroups' added first, then the cluster's R blocks' in rank order;
-    dQ is the sum of the 64-key blocks' parts dS k, added into a float32
-    accumulator in an order (``seed``) as its bulk reduce-adds arrive.
-    Returns the f32 gradients before their rounding to bf16."""
+    and dO vᵀ are sums of partials over 128-column slices: each
+    warpgroup's over its half of block r's 256-column slices r + R j (the
+    own slice of the first column group first), a block's two warpgroups'
+    added first, then the cluster's R blocks' in rank order; dQ is the sum
+    of the 64-key blocks' parts dS k, added into a float32 accumulator in
+    an order (``seed``) as its bulk reduce-adds arrive. Returns the f32
+    gradients before their rounding to bf16."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
     delta = (gf * of).sum(-1)
     d, c = q.shape[-1], v.shape[-1]
     if max(d, c) <= 128:
         s, dp = qf @ kf.transpose(1, 2), gf @ vf.transpose(1, 2)
     else:
-        r = tfa.backward_cluster_split(1, q.shape[1], k.shape[1], d,
-                                       c)["cluster"]
+        plan = tfa.backward_cluster_split(1, q.shape[1], k.shape[1], d, c)
+        r, groups = plan["cluster"], plan["groups"]
         part = lambda x, y, j: (x[..., 128 * j:128 * j + 128]
                                 @ y[..., 128 * j:128 * j + 128]
                                 .transpose(1, 2))
+
+        def block(x, y, rank):  # its warpgroups' partials, added
+            wg = [0, 0]
+            for j in range(groups):
+                for w in range(2):
+                    wg[w] = wg[w] + part(x, y, 2 * (rank + r * j) + w)
+            return wg[1] + wg[0]
+
         s = dp = 0
-        for rank in range(r):  # rank order, each block's two warpgroups
-            s = s + (part(qf, kf, 2 * rank) + part(qf, kf, 2 * rank + 1))
-            dp = dp + (part(gf, vf, 2 * rank) + part(gf, vf, 2 * rank + 1))
+        for rank in range(r):  # rank order
+            s = s + block(qf, kf, rank)
+            dp = dp + block(gf, vf, rank)
     p = torch.exp(s - lse[..., None])
     ds = p * (dp - delta[..., None])
     pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
@@ -205,11 +215,13 @@ def _kernel_bwd_bf16_model(q, k, v, out, lse, dout, seed=0):
 @pytest.mark.parametrize("logit_std", [3.0, 11.0])
 @pytest.mark.parametrize("dim", [8, 32, 64, 128, 256, 512] + [
     pytest.param(w, id=f"{w[0]}x{w[1]}")
-    for w in ((1024, 1024), (600, 700), (64, 2048), (2048, 64))])
+    for w in ((1024, 1024), (600, 700), (64, 2048), (2048, 64), (3072, 3072),
+              (300, 2100))])
 def test_bf16_kernel_arithmetic_within_attn_bwd_bf16_tol(dim, logit_std):
     # D = C as at the four CMDA-R50 fusions and the non-local blocks (the
     # cluster kernel above 128 rounds P and dS to bf16 as the one-pass
-    # kernel does), and the wide widths D, C of the cluster kernel's plan;
+    # kernel does), the wide widths D, C of one column group and, beyond
+    # 2048, of two (3072, 3072) and (300, 2100);
     # logits of std 3 (the smoke's calibration) and 11 (randn q and k at
     # D = 128, as phase 3c feeds them)
     d, c = dim if isinstance(dim, tuple) else (dim, dim)
@@ -223,10 +235,16 @@ def test_bf16_kernel_arithmetic_within_attn_bwd_bf16_tol(dim, logit_std):
     # what chip_smoke holds the kernel to: its bf16 gradients against the
     # plain version (D from the same bf16 out) and against autograd through
     # chunked_attention (D from the unrounded out), within
-    # ATTN_BWD_BF16_TOL of each gradient's scale
-    for got, p, a in zip(model, plain, auto):
+    # ATTN_BWD_BF16_TOL of each gradient's scale; beyond 2048 also against
+    # jax.vjp of the JAX package's flash_attention on the same inputs
+    refs = [[p.float(), a.float()] for p, a in zip(plain, auto)]
+    if max(d, c) > 2048:
+        jax_grads = _jax_vjp(*(t.float().numpy() for t in (q, k, v, g)))[1:]
+        for r, j in zip(refs, jax_grads):
+            r.append(torch.from_numpy(np.array(j)))
+    for got, rs in zip(model, refs):
         got = got.bfloat16().float()
-        for ref in (p.float(), a.float()):
+        for ref in rs:
             tol = ATTN_BWD_BF16_TOL * max(1.0, ref.abs().max().item())
             assert (got - ref).abs().max().item() <= tol
 

@@ -131,26 +131,24 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         tfa.flash_attention(*args)
 
 
-def _kernel_bf16_model(q, k, v, tile=64, split=1, d_slice=None):
+def _kernel_bf16_model(q, k, v, tile=64, parts=None):
     """The arithmetic of ``csrc/flash_attention.cu``'s bfloat16 kernels: f32
     logits of the bf16 q and k, the softmax online over key tiles in f32,
     each probability rounded once to bf16 before the f32-accumulated
     product with the bf16 v, the row sum taken from the unrounded
     probabilities. The cluster kernel (D or C above 128) takes ``tile`` =
-    32 or 64 keys and, where its ``split`` blocks exchange, adds their
-    partial logits over slices of ``d_slice`` columns of D in rank order in
+    32 or 64 keys and, where its blocks exchange, adds the pushers' partial
+    logits (``parts``: each pusher's columns of D) in rank order in
     float32. Returns the f32 output before its rounding to bf16."""
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
     acc = torch.zeros(b, n, c)
     row_max = torch.full((b, n), -float("inf"))
     row_sum = torch.zeros(b, n)
-    width = d_slice or d
     for s in range(0, m, tile):
         kt = k[:, s:s + tile].float()
-        logits = q[..., :width].float() @ kt[..., :width].transpose(1, 2)
-        for r in range(1, split):  # the partials of blocks 1 .. R - 1
-            cols = slice(r * width, (r + 1) * width)
+        logits = 0
+        for cols in parts or [slice(0, d)]:  # rank order, 0 first
             logits = logits + (q[..., cols].float()
                                @ kt[..., cols].transpose(1, 2))
         new_max = torch.maximum(row_max, logits.amax(-1))
@@ -164,18 +162,18 @@ def _kernel_bf16_model(q, k, v, tile=64, split=1, d_slice=None):
 
 
 def _kernel_split(b, n, m, d, c):
-    """(tile, split, d_slice) of the kernel that takes D, C: the narrow one
-    up to 128, the chunked kernel (32-key tiles, the logits over all of D)
-    where no cluster split fits, else the cluster kernel's
-    forward_split."""
+    """(tile, parts) of the kernel that takes D, C: the narrow one up to
+    128, else the cluster kernel's forward_split, whose pushers own
+    ``slices`` 256-column slices of D each (q resident up to D = 2048,
+    streamed beyond)."""
     if d <= 128 and c <= 128:
-        return 64, 1, None
-    if tfa.chunked_widths(d, c):
-        return 32, 1, None
+        return 64, None
     plan = tfa.forward_split(b, n, m, d, c)
-    if plan["exchange"]:
-        return plan["keys"], plan["cluster"], plan["d_slice"]
-    return plan["keys"], 1, None
+    if not plan["exchange"]:
+        return plan["keys"], None
+    width = plan["slices"] * plan["d_slice"]
+    return plan["keys"], [slice(p * width, (p + 1) * width)
+                          for p in range(plan["pushers"])]
 
 
 @pytest.mark.parametrize("logit_std", [3.0, 11.0])
@@ -186,19 +184,20 @@ def _kernel_split(b, n, m, d, c):
 def test_bf16_kernel_arithmetic_within_attn_bf16_tol(dim, logit_std):
     # D = C as at the four CMDA-R50 fusions and the non-local blocks (256,
     # 512, the res5's 1024), and D and C apart where the cluster kernel
-    # splits C over 8 blocks that each compute the logits whole (64, 1100),
+    # splits C over 8 blocks that one pusher's logits reach (64, 1100),
     # splits D over a cluster of 4 (1100, 64) or both (600, 700); beyond
-    # its plan, the chunked kernel (3072, 3072), (300, 2100); N small,
-    # M ragged against the kernel's key tile; q and k scaled so that the
-    # logits have the given standard deviation (3 as chip_smoke calibrates
-    # the model, 11 a peakier softmax)
+    # 2048, two column groups whose 4 pushers stream q over 3 slices each
+    # (3072, 3072) or own one slice each (300, 2100); N small, M ragged
+    # against the kernel's key tile; q and k scaled so that the logits have
+    # the given standard deviation (3 as chip_smoke calibrates the model,
+    # 11 a peakier softmax)
     d, c = dim if isinstance(dim, tuple) else (dim, dim)
     b, n, m = 2, 70, 200
     q, k, v = _qkv(b, n, m, d, c, seed=d if d == c else d + 7 * c)
     scale = (logit_std / np.sqrt(d)) ** 0.5
     q, k, v = (torch.from_numpy(a).bfloat16() for a in (q * scale, k * scale, v))
-    tile, split, d_slice = _kernel_split(b, n, m, d, c)
-    model = _kernel_bf16_model(q, k, v, tile, split, d_slice)
+    tile, parts = _kernel_split(b, n, m, d, c)
+    model = _kernel_bf16_model(q, k, v, tile, parts)
     exact = tfa.chunked_attention(q.float(), k.float(), v.float())
     # the rounding of P alone moves the output by at most 2^-9 max|v| (the
     # weights are off by at most 2^-9 relative); f32 sums add ~1e-6
@@ -214,3 +213,15 @@ def test_bf16_kernel_arithmetic_within_attn_bf16_tol(dim, logit_std):
     for ref in (torch.from_numpy(jax_ref), port_ref):
         tol = ATTN_BF16_TOL * max(1.0, ref.abs().max().item())
         assert (out - ref).abs().max().item() <= tol
+
+
+def test_plain_version_at_the_widest_c_matches_jax():
+    # a width a planner of at most 64 blocks a tile cannot split: D 256, C
+    # 16448 (nine column groups), tiny N and M
+    q, k, v = _qkv(1, 9, 13, 256, 16448, seed=5)
+    q, k = q * 0.25, k * 0.25  # logits of std 1
+    want = np.asarray(jfa.chunked_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), chunk=8))
+    got = tfa.chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert tfa.forward_split(1, 9, 13, 256, 16448)["groups"] == 9

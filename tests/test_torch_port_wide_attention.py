@@ -12,7 +12,7 @@ optimised build's only in rounding.
 
 On the CPU the wrappers run their plain versions, as JAX's
 ``flash_attention`` runs ``chunked_attention`` there; the CUDA kernels at
-these widths (the chunked ones above 512) are held against the same plain
+these widths (the cluster kernels) are held against the same plain
 versions on the card by ``chip_smoke.py`` (phase 21)."""
 
 import functools

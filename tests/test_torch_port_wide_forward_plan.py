@@ -1,8 +1,9 @@
 """The split of the bf16 cluster kernel (``csrc/flash_attention.cu``, D or
 C above 128) that ``forward_split`` plans, over a grid of widths from 129
-to 2048, D and C apart, with ragged N and M: the cluster's size, its
-slices of D and C, the shared memory a block asks for, the grid, and the
-logit work against the bound's. The kernel itself runs only on the card;
+to 2048 and beyond, D and C apart, with ragged N and M: the column groups,
+the cluster's size and pushers, their slices of D and C, the shared
+memory a block asks for, the grid, and the logit work against the
+bound's. The kernel itself runs only on the card;
 ``chip_smoke.py`` checks the plan's bytes against the launched kernel's
 attribute there."""
 
@@ -30,31 +31,62 @@ def _ceil(x, to):
         ((64, w) for w in WIDTHS), ((w, 64) for w in WIDTHS))])
 def test_split_fits_the_kernel(d, c):
     for b, n, m in ROWS:
-        plan = tfa.forward_split(b, n, m, d, c)
-        r = plan["cluster"]
-        assert r in (1, 2, 4, 8)
-        assert -(-c // r) <= 256 and plan["c_slice"] <= plan["width"] <= 256
-        assert plan["c_slice"] % 64 == 0 and plan["c_slice"] * r >= c
-        assert plan["d_slice"] == 256  # the kernel's unrolled logit chain
-        assert plan["d_slice"] * (r if plan["exchange"] else 1) >= d
-        assert plan["exchange"] == (d > 256)
-        assert plan["blocks"] == r * -(-n // plan["rows"]) * b
-        assert plan["blocks"] % r == 0
-        assert plan["smem"] <= SMEM_LIMIT
-        assert plan["smem"] == tfa.cluster_smem_bytes(
-            plan["d_slice"], plan["width"], plan["keys"], plan["k_stages"],
-            plan["v_stages"], plan["exchange"], r)
-        # the exchange's tiles are 32 keys; deferred (R up to 4) it runs
-        # S two tiles ahead, which needs three k stages
-        assert plan["keys"] == (32 if plan["exchange"] else 64)
-        assert 2 <= plan["v_stages"] <= plan["k_stages"] <= 3
-        if plan["exchange"] and r <= 4:
-            assert plan["k_stages"] == 3
-        # the logits are computed once where the cluster splits D (up to
-        # the padding of its slices), R times where every block holds D
-        assert plan["recompute"] == pytest.approx(
-            r * plan["d_slice"] / d)
-        assert plan["recompute"] >= 1.0
+        _hold(tfa.forward_split(b, n, m, d, c), b, n, d, c)
+
+
+def _hold(plan, b, n, d, c):
+    """The plan's slices and groups cover D and C, its bytes fit a block
+    and are the kernel's arithmetic, and it computes q kᵀ at most
+    ceil(C / 2048) times (its column groups), padding aside, but where D
+    and C fit one slice and one group: there each of R blocks computes
+    it (faster on the card than one block's broadcast)."""
+    dp, cp = _ceil(d, 64), _ceil(c, 64)
+    r, p, g = plan["cluster"], plan["pushers"], plan["groups"]
+    assert r in (1, 2, 4, 8) and 1 <= p <= r
+    # G column groups of R blocks, each up to 256 output columns
+    assert g == -(-cp // 2048)
+    assert plan["c_slice"] % 64 == 0 and plan["c_slice"] * r * g >= cp
+    assert plan["c_slice"] <= plan["width"] <= 256
+    assert plan["width"] == next(w for w in (64, 128, 256)
+                                 if plan["c_slice"] <= w)
+    # one slice of D, one group: every block computes the logits, no
+    # cluster
+    alone = dp <= 256 and g == 1
+    assert plan["exchange"] == (r > 1 and not alone)
+    # the least cluster that holds the pushers and a group's columns
+    assert r == 1 or max(1 if alone else p, -(-cp // (256 * g))) > r // 2
+    # P pushers of `slices` 256-column slices cover D, each holds some of
+    # it; without the exchange each block holds all of D
+    assert plan["d_slice"] == 256  # the kernel's unrolled logit chain
+    cover = (1 if alone else p) * plan["slices"] * 256
+    assert cover >= dp and cover - plan["slices"] * 256 < dp
+    assert not alone or p == r
+    # q resident up to D = 2048 (one slice a pusher), streamed beyond
+    assert plan["stream"] == (dp > 2048) == (plan["slices"] > 1)
+    assert plan["blocks"] == g * r * -(-n // plan["rows"]) * b
+    assert plan["smem"] <= SMEM_LIMIT
+    mode = 0 if not plan["exchange"] else 2 if plan["stream"] else 1
+    assert plan["smem"] == tfa.cluster_smem_bytes(
+        mode, plan["width"], plan["keys"], plan["k_stages"],
+        plan["v_stages"], p, plan["rounds"])
+    # the exchange's tiles are 32 keys; deferred (q resident, one round)
+    # it runs S two tiles ahead, which needs three k stages; q streamed
+    # beside k takes two stages of each
+    assert plan["keys"] == (32 if plan["exchange"] else 64)
+    assert plan["rounds"] in (1, 2) and (mode or plan["rounds"] == 1)
+    assert 2 <= plan["v_stages"] <= plan["k_stages"] <= 3
+    if mode == 1 and plan["rounds"] == 1:
+        assert plan["k_stages"] == 3
+    if mode == 2:
+        assert plan["k_stages"] == plan["v_stages"] == 2
+    # q kᵀ once a column group, padding aside (R times without the
+    # exchange); the padding is the zero columns of the pushers' slices
+    if alone:
+        assert plan["recompute"] == r and c <= 2048 and d <= 256
+    else:
+        assert plan["recompute"] == g <= -(-c // 2048)
+    assert plan["padded"] == pytest.approx(cover / d)
+    assert plan["padded"] >= 1.0
 
 
 @pytest.mark.parametrize("d,c,cluster,exchange", [
@@ -67,24 +99,26 @@ def test_split_fits_the_kernel(d, c):
 def test_split_at_the_zoo_widths(d, c, cluster, exchange):
     plan = tfa.forward_split(8, 4096, 1024, d, c)
     assert (plan["cluster"], plan["exchange"]) == (cluster, exchange)
-    assert plan["d_slice"] == 256
+    assert plan["groups"] == 1 and plan["d_slice"] == 256
+    assert not plan["stream"]
     # once where the blocks split D in 256-column slices or one block holds
-    # D = 256; R times 256 / D where every block computes it whole
-    assert plan["recompute"] == (1.0 if exchange else cluster * 256 / d)
+    # D = 256; R times where every block computes it whole
+    assert plan["recompute"] == (1 if exchange else cluster)
+    assert plan["padded"] == max(256 / d, 1.0)
 
 
 def test_widths_the_kernel_cannot_hold_raise():
-    # C above 2048 with D above a block's 256 columns
-    with pytest.raises(ValueError):
-        tfa.forward_split(1, 1000, 250, 1024, 4096)
-    # D above eight blocks' 256 columns
-    with pytest.raises(ValueError):
-        tfa.forward_split(1, 1000, 250, 2049, 64)
-    # both go to the chunked kernel
-    assert tfa.chunked_widths(1024, 4096) and tfa.chunked_widths(2049, 64)
-    # wider C where D fits one block: every block computes the logits
-    assert tfa.forward_split(1, 1000, 250, 256, 4096)["cluster"] == 16
-    assert not tfa.chunked_widths(256, 4096)
+    # no kernel holds an empty width
+    for d, c in ((0, 64), (64, 0), (-1, 256)):
+        with pytest.raises(ValueError):
+            tfa.forward_split(1, 1000, 250, d, c)
+    # every positive width has a split: C above 2048 with D above 256, D
+    # above 2048, and C above 2048 with D up to 256 (eight blocks a group)
+    for d, c in ((1024, 4096), (2049, 64), (256, 4096)):
+        plan = tfa.forward_split(1, 1000, 250, d, c)
+        assert plan["recompute"] == -(-c // 2048)
+    assert tfa.forward_split(1, 1000, 250, 256, 4096)["cluster"] == 8
+    assert not hasattr(tfa, "chunked_widths")
 
 
 BEYOND = (129, 256, 257, 300, 1024, 2040, 2048, 2049, 2100, 3072, 4096,
@@ -94,14 +128,14 @@ BEYOND = (129, 256, 257, 300, 1024, 2040, 2048, 2049, 2100, 3072, 4096,
 @pytest.mark.parametrize("d", BEYOND)
 def test_every_width_has_a_kernel(d):
     # each bf16 call above 128 runs the cluster kernel on forward_split's
-    # plan or, exactly where no split fits, the chunked kernel, which needs
-    # D above 256 (three 128-column chunks: its v buffers' reuse)
+    # plan, at any D and C
     for c in BEYOND + (64,):
-        try:
-            tfa.forward_split(1, 1000, 250, d, c)
-            planned = True
-        except ValueError:
-            planned = False
-        assert planned != tfa.chunked_widths(d, c), (d, c)
-        if not planned:
-            assert d > 256 and (d > 2048 or c > 2048)
+        _hold(tfa.forward_split(1, 1000, 250, d, c), 1, 1000, d, c)
+
+
+@pytest.mark.parametrize("d,c", [(256, 16448), (64, 20000), (8192, 8192)])
+def test_the_widest_have_a_plan(d, c):
+    # widths a planner of at most 64 blocks a tile cannot split (256,
+    # 16448), (64, 20000), and D streamed over 32 slices (8192)
+    for b, n, m in ROWS:
+        _hold(tfa.forward_split(b, n, m, d, c), b, n, d, c)
